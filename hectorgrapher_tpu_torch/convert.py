@@ -1,0 +1,71 @@
+"""Carries state of the JAX package (hectorgrapher_tpu) into the port's types.
+
+Every JAX value is read as a numpy array (np.asarray), so this module
+needs neither jax nor hectorgrapher_tpu: it works on any object with the
+same field names. Options are rebuilt by field name from
+dataclasses.asdict of the JAX option dataclasses.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from hectorgrapher_tpu_torch.common import config
+from hectorgrapher_tpu_torch.mapping.grids import GridMeta, ProbabilityGrid
+from hectorgrapher_tpu_torch.sensor.types import PointCloud, RangeData
+from hectorgrapher_tpu_torch.transform.rigid import Rigid2
+
+
+def tensor(x, device, dtype=None) -> torch.Tensor:
+    """A numpy-convertible array as a tensor on device."""
+    t = torch.from_numpy(np.array(x, copy=True))
+    return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
+
+
+def grid_meta(meta, device) -> GridMeta:
+    return GridMeta(
+        resolution=tensor(meta.resolution, device, torch.float32),
+        min_corner=tensor(meta.min_corner, device, torch.float32),
+    )
+
+
+def probability_grid(grid, device) -> ProbabilityGrid:
+    """A JAX ProbabilityGrid (f32 log_odds, bool known, meta)."""
+    return ProbabilityGrid(
+        log_odds=tensor(grid.log_odds, device, torch.float32),
+        known=tensor(grid.known, device, torch.bool),
+        meta=grid_meta(grid.meta, device),
+    )
+
+
+def point_cloud(cloud, device) -> PointCloud:
+    return PointCloud(
+        positions=tensor(cloud.positions, device, torch.float32),
+        mask=tensor(cloud.mask, device, torch.bool),
+    )
+
+
+def rigid2(pose, device) -> Rigid2:
+    return Rigid2(
+        translation=tensor(pose.translation, device, torch.float32),
+        angle=tensor(pose.angle, device, torch.float32),
+    )
+
+
+def range_data(rd, device) -> RangeData:
+    return RangeData(
+        origin=tensor(rd.origin, device, torch.float32),
+        returns=point_cloud(rd.returns, device),
+        misses=point_cloud(rd.misses, device),
+        width=int(rd.width),
+    )
+
+
+def options(jax_options):
+    """The port's option dataclass of the same class name, with every field
+    taken from the JAX options (nested options included)."""
+    cls = getattr(config, type(jax_options).__name__)
+    return config.from_dict(cls, dataclasses.asdict(jax_options))

@@ -1,0 +1,263 @@
+"""Gauss-Newton 2D scan-match refinement on probability grids (counterpart
+of the probability path of hectorgrapher_tpu/mapping/scan_matching/gn_2d.py;
+ref: internal/2d/scan_matching/ceres_scan_matcher_2d.cc, occupied-space cost
+via bicubic interpolation, occupied_space_cost_function_2d.cc:47-74, plus
+translation/rotation delta penalties).
+
+ONE wide patch row (the 4x4 bicubic neighborhood widened by SLACK cells per
+side) is gathered per point at the initial pose; every LM iteration —
+current and trial cost, gradient, Jacobian — is evaluated from the carried
+rows by evaluating the Catmull-Rom kernel at every lane offset of the wide
+row. Exact as long as the refinement moves the base cell by at most SLACK
+cells per axis. The Jacobian is written out analytically.
+
+Every solve is batched: poses (B, 2)/(B,), clouds (B, N, 3). The LM loop is
+a Python loop of at most num_iterations steps with a per-lane `done` mask;
+a converged lane is frozen and returns what its serial solve returns.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from hectorgrapher_tpu_torch.mapping import probability_values as pv
+from hectorgrapher_tpu_torch.mapping.grids import ProbabilityGrid
+from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import (
+    PreparedField2D,
+    gather_rows_2d,
+    prepare_field_2d_wide,
+)
+from hectorgrapher_tpu_torch.sensor.types import PointCloud
+from hectorgrapher_tpu_torch.transform.rigid import Rigid2, rot2
+
+_GN_SLACK = 3  # carried-row slack cells per side (0.15 m at 5 cm)
+
+
+def _solve3_sym(a, g):
+    """Solve the symmetric 3x3 systems a (..., 3, 3) @ x = g (..., 3) via
+    the adjugate (no LU)."""
+    a00, a01, a02 = a[..., 0, 0], a[..., 0, 1], a[..., 0, 2]
+    a11, a12, a22 = a[..., 1, 1], a[..., 1, 2], a[..., 2, 2]
+    c00 = a11 * a22 - a12 * a12
+    c01 = a02 * a12 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c11 = a00 * a22 - a02 * a02
+    c12 = a01 * a02 - a00 * a12
+    c22 = a00 * a11 - a01 * a01
+    det = a00 * c00 + a01 * c01 + a02 * c02
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-20, det, 1e-20)
+    g0, g1, g2 = g[..., 0], g[..., 1], g[..., 2]
+    x0 = (c00 * g0 + c01 * g1 + c02 * g2) * inv_det
+    x1 = (c01 * g0 + c11 * g1 + c12 * g2) * inv_det
+    x2 = (c02 * g0 + c12 * g1 + c22 * g2) * inv_det
+    return torch.stack([x0, x1, x2], dim=-1)
+
+
+def _catmull(d):
+    """Catmull-Rom convolution kernel K(d) and K'(d), supported on |d|<2.
+    K at integer-offset lanes equals the cubic weights of the fractional
+    part exactly."""
+    t = torch.abs(d)
+    k_near = ((1.5 * t - 2.5) * t) * t + 1.0
+    k_far = ((-0.5 * t + 2.5) * t - 4.0) * t + 2.0
+    k = torch.where(t < 1.0, k_near, torch.where(t < 2.0, k_far, 0.0))
+    dk_near = (4.5 * t - 5.0) * t
+    dk_far = (-1.5 * t + 5.0) * t - 4.0
+    dk = torch.sign(d) * torch.where(t < 1.0, dk_near, torch.where(t < 2.0, dk_far, 0.0))
+    return k, dk
+
+
+def _lm_grid_2d(
+    field: PreparedField2D,
+    pts,
+    valid,
+    scale,
+    initial_pose: Rigid2,
+    target_translation,
+    translation_weight: float,
+    rotation_weight: float,
+    num_iterations: int,
+    slack: int = _GN_SLACK,
+    init_lambda: float = 1e-4,
+    min_lambda: float = 1e-10,
+    max_lambda: float = 1e6,
+    function_tolerance: float = 1e-6,
+):
+    """Wide-carried-rows LM over (tx, ty, theta) per lane, against the
+    occupied-space residual 1 - P(T p) (ref: occupied_space_cost_function_
+    2d.cc:47-74).
+
+    pts (B, N, 2), valid (B, N) bool, scale (B,), initial_pose (B, 2)/(B,),
+    target_translation (B, 2). Termination mirrors Ceres: at most
+    num_iterations, a lane stopping once an accepted step decreases its
+    cost by less than function_tolerance * cost. Returns (pose, cost)."""
+    meta = field.meta
+    res = meta.resolution
+    width = 4 + 2 * slack
+    b, n = valid.shape
+    device = pts.device
+    theta0 = initial_pose.angle
+    target = target_translation.to(torch.float32)
+    tw2 = torch.tensor(translation_weight, dtype=torch.float32, device=device) ** 2
+    rw2 = torch.tensor(rotation_weight, dtype=torch.float32, device=device) ** 2
+    gate = torch.where(valid, scale[:, None], 0.0)  # d residual / d value, per point
+
+    def world_of(pose):
+        return rot2(pose.angle[:, None], pts) + pose.translation[:, None, :]
+
+    world0 = world_of(initial_pose)
+    rows = gather_rows_2d(field, world0)  # (B, N, width^2), gathered ONCE
+    i0_init = torch.floor((world0 - meta.min_corner) / res - 0.5).to(torch.int32)
+    # The wide row's (0, 0) lane holds cell i0_init - 1 - slack.
+    base = (i0_init - (1 + slack)).to(torch.float32)  # (B, N, 2)
+    lanes = torch.arange(width, device=device).to(torch.float32)
+
+    def lane_kernels(pose):
+        """Catmull-Rom kernel values and derivatives at the width lanes of
+        each axis: kx, dkx, ky, dky (B, N, width)."""
+        u = (world_of(pose) - meta.min_corner) / res - 0.5
+        kx, dkx = _catmull((u[..., 0] - base[..., 0])[..., None] - lanes)
+        ky, dky = _catmull((u[..., 1] - base[..., 1])[..., None] - lanes)
+        return kx, dkx, ky, dky
+
+    def contract(kx, ky):
+        """sum over lanes (a, b) of rows * kx[a] * ky[b] -> (B, N)."""
+        w = (kx[..., :, None] * ky[..., None, :]).reshape(b, n, width * width)
+        return torch.sum(rows * w, dim=-1)
+
+    def terms(pose):
+        kx, _, ky, _ = lane_kernels(pose)
+        r_occ = torch.where(valid, 1.0 - contract(kx, ky), 0.0) * scale[:, None]
+        dt = pose.translation - target
+        dth = pose.angle - theta0
+        cost = 0.5 * (
+            torch.sum(r_occ * r_occ, dim=-1)
+            + tw2 * torch.sum(dt * dt, dim=-1)
+            + rw2 * dth * dth
+        )
+        return cost, r_occ, dt, dth
+
+    def normal_equations(pose, r_occ, dt, dth):
+        kx, dkx, ky, dky = lane_kernels(pose)
+        # d value / d frac = -sum rows * dw, gated per point.
+        dv_dfx = -contract(dkx, ky) * gate
+        dv_dfy = -contract(kx, dky) * gate
+        # d frac / d pose: u = (R p + t - min)/res - 0.5.
+        dp_dth = rot2(pose.angle[:, None] + math.pi / 2.0, pts)  # dR/dtheta @ p
+        jocc = torch.stack(
+            [dv_dfx / res, dv_dfy / res, (dv_dfx * dp_dth[..., 0] + dv_dfy * dp_dth[..., 1]) / res],
+            dim=-1,
+        )  # (B, N, 3)
+        # Elementwise products and sums: no matmul, so no TF32 on the card.
+        jtj = torch.sum(jocc[..., :, None] * jocc[..., None, :], dim=1)
+        g = torch.sum(jocc * r_occ[..., None], dim=1)
+        jtj = jtj + torch.diag(torch.stack([tw2, tw2, rw2]))
+        g = g + torch.cat([tw2 * dt, (rw2 * dth)[:, None]], dim=-1)
+        return jtj, g
+
+    eye = torch.eye(3, dtype=torch.float32, device=device)
+    pose = initial_pose
+    lam = torch.full((b,), init_lambda, dtype=torch.float32, device=device)
+    done = torch.zeros((b,), dtype=torch.bool, device=device)
+    cost, r_occ, dt, dth = terms(pose)
+    for _ in range(num_iterations):
+        if bool(torch.all(done)):
+            break
+        jtj, g = normal_equations(pose, r_occ, dt, dth)
+        diag = torch.diagonal(jtj, dim1=-2, dim2=-1)
+        damped = jtj + lam[:, None, None] * torch.diag_embed(torch.clamp(diag, min=1e-12)) + 1e-12 * eye
+        delta = -_solve3_sym(damped, g)
+        pose_new = Rigid2(translation=pose.translation + delta[:, :2], angle=pose.angle + delta[:, 2])
+        cost_new, r_occ_new, dt_new, dth_new = terms(pose_new)
+        accept = (cost_new < cost) & ~done
+        lam_next = torch.where(
+            accept, torch.clamp(lam * 0.33, min=min_lambda), torch.clamp(lam * 4.0, max=max_lambda)
+        )
+        x_norm = torch.sqrt(torch.sum(pose.translation**2, dim=-1) + pose.angle**2)
+        done_next = (
+            done
+            | (accept & (cost - cost_new <= function_tolerance * cost))
+            | (torch.linalg.vector_norm(delta, dim=-1) <= 1e-7 * (x_norm + 1e-7))
+        )
+        # A frozen lane keeps its whole state, as under a vmapped while_loop.
+        lam = torch.where(done, lam, lam_next)
+        pose = Rigid2(
+            translation=torch.where(accept[:, None], pose_new.translation, pose.translation),
+            angle=torch.where(accept, pose_new.angle, pose.angle),
+        )
+        cost = torch.where(accept, cost_new, cost)
+        r_occ = torch.where(accept[:, None], r_occ_new, r_occ)
+        dt = torch.where(accept[:, None], dt_new, dt)
+        dth = torch.where(accept, dth_new, dth)
+        done = done_next
+    return pose, cost
+
+
+def prepare_gn_probability_field(grid: ProbabilityGrid) -> PreparedField2D:
+    """Wide carried-row field for repeated refinement against one grid
+    version."""
+    return prepare_field_2d_wide(grid.probability(), grid.meta, pv.MIN_PROBABILITY, _GN_SLACK)
+
+
+def match_gn_2d_probability_batched(
+    grid: ProbabilityGrid,
+    clouds: PointCloud,
+    initial_poses: Rigid2,
+    target_translations,
+    occupied_space_weight: float,
+    translation_weight: float,
+    rotation_weight: float,
+    num_iterations: int = 20,
+    prepared_field: PreparedField2D | None = None,
+):
+    """Batched CeresScanMatcher2D refinement over B independent matches.
+
+    Residuals (ref: ceres_scan_matcher_2d.cc:84-120):
+      * occupied space: w_o/sqrt(N) * (1 - P(T p_i)) per point
+      * translation: w_t * (t - target_translation)
+      * rotation: w_r * (theta - theta0)
+    Returns (poses (B,), costs (B,))."""
+    if prepared_field is None:
+        prepared_field = prepare_gn_probability_field(grid)
+    valid = clouds.mask
+    n = torch.clamp(torch.sum(valid, dim=-1), min=1)
+    scale = occupied_space_weight / torch.sqrt(n.to(torch.float32))
+    return _lm_grid_2d(
+        prepared_field,
+        clouds.positions[..., :2].to(torch.float32),
+        valid,
+        scale,
+        initial_poses,
+        target_translations,
+        translation_weight,
+        rotation_weight,
+        num_iterations,
+    )
+
+
+def match_gn_2d_probability(
+    grid: ProbabilityGrid,
+    cloud: PointCloud,
+    initial_pose: Rigid2,
+    target_translation,
+    occupied_space_weight: float,
+    translation_weight: float,
+    rotation_weight: float,
+    num_iterations: int = 20,
+) -> Tuple[Rigid2, torch.Tensor]:
+    """Refine one pose against an occupancy grid: the B=1 call of
+    match_gn_2d_probability_batched. Returns (pose, cost)."""
+    poses, costs = match_gn_2d_probability_batched(
+        grid,
+        PointCloud(positions=cloud.positions[None], mask=cloud.mask[None]),
+        Rigid2(translation=initial_pose.translation[None], angle=initial_pose.angle.reshape(1)),
+        target_translation.reshape(1, 2),
+        occupied_space_weight,
+        translation_weight,
+        rotation_weight,
+        num_iterations=num_iterations,
+    )
+    return Rigid2(translation=poses.translation[0], angle=poses.angle[0]), costs[0]

@@ -1,0 +1,92 @@
+"""Builds the package's CUDA kernels from csrc/*.cu on first use.
+
+nvcc compiles every source into one shared library with a plain C
+interface, which is loaded with ctypes. The library lands in
+hectorgrapher_tpu_torch/_build/ under a name that carries the hash of the
+sources and flags, so an edited source is rebuilt and a stale library is
+never loaded. A failed build raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_BUILD = _PKG / "_build"
+
+# --fmad=false: no multiply-add contraction anywhere, so every f32 multiply
+# and add rounds on its own, as the JAX source writes the arithmetic (the
+# prep kernel also spells this out with __fmul_rn/__fadd_rn intrinsics).
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_lib = None
+build_log = ""  # nvcc's output of the last build (register and smem use)
+build_seconds = 0.0  # 0.0 when the library was already built
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built if needed."""
+    global _lib, build_log, build_seconds
+    if _lib is not None:
+        return _lib
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    target = _BUILD / f"libhg_kernels_{digest.hexdigest()[:16]}.so"
+    if not target.exists():
+        _BUILD.mkdir(exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
+        os.replace(tmp, target)
+    lib = ctypes.CDLL(str(target))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.hg_error_string.argtypes = [i32]
+    lib.hg_error_string.restype = ctypes.c_char_p
+    # Pointers and the stream as c_void_p: ctypes would cut a bare Python
+    # int to 32 bits.
+    lib.hg_correlative_prep_2d.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+    lib.hg_correlative_prep_2d.restype = i32
+    lib.hg_correlative_scores_2d.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    lib.hg_correlative_scores_2d.restype = i32
+    _lib = lib
+    return _lib
+
+
+def check_launch(status: int, name: str) -> None:
+    """Raise if a kernel's launch returned a CUDA error code."""
+    if status != 0:
+        lib = load_library()
+        msg = lib.hg_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status} at launch: {msg}")
