@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --profile-ct 10   # also profile 10 CT front-end scans
+
 Builds the package's CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the shapes the main path gives it, then drives the main
-path: the batched correlative + Gauss-Newton matcher at B=1024 and the 2D
+paths: the batched correlative + Gauss-Newton matcher at B=1024, the 2D
 local SLAM front end (LocalTrajectoryBuilder2D) over 60 scans of the
-mapping-evaluation circle. Each phase prints one line; any failure exits
-non-zero before the last line. The second-to-last line is a JSON record of
-the kernels, the last line a JSON record of the device.
+mapping-evaluation circle, the CT window solve on the production-extent
+fixture (256^3 / 128^3 TSDF grids), and the continuous-time 3D front end
+(OptimizingLocalTrajectoryBuilder) over 80 scans at its default options.
+Each phase prints one line; any failure exits non-zero before the last
+line. The second-to-last line is a JSON record of the kernels, the last
+line a JSON record of the device.
 
 Imports torch, numpy and hectorgrapher_tpu_torch only. Needs one card and
 fails when torch.cuda.is_available() is false.
@@ -17,8 +22,11 @@ fails when torch.cuda.is_available() is false.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -28,8 +36,12 @@ import numpy as np
 import torch
 
 from hectorgrapher_tpu_torch.common import config as cfg
-from hectorgrapher_tpu_torch.evaluation.scan_generator import raycast_rect_room_2d
-from hectorgrapher_tpu_torch.mapping.grids import make_probability_grid
+from hectorgrapher_tpu_torch.evaluation.scan_generator import raycast_box_room_3d, raycast_rect_room_2d
+from hectorgrapher_tpu_torch.mapping.ct import window_solver
+from hectorgrapher_tpu_torch.mapping.ct.builder import OptimizingLocalTrajectoryBuilder
+from hectorgrapher_tpu_torch.mapping.ct.window_solver import CtProblem, CtState, CtWeights, solve_ct_window
+from hectorgrapher_tpu_torch.mapping.grids import make_probability_grid, make_tsdf_grid
+from hectorgrapher_tpu_torch.mapping.inserters_3d import make_tsdf_inserter_3d
 from hectorgrapher_tpu_torch.mapping.inserters_2d import make_probability_inserter_2d
 from hectorgrapher_tpu_torch.mapping.local_2d import LocalTrajectoryBuilder2D
 from hectorgrapher_tpu_torch.mapping.scan_matching.correlative_2d import (
@@ -46,6 +58,7 @@ from hectorgrapher_tpu_torch.mapping.scan_matching.gn_2d import (
 from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.ops.correlative_prep_2d import correlative_prep_2d, correlative_prep_2d_plain
 from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d, correlative_scores_2d_plain
+from hectorgrapher_tpu_torch.ops.ct_scan_block import ct_scan_block, ct_scan_block_plain
 from hectorgrapher_tpu_torch.sensor.types import (
     PointCloud,
     RangeData,
@@ -314,7 +327,389 @@ def run_front_end(device, n_scans=N_SCANS):
     return n_matched, latencies, t_err, y_err, builder
 
 
+CT_SCANS = 80  # 8 s of the CT front end at 10 Hz
+CT_SPEED, CT_YAW_RATE = 0.2, 0.1  # m/s, rad/s
+CT_ROOM = (9.5, 7.5, 2.4)  # half extents, m
+# CT front-end error bounds. The JAX package's own CT front end on the
+# same 80 scans (hectorgrapher_tpu OptimizingLocalTrajectoryBuilder on a
+# CPU) ends with a max translation error of 0.52468 m and a max yaw error
+# of 0.02423 rad: it drifts behind the truth along the direction of travel
+# (ROADMAP C9), so an absolute cap below that cannot hold. The port must
+# stay within twice that, and within 0.1 m / 0.01 rad of it. The drift
+# compounds tiny differences: the port on the same CPU ends at 0.54487 m /
+# 0.02250 rad (one-ulp cell flips, ROADMAP C0), while over the first 1.5 s
+# the two agree to 1e-6 m (tests/test_torch_ct_builder.py).
+JAX_CT_TRANSLATION_ERROR = 0.52468
+JAX_CT_YAW_ERROR = 0.02423
+CT_MAX_TRANSLATION_ERROR = 2 * JAX_CT_TRANSLATION_ERROR
+CT_MAX_YAW_ERROR = 2 * JAX_CT_YAW_ERROR
+CT_PARITY_TRANSLATION, CT_PARITY_YAW = 0.1, 0.01
+
+
+def ct_production_grids(device):
+    """Phase 7's maps: the SubmapsOptions3D default grids (hi 256^3 at
+    0.1 m, lo 128^3 at 0.45 m, truncation 2.5 cells), each filled with
+    three scans of a 9.5 x 7.5 x 2.4 m half-extent box room (256 x 48
+    rays, from three poses) by the port's ray-mode inserter, as
+    bench.py:670-696 builds its production submap. Returns (hi, lo, the
+    first scan's points)."""
+    sub = cfg.SubmapsOptions3D()
+    grids, inserters = [], []
+    opts = cfg.TSDFRangeDataInserterOptions3D(normal_computation_method="NONE", min_range=0.4, max_range=60.0)
+    for res, size, ins in ((sub.high_resolution, sub.high_grid_size, sub.high_resolution_range_data_inserter),
+                           (sub.low_resolution, sub.low_grid_size, sub.low_resolution_range_data_inserter)):
+        t = ins.tsdf_range_data_inserter
+        grids.append(make_tsdf_grid(res, (size,) * 3, t.relative_truncation_distance * res, t.maximum_weight, device))
+        inserters.append(make_tsdf_inserter_3d(opts, res))
+    first = None
+    for pose_t in (np.zeros(3), np.array([1.5, 1.0, 0.0]), np.array([-1.2, 0.8, 0.0])):
+        pts = raycast_box_room_3d(pose_t, nq.quat_identity(), half_extents=CT_ROOM, num_azimuth=256, num_elevation=48)
+        pts = pts[~np.isnan(pts[:, 0])].astype(np.float32)
+        rd = RangeData(
+            torch.tensor(pose_t, dtype=torch.float32, device=device),
+            pad_cloud(pts + pose_t.astype(np.float32), 16384, device),
+            pad_cloud(np.zeros((0, 3), np.float32), 4, device),
+        )
+        grids = [insert(g, rd) for insert, g in zip(inserters, grids)]
+        first = pts if first is None else first
+    return grids[0], grids[1], first
+
+
+def ct_kernel_inputs(device, hi, lo, scan_pts, c=32, p=256, k=32, seed=SEED):
+    """K3's inputs at the CT front end's shape: C=32 clouds of P=256 hi-res
+    and 256 lo-res points drawn from a scan (the last 32 lo-res points of
+    each cloud masked out, as padding), posed between K=32 control points
+    perturbed by up to 5 cm / 0.02 rad, with pose7/dpose7 and the scales
+    as the window solver computes them."""
+    from types import SimpleNamespace
+
+    from hectorgrapher_tpu_torch.transform.rigid import quat_from_axis_angle
+
+    rng = np.random.default_rng(seed)
+
+    def clouds():
+        return torch.from_numpy(np.stack([scan_pts[rng.choice(len(scan_pts), p, replace=False)]
+                                          for _ in range(c)])).to(device)
+
+    hi_pts, lo_pts = clouds(), clouds()
+    hi_mask = torch.ones((c, p), dtype=torch.bool, device=device)
+    lo_mask = hi_mask.clone()
+    lo_mask[:, -32:] = False
+    aa = torch.from_numpy(rng.uniform(-0.02, 0.02, (k, 3)).astype(np.float32)).to(device)
+    state = CtState(
+        translation=torch.from_numpy(rng.uniform(-0.05, 0.05, (k, 3)).astype(np.float32)).to(device),
+        rotation=quat_from_axis_angle(aa),
+        velocity=torch.zeros((k, 3), device=device),
+    )
+    prev = torch.clamp(torch.arange(c, device=device), max=k - 2)
+    brackets = SimpleNamespace(cloud_prev=prev, cloud_next=prev + 1,
+                               cloud_factor=torch.full((c,), 0.5, device=device))
+    pose7, dpose7 = window_solver.cloud_poses(state, brackets)
+    hi_scale = torch.full((c,), 1.0 / math.sqrt(p), device=device)
+    lo_scale = torch.full((c,), 1.0 / math.sqrt(p - 32), device=device)
+    return (hi, lo, hi_pts, hi_mask, lo_pts, lo_mask, pose7.contiguous(), dpose7.contiguous(), hi_scale, lo_scale)
+
+
+def check_ct_scan_block(args):
+    """Phase 7: K3 against its plain version. Returns (max_abs_err, ms,
+    plain_ms)."""
+    got = ct_scan_block(*args)
+    want = ct_scan_block_plain(*args)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(x).all()) for x in got):
+        fail("K3 ct_scan_block returned non-finite values")
+    S_p = want[0]
+    if float(S_p.abs().max()) <= 0.0:
+        fail("K3 inputs see no observed cells")
+    # Per cloud: sums over 512 points of f32 products in another order
+    # than the plain version's matmuls: |delta| <= 1e-4 * max(1, max|S_c|).
+    bound = 1e-4 * torch.clamp(S_p.abs().amax(dim=(1, 2)), min=1.0)
+    errs = [(got[0] - want[0]).abs().amax(dim=(1, 2)), (got[1] - want[1]).abs().amax(dim=1),
+            (got[2] - want[2]).abs()]
+    for name, e in zip(("S", "g", "cost"), errs):
+        if bool((e > bound).any()):
+            fail(f"K3 ct_scan_block {name} differs from its plain version: max {float(e.max()):.3e}, "
+                 f"bound {float(bound.min()):.3e}")
+    err = max(float(e.max()) for e in errs)
+    kernel = lambda: ct_scan_block(*args)
+    plain = lambda: ct_scan_block_plain(*args)
+    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    hi, lo = args[0], args[1]
+    c, p_hi = args[3].shape
+    print(f"K3 ct_scan_block grids {hi.shape[0]}^3/{lo.shape[0]}^3 C={c} P={p_hi}+{args[5].shape[1]}: "
+          f"max |d| {err:.3e} (bound {float(bound.min()):.3e}..{float(bound.max()):.3e}); per call kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; device time kernel {_fmt(device_ms(kernel))}, "
+          f"plain {_fmt(device_ms(plain))}", flush=True)
+    return err, ms, plain_ms
+
+
+def build_ct_example(device, K=8, C=8, P=256, grid=256, cube=True):
+    """__graft_entry__._build_ct_example(grid, cube) rebuilt from the port's
+    modules, with the same seeded draws: hi/lo TSDF grids (0.1 m / 0.45 m)
+    holding one 128 x 32-ray scan of the default box room, C clouds of P
+    points drawn from it, and K control points at 3 cm translation noise.
+    Returns (hi, lo, problem, state, weights)."""
+    hi_shape = (grid,) * 3 if cube else (grid, grid, grid // 2)
+    lo_shape = (grid // 2,) * 3 if cube else (grid // 2, grid // 2, grid // 4)
+    hi = make_tsdf_grid(0.1, hi_shape, 0.25, 1000.0, device)
+    lo = make_tsdf_grid(0.45, lo_shape, 1.0, 1000.0, device)
+    opts = cfg.TSDFRangeDataInserterOptions3D(normal_computation_method="NONE", min_range=0.4, max_range=30.0)
+    pts = raycast_box_room_3d(np.zeros(3), nq.quat_identity(), num_azimuth=128, num_elevation=32)
+    pts = pts[~np.isnan(pts[:, 0])]
+    rd = RangeData(torch.zeros(3, device=device), pad_cloud(pts.astype(np.float32), 4096, device),
+                   pad_cloud(np.zeros((0, 3), np.float32), 4, device))
+    hi = make_tsdf_inserter_3d(opts, 0.1)(hi, rd)
+    lo = make_tsdf_inserter_3d(opts, 0.45)(lo, rd)
+
+    rng = np.random.default_rng(0)
+    cloud_pts = np.stack([pts[rng.choice(len(pts), size=P, replace=len(pts) < P)].astype(np.float32)
+                          for _ in range(C)])
+    point_times = np.broadcast_to(np.linspace(-0.05, 0.049, P, dtype=np.float32)[None, :], (C, P)).copy()
+    translation = rng.normal(0, 0.03, (K, 3)).astype(np.float32)
+    t = lambda a, dtype=torch.float32: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    ones = lambda *shape: torch.ones(shape, dtype=torch.bool, device=device)
+    q_id = lambda n: t(np.tile(np.array([1, 0, 0, 0], np.float32), (n, 1)))
+    state = CtState(translation=t(translation), rotation=q_id(K), velocity=t(np.zeros((K, 3))))
+    problem = CtProblem(
+        cp_mask=ones(K), cp_times=t(np.arange(K, dtype=np.float32) * 0.1),
+        cloud_mask=ones(C),
+        cloud_prev=t(np.clip(np.arange(C), 0, K - 2), torch.int64),
+        cloud_next=t(np.clip(np.arange(C) + 1, 1, K - 1), torch.int64),
+        cloud_factor=t(np.full(C, 0.5)), cloud_time=t(np.arange(C, dtype=np.float32) * 0.1 + 0.05),
+        hi_points=t(cloud_pts), hi_mask=ones(C, P), hi_times=t(point_times),
+        lo_points=t(cloud_pts), lo_mask=ones(C, P), lo_times=t(point_times),
+        pair_mask=ones(K - 1), pair_dt=t(np.full(K - 1, 0.1)), imu_delta_rotation=q_id(K - 1),
+        imu_delta_velocity=t(np.zeros((K - 1, 3))), imu_delta_translation=t(np.zeros((K - 1, 3))),
+        odom_mask=ones(K - 1), odom_delta_translation=t(np.zeros((K - 1, 3))), odom_delta_rotation=q_id(K - 1),
+        odom_translation_weight=t(np.full(K - 1, 5.0)), odom_rotation_weight=t(np.full(K - 1, 5.0)),
+    )
+    weights = CtWeights(*(t(1.0) for _ in range(5)))
+    return hi, lo, problem, state, weights
+
+
+@contextlib.contextmanager
+def plain_scan_blocks():
+    """Route the window solver's scan blocks through K3's plain version."""
+    window_solver.ct_scan_block = ct_scan_block_plain
+    try:
+        yield
+    finally:
+        window_solver.ct_scan_block = ct_scan_block
+
+
+def run_ct_window(device, reps=20):
+    """Phase 8: the window solve of the production-extent fixture (256^3 /
+    128^3, K=8, C=8, P=256), 8 LM iterations, through K3 and through its
+    plain version. Returns the per-solve times (median, p95) of both."""
+    example = build_ct_example(device)
+    window_solver.solve_ct_window_block.assemblies = 0
+    ct_scan_block.launches = 0
+    solve = lambda: solve_ct_window(*example, is_tsdf=True, num_iterations=8)
+    state, final, initial = solve()
+    if ct_scan_block.launches != window_solver.solve_ct_window_block.assemblies or ct_scan_block.launches == 0:
+        fail(f"window solve: {ct_scan_block.launches} K3 launches for "
+             f"{window_solver.solve_ct_window_block.assemblies} assemblies")
+    with plain_scan_blocks():
+        state_p, final_p, initial_p = solve()
+    final, initial, final_p, initial_p = (float(x) for x in (final, initial, final_p, initial_p))
+    if not (math.isfinite(final) and final <= initial):
+        fail(f"window solve: final cost {final} does not lower the initial cost {initial}")
+    # The two paths differ only in the scan blocks' summation order; the
+    # same LM steps land within 1e-4 of each other.
+    d_state = max(float((a - b).abs().max()) for a, b in zip(state, state_p))
+    d_cost = abs(final - final_p) / max(abs(final_p), 1e-12)
+    if d_state > 1e-4 or d_cost > 1e-4 or abs(initial - initial_p) > 1e-4 * abs(initial_p):
+        fail(f"window solve: K3 path differs from the plain path: state {d_state:.3e}, final cost {d_cost:.3e}")
+
+    def timed(n):
+        out = []
+        for _ in range(n):
+            sync(device)
+            t0 = time.perf_counter()
+            solve()
+            sync(device)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out)), float(np.percentile(out, 95))
+
+    timed(2)
+    med, p95 = timed(reps)
+    with plain_scan_blocks():
+        med_p, p95_p = timed(reps)
+    print(f"window solve 256^3/128^3 K=8 C=8 P=256, 8 iterations: cost {initial:.6f} -> {final:.6f} "
+          f"(plain path {final_p:.6f}, state within {d_state:.2e}); per solve median {med:.3f} ms, p95 {p95:.3f} ms "
+          f"over {reps}; plain path median {med_p:.3f} ms, p95 {p95_p:.3f} ms", flush=True)
+    return med, p95
+
+
+def ct_options():
+    """TrajectoryBuilder3DOptions defaults (256^3/128^3 grids, K=32, C=32,
+    P=256, 12 LM iterations, RK4 preintegration, CONSTANT sampling) with
+    TSDF submaps, min_range 0.4 and a 0.45 s initialization, as
+    tests/test_ct_builder.py and bench.py:874-886 set them."""
+    return cfg.replace_deep(cfg.TrajectoryBuilder3DOptions(), {
+        "min_range": 0.4,
+        "submaps.grid_type": "TSDF",
+        "optimizing_local_trajectory_builder.initialization_duration": 0.45,
+    })
+
+
+def ct_truth(t):
+    return (np.array([CT_SPEED * t, 0.0, 0.0]), nq.quat_from_axis_angle(np.array([0.0, 0.0, CT_YAW_RATE * t])))
+
+
+def ct_drive(n_scans, seed=SEED):
+    """The CT front end's sensor events in time order: IMU at 100 Hz
+    (gravity and the yaw rate in the body frame), odometry at 20 Hz (2 mm
+    noise), and n_scans scans at 10 Hz of 96 x 24 rays of the CT_ROOM box
+    room, 4 mm range noise, per-point sweep times over [-0.05, 0.049] s,
+    while driving at CT_SPEED with CT_YAW_RATE. Yields ("imu", t, acc,
+    gyro), ("odom", t, pose) and ("scan", t, data)."""
+    gravity = np.array([0.0, 0.0, 9.80665])
+    rng = np.random.default_rng(seed)
+    t, next_odom, next_scan, n = 0.0, 0.0, 0.05, 0
+    while n < n_scans:
+        pt, pq = ct_truth(t)
+        yield "imu", t, nq.quat_rotate(nq.quat_conjugate(pq), gravity), np.array([0.0, 0.0, CT_YAW_RATE])
+        if t >= next_odom:
+            yield "odom", t, NpRigid3(pt + rng.normal(0, 0.002, 3), pq)
+            next_odom += 0.05
+        if t >= next_scan:
+            pts = raycast_box_room_3d(pt, pq, half_extents=CT_ROOM, num_azimuth=96, num_elevation=24,
+                                      noise_std=0.004, rng=rng)
+            pts = pts[~np.isnan(pts[:, 0])]
+            times = np.linspace(-0.05, 0.049, len(pts)).astype(np.float32)
+            yield "scan", t, TimedPointCloudData(t, np.zeros(3, np.float32), pad_timed_cloud(pts, times, 2560), 96)
+            next_scan += 0.1
+            n += 1
+        t = round(t + 0.01, 6)
+
+
+@contextlib.contextmanager
+def ct_stage_ranges(builder):
+    """Label the CT front end's stages for torch.profiler."""
+    from torch.profiler import record_function
+
+    from hectorgrapher_tpu_torch.mapping.ct import builder as bmod
+
+    def labelled(fn, name):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    patches = [(bmod, "adaptive_voxel_filter_timed", "ct.filter_scan"),
+               (bmod, "solve_ct_window", "ct.window_solve"),
+               (window_solver, "cloud_poses", "ct.cloud_poses"),
+               (window_solver, "pair_residuals", "ct.pair_residuals"),
+               (torch.linalg, "solve", "ct.damped_solve"),
+               (window_solver, "ct_scan_block", "ct.scan_block_K3"),
+               (bmod, "adaptive_voxel_filter", "ct.insert_filters"),
+               (bmod, "compute_histogram", "ct.histogram"),
+               (builder.active_submaps, "insert_data", "ct.tsdf_insert")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, label in patches:
+        setattr(obj, name, labelled(getattr(obj, name), label))
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            if obj is builder.active_submaps:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, fn)
+
+
+def run_ct_front_end(device, n_scans=CT_SCANS, profile_scans=0):
+    """Phase 9: OptimizingLocalTrajectoryBuilder over the CT drive. Returns
+    (scans, per-scan seconds from the first window solve on, max
+    translation and yaw errors against ground truth, the builder, K3
+    launches, solver assemblies). With profile_scans, profiles that many
+    more scans afterwards and prints their breakdown."""
+    builder = OptimizingLocalTrajectoryBuilder(ct_options(), device)
+    window_solver.solve_ct_window_block.assemblies = 0
+    ct_scan_block.launches = 0
+    latencies, t_err, y_err, n, counts = [], 0.0, 0.0, 0, None
+    prof = None
+    for kind, t, *payload in ct_drive(n_scans + profile_scans):
+        if kind == "imu":
+            builder.add_imu_data(t, *payload)
+            continue
+        if kind == "odom":
+            builder.add_odometry_data(t, payload[0])
+            continue
+        if n == n_scans:
+            counts = (ct_scan_block.launches, window_solver.solve_ct_window_block.assemblies)
+            prof = profile_ct_start(builder)
+        solves = builder.num_optimizations
+        t0 = time.perf_counter()
+        result = builder.add_range_data(payload[0])
+        sync(device)
+        n += 1
+        if n > n_scans:
+            continue
+        if solves or builder.num_optimizations > solves:
+            latencies.append(time.perf_counter() - t0)
+        if result is not None:
+            if not np.all(np.isfinite(result.local_pose.t)):
+                fail(f"CT front end: no finite pose at t={t:.1f}")
+            truth_t, truth_q = ct_truth(result.time)
+            t_err = max(t_err, float(np.linalg.norm(result.local_pose.t - truth_t)))
+            d = nq.quat_yaw(result.local_pose.q) - nq.quat_yaw(truth_q)
+            y_err = max(y_err, abs((d + np.pi) % (2 * np.pi) - np.pi))
+    if counts is None:
+        counts = (ct_scan_block.launches, window_solver.solve_ct_window_block.assemblies)
+    if prof is not None:
+        profile_ct_finish(prof, profile_scans)
+    return n_scans, latencies, t_err, y_err, builder, counts
+
+
+def profile_ct_start(builder):
+    from torch.profiler import ProfilerActivity, profile
+
+    stages = ct_stage_ranges(builder)
+    stages.__enter__()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.__enter__()
+    return prof, stages, time.perf_counter()
+
+
+def profile_ct_finish(handle, n_scans):
+    """Print the profiled scans' device time, launches per scan, idle share
+    and stages; write the full table under chiprun_out/."""
+    prof, stages, t0 = handle
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.__exit__(None, None, None)
+    stages.__exit__(None, None, None)
+    events = prof.key_averages()
+    # Stage labels also appear as device-side annotations spanning their
+    # kernels: count kernels, copies and fills only.
+    device_events = [e for e in events if getattr(e, "self_device_time_total", 0.0) > 0 and not e.key.startswith("ct.")]
+    device_ms_total = sum(e.self_device_time_total for e in device_events) / 1e3
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    print(f"CT front end profile, {n_scans} scans: wall {wall_ms:.3f} ms, device {device_ms_total:.3f} ms "
+          f"(idle {100 * (1 - device_ms_total / wall_ms):.1f}%), {launches / n_scans:.0f} kernel launches per scan",
+          flush=True)
+    stages = [e for e in events if e.key.startswith("ct.") and e.cpu_time_total > 0]
+    for e in sorted(stages, key=lambda e: -e.cpu_time_total):
+        print(f"  stage {e.key}: {e.count / n_scans:.2f} calls/scan, host {e.cpu_time_total / 1e3 / n_scans:.3f} "
+              f"ms/scan, device {getattr(e, 'device_time_total', 0.0) / 1e3 / n_scans:.3f} ms/scan", flush=True)
+    for e in sorted(device_events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  device {e.key[:80]}: {e.self_device_time_total / 1e3 / n_scans:.3f} ms/scan, "
+              f"{e.count / n_scans:.1f}/scan", flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "ct_profile.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=60))
+        f.write("\n")
+        f.write(events.table(sort_by="cpu_time_total", row_limit=60))
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile-ct", type=int, default=0, metavar="N",
+                        help="after phase 9, profile N more CT front-end scans with torch.profiler")
+    args = parser.parse_args()
+
     # Phase 1: device.
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -369,11 +764,49 @@ def main() -> int:
           f"(bounds {MAX_TRANSLATION_ERROR:.5f} / {MAX_YAW_ERROR:.5f}); per-scan latency median "
           f"{np.median(lat_ms):.3f} ms, p95 {np.percentile(lat_ms, 95):.3f} ms", flush=True)
 
+    # Phase 7: K3 against its plain version at the CT front end's shape.
+    # Every f32 matmul and solve of the CT path runs at full precision (C2).
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        fail("f32 matmuls are not at full precision")
+    hi, lo, scan_pts = ct_production_grids(device)
+    checks["ct_scan_block"] = {"front_end": check_ct_scan_block(ct_kernel_inputs(device, hi, lo, scan_pts))}
+    del hi, lo
+
+    # Phase 8: the window solve on the production-extent fixture.
+    run_ct_window(device)
+
+    # Phase 9: the CT front end, through K3 on every assembly.
+    n_scans, ct_lat, ct_t_err, ct_y_err, ct_builder, (k3_launches, assemblies) = run_ct_front_end(
+        device, profile_scans=args.profile_ct)
+    launches["ct_scan_block"] = k3_launches
+    if k3_launches != assemblies or k3_launches == 0:
+        fail(f"CT front end: {k3_launches} K3 launches for {assemblies} solver assemblies")
+    submap = ct_builder.active_submaps.matching_submap
+    if submap is None or int((submap.high_resolution_grid.weight > 0).sum()) == 0:
+        fail("CT front end: the matching submap has no observed cells")
+    if ct_t_err > CT_MAX_TRANSLATION_ERROR or ct_y_err > CT_MAX_YAW_ERROR:
+        fail(f"CT front end: max error {ct_t_err:.5f} m / {ct_y_err:.5f} rad exceeds "
+             f"{CT_MAX_TRANSLATION_ERROR:.5f} m / {CT_MAX_YAW_ERROR:.5f} rad")
+    if (abs(ct_t_err - JAX_CT_TRANSLATION_ERROR) > CT_PARITY_TRANSLATION
+            or abs(ct_y_err - JAX_CT_YAW_ERROR) > CT_PARITY_YAW):
+        fail(f"CT front end: max error {ct_t_err:.5f} m / {ct_y_err:.5f} rad is not within "
+             f"{CT_PARITY_TRANSLATION} m / {CT_PARITY_YAW} rad of the JAX front end's")
+    lat_ms = np.array(ct_lat) * 1e3
+    print(f"CT front end: {n_scans} scans, {ct_builder.num_optimizations} window solves "
+          f"({ct_builder.num_optimizations / n_scans:.2f} per scan), K3 launches {k3_launches} = assemblies "
+          f"{assemblies}; max error {ct_t_err:.5f} m / {ct_y_err:.5f} rad (JAX on the CPU "
+          f"{JAX_CT_TRANSLATION_ERROR:.5f} / {JAX_CT_YAW_ERROR:.5f}, bounds {CT_MAX_TRANSLATION_ERROR:.5f} / "
+          f"{CT_MAX_YAW_ERROR:.5f}); per-scan latency median {np.median(lat_ms):.3f} ms, "
+          f"p95 {np.percentile(lat_ms, 95):.3f} ms over {len(lat_ms)} scans", flush=True)
+
     sources = {
         "correlative_prep_2d": ("hectorgrapher_tpu_torch/csrc/correlative_prep_2d.cu",
                                 "hectorgrapher_tpu/ops/pallas_prep2d.py:74"),
         "correlative_scores_2d": ("hectorgrapher_tpu_torch/csrc/correlative_scores_2d.cu",
                                   "hectorgrapher_tpu/ops/pallas_corr2d.py:64"),
+        "ct_scan_block": ("hectorgrapher_tpu_torch/csrc/ct_scan_block.cu",
+                          "hectorgrapher_tpu/mapping/ct/window_solver.py:467 (XLA fusion of scan_block, "
+                          "with interpolated_grid.py:332-466)"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

@@ -11,8 +11,8 @@ reports unknown keys, mirroring the reference's unused-key checking
 All classes are frozen dataclasses; `replace_deep(cfg, {"a.b": v})` or
 `from_dict` produce modified copies.
 
-Counterpart of hectorgrapher_tpu/common/config.py: the 2D trajectory
-builder's options only, with the same field names and defaults.
+Counterpart of hectorgrapher_tpu/common/config.py: the 2D and 3D
+trajectory builders' options, with the same field names and defaults.
 """
 
 from __future__ import annotations
@@ -173,6 +173,165 @@ class TrajectoryBuilder2DOptions:
     submaps: SubmapsOptions2D = _mkdefault(SubmapsOptions2D)
     # TPU-native: fixed device batch size for filtered clouds (padding cap).
     max_num_points: int = 2048
+
+
+# ---------------------------------------------------------------------------
+# 3D trajectory builder
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CeresScanMatcher3DOptions:
+    """(ref: internal/3d/scan_matching/ceres_scan_matcher_3d.h)"""
+
+    occupied_space_weight_0: float = 1.0
+    occupied_space_weight_1: float = 6.0
+    translation_weight: float = 5.0
+    rotation_weight: float = 4e2
+    only_optimize_yaw: bool = False
+    ceres_solver_options: SolverOptions = field(default_factory=lambda: SolverOptions(max_num_iterations=12))
+
+
+@dataclass(frozen=True)
+class ProbabilityGridRangeDataInserterOptions3D:
+    """(ref: 3d/range_data_inserter_3d.h)"""
+
+    hit_probability: float = 0.55
+    miss_probability: float = 0.49
+    num_free_space_voxels: int = 2
+
+
+@dataclass(frozen=True)
+class TSDFRangeDataInserterOptions3D:
+    """(ref: 3d/tsdf_range_data_inserter_3d.h)"""
+
+    relative_truncation_distance: float = 2.5
+    maximum_weight: float = 1000.0
+    num_free_space_voxels: int = 0
+    project_sdf_distance_to_scan_normal: bool = False
+    weight_function_epsilon: float = 1.0
+    weight_function_sigma: float = 4.0
+    normal_estimate_max_nn: float = 30.0
+    normal_estimate_radius: float = 0.4
+    normal_computation_method: str = "CLOUD_STRUCTURE"
+    min_range: float = 0.4
+    max_range: float = 15.0
+    insertion_ratio: float = 1.0
+    normal_computation_horizontal_stride: int = 5
+    normal_computation_vertical_stride: int = 1
+
+
+@dataclass(frozen=True)
+class RangeDataInserterOptions3D:
+    range_data_inserter_type: str = "PROBABILITY_GRID_INSERTER_3D"
+    probability_grid_range_data_inserter: ProbabilityGridRangeDataInserterOptions3D = _mkdefault(
+        ProbabilityGridRangeDataInserterOptions3D
+    )
+    tsdf_range_data_inserter: TSDFRangeDataInserterOptions3D = _mkdefault(TSDFRangeDataInserterOptions3D)
+
+
+@dataclass(frozen=True)
+class SubmapsOptions3D:
+    """(ref: 3d/submap_3d.h + configuration_files/trajectory_builder_3d.lua
+    submaps block). Extra: fixed dense grid sizes per resolution."""
+
+    high_resolution: float = 0.10
+    high_resolution_max_range: float = 20.0
+    low_resolution: float = 0.45
+    num_range_data: int = 160
+    grid_type: str = "PROBABILITY_GRID"
+    high_resolution_range_data_inserter: RangeDataInserterOptions3D = _mkdefault(RangeDataInserterOptions3D)
+    low_resolution_range_data_inserter: RangeDataInserterOptions3D = field(
+        default_factory=lambda: RangeDataInserterOptions3D(
+            tsdf_range_data_inserter=TSDFRangeDataInserterOptions3D(
+                min_range=1.0,
+                max_range=60.0,
+                insertion_ratio=0.1,
+                normal_computation_horizontal_stride=20,
+                normal_computation_vertical_stride=4,
+            )
+        )
+    )
+    # Cells per side of the dense high/low-resolution grids.
+    high_grid_size: int = 256
+    low_grid_size: int = 128
+    # Storage precision of the dense grids; the port stores float32 only.
+    grid_storage_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class OptimizingLocalTrajectoryBuilderOptions:
+    """(ref: configuration_files/trajectory_builder_3d.lua:120-147, proto
+    mapping/proto/3d/optimizing_local_trajectory_builder_options.proto)"""
+
+    high_resolution_grid_weight: float = 1.0
+    low_resolution_grid_weight: float = 1.0
+    velocity_weight: float = 1.0
+    translation_weight: float = 1.0
+    rotation_weight: float = 1.0
+    odometry_translation_weight: float = 1.0
+    odometry_rotation_weight: float = 1.0
+    initialize_map_orientation_with_imu: bool = True
+    calibrate_imu: bool = False
+    ct_window_horizon: float = 0.9
+    ct_window_rate: float = 0.1
+    imu_integrator: str = "RK4"  # EULER | RK4
+    imu_cost_term: str = "PREINTEGRATION"  # DIRECT | PREINTEGRATION
+    initialization_duration: float = 3.0
+    use_adaptive_odometry_weights: bool = True
+    use_per_point_unwarping: bool = False
+    use_multi_resolution_matching: bool = False
+    num_points_per_subdivision: int = 4
+    control_point_sampling: str = "CONSTANT"  # CONSTANT | SYNCED_WITH_RANGE_DATA | ADAPTIVE
+    sampling_max_delta_translation: float = 0.2
+    sampling_max_delta_rotation: float = 0.1
+    sampling_min_delta_time: float = 0.025
+    sampling_max_delta_time: float = 0.25
+    velocity_in_state: bool = True
+    odometry_translation_normalization: float = 2.0e-2
+    odometry_rotation_normalization: float = 1.0e-1
+    # LM solver knobs (in place of the reference's Ceres loop).
+    max_num_iterations: int = 12
+    initial_lm_lambda: float = 1e-4
+    # Static shape caps of the window solve.
+    max_control_points: int = 32
+    max_clouds_in_window: int = 32
+    points_per_cloud: int = 256
+
+
+@dataclass(frozen=True)
+class TrajectoryBuilder3DOptions:
+    """(ref: configuration_files/trajectory_builder_3d.lua)"""
+
+    min_range: float = 1.0
+    max_range: float = 60.0
+    num_accumulated_range_data: int = 1
+    voxel_filter_size: float = 0.15
+    high_resolution_adaptive_voxel_filter: AdaptiveVoxelFilterOptions = field(
+        default_factory=lambda: AdaptiveVoxelFilterOptions(max_length=2.0, min_num_points=150, max_range=15.0)
+    )
+    low_resolution_adaptive_voxel_filter: AdaptiveVoxelFilterOptions = field(
+        default_factory=lambda: AdaptiveVoxelFilterOptions(max_length=4.0, min_num_points=200, max_range=60.0)
+    )
+    use_online_correlative_scan_matching: bool = False
+    real_time_correlative_scan_matcher: RealTimeCorrelativeScanMatcherOptions = field(
+        default_factory=lambda: RealTimeCorrelativeScanMatcherOptions(
+            linear_search_window=0.15,
+            angular_search_window=math.radians(1.0),
+        )
+    )
+    ceres_scan_matcher: CeresScanMatcher3DOptions = _mkdefault(CeresScanMatcher3DOptions)
+    motion_filter: MotionFilterOptions = field(
+        default_factory=lambda: MotionFilterOptions(
+            max_time_seconds=0.5, max_distance_meters=0.1, max_angle_radians=0.004
+        )
+    )
+    imu_gravity_time_constant: float = 10.0
+    rotational_histogram_size: int = 120
+    submaps: SubmapsOptions3D = _mkdefault(SubmapsOptions3D)
+    optimizing_local_trajectory_builder: OptimizingLocalTrajectoryBuilderOptions = _mkdefault(
+        OptimizingLocalTrajectoryBuilderOptions
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,9 @@ import numpy as np
 import torch
 
 from hectorgrapher_tpu_torch.common import config
-from hectorgrapher_tpu_torch.mapping.grids import GridMeta, ProbabilityGrid
-from hectorgrapher_tpu_torch.sensor.types import PointCloud, RangeData
+from hectorgrapher_tpu_torch.mapping.ct.window_solver import CtProblem, CtState, CtWeights
+from hectorgrapher_tpu_torch.mapping.grids import GridMeta, ProbabilityGrid, TSDFGrid
+from hectorgrapher_tpu_torch.sensor.types import PointCloud, RangeData, TimedPointCloud
 from hectorgrapher_tpu_torch.transform.rigid import Rigid2
 
 
@@ -38,6 +39,49 @@ def probability_grid(grid, device) -> ProbabilityGrid:
         log_odds=tensor(grid.log_odds, device, torch.float32),
         known=tensor(grid.known, device, torch.bool),
         meta=grid_meta(grid.meta, device),
+    )
+
+
+def tsdf_grid(grid, device) -> TSDFGrid:
+    """A JAX TSDFGrid with float32 storage."""
+    return TSDFGrid(
+        tsd=tensor(grid.tsd, device, torch.float32),
+        weight=tensor(grid.weight, device, torch.float32),
+        truncation_distance=tensor(grid.truncation_distance, device, torch.float32),
+        max_weight=tensor(grid.max_weight, device, torch.float32),
+        meta=grid_meta(grid.meta, device),
+    )
+
+
+def _named_tuple(cls, value, device):
+    """cls with every field of `value` as a tensor: bool and integer arrays
+    keep their kind (integers as int64), the rest become float32."""
+    out = {}
+    for name in cls._fields:
+        a = np.asarray(getattr(value, name))
+        dtype = torch.bool if a.dtype == bool else torch.int64 if a.dtype.kind in "iu" else torch.float32
+        out[name] = tensor(a, device, dtype)
+    return cls(**out)
+
+
+def ct_state(state, device) -> CtState:
+    return _named_tuple(CtState, state, device)
+
+
+def ct_problem(problem, device) -> CtProblem:
+    return _named_tuple(CtProblem, problem, device)
+
+
+def ct_weights(weights, device) -> CtWeights:
+    return _named_tuple(CtWeights, weights, device)
+
+
+def timed_point_cloud(cloud, device) -> TimedPointCloud:
+    """A timed cloud with tensor leaves, for the device-side timed filters."""
+    return TimedPointCloud(
+        positions=tensor(cloud.positions, device, torch.float32),
+        times=tensor(cloud.times, device, torch.float32),
+        mask=tensor(cloud.mask, device, torch.bool),
     )
 
 

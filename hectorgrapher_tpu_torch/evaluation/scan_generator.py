@@ -1,6 +1,7 @@
-"""Synthetic 2D scans for tests and chip_smoke.py (a numpy copy of
-raycast_rect_room_2d from hectorgrapher_tpu/evaluation/scan_generator.py;
-ref: cartographer/mapping/internal/testing/test_helpers.h
+"""Synthetic scans for tests and chip_smoke.py (numpy copies of
+raycast_rect_room_2d and raycast_box_room_3d from
+hectorgrapher_tpu/evaluation/scan_generator.py; ref:
+cartographer/mapping/internal/testing/test_helpers.h
 GenerateFakeRangeMeasurements)."""
 
 from __future__ import annotations
@@ -54,3 +55,52 @@ def raycast_rect_room_2d(
     pts = np.stack([sx, sy, np.zeros_like(sx)], axis=-1)
     pts[~valid] = np.nan
     return pts
+
+
+def raycast_box_room_3d(
+    pose_t: np.ndarray,
+    pose_q: np.ndarray,
+    half_extents=(4.03, 3.41, 1.52),
+    num_azimuth: int = 64,
+    num_elevation: int = 16,
+    max_range: float = 30.0,
+    noise_std: float = 0.0,
+    rng: Optional[np.random.Generator] = None,
+) -> np.ndarray:
+    """Organized 3D scan (num_elevation rows x num_azimuth cols) of the
+    inside of an axis-aligned box room. Points in the SENSOR frame; invalid
+    rays are nan. pose_q is wxyz.
+
+    Default half-extents are deliberately not grid-aligned.
+    """
+    from hectorgrapher_tpu_torch.transform import np_quat as nq
+
+    az = np.linspace(-math.pi, math.pi, num_azimuth, endpoint=False)
+    el = np.linspace(-0.45 * math.pi, 0.45 * math.pi, num_elevation)
+    azg, elg = np.meshgrid(az, el)  # (rows, cols)
+    dirs_sensor = np.stack(
+        [np.cos(elg) * np.cos(azg), np.cos(elg) * np.sin(azg), np.sin(elg)], axis=-1
+    ).reshape(-1, 3)
+    dirs_world = nq.quat_rotate(pose_q, dirs_sensor)
+    p0 = np.asarray(pose_t, dtype=float)
+
+    ts = np.full(len(dirs_world), np.inf)
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            wall = sign * half_extents[axis]
+            d = dirs_world[:, axis]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                t = (wall - p0[axis]) / d
+                hit = p0[None, :] + t[:, None] * dirs_world
+            ok = t > 1e-6
+            for other in range(3):
+                if other != axis:
+                    ok &= np.abs(hit[:, other]) <= half_extents[other] + 1e-9
+            ts = np.where(ok & (t < ts), t, ts)
+
+    if rng is not None and noise_std > 0:
+        ts = ts + rng.normal(0.0, noise_std, size=ts.shape)
+    valid = np.isfinite(ts) & (ts <= max_range)
+    pts = dirs_sensor * ts[:, None]
+    pts[~valid] = np.nan
+    return pts.astype(np.float32)

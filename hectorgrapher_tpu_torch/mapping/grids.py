@@ -1,12 +1,14 @@
-"""Dense 2D occupancy grids as tensors (counterpart of
-hectorgrapher_tpu/mapping/grids.py; ref: mapping/2d/grid_2d.h,
-probability_grid.h).
+"""Dense grids as tensors (counterpart of hectorgrapher_tpu/mapping/grids.py;
+ref: mapping/2d/grid_2d.h, probability_grid.h, mapping/3d/hybrid_grid_tsdf.h).
 
 Conventions, as in the JAX package:
-  * A grid covers the square centered at the submap-local origin.
+  * A grid covers the square (cube) centered at the submap-local origin.
   * cell_index i = floor((p - min_corner) / resolution), per axis, in f32.
   * cell_center = min_corner + (i + 0.5) * resolution.
-  * Arrays are indexed [ix, iy].
+  * Arrays are indexed [ix, iy] or [ix, iy, iz].
+
+TSDF grids store float32 only: the JAX package's uint16 codec and f16/bf16
+storage options are not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ def cell_index(meta: GridMeta, points):
 
 
 def cell_center(meta: GridMeta, indices):
+    """World position of the cells' centers (..., D), in float32."""
     return meta.min_corner + (indices.to(torch.float32) + 0.5) * meta.resolution
 
 
@@ -87,5 +90,38 @@ def make_probability_grid(resolution: float, size_cells: Tuple[int, ...], device
     return ProbabilityGrid(
         log_odds=torch.zeros(size_cells, dtype=torch.float32, device=device),
         known=torch.zeros(size_cells, dtype=torch.bool, device=device),
+        meta=make_meta(resolution, size_cells, device, center),
+    )
+
+
+class TSDFGrid(NamedTuple):
+    """Truncated signed distance grid with per-cell weights (ref:
+    mapping/3d/hybrid_grid_tsdf.h). weight == 0 marks an unknown cell,
+    whose tsd reads +truncation_distance."""
+
+    tsd: torch.Tensor  # (nx, ny[, nz]) f32
+    weight: torch.Tensor  # same shape, f32
+    truncation_distance: torch.Tensor  # scalar f32
+    max_weight: torch.Tensor  # scalar f32
+    meta: GridMeta
+
+    @property
+    def shape(self):
+        return tuple(self.tsd.shape)
+
+
+def make_tsdf_grid(
+    resolution: float,
+    size_cells: Tuple[int, ...],
+    truncation_distance: float,
+    max_weight: float,
+    device,
+    center=None,
+) -> TSDFGrid:
+    return TSDFGrid(
+        tsd=torch.full(size_cells, truncation_distance, dtype=torch.float32, device=device),
+        weight=torch.zeros(size_cells, dtype=torch.float32, device=device),
+        truncation_distance=torch.tensor(truncation_distance, dtype=torch.float32, device=device),
+        max_weight=torch.tensor(max_weight, dtype=torch.float32, device=device),
         meta=make_meta(resolution, size_cells, device, center),
     )

@@ -80,6 +80,8 @@ def load_library() -> ctypes.CDLL:
     lib.hg_correlative_prep_2d.restype = i32
     lib.hg_correlative_scores_2d.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
     lib.hg_correlative_scores_2d.restype = i32
+    lib.hg_ct_scan_block.argtypes = [ptr] * 16 + [i32] * 9 + [ptr]
+    lib.hg_ct_scan_block.restype = i32
     _lib = lib
     return _lib
 

@@ -1,0 +1,136 @@
+"""K3: the CT window solve's per-cloud scan-block assembly.
+
+Replaces the XLA fusion of hectorgrapher_tpu/mapping/ct/window_solver.py
+scan_block (:467-513) with the per-block einsums of _make_ct_assemble
+(:611-613), over the 3D TSDF stencil of
+hectorgrapher_tpu/mapping/scan_matching/interpolated_grid.py (:332-466).
+It has no Pallas source. The CUDA kernel is
+hectorgrapher_tpu_torch/csrc/ct_scan_block.cu; this module holds its
+wrapper and its plain PyTorch version.
+
+For each cloud c, with pose7[c] = [t, q] and its Jacobian dpose7[c] on
+the cloud's 18-dim control-point pair tangent, every hi-res point (scaled
+by hi_scale[c]) and lo-res point (lo_scale[c]) gives one residual
+r = val * s and one row J = [dval/dworld, dval/dq] @ dpose7 * s. Returns
+S = J^T J (C, 18, 18), g = J^T r (C, 18) and cost = 0.5 * sum r^2 (C,).
+
+Arithmetic: the world point and the cell floor round every operation on
+its own (ROADMAP C0), in the plain version as separate eager ops and in
+the kernel with round-to-nearest intrinsics under --fmad=false, so on the
+card both pick the same cells. The per-point values agree to rounding;
+the sums over points run in another order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hectorgrapher_tpu_torch.mapping.grids import TSDFGrid
+from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import tsdf_value_and_dfrac_3d
+from hectorgrapher_tpu_torch.ops import _build
+from hectorgrapher_tpu_torch.ops.correlative_prep_2d import _check
+from hectorgrapher_tpu_torch.transform.rigid import cross, quat_rotate
+
+
+def dquat_rotate_dq(q, p):
+    """d(R(q) p)/dq as a free 4-vector (..., 3, 4), wxyz (window_solver.py
+    _dquat_rotate_dq :323-345); q (..., 4) broadcasts against p (..., 3).
+
+    R(q)p = (w^2 - v.v) p + 2 (v.p) v + 2 w (v x p); exact for tangents
+    orthogonal to q, which the pose chain's final normalize guarantees."""
+    w = q[..., 0:1]
+    v = q[..., 1:4]
+    vb = v.expand(p.shape)
+    dw = 2.0 * (w * p + cross(vb, p))
+    vdotp = (vb[..., 0] * p[..., 0] + vb[..., 1] * p[..., 1] + vb[..., 2] * p[..., 2])[..., None]
+    cols = [dw]
+    eye = torch.eye(3, dtype=p.dtype, device=p.device)
+    for i in range(3):
+        e = eye[i]
+        cols.append(
+            -2.0 * q[..., 1 + i : 2 + i] * p
+            + 2.0 * p[..., i : i + 1] * v
+            + 2.0 * vdotp * e
+            + 2.0 * w * cross(e.expand(p.shape), p)
+        )
+    return torch.stack(cols, dim=-1)
+
+
+def _grid_rows(grid: TSDFGrid, points, mask, pose7, dpose7, scale):
+    """Per-point residuals (C, P) and Jacobian rows (C, P, 18) of one grid."""
+    pose_t, pose_q = pose7[:, None, :3], pose7[:, None, 3:]
+    world = quat_rotate(pose_q, points) + pose_t
+    val, dval_dfrac = tsdf_value_and_dfrac_3d(grid, world)
+    sm = torch.where(mask, scale[:, None], 0.0)
+    dval_dworld = dval_dfrac / grid.meta.resolution
+    dval_dq = torch.einsum("cpi,cpij->cpj", dval_dworld, dquat_rotate_dq(pose_q, points))
+    row7 = torch.cat([dval_dworld, dval_dq], dim=-1)
+    return val * sm, torch.einsum("cpk,ckj->cpj", row7, dpose7) * sm[..., None]
+
+
+def ct_scan_block_plain(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask, pose7, dpose7, hi_scale, lo_scale):
+    """Plain PyTorch version: (S (C, 18, 18), g (C, 18), cost (C,))."""
+    hi_r, hi_j = _grid_rows(hi_grid, hi_points, hi_mask, pose7, dpose7, hi_scale)
+    lo_r, lo_j = _grid_rows(lo_grid, lo_points, lo_mask, pose7, dpose7, lo_scale)
+    J = torch.cat([hi_j, lo_j], dim=1)
+    r = torch.cat([hi_r, lo_r], dim=1)
+    S = torch.einsum("cri,crj->cij", J, J)
+    g = torch.einsum("cri,cr->ci", J, r)
+    return S, g, 0.5 * torch.sum(r * r, dim=1)
+
+
+def ct_scan_block(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask, pose7, dpose7, hi_scale, lo_scale):
+    """Per-cloud scan blocks: (S (C, 18, 18), g (C, 18), cost (C,)) f32.
+
+    hi_grid, lo_grid: TSDFGrids with contiguous f32 (nx, ny, nz) volumes;
+    hi_points (C, P, 3) f32 and hi_mask (C, P) bool (likewise lo, with its
+    own P); pose7 (C, 7) f32 [t, q wxyz]; dpose7 (C, 7, 18) f32; hi_scale,
+    lo_scale (C,) f32. CPU tensors take the plain version; CUDA tensors
+    launch the kernel.
+    """
+    device = hi_points.device
+    args = (hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask, pose7, dpose7, hi_scale, lo_scale)
+    if device.type == "cpu":
+        return ct_scan_block_plain(*args)
+    if device.type != "cuda":
+        raise ValueError(f"ct_scan_block: unsupported device {device}")
+    c, p_hi = hi_mask.shape
+    p_lo = lo_mask.shape[1]
+    for label, grid in (("hi", hi_grid), ("lo", lo_grid)):
+        if len(grid.shape) != 3 or grid.tsd.numel() >= 2**31:
+            raise ValueError(f"ct_scan_block: unsupported {label} grid shape {grid.shape}")
+        _check(f"{label}_grid.tsd", grid.tsd, torch.float32, grid.shape, device)
+        _check(f"{label}_grid.weight", grid.weight, torch.float32, grid.shape, device)
+    _check("hi_points", hi_points, torch.float32, (c, p_hi, 3), device)
+    _check("hi_mask", hi_mask, torch.bool, (c, p_hi), device)
+    _check("lo_points", lo_points, torch.float32, (c, p_lo, 3), device)
+    _check("lo_mask", lo_mask, torch.bool, (c, p_lo), device)
+    _check("pose7", pose7, torch.float32, (c, 7), device)
+    _check("dpose7", dpose7, torch.float32, (c, 7, 18), device)
+    _check("hi_scale", hi_scale, torch.float32, (c,), device)
+    _check("lo_scale", lo_scale, torch.float32, (c,), device)
+    if not 0 < c <= 65535:
+        raise ValueError(f"ct_scan_block: unsupported C={c}")
+    # [hi min_corner (3), hi resolution, lo min_corner (3), lo resolution]
+    gparams = torch.cat([
+        hi_grid.meta.min_corner.reshape(3), hi_grid.meta.resolution.reshape(1),
+        lo_grid.meta.min_corner.reshape(3), lo_grid.meta.resolution.reshape(1),
+    ]).to(device=device, dtype=torch.float32).contiguous()
+    S = torch.empty((c, 18, 18), dtype=torch.float32, device=device)
+    g = torch.empty((c, 18), dtype=torch.float32, device=device)
+    cost = torch.empty((c,), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        status = _build.load_library().hg_ct_scan_block(
+            hi_grid.tsd.data_ptr(), hi_grid.weight.data_ptr(), lo_grid.tsd.data_ptr(), lo_grid.weight.data_ptr(),
+            gparams.data_ptr(), hi_points.data_ptr(), hi_mask.data_ptr(), lo_points.data_ptr(), lo_mask.data_ptr(),
+            pose7.data_ptr(), dpose7.data_ptr(), hi_scale.data_ptr(), lo_scale.data_ptr(),
+            S.data_ptr(), g.data_ptr(), cost.data_ptr(),
+            c, p_hi, p_lo, *hi_grid.shape, *lo_grid.shape,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _build.check_launch(status, "ct_scan_block")
+    ct_scan_block.launches += 1
+    return S, g, cost
+
+
+ct_scan_block.launches = 0

@@ -23,7 +23,9 @@ class PointCloud(NamedTuple):
 
 
 class TimedPointCloud(NamedTuple):
-    """Cloud with per-point relative times (<= 0, last point == 0)."""
+    """Cloud with per-point relative times (<= 0, last point == 0). Its
+    leaves are numpy arrays on the host, or tensors for the device-side
+    timed voxel filters."""
 
     positions: np.ndarray  # (N, 3)
     times: np.ndarray  # (N,) relative seconds, <= 0

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from hectorgrapher_tpu_torch.sensor.types import PointCloud
+from hectorgrapher_tpu_torch.sensor.types import PointCloud, TimedPointCloud
 
 _INVALID_CELL = 1 << 24
 
@@ -111,4 +111,59 @@ def adaptive_voxel_filter(cloud: PointCloud, options) -> PointCloud:
     return PointCloud(
         positions=torch.where(sparse, ranged.positions, filtered.positions),
         mask=torch.where(sparse, ranged.mask, filtered.mask),
+    )
+
+
+def voxel_filter_timed(cloud: TimedPointCloud, resolution) -> TimedPointCloud:
+    """Voxel filter preserving per-point times; the cloud's leaves are
+    tensors on one device."""
+    cells = _cell_coords(cloud.positions, cloud.mask, resolution)
+    order, first = _dedup_order(cells)
+    return TimedPointCloud(
+        positions=cloud.positions[order], times=cloud.times[order], mask=first & cloud.mask[order]
+    )
+
+
+def adaptive_voxel_filter_timed(cloud: TimedPointCloud, options) -> TimedPointCloud:
+    """Adaptive voxel filter preserving per-point times (tensor leaves)."""
+    in_range = cloud.mask & (torch.linalg.norm(cloud.positions, dim=-1) <= options.max_range)
+    length = adaptive_voxel_filter_length(
+        PointCloud(cloud.positions, in_range), options.max_length, int(options.min_num_points), options.max_range
+    )
+    filtered = voxel_filter_timed(TimedPointCloud(cloud.positions, cloud.times, in_range), length)
+    # Already-sparse clouds pass through UNFILTERED, as in the untimed
+    # variant (ref: adaptive_voxel_filter.h:49-52).
+    sparse = torch.sum(in_range) <= options.min_num_points
+    return TimedPointCloud(
+        positions=torch.where(sparse, cloud.positions, filtered.positions),
+        times=torch.where(sparse, cloud.times, filtered.times),
+        mask=torch.where(sparse, in_range, filtered.mask),
+    )
+
+
+def _compaction(mask, capacity: int):
+    """Indices that move the valid points to the front (stable), and the
+    padding to reach `capacity` (0 when the cloud is cut to it)."""
+    idx = torch.sort((~mask).to(torch.uint8), stable=True).indices[:capacity]
+    return idx, max(capacity - mask.shape[0], 0)
+
+
+def compact_cloud(cloud: PointCloud, capacity: int) -> PointCloud:
+    """Move valid points to the front (stable) and truncate or pad to
+    `capacity`: shrinks the adaptive filters' outputs to the fixed
+    per-cloud budget."""
+    idx, pad = _compaction(cloud.mask, capacity)
+    return PointCloud(
+        torch.nn.functional.pad(cloud.positions[idx], (0, 0, 0, pad)),
+        torch.nn.functional.pad(cloud.mask[idx], (0, pad)),
+    )
+
+
+def compact_timed_cloud(cloud: TimedPointCloud, capacity: int) -> TimedPointCloud:
+    """compact_cloud for timed clouds (tensor leaves)."""
+    idx, pad = _compaction(cloud.mask, capacity)
+    return TimedPointCloud(
+        torch.nn.functional.pad(cloud.positions[idx], (0, 0, 0, pad)),
+        torch.nn.functional.pad(cloud.times[idx], (0, pad)),
+        torch.nn.functional.pad(cloud.mask[idx], (0, pad)),
     )

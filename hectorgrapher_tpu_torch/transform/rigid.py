@@ -1,5 +1,17 @@
-"""SE(2) poses as tensors (counterpart of hectorgrapher_tpu/transform/rigid.py,
-2D part only; ref: transform/rigid_transform.h Rigid2<T>)."""
+"""Poses as tensors (counterpart of hectorgrapher_tpu/transform/rigid.py;
+ref: transform/rigid_transform.h Rigid2<T>/Rigid3<T>, transform/transform.h).
+
+Conventions, as in the JAX package:
+  * Quaternions are (..., 4) tensors in (w, x, y, z) order, normalized.
+  * Rigid3(translation=(..., 3), rotation=(..., 4)) acts as x -> R(q) x + t.
+  * Rigid2(translation=(..., 2), angle=(...,)).
+  * Tangent/rotation vectors are angle-axis (..., 3).
+
+Every product and sum below is its own tensor op, so each rounds on its
+own: no fused multiply-add, on the CPU or the card. The CT scan-block
+kernel (csrc/ct_scan_block.cu) floors world coordinates computed the same
+way, and its plain version must pick the same cells (ROADMAP C0).
+"""
 
 from __future__ import annotations
 
@@ -20,3 +32,127 @@ def rot2(angle, v):
     c, s = torch.cos(angle), torch.sin(angle)
     x, y = v[..., 0], v[..., 1]
     return torch.stack([c * x - s * y, s * x + c * y], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Quaternion ops (w, x, y, z)
+# ---------------------------------------------------------------------------
+
+
+def cross(a, b):
+    """a x b over the last axis, broadcasting; a1*b2 - a2*b1 etc., each
+    product rounded on its own."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def quat_normalize(q):
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quat_conjugate(q):
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_multiply(a, b):
+    """Hamilton product a*b, batched."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
+def quat_rotate(q, v):
+    """Rotate vectors v (..., 3) by quaternions q (..., 4), broadcasting.
+
+    The 15-mul form: v' = v + 2*(w*(u x v) + u x (u x v)).
+    """
+    u = q[..., 1:]
+    w = q[..., :1]
+    uv = cross(u, v)
+    return v + 2.0 * (w * uv + cross(u, uv))
+
+
+def quat_from_axis_angle(aa):
+    """Exponential map: angle-axis (..., 3) -> quaternion, with the Taylor
+    branch near zero (ref: transform.h AngleAxisVectorToRotationQuaternion)."""
+    angle_sq = torch.sum(aa * aa, dim=-1, keepdim=True)
+    angle = torch.sqrt(torch.clamp(angle_sq, min=1e-24))
+    half = 0.5 * angle
+    small = angle_sq < 1e-12
+    # sin(x/2)/x -> 1/2 - x^2/48 as x -> 0
+    k = torch.where(small, 0.5 - angle_sq / 48.0, torch.sin(half) / angle)
+    w = torch.where(small, 1.0 - angle_sq / 8.0, torch.cos(half))
+    return torch.cat([w, k * aa], dim=-1)
+
+
+def quat_angle(q):
+    """Rotation angle in [0, pi] (ref: transform.h GetAngle)."""
+    w = torch.abs(q[..., 0])
+    sin_half = torch.linalg.vector_norm(q[..., 1:], dim=-1)
+    return 2.0 * torch.atan2(sin_half, torch.clamp(w, 0.0, 1.0))
+
+
+def quat_slerp(a, b, t):
+    """Spherical linear interpolation, batched; t broadcastable to the batch.
+
+    Below sin(theta) = 1e-6 it blends linearly; the where() keeps the
+    slerp branch's tangents (infinite at theta = 0) out of forward-mode
+    Jacobians, as jnp.where does in the JAX package.
+    """
+    if not isinstance(t, torch.Tensor):
+        t = torch.tensor(t, dtype=a.dtype, device=a.device)
+    t = t[..., None]
+    dot = torch.sum(a * b, dim=-1, keepdim=True)
+    b = torch.where(dot < 0, -b, b)
+    dot = torch.abs(dot)
+    dot = torch.clamp(dot, -1.0, 1.0)
+    theta = torch.arccos(torch.clamp(dot, 0.0, 1.0))
+    sin_theta = torch.sin(theta)
+    use_lerp = sin_theta < 1e-6
+    denom = torch.where(use_lerp, torch.ones_like(sin_theta), sin_theta)
+    wa = torch.where(use_lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / denom)
+    wb = torch.where(use_lerp, t, torch.sin(t * theta) / denom)
+    return quat_normalize(wa * a + wb * b)
+
+
+# ---------------------------------------------------------------------------
+# Rigid3
+# ---------------------------------------------------------------------------
+
+
+class Rigid3(NamedTuple):
+    """SE(3) pose: x -> R(rotation) x + translation."""
+
+    translation: torch.Tensor  # (..., 3)
+    rotation: torch.Tensor  # (..., 4) wxyz
+
+
+def compose(a: Rigid3, b: Rigid3) -> Rigid3:
+    """a * b (apply b first, then a)."""
+    return Rigid3(
+        translation=quat_rotate(a.rotation, b.translation) + a.translation,
+        rotation=quat_normalize(quat_multiply(a.rotation, b.rotation)),
+    )
+
+
+def inverse(p: Rigid3) -> Rigid3:
+    inv_rot = quat_conjugate(p.rotation)
+    return Rigid3(translation=-quat_rotate(inv_rot, p.translation), rotation=inv_rot)
+
+
+def apply(p: Rigid3, points):
+    """Apply the pose to points (..., 3); pose batch dims broadcast against
+    the points' leading dims."""
+    q, t = p.rotation, p.translation
+    if points.ndim > q.ndim:
+        q, t = q[..., None, :], t[..., None, :]
+    return quat_rotate(q, points) + t

@@ -1,5 +1,6 @@
-"""Package-level guards of hectorgrapher_tpu_torch: it runs without JAX,
-and chip_smoke.py refuses to run without a CUDA card (no CPU fallback)."""
+"""Package-level guards of hectorgrapher_tpu_torch: it runs without JAX (the
+2D front end and the CT 3D front end, window solve included), and
+chip_smoke.py refuses to run without a CUDA card (no CPU fallback)."""
 
 import os
 import shutil
@@ -32,6 +33,32 @@ for i in range(2):
     result = builder.add_range_data(TimedPointCloudData(
         0.1 * i, np.zeros(3, np.float32), pad_timed_cloud(pts.astype(np.float32), np.zeros(360, np.float32), 512)))
     assert result is not None and np.all(np.isfinite(result.local_pose.t))
+
+# The CT 3D front end: three scans at tiny grids, the third solving a window.
+from hectorgrapher_tpu_torch.evaluation.scan_generator import raycast_box_room_3d
+from hectorgrapher_tpu_torch.mapping.ct.builder import OptimizingLocalTrajectoryBuilder
+
+opts3 = cfg.replace_deep(cfg.TrajectoryBuilder3DOptions(), {
+    "min_range": 0.4, "submaps.grid_type": "TSDF", "submaps.high_grid_size": 32, "submaps.low_grid_size": 16,
+    "optimizing_local_trajectory_builder.initialization_duration": 0.0,
+    "optimizing_local_trajectory_builder.max_control_points": 8,
+    "optimizing_local_trajectory_builder.max_clouds_in_window": 8,
+    "optimizing_local_trajectory_builder.points_per_cloud": 64,
+    "optimizing_local_trajectory_builder.max_num_iterations": 2})
+ct = OptimizingLocalTrajectoryBuilder(opts3, device=torch.device("cpu"))
+results = []
+for i in range(31):
+    t = 0.01 * i
+    ct.add_imu_data(t, np.array([0.0, 0.0, 9.80665]), np.zeros(3))
+    if i % 5 == 0:
+        ct.add_odometry_data(t, NpRigid3(np.array([0.2 * t, 0.0, 0.0])))
+    if i % 10 == 5:
+        pts = raycast_box_room_3d(np.array([0.2 * t, 0.0, 0.0]), np.array([1.0, 0, 0, 0]), num_azimuth=48, num_elevation=12)
+        pts = pts[~np.isnan(pts[:, 0])]
+        results.append(ct.add_range_data(TimedPointCloudData(
+            t, np.zeros(3, np.float32), pad_timed_cloud(pts, np.zeros(len(pts), np.float32), 1024))))
+assert ct.num_optimizations >= 1 and any(r is not None for r in results)
+assert all(np.all(np.isfinite(r.local_pose.t)) for r in results if r is not None)
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "hectorgrapher_tpu" or m.startswith("hectorgrapher_tpu."))
 print("LEAKED", leaked)

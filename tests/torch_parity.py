@@ -56,3 +56,84 @@ def perturbations(seed, b, lin=0.1, ang=0.05):
 def bf16_to_torch(x) -> torch.Tensor:
     """A JAX/ml_dtypes bfloat16 array as a torch bfloat16 tensor, bit for bit."""
     return torch.from_numpy(np.asarray(x).view(np.uint16).copy()).view(torch.bfloat16)
+
+
+def ct_example(grid=32, lo_filtered=False):
+    """__graft_entry__._build_ct_example(grid) (JAX: hi, lo, problem,
+    state, weights). With lo_filtered, each lo-res cloud is its hi-res
+    cloud voxel-filtered at 0.45 m and compacted, as ct/builder.py builds
+    it (ROADMAP C4), so the lo-res path sees another point set."""
+    import jax.numpy as jnp
+
+    from __graft_entry__ import _build_ct_example
+    from hectorgrapher_tpu.sensor.types import PointCloud
+    from hectorgrapher_tpu.sensor.voxel_filter import compact_cloud, voxel_filter
+
+    hi, lo, problem, state, weights = _build_ct_example(grid=grid)
+    if lo_filtered:
+        p = problem.hi_points.shape[1]
+        clouds = [
+            compact_cloud(voxel_filter(PointCloud(problem.hi_points[c], problem.hi_mask[c]), 0.45), p)
+            for c in range(problem.hi_points.shape[0])
+        ]
+        problem = problem._replace(
+            lo_points=jnp.stack([c.positions for c in clouds]), lo_mask=jnp.stack([c.mask for c in clouds])
+        )
+    return hi, lo, problem, state, weights
+
+
+def rotated_state(state, seed, angle=0.05):
+    """The CT state with each control point rotated by a seeded random
+    angle-axis of up to `angle` rad (the fixture's are all identity)."""
+    import jax.numpy as jnp
+
+    from hectorgrapher_tpu.transform.rigid import quat_from_axis_angle, quat_multiply, quat_normalize
+
+    rng = np.random.default_rng(seed)
+    aa = rng.uniform(-angle, angle, (state.rotation.shape[0], 3)).astype(np.float32)
+    return state._replace(rotation=quat_normalize(quat_multiply(state.rotation, quat_from_axis_angle(jnp.asarray(aa)))))
+
+
+def box_room_scan(seed, pose_t=(0.3, -0.2, 0.1), yaw=0.2, az=96, el=24):
+    """The valid points of one raycast_box_room_3d scan (default room) with
+    4 mm range noise, seen from pose_t at `yaw`."""
+    from hectorgrapher_tpu.evaluation.scan_generator import raycast_box_room_3d
+    from hectorgrapher_tpu.transform import np_quat as nq
+
+    rng = np.random.default_rng(seed)
+    q = nq.quat_from_axis_angle(np.array([0.0, 0.0, yaw]))
+    pts = raycast_box_room_3d(np.asarray(pose_t), q, num_azimuth=az, num_elevation=el, noise_std=0.004, rng=rng)
+    return pts[~np.isnan(pts[:, 0])]
+
+
+def ct_drive(builder, rigid, timed_data, pad, duration=1.5, speed=0.2, yaw_rate=0.1, seed=0):
+    """Drive a CT builder (either package's, with its own pose, data and
+    padding types) through the tests/test_ct_builder.py scenario: IMU at
+    100 Hz, odometry at 20 Hz with 2 mm noise, scans at 10 Hz of 96 x 24
+    rays with 4 mm range noise and sweep times over [-0.05, 0.049] s.
+    Returns [(time, local pose)] of its results."""
+    from hectorgrapher_tpu.evaluation.scan_generator import raycast_box_room_3d
+    from hectorgrapher_tpu.transform import np_quat as nq
+    from test_ct_builder import GRAVITY, gt_pose
+
+    rng = np.random.default_rng(seed)
+    out = []
+    t, next_odom, next_scan = 0.0, 0.0, 0.05
+    while t <= duration:
+        _, q = gt_pose(t, speed, yaw_rate)
+        builder.add_imu_data(t, nq.quat_rotate(nq.quat_conjugate(q), GRAVITY), np.array([0.0, 0.0, yaw_rate]))
+        if t >= next_odom:
+            pt, pq = gt_pose(t, speed, yaw_rate)
+            builder.add_odometry_data(t, rigid(pt + rng.normal(0, 0.002, 3), pq))
+            next_odom += 0.05
+        if t >= next_scan:
+            pt, pq = gt_pose(t, speed, yaw_rate)
+            pts = raycast_box_room_3d(pt, pq, num_azimuth=96, num_elevation=24, noise_std=0.004, rng=rng)
+            pts = pts[~np.isnan(pts[:, 0])]
+            times = np.linspace(-0.05, 0.049, len(pts)).astype(np.float32)
+            res = builder.add_range_data(timed_data(t, np.zeros(3, np.float32), pad(pts, times, 2560)))
+            if res is not None:
+                out.append((res.time, res.local_pose))
+            next_scan += 0.1
+        t = round(t + 0.01, 6)
+    return out
