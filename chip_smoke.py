@@ -10,8 +10,12 @@ PyTorch version at the shapes the main path gives it, then drives the main
 paths: the batched correlative + Gauss-Newton matcher at B=1024, the 2D
 local SLAM front end (LocalTrajectoryBuilder2D) over 60 scans of the
 mapping-evaluation circle, the CT window solve on the production-extent
-fixture (256^3 / 128^3 TSDF grids), and the continuous-time 3D front end
-(OptimizingLocalTrajectoryBuilder) over 80 scans at its default options.
+fixture (256^3 / 128^3 TSDF grids), the continuous-time 3D front end
+(OptimizingLocalTrajectoryBuilder) over 80 scans at its default options,
+one full fast 3D loop-closure match over a 256^3 submap, and the 3D SLAM
+path (MapBuilder -> CT front end -> PoseGraph3D: constraint searches and
+SPA on the pose graph's worker thread) over an out-and-back drive at the
+front end's full width.
 Each phase prints one line; any failure exits non-zero before the last
 line. The second-to-last line is a JSON record of the kernels, the last
 line a JSON record of the device.
@@ -44,6 +48,8 @@ from hectorgrapher_tpu_torch.mapping.grids import make_probability_grid, make_ts
 from hectorgrapher_tpu_torch.mapping.inserters_3d import make_tsdf_inserter_3d
 from hectorgrapher_tpu_torch.mapping.inserters_2d import make_probability_inserter_2d
 from hectorgrapher_tpu_torch.mapping.local_2d import LocalTrajectoryBuilder2D
+from hectorgrapher_tpu_torch.mapping.map_builder import MapBuilder
+from hectorgrapher_tpu_torch.mapping.scan_matching import fast_correlative_3d
 from hectorgrapher_tpu_torch.mapping.scan_matching.correlative_2d import (
     _window_geometry,
     make_search_window,
@@ -51,14 +57,17 @@ from hectorgrapher_tpu_torch.mapping.scan_matching.correlative_2d import (
     prep_inputs,
     prepare_correlative_table,
 )
+from hectorgrapher_tpu_torch.mapping.scan_matching.fast_correlative_3d import FastCorrelativeScanMatcher3D
 from hectorgrapher_tpu_torch.mapping.scan_matching.gn_2d import (
     match_gn_2d_probability_batched,
     prepare_gn_probability_field,
 )
+from hectorgrapher_tpu_torch.mapping.scan_matching.rotational_histogram import compute_histogram
 from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.ops.correlative_prep_2d import correlative_prep_2d, correlative_prep_2d_plain
 from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d, correlative_scores_2d_plain
 from hectorgrapher_tpu_torch.ops.ct_scan_block import ct_scan_block, ct_scan_block_plain
+from hectorgrapher_tpu_torch.ops.fast_scores_3d import fast_scores_3d, fast_scores_3d_plain
 from hectorgrapher_tpu_torch.sensor.types import (
     PointCloud,
     RangeData,
@@ -67,10 +76,10 @@ from hectorgrapher_tpu_torch.sensor.types import (
     pad_cloud,
     pad_timed_cloud,
 )
-from hectorgrapher_tpu_torch.sensor.voxel_filter import adaptive_voxel_filter
+from hectorgrapher_tpu_torch.sensor.voxel_filter import adaptive_voxel_filter, compact_cloud, voxel_filter
 from hectorgrapher_tpu_torch.transform import np_quat as nq
 from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
-from hectorgrapher_tpu_torch.transform.rigid import Rigid2
+from hectorgrapher_tpu_torch.transform.rigid import Rigid2, Rigid3
 
 SEED = 0
 BATCH = 1024  # the batched matcher's server operating point
@@ -704,6 +713,302 @@ def profile_ct_finish(handle, n_scans):
         f.write(events.table(sort_by="cpu_time_total", row_limit=60))
 
 
+FM_TRUTH = (np.array([0.4, -0.3, 0.05]), 0.05)  # phase 10's scan pose: position, yaw
+FM_START = np.array([0.1, -0.1, 0.05])  # its initial estimate, at yaw 0
+
+
+def node_clouds(pts, device):
+    """A scan's loop-closure clouds as the CT front end makes them: the
+    0.15 m voxel filter, then each adaptive filter, compacted to 256
+    points; and its rotational histogram."""
+    opts = cfg.TrajectoryBuilder3DOptions()
+    cloud = voxel_filter(pad_cloud(pts.astype(np.float32), 4096, device), opts.voxel_filter_size)
+    hi = compact_cloud(adaptive_voxel_filter(cloud, opts.high_resolution_adaptive_voxel_filter), 256)
+    lo = compact_cloud(adaptive_voxel_filter(cloud, opts.low_resolution_adaptive_voxel_filter), 256)
+    return hi, lo, compute_histogram(cloud.positions, cloud.mask, opts.rotational_histogram_size).cpu().numpy()
+
+
+@contextlib.contextmanager
+def score_sums_through(fn):
+    """Route the fast matcher's score sums through fn."""
+    fast_correlative_3d.fast_scores_3d = fn
+    try:
+        yield
+    finally:
+        fast_correlative_3d.fast_scores_3d = fast_scores_3d
+
+
+def fast_match_submap(device, hi_size=256, lo_size=128):
+    """Phase 10's finished submap: the SubmapsOptions3D default grids (hi
+    256^3 at 0.1 m, lo 128^3 at 0.45 m), each filled by the ray-mode
+    inserter with a 256 x 48-ray scan of the default box room (4 mm range
+    noise) from each of three poses, as tests/test_pose_graph_3d_integration.py
+    builds its anchor submap; and the scans' summed rotational histogram.
+    Without the noise, rays of one azimuth hit the room's axis-aligned walls
+    at the same (x, y), and the histogram's tie order, which the card's
+    atomic centroid sums decide, moves whole walls between its first and
+    last bucket (ROADMAP C11)."""
+    sub = cfg.SubmapsOptions3D()
+    opts = cfg.TSDFRangeDataInserterOptions3D(normal_computation_method="NONE", min_range=0.4, max_range=30.0)
+    grids, inserters = [], []
+    for res, size, ins in ((sub.high_resolution, hi_size, sub.high_resolution_range_data_inserter),
+                           (sub.low_resolution, lo_size, sub.low_resolution_range_data_inserter)):
+        t = ins.tsdf_range_data_inserter
+        grids.append(make_tsdf_grid(res, (size,) * 3, t.relative_truncation_distance * res, t.maximum_weight, device))
+        inserters.append(make_tsdf_inserter_3d(opts, res))
+    hist = np.zeros(120, np.float32)
+    rng = np.random.default_rng(SEED + 1)
+    for pose_t in (np.zeros(3), np.array([0.4, 0.3, 0.0]), np.array([0.8, -0.3, 0.0])):
+        pts = raycast_box_room_3d(pose_t, nq.quat_identity(), num_azimuth=256, num_elevation=48, noise_std=0.004,
+                                  rng=rng)
+        pts = pts[~np.isnan(pts[:, 0])].astype(np.float32) + pose_t.astype(np.float32)
+        cloud = pad_cloud(pts, 16384, device)
+        rd = RangeData(torch.tensor(pose_t, dtype=torch.float32, device=device), cloud,
+                       pad_cloud(np.zeros((0, 3), np.float32), 4, device))
+        grids = [insert(g, rd) for insert, g in zip(inserters, grids)]
+        hist += compute_histogram(cloud.positions, cloud.mask, 120).cpu().numpy()
+    return grids[0], grids[1], hist
+
+
+def run_fast_match(device, hi, lo, hist, max_scan_range=20.0, reps=5):
+    """Phase 10: K4 against its plain version in one full match of the fast
+    3D matcher (FastCorrelativeScanMatcherOptions3D defaults: 8 levels,
+    5 m / 1 m / 15 degree window, 256-wide beam) over fast_match_submap's
+    production-extent submap, a scan taken at FM_TRUTH matched from
+    FM_START. Every score_sum call of the match is held against the plain
+    version; the plain path's match must land on the same pose or on a
+    tied score. Returns (max_abs_err, ms, plain_ms) at the coarse stage."""
+    t0 = time.perf_counter()
+    matcher = FastCorrelativeScanMatcher3D(cfg.FastCorrelativeScanMatcherOptions3D(), hi, lo, hist)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    truth_t, truth_yaw = FM_TRUTH
+    rng = np.random.default_rng(SEED)
+    pts = raycast_box_room_3d(truth_t, nq.quat_from_axis_angle(np.array([0.0, 0.0, truth_yaw])), num_azimuth=96,
+                              num_elevation=24, noise_std=0.004, rng=rng)
+    high, low, scan_hist = node_clouds(pts[~np.isnan(pts[:, 0])], device)
+    initial = Rigid3(torch.tensor(FM_START, dtype=torch.float32, device=device),
+                     torch.tensor([1.0, 0.0, 0.0, 0.0], device=device))
+    match = lambda: matcher.match(initial, high, low, scan_hist, 0.0, max_scan_range=max_scan_range)
+
+    calls = []
+
+    def recorded(*a):
+        out = fast_scores_3d(*a)
+        calls.append((a, out))
+        return out
+
+    with score_sums_through(recorded):
+        score, low_score, _, pose = match()
+    with score_sums_through(fast_scores_3d_plain):
+        score_p, _, _, pose_p = match()
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, out in calls:
+        want = fast_scores_3d_plain(*a)
+        if not bool(torch.isfinite(out).all()):
+            fail("K4 fast_scores_3d returned non-finite values")
+        # Sums of at most 256 values below 0.8 in point order, against the
+        # plain version's chunks of 32: |delta| <= 1e-5 * max(1, max|sum|).
+        e = float((out - want).abs().max())
+        if e > 1e-5 * max(1.0, float(want.abs().max())):
+            fail(f"K4 fast_scores_3d differs from its plain version at level {a[9]}: max {e:.3e}")
+        err = max(err, e)
+    score, low_score, score_p = float(score), float(low_score), float(score_p)
+    same_pose = (float((pose.translation - pose_p.translation).abs().max()) <= 1e-5
+                 and float((pose.rotation - pose_p.rotation).abs().max()) <= 1e-6)
+    if not (same_pose or abs(score - score_p) <= 1e-6):
+        fail(f"fast match: the K4 path's pose differs from the plain path's and its score {score:.7f} does not "
+             f"tie {score_p:.7f}")
+    t_err = float(np.linalg.norm(pose.translation.cpu().numpy() - truth_t))
+    y_err = abs(nq.quat_yaw(pose.rotation.cpu().numpy().astype(np.float64)) - truth_yaw)
+    if t_err > 0.15 or y_err > 0.05 or score < 0.55 or low_score < 0.55:
+        fail(f"fast match: pose {t_err:.4f} m / {y_err:.4f} rad from the truth (bounds 0.15 / 0.05), score "
+             f"{score:.4f}, low-res score {low_score:.4f} (gates 0.55)")
+
+    (coarse, _), (expansion, _) = calls[0], calls[1]
+    stats = {}
+    for label, a in (("coarse", coarse), ("expansion", expansion)):
+        kernel, plain = (lambda a=a: fast_scores_3d(*a)), (lambda a=a: fast_scores_3d_plain(*a))
+        c, x, y, z = kernel().shape
+        stats[label] = (cuda_ms(kernel), cuda_ms(plain))
+        print(f"K4 fast_scores_3d {label} level {a[9]} C={c} X={x} Y={y} Z={z} P={a[1].shape[1]} T={a[1].shape[0]}: "
+              f"per call kernel {stats[label][0]:.4f} ms, plain {stats[label][1]:.4f} ms; device time kernel "
+              f"{_fmt(device_ms(kernel))}, plain {_fmt(device_ms(plain))}", flush=True)
+
+    def timed(fn):
+        out = []
+        for _ in range(reps):
+            sync(device)
+            t1 = time.perf_counter()
+            fn()
+            sync(device)
+            out.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(out)
+
+    match_ms = timed(match)
+    with score_sums_through(fast_scores_3d_plain):
+        match_plain_ms = timed(match)
+    print(f"fast match {hi.shape[0]}^3, {len(matcher._pyramid_levels)} levels "
+          f"({matcher.pyramid_bytes / 2**20:.1f} MiB, built in {build_s * 1e3:.1f} ms), {len(calls)} score_sum calls: max |d| {err:.3e}; score {score:.5f} "
+          f"(plain path {score_p:.5f}, same pose {same_pose}), low-res {low_score:.5f}, error {t_err:.4f} m / "
+          f"{y_err:.4f} rad; per match median {match_ms:.3f} ms, plain path {match_plain_ms:.3f} ms", flush=True)
+    return err, *stats["coarse"]
+
+
+SLAM_ANCHOR = np.array([-2.6, -2.0, 0.0])  # phase 11's start, world frame
+SLAM_SPEED, SLAM_REST, SLAM_OUT = 0.8, 0.6, 3.0  # m/s, s at rest, m out (and back)
+# The JAX package's MapBuilder on a CPU over the same drive and options
+# (async work queue, serial constraint search), two runs: 70 nodes, 9
+# submaps (7 finished), 275 and 270 INTER constraints, 5 optimizations;
+# the returning tail's max local error 0.30263 m both times, its max
+# global error 0.03966 / 0.04393 m, the median global error 0.02941 /
+# 0.03436 m, the max global error 0.19620 / 0.17909 m (the worker thread's
+# timing against the front end changes the solves' starting poses). The
+# constants are the larger of each pair; the port must stay within twice
+# each, or 0.05 m above it.
+JAX_SLAM_LATE_GLOBAL, JAX_SLAM_MEDIAN_GLOBAL, JAX_SLAM_MAX_GLOBAL = 0.04393, 0.03436, 0.19620
+
+
+def slam_options():
+    """tests/test_map_builder_3d.py loop_options() (over make_options())
+    at the CT front end's full width (256^3 / 128^3 grids, K=32, C=32,
+    P=256, 12 LM iterations), with the async work queue and the serial
+    constraint search."""
+    ct = "trajectory_builder_3d.optimizing_local_trajectory_builder."
+    fm = "pose_graph.constraint_builder.fast_correlative_scan_matcher_3d."
+    return cfg.replace_deep(cfg.MapBuilderOptions(), {
+        "use_trajectory_builder_3d": True,
+        "trajectory_builder_3d.min_range": 0.4,
+        "trajectory_builder_3d.max_range": 25.0,
+        "trajectory_builder_3d.submaps.grid_type": "TSDF",
+        "trajectory_builder_3d.submaps.high_grid_size": 256,
+        "trajectory_builder_3d.submaps.low_grid_size": 128,
+        "trajectory_builder_3d.submaps.num_range_data": 8,
+        "trajectory_builder_3d.motion_filter.max_distance_meters": 0.02,
+        "trajectory_builder_3d.motion_filter.max_angle_radians": 0.002,
+        "trajectory_builder_3d.motion_filter.max_time_seconds": 0.05,
+        ct + "initialization_duration": 0.45,
+        ct + "max_control_points": 32,
+        ct + "max_clouds_in_window": 32,
+        ct + "points_per_cloud": 256,
+        ct + "max_num_iterations": 12,
+        ct + "odometry_translation_weight": 50.0,
+        ct + "odometry_rotation_weight": 50.0,
+        ct + "high_resolution_grid_weight": 0.05,
+        ct + "low_resolution_grid_weight": 0.05,
+        "pose_graph.optimize_every_n_nodes": 16,
+        "pose_graph.async_work_queue": True,
+        "pose_graph.use_batched_constraint_search": False,
+        "pose_graph.constraint_builder.sampling_ratio": 1.0,
+        "pose_graph.constraint_builder.max_constraint_distance": 8.0,
+        "pose_graph.constraint_builder.min_score": 0.45,
+        fm + "linear_xy_search_window": 2.0,
+        fm + "linear_z_search_window": 0.4,
+        fm + "branch_and_bound_depth": 4,
+        fm + "min_rotational_score": 0.2,
+        fm + "min_low_resolution_score": 0.45,
+    })
+
+
+def slam_truth(t):
+    """Phase 11's true position in the map frame (the start is its origin):
+    rest, drive +x SLAM_OUT at SLAM_SPEED, drive back."""
+    s = max(0.0, t - SLAM_REST)
+    t_out = SLAM_OUT / SLAM_SPEED
+    return np.array([SLAM_SPEED * s if s <= t_out else SLAM_OUT - SLAM_SPEED * min(s - t_out, t_out), 0.0, 0.0])
+
+
+def slam_drive(seed=1):
+    """tests/test_map_builder_3d.py's out-and-back drive in time order: IMU
+    at 100 Hz, odometry at 20 Hz with a +x bias growing 0.1 m/s over t in
+    [2, 5] s and 2 mm noise, and 10 Hz scans of 96 x 24 rays of the default
+    box room with 4 mm range noise. Yields ("imu", t, acc, gyro), ("odom",
+    t, pose) and ("scan", t, data)."""
+    gravity = np.array([0.0, 0.0, 9.80665])
+    rng = np.random.default_rng(seed)
+    duration = SLAM_REST + 2 * SLAM_OUT / SLAM_SPEED
+    t, next_odom, next_scan = 0.0, 0.0, 0.05
+    while t <= duration:
+        yield "imu", t, gravity, np.zeros(3)
+        pt = SLAM_ANCHOR + slam_truth(t)
+        if t >= next_odom:
+            bias = np.array([0.1 * np.clip(t - 2.0, 0.0, 3.0), 0.0, 0.0])
+            yield "odom", t, NpRigid3(pt + bias + rng.normal(0, 0.002, 3), nq.quat_identity())
+            next_odom += 0.05
+        if t >= next_scan:
+            pts = raycast_box_room_3d(pt, nq.quat_identity(), num_azimuth=96, num_elevation=24, noise_std=0.004,
+                                      rng=rng)
+            pts = pts[~np.isnan(pts[:, 0])]
+            yield "scan", t, TimedPointCloudData(t, np.zeros(3, np.float32),
+                                                 pad_timed_cloud(pts, np.zeros(len(pts), np.float32), 2560), 96)
+            next_scan += 0.1
+        t = round(t + 0.01, 6)
+
+
+def timed_method(obj, name, times, errors):
+    """Wrap obj.name to append its host seconds to `times` (each call ends
+    in a device readback) and any exception to `errors`."""
+    fn = getattr(obj, name)
+
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        except Exception as e:
+            errors.append(f"{name}: {e!r}")
+            raise
+        finally:
+            times.append(time.perf_counter() - t0)
+
+    setattr(obj, name, run)
+
+
+def run_slam(device, options=None, drive=None):
+    """Phase 11: MapBuilder 3D -> TrajectoryBuilder -> CT front end ->
+    PoseGraph3D over the out-and-back drive, the constraint searches and
+    SPA solves on the pose graph's worker thread, then the final
+    optimization. Returns a dict of the run's counts, errors and times."""
+    mb = MapBuilder(options or slam_options(), device=device)
+    tb = mb.get_trajectory_builder(mb.add_trajectory_builder())
+    pg = mb.pose_graph
+    searches, solves, errors = [], [], []
+    timed_method(pg, "_compute_constraint", searches, errors)
+    timed_method(pg, "_run_optimization", solves, errors)
+    timed_method(pg, "_on_submap_finished", [], errors)
+    latencies = []
+    t_start = time.perf_counter()
+    for kind, t, *payload in drive or slam_drive():
+        if kind == "imu":
+            tb.add_imu_data(t, *payload)
+        elif kind == "odom":
+            tb.add_odometry_data(t, payload[0])
+        else:
+            solved = tb._local.num_optimizations
+            t0 = time.perf_counter()
+            tb.add_range_data(payload[0])
+            sync(device)
+            if solved:
+                latencies.append(time.perf_counter() - t0)
+    front_s = time.perf_counter() - t_start
+    pg.wait_for_all_computations()
+    drain_s = time.perf_counter() - t_start - front_s
+    late = pg.nodes[-max(4, len(pg.nodes) // 4):]
+    local_errs = [float(np.linalg.norm(n.local_pose.t - slam_truth(n.time))) for n in late]
+    n_inter = sum(c.tag == "INTER" for c in pg.constraints)
+    n_solves = len(solves)
+    pg.run_final_optimization()
+    global_errs = [float(np.linalg.norm(n.global_pose.t - slam_truth(n.time))) for n in pg.nodes]
+    late_global = global_errs[-len(late):]
+    return dict(
+        nodes=len(pg.nodes), submaps=len(pg.submaps), finished=sum(s.finished for s in pg.submaps), inter=n_inter,
+        optimizations=n_solves, errors=errors, late_local=max(local_errs), late_global=max(late_global),
+        median_global=float(np.median(global_errs)), max_global=max(global_errs), latencies=latencies,
+        searches=searches, solves=solves, front_s=front_s, drain_s=drain_s,
+        finite=all(np.all(np.isfinite(n.global_pose.t)) for n in pg.nodes),
+    )
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile-ct", type=int, default=0, metavar="N",
@@ -799,6 +1104,44 @@ def main() -> int:
           f"{CT_MAX_YAW_ERROR:.5f}); per-scan latency median {np.median(lat_ms):.3f} ms, "
           f"p95 {np.percentile(lat_ms, 95):.3f} ms over {len(lat_ms)} scans", flush=True)
 
+    # Phase 10: K4 against its plain version in a full fast match over a
+    # production-extent submap.
+    checks["fast_scores_3d"] = {"coarse": run_fast_match(device, *fast_match_submap(device))}
+
+    # Phase 11: the 3D SLAM path, through K4 on every score sum of every
+    # constraint search.
+    fast_correlative_3d.match_fast_3d.score_sums = 0
+    fast_scores_3d.launches = 0
+    ct_scan_block.launches = 0  # the CT window solves' and GN3D's scan blocks
+    slam = run_slam(device)
+    launches["fast_scores_3d"] = fast_scores_3d.launches
+    score_sums = fast_correlative_3d.match_fast_3d.score_sums
+    if slam["errors"]:
+        fail(f"SLAM: pose-graph work failed: {slam['errors'][:3]}")
+    if fast_scores_3d.launches != score_sums or score_sums == 0:
+        fail(f"SLAM: {fast_scores_3d.launches} K4 launches for {score_sums} score_sum calls")
+    if not slam["finite"] or slam["finished"] == 0 or slam["inter"] == 0:
+        fail(f"SLAM: {slam['finished']} finished submaps, {slam['inter']} INTER constraints, finite {slam['finite']}")
+    if not slam["late_global"] < slam["late_local"] / 2:
+        fail(f"SLAM: the returning tail's global error {slam['late_global']:.5f} m is not below half its "
+             f"open-loop error {slam['late_local']:.5f} m")
+    for key, jax_err in (("late_global", JAX_SLAM_LATE_GLOBAL), ("median_global", JAX_SLAM_MEDIAN_GLOBAL),
+                         ("max_global", JAX_SLAM_MAX_GLOBAL)):
+        if slam[key] > max(2 * jax_err, jax_err + 0.05):
+            fail(f"SLAM: {key} error {slam[key]:.5f} m exceeds max(2 x, +0.05 m) of the JAX package's {jax_err:.5f}")
+    lat_ms, search_ms, solve_ms = (np.array(slam[k]) * 1e3 for k in ("latencies", "searches", "solves"))
+    print(f"SLAM 3D: {slam['nodes']} nodes, {slam['submaps']} submaps ({slam['finished']} finished), "
+          f"{slam['inter']} INTER constraints, {slam['optimizations']} optimizations; K4 launches "
+          f"{fast_scores_3d.launches} = score_sum calls {score_sums}, K3 launches {ct_scan_block.launches}; "
+          f"returning tail local {slam['late_local']:.5f} m, "
+          f"global {slam['late_global']:.5f} m; global median {slam['median_global']:.5f} m, max "
+          f"{slam['max_global']:.5f} m (JAX on the CPU {JAX_SLAM_LATE_GLOBAL:.5f} / {JAX_SLAM_MEDIAN_GLOBAL:.5f} / "
+          f"{JAX_SLAM_MAX_GLOBAL:.5f}); per-scan latency median {np.median(lat_ms):.3f} ms, p95 "
+          f"{np.percentile(lat_ms, 95):.3f} ms over {len(lat_ms)} scans; constraint search median "
+          f"{np.median(search_ms):.3f} ms, p95 {np.percentile(search_ms, 95):.3f} ms over {len(search_ms)}; SPA solve "
+          f"median {np.median(solve_ms):.3f} ms, max {solve_ms.max():.3f} ms over {len(solve_ms)}; drive "
+          f"{slam['front_s']:.1f} s, queue drained {slam['drain_s']:.1f} s after", flush=True)
+
     sources = {
         "correlative_prep_2d": ("hectorgrapher_tpu_torch/csrc/correlative_prep_2d.cu",
                                 "hectorgrapher_tpu/ops/pallas_prep2d.py:74"),
@@ -807,10 +1150,13 @@ def main() -> int:
         "ct_scan_block": ("hectorgrapher_tpu_torch/csrc/ct_scan_block.cu",
                           "hectorgrapher_tpu/mapping/ct/window_solver.py:467 (XLA fusion of scan_block, "
                           "with interpolated_grid.py:332-466)"),
+        "fast_scores_3d": ("hectorgrapher_tpu_torch/csrc/fast_scores_3d.cu",
+                           "hectorgrapher_tpu/mapping/scan_matching/fast_correlative_3d.py:329 (score_sum of "
+                           "_match_fast_3d_core, an XLA gather-reduce)"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
-        err, ms, plain_ms = checks[name]["front_end"]
+        err, ms, plain_ms = next(iter(checks[name].values()))
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],

@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass, field, fields, is_dataclass
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 
 def _mkdefault(cls):
@@ -332,6 +332,138 @@ class TrajectoryBuilder3DOptions:
     optimizing_local_trajectory_builder: OptimizingLocalTrajectoryBuilderOptions = _mkdefault(
         OptimizingLocalTrajectoryBuilderOptions
     )
+
+
+# ---------------------------------------------------------------------------
+# Pose graph and map builder
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FastCorrelativeScanMatcherOptions2D:
+    """(ref: internal/2d/scan_matching/fast_correlative_scan_matcher_2d.h)"""
+
+    linear_search_window: float = 7.0
+    angular_search_window: float = math.radians(30.0)
+    branch_and_bound_depth: int = 7
+
+
+@dataclass(frozen=True)
+class FastCorrelativeScanMatcherOptions3D:
+    """(ref: internal/3d/scan_matching/fast_correlative_scan_matcher_3d.h)"""
+
+    branch_and_bound_depth: int = 8
+    full_resolution_depth: int = 3
+    use_rotational_scan_matcher: bool = True
+    min_rotational_score: float = 0.77
+    min_low_resolution_score: float = 0.55
+    linear_xy_search_window: float = 5.0
+    linear_z_search_window: float = 1.0
+    angular_search_window: float = math.radians(15.0)
+
+
+@dataclass(frozen=True)
+class ConstraintBuilderOptions:
+    """(ref: internal/constraints/constraint_builder.h, pose_graph.lua)"""
+
+    sampling_ratio: float = 0.3
+    max_constraint_distance: float = 15.0
+    min_score: float = 0.55
+    # Device byte budget of the batched constraint search's packs; that
+    # search is not ported yet, so nothing reads it.
+    pack_hbm_budget_bytes: int = 6 << 30
+    global_localization_min_score: float = 0.6
+    loop_closure_translation_weight: float = 1.1e4
+    loop_closure_rotation_weight: float = 1e5
+    log_matches: bool = True
+    fast_correlative_scan_matcher: FastCorrelativeScanMatcherOptions2D = _mkdefault(
+        FastCorrelativeScanMatcherOptions2D
+    )
+    ceres_scan_matcher: CeresScanMatcher2DOptions = field(
+        default_factory=lambda: CeresScanMatcher2DOptions(
+            occupied_space_weight=20.0,
+            translation_weight=10.0,
+            rotation_weight=1.0,
+            ceres_solver_options=SolverOptions(use_nonmonotonic_steps=True, max_num_iterations=10),
+        )
+    )
+    fast_correlative_scan_matcher_3d: FastCorrelativeScanMatcherOptions3D = _mkdefault(
+        FastCorrelativeScanMatcherOptions3D
+    )
+    ceres_scan_matcher_3d: CeresScanMatcher3DOptions = field(
+        default_factory=lambda: CeresScanMatcher3DOptions(
+            occupied_space_weight_0=5.0,
+            occupied_space_weight_1=30.0,
+            translation_weight=10.0,
+            rotation_weight=1.0,
+            ceres_solver_options=SolverOptions(max_num_iterations=10),
+        )
+    )
+
+
+@dataclass(frozen=True)
+class OptimizationProblemOptions:
+    """(ref: internal/optimization/optimization_problem_options.h, pose_graph.lua)"""
+
+    huber_scale: float = 1e1
+    acceleration_weight: float = 1e3
+    rotation_weight: float = 3e5
+    local_slam_pose_translation_weight: float = 1e5
+    local_slam_pose_rotation_weight: float = 1e5
+    odometry_translation_weight: float = 1e5
+    odometry_rotation_weight: float = 1e5
+    fixed_frame_pose_translation_weight: float = 1e1
+    fixed_frame_pose_rotation_weight: float = 1e2
+    log_solver_summary: bool = False
+    use_online_imu_extrinsics_in_3d: bool = True
+    fix_z_in_3d: bool = False
+    ceres_solver_options: SolverOptions = field(
+        default_factory=lambda: SolverOptions(max_num_iterations=50, num_threads=7)
+    )
+
+
+@dataclass(frozen=True)
+class OverlappingSubmapsTrimmerOptions2D:
+    fresh_submaps_count: int = 1
+    min_covered_area: float = 2.0
+    min_added_submaps_count: int = 5
+
+
+@dataclass(frozen=True)
+class PoseGraphOptions:
+    """(ref: configuration_files/pose_graph.lua)"""
+
+    optimize_every_n_nodes: int = 90
+    # Constraint searches and SPA run on a worker thread (ref:
+    # pose_graph_3d.cc AddWorkItem:162-177, DrainWorkQueue:512-535);
+    # False runs them inline, deterministically.
+    async_work_queue: bool = True
+    # The JAX package's one-launch batched constraint search; the port has
+    # only the serial search and refuses True (PoseGraph3D).
+    use_batched_constraint_search: bool = True
+    constraint_builder: ConstraintBuilderOptions = _mkdefault(ConstraintBuilderOptions)
+    matcher_translation_weight: float = 5e2
+    matcher_rotation_weight: float = 1.6e3
+    optimization_problem: OptimizationProblemOptions = _mkdefault(OptimizationProblemOptions)
+    max_num_final_iterations: int = 200
+    global_sampling_ratio: float = 0.003
+    log_residual_histograms: bool = True
+    use_global_constraint_search: bool = True
+    global_constraint_search_after_n_seconds: float = 10.0
+    overlapping_submaps_trimmer_2d: Optional[OverlappingSubmapsTrimmerOptions2D] = None
+
+
+@dataclass(frozen=True)
+class MapBuilderOptions:
+    """(ref: configuration_files/map_builder.lua)"""
+
+    use_trajectory_builder_2d: bool = False
+    use_trajectory_builder_3d: bool = False
+    num_background_threads: int = 4
+    pose_graph: PoseGraphOptions = _mkdefault(PoseGraphOptions)
+    collate_by_trajectory: bool = False
+    trajectory_builder_2d: TrajectoryBuilder2DOptions = _mkdefault(TrajectoryBuilder2DOptions)
+    trajectory_builder_3d: TrajectoryBuilder3DOptions = _mkdefault(TrajectoryBuilder3DOptions)
 
 
 # ---------------------------------------------------------------------------

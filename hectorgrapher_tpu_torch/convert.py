@@ -16,7 +16,11 @@ import torch
 from hectorgrapher_tpu_torch.common import config
 from hectorgrapher_tpu_torch.mapping.ct.window_solver import CtProblem, CtState, CtWeights
 from hectorgrapher_tpu_torch.mapping.grids import GridMeta, ProbabilityGrid, TSDFGrid
+from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import SpaExtras3D, SpaProblem3D
+from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import PgNode
+from hectorgrapher_tpu_torch.mapping.submap_3d import Submap3D
 from hectorgrapher_tpu_torch.sensor.types import PointCloud, RangeData, TimedPointCloud
+from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
 from hectorgrapher_tpu_torch.transform.rigid import Rigid2
 
 
@@ -90,6 +94,51 @@ def point_cloud(cloud, device) -> PointCloud:
         positions=tensor(cloud.positions, device, torch.float32),
         mask=tensor(cloud.mask, device, torch.bool),
     )
+
+
+def np_rigid3(pose) -> NpRigid3:
+    """A host pose (float64 t, q) of either package."""
+    return NpRigid3(np.array(pose.t, np.float64), np.array(pose.q, np.float64))
+
+
+def submap_3d(submap, device) -> Submap3D:
+    """A JAX Submap3D with float32 TSDF grids, finished or not."""
+    return Submap3D(
+        local_pose=np_rigid3(submap.local_pose),
+        high_resolution_grid=tsdf_grid(submap.high_resolution_grid, device),
+        low_resolution_grid=tsdf_grid(submap.low_resolution_grid, device),
+        rotational_histogram=np.array(submap.rotational_histogram, np.float32),
+        num_range_data=int(submap.num_range_data),
+        insertion_finished=bool(submap.insertion_finished),
+    )
+
+
+def pg_node(node, device) -> PgNode:
+    """A JAX 3D pose-graph node, its loop-closure clouds on device."""
+    return PgNode(
+        time=float(node.time),
+        local_pose=np_rigid3(node.local_pose),
+        global_pose=np_rigid3(node.global_pose),
+        trajectory_id=int(node.trajectory_id),
+        high_cloud=point_cloud(node.high_cloud, device),
+        low_cloud=point_cloud(node.low_cloud, device),
+        histogram=np.array(node.histogram, np.float32),
+        gravity_alignment=None if node.gravity_alignment is None else np.array(node.gravity_alignment),
+        node_id=int(node.node_id),
+    )
+
+
+def spa_problem_3d(problem, device) -> SpaProblem3D:
+    return _named_tuple(SpaProblem3D, problem, device)
+
+
+def spa_extras_3d(extras, device) -> SpaExtras3D:
+    return _named_tuple(SpaExtras3D, extras, device)
+
+
+def pyramid_levels(levels, device):
+    """A JAX FastCorrelativeScanMatcher3D's flat level tables (f32, unpaired)."""
+    return tuple(tensor(t, device, torch.float32).contiguous() for t in levels)
 
 
 def rigid2(pose, device) -> Rigid2:

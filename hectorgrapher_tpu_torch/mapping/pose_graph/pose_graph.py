@@ -1,0 +1,839 @@
+"""Pose graph back end, 3D: constraints, loop closure, global optimization
+(counterpart of hectorgrapher_tpu/mapping/pose_graph/pose_graph.py,
+PoseGraphBase :240-884 and PoseGraph3D :1602-2484, serial constraint
+search; ref: mapping/internal/3d/pose_graph_3d.cc,
+internal/constraints/constraint_builder_3d.cc).
+
+Bookkeeping (node and submap tables, constraint lists, sampling and
+distance gates, trajectory lifecycle) lives on the host. With
+async_work_queue the constraint searches and the SPA solves run on a
+worker thread (ref: pose_graph_3d.cc AddWorkItem:162-177,
+DrainWorkQueue:512-535) while the front end streams; _lock guards the
+bookkeeping and _opt_lock serializes optimizations, the reference's
+structure. Each gated candidate is one fast-matcher search (kernel K4) and
+one GN3D refinement on the device.
+
+Not ported: the batched constraint search and the solver mesh (the
+constructor and set_solver_mesh raise NotImplementedError), the trimmer
+classes, and PoseGraph2D.
+"""
+
+from __future__ import annotations
+
+import math
+import queue as queue_mod
+import threading
+import traceback
+from dataclasses import dataclass
+from enum import Enum
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from hectorgrapher_tpu_torch.common import profiling
+from hectorgrapher_tpu_torch.mapping.ct import imu_integration
+from hectorgrapher_tpu_torch.mapping.pose_graph.connectivity import TrajectoryConnectivityState
+from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import (
+    SpaExtras3D,
+    SpaProblem3D,
+    empty_extras_3d,
+    solve_spa_3d,
+    solve_spa_3d_full,
+)
+from hectorgrapher_tpu_torch.mapping.pose_graph.trimmers import trim_submaps
+from hectorgrapher_tpu_torch.mapping.scan_matching.fast_correlative_3d import FastCorrelativeScanMatcher3D
+from hectorgrapher_tpu_torch.mapping.scan_matching.gn_3d import match_gn_3d
+from hectorgrapher_tpu_torch.sensor.types import PointCloud
+from hectorgrapher_tpu_torch.transform import np_quat as nq
+from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
+from hectorgrapher_tpu_torch.transform.rigid import Rigid3
+
+
+class TrajectoryState(Enum):
+    """(ref: pose_graph_interface.h:85)"""
+
+    ACTIVE = 0
+    FINISHED = 1
+    FROZEN = 2
+    DELETED = 3
+
+
+@dataclass
+class Constraint:
+    """(ref: pose_graph_interface.h:33-53 Constraint)"""
+
+    submap_index: int
+    node_index: int
+    zbar: NpRigid3  # pose of the node in the submap's frame
+    translation_weight: float
+    rotation_weight: float
+    tag: str  # "INTRA" | "INTER"
+
+
+@dataclass
+class PgNode:
+    time: float
+    local_pose: NpRigid3
+    global_pose: NpRigid3
+    trajectory_id: int = 0
+    high_cloud: Optional[PointCloud] = None  # loop-closure clouds, tracking frame
+    low_cloud: Optional[PointCloud] = None
+    histogram: Optional[np.ndarray] = None
+    gravity_alignment: Optional[np.ndarray] = None
+    # Stable identity surviving trims (ref: mapping/id.h NodeId): work
+    # items reference nodes by it, never by position.
+    node_id: int = -1
+
+
+@dataclass
+class PgSubmap:
+    submap: object  # Submap3D
+    global_pose: NpRigid3
+    trajectory_id: int = 0
+    finished: bool = False
+    matcher: object = None  # built when the submap finishes
+    submap_id: int = -1  # stable identity (ref: mapping/id.h SubmapId)
+
+
+_metric_lock = threading.Lock()
+_METRICS: Dict[str, object] = {}
+
+
+def _metric(key: str, make):
+    """The registry's metric for key, registered on first use."""
+    with _metric_lock:
+        if key not in _METRICS:
+            _METRICS[key] = make(profiling.global_factory())
+        return _METRICS[key]
+
+
+def _observe_constraint_score(kind: str, score: float) -> None:
+    """Loop-closure matcher scores, found and rejected (ref:
+    constraint_builder_3d.cc:303-315 score histograms)."""
+    _metric(f"score_{kind}", lambda f: f.new_histogram_family(
+        f"pose_graph_constraint_scores_{kind}", "loop-closure matcher scores (found + rejected candidates)",
+        boundaries=[i / 20.0 for i in range(1, 21)]).add({})).observe(score)
+
+
+class _SamplerState:
+    """(ref: common/fixed_ratio_sampler.h FixedRatioSampler)"""
+
+    def __init__(self, ratio: float):
+        self.ratio = ratio
+        self.num_pulses = 0
+        self.num_samples = 0
+
+    def pulse(self) -> bool:
+        self.num_pulses += 1
+        if self.num_samples * 1.0 < self.ratio * self.num_pulses:
+            self.num_samples += 1
+            return True
+        return False
+
+
+class PoseGraphBase:
+    """Bookkeeping shared by the pose graphs."""
+
+    def __init__(self, options):
+        self._options = options  # PoseGraphOptions
+        self.nodes: List[PgNode] = []
+        self.submaps: List[PgSubmap] = []
+        self.constraints: List[Constraint] = []
+        self._submap_ids: Dict[int, int] = {}  # id(submap object) -> index
+        self._next_node_id = 0
+        self._next_submap_id = 0
+        self._node_index_by_id: Dict[int, int] = {}
+        self._submap_index_by_id: Dict[int, int] = {}
+        self._num_nodes_since_last_optimization = 0
+        self._sampler = _SamplerState(options.constraint_builder.sampling_ratio)
+        self._global_sampler = _SamplerState(options.global_sampling_ratio)
+        self._trajectory_states: Dict[int, TrajectoryState] = {0: TrajectoryState.ACTIVE}
+        self.connectivity = TrajectoryConnectivityState()
+        self.trimmers: List[object] = []
+        self.num_optimizations = 0
+        self._global_optimization_callbacks: List[object] = []
+        self._landmark_pose_overrides: Dict[str, object] = {}
+        # _lock guards the host bookkeeping; _opt_lock serializes
+        # optimizations (the solve itself runs without _lock so the front
+        # end keeps streaming); _constraint_lock serializes whole constraint
+        # rounds (samplers and matchers), re-entrant for the optimization
+        # a round may run.
+        self._lock = threading.RLock()
+        self._opt_lock = threading.Lock()
+        self._constraint_lock = threading.RLock()
+        self._cloud_range_cache: Dict[int, float] = {}
+        self._async = bool(options.async_work_queue)
+        self._work_queue: Optional[queue_mod.Queue] = None
+        self._worker: Optional[threading.Thread] = None
+        if self._async:
+            self._work_queue = queue_mod.Queue()
+            self._worker = threading.Thread(target=self._drain_work_queue, name="pose-graph-work-queue", daemon=True)
+            self._worker.start()
+
+    # -- submap bookkeeping -------------------------------------------------
+
+    def _get_or_add_submap(self, submap, trajectory_id: int) -> int:
+        key = id(submap)
+        if key not in self._submap_ids:
+            # The global pose starts as the local pose corrected by the
+            # trajectory's current local-to-global transform.
+            local_to_global = self.local_to_global(trajectory_id)
+            self._submap_ids[key] = len(self.submaps)
+            self._submap_index_by_id[self._next_submap_id] = len(self.submaps)
+            self.submaps.append(PgSubmap(
+                submap=submap,
+                global_pose=local_to_global.compose(submap.local_pose),
+                trajectory_id=trajectory_id,
+                submap_id=self._next_submap_id,
+            ))
+            self._next_submap_id += 1
+        idx = self._submap_ids[key]
+        if getattr(submap, "insertion_finished", False) and not self.submaps[idx].finished:
+            self.submaps[idx].finished = True
+            if self._async:
+                # The matcher is built off the front end's thread (ref:
+                # DispatchScanMatcherConstruction, constraint_builder_3d.cc:162-189).
+                self._work_queue.put(("finish_submap", self.submaps[idx].submap_id))
+            else:
+                self._on_submap_finished(self.submaps[idx])
+        return idx
+
+    def local_to_global(self, trajectory_id: int = 0) -> NpRigid3:
+        """Correction from the trajectory's local SLAM frame to the global
+        frame (ref: pose_graph GetLocalToGlobalTransform)."""
+        with self._lock:
+            for node in reversed(self.nodes):
+                if node.trajectory_id == trajectory_id:
+                    return node.global_pose.compose(node.local_pose.inverse())
+            return NpRigid3.identity()
+
+    def register_trajectory(self, trajectory_id: int) -> None:
+        """Mark a trajectory ACTIVE (idempotent)."""
+        self._trajectory_states.setdefault(trajectory_id, TrajectoryState.ACTIVE)
+
+    def freeze_trajectory(self, trajectory_id: int) -> None:
+        self._trajectory_states[trajectory_id] = TrajectoryState.FROZEN
+
+    def finish_trajectory(self, trajectory_id: int) -> None:
+        self._trajectory_states[trajectory_id] = TrajectoryState.FINISHED
+
+    def is_frozen(self, trajectory_id: int) -> bool:
+        return self._trajectory_states.get(trajectory_id) == TrajectoryState.FROZEN
+
+    def is_finished(self, trajectory_id: int) -> bool:
+        return self._trajectory_states.get(trajectory_id) == TrajectoryState.FINISHED
+
+    def trajectory_states(self) -> Dict[int, TrajectoryState]:
+        with self._lock:
+            return dict(self._trajectory_states)
+
+    def delete_trajectory(self, trajectory_id: int) -> None:
+        """Remove a trajectory's submaps, nodes, constraints and sensor
+        buffers (ref: pose_graph_3d.cc DeleteTrajectory). Holds _opt_lock
+        throughout: an optimization's writeback would otherwise race the
+        index remapping."""
+        self.wait_for_all_computations()
+        with self._opt_lock, self._lock:
+            self._trajectory_states[trajectory_id] = TrajectoryState.DELETED
+            own = {i for i, s in enumerate(self.submaps) if s.trajectory_id == trajectory_id}
+            if own:
+                trim_submaps(self, own)
+            keep = [i for i, n in enumerate(self.nodes) if n.trajectory_id != trajectory_id]
+            if len(keep) != len(self.nodes):
+                node_remap = {old: new for new, old in enumerate(keep)}
+                self.constraints = [c for c in self.constraints if c.node_index in node_remap]
+                for c in self.constraints:
+                    c.node_index = node_remap[c.node_index]
+                self.nodes = [self.nodes[i] for i in keep]
+                self._node_index_by_id = {n.node_id: i for i, n in enumerate(self.nodes)}
+            for attr in ("_odometry", "_fixed_frame", "_imu"):
+                buf = getattr(self, attr, None)
+                if isinstance(buf, dict):
+                    buf.pop(trajectory_id, None)
+            obs = getattr(self, "_landmark_observations", None)
+            if obs is not None:
+                self._landmark_observations = [o for o in obs if o["trajectory_id"] != trajectory_id]
+
+    def set_landmark_pose(self, landmark_id: str, global_pose) -> None:
+        """Seed a landmark's pose for the next solve (ref: pose_graph
+        SetLandmarkPose)."""
+        with self._lock:
+            self._landmark_pose_overrides[landmark_id] = global_pose
+            ids = getattr(self, "_landmark_ids", None)
+            if ids is not None and landmark_id not in ids:
+                ids[landmark_id] = len(ids)
+
+    def landmark_poses(self) -> Dict[str, NpRigid3]:
+        """Optimized landmark poses, shadowed by overrides not yet consumed."""
+        with self._lock:
+            out = dict(getattr(self, "_landmark_poses", {}))
+            out.update(self._landmark_pose_overrides)
+            return out
+
+    def _consume_landmark_overrides(self, optimized_ids) -> None:
+        with self._lock:
+            ids = getattr(self, "_landmark_ids", {})
+            for name in list(self._landmark_pose_overrides):
+                if ids.get(name) in optimized_ids:
+                    self._landmark_pose_overrides.pop(name)
+
+    def set_solver_mesh(self, mesh, broadcast=None) -> None:
+        if mesh is not None:
+            raise NotImplementedError("a solver mesh (the sharded SPA and constraint search) is not ported")
+
+    def add_global_slam_optimization_callback(self, callback) -> None:
+        """callback(num_optimizations) runs after every optimization."""
+        self._global_optimization_callbacks.append(callback)
+
+    def _notify_global_optimization(self) -> None:
+        for cb in list(self._global_optimization_callbacks):
+            try:
+                cb(self.num_optimizations)
+            except Exception:  # noqa: BLE001 - a client callback must not stop the back end
+                traceback.print_exc()
+
+    # -- hooks of the 3D graph ------------------------------------------------
+
+    def _on_submap_finished(self, pg_submap: PgSubmap) -> None:
+        raise NotImplementedError
+
+    def _compute_constraint(self, node: PgNode, pg_submap: PgSubmap, global_search: bool = False):
+        raise NotImplementedError
+
+    def _run_optimization(self, num_iterations: int) -> None:
+        raise NotImplementedError
+
+    # -- main entry -----------------------------------------------------------
+
+    def add_node(self, node: PgNode, insertion_submaps, newly_finished=()) -> int:
+        """(ref: pose_graph_3d.cc AddNode:142-160, then
+        ComputeConstraintsForNode:313-395 inline or on the worker.)"""
+        with self._lock:
+            local_to_global = self.local_to_global(node.trajectory_id)
+            node.global_pose = local_to_global.compose(node.local_pose)
+            node_index = len(self.nodes)
+            node.node_id = self._next_node_id
+            self._node_index_by_id[node.node_id] = node_index
+            self._next_node_id += 1
+            self.nodes.append(node)
+            # INTRA constraints against the submaps the node went into.
+            self.connectivity.add(node.trajectory_id)
+            for submap in insertion_submaps:
+                si = self._get_or_add_submap(submap, node.trajectory_id)
+                self.constraints.append(Constraint(
+                    submap_index=si,
+                    node_index=node_index,
+                    zbar=submap.local_pose.inverse().compose(node.local_pose),
+                    translation_weight=self._options.matcher_translation_weight,
+                    rotation_weight=self._options.matcher_rotation_weight,
+                    tag="INTRA",
+                ))
+                self.connectivity.connect(node.trajectory_id, self.submaps[si].trajectory_id, node.time)
+            inserted_ids = {self.submaps[self._submap_ids[id(s)]].submap_id for s in insertion_submaps}
+            finished_ids = [self.submaps[self._submap_ids[id(s)]].submap_id
+                            for s in newly_finished if id(s) in self._submap_ids]
+            node_id = node.node_id
+        if self._async:
+            self._work_queue.put(("node", node_id, inserted_ids, finished_ids))
+        else:
+            self._compute_constraints_for_node(node_id, inserted_ids, finished_ids)
+        return node_index
+
+    def _compute_constraints_for_node(self, node_id, inserted_ids, finished_ids) -> None:
+        """INTER searches and the optimization cadence (the reference's
+        ComputeConstraintsForNode). Candidates in the reference's dispatch
+        order: this node against every finished submap, then each newly
+        finished submap against every older node; each is gated, then
+        matched. All arguments are stable ids."""
+        pairs: List[Tuple[int, int]] = []
+        with self._lock:
+            pairs.extend((node_id, s.submap_id) for s in self.submaps
+                         if s.finished and s.submap_id not in inserted_ids)
+        for sid in finished_ids:
+            with self._lock:
+                intra: Dict[int, set] = {}
+                for c in self.constraints:
+                    if c.tag == "INTRA":
+                        nid = self.nodes[c.node_index].node_id
+                        if nid < node_id:
+                            intra.setdefault(nid, set()).add(self.submaps[c.submap_index].submap_id)
+                old_node_ids = [n.node_id for n in self.nodes if n.node_id < node_id]
+            pairs.extend((nid, sid) for nid in old_node_ids if sid not in intra.get(nid, ()))
+
+        with profiling.section("constraint_search"), self._constraint_lock:
+            gated_local: List[tuple] = []
+            gated_global: List[tuple] = []
+            for nid, sid in pairs:
+                gated = self._gate_candidate(nid, sid)
+                if gated is not None:
+                    node, pg_submap, global_search = gated
+                    (gated_global if global_search else gated_local).append((nid, sid, node, pg_submap))
+            for gated, global_search in ((gated_local, False), (gated_global, True)):
+                for nid, sid, node, pg_submap in gated:
+                    constraint = self._compute_constraint(node, pg_submap, global_search=global_search)
+                    if constraint is not None:
+                        self._append_constraint(nid, sid, node, pg_submap, constraint)
+
+        with self._constraint_lock:
+            self._num_nodes_since_last_optimization += 1
+            run_opt = self._num_nodes_since_last_optimization >= self._options.optimize_every_n_nodes > 0
+        if run_opt:
+            self.run_final_optimization(self._options.optimization_problem.ceres_solver_options.max_num_iterations)
+
+    # -- async work queue -----------------------------------------------------
+
+    def _drain_work_queue(self) -> None:
+        """(ref: pose_graph_3d.cc DrainWorkQueue:512-535.)"""
+        while True:
+            item = self._work_queue.get()
+            try:
+                if item is None:
+                    return
+                if item[0] == "node":
+                    _, node_id, inserted_ids, finished_ids = item
+                    self._compute_constraints_for_node(node_id, inserted_ids, finished_ids)
+                elif item[0] == "finish_submap":
+                    with self._lock:
+                        idx = self._submap_index_by_id.get(item[1])
+                        pg_submap = self.submaps[idx] if idx is not None else None
+                    if pg_submap is not None:
+                        self._on_submap_finished(pg_submap)
+            except Exception:  # noqa: BLE001 - a dead worker would deadlock wait_for_all_computations
+                traceback.print_exc()
+            finally:
+                self._work_queue.task_done()
+
+    def wait_for_all_computations(self) -> None:
+        """Block until the work queue is drained (ref: WaitForAllComputations)."""
+        if self._async:
+            self._work_queue.join()
+
+    def _gate_candidate(self, node_id: int, submap_id: int):
+        """Local or global search, and the distance and sampling gates
+        (ref: pose_graph ComputeConstraint :248-311): trajectories connected
+        recently search a local window within max_constraint_distance, the
+        others a full submap through the global sampler. Returns (node,
+        pg_submap, global_search) or None."""
+        with self._lock:
+            ni = self._node_index_by_id.get(node_id)
+            si = self._submap_index_by_id.get(submap_id)
+            if ni is None or si is None:
+                return None  # trimmed while the work item waited
+            node = self.nodes[ni]
+            pg_submap = self.submaps[si]
+            last = self.connectivity.last_connection_time(node.trajectory_id, pg_submap.trajectory_id)
+            recently_connected = (
+                node.trajectory_id == pg_submap.trajectory_id
+                or (last is not None and node.time - last < self._options.global_constraint_search_after_n_seconds)
+                or not self._options.use_global_constraint_search
+            )
+            if recently_connected:
+                d = np.linalg.norm(node.global_pose.t - pg_submap.global_pose.t)
+                if d > self._options.constraint_builder.max_constraint_distance:
+                    return None
+                if not self._sampler.pulse():
+                    return None
+                return node, pg_submap, False
+            if not self._global_sampler.pulse():
+                return None
+            return node, pg_submap, True
+
+    def _scan_range_bucket(self, node) -> float:
+        """The angular step's range: the node's own max scan range, rounded
+        up to a power of sqrt(2), capped by max_scan_range (ref:
+        fast_correlative_scan_matcher GenerateRotatedScans uses the cloud's
+        own extent). One cloud read per node lifetime."""
+        r = self._cloud_range_cache.get(node.node_id)
+        if r is None:
+            pos = node.high_cloud.positions.cpu().numpy()
+            mask = node.high_cloud.mask.cpu().numpy()
+            rmax = float(np.sqrt(np.max(np.where(mask, np.sum(pos**2, axis=-1), 0.0), initial=0.0)))
+            bucket = 1.0
+            while bucket < rmax and bucket < self._max_scan_range:
+                bucket *= math.sqrt(2.0)
+            r = min(bucket, self._max_scan_range)
+            self._cloud_range_cache[node.node_id] = r
+        return r
+
+    def _append_constraint(self, node_id: int, submap_id: int, node, pg_submap, constraint) -> None:
+        """Merge a found constraint, its indices resolved by stable id now
+        (ref: pose_graph_3d.cc:436-510)."""
+        with self._lock:
+            ni = self._node_index_by_id.get(node_id)
+            si = self._submap_index_by_id.get(submap_id)
+            if ni is None or si is None:
+                return  # trimmed during the search
+            constraint.node_index = ni
+            constraint.submap_index = si
+            self.constraints.append(constraint)
+            self.connectivity.connect(node.trajectory_id, pg_submap.trajectory_id, node.time)
+
+    def run_final_optimization(self, num_iterations: Optional[int] = None) -> None:
+        """(ref: RunFinalOptimization; also the periodic optimization, called
+        from the worker, which must not wait for its own queue.)"""
+        if threading.current_thread() is not self._worker:
+            self.wait_for_all_computations()
+        if num_iterations is None:
+            num_iterations = self._options.max_num_final_iterations
+        if not self.nodes or not self.submaps:
+            return
+        with self._opt_lock, profiling.section("pose_graph_optimization"):
+            self._run_optimization(num_iterations)
+            self.num_optimizations += 1
+            self._num_nodes_since_last_optimization = 0
+            if self._options.log_residual_histograms:
+                self._log_residual_histograms()
+            with self._lock:
+                for trimmer in self.trimmers:
+                    trimmer.trim(self)
+        self._notify_global_optimization()
+
+    def _log_residual_histograms(self) -> None:
+        """Constraint residuals after the solve, by tag (ref:
+        pose_graph.lua log_residual_histograms)."""
+        hists = {
+            "trans": _metric("residual_trans", lambda f: f.new_histogram_family(
+                "hg_pose_graph_residual_translation_m", "post-optimization constraint translation residuals",
+                boundaries=[0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1.0, 3.0])),
+            "rot": _metric("residual_rot", lambda f: f.new_histogram_family(
+                "hg_pose_graph_residual_rotation_deg", "post-optimization constraint rotation residuals",
+                boundaries=[0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0, 30.0])),
+        }
+        with self._lock:
+            snapshot = [(c.tag, self.submaps[c.submap_index].global_pose, self.nodes[c.node_index].global_pose, c.zbar)
+                        for c in self.constraints]
+        for tag, submap_pose, node_pose, zbar in snapshot:
+            actual = submap_pose.inverse().compose(node_pose)
+            dq = nq.quat_multiply(nq.quat_conjugate(zbar.q), actual.q)
+            hists["trans"].add({"tag": tag}).observe(float(np.linalg.norm(actual.t - zbar.t)))
+            hists["rot"].add({"tag": tag}).observe(2.0 * math.degrees(math.acos(min(1.0, abs(float(dq[0]))))))
+
+    # -- solve snapshot helpers -------------------------------------------------
+
+    def _snapshot_lists(self):
+        """The solve's inputs, captured under the lock while add_node keeps
+        appending (ref: pose_graph_3d.cc HandleWorkQueue:436-510)."""
+        with self._lock:
+            return list(self.nodes), list(self.submaps), list(self.constraints)
+
+    def _correct_post_snapshot(self, snap_nodes, snap_submaps) -> None:
+        """Re-anchor nodes and submaps added while the solve ran on the last
+        optimized node of their trajectory. The caller holds _lock."""
+        l2g: Dict[int, NpRigid3] = {}
+        for node in reversed(snap_nodes):
+            if node.trajectory_id not in l2g:
+                l2g[node.trajectory_id] = node.global_pose.compose(node.local_pose.inverse())
+        for node in self.nodes[len(snap_nodes):]:
+            corr = l2g.get(node.trajectory_id)
+            if corr is not None:
+                node.global_pose = corr.compose(node.local_pose)
+        for sub in self.submaps[len(snap_submaps):]:
+            corr = l2g.get(sub.trajectory_id)
+            if corr is not None:
+                sub.global_pose = corr.compose(sub.submap.local_pose)
+
+    @staticmethod
+    def _pad_to(n: int) -> int:
+        """Capacities in powers of two from 8, as the JAX package pads them
+        (its jitted solve compiles per shape)."""
+        p = 8
+        while p < n:
+            p *= 2
+        return p
+
+
+def _identity_quats(n: int) -> np.ndarray:
+    return np.tile(np.array([1.0, 0.0, 0.0, 0.0], np.float32), (n, 1))
+
+
+class PoseGraph3D(PoseGraphBase):
+    """(ref: mapping/internal/3d/pose_graph_3d.cc)"""
+
+    def __init__(self, options, histogram_size: int = 120, max_scan_range: float = 20.0, device="cpu"):
+        if options.use_batched_constraint_search:
+            raise NotImplementedError(
+                "use_batched_constraint_search=True: only the serial constraint search is ported")
+        self._device = torch.device(device)
+        self._histogram_size = histogram_size
+        self._max_scan_range = max_scan_range
+        # Sensor buffers for the optimization problem (ref:
+        # optimization_problem_3d.h; MapByTime per trajectory).
+        self._odometry: Dict[int, List[Tuple[float, NpRigid3]]] = {}
+        self._fixed_frame: Dict[int, List[Tuple[float, NpRigid3]]] = {}
+        self._landmark_ids: Dict[str, int] = {}
+        self._landmark_observations: List[dict] = []
+        self._imu: Dict[int, List[Tuple[float, np.ndarray, np.ndarray]]] = {}
+        super().__init__(options)
+
+    # -- sensor ingestion (ref: pose_graph_3d.cc AddOdometryData, AddImuData,
+    #    AddFixedFramePoseData, AddLandmarkData) ------------------------------
+
+    def add_odometry_data(self, trajectory_id: int, time: float, pose: NpRigid3) -> None:
+        self._odometry.setdefault(trajectory_id, []).append((time, pose))
+
+    def add_imu_data(self, trajectory_id: int, time: float, linear_acceleration, angular_velocity) -> None:
+        self._imu.setdefault(trajectory_id, []).append(
+            (time, np.asarray(linear_acceleration, float), np.asarray(angular_velocity, float)))
+
+    def add_fixed_frame_pose_data(self, trajectory_id: int, time: float, pose: NpRigid3) -> None:
+        self._fixed_frame.setdefault(trajectory_id, []).append((time, pose))
+
+    def add_landmark_data(self, trajectory_id: int, time: float, landmark_id: str, landmark_to_tracking: NpRigid3,
+                          translation_weight: float, rotation_weight: float) -> None:
+        if landmark_id not in self._landmark_ids:
+            self._landmark_ids[landmark_id] = len(self._landmark_ids)
+        self._landmark_observations.append(dict(
+            trajectory_id=trajectory_id, time=time, landmark_index=self._landmark_ids[landmark_id],
+            transform=landmark_to_tracking, translation_weight=translation_weight,
+            rotation_weight=rotation_weight))
+
+    @staticmethod
+    def _lookup_buffer(buf: List[Tuple[float, NpRigid3]], time: float) -> Optional[NpRigid3]:
+        """The buffered pose at `time`, interpolated; None outside the buffer."""
+        if not buf or time < buf[0][0] or time > buf[-1][0]:
+            return None
+        j = int(np.searchsorted([t for t, _ in buf], time))
+        if j == 0:
+            return buf[0][1]
+        if j >= len(buf):
+            return buf[-1][1]
+        t0, p0 = buf[j - 1]
+        t1, p1 = buf[j]
+        f = (time - t0) / max(t1 - t0, 1e-9)
+        return NpRigid3(p0.t + f * (p1.t - p0.t), nq.quat_slerp(p0.q, p1.q, f))
+
+    def _build_extras(self, N_cap: int, nodes=None):
+        """SpaExtras3D on the device from the buffered sensors, or None when
+        every family is empty (ref: optimization_problem_3d.cc :353-530)."""
+        nodes = self.nodes if nodes is None else nodes
+        opt = self._options.optimization_problem
+        by_traj: Dict[int, List[int]] = {}
+        for i, n in enumerate(nodes):
+            by_traj.setdefault(n.trajectory_id, []).append(i)
+
+        # Odometry and consecutive local-pose residuals, only under
+        # fix_z_in_3d (ref: :450-503); both families are added.
+        nn = []
+        if opt.fix_z_in_3d:
+            for tid, idxs in by_traj.items():
+                if self.is_frozen(tid):
+                    continue
+                odom = self._odometry.get(tid, [])
+                for a, b in zip(idxs[:-1], idxs[1:]):
+                    na, nb = nodes[a], nodes[b]
+                    oa, ob = self._lookup_buffer(odom, na.time), self._lookup_buffer(odom, nb.time)
+                    if oa is not None and ob is not None:
+                        nn.append((a, b, oa.inverse().compose(ob), opt.odometry_translation_weight,
+                                   opt.odometry_rotation_weight))
+                    nn.append((a, b, na.local_pose.inverse().compose(nb.local_pose),
+                               opt.local_slam_pose_translation_weight, opt.local_slam_pose_rotation_weight))
+
+        # IMU rotation and acceleration residuals between consecutive nodes
+        # (ref: :353-447).
+        ir, ia = [], []
+        traj_slots: Dict[int, int] = {}
+        if not opt.fix_z_in_3d and (opt.rotation_weight > 0 or opt.acceleration_weight > 0):
+            for tid, idxs in by_traj.items():
+                imu = self._imu.get(tid, [])
+                if len(imu) < 2:
+                    continue
+                slot = traj_slots.setdefault(tid, len(traj_slots))
+                imu_t = np.asarray([x[0] for x in imu])
+                imu_a = np.asarray([x[1] for x in imu])
+                imu_g = np.asarray([x[2] for x in imu])
+                for j in range(len(idxs) - 1):
+                    a, b = idxs[j], idxs[j + 1]
+                    ta, tb = nodes[a].time, nodes[b].time
+                    if tb <= ta:
+                        continue
+                    dq, _, _ = imu_integration.integrate_imu(imu_t, imu_a, imu_g, ta, tb)
+                    ir.append((a, b, slot, dq, opt.rotation_weight))
+                    if opt.acceleration_weight > 0 and j + 2 < len(idxs):
+                        c = idxs[j + 2]
+                        tc = nodes[c].time
+                        if tc <= tb:
+                            continue
+                        dt1, dt2 = tb - ta, tc - tb
+                        c1, c2 = ta + dt1 / 2, tb + dt2 / 2
+                        dq_c1, _, _ = imu_integration.integrate_imu(imu_t, imu_a, imu_g, ta, c1)
+                        _, dv_cc, _ = imu_integration.integrate_imu(imu_t, imu_a, imu_g, c1, c2)
+                        # The velocity change in the IMU frame at the middle node (ref: :420-428).
+                        dv = nq.quat_rotate(nq.quat_multiply(nq.quat_conjugate(dq), dq_c1), dv_cc)
+                        ia.append((a, b, c, slot, dv, dt1, dt2, opt.acceleration_weight))
+
+        has_ff = any(self._fixed_frame.values())
+        has_lm = bool(self._landmark_observations)
+        if not nn and not has_ff and not has_lm and not ir and not ia:
+            return None
+
+        P = self._pad_to(max(len(nn), 1))
+        L = max(len(self._landmark_ids), 1)
+        O = self._pad_to(max(len(self._landmark_observations), 1))
+        R = self._pad_to(max(len(ir), 1))
+        A = self._pad_to(max(len(ia), 1))
+        Tj = max(len(traj_slots), 1)
+        fields = {k: v.numpy() for k, v in empty_extras_3d(N_cap, p=P, l=L, o=O, r=R, a=A, tj=Tj)._asdict().items()}
+        for i, (a, b, slot, dq, w) in enumerate(ir):
+            for name, v in (("ir_a", a), ("ir_b", b), ("ir_traj", slot), ("ir_mask", True),
+                            ("ir_delta_rotation", dq), ("ir_weight", w)):
+                fields[name][i] = v
+        for i, (a, b, c, slot, dv, dt1, dt2, w) in enumerate(ia):
+            for name, v in (("ia_a", a), ("ia_b", b), ("ia_c", c), ("ia_traj", slot), ("ia_mask", True),
+                            ("ia_delta_velocity", dv), ("ia_dt1", dt1), ("ia_dt2", dt2), ("ia_weight", w)):
+                fields[name][i] = v
+        if traj_slots:
+            fields["traj_mask"][: len(traj_slots)] = True
+            fields["calibration_fixed"] = np.asarray(not opt.use_online_imu_extrinsics_in_3d)
+        for i, (a, b, rel, wt, wr) in enumerate(nn):
+            for name, v in (("nn_a", a), ("nn_b", b), ("nn_mask", True), ("nn_rel_translation", rel.t),
+                            ("nn_rel_rotation", rel.q), ("nn_translation_weight", wt), ("nn_rotation_weight", wr)):
+                fields[name][i] = v
+        if has_ff:
+            for i, n in enumerate(nodes):
+                pose = self._lookup_buffer(self._fixed_frame.get(n.trajectory_id, []), n.time)
+                if pose is not None:
+                    fields["ff_mask"][i] = True
+                    fields["ff_translation"][i] = pose.t
+                    fields["ff_translation_weight"][i] = opt.fixed_frame_pose_translation_weight
+        if has_lm:
+            # Each observation binds to the node of its own trajectory at or
+            # before its time; client overrides seed the landmark poses.
+            times_by_traj: Dict[int, Tuple[list, list]] = {}
+            for i, n in enumerate(nodes):
+                times_by_traj.setdefault(n.trajectory_id, ([], []))[0].append(n.time)
+                times_by_traj[n.trajectory_id][1].append(i)
+            lm_init: Dict[int, NpRigid3] = {}
+            for name, pose in self._landmark_pose_overrides.items():
+                li = self._landmark_ids.get(name)
+                if li is not None:
+                    lm_init[li] = pose
+            count = 0
+            for obs in self._landmark_observations:
+                times_t, idx_t = times_by_traj.get(obs["trajectory_id"], (None, None))
+                if times_t is None:
+                    continue
+                j = idx_t[min(max(int(np.searchsorted(times_t, obs["time"])) - 1, 0), len(idx_t) - 1)]
+                if count >= O:
+                    break
+                for name, v in (("lm_node", j), ("lm_index", obs["landmark_index"]), ("lm_mask", True),
+                                ("lm_rel_translation", obs["transform"].t), ("lm_rel_rotation", obs["transform"].q),
+                                ("lm_translation_weight", obs["translation_weight"]),
+                                ("lm_rotation_weight", obs["rotation_weight"])):
+                    fields[name][count] = v
+                if obs["landmark_index"] not in lm_init:
+                    lm_init[obs["landmark_index"]] = nodes[j].global_pose.compose(obs["transform"])
+                count += 1
+            for li, pose in lm_init.items():
+                fields["landmark_translation"][li] = pose.t
+                fields["landmark_rotation"][li] = pose.q
+                fields["landmark_mask"][li] = True
+        return SpaExtras3D(**{k: torch.from_numpy(np.asarray(v)).to(self._device) for k, v in fields.items()})
+
+    def _on_submap_finished(self, pg_submap: PgSubmap) -> None:
+        """Build the submap's loop-closure matcher (ref: constraint_builder_3d.cc
+        DispatchScanMatcherConstruction:162-189)."""
+        pg_submap.matcher = FastCorrelativeScanMatcher3D(
+            self._options.constraint_builder.fast_correlative_scan_matcher_3d,
+            pg_submap.submap.high_resolution_grid,
+            pg_submap.submap.low_resolution_grid,
+            pg_submap.submap.rotational_histogram,
+            self._histogram_size,
+        )
+
+    def _compute_constraint(self, node: PgNode, pg_submap: PgSubmap, global_search: bool = False):
+        """(ref: constraint_builder_3d.cc ComputeConstraint:191-296.) The
+        fast match from the node's current global pose in the submap's grid
+        frame (a full-submap search when global_search), the score and
+        low-resolution gates, then GN3D refinement. The returned
+        constraint's indices are filled in by the caller."""
+        cb = self._options.constraint_builder
+        if pg_submap.matcher is None:
+            self._on_submap_finished(pg_submap)
+        init = pg_submap.global_pose.inverse().compose(node.global_pose)
+        node_in_grid = pg_submap.submap.local_pose.compose(init)
+        f32 = dict(dtype=torch.float32, device=self._device)
+        initial = Rigid3(torch.tensor(node_in_grid.t, **f32), torch.tensor(node_in_grid.q, **f32))
+        match_fn = pg_submap.matcher.match_full_submap if global_search else pg_submap.matcher.match
+        score, low_score, _, pose = match_fn(
+            initial, node.high_cloud, node.low_cloud, node.histogram, float(nq.quat_yaw(node_in_grid.q)),
+            max_scan_range=self._scan_range_bucket(node))
+        score, low_score = torch.stack([score, low_score.to(score.dtype)]).tolist()
+        _observe_constraint_score("global" if global_search else "local", score)
+        if score < (cb.global_localization_min_score if global_search else cb.min_score):
+            return None
+        if low_score < cb.fast_correlative_scan_matcher_3d.min_low_resolution_score:
+            return None
+        cm = cb.ceres_scan_matcher_3d
+        refined, _ = match_gn_3d(
+            pg_submap.submap.high_resolution_grid, pg_submap.submap.low_resolution_grid,
+            node.high_cloud, node.low_cloud, pose, pose.translation,
+            cm.occupied_space_weight_0, cm.occupied_space_weight_1, cm.translation_weight, cm.rotation_weight,
+            num_iterations=cm.ceres_solver_options.max_num_iterations,
+        )
+        tq = torch.cat([refined.translation, refined.rotation]).cpu().numpy().astype(np.float64)
+        return Constraint(
+            submap_index=-1,
+            node_index=-1,
+            zbar=pg_submap.submap.local_pose.inverse().compose(NpRigid3(tq[:3], tq[3:])),
+            translation_weight=cb.loop_closure_translation_weight,
+            rotation_weight=cb.loop_closure_rotation_weight,
+            tag="INTER",
+        )
+
+    def _run_optimization(self, num_iterations: int) -> None:
+        """(ref: optimization_problem_3d.cc Solve:257-530.) The first submap
+        and frozen trajectories are held fixed; INTER constraints carry the
+        Huber loss. With any extras family (IMU or odometry routed to the
+        graph, as MapBuilder routes them) the full solve runs, else the
+        plain Schur solve."""
+        nodes, submaps, constraints = self._snapshot_lists()
+        S = self._pad_to(len(submaps))
+        N = self._pad_to(len(nodes))
+        C = self._pad_to(max(len(constraints), 1))
+        st = np.zeros((S, 3), np.float32)
+        sq = _identity_quats(S)
+        nt = np.zeros((N, 3), np.float32)
+        nqr = _identity_quats(N)
+        s_fixed = np.ones(S, bool)
+        n_fixed = np.ones(N, bool)
+        for i, s in enumerate(submaps):
+            st[i], sq[i] = s.global_pose.t, s.global_pose.q
+            s_fixed[i] = i == 0 or self.is_frozen(s.trajectory_id)
+        for i, n in enumerate(nodes):
+            nt[i], nqr[i] = n.global_pose.t, n.global_pose.q
+            n_fixed[i] = self.is_frozen(n.trajectory_id)
+        cs = np.zeros(C, np.int64)
+        cn = np.zeros(C, np.int64)
+        cmask = np.zeros(C, bool)
+        crt = np.zeros((C, 3), np.float32)
+        crq = _identity_quats(C)
+        cwt = np.zeros(C, np.float32)
+        cwr = np.zeros(C, np.float32)
+        chub = np.full(C, 1e6, np.float32)
+        for i, c in enumerate(constraints):
+            cs[i], cn[i], cmask[i] = c.submap_index, c.node_index, True
+            crt[i], crq[i] = c.zbar.t, c.zbar.q
+            cwt[i], cwr[i] = c.translation_weight, c.rotation_weight
+            if c.tag == "INTER":
+                chub[i] = self._options.optimization_problem.huber_scale
+        problem = SpaProblem3D(*(torch.from_numpy(a).to(self._device)
+                                 for a in (st, sq, nt, nqr, s_fixed, n_fixed, cs, cn, cmask, crt, crq, cwt, cwr, chub)))
+        iterations = min(num_iterations, 50)
+        extras = self._build_extras(N, nodes)
+        if extras is not None:
+            st_o, sq_o, nt_o, nq_o, lt_o, lq_o, _, _, _ = solve_spa_3d_full(problem, extras, num_iterations=iterations)
+            lt_o, lq_o = lt_o.cpu().numpy(), lq_o.cpu().numpy()
+            self._landmark_poses = {name: NpRigid3(lt_o[idx].astype(np.float64), lq_o[idx].astype(np.float64))
+                                    for name, idx in self._landmark_ids.items()}
+            self._consume_landmark_overrides(set(self._landmark_ids.values()))
+        else:
+            st_o, sq_o, nt_o, nq_o, _ = solve_spa_3d(problem, num_iterations=iterations)
+        sub = torch.cat([st_o, sq_o], dim=1).cpu().numpy().astype(np.float64)
+        nod = torch.cat([nt_o, nq_o], dim=1).cpu().numpy().astype(np.float64)
+        with self._lock:
+            for i, s in enumerate(submaps):
+                s.global_pose = NpRigid3(sub[i, :3], sub[i, 3:])
+            for i, n in enumerate(nodes):
+                n.global_pose = NpRigid3(nod[i, :3], nod[i, 3:])
+            self._correct_post_snapshot(nodes, submaps)

@@ -1,0 +1,125 @@
+"""Gauss-Newton 3D scan-match refinement (counterpart of match_gn_3d in
+hectorgrapher_tpu/mapping/scan_matching/gn_3d.py :88-248, unbatched; ref:
+internal/3d/scan_matching/ceres_scan_matcher_3d.cc).
+
+Residuals: the weight-gated TSDF value of each high-res point against the
+high-res grid (scaled by occupied_space_weight_0 / sqrt(n_hi)) and of each
+low-res point against the low-res grid (weight_1 / sqrt(n_lo)), plus the
+translation and rotation delta penalties. The grid terms are one scan
+block of the CT window solve: kernel K3 (ops/ct_scan_block.py) gives
+J^T J, J^T r and the cost of both grids' points for a single cloud whose
+pose moves along the 6-dim tangent [dt, dtheta] of the right-multiplied
+boxplus (t + dt, q exp(dtheta)); its plain version reads the grids through
+tsdf_value_and_dfrac_3d, the same eight cells and arithmetic as the JAX
+z-segment tables. The evaluation at the accepted pose is carried to the
+next iteration, as the JAX loop carries its gathered rows. The penalty's
+Jacobian is analytic where the JAX loop takes jax.jacfwd:
+d log(q0^-1 q exp(d)) / dd = Jr^-1, the inverse right Jacobian of SO(3).
+Same LM rule as the JAX loop: accept a lower cost, lam *= 0.33 (floor
+1e-10) else lam *= 4 (cap 1e6); stop once an accepted step gains at most
+1e-6 of the cost or the step is at most 1e-7 (|x| + 1e-7). The batched and
+packed forms are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hectorgrapher_tpu_torch.ops.ct_scan_block import ct_scan_block
+from hectorgrapher_tpu_torch.transform.rigid import (
+    Rigid3,
+    inverse_right_jacobian,
+    quat_conjugate,
+    quat_from_axis_angle,
+    quat_left_matrix,
+    quat_multiply,
+    quat_normalize,
+    quat_to_axis_angle,
+)
+
+
+def _retract(pose: Rigid3, delta) -> Rigid3:
+    return Rigid3(
+        translation=pose.translation + delta[:3],
+        rotation=quat_normalize(quat_multiply(pose.rotation, quat_from_axis_angle(delta[3:6]))),
+    )
+
+
+def match_gn_3d(
+    high_grid,
+    low_grid,
+    high_cloud,
+    low_cloud,
+    initial_pose: Rigid3,
+    target_translation,
+    occupied_space_weight_0: float,
+    occupied_space_weight_1: float,
+    translation_weight: float,
+    rotation_weight: float,
+    num_iterations: int = 10,
+    only_optimize_yaw: bool = False,
+):
+    """Refine initial_pose against the high/low-resolution TSDF pair.
+    Returns (pose, final cost)."""
+    device = high_cloud.positions.device
+    f32 = dict(dtype=torch.float32, device=device)
+    n_hi = torch.clamp(torch.sum(high_cloud.mask), min=1).to(torch.float32)
+    n_lo = torch.clamp(torch.sum(low_cloud.mask), min=1).to(torch.float32)
+    s_hi = occupied_space_weight_0 / torch.sqrt(n_hi)
+    s_lo = occupied_space_weight_1 / torch.sqrt(n_lo)
+    q0_inv = quat_conjugate(initial_pose.rotation)
+    target = torch.as_tensor(target_translation, **f32)
+    fixed = torch.zeros(6, dtype=torch.bool, device=device)
+    if only_optimize_yaw:  # (ref: ceres_scan_matcher_3d yaw-only parameterization)
+        fixed[3:5] = True
+    clouds = (high_cloud.positions[None].contiguous(), high_cloud.mask[None].contiguous(),
+              low_cloud.positions[None].contiguous(), low_cloud.mask[None].contiguous())
+    eye = torch.eye(3, **f32)
+
+    def penalty(pose):
+        trans = translation_weight * (pose.translation - target)
+        return torch.cat([trans, rotation_weight * quat_to_axis_angle(quat_multiply(q0_inv, pose.rotation))])
+
+    def grid_blocks(pose):
+        """(J^T J (6, 6), J^T r (6,), cost) of both grids' residuals."""
+        dpose7 = torch.zeros((1, 7, 18), **f32)
+        dpose7[0, :3, :3] = eye
+        dpose7[0, 3:, 3:6] = 0.5 * quat_left_matrix(pose.rotation)[:, 1:]  # d (q exp(d)) / dd at 0
+        S, g, cost = ct_scan_block(high_grid, low_grid, *clouds, torch.cat([pose.translation, pose.rotation])[None],
+                                   dpose7, s_hi[None], s_lo[None])
+        return S[0, :6, :6], g[0, :6], cost[0]
+
+    def cost_of(pose, blocks):
+        pen = penalty(pose)
+        return blocks[2] + 0.5 * torch.sum(pen * pen)
+
+    pose = initial_pose
+    blocks = grid_blocks(pose)
+    cost = cost_of(pose, blocks)
+    lam = torch.tensor(1e-4, **f32)
+    free = (~fixed).to(torch.float32)
+    for _ in range(num_iterations):
+        r_pen = penalty(pose)
+        j_pen = torch.zeros((6, 6), **f32)
+        j_pen[:3, :3] = translation_weight * eye
+        phi = quat_to_axis_angle(quat_multiply(q0_inv, pose.rotation))
+        j_pen[3:, 3:] = rotation_weight * inverse_right_jacobian(phi)
+        # Fixed coordinates are zero columns of J.
+        jtj = (blocks[0] + j_pen.T @ j_pen) * free[:, None] * free[None, :]
+        g = (blocks[1] + j_pen.T @ r_pen) * free
+        damped = jtj + torch.diag(lam * torch.clamp(torch.diagonal(jtj), min=1e-12)) + 1e-12 * torch.eye(6, **f32)
+        delta = torch.where(fixed, 0.0, -torch.linalg.solve(damped, g))
+        pose_new = _retract(pose, delta)
+        blocks_new = grid_blocks(pose_new)
+        cost_new = cost_of(pose_new, blocks_new)
+        accept = cost_new < cost
+        lam = torch.where(accept, torch.clamp(lam * 0.33, min=1e-10), torch.clamp(lam * 4.0, max=1e6))
+        x_norm = torch.sqrt(torch.sum(pose.translation**2) + 1.0)
+        done = (accept & (cost - cost_new <= 1e-6 * cost)) | (
+            torch.linalg.vector_norm(delta) <= 1e-7 * (x_norm + 1e-7))
+        pose = Rigid3(*(torch.where(accept, b, a) for a, b in zip(pose, pose_new)))
+        blocks = tuple(torch.where(accept, b, a) for a, b in zip(blocks, blocks_new))
+        cost = torch.where(accept, cost_new, cost)
+        if bool(done):  # the JAX while_loop's exit test; one host sync per iteration
+            break
+    return pose, cost

@@ -113,3 +113,25 @@ def compute_histogram(positions, mask, histogram_size: int = 120):
     hist = torch.zeros(histogram_size + 1, dtype=torch.float32, device=device)
     hist.index_add_(0, torch.where(ok, bucket, histogram_size), torch.where(ok, value, 0.0))
     return hist[:histogram_size]
+
+
+def rotate_histogram(histogram, angle):
+    """The histogram (size,) rotated by each angle (A,), with linear
+    interpolation between buckets (ref: rotational_scan_matcher.cc
+    RotateHistogram): (A, size)."""
+    size = histogram.shape[-1]
+    rotate_by_buckets = -angle * size / math.pi
+    full = torch.floor(rotate_by_buckets).to(torch.int64)
+    frac = (rotate_by_buckets - full)[..., None]
+    idx = torch.remainder(torch.arange(size, device=histogram.device) + full[..., None], size)
+    idx2 = torch.remainder(idx + 1, size)
+    return (1.0 - frac) * histogram[idx] + frac * histogram[idx2]
+
+
+def match_histograms(submap_histogram, scan_histogram, angles):
+    """Cosine similarity of the scan histogram rotated by each angle (A,)
+    against the submap histogram; 1 where either histogram is empty."""
+    rotated = rotate_histogram(scan_histogram, angles)
+    norm = torch.linalg.vector_norm(rotated, dim=-1) * torch.linalg.vector_norm(submap_histogram)
+    scores = (rotated @ submap_histogram) / torch.clamp(norm, min=1e-3)
+    return torch.where(norm < 1e-3, 1.0, scores)

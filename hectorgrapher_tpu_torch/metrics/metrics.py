@@ -1,0 +1,96 @@
+"""Host-side metrics registry (counterpart of the histogram and family
+factory of hectorgrapher_tpu/metrics/metrics.py; ref: cartographer/metrics/
+{histogram,family_factory}.h). The port writes histograms only: the pose
+graph's score and residual histograms and profiling.section's timings;
+counters and gauges come with the slices that write them.
+
+Plain Python, thread-safe: the pose graph's worker thread and the front
+end write to the same families.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+
+class Histogram:
+    """(ref: metrics/histogram.h, fixed bucket boundaries)"""
+
+    def __init__(self, boundaries: Sequence[float]):
+        self._boundaries = list(boundaries)
+        self._counts = [0] * (len(self._boundaries) + 1)
+        self._sum = 0.0
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        with self._lock:
+            self._sum += value
+            for i, b in enumerate(self._boundaries):
+                if value <= b:
+                    self._counts[i] += 1
+                    return
+            self._counts[-1] += 1
+
+    @property
+    def counts_by_bucket(self) -> List[int]:
+        return list(self._counts)
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+
+class Family:
+    """Labelled metric family (ref: metrics/family_factory.h Family<T>)."""
+
+    def __init__(self, name: str, description: str, factory):
+        self.name = name
+        self.description = description
+        self._factory = factory
+        self._metrics: Dict[Tuple[Tuple[str, str], ...], object] = {}
+        self._lock = threading.Lock()
+
+    def add(self, labels: Optional[Dict[str, str]] = None):
+        key = tuple(sorted((labels or {}).items()))
+        with self._lock:
+            if key not in self._metrics:
+                self._metrics[key] = self._factory()
+            return self._metrics[key]
+
+    def items(self):
+        with self._lock:
+            return [(dict(k), v) for k, v in self._metrics.items()]
+
+
+class FamilyFactory:
+    """(ref: metrics/family_factory.h)"""
+
+    def __init__(self):
+        self._families: List[Family] = []
+
+    def new_histogram_family(self, name: str, description: str, boundaries: Sequence[float]) -> Family:
+        f = Family(name, description, lambda: Histogram(boundaries))
+        self._families.append(f)
+        return f
+
+    def text_format(self) -> str:
+        """Prometheus text exposition, cumulative buckets."""
+        lines = []
+        for fam in self._families:
+            lines.append(f"# HELP {fam.name} {fam.description}")
+            for labels, metric in fam.items():
+                label_str = ",".join(f'{k}="{v}"' for k, v in labels.items())
+                label_part = "{" + label_str + "}" if label_str else ""
+                lines.append(f"{fam.name}_sum{label_part} {metric.sum}")
+                total = 0
+                for b, c in zip(list(metric._boundaries) + ["+Inf"], metric.counts_by_bucket):
+                    total += c
+                    le = f'le="{b}"'
+                    joined = f"{{{label_str},{le}}}" if label_str else f"{{{le}}}"
+                    lines.append(f"{fam.name}_bucket{joined} {total}")
+                lines.append(f"{fam.name}_count{label_part} {total}")
+        return "\n".join(lines)
+
+
+GLOBAL_FACTORY = FamilyFactory()

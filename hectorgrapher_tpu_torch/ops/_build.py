@@ -1,7 +1,8 @@
 """Builds the package's CUDA kernels from csrc/*.cu on first use.
 
-nvcc compiles every source into one shared library with a plain C
-interface, which is loaded with ctypes. The library lands in
+nvcc compiles every source to an object file, all at once in parallel,
+and links them into one shared library with a plain C interface, which is
+loaded with ctypes. The library lands in
 hectorgrapher_tpu_torch/_build/ under a name that carries the hash of the
 sources and flags, so an edited source is rebuilt and a stale library is
 never loaded. A failed build raises with nvcc's output.
@@ -14,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -27,11 +29,12 @@ _BUILD = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
 _lib = None
+_lock = threading.Lock()  # the pose graph's worker thread may be first to launch a kernel
 build_log = ""  # nvcc's output of the last build (register and smem use)
 build_seconds = 0.0  # 0.0 when the library was already built
 
@@ -50,9 +53,15 @@ def _nvcc() -> str:
 
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built if needed."""
-    global _lib, build_log, build_seconds
-    if _lib is not None:
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _load()
         return _lib
+
+
+def _load() -> ctypes.CDLL:
+    global build_log, build_seconds
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
@@ -61,14 +70,31 @@ def load_library() -> ctypes.CDLL:
     target = _BUILD / f"libhg_kernels_{digest.hexdigest()[:16]}.so"
     if not target.exists():
         _BUILD.mkdir(exist_ok=True)
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        nvcc = _nvcc()
         t0 = time.perf_counter()
+        objects = [_BUILD / f"{src.stem}.{tag}.o" for src in sources]
+        compiles = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects))
+        ]
+        logs = []
+        for cmd, proc in compiles:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                for _, other in compiles:
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp), *map(str, objects)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
+        build_log = "".join(logs) + proc.stdout + proc.stderr
+        for obj in objects:
+            obj.unlink(missing_ok=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
         os.replace(tmp, target)
     lib = ctypes.CDLL(str(target))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -82,8 +108,9 @@ def load_library() -> ctypes.CDLL:
     lib.hg_correlative_scores_2d.restype = i32
     lib.hg_ct_scan_block.argtypes = [ptr] * 16 + [i32] * 9 + [ptr]
     lib.hg_ct_scan_block.restype = i32
-    _lib = lib
-    return _lib
+    lib.hg_fast_scores_3d.argtypes = [ptr] * 10 + [i32] * 12 + [ptr]
+    lib.hg_fast_scores_3d.restype = i32
+    return lib
 
 
 def check_launch(status: int, name: str) -> None:

@@ -94,6 +94,70 @@ def quat_from_axis_angle(aa):
     return torch.cat([w, k * aa], dim=-1)
 
 
+def quat_to_axis_angle(q):
+    """Log map: quaternion (..., 4) -> angle-axis (..., 3), angle in [0, pi],
+    with the small-angle branch 2 v / w below |v| = 1e-8, as the JAX
+    version selects it."""
+    q = torch.where(q[..., :1] < 0, -q, q)  # the short way around
+    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    vec = q[..., 1:]
+    sin_half = torch.linalg.vector_norm(vec, dim=-1)
+    angle = 2.0 * torch.atan2(sin_half, w)
+    small = sin_half < 1e-8
+    scale = torch.where(small, 2.0 / torch.clamp(w, min=1e-12), angle / torch.clamp(sin_half, min=1e-24))
+    return scale[..., None] * vec
+
+
+def skew(v):
+    """[v]x (..., 3, 3), so that skew(a) @ b = a x b."""
+    zero = torch.zeros_like(v[..., 0])
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return torch.stack([torch.stack([zero, -z, y], dim=-1), torch.stack([z, zero, -x], dim=-1),
+                        torch.stack([-y, x, zero], dim=-1)], dim=-2)
+
+
+def quat_left_matrix(p):
+    """L(p) (..., 4, 4): p q = L(p) q."""
+    w, x, y, z = p.unbind(-1)
+    return torch.stack([torch.stack([w, -x, -y, -z], -1), torch.stack([x, w, -z, y], -1),
+                        torch.stack([y, z, w, -x], -1), torch.stack([z, -y, x, w], -1)], -2)
+
+
+def quat_right_matrix(q):
+    """R(q) (..., 4, 4): p q = R(q) p."""
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([torch.stack([w, -x, -y, -z], -1), torch.stack([x, w, z, -y], -1),
+                        torch.stack([y, -z, w, x], -1), torch.stack([z, y, -x, w], -1)], -2)
+
+
+def quat_to_rotation_matrix(q):
+    """R(q) (..., 3, 3), column k = R e_k."""
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    return torch.stack([quat_rotate(q, eye[k].expand(q.shape[:-1] + (3,))) for k in range(3)], dim=-1)
+
+
+def inverse_right_jacobian(phi):
+    """Jr^-1(phi) (..., 3, 3) of SO(3), d log(exp(phi) exp(d)) / dd at d = 0:
+    I + [phi]x / 2 + c [phi]x^2 with c = 1 / t^2 - (1 + cos t) / (2 t sin t),
+    t = |phi|, by its Taylor series below t = 0.1 (the closed form cancels
+    in f32 there)."""
+    t2 = torch.sum(phi * phi, dim=-1)
+    t = torch.sqrt(t2)
+    big = t > 0.1
+    tb = torch.where(big, t, 1.0)
+    c = torch.where(big, 1.0 / (tb * tb) - (1.0 + torch.cos(tb)) / (2.0 * tb * torch.sin(tb)),
+                    1.0 / 12.0 + t2 / 720.0 + t2 * t2 / 30240.0)
+    k = skew(phi)
+    return torch.eye(3, dtype=phi.dtype, device=phi.device) + 0.5 * k + c[..., None, None] * (k @ k)
+
+
+def quat_from_yaw(yaw):
+    """Rotation by `yaw` (...,) about z: (..., 4)."""
+    half = 0.5 * yaw
+    zeros = torch.zeros_like(half)
+    return torch.stack([torch.cos(half), zeros, zeros, torch.sin(half)], dim=-1)
+
+
 def quat_angle(q):
     """Rotation angle in [0, pi] (ref: transform.h GetAngle)."""
     w = torch.abs(q[..., 0])

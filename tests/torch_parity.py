@@ -106,6 +106,38 @@ def box_room_scan(seed, pose_t=(0.3, -0.2, 0.1), yaw=0.2, az=96, el=24):
     return pts[~np.isnan(pts[:, 0])]
 
 
+def box_room_submap_3d(hi_shape=(80, 72, 32), lo_shape=(20, 18, 8), az=128, el=32,
+                       scan_poses=((0.0, 0.0, 0.0), (0.4, 0.3, 0.0), (0.8, -0.3, 0.0))):
+    """tests/test_pose_graph_3d_integration.py build_finished_submap at
+    smaller extents: a finished JAX Submap3D at the origin (hi 0.1 m, lo
+    0.45 m TSDF grids) filled by the ray-mode inserter with one scan of the
+    asymmetric box room (its scan_at) from each pose, and its histogram."""
+    import jax.numpy as jnp
+
+    from hectorgrapher_tpu.common.config import TSDFRangeDataInserterOptions3D
+    from hectorgrapher_tpu.mapping.grids import make_tsdf_grid
+    from hectorgrapher_tpu.mapping.inserters_3d import make_tsdf_inserter_3d
+    from hectorgrapher_tpu.mapping.scan_matching.rotational_histogram import compute_histogram
+    from hectorgrapher_tpu.mapping.submap_3d import Submap3D
+    from hectorgrapher_tpu.transform.np_quat import NpRigid3
+    from test_pose_graph_3d_integration import HIST, scan_at
+
+    hi = make_tsdf_grid(0.1, hi_shape, truncation_distance=0.3, max_weight=1000.0)
+    lo = make_tsdf_grid(0.45, lo_shape, truncation_distance=1.0, max_weight=1000.0)
+    opts = TSDFRangeDataInserterOptions3D(normal_computation_method="NONE", min_range=0.4, max_range=30.0)
+    ins_hi, ins_lo = make_tsdf_inserter_3d(opts, 0.1), make_tsdf_inserter_3d(opts, 0.45)
+    hist = np.zeros(HIST, np.float32)
+    for pose_t in scan_poses:
+        pts = scan_at(pose_t, n_az=az, n_el=el) + np.asarray(pose_t, np.float32)
+        cloud = pad_cloud(pts, 8192)
+        rd = RangeData(origin=jnp.asarray(pose_t, jnp.float32), returns=cloud,
+                       misses=pad_cloud(np.zeros((0, 3), np.float32), 4))
+        hi, lo = ins_hi(hi, rd), ins_lo(lo, rd)
+        hist += np.asarray(compute_histogram(cloud.positions, cloud.mask, HIST))
+    return Submap3D(local_pose=NpRigid3(np.zeros(3)), high_resolution_grid=hi, low_resolution_grid=lo,
+                    rotational_histogram=hist, num_range_data=len(scan_poses), insertion_finished=True)
+
+
 def ct_drive(builder, rigid, timed_data, pad, duration=1.5, speed=0.2, yaw_rate=0.1, seed=0):
     """Drive a CT builder (either package's, with its own pose, data and
     padding types) through the tests/test_ct_builder.py scenario: IMU at
