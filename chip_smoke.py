@@ -6,8 +6,10 @@
     python3 chip_smoke.py --profile-ct 10   # also profile 10 CT front-end scans
 
 Builds the package's CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the shapes the main path gives it, then drives the main
-paths: the batched correlative + Gauss-Newton matcher at B=1024, the 2D
+PyTorch version at the shapes the main path gives it, and times each
+beside its plain version, its library yardstick where one PyTorch call
+computes the same gather-sum, and its bound (bound_ms); then drives the
+main paths: the batched correlative + Gauss-Newton matcher at B=1024, the 2D
 local SLAM front end (LocalTrajectoryBuilder2D) over 60 scans of the
 mapping-evaluation circle, the CT window solve on the production-extent
 fixture (256^3 / 128^3 TSDF grids), the continuous-time 3D front end
@@ -66,7 +68,7 @@ from hectorgrapher_tpu_torch.mapping.scan_matching.rotational_histogram import c
 from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.ops.correlative_prep_2d import correlative_prep_2d, correlative_prep_2d_plain
 from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d, correlative_scores_2d_plain
-from hectorgrapher_tpu_torch.ops.ct_scan_block import ct_scan_block, ct_scan_block_plain
+from hectorgrapher_tpu_torch.ops.ct_scan_block import ct_scan_block, ct_scan_block_plain, grid_params
 from hectorgrapher_tpu_torch.ops.fast_scores_3d import fast_scores_3d, fast_scores_3d_plain
 from hectorgrapher_tpu_torch.sensor.types import (
     PointCloud,
@@ -203,10 +205,11 @@ def cuda_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=20):
+def device_ms(fn, reps=20, match=None):
     """Mean device milliseconds per call of fn(): the self time of every
-    kernel, copy and fill it ran, from torch.profiler's CUDA trace. None
-    when the trace holds no device time."""
+    kernel, copy and fill it ran (only those whose name holds `match`, when
+    given), from torch.profiler's CUDA trace. None when the trace holds no
+    such device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -215,7 +218,8 @@ def device_ms(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+    total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                   if match is None or match in e.key)
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
@@ -223,27 +227,164 @@ def _fmt(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+# The least time a call could take on an H100 SXM (NVIDIA's data sheet):
+# HBM3 at 3.35 TB/s, f32 outside the tensor cores at 67 TFLOP/s.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# f32 operations per masked point of K3, counted from csrc/ct_scan_block.cu:
+# 295 for the world point, stencil, quotient rule and dR(q)p/dq, 253 for
+# the 18-column projection and the residual, 380 for the 190 products.
+K3_OPS_PER_POINT = 295 + 253 + 380
+
+
+def _sectors(idx):
+    """Distinct 32-byte sectors of 4-byte elements at flat indices idx."""
+    return int(torch.unique(idx.reshape(-1) // 8).numel())
+
+
+def k3_stencil_cells(grid, points, mask, pose7):
+    """Flat indices of the 2x2x2 stencil cells K3 reads in one grid (the
+    masked points whose cell lies inside), and the number of masked points."""
+    from hectorgrapher_tpu_torch.transform.rigid import quat_rotate
+
+    world = quat_rotate(pose7[:, None, 3:], points) + pose7[:, None, :3]
+    base = torch.floor((world - grid.meta.min_corner) / grid.meta.resolution - 0.5).long()
+    nx, ny, nz = grid.shape
+    inside = ((base >= 0) & (base < torch.tensor([nx - 1, ny - 1, nz - 1], device=base.device))).all(dim=-1)
+    b = base[mask & inside]
+    offs = torch.tensor([dx * ny * nz + dy * nz + dz for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)],
+                        device=b.device)
+    return (((b[:, 0] * ny + b[:, 1]) * nz + b[:, 2])[:, None] + offs).reshape(-1), int(mask.sum())
+
+
+def k4_gather(table, bx, by, bz, valid, cand_t, off_x, off_y, off_z, level, y_shift, grid_shape):
+    """K4's gather-sum written out: flat table indices (C*X*Y*Z, P) int64
+    and 0/1 weights of the same shape, f32, where a weight of 1 marks a
+    point that counts (fast_scores_3d_plain's cells for all points at once)."""
+    nx, ny, nz = grid_shape
+    span = 1 << level
+    nx_l, ny_l = -(-nx // span), table.shape[1]
+    t = cand_t.long()
+    ix = bx[t].long()[:, :, None] + off_x[:, None, :]  # (C, P, X)
+    iy = by[t].long()[:, :, None] + off_y[:, None, :]
+    iz = bz[t].long()[:, :, None] + off_z[:, None, :]
+    xz_in = ((ix > -span) & (ix < nx))[..., :, None] & ((iz > -span) & (iz < nz))[..., None, :]  # (C, P, X, Z)
+    row = (torch.clamp(iz, min=0) // span)[..., None, :] * nx_l + (torch.clamp(ix, min=0) // span)[..., :, None]
+    pick = (iy > -span) & (iy < ny) & valid[None, :, None]  # (C, P, Y)
+    lane = torch.clamp(iy, 0, ny - 1) // (1 << y_shift)
+    idx = row[:, :, :, None, :] * ny_l + lane[:, :, None, :, None]  # (C, P, X, Y, Z)
+    keep = xz_in[:, :, :, None, :] & pick[:, :, None, :, None]
+    idx = torch.where(keep, idx, 0)
+    c, p = idx.shape[:2]
+    to_rows = lambda x: x.permute(0, 2, 3, 4, 1).reshape(-1, p).contiguous()
+    return to_rows(idx), to_rows(keep.to(torch.float32))
+
+
+def k2_gather(table, flat, delta_lin, valid, n_groups, gsz, pw, k):
+    """K2's gather-sum written out: flat table indices (B*T*d*d, N) int64
+    and the valid flags as weights of the same shape, in the table's
+    dtype."""
+    d = 2 * k + 1
+    b, g, n = flat.shape
+    j = delta_lin.reshape(b, g, gsz, n).long()
+    off = torch.div(j, gsz, rounding_mode="floor") * pw + torch.remainder(j, gsz)
+    r = torch.arange(d, device=flat.device)
+    lanes = (r[:, None] * pw + r[None, :]).reshape(1, 1, 1, -1, 1)
+    idx = (flat.long()[:, :, None, :] * (pw * pw) + off)[:, :, :, None, :] + lanes  # (B, G, gsz, d^2, N)
+    weight = (valid > 0).to(table.dtype)[:, None, None, None, :].expand(idx.shape)
+    return idx.reshape(-1, n), weight.reshape(-1, n).contiguous()
+
+
+def _work(kernel, args):
+    """(bytes, operations) of one call: each input read once, each output
+    written once; of the gathered tables, the distinct 32-byte sectors the
+    call's inputs touch; operations as the call's data needs them."""
+    if kernel == "correlative_prep_2d":
+        params, px, py, ca, sa, n_groups, gsz, margin, ex, ey = args
+        (b, n), t = px.shape, ca.shape[1]
+        # 2 x (2 mul, 2 add/sub, 1 sub, 1 div) per (match, angle, point).
+        return 4 * (params.numel() + px.numel() + py.numel() + ca.numel() + sa.numel() + b * n_groups * n
+                    + b * t * n), 12 * b * t * n
+    if kernel == "correlative_scores_2d":
+        table, flat, delta_lin, valid, n_groups, gsz, pw, k = args
+        d, (b, g, n) = 2 * k + 1, flat.shape
+        # Whole pw*pw rows of the table rows the valid points name.
+        rows = torch.unique(flat[(valid > 0)[:, None, :].expand(b, g, n)].long())
+        row_bytes = pw * pw * table.element_size()
+        first, last = rows * row_bytes // 32, (rows * row_bytes + row_bytes - 1) // 32
+        sectors = torch.unique((first[:, None] + torch.arange(int((last - first).max()) + 1, device=rows.device))
+                               .clamp(max=last[:, None]))
+        n_valid = int((valid > 0).sum())
+        return (32 * sectors.numel() + 4 * (flat.numel() + delta_lin.numel() + valid.numel() + b * g * gsz * d * d),
+                g * gsz * d * d * n_valid)
+    if kernel == "ct_scan_block":
+        hi, lo, hi_pts, hi_mask, lo_pts, lo_mask, pose7, dpose7, hi_scale, lo_scale = args[:10]
+        c = hi_mask.shape[0]
+        nbytes = (4 * (hi_pts.numel() + lo_pts.numel() + pose7.numel() + dpose7.numel() + 2 * c + 8)
+                  + hi_mask.numel() + lo_mask.numel() + 4 * c * (18 * 18 + 18 + 1))
+        n_masked = 0
+        for grid, pts, mask in ((hi, hi_pts, hi_mask), (lo, lo_pts, lo_mask)):
+            cells, n = k3_stencil_cells(grid, pts, mask, pose7)
+            nbytes += 2 * 32 * _sectors(cells)  # tsd and weight: one layout
+            n_masked += n
+        return nbytes, K3_OPS_PER_POINT * n_masked
+    if kernel == "fast_scores_3d":
+        table, bx, by, bz, valid, cand_t, off_x, off_y, off_z = args[:9]
+        idx, weight = k4_gather(*args)
+        p = bx.shape[1]
+        nbytes = (32 * _sectors(idx[weight > 0]) + 12 * p * int(torch.unique(cand_t).numel()) + valid.numel()
+                  + 4 * (cand_t.numel() + off_x.numel() + off_y.numel() + off_z.numel() + idx.shape[0]))
+        return nbytes, int(weight.sum())
+    raise ValueError(f"no work model for {kernel}")
+
+
+def bound_ms(kernel, args):
+    """The least time the card could take for one call of `kernel` on
+    `args` (its positional arguments): the larger of its bytes over 3.35
+    TB/s and its operations over 67 TFLOP/s. Returns (ms, "bytes" or
+    "operations", bytes, operations)."""
+    nbytes, ops = _work(kernel, args)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def measure(name, label, kernel, plain, args, err, library=None, note=""):
+    """Time one kernel call against its plain version (and the library
+    call, where there is one) at one shape, print one line and return the
+    record: per call (CUDA events around the call, host gap included) and
+    device time (the kernel's own, from torch.profiler) beside its bound."""
+    b_ms, b_by, nbytes, ops = bound_ms(name, args)
+    rec = dict(max_abs_err=err, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+               device_ms=device_ms(kernel, match=f"{name}_kernel"), plain_device_ms=device_ms(plain),
+               library_ms=None if library is None else cuda_ms(library), bound_ms=b_ms, bound_by=b_by)
+    share = "not measured" if rec["device_ms"] is None else f"{100 * b_ms / rec['device_ms']:.1f}% of it"
+    lib = "none" if library is None else f"{rec['library_ms']:.4f} ms"
+    print(f"{name} {label}{note}: max |d| {err:.3e}; per call kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, library {lib}; device time kernel {_fmt(rec['device_ms'])}, plain "
+          f"{_fmt(rec['plain_device_ms'])}; bound {b_ms * 1e3:.3f} us by {b_by} ({nbytes / 1e6:.3f} MB, "
+          f"{ops / 1e6:.3f} Mop), {share}", flush=True)
+    return rec
+
+
 def check_kernels(shapes):
     """Phases 3 and 4: each kernel against its plain version at each shape.
-    Returns {kernel: {shape: (max_abs_err, ms, plain_ms)}}."""
+    Returns {kernel: {shape: record}} (see measure)."""
     out = {"correlative_prep_2d": {}, "correlative_scores_2d": {}}
     for label, (grid, clouds, poses, window) in shapes.items():
         k, gsz, half, m, pw, n_th, n_groups = _window_geometry(window)
         args, kw = prep_inputs(grid, clouds, poses, window)
-        flat, dlin = correlative_prep_2d(*args, **kw)
-        flat_p, dlin_p = correlative_prep_2d_plain(*args, **kw)
+        args = (*args, *(kw[key] for key in ("n_groups", "gsz", "margin", "ex", "ey")))
+        flat, dlin = correlative_prep_2d(*args)
+        flat_p, dlin_p = correlative_prep_2d_plain(*args)
         torch.cuda.synchronize()
         if not (torch.equal(flat, flat_p) and torch.equal(dlin, dlin_p)):
             bad = int((flat != flat_p).sum() + (dlin != dlin_p).sum())
             fail(f"K1 correlative_prep_2d differs from its plain version at {label}: {bad} outputs")
-        kernel = lambda: correlative_prep_2d(*args, **kw)
-        plain = lambda: correlative_prep_2d_plain(*args, **kw)
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-        out["correlative_prep_2d"][label] = (0.0, ms, plain_ms)
         b, t_pad, n = dlin.shape
-        print(f"K1 correlative_prep_2d {label} B={b} T={t_pad} N={n}: exact; per call kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms; device time kernel {_fmt(device_ms(kernel))}, "
-              f"plain {_fmt(device_ms(plain))}", flush=True)
+        out["correlative_prep_2d"][label] = measure(
+            "correlative_prep_2d", label, lambda: correlative_prep_2d(*args), lambda: correlative_prep_2d_plain(*args),
+            args, 0.0, note=f" B={b} T={t_pad} N={n} (library: none, no one PyTorch call floors rotated points "
+                            "into cells and their clipped deltas)")
 
         table = prepare_correlative_table(grid, window)
         valid = clouds.mask.to(torch.float32).contiguous()
@@ -259,13 +400,15 @@ def check_kernels(shapes):
         # another order: |delta| <= 1e-4 * n_valid.
         if bool((err > 1e-4 * n_valid).any()):
             fail(f"K2 correlative_scores_2d differs from its plain version at {label}: max {float(err.max())}")
-        kernel = lambda: correlative_scores_2d(*sargs)
-        plain = lambda: correlative_scores_2d_plain(*sargs)
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-        out["correlative_scores_2d"][label] = (float(err.max()), ms, plain_ms)
-        print(f"K2 correlative_scores_2d {label} B={b} G={n_groups} N={n}: max |d| {float(err.max()):.3e} "
-              f"(bound {1e-4 * float(n_valid.min()):.3e}); per call kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-              f"device time kernel {_fmt(device_ms(kernel))}, plain {_fmt(device_ms(plain))}", flush=True)
+        del ref
+        idx, weight = k2_gather(*sargs)  # the library yardstick's inputs, built outside its timing
+        flat_table = table.reshape(-1, 1)
+        library = lambda: torch.nn.functional.embedding_bag(idx, flat_table, mode="sum", per_sample_weights=weight)
+        out["correlative_scores_2d"][label] = measure(
+            "correlative_scores_2d", label, lambda: correlative_scores_2d(*sargs),
+            lambda: correlative_scores_2d_plain(*sargs), sargs, float(err.max()), library=library,
+            note=f" B={b} G={n_groups} N={n} (library: embedding_bag, the gather-sum only)")
+        del idx, weight
     return out
 
 
@@ -389,7 +532,8 @@ def ct_kernel_inputs(device, hi, lo, scan_pts, c=32, p=256, k=32, seed=SEED):
     and 256 lo-res points drawn from a scan (the last 32 lo-res points of
     each cloud masked out, as padding), posed between K=32 control points
     perturbed by up to 5 cm / 0.02 rad, with pose7/dpose7 and the scales
-    as the window solver computes them."""
+    as the window solver computes them, then the grid parameters. With
+    c=1, GN3D's shape: one cloud of 256 + 256 points."""
     from types import SimpleNamespace
 
     from hectorgrapher_tpu_torch.transform.rigid import quat_from_axis_angle
@@ -416,20 +560,22 @@ def ct_kernel_inputs(device, hi, lo, scan_pts, c=32, p=256, k=32, seed=SEED):
     pose7, dpose7 = window_solver.cloud_poses(state, brackets)
     hi_scale = torch.full((c,), 1.0 / math.sqrt(p), device=device)
     lo_scale = torch.full((c,), 1.0 / math.sqrt(p - 32), device=device)
-    return (hi, lo, hi_pts, hi_mask, lo_pts, lo_mask, pose7.contiguous(), dpose7.contiguous(), hi_scale, lo_scale)
+    return (hi, lo, hi_pts, hi_mask, lo_pts, lo_mask, pose7.contiguous(), dpose7.contiguous(), hi_scale, lo_scale,
+            grid_params(hi, lo))
 
 
-def check_ct_scan_block(args):
-    """Phase 7: K3 against its plain version. Returns (max_abs_err, ms,
-    plain_ms)."""
-    got = ct_scan_block(*args)
-    want = ct_scan_block_plain(*args)
+def check_ct_scan_block(args, label, timed=True):
+    """Phase 7: K3 against its plain version at one shape; args end in the
+    grid parameters, which the main path builds once per solve or match.
+    Returns measure's record (timed) or the largest difference."""
+    got = ct_scan_block(*args[:10], gparams=args[10])
+    want = ct_scan_block_plain(*args[:10])
     torch.cuda.synchronize()
     if not all(bool(torch.isfinite(x).all()) for x in got):
-        fail("K3 ct_scan_block returned non-finite values")
+        fail(f"K3 ct_scan_block returned non-finite values at {label}")
     S_p = want[0]
     if float(S_p.abs().max()) <= 0.0:
-        fail("K3 inputs see no observed cells")
+        fail(f"K3 inputs see no observed cells at {label}")
     # Per cloud: sums over 512 points of f32 products in another order
     # than the plain version's matmuls: |delta| <= 1e-4 * max(1, max|S_c|).
     bound = 1e-4 * torch.clamp(S_p.abs().amax(dim=(1, 2)), min=1.0)
@@ -437,19 +583,20 @@ def check_ct_scan_block(args):
             (got[2] - want[2]).abs()]
     for name, e in zip(("S", "g", "cost"), errs):
         if bool((e > bound).any()):
-            fail(f"K3 ct_scan_block {name} differs from its plain version: max {float(e.max()):.3e}, "
+            fail(f"K3 ct_scan_block {name} differs from its plain version at {label}: max {float(e.max()):.3e}, "
                  f"bound {float(bound.min()):.3e}")
     err = max(float(e.max()) for e in errs)
-    kernel = lambda: ct_scan_block(*args)
-    plain = lambda: ct_scan_block_plain(*args)
-    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
     hi, lo = args[0], args[1]
     c, p_hi = args[3].shape
-    print(f"K3 ct_scan_block grids {hi.shape[0]}^3/{lo.shape[0]}^3 C={c} P={p_hi}+{args[5].shape[1]}: "
-          f"max |d| {err:.3e} (bound {float(bound.min()):.3e}..{float(bound.max()):.3e}); per call kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; device time kernel {_fmt(device_ms(kernel))}, "
-          f"plain {_fmt(device_ms(plain))}", flush=True)
-    return err, ms, plain_ms
+    if not timed:
+        print(f"ct_scan_block {label} C={c} P={p_hi}+{args[5].shape[1]}: max |d| {err:.3e} (bound "
+              f"{float(bound.min()):.3e}..{float(bound.max()):.3e}, per cloud)", flush=True)
+        return err
+    return measure("ct_scan_block", label, lambda: ct_scan_block(*args[:10], gparams=args[10]),
+                   lambda: ct_scan_block_plain(*args[:10]), args, err,
+                   note=f" grids {hi.shape[0]}^3/{lo.shape[0]}^3 C={c} P={p_hi}+{args[5].shape[1]} "
+                        f"(error bound {float(bound.min()):.3e}..{float(bound.max()):.3e}; library: none, no one "
+                        "PyTorch call fuses the TSDF stencil, the pose Jacobian and J^T J)")
 
 
 def build_ct_example(device, K=8, C=8, P=256, grid=256, cube=True):
@@ -499,7 +646,7 @@ def build_ct_example(device, K=8, C=8, P=256, grid=256, cube=True):
 @contextlib.contextmanager
 def plain_scan_blocks():
     """Route the window solver's scan blocks through K3's plain version."""
-    window_solver.ct_scan_block = ct_scan_block_plain
+    window_solver.ct_scan_block = lambda *args, gparams=None: ct_scan_block_plain(*args)
     try:
         yield
     finally:
@@ -770,18 +917,11 @@ def fast_match_submap(device, hi_size=256, lo_size=128):
     return grids[0], grids[1], hist
 
 
-def run_fast_match(device, hi, lo, hist, max_scan_range=20.0, reps=5):
-    """Phase 10: K4 against its plain version in one full match of the fast
-    3D matcher (FastCorrelativeScanMatcherOptions3D defaults: 8 levels,
-    5 m / 1 m / 15 degree window, 256-wide beam) over fast_match_submap's
-    production-extent submap, a scan taken at FM_TRUTH matched from
-    FM_START. Every score_sum call of the match is held against the plain
-    version; the plain path's match must land on the same pose or on a
-    tied score. Returns (max_abs_err, ms, plain_ms) at the coarse stage."""
-    t0 = time.perf_counter()
+def fast_match_setup(device, hi, lo, hist, max_scan_range=20.0):
+    """Phase 10's matcher over the submap (hi, lo, hist) and its match of
+    a scan taken at FM_TRUTH from FM_START: (matcher, match())."""
     matcher = FastCorrelativeScanMatcher3D(cfg.FastCorrelativeScanMatcherOptions3D(), hi, lo, hist)
     sync(device)
-    build_s = time.perf_counter() - t0
     truth_t, truth_yaw = FM_TRUTH
     rng = np.random.default_rng(SEED)
     pts = raycast_box_room_3d(truth_t, nq.quat_from_axis_angle(np.array([0.0, 0.0, truth_yaw])), num_azimuth=96,
@@ -789,8 +929,12 @@ def run_fast_match(device, hi, lo, hist, max_scan_range=20.0, reps=5):
     high, low, scan_hist = node_clouds(pts[~np.isnan(pts[:, 0])], device)
     initial = Rigid3(torch.tensor(FM_START, dtype=torch.float32, device=device),
                      torch.tensor([1.0, 0.0, 0.0, 0.0], device=device))
-    match = lambda: matcher.match(initial, high, low, scan_hist, 0.0, max_scan_range=max_scan_range)
+    return matcher, lambda: matcher.match(initial, high, low, scan_hist, 0.0, max_scan_range=max_scan_range)
 
+
+def recorded_score_sums(match):
+    """Run match() through K4 and return ([(arguments, output)] of each
+    score_sum call, the match's result)."""
     calls = []
 
     def recorded(*a):
@@ -799,12 +943,29 @@ def run_fast_match(device, hi, lo, hist, max_scan_range=20.0, reps=5):
         return out
 
     with score_sums_through(recorded):
-        score, low_score, _, pose = match()
+        result = match()
+    return calls, result
+
+
+def run_fast_match(device, hi, lo, hist, max_scan_range=20.0, reps=5):
+    """Phase 10: K4 against its plain version in one full match of the fast
+    3D matcher (FastCorrelativeScanMatcherOptions3D defaults: 8 levels,
+    5 m / 1 m / 15 degree window, 256-wide beam) over fast_match_submap's
+    production-extent submap, a scan taken at FM_TRUTH matched from
+    FM_START. Every score_sum call of the match is held against the plain
+    version; the plain path's match must land on the same pose or on a
+    tied score. Returns {shape: measure's record} at fast_score_shapes'
+    three shapes."""
+    t0 = time.perf_counter()
+    matcher, match = fast_match_setup(device, hi, lo, hist, max_scan_range)
+    build_s = time.perf_counter() - t0
+    truth_t, truth_yaw = FM_TRUTH
+    calls, (score, low_score, _, pose) = recorded_score_sums(match)
     with score_sums_through(fast_scores_3d_plain):
         score_p, _, _, pose_p = match()
     torch.cuda.synchronize()
     err = 0.0
-    for a, out in calls:
+    for i, (a, out) in enumerate(calls):
         want = fast_scores_3d_plain(*a)
         if not bool(torch.isfinite(out).all()):
             fail("K4 fast_scores_3d returned non-finite values")
@@ -814,6 +975,7 @@ def run_fast_match(device, hi, lo, hist, max_scan_range=20.0, reps=5):
         if e > 1e-5 * max(1.0, float(want.abs().max())):
             fail(f"K4 fast_scores_3d differs from its plain version at level {a[9]}: max {e:.3e}")
         err = max(err, e)
+        calls[i] = (a, out, want)
     score, low_score, score_p = float(score), float(low_score), float(score_p)
     same_pose = (float((pose.translation - pose_p.translation).abs().max()) <= 1e-5
                  and float((pose.rotation - pose_p.rotation).abs().max()) <= 1e-6)
@@ -826,15 +988,8 @@ def run_fast_match(device, hi, lo, hist, max_scan_range=20.0, reps=5):
         fail(f"fast match: pose {t_err:.4f} m / {y_err:.4f} rad from the truth (bounds 0.15 / 0.05), score "
              f"{score:.4f}, low-res score {low_score:.4f} (gates 0.55)")
 
-    (coarse, _), (expansion, _) = calls[0], calls[1]
-    stats = {}
-    for label, a in (("coarse", coarse), ("expansion", expansion)):
-        kernel, plain = (lambda a=a: fast_scores_3d(*a)), (lambda a=a: fast_scores_3d_plain(*a))
-        c, x, y, z = kernel().shape
-        stats[label] = (cuda_ms(kernel), cuda_ms(plain))
-        print(f"K4 fast_scores_3d {label} level {a[9]} C={c} X={x} Y={y} Z={z} P={a[1].shape[1]} T={a[1].shape[0]}: "
-              f"per call kernel {stats[label][0]:.4f} ms, plain {stats[label][1]:.4f} ms; device time kernel "
-              f"{_fmt(device_ms(kernel))}, plain {_fmt(device_ms(plain))}", flush=True)
+    stats = {label: measure_fast_scores(label, a, out, want)
+             for label, (a, out, want) in fast_score_shapes(calls).items()}
 
     def timed(fn):
         out = []
@@ -853,7 +1008,48 @@ def run_fast_match(device, hi, lo, hist, max_scan_range=20.0, reps=5):
           f"({matcher.pyramid_bytes / 2**20:.1f} MiB, built in {build_s * 1e3:.1f} ms), {len(calls)} score_sum calls: max |d| {err:.3e}; score {score:.5f} "
           f"(plain path {score_p:.5f}, same pose {same_pose}), low-res {low_score:.5f}, error {t_err:.4f} m / "
           f"{y_err:.4f} rad; per match median {match_ms:.3f} ms, plain path {match_plain_ms:.3f} ms", flush=True)
-    return err, *stats["coarse"]
+    return stats
+
+
+def check_fast_scores_chunks(device, seed=SEED):
+    """Phase 10's check of K4 where a block loops over chunks of points and
+    tiles of outputs (shapes the matcher does not reach at 256 points):
+    C=40 candidates x 3 x 5 x 4 offsets over P=1500 seeded points of a
+    random 64 x 96 x 48 level-1 table, held against the plain version."""
+    rng = np.random.default_rng(seed)
+    grid_shape, level, y_shift = (64, 96, 48), 1, 1
+    table = rng.uniform(0.0, 0.8, (24 * 32 + 1, 48)).astype(np.float32)
+    table[-1] = 0.0
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+    cells = [i32(rng.integers(-4, n + 4, (9, 1500))) for n in grid_shape]
+    a = (torch.from_numpy(table).to(device), *cells, torch.from_numpy(rng.random(1500) < 0.9).to(device),
+         i32(rng.integers(0, 9, 40)), *(i32(rng.integers(-6, 7, (40, k))) for k in (3, 5, 4)), level, y_shift,
+         grid_shape)
+    got, want = fast_scores_3d(*a), fast_scores_3d_plain(*a)
+    torch.cuda.synchronize()
+    e = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or e > 1e-5 * max(1.0, float(want.abs().max())):
+        fail(f"K4 fast_scores_3d differs from its plain version over chunks and tiles: max {e:.3e}")
+    print(f"fast_scores_3d chunks and tiles C=40 X=3 Y=5 Z=4 P=1500: max |d| {e:.3e}", flush=True)
+
+
+def fast_score_shapes(calls):
+    """Phase 10's K4 calls at its three shapes: the coarse call, the first
+    expansion and the level-0 expansion."""
+    return {"coarse": calls[0], "expansion": calls[1], "expansion_level0": calls[-1]}
+
+
+def measure_fast_scores(label, a, out, want):
+    """measure() for one K4 call, with embedding_bag over the same cells as
+    its library yardstick."""
+    idx, weight = k4_gather(*a)  # the yardstick's inputs, built outside its timing
+    flat_table = a[0].reshape(-1, 1)
+    library = lambda: torch.nn.functional.embedding_bag(idx, flat_table, mode="sum", per_sample_weights=weight)
+    c, x, y, z = out.shape
+    return measure("fast_scores_3d", label, lambda: fast_scores_3d(*a), lambda: fast_scores_3d_plain(*a), a,
+                   float((out - want).abs().max()), library=library,
+                   note=f" level {a[9]} C={c} X={x} Y={y} Z={z} P={a[1].shape[1]} T={a[1].shape[0]} "
+                        "(library: embedding_bag, the gather-sum only)")
 
 
 SLAM_ANCHOR = np.array([-2.6, -2.0, 0.0])  # phase 11's start, world frame
@@ -1069,12 +1265,18 @@ def main() -> int:
           f"(bounds {MAX_TRANSLATION_ERROR:.5f} / {MAX_YAW_ERROR:.5f}); per-scan latency median "
           f"{np.median(lat_ms):.3f} ms, p95 {np.percentile(lat_ms, 95):.3f} ms", flush=True)
 
-    # Phase 7: K3 against its plain version at the CT front end's shape.
+    # Phase 7: K3 against its plain version at the CT front end's shape
+    # and at GN3D's.
     # Every f32 matmul and solve of the CT path runs at full precision (C2).
     if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
         fail("f32 matmuls are not at full precision")
     hi, lo, scan_pts = ct_production_grids(device)
-    checks["ct_scan_block"] = {"front_end": check_ct_scan_block(ct_kernel_inputs(device, hi, lo, scan_pts))}
+    checks["ct_scan_block"] = {
+        "front_end": check_ct_scan_block(ct_kernel_inputs(device, hi, lo, scan_pts), "front_end"),
+        "gn3d": check_ct_scan_block(ct_kernel_inputs(device, hi, lo, scan_pts, c=1), "gn3d"),
+    }
+    # A block loops over chunks of points only past 512 points a cloud.
+    check_ct_scan_block(ct_kernel_inputs(device, hi, lo, scan_pts, c=4, p=1024), "chunks", timed=False)
     del hi, lo
 
     # Phase 8: the window solve on the production-extent fixture.
@@ -1106,20 +1308,28 @@ def main() -> int:
 
     # Phase 10: K4 against its plain version in a full fast match over a
     # production-extent submap.
-    checks["fast_scores_3d"] = {"coarse": run_fast_match(device, *fast_match_submap(device))}
+    checks["fast_scores_3d"] = run_fast_match(device, *fast_match_submap(device))
+    check_fast_scores_chunks(device)
 
     # Phase 11: the 3D SLAM path, through K4 on every score sum of every
-    # constraint search.
+    # constraint search, and K3 on every CT assembly and GN3D evaluation.
     fast_correlative_3d.match_fast_3d.score_sums = 0
     fast_scores_3d.launches = 0
-    ct_scan_block.launches = 0  # the CT window solves' and GN3D's scan blocks
+    ct_scan_block.launches = 0
+    window_solver.solve_ct_window_block.assemblies = 0
     slam = run_slam(device)
     launches["fast_scores_3d"] = fast_scores_3d.launches
     score_sums = fast_correlative_3d.match_fast_3d.score_sums
+    # Only the window solve and GN3D call K3: the solve once per assembly.
+    k3_slam_front, k3_gn3d = (window_solver.solve_ct_window_block.assemblies,
+                              ct_scan_block.launches - window_solver.solve_ct_window_block.assemblies)
+    k3_paths = {"ct_front_end": launches["ct_scan_block"], "slam_front_end": k3_slam_front, "slam_gn3d": k3_gn3d}
     if slam["errors"]:
         fail(f"SLAM: pose-graph work failed: {slam['errors'][:3]}")
     if fast_scores_3d.launches != score_sums or score_sums == 0:
         fail(f"SLAM: {fast_scores_3d.launches} K4 launches for {score_sums} score_sum calls")
+    if k3_slam_front == 0 or k3_gn3d <= 0:
+        fail(f"SLAM: K3 launches {k3_paths}: the front end or GN3D did not launch K3")
     if not slam["finite"] or slam["finished"] == 0 or slam["inter"] == 0:
         fail(f"SLAM: {slam['finished']} finished submaps, {slam['inter']} INTER constraints, finite {slam['finite']}")
     if not slam["late_global"] < slam["late_local"] / 2:
@@ -1132,7 +1342,8 @@ def main() -> int:
     lat_ms, search_ms, solve_ms = (np.array(slam[k]) * 1e3 for k in ("latencies", "searches", "solves"))
     print(f"SLAM 3D: {slam['nodes']} nodes, {slam['submaps']} submaps ({slam['finished']} finished), "
           f"{slam['inter']} INTER constraints, {slam['optimizations']} optimizations; K4 launches "
-          f"{fast_scores_3d.launches} = score_sum calls {score_sums}, K3 launches {ct_scan_block.launches}; "
+          f"{fast_scores_3d.launches} = score_sum calls {score_sums}, K3 launches {ct_scan_block.launches} "
+          f"({k3_slam_front} CT assemblies, {k3_gn3d} GN3D); "
           f"returning tail local {slam['late_local']:.5f} m, "
           f"global {slam['late_global']:.5f} m; global median {slam['median_global']:.5f} m, max "
           f"{slam['max_global']:.5f} m (JAX on the CPU {JAX_SLAM_LATE_GLOBAL:.5f} / {JAX_SLAM_MEDIAN_GLOBAL:.5f} / "
@@ -1154,14 +1365,23 @@ def main() -> int:
                            "hectorgrapher_tpu/mapping/scan_matching/fast_correlative_3d.py:329 (score_sum of "
                            "_match_fast_3d_core, an XLA gather-reduce)"),
     }
+    # Each kernel's record at its main-path shape (K1 and K2 at B=1024, K3
+    # at the CT front end's, K4 at the coarse stage's), its other shapes
+    # under "shapes"; launches from its main path's run (K1, K2: phase 6;
+    # K3: phase 9, with phase 11's split under "launches_by_path"; K4:
+    # phase 11).
+    main_shape = {"correlative_prep_2d": "batched", "correlative_scores_2d": "batched",
+                  "ct_scan_block": "front_end", "fast_scores_3d": "coarse"}
     kernels = []
     for name, (source, replaces) in sources.items():
-        err, ms, plain_ms = next(iter(checks[name].values()))
+        rec = checks[name][main_shape[name]]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
-            "max_abs_err": max(v[0] for v in checks[name].values()),
-            "ms": ms, "plain_ms": plain_ms,
+            **{k: rec[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "library_ms")},
+            "max_abs_err": max(v["max_abs_err"] for v in checks[name].values()),
+            "shapes": checks[name],
+            **({"launches_by_path": k3_paths} if name == "ct_scan_block" else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

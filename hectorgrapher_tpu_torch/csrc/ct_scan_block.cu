@@ -20,29 +20,45 @@
 //   J      = row7 @ dpose7 * s, r = val * s   (s = scale[c] where masked in)
 // and the block sums S = J^T J (18 x 18), g = J^T r, cost = 0.5 sum r^2.
 //
-// What bounds it on the H100: neither bytes nor flops. At the production
-// shape (C = 32 clouds, 256 + 256 points) it reads ~16k points x 16
-// scattered grid values (~8 cache lines per point, a few MB) and does
-// ~1k flops per point. One launch per LM assembly replaces the plain
-// version's ~100 eager ops; the kernel is launch- and latency-bound.
+// What bounds it on the H100: latency. At the front end's shape (C = 32
+// clouds, 256 + 256 points, 256^3 / 128^3 grids) it moves ~2 MB (points,
+// the distinct 32-byte sectors of the stencil cells, outputs; ~0.6 us at
+// 3.35 TB/s) and does ~930 flops a point (~14 MFLOP, ~0.2 us at 67
+// TFLOP/s); GN3D calls it with one cloud. Giving each cloud one block
+// fills 32 SMs, or one for GN3D, and sums 512 products per output
+// serially: ~20 us at either shape.
 //
-// Design: one block per cloud, 256 threads, points in chunks of 256. Each
-// thread turns one point into its 18-wide row and residual in shared
-// memory; then thread k < 190 owns one of the 171 upper-triangle entries
-// of S, the 18 entries of g or the cost, and adds the chunk's products in
-// point order. Fixed order, no atomics: the result is deterministic, which
+// Design: one thread block cluster of kCluster blocks per cloud, each
+// block a contiguous slice of the cloud's points, so the front end
+// launches 256 blocks and GN3D 8. In a block, thread p < kChunk turns
+// point p into its residual and 7-wide row [dval/dworld, dval/dq]; all
+// threads then project the rows onto the 18-dim tangent, one (point,
+// column) each, into shared memory; then thread k < 190 owns one of the
+// 171 upper-triangle entries of S, the 18 entries of g or the cost, and
+// adds its slice's products in point order. Block 0 of the cluster adds
+// the blocks' sums in rank order, read from their shared memory through
+// the cluster (distributed shared memory): no scratch in device memory,
+// no atomics, and a fixed order, so the result is deterministic, which
 // the LM accept test needs. The world point and the cell floor must pick
 // the same cells as the plain version (ROADMAP C0): every multiply, add,
 // subtract and divide is a round-to-nearest intrinsic, and the library is
-// built with --fmad=false. The rest follows the plain version's order too.
+// built with --fmad=false. The rest follows the plain version's order
+// too, except that the sums over points run by slice.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kCluster = 8;  // blocks per cloud, one cluster (the portable maximum)
+constexpr int kChunk = 64;  // points a block turns into rows at a time
+constexpr int kThreads = 192;  // >= kOut and >= kChunk
 constexpr int kRow = 19;  // 18 Jacobian entries + the residual; odd stride
+constexpr int kRow7 = 9;  // row7, the residual and the scale of a point
 constexpr int kUpper = 171;  // 18 * 19 / 2
+constexpr int kOut = kUpper + 18 + 1;  // a block's sums: S's upper triangle, g, the cost
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -65,7 +81,7 @@ struct Grid {
 
 // One field's value and d/df from its stencil values r[(dx, dy)][dz], in
 // the plain version's order (interpolated_grid.py _field_and_dfrac).
-__device__ void field_and_dfrac(const float r[4][2], float fx, float fy, float fz, float& val,
+__device__ __forceinline__ void field_and_dfrac(const float r[4][2], float fx, float fy, float fz, float& val,
                                 float d[3]) {
   const float gx = sub(1.0f, fx), gy = sub(1.0f, fy), gz = sub(1.0f, fz);
   const float w00 = mul(gx, gy), w01 = mul(gx, fy), w10 = mul(fx, gy), w11 = mul(fx, fy);
@@ -83,7 +99,7 @@ __device__ void field_and_dfrac(const float r[4][2], float fx, float fy, float f
 }
 
 // Residual (unscaled) and row7 = [dval/dworld, dval/dq] of one point.
-__device__ void point_row7(const Grid& grid, const float q[4], const float t[3], const float p[3],
+__device__ __forceinline__ void point_row7(const Grid& grid, const float q[4], const float t[3], const float p[3],
                            float& val, float row7[7]) {
   // world = p + 2 * (w * (u x p) + u x (u x p)) + t
   const float u[3] = {q[1], q[2], q[3]};
@@ -160,34 +176,30 @@ __device__ void point_row7(const Grid& grid, const float q[4], const float t[3],
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-ct_scan_block_kernel(Grid hi, Grid lo, const float* __restrict__ gparams, const float* __restrict__ hi_pts,
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+ct_scan_block_kernel(const Grid hi, const Grid lo, const float* __restrict__ gparams, const float* __restrict__ hi_pts,
                      const uint8_t* __restrict__ hi_mask, const float* __restrict__ lo_pts,
                      const uint8_t* __restrict__ lo_mask, const float* __restrict__ pose7,
                      const float* __restrict__ dpose7, const float* __restrict__ hi_scale,
                      const float* __restrict__ lo_scale, float* __restrict__ S_out,
                      float* __restrict__ g_out, float* __restrict__ cost_out, int p_hi, int p_lo) {
-  __shared__ float rows[kThreads * kRow];
+  __shared__ float rows[kChunk * kRow];
+  __shared__ float row7s[kChunk * kRow7];  // row7, the residual, the scale
   __shared__ float sh_pose[7];
   __shared__ float sh_dpose[7 * 18];
-  const int c = blockIdx.x;
+  __shared__ float sums[kOut];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int c = blockIdx.y;
   const int tid = threadIdx.x;
   if (tid < 7) sh_pose[tid] = pose7[c * 7 + tid];
   for (int k = tid; k < 7 * 18; k += kThreads) sh_dpose[k] = dpose7[static_cast<size_t>(c) * 126 + k];
-  __syncthreads();
-  for (int i = 0; i < 3; ++i) {
-    hi.mc[i] = __ldg(gparams + i);
-    lo.mc[i] = __ldg(gparams + 4 + i);
-  }
-  hi.res = __ldg(gparams + 3);
-  lo.res = __ldg(gparams + 7);
-  const float t[3] = {sh_pose[0], sh_pose[1], sh_pose[2]};
-  const float q[4] = {sh_pose[3], sh_pose[4], sh_pose[5], sh_pose[6]};
-  const float s_hi = hi_scale[c], s_lo = lo_scale[c];
+  float gp[8];  // the grids' min corners and resolutions
+  for (int k = 0; k < 8; ++k) gp[k] = __ldg(gparams + k);
 
   // The output this thread owns: upper-triangle entry (oa, ob) of S,
-  // g[oa], or the cost.
-  int oa = -1, ob = -1;
+  // g[oa] (ob = 18, the residual column), or the cost (oa = ob = 18).
+  int oa = 18, ob = 18;
   if (tid < kUpper) {
     int k = tid, a = 0;
     while (k >= 18 - a) {
@@ -199,57 +211,97 @@ ct_scan_block_kernel(Grid hi, Grid lo, const float* __restrict__ gparams, const 
   } else if (tid < kUpper + 18) {
     oa = tid - kUpper;
   }
-  float acc = 0.0f;
 
+  // This block's slice of the cloud's points, in chunks of kChunk.
   const int n_pts = p_hi + p_lo;
-  for (int start = 0; start < n_pts; start += kThreads) {
+  const int per = (n_pts + kCluster - 1) / kCluster;
+  const int begin = min(n_pts, rank * per), end = min(n_pts, begin + per);
+  float acc = 0.0f;
+  for (int start = begin; start < end; start += kChunk) {
+    const int chunk = min(kChunk, end - start);
+    // The point's loads go out before the barrier that publishes the pose.
     const int n = start + tid;
-    float* row = rows + tid * kRow;
-    float val = 0.0f, row7[7];
-    float s = 0.0f;
-    if (n < n_pts) {
-      const bool is_hi = n < p_hi;
-      const int i = is_hi ? n : n - p_hi;
-      const bool m = is_hi ? hi_mask[static_cast<size_t>(c) * p_hi + i] != 0
-                           : lo_mask[static_cast<size_t>(c) * p_lo + i] != 0;
+    const bool is_hi = n < p_hi;
+    const int i = is_hi ? n : n - p_hi;
+    bool m = false;
+    float p[3] = {0.0f, 0.0f, 0.0f};
+    if (tid < chunk) {
+      m = is_hi ? hi_mask[static_cast<size_t>(c) * p_hi + i] != 0 : lo_mask[static_cast<size_t>(c) * p_lo + i] != 0;
+      const float* src = is_hi ? hi_pts + (static_cast<size_t>(c) * p_hi + i) * 3
+                               : lo_pts + (static_cast<size_t>(c) * p_lo + i) * 3;
       if (m) {
-        const float* src = is_hi ? hi_pts + (static_cast<size_t>(c) * p_hi + i) * 3
-                                 : lo_pts + (static_cast<size_t>(c) * p_lo + i) * 3;
-        const float p[3] = {src[0], src[1], src[2]};
-        point_row7(is_hi ? hi : lo, q, t, p, val, row7);
-        s = is_hi ? s_hi : s_lo;
+        p[0] = src[0];
+        p[1] = src[1];
+        p[2] = src[2];
       }
     }
-    if (s != 0.0f) {
-      for (int j = 0; j < 18; ++j) {
-        float acc_j = mul(row7[0], sh_dpose[j]);
-        for (int k = 1; k < 7; ++k) acc_j = add(acc_j, mul(row7[k], sh_dpose[k * 18 + j]));
-        row[j] = mul(acc_j, s);
+    __syncthreads();  // the pose is in shared memory; the last chunk's rows are consumed
+
+    // Each point of the chunk: its 7-wide row, residual and scale.
+    if (tid < kChunk) {
+      float val = 0.0f, row7[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      float s = 0.0f;
+      if (m) {
+        const float t[3] = {sh_pose[0], sh_pose[1], sh_pose[2]};
+        const float q[4] = {sh_pose[3], sh_pose[4], sh_pose[5], sh_pose[6]};
+        // The point's grid, field by field, so that it stays in registers.
+        const Grid grid{is_hi ? hi.tsd : lo.tsd, is_hi ? hi.weight : lo.weight, is_hi ? hi.nx : lo.nx,
+                        is_hi ? hi.ny : lo.ny, is_hi ? hi.nz : lo.nz,
+                        {is_hi ? gp[0] : gp[4], is_hi ? gp[1] : gp[5], is_hi ? gp[2] : gp[6]},
+                        is_hi ? gp[3] : gp[7]};
+        point_row7(grid, q, t, p, val, row7);
+        s = is_hi ? hi_scale[c] : lo_scale[c];
       }
-      row[18] = mul(val, s);
-    } else {
-      for (int j = 0; j < kRow; ++j) row[j] = 0.0f;
+      float* dst = row7s + tid * kRow7;
+      for (int k = 0; k < 7; ++k) dst[k] = row7[k];
+      dst[7] = val;
+      dst[8] = s;
     }
     __syncthreads();
-    const int chunk = min(kThreads, n_pts - start);
-    if (ob >= 0) {
+
+    // Rows J = row7 @ dpose7 * s and r = val * s, one (point, column) per
+    // thread step.
+    for (int item = tid; item < kChunk * kRow; item += kThreads) {
+      const int pt = item / kRow, j = item - pt * kRow;
+      const float* a = row7s + pt * kRow7;
+      const float s = a[8];
+      float v = 0.0f;
+      if (s != 0.0f) {
+        if (j < 18) {
+          float acc_j = mul(a[0], sh_dpose[j]);
+          for (int k = 1; k < 7; ++k) acc_j = add(acc_j, mul(a[k], sh_dpose[k * 18 + j]));
+          v = mul(acc_j, s);
+        } else {
+          v = mul(a[7], s);
+        }
+      }
+      rows[item] = v;
+    }
+    __syncthreads();
+
+    if (tid < kOut) {
+#pragma unroll 8
       for (int k = 0; k < chunk; ++k) acc = add(acc, mul(rows[k * kRow + oa], rows[k * kRow + ob]));
-    } else if (oa >= 0) {
-      for (int k = 0; k < chunk; ++k) acc = add(acc, mul(rows[k * kRow + oa], rows[k * kRow + 18]));
-    } else if (tid == kUpper + 18) {
-      for (int k = 0; k < chunk; ++k) acc = add(acc, mul(rows[k * kRow + 18], rows[k * kRow + 18]));
     }
-    __syncthreads();
   }
 
-  if (ob >= 0) {
-    S_out[(static_cast<size_t>(c) * 18 + oa) * 18 + ob] = acc;
-    S_out[(static_cast<size_t>(c) * 18 + ob) * 18 + oa] = acc;
-  } else if (oa >= 0) {
-    g_out[static_cast<size_t>(c) * 18 + oa] = acc;
-  } else if (tid == kUpper + 18) {
-    cost_out[c] = mul(0.5f, acc);
+  // Block 0 adds the cluster's sums in rank order, then every block waits
+  // until it has read them.
+  if (tid < kOut) sums[tid] = acc;
+  cluster.sync();
+  if (rank == 0 && tid < kOut) {
+    float total = 0.0f;
+    for (int r = 0; r < kCluster; ++r) total = add(total, cluster.map_shared_rank(sums, r)[tid]);
+    if (tid < kUpper) {
+      S_out[(static_cast<size_t>(c) * 18 + oa) * 18 + ob] = total;
+      S_out[(static_cast<size_t>(c) * 18 + ob) * 18 + oa] = total;
+    } else if (tid < kUpper + 18) {
+      g_out[static_cast<size_t>(c) * 18 + oa] = total;
+    } else {
+      cost_out[c] = mul(0.5f, total);
+    }
   }
+  cluster.sync();
 }
 
 }  // namespace
@@ -264,13 +316,12 @@ extern "C" int hg_ct_scan_block(const float* hi_tsd, const float* hi_weight, con
                                 const float* lo_weight, const float* gparams, const float* hi_pts,
                                 const uint8_t* hi_mask, const float* lo_pts, const uint8_t* lo_mask,
                                 const float* pose7, const float* dpose7, const float* hi_scale,
-                                const float* lo_scale, float* S, float* g, float* cost, int c,
-                                int p_hi, int p_lo, int hnx, int hny, int hnz, int lnx, int lny,
-                                int lnz, void* stream) {
+                                const float* lo_scale, float* S, float* g, float* cost, int c, int p_hi, int p_lo,
+                                int hnx, int hny, int hnz, int lnx, int lny, int lnz, void* stream) {
   const Grid hi{hi_tsd, hi_weight, hnx, hny, hnz, {0.0f, 0.0f, 0.0f}, 0.0f};
   const Grid lo{lo_tsd, lo_weight, lnx, lny, lnz, {0.0f, 0.0f, 0.0f}, 0.0f};
-  ct_scan_block_kernel<<<c, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      hi, lo, gparams, hi_pts, hi_mask, lo_pts, lo_mask, pose7, dpose7, hi_scale, lo_scale, S, g,
-      cost, p_hi, p_lo);
+  ct_scan_block_kernel<<<dim3(kCluster, c), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      hi, lo, gparams, hi_pts, hi_mask, lo_pts, lo_mask, pose7, dpose7, hi_scale, lo_scale, S, g, cost, p_hi,
+      p_lo);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,62 +13,105 @@
 //   y counts when -span < iy < ny and valid[q], at lane
 //     clip(iy, 0, ny - 1) >> y_shift
 //   a point with x or z out contributes the zero row, one with y out or
-//   masked nothing; both add exactly 0 (table values are >= 0), so the
-//   kernel skips them.
+//   masked nothing: both add exactly 0 (table values are >= 0).
 //
-// What bounds it on the H100: neither bytes nor flops. At the production
-// shapes (256^3 grid, ~107 yaws x 5 x 5 x 3 coarse offsets, 2,048 outputs
-// per expansion level, 256 points) a launch reads ~2-4 M table values, most
-// from L2, and the coarse stage has ~8,000 outputs, the expansions 2,048:
-// too few threads to hide gather latency. Each launch replaces the plain
-// version's ~20 eager ops per 32-point chunk.
+// What bounds it on the H100: latency. At the production shapes (256^3
+// grid, ~107 yaws x 5 x 5 x 3 coarse offsets, 256 x 2 x 2 x 2 per
+// expansion level, 256 points) a call reads ~0.05-0.4 MB of distinct
+// table sectors (well under a microsecond at 3.35 TB/s) and does 0.3-1.2
+// M adds. Each output is a sum of 256 gathered values in point order; one
+// thread per output, walking its points one dependent gather at a time,
+// waits ~256 gather latencies: 36-53 us per call.
 //
-// Design: one thread per output, summing over points in point order: no
-// atomics, deterministic. The threads of a warp share a candidate, so the
-// point cells they read are broadcasts. Splitting points across threads
-// with a fixed-order second reduction, or staging a level in shared memory,
-// is later work.
+// Design: one block per candidate and tile of at most kMaxTile of its
+// outputs (tiles of equal size), so the coarse call launches 321 blocks
+// (107 candidates x 3 tiles of 25) and an expansion 256 (one tile of 8).
+// Per chunk of points (all 256 at these shapes) the block stages the
+// candidate's point cells and the valid flags in shared memory. Each
+// thread then keeps one output's offsets in registers and gathers for
+// every (256 / tile)-th point, neighbouring threads on neighbouring
+// outputs of one point, with up to kBatch gathers in flight (at these
+// shapes all of its points: one round trip), and writes each value (0
+// where the point does not count) to shared memory; the 2 x 2 x 2 offsets
+// of an expansion candidate read neighbouring cells through one L1. Then
+// thread o adds its output's values in point order: the same sum, bit for
+// bit, as one thread per output skipping the points that do not count
+// (adding 0 leaves a sum of non-negative values unchanged). No atomics,
+// deterministic. Point-order sums by warp shuffles would take one shuffle
+// per value (~2 M at the coarse shape); the transpose through shared
+// memory moves 32 values per instruction.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBatch = 32;  // table gathers a thread issues before it waits
+constexpr int kVals = 8192;  // shared floats for the (point, output) values of a chunk
+constexpr int kMaxTile = 32;  // outputs per block
+constexpr int kMaxChunk = 512;  // points per chunk
 
 __global__ void __launch_bounds__(kThreads)
 fast_scores_3d_kernel(const float* __restrict__ table, const int* __restrict__ bx, const int* __restrict__ by,
                       const int* __restrict__ bz, const uint8_t* __restrict__ valid,
                       const int* __restrict__ cand_t, const int* __restrict__ off_x,
                       const int* __restrict__ off_y, const int* __restrict__ off_z, float* __restrict__ out,
-                      int n_out, int p, int nxo, int nyo, int nzo, int nx, int ny, int nz, int level,
-                      int y_shift, int nx_l, int ny_l) {
-  const int o = blockIdx.x * kThreads + threadIdx.x;
-  if (o >= n_out) return;
-  const int k = o % nzo;
-  int r = o / nzo;
-  const int j = r % nyo;
-  r /= nyo;
-  const int i = r % nxo;
-  const int c = r / nxo;
-  const int t = cand_t[c];
-  const int ox = off_x[c * nxo + i];
-  const int oy = off_y[c * nyo + j];
-  const int oz = off_z[c * nzo + k];
+                      int p, int nxo, int nyo, int nzo, int nx, int ny, int nz, int level, int y_shift, int nx_l,
+                      int ny_l, int tile, int chunk) {
+  __shared__ float vals[kVals];  // (point, output) values of the chunk, outputs fastest
+  __shared__ int4 cells[kMaxChunk];  // the chunk's point cells and valid flags
+  const int c = blockIdx.x;
+  const int n_per = nxo * nyo * nzo;
+  const int o0 = blockIdx.y * tile;
+  const int n_tile = min(tile, n_per - o0);
+  if (n_tile <= 0) return;
+  const int tid = threadIdx.x;
+  const int row0 = cand_t[c] * p;
+  // Thread tid gathers for output o of points q_first, q_first + q_step, ...
+  const int q_step = kThreads / n_tile;
+  const bool gathers = tid < q_step * n_tile;
+  const int o = tid % n_tile, q_first = tid / n_tile;
+  const int r = (o0 + o) / nzo;
+  const int ox = off_x[c * nxo + r / nyo], oy = off_y[c * nyo + r % nyo], oz = off_z[c * nzo + (o0 + o) % nzo];
   const int span = 1 << level;
-  const size_t base = static_cast<size_t>(t) * p;
   float acc = 0.0f;
-  for (int q = 0; q < p; ++q) {
-    if (!valid[q]) continue;
-    const int iy = __ldg(by + base + q) + oy;
-    if (iy <= -span || iy >= ny) continue;
-    const int ix = __ldg(bx + base + q) + ox;
-    const int iz = __ldg(bz + base + q) + oz;
-    if (ix <= -span || ix >= nx || iz <= -span || iz >= nz) continue;
-    const int row = (max(iz, 0) >> level) * nx_l + (max(ix, 0) >> level);
-    const int lane = min(max(iy, 0), ny - 1) >> y_shift;
-    acc = __fadd_rn(acc, __ldg(table + static_cast<size_t>(row) * ny_l + lane));
+  for (int q0 = 0; q0 < p; q0 += chunk) {
+    const int n_q = min(chunk, p - q0);
+    for (int q = tid; q < n_q; q += kThreads) {
+      cells[q] = make_int4(__ldg(bx + row0 + q0 + q), __ldg(by + row0 + q0 + q), __ldg(bz + row0 + q0 + q),
+                           valid[q0 + q]);
+    }
+    __syncthreads();
+    for (int qb = q_first; gathers && qb < n_q; qb += q_step * kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int q = qb + u * q_step;
+        v[u] = 0.0f;
+        if (q < n_q) {
+          const int4 cell = cells[q];
+          const int ix = cell.x + ox, iy = cell.y + oy, iz = cell.z + oz;
+          if (cell.w && iy > -span && iy < ny && ix > -span && ix < nx && iz > -span && iz < nz) {
+            const int row = (max(iz, 0) >> level) * nx_l + (max(ix, 0) >> level);
+            const int lane = min(max(iy, 0), ny - 1) >> y_shift;
+            v[u] = __ldg(table + static_cast<size_t>(row) * ny_l + lane);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int q = qb + u * q_step;
+        if (q < n_q) vals[q * n_tile + o] = v[u];
+      }
+    }
+    __syncthreads();
+    if (tid < n_tile) {
+#pragma unroll 16
+      for (int q = 0; q < n_q; ++q) acc = __fadd_rn(acc, vals[q * n_tile + tid]);
+    }
+    __syncthreads();
   }
-  out[o] = acc;
+  if (tid < n_tile) out[static_cast<size_t>(c) * n_per + o0 + tid] = acc;
 }
 
 }  // namespace
@@ -80,10 +123,12 @@ extern "C" int hg_fast_scores_3d(const float* table, const int* bx, const int* b
                                  const uint8_t* valid, const int* cand_t, const int* off_x, const int* off_y,
                                  const int* off_z, float* out, int c, int p, int nxo, int nyo, int nzo, int nx,
                                  int ny, int nz, int level, int y_shift, int nx_l, int ny_l, void* stream) {
-  const int n_out = c * nxo * nyo * nzo;
-  const int blocks = (n_out + kThreads - 1) / kThreads;
-  fast_scores_3d_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, bx, by, bz, valid, cand_t, off_x, off_y, off_z, out, n_out, p, nxo, nyo, nzo, nx, ny, nz, level,
-      y_shift, nx_l, ny_l);
+  const int n_per = nxo * nyo * nzo;
+  const int tiles = (n_per + kMaxTile - 1) / kMaxTile;
+  const int tile = (n_per + tiles - 1) / tiles;
+  const int chunk = kVals / tile < kMaxChunk ? kVals / tile : kMaxChunk;
+  fast_scores_3d_kernel<<<dim3(c, tiles), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      table, bx, by, bz, valid, cand_t, off_x, off_y, off_z, out, p, nxo, nyo, nzo, nx, ny, nz, level, y_shift,
+      nx_l, ny_l, tile, chunk);
   return static_cast<int>(cudaGetLastError());
 }

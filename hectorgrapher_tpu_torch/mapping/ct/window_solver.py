@@ -36,7 +36,7 @@ from typing import NamedTuple
 import torch
 
 from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import _lm_drive
-from hectorgrapher_tpu_torch.ops.ct_scan_block import ct_scan_block
+from hectorgrapher_tpu_torch.ops.ct_scan_block import ct_scan_block, grid_params
 from hectorgrapher_tpu_torch.transform.rigid import (
     Rigid3,
     cross,
@@ -320,12 +320,13 @@ def make_ct_block_families(high_grid, low_grid, problem: CtProblem, weights: CtW
     scan_idx = _pair_index(problem.cloud_prev.long(), problem.cloud_next.long())
     pairs = torch.arange(problem.pair_mask.shape[0], device=problem.pair_mask.device)
     pair_idx = _pair_index(pairs, pairs + 1)
+    gparams = grid_params(high_grid, low_grid)
 
     def scan_block(state: CtState):
         pose7, dpose7 = cloud_poses(state, problem)
         S, g, cost = ct_scan_block(
             high_grid, low_grid, hi_points, hi_mask, lo_points, lo_mask,
-            pose7.contiguous(), dpose7.contiguous(), hi_scale, lo_scale,
+            pose7.contiguous(), dpose7.contiguous(), hi_scale, lo_scale, gparams=gparams,
         )
         return S, g, torch.sum(cost), scan_idx
 

@@ -17,7 +17,6 @@ import torch
 
 from hectorgrapher_tpu_torch.mapping.ct.builder import OptimizingLocalTrajectoryBuilder
 from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import PgNode, PoseGraph3D
-from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.sensor.types import TimedPointCloudData
 from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
 
@@ -82,14 +81,13 @@ class TrajectoryBuilder:
 class MapBuilder:
     """(ref: map_builder.cc MapBuilder)"""
 
-    def __init__(self, options, device="cpu"):
-        """options: MapBuilderOptions with use_trajectory_builder_3d."""
+    def __init__(self, options, device="cuda"):
+        """options: MapBuilderOptions with use_trajectory_builder_3d. Runs on
+        the card unless `device` says otherwise; without one it raises."""
         if not options.use_trajectory_builder_3d:
             raise NotImplementedError("the 2D pipeline (PoseGraph2D) is not ported")
         self._options = options
         self._device = torch.device(device)
-        if self._device.type == "cuda":
-            _build.load_library()  # before any thread can launch a kernel
         self._trajectory_builders: List[TrajectoryBuilder] = []
         self.pose_graph = PoseGraph3D(
             options.pose_graph,

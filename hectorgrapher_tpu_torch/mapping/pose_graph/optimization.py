@@ -353,8 +353,8 @@ class SpaExtras3D(NamedTuple):
     calibration_fixed: torch.Tensor  # () bool: extrinsics held constant
 
 
-def empty_extras_3d(num_nodes: int, p: int = 1, l: int = 1, o: int = 1, r: int = 1, a: int = 1, tj: int = 1,
-                    device="cpu") -> SpaExtras3D:
+def empty_extras_3d(num_nodes: int, p: int = 1, l: int = 1, o: int = 1, r: int = 1, a: int = 1, tj: int = 1, *,
+                    device) -> SpaExtras3D:
     """Every family at its capacity, all masked out."""
     f32 = dict(dtype=torch.float32, device=device)
 

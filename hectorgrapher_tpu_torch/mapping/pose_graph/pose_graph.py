@@ -44,6 +44,7 @@ from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import (
 from hectorgrapher_tpu_torch.mapping.pose_graph.trimmers import trim_submaps
 from hectorgrapher_tpu_torch.mapping.scan_matching.fast_correlative_3d import FastCorrelativeScanMatcher3D
 from hectorgrapher_tpu_torch.mapping.scan_matching.gn_3d import match_gn_3d
+from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.sensor.types import PointCloud
 from hectorgrapher_tpu_torch.transform import np_quat as nq
 from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
@@ -550,11 +551,15 @@ def _identity_quats(n: int) -> np.ndarray:
 class PoseGraph3D(PoseGraphBase):
     """(ref: mapping/internal/3d/pose_graph_3d.cc)"""
 
-    def __init__(self, options, histogram_size: int = 120, max_scan_range: float = 20.0, device="cpu"):
+    def __init__(self, options, histogram_size: int = 120, max_scan_range: float = 20.0, device="cuda"):
+        """Runs on the card unless `device` says otherwise; without one it
+        raises."""
         if options.use_batched_constraint_search:
             raise NotImplementedError(
                 "use_batched_constraint_search=True: only the serial constraint search is ported")
         self._device = torch.device(device)
+        if self._device.type == "cuda":
+            _build.load_library()  # before the worker thread can launch a kernel
         self._histogram_size = histogram_size
         self._max_scan_range = max_scan_range
         # Sensor buffers for the optimization problem (ref:
@@ -673,7 +678,8 @@ class PoseGraph3D(PoseGraphBase):
         R = self._pad_to(max(len(ir), 1))
         A = self._pad_to(max(len(ia), 1))
         Tj = max(len(traj_slots), 1)
-        fields = {k: v.numpy() for k, v in empty_extras_3d(N_cap, p=P, l=L, o=O, r=R, a=A, tj=Tj)._asdict().items()}
+        fields = {k: v.numpy() for k, v in empty_extras_3d(N_cap, p=P, l=L, o=O, r=R, a=A, tj=Tj,
+                                                                device="cpu")._asdict().items()}
         for i, (a, b, slot, dq, w) in enumerate(ir):
             for name, v in (("ir_a", a), ("ir_b", b), ("ir_traj", slot), ("ir_mask", True),
                             ("ir_delta_rotation", dq), ("ir_weight", w)):

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from hectorgrapher_tpu_torch.ops.ct_scan_block import ct_scan_block
+from hectorgrapher_tpu_torch.ops.ct_scan_block import ct_scan_block, grid_params
 from hectorgrapher_tpu_torch.transform.rigid import (
     Rigid3,
     inverse_right_jacobian,
@@ -75,6 +75,7 @@ def match_gn_3d(
     clouds = (high_cloud.positions[None].contiguous(), high_cloud.mask[None].contiguous(),
               low_cloud.positions[None].contiguous(), low_cloud.mask[None].contiguous())
     eye = torch.eye(3, **f32)
+    gparams = grid_params(high_grid, low_grid)
 
     def penalty(pose):
         trans = translation_weight * (pose.translation - target)
@@ -86,7 +87,7 @@ def match_gn_3d(
         dpose7[0, :3, :3] = eye
         dpose7[0, 3:, 3:6] = 0.5 * quat_left_matrix(pose.rotation)[:, 1:]  # d (q exp(d)) / dd at 0
         S, g, cost = ct_scan_block(high_grid, low_grid, *clouds, torch.cat([pose.translation, pose.rotation])[None],
-                                   dpose7, s_hi[None], s_lo[None])
+                                   dpose7, s_hi[None], s_lo[None], gparams=gparams)
         return S[0, :6, :6], g[0, :6], cost[0]
 
     def cost_of(pose, blocks):

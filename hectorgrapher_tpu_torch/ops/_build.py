@@ -19,6 +19,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
@@ -52,12 +54,30 @@ def _nvcc() -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built if needed."""
+    """The kernels' shared library, built if needed. Raises on a machine
+    without a CUDA card: nothing falls back to the CPU."""
     global _lib
     with _lock:
         if _lib is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("hectorgrapher_tpu_torch's kernels need a CUDA card and "
+                                   "torch.cuda.is_available() is false; pass device='cpu' to run on the CPU")
             _lib = _load()
         return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch the library's entry `name` on `device`'s current stream (its
+    last argument) and raise if the launch failed. Switches the current
+    device only when `device` is not already current."""
+    fn = getattr(_lib or load_library(), name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        status = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            status = fn(*args, stream)
+    check_launch(status, name)
 
 
 def _load() -> ctypes.CDLL:
@@ -69,34 +89,47 @@ def _load() -> ctypes.CDLL:
         digest.update(src.read_bytes())
     target = _BUILD / f"libhg_kernels_{digest.hexdigest()[:16]}.so"
     if not target.exists():
-        _BUILD.mkdir(exist_ok=True)
-        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
-        nvcc = _nvcc()
         t0 = time.perf_counter()
-        objects = [_BUILD / f"{src.stem}.{tag}.o" for src in sources]
-        compiles = [
-            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects))
-        ]
-        logs = []
-        for cmd, proc in compiles:
-            out, _ = proc.communicate()
-            logs.append(out)
-            if proc.returncode != 0:
-                for _, other in compiles:
-                    other.wait()
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp), *map(str, objects)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = build(sources, target)
         build_seconds = time.perf_counter() - t0
-        build_log = "".join(logs) + proc.stdout + proc.stderr
-        for obj in objects:
-            obj.unlink(missing_ok=True)
+    return bind(target)
+
+
+def build(sources, target: Path) -> str:
+    """Compile `sources` with nvcc (one process per source, all at once)
+    and link them into the shared library `target`, replacing it whole.
+    Returns nvcc's output; raises with it when a step fails."""
+    target.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{target.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objects = [target.parent / f"{src.stem}.{tag}.o" for src in sources]
+    compiles = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects))
+    ]
+    logs = []
+    for cmd, proc in compiles:
+        out, _ = proc.communicate()
+        logs.append(out)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
-        os.replace(tmp, target)
-    lib = ctypes.CDLL(str(target))
+            for _, other in compiles:
+                other.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp), *map(str, objects)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = "".join(logs) + proc.stdout + proc.stderr
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    os.replace(tmp, target)
+    return log
+
+
+def bind(path: Path) -> ctypes.CDLL:
+    """Load the kernels' library at `path` and declare its entry points."""
+    lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.hg_error_string.argtypes = [i32]
     lib.hg_error_string.restype = ctypes.c_char_p

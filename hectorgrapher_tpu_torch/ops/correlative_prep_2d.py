@@ -82,14 +82,12 @@ def correlative_prep_2d(params, px, py, ca, sa, n_groups: int, gsz: int, margin:
         raise ValueError("correlative_prep_2d: extended grid exceeds int32 row indices")
     flat = torch.empty((b, n_groups, n), dtype=torch.int32, device=device)
     delta_lin = torch.empty((b, t_pad, n), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        status = _build.load_library().hg_correlative_prep_2d(
-            params.data_ptr(), px.data_ptr(), py.data_ptr(), ca.data_ptr(), sa.data_ptr(),
-            flat.data_ptr(), delta_lin.data_ptr(),
-            b, n, n_groups, gsz, margin, ex, ey,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    _build.check_launch(status, "correlative_prep_2d")
+    _build.launch(
+        "hg_correlative_prep_2d", device,
+        params.data_ptr(), px.data_ptr(), py.data_ptr(), ca.data_ptr(), sa.data_ptr(),
+        flat.data_ptr(), delta_lin.data_ptr(),
+        b, n, n_groups, gsz, margin, ex, ey,
+    )
     correlative_prep_2d.launches += 1
     return flat, delta_lin
 

@@ -74,13 +74,11 @@ def correlative_scores_2d(table, flat, delta_lin, valid, n_groups: int, gsz: int
     _check("delta_lin", delta_lin, torch.int32, (b, t_pad, n), device)
     _check("valid", valid, torch.float32, (b, n), device)
     out = torch.empty((b, t_pad, d, d), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        status = _build.load_library().hg_correlative_scores_2d(
-            table.data_ptr(), flat.data_ptr(), delta_lin.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            b, n, n_groups, gsz, pw, d,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    _build.check_launch(status, "correlative_scores_2d")
+    _build.launch(
+        "hg_correlative_scores_2d", device,
+        table.data_ptr(), flat.data_ptr(), delta_lin.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        b, n, n_groups, gsz, pw, d,
+    )
     correlative_scores_2d.launches += 1
     return out
 

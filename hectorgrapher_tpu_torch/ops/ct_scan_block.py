@@ -18,7 +18,9 @@ Arithmetic: the world point and the cell floor round every operation on
 its own (ROADMAP C0), in the plain version as separate eager ops and in
 the kernel with round-to-nearest intrinsics under --fmad=false, so on the
 card both pick the same cells. The per-point values agree to rounding;
-the sums over points run in another order.
+the sums over points run in another order (the kernel's over eight
+slices of each cloud, then the slices in order; the plain version's as
+matmuls).
 """
 
 from __future__ import annotations
@@ -79,13 +81,25 @@ def ct_scan_block_plain(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask
     return S, g, 0.5 * torch.sum(r * r, dim=1)
 
 
-def ct_scan_block(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask, pose7, dpose7, hi_scale, lo_scale):
+def grid_params(hi_grid: TSDFGrid, lo_grid: TSDFGrid):
+    """The kernel's grid parameters (8,) f32 on the grids' device: [hi
+    min_corner (3), hi resolution, lo min_corner (3), lo resolution]. A
+    caller that assembles many blocks over the same grids builds it once."""
+    return torch.cat([
+        hi_grid.meta.min_corner.reshape(3), hi_grid.meta.resolution.reshape(1),
+        lo_grid.meta.min_corner.reshape(3), lo_grid.meta.resolution.reshape(1),
+    ]).to(device=hi_grid.tsd.device, dtype=torch.float32).contiguous()
+
+
+def ct_scan_block(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask, pose7, dpose7, hi_scale, lo_scale,
+                  gparams=None):
     """Per-cloud scan blocks: (S (C, 18, 18), g (C, 18), cost (C,)) f32.
 
     hi_grid, lo_grid: TSDFGrids with contiguous f32 (nx, ny, nz) volumes;
     hi_points (C, P, 3) f32 and hi_mask (C, P) bool (likewise lo, with its
     own P); pose7 (C, 7) f32 [t, q wxyz]; dpose7 (C, 7, 18) f32; hi_scale,
-    lo_scale (C,) f32. CPU tensors take the plain version; CUDA tensors
+    lo_scale (C,) f32; gparams: grid_params(hi_grid, lo_grid), built here
+    when not given. CPU tensors take the plain version; CUDA tensors
     launch the kernel.
     """
     device = hi_points.device
@@ -109,26 +123,23 @@ def ct_scan_block(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask, pose
     _check("dpose7", dpose7, torch.float32, (c, 7, 18), device)
     _check("hi_scale", hi_scale, torch.float32, (c,), device)
     _check("lo_scale", lo_scale, torch.float32, (c,), device)
+    if gparams is None:
+        gparams = grid_params(hi_grid, lo_grid)
+    _check("gparams", gparams, torch.float32, (8,), device)
     if not 0 < c <= 65535:
         raise ValueError(f"ct_scan_block: unsupported C={c}")
-    # [hi min_corner (3), hi resolution, lo min_corner (3), lo resolution]
-    gparams = torch.cat([
-        hi_grid.meta.min_corner.reshape(3), hi_grid.meta.resolution.reshape(1),
-        lo_grid.meta.min_corner.reshape(3), lo_grid.meta.resolution.reshape(1),
-    ]).to(device=device, dtype=torch.float32).contiguous()
-    S = torch.empty((c, 18, 18), dtype=torch.float32, device=device)
-    g = torch.empty((c, 18), dtype=torch.float32, device=device)
-    cost = torch.empty((c,), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        status = _build.load_library().hg_ct_scan_block(
-            hi_grid.tsd.data_ptr(), hi_grid.weight.data_ptr(), lo_grid.tsd.data_ptr(), lo_grid.weight.data_ptr(),
-            gparams.data_ptr(), hi_points.data_ptr(), hi_mask.data_ptr(), lo_points.data_ptr(), lo_mask.data_ptr(),
-            pose7.data_ptr(), dpose7.data_ptr(), hi_scale.data_ptr(), lo_scale.data_ptr(),
-            S.data_ptr(), g.data_ptr(), cost.data_ptr(),
-            c, p_hi, p_lo, *hi_grid.shape, *lo_grid.shape,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    _build.check_launch(status, "ct_scan_block")
+    out = torch.empty(c * (18 * 18 + 18 + 1), dtype=torch.float32, device=device)  # one allocation: S, g, cost
+    S = out[: c * 324].view(c, 18, 18)
+    g = out[c * 324 : c * 342].view(c, 18)
+    cost = out[c * 342 :]
+    _build.launch(
+        "hg_ct_scan_block", device,
+        hi_grid.tsd.data_ptr(), hi_grid.weight.data_ptr(), lo_grid.tsd.data_ptr(), lo_grid.weight.data_ptr(),
+        gparams.data_ptr(), hi_points.data_ptr(), hi_mask.data_ptr(), lo_points.data_ptr(), lo_mask.data_ptr(),
+        pose7.data_ptr(), dpose7.data_ptr(), hi_scale.data_ptr(), lo_scale.data_ptr(),
+        S.data_ptr(), g.data_ptr(), cost.data_ptr(),
+        c, p_hi, p_lo, *hi_grid.shape, *lo_grid.shape,
+    )
     ct_scan_block.launches += 1
     return S, g, cost
 

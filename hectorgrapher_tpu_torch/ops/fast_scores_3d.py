@@ -16,8 +16,8 @@ the beam's candidates and two offsets per axis.
 
 The point cells are integer inputs, computed once by the caller, so the
 kernel and its plain version read the same cells (ROADMAP C0). The kernel
-sums in point order, the plain version in chunks of 32 points as the JAX
-CPU branch does: the sums agree to rounding.
+sums each output in point order, the plain version in chunks of 32 points
+as the JAX CPU branch does: the sums agree to rounding.
 """
 
 from __future__ import annotations
@@ -91,18 +91,16 @@ def fast_scores_3d(table, bx, by, bz, valid, cand_t, off_x, off_y, off_z, level:
     _check("off_x", off_x, torch.int32, (c, nxo), device)
     _check("off_y", off_y, torch.int32, (c, nyo), device)
     _check("off_z", off_z, torch.int32, (c, nzo), device)
-    n_out = c * nxo * nyo * nzo
-    if not 0 < n_out < 2**31 or table.numel() >= 2**31 or t * p >= 2**31:
+    n_per = nxo * nyo * nzo
+    if (not 0 < c * n_per < 2**31 or n_per > 32 * 65535 or table.numel() >= 2**31 or t * p >= 2**31):
         raise ValueError(f"fast_scores_3d: unsupported sizes C={c} X={nxo} Y={nyo} Z={nzo} T={t} P={p}")
     out = torch.empty((c, nxo, nyo, nzo), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        status = _build.load_library().hg_fast_scores_3d(
-            table.data_ptr(), bx.data_ptr(), by.data_ptr(), bz.data_ptr(), valid.data_ptr(), cand_t.data_ptr(),
-            off_x.data_ptr(), off_y.data_ptr(), off_z.data_ptr(), out.data_ptr(),
-            c, p, nxo, nyo, nzo, nx, ny, nz, level, y_shift, nx_l, ny_l,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    _build.check_launch(status, "fast_scores_3d")
+    _build.launch(
+        "hg_fast_scores_3d", device,
+        table.data_ptr(), bx.data_ptr(), by.data_ptr(), bz.data_ptr(), valid.data_ptr(), cand_t.data_ptr(),
+        off_x.data_ptr(), off_y.data_ptr(), off_z.data_ptr(), out.data_ptr(),
+        c, p, nxo, nyo, nzo, nx, ny, nz, level, y_shift, nx_l, ny_l,
+    )
     fast_scores_3d.launches += 1
     return out
 

@@ -1,0 +1,110 @@
+"""chip_smoke.py's bound arithmetic (bound_ms), pinned at small shapes
+worked out by hand, and its written-out gathers held against the kernels'
+plain versions. All on the CPU: the bound is a count of bytes and
+operations, not a time taken here.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from hectorgrapher_tpu_torch.mapping.grids import make_tsdf_grid
+from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d_plain
+from hectorgrapher_tpu_torch.ops.fast_scores_3d import fast_scores_3d_plain
+
+CPU = torch.device("cpu")
+i32 = lambda a: torch.tensor(a, dtype=torch.int32)
+
+
+def _k4_args():
+    """A 4^3 grid at level 0: table (4*4 + 1 rows, 4 lanes) holding its
+    flat index; one candidate, zero offsets, three points: (1, 2, 0) at
+    row 0*4 + 1, lane 2 (flat 6, sector 0); (3, 1, 3) at row 3*4 + 3, lane
+    1 (flat 61, sector 7); the third not valid."""
+    table = torch.arange(17 * 4, dtype=torch.float32).reshape(17, 4)
+    bx, by, bz = i32([1, 3, 2]), i32([2, 1, 2]), i32([0, 3, 2])
+    return (table, bx[None], by[None], bz[None], torch.tensor([True, True, False]), i32([0]),
+            i32([[0]]), i32([[0]]), i32([[0]]), 0, 0, (4, 4, 4))
+
+
+def test_bound_fast_scores_3d_by_hand():
+    args = _k4_args()
+    # 2 sectors of the table, the yaw row's 3 x 3 int32 cells, 3 valid
+    # flags, cand_t, the three offsets and the one output.
+    nbytes = 2 * 32 + 3 * 3 * 4 + 3 + 4 * (1 + 1 + 1 + 1 + 1)
+    ms, by, got_bytes, ops = cs.bound_ms("fast_scores_3d", args)
+    assert (got_bytes, ops, by) == (nbytes, 2, "bytes")
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    assert float(fast_scores_3d_plain(*args).reshape(())) == 6.0 + 61.0
+
+
+def test_bound_ct_scan_block_by_hand():
+    """One hi-res point at cell coordinate 1.7 on every axis of a 4^3 grid
+    at 1 m (identity pose): stencil base (1, 1, 1), cells 21 + {0, 1, 4, 5,
+    16, 17, 20, 21}, sectors 2..5 of both tsd and weight; the lo-res point
+    is masked out."""
+    hi = make_tsdf_grid(1.0, (4, 4, 4), 0.3, 1000.0, CPU)
+    lo = make_tsdf_grid(1.0, (4, 4, 4), 0.3, 1000.0, CPU)
+    p = (hi.meta.min_corner + 1.7)[None, None]
+    pose7 = torch.tensor([[0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0]])
+    args = (hi, lo, p, torch.ones((1, 1), dtype=torch.bool), p.clone(), torch.zeros((1, 1), dtype=torch.bool),
+            pose7, torch.zeros((1, 7, 18)), torch.ones(1), torch.ones(1))
+    cells, n = cs.k3_stencil_cells(hi, p, args[3], pose7)
+    assert sorted(cells.tolist()) == [21, 22, 25, 26, 37, 38, 41, 42] and n == 1
+    # Points, pose7, dpose7, scales and the 8 grid parameters (f32), the
+    # two masks (bool), S + g + cost, and 4 sectors of each of tsd, weight.
+    nbytes = 4 * (3 + 3 + 7 + 126 + 2 + 8) + 2 + 4 * (324 + 18 + 1) + 2 * 4 * 32
+    ms, by, got_bytes, ops = cs.bound_ms("ct_scan_block", args)
+    assert (got_bytes, ops, by) == (nbytes, cs.K3_OPS_PER_POINT, "bytes")
+    assert ms == pytest.approx(max(nbytes / 3.35e12, ops / 67e12) * 1e3, rel=1e-12)
+
+
+def test_bound_takes_the_larger_time(monkeypatch):
+    """Operations bound a call whose operations take longer than its bytes."""
+    args = _k4_args()
+    nbytes, _ = cs._work("fast_scores_3d", args)
+    ops = math.ceil(nbytes / 3.35e12 * 67e12) + 1000
+    monkeypatch.setattr(cs, "_work", lambda kernel, a: (nbytes, ops))
+    ms, by, _, _ = cs.bound_ms("fast_scores_3d", args)
+    assert by == "operations" and ms == pytest.approx(ops / 67e12 * 1e3, rel=1e-12)
+
+
+@pytest.mark.parametrize("level", [0, 2])
+def test_k4_gather_is_the_plain_sum(level):
+    """The library yardstick's indices and weights sum to the plain
+    version's scores."""
+    rng = np.random.default_rng(level)
+    grid_shape = (20, 24, 12)
+    span = 1 << level
+    nx_l, nz_l = -(-20 // span), -(-12 // span)
+    table = torch.from_numpy(rng.uniform(0, 0.8, (nz_l * nx_l + 1, 24)).astype(np.float32))
+    table[-1] = 0.0
+    cells = [torch.from_numpy(rng.integers(-3, n + 3, (5, 40)).astype(np.int32)) for n in grid_shape]
+    valid = torch.from_numpy(rng.random(40) < 0.8)
+    cand_t = torch.from_numpy(rng.integers(0, 5, 6).astype(np.int32))
+    offs = [torch.from_numpy(rng.integers(-4, 5, (6, k)).astype(np.int32)) for k in (2, 3, 2)]
+    args = (table, *cells, valid, cand_t, *offs, level, 0, grid_shape)
+    idx, weight = cs.k4_gather(*args)
+    got = (table.reshape(-1)[idx] * weight).sum(dim=1).reshape(6, 2, 3, 2)
+    torch.testing.assert_close(got, fast_scores_3d_plain(*args), rtol=0, atol=1e-5)
+    lib = torch.nn.functional.embedding_bag(idx, table.reshape(-1, 1), mode="sum", per_sample_weights=weight)
+    torch.testing.assert_close(lib.reshape(6, 2, 3, 2), fast_scores_3d_plain(*args), rtol=0, atol=1e-5)
+
+
+def test_k2_gather_is_the_plain_sum():
+    rng = np.random.default_rng(3)
+    b, g, gsz, n, k = 2, 3, 3, 16, 1
+    d, pw = 2 * k + 1, 2 * k + gsz
+    table = torch.from_numpy(rng.uniform(0, 1, (10, pw * pw)).astype(np.float32)).to(torch.bfloat16)
+    flat = torch.from_numpy(rng.integers(0, 10, (b, g, n)).astype(np.int32))
+    dlin = torch.from_numpy(rng.integers(0, gsz * gsz, (b, g * gsz, n)).astype(np.int32))
+    valid = torch.from_numpy((rng.random((b, n)) < 0.7).astype(np.float32))
+    args = (table, flat, dlin, valid, g, gsz, pw, k)
+    idx, weight = cs.k2_gather(*args)
+    got = (table.reshape(-1)[idx].float() * weight.float()).sum(dim=1).reshape(b, g * gsz, d, d)
+    torch.testing.assert_close(got, correlative_scores_2d_plain(*args), rtol=0, atol=1e-4)
+    nbytes, ops = cs._work("correlative_scores_2d", args)
+    assert ops == g * gsz * d * d * int(valid.sum())

@@ -198,12 +198,12 @@ def test_pose_graph_refuses_unported_paths():
     opts = tcfg.PoseGraphOptions(async_work_queue=False)
     assert opts.use_batched_constraint_search  # the JAX default, which the port refuses
     with pytest.raises(NotImplementedError):
-        PoseGraph3D(opts)
-    pg = PoseGraph3D(tcfg.replace_deep(opts, {"use_batched_constraint_search": False}))
+        PoseGraph3D(opts, device="cpu")
+    pg = PoseGraph3D(tcfg.replace_deep(opts, {"use_batched_constraint_search": False}), device="cpu")
     with pytest.raises(NotImplementedError):
         pg.set_solver_mesh(object())
     with pytest.raises(NotImplementedError):
-        MapBuilder(tcfg.MapBuilderOptions(use_trajectory_builder_2d=True))
+        MapBuilder(tcfg.MapBuilderOptions(use_trajectory_builder_2d=True), device="cpu")
 
 
 def test_normalize_angle_difference():
@@ -236,7 +236,7 @@ opts = cfg.replace_deep(cfg.MapBuilderOptions(), {
     ct + "max_num_iterations": 2, "pose_graph.async_work_queue": True,
     "pose_graph.use_batched_constraint_search": False, "pose_graph.optimize_every_n_nodes": 3,
     "pose_graph.constraint_builder.sampling_ratio": 1.0})
-mb = MapBuilder(opts)
+mb = MapBuilder(opts, device="cpu")
 tb = mb.get_trajectory_builder(mb.add_trajectory_builder())
 for i in range(201):
     t = 0.01 * i
