@@ -283,14 +283,14 @@ def k4_gather(table, bx, by, bz, valid, cand_t, off_x, off_y, off_z, level, y_sh
 def k2_gather(table, flat, delta_lin, valid, n_groups, gsz, pw, k):
     """K2's gather-sum written out: flat table indices (B*T*d*d, N) int64
     and the valid flags as weights of the same shape, in the table's
-    dtype."""
+    dtype. Table rows are table.shape[1] lanes apart."""
     d = 2 * k + 1
     b, g, n = flat.shape
     j = delta_lin.reshape(b, g, gsz, n).long()
     off = torch.div(j, gsz, rounding_mode="floor") * pw + torch.remainder(j, gsz)
     r = torch.arange(d, device=flat.device)
     lanes = (r[:, None] * pw + r[None, :]).reshape(1, 1, 1, -1, 1)
-    idx = (flat.long()[:, :, None, :] * (pw * pw) + off)[:, :, :, None, :] + lanes  # (B, G, gsz, d^2, N)
+    idx = (flat.long()[:, :, None, :] * table.shape[1] + off)[:, :, :, None, :] + lanes  # (B, G, gsz, d^2, N)
     weight = (valid > 0).to(table.dtype)[:, None, None, None, :].expand(idx.shape)
     return idx.reshape(-1, n), weight.reshape(-1, n).contiguous()
 
@@ -308,12 +308,13 @@ def _work(kernel, args):
     if kernel == "correlative_scores_2d":
         table, flat, delta_lin, valid, n_groups, gsz, pw, k = args
         d, (b, g, n) = 2 * k + 1, flat.shape
-        # Whole pw*pw rows of the table rows the valid points name.
+        # Whole rows (the table's own stride) of the table rows the valid
+        # points name.
         rows = torch.unique(flat[(valid > 0)[:, None, :].expand(b, g, n)].long())
-        row_bytes = pw * pw * table.element_size()
+        row_bytes = table.shape[1] * table.element_size()
         first, last = rows * row_bytes // 32, (rows * row_bytes + row_bytes - 1) // 32
-        sectors = torch.unique((first[:, None] + torch.arange(int((last - first).max()) + 1, device=rows.device))
-                               .clamp(max=last[:, None]))
+        span = int((last - first).max()) + 1 if rows.numel() else 0
+        sectors = torch.unique((first[:, None] + torch.arange(span, device=rows.device)).clamp(max=last[:, None]))
         n_valid = int((valid > 0).sum())
         return (32 * sectors.numel() + 4 * (flat.numel() + delta_lin.numel() + valid.numel() + b * g * gsz * d * d),
                 g * gsz * d * d * n_valid)
@@ -389,27 +390,116 @@ def check_kernels(shapes):
         table = prepare_correlative_table(grid, window)
         valid = clouds.mask.to(torch.float32).contiguous()
         sargs = (table, flat, dlin, valid, n_groups, gsz, pw, k)
-        got = correlative_scores_2d(*sargs)
-        ref = correlative_scores_2d_plain(*sargs)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            fail(f"K2 correlative_scores_2d returned non-finite values at {label}")
-        err = (got - ref).abs().amax(dim=(1, 2, 3))  # per match
-        n_valid = valid.sum(dim=1)
-        # f32 sums of at most n_valid bf16 values, each at most 1, in
-        # another order: |delta| <= 1e-4 * n_valid.
-        if bool((err > 1e-4 * n_valid).any()):
-            fail(f"K2 correlative_scores_2d differs from its plain version at {label}: max {float(err.max())}")
-        del ref
+        err = check_k2(label, sargs)
         idx, weight = k2_gather(*sargs)  # the library yardstick's inputs, built outside its timing
         flat_table = table.reshape(-1, 1)
         library = lambda: torch.nn.functional.embedding_bag(idx, flat_table, mode="sum", per_sample_weights=weight)
         out["correlative_scores_2d"][label] = measure(
             "correlative_scores_2d", label, lambda: correlative_scores_2d(*sargs),
-            lambda: correlative_scores_2d_plain(*sargs), sargs, float(err.max()), library=library,
+            lambda: correlative_scores_2d_plain(*sargs), sargs, err, library=library,
             note=f" B={b} G={n_groups} N={n} (library: embedding_bag, the gather-sum only)")
         del idx, weight
     return out
+
+
+def check_k2(label, sargs):
+    """K2 against its plain version on sargs: finite, the same bits on two
+    launches, and within 1e-4 * n_valid of the plain version per match
+    (f32 sums of at most n_valid bf16 values, each at most 1, in another
+    order; exactly 0 where no point is valid). Returns the largest
+    difference."""
+    got = correlative_scores_2d(*sargs)
+    again = correlative_scores_2d(*sargs)
+    ref = correlative_scores_2d_plain(*sargs)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"K2 correlative_scores_2d returned non-finite values at {label}")
+    if not torch.equal(got, again):
+        fail(f"K2 correlative_scores_2d differs between two launches at {label}")
+    err = (got - ref).abs().amax(dim=(1, 2, 3))  # per match
+    n_valid = (sargs[3] > 0).sum(dim=1)
+    if bool((err > 1e-4 * n_valid).any()):
+        fail(f"K2 correlative_scores_2d differs from its plain version at {label}: max {float(err.max())}")
+    return float(err.max())
+
+
+def check_k2_cases(device, seed=SEED):
+    """Phase 4's K2 cases beyond the main path's two shapes, each against
+    the plain version (check_k2): ragged valid counts (not multiples of
+    the 64-point tile, one match with none, N = 1001 not a multiple of 4)
+    with one block per (b, g) item (B=132) and with each item's points split
+    over a thread-block cluster (B=4: clusters of 4 blocks); few items with
+    many points (B=1, G=8, N=2048 all valid: clusters of 8); and windows
+    wider than one 128-lane chunk (k = 5: pw^2 = 225 in 232-lane rows; k =
+    8: pw^2 = 441 in 448) on the batched scene through K1."""
+    rng = np.random.default_rng(seed)
+    grid, clouds, poses, window = batched_scene(device, 64, seed)
+    k, gsz, half, m, pw, n_th, n_groups = _window_geometry(window)
+    table = prepare_correlative_table(grid, window)
+    for label, b, n, ragged in (("ragged", 132, 1001, True), ("ragged", 4, 1001, True), ("few items", 1, 2048, False)):
+        flat = torch.from_numpy(rng.integers(0, table.shape[0], (b, n_groups, n)).astype(np.int32)).to(device)
+        dlin = torch.from_numpy(rng.integers(0, gsz * gsz, (b, n_groups * gsz, n)).astype(np.int32)).to(device)
+        counts = rng.integers(1, n + 1, b) if ragged else np.full(b, n)
+        if ragged:
+            counts[1] = 0
+        keep = rng.random((b, n)).argsort(axis=1) < counts[:, None]
+        valid = torch.from_numpy(keep.astype(np.float32)).to(device)
+        err = check_k2(f"{label} B={b}", (table, flat, dlin, valid, n_groups, gsz, pw, k))
+        print(f"correlative_scores_2d {label} B={b} G={n_groups} N={n}, valid counts {int(counts.min())}.."
+              f"{int(counts.max())}: max |d| {err:.3e}, two launches bit-equal", flush=True)
+    for k_wide in (5, 8):
+        wide = window._replace(num_linear=k_wide)
+        k, gsz, half, m, pw, n_th, n_groups = _window_geometry(wide)
+        args, kw = prep_inputs(grid, clouds, poses, wide)
+        flat, dlin = correlative_prep_2d(*args, **kw)
+        table = prepare_correlative_table(grid, wide)
+        sargs = (table, flat, dlin, clouds.mask.to(torch.float32).contiguous(), n_groups, gsz, pw, k)
+        err = check_k2(f"wide k={k}", sargs)
+        print(f"correlative_scores_2d wide window k={k} pw^2={pw * pw} in {table.shape[1]}-lane rows, B=64 "
+              f"G={n_groups}: max |d| {err:.3e}, two launches bit-equal", flush=True)
+
+
+def check_k1_boundaries(device, seed=SEED):
+    """Phase 4's K1 boundary sweep: points placed so that, for one random
+    candidate angle each, (w - min) / res lands within a few ulps of an
+    integer on both axes; K1 must equal its plain version exactly. At the
+    front end's shape (B=64 matches, T=425, N=2048) and with N = 1001 (the
+    kernel's scalar path)."""
+    rng = np.random.default_rng(seed)
+    res, minx, miny = 0.05, -16.0, -16.0
+    for b, n, n_groups in ((64, 2048, 85), (3, 1001, 85)):
+        t_pad = n_groups * 5
+        t = rng.uniform(-1.0, 1.0, (b, 2)).astype(np.float32)
+        angles = (rng.uniform(-np.pi, np.pi, (b, 1)) + np.linspace(-0.35, 0.35, t_pad)[None]).astype(np.float32)
+        ca, sa = np.cos(angles), np.sin(angles)
+        pick = rng.integers(0, t_pad, (b, n))
+        c = np.take_along_axis(ca, pick, 1).astype(np.float64)
+        s_ = np.take_along_axis(sa, pick, 1).astype(np.float64)
+        # World points on cell corners, rotated back into the match frame.
+        wx = minx + rng.integers(20, 620, (b, n)) * res - t[:, :1]
+        wy = miny + rng.integers(20, 620, (b, n)) * res - t[:, 1:]
+        px = (c * wx + s_ * wy).astype(np.float32)
+        py = (-s_ * wx + c * wy).astype(np.float32)
+        steps = rng.integers(-3, 4, (2, b, n))
+        for a, st in ((px, steps[0]), (py, steps[1])):
+            for k_ in range(1, 4):
+                a[:] = np.where(np.abs(st) >= k_, np.nextafter(a, np.where(st > 0, np.inf, -np.inf)), a)
+        params = np.zeros((b, 8), np.float32)
+        params[:, 0:2], params[:, 2], params[:, 3], params[:, 4] = t, minx, miny, res
+        on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        args = (on(params), on(px), on(py), on(ca), on(sa), n_groups, 5, 7, 654, 654)
+        flat, dlin = correlative_prep_2d(*args)
+        flat_p, dlin_p = correlative_prep_2d_plain(*args)
+        torch.cuda.synchronize()
+        bad = int((flat != flat_p).sum() + (dlin != dlin_p).sum())
+        # How close to a cell boundary the picked angle's quotients land.
+        qx = ((c.astype(np.float32) * px - s_.astype(np.float32) * py + t[:, :1]) - np.float32(minx)) / np.float32(res)
+        near = int((np.abs(qx - np.round(qx)) < 1e-4).sum())
+        if bad:
+            fail(f"K1 correlative_prep_2d differs from its plain version on the boundary sweep B={b} N={n}: "
+                 f"{bad} outputs")
+        print(f"correlative_prep_2d boundary sweep B={b} T={t_pad} N={n}: exact ({near} of {b * n} picked-angle x "
+              f"quotients within 1e-4 of an integer)", flush=True)
 
 
 def run_batched(device, batch=BATCH, reps=10):
@@ -1239,6 +1329,8 @@ def main() -> int:
         "front_end": front_end_kernel_inputs(device),
         "batched": batched_scene(device),
     })
+    check_k1_boundaries(device)
+    check_k2_cases(device)
 
     # Phase 5: the batched matcher, through both kernels.
     correlative_prep_2d.launches = 0

@@ -16,8 +16,9 @@ ANGLE_GROUP angles. One row of an 11x11 "wide patch" table, centered at the
 middle angle's cell, serves the 7x7 score patches of all ANGLE_GROUP
 angles. Every match goes through the two CUDA kernels of ops/:
 correlative_prep_2d (K1: rotate, discretize, group deltas) and
-correlative_scores_2d (K2: gather the wide-patch values and sum them into
-the score volume). Penalty and argmax are plain torch.
+correlative_scores_2d (K2: bucket the wide-patch rows by delta on the
+tensor cores and sum the buckets into the score volume). Penalty and
+argmax are plain torch.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch.nn.functional as F
 
 from hectorgrapher_tpu_torch.mapping.grids import ProbabilityGrid, cell_index
 from hectorgrapher_tpu_torch.ops.correlative_prep_2d import correlative_prep_2d
-from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d
+from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d, row_stride
 from hectorgrapher_tpu_torch.sensor.types import PointCloud
 from hectorgrapher_tpu_torch.transform.rigid import Rigid2, rot2
 
@@ -64,25 +65,27 @@ def make_search_window(
     return SearchWindow2D(num_angles=num_angles, angle_step=angle_step, num_linear=num_linear)
 
 
-def _wide_patch_table(prob, k: int, half: int):
-    """Shifted-copy table over the EXTENDED cell grid: (ex*ey + 1, pw*pw)
-    bf16.
+def _wide_patch_table(prob, k: int, half: int, stride: int | None = None):
+    """Shifted-copy table over the EXTENDED cell grid: (ex*ey + 1, stride)
+    bf16, stride = pw*pw (the JAX package's layout) unless given.
 
     Row for extended cell e=(c+margin) holds the map value at every offset
     a in [-margin, margin]^2 from absolute cell c, lane (a_x+m)*pw + a_y+m,
     where margin m = k + half; cells outside the real grid read the
     unknown-cell probability. A final all-unknown row serves cells beyond
-    the extended grid.
+    the extended grid. Lanes past pw*pw are zero.
     """
     nx, ny = prob.shape
     m = k + half
     pw = 2 * m + 1
+    stride = pw * pw if stride is None else stride
     padded = F.pad(prob, (2 * m, 2 * m, 2 * m, 2 * m), value=_UNKNOWN).to(torch.bfloat16)
     ex, ey = nx + 2 * m, ny + 2 * m
-    table = torch.empty((ex * ey + 1, pw * pw), dtype=torch.bfloat16, device=prob.device)
+    table = torch.empty((ex * ey + 1, stride), dtype=torch.bfloat16, device=prob.device)
     # unfold gives [e_x, e_y, a, b] = padded[e_x + a, e_y + b] as a view.
-    table[:-1].view(ex, ey, pw, pw).copy_(padded.unfold(0, pw, 1).unfold(1, pw, 1))
-    table[-1] = _UNKNOWN
+    table[:-1, : pw * pw].view(ex, ey, pw, pw).copy_(padded.unfold(0, pw, 1).unfold(1, pw, 1))
+    table[-1, : pw * pw] = _UNKNOWN
+    table[:, pw * pw :] = 0
     return table
 
 
@@ -107,9 +110,11 @@ def _candidate_thetas(window: SearchWindow2D, device):
 
 
 def prepare_correlative_table(grid: ProbabilityGrid, window: SearchWindow2D):
-    """Wide-patch table for repeated matching against one grid version."""
-    k, gsz, half, *_ = _window_geometry(window)
-    return _wide_patch_table(grid.probability(), k, half)
+    """Wide-patch table for repeated matching against one grid version,
+    its rows padded with zero lanes to row_stride(pw) (K2's layout, and at
+    pw*pw <= 128 the 128-lane rows the TPU kernel gathers from)."""
+    k, gsz, half, m, pw, *_ = _window_geometry(window)
+    return _wide_patch_table(grid.probability(), k, half, row_stride(pw))
 
 
 def prep_inputs(grid: ProbabilityGrid, clouds: PointCloud, initial_poses: Rigid2, window: SearchWindow2D):

@@ -137,7 +137,7 @@ def bind(path: Path) -> ctypes.CDLL:
     # int to 32 bits.
     lib.hg_correlative_prep_2d.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
     lib.hg_correlative_prep_2d.restype = i32
-    lib.hg_correlative_scores_2d.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    lib.hg_correlative_scores_2d.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.hg_correlative_scores_2d.restype = i32
     lib.hg_ct_scan_block.argtypes = [ptr] * 16 + [i32] * 9 + [ptr]
     lib.hg_ct_scan_block.restype = i32

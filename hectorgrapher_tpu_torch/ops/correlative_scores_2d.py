@@ -13,8 +13,10 @@ At the in-window lanes the TPU kernel's one-hot matmul plus lane rolls is
         sum_n [valid[b,n] > 0] * table[flat[b,g,n], (ox+jx)*pw + (oy+jy)]
 
 with (jx, jy) = divmod(delta_lin[b, g*gsz+l, n], gsz) and ox, oy < d = 2k+1.
-Scores are unnormalized f32 sums of bf16 table values; the kernel and the
-plain version sum in different orders.
+The table's rows hold pw*pw lanes and may be padded past them (the kernel
+takes rows of a multiple of 8 lanes: row_stride). Scores are unnormalized
+f32 sums of bf16 table values; the kernel and the plain version sum in
+different orders.
 """
 
 from __future__ import annotations
@@ -24,15 +26,24 @@ import torch
 from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.ops.correlative_prep_2d import _check
 
+LANES = 128  # the TPU kernel's lane tile: the least padded row
+
 # The plain version gathers (chunk, G, gsz, N, d^2) values at once; this
 # caps the chunk at 2^26 of them (about 1 GB with the index tensor).
 _PLAIN_CHUNK_ELEMENTS = 1 << 26
+
+
+def row_stride(pw: int) -> int:
+    """Lanes of a padded table row: pw*pw rounded up to a multiple of 8 (16
+    bytes of bf16), and at least LANES, the layout the TPU kernel gathers."""
+    return max(LANES, -(-pw * pw // 8) * 8)
 
 
 def correlative_scores_2d_plain(table, flat, delta_lin, valid, n_groups: int, gsz: int, pw: int, k: int):
     """Plain PyTorch version: unnormalized scores (B, T, d, d) f32."""
     d = 2 * k + 1
     b, g, n = flat.shape
+    stride = table.shape[1]
     j = delta_lin.reshape(b, g, gsz, n).to(torch.int64)
     off = torch.div(j, gsz, rounding_mode="floor") * pw + torch.remainder(j, gsz)  # (B, G, gsz, N)
     r = torch.arange(d, device=flat.device)
@@ -43,7 +54,7 @@ def correlative_scores_2d_plain(table, flat, delta_lin, valid, n_groups: int, gs
     chunk = max(1, _PLAIN_CHUNK_ELEMENTS // (g * gsz * n * d * d))
     for s in range(0, b, chunk):
         e = min(b, s + chunk)
-        idx = (flat[s:e, :, None, :].to(torch.int64) * (pw * pw) + off[s:e])[..., None] + lanes
+        idx = (flat[s:e, :, None, :].to(torch.int64) * stride + off[s:e])[..., None] + lanes
         vals = table_flat[idx].to(torch.float32)  # (c, G, gsz, N, d^2)
         vals = torch.where(keep[s:e, None, None, :, None], vals, 0.0)
         out[s:e] = vals.sum(dim=3)
@@ -53,9 +64,11 @@ def correlative_scores_2d_plain(table, flat, delta_lin, valid, n_groups: int, gs
 def correlative_scores_2d(table, flat, delta_lin, valid, n_groups: int, gsz: int, pw: int, k: int):
     """Unnormalized score volume (B, T, d, d) f32, T = n_groups * gsz.
 
-    table: (R, pw*pw) bf16 wide-patch table; flat: (B, G, N) int32 rows of
-    it; delta_lin: (B, T, N) int32 in [0, gsz^2); valid: (B, N) f32 0/1.
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    table: (R, S) bf16 wide-patch table, lanes >= pw*pw unused (the kernel
+    needs S a multiple of 8: prepare_correlative_table's row_stride);
+    flat: (B, G, N) int32 rows of it; delta_lin: (B, T, N) int32 in
+    [0, gsz^2); valid: (B, N) f32 0/1. CPU tensors take the plain version;
+    CUDA tensors launch the kernel.
     """
     device = flat.device
     if device.type == "cpu":
@@ -67,9 +80,14 @@ def correlative_scores_2d(table, flat, delta_lin, valid, n_groups: int, gsz: int
     t_pad = n_groups * gsz
     if pw != d + gsz - 1:
         raise ValueError(f"correlative_scores_2d: pw={pw} does not fit k={k}, gsz={gsz}")
-    if not (0 < b <= 65535 and 0 < n_groups <= 65535 and n > 0 and 0 < gsz <= 15):
+    # The kernel's bucket has 128 one-hot rows (l, j): gsz^3 of them used.
+    if not (0 < b <= 65535 and 0 < n_groups <= 65535 and n > 0 and gsz in (1, 3, 5)):
         raise ValueError(f"correlative_scores_2d: unsupported B={b}, G={n_groups}, N={n}, gsz={gsz}")
-    _check("table", table, torch.bfloat16, (table.shape[0], pw * pw), device)
+    stride = table.shape[1]
+    if stride % 8 or stride < pw * pw or table.data_ptr() % 16:
+        raise ValueError(f"correlative_scores_2d: table rows of {stride} lanes; the kernel needs a 16-byte "
+                         f"aligned table with a multiple of 8 lanes >= pw*pw = {pw * pw} (row_stride)")
+    _check("table", table, torch.bfloat16, (table.shape[0], stride), device)
     _check("flat", flat, torch.int32, (b, n_groups, n), device)
     _check("delta_lin", delta_lin, torch.int32, (b, t_pad, n), device)
     _check("valid", valid, torch.float32, (b, n), device)
@@ -77,7 +95,7 @@ def correlative_scores_2d(table, flat, delta_lin, valid, n_groups: int, gsz: int
     _build.launch(
         "hg_correlative_scores_2d", device,
         table.data_ptr(), flat.data_ptr(), delta_lin.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        b, n, n_groups, gsz, pw, d,
+        b, n, n_groups, gsz, pw, d, stride,
     )
     correlative_scores_2d.launches += 1
     return out

@@ -1,26 +1,38 @@
 #!/usr/bin/env python3
-"""K3 and K4 against an earlier version of themselves, on one CUDA card.
+"""K1-K4 against an earlier version of themselves, on one CUDA card.
 
-    python3 kernel_ab.py PARENT_DIR
+    python3 kernel_ab.py PARENT_DIR [--kernels k1 k2 k3 k4] [--out kernel_ab.json]
+
+    python3 kernel_ab.py --designs DIR [DIR ...] [--out kernel_ab_designs.json]
 
 PARENT_DIR holds a checkout of an earlier commit, for example made with
 `git archive <commit> hectorgrapher_tpu_torch | tar -x -C PARENT_DIR`. Its
-kernels (csrc/*.cu) are built into a second library (same nvcc flags), and
-its ops/ct_scan_block.py and ops/fast_scores_3d.py wrappers are loaded
-against that library. At every main-path shape of the two kernels (K3: the CT
-front end's C=32 and GN3D's C=1 at 256^3 / 128^3; K4: chip_smoke.py phase
-10's coarse call, first expansion and level-0 expansion) both versions run
-on the same inputs, in turns: earlier, this, this, earlier. Each turn
-prints per-call time (CUDA events around the call), the kernel's device
-time (torch.profiler) and the wrapper's host time per call (enqueue only);
-then the outputs' largest difference and the bound (chip_smoke.bound_ms).
-Writes everything to chiprun_out/kernel_ab.json.
+kernels (csrc/*.cu) are built into a second library by its own
+ops/_build.py (same nvcc flags), and its ops/ wrappers are loaded against
+that library. At every main-path shape of each kernel both versions run on
+the same inputs, in turns: earlier, this, this, earlier. The shapes: K1 and
+K2 at chip_smoke.py phases 3-4's front end (B=1, T=425, N=2048) and batched
+point (B=1024, T=40, N=512), the earlier K2 on its pw*pw-lane table and
+this one on the padded table (prepare_correlative_table), both built from
+one grid; K3 at the CT front end's C=32 and GN3D's C=1 at 256^3 / 128^3;
+K4 at chip_smoke.py phase 10's coarse call, first expansion and level-0
+expansion. Each turn prints per-call time (CUDA events around the call),
+the kernel's device time (torch.profiler) and the wrapper's host time per
+call (enqueue only); then the outputs' largest difference and the bound
+(chip_smoke.bound_ms). Writes everything to chiprun_out/kernel_ab.json.
+
+With --designs, each DIR holds a copy of this package whose K2 source is a
+design variant (same wrapper and table layout); every variant's K2 and
+this tree's run in turns on the same inputs at the front end's and the
+batched shape and at few items (B=1, G=8, N=2048, all valid), and print
+their device time and largest difference from this tree's.
 
 Imports torch, numpy and hectorgrapher_tpu_torch only; needs one card.
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib.util
 import json
 import os
@@ -33,27 +45,41 @@ from types import SimpleNamespace
 import torch
 
 import chip_smoke as cs
+from hectorgrapher_tpu_torch.mapping.scan_matching import correlative_2d as corr
 from hectorgrapher_tpu_torch.ops import _build
+from hectorgrapher_tpu_torch.ops import correlative_prep_2d as k1
+from hectorgrapher_tpu_torch.ops import correlative_scores_2d as k2
 from hectorgrapher_tpu_torch.ops import ct_scan_block as k3
 from hectorgrapher_tpu_torch.ops import fast_scores_3d as k4
 
 
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def build_parent(parent: Path):
-    """The earlier checkout's kernels built into a second library (same
-    entry points and nvcc flags), and a stand-in for ops._build that
-    serves it to the earlier wrappers."""
+    """The earlier checkout's kernels built into a second library by its
+    own ops/_build.py (its entry points and nvcc flags), and a stand-in for
+    ops._build that serves it to the earlier wrappers."""
+    pkg = parent / "hectorgrapher_tpu_torch"
+    earlier = _load(pkg / "ops" / "_build.py", "earlier__build")
     target = parent / "_build_ab" / "libhg_kernels_earlier.so"
-    _build.build(sorted((parent / "hectorgrapher_tpu_torch" / "csrc").glob("*.cu")), target)
-    lib = _build.bind(target)
-    return SimpleNamespace(load_library=lambda: lib, check_launch=_build.check_launch)
+    log = earlier.build(sorted((pkg / "csrc").glob("*.cu")), target)
+    lib = earlier.bind(target)
+
+    def launch(name, device, *args):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _build.check_launch(getattr(lib, name)(*args, stream), name)
+
+    return SimpleNamespace(load_library=lambda: lib, check_launch=_build.check_launch, launch=launch, build_log=log)
 
 
 def load_parent_wrapper(parent: Path, name: str, build):
     """The earlier ops/<name>.py, its kernel calls served by `build`."""
-    spec = importlib.util.spec_from_file_location(f"earlier_{name}",
-                                                  parent / "hectorgrapher_tpu_torch" / "ops" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = _load(parent / "hectorgrapher_tpu_torch" / "ops" / f"{name}.py", f"earlier_{name}")
     mod._build = build
     return getattr(mod, name)
 
@@ -115,31 +141,83 @@ def host_parts(device, args):
     return out
 
 
-def main() -> int:
-    if len(sys.argv) != 2:
-        sys.exit(__doc__.split("\n\n")[1])
-    if not torch.cuda.is_available():
-        sys.exit("kernel_ab: FAIL: torch.cuda.is_available() is false: this script needs a CUDA card")
-    parent = Path(sys.argv[1]).resolve()
-    device = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
-    print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    _build.load_library()
-    print(" | ".join(l.strip() for l in _build.build_log.splitlines() if "registers" in l or "Compiling entry" in l),
-          flush=True)
-    scratch = torch.zeros(1, device=device)
-    floor_ms = cs.device_ms(lambda: scratch.fill_(1.0), reps=50)
-    print(f"smallest kernel (a one-element fill): device {floor_ms:.4f} ms", flush=True)
-    build = build_parent(parent)
+def run_2d(device, parent, build, result, kernels):
+    """K1 and K2 (those in `kernels`), earlier against this, at the front
+    end's and the batched shape."""
+    old_k1 = load_parent_wrapper(parent, "correlative_prep_2d", build)
+    old_k2 = load_parent_wrapper(parent, "correlative_scores_2d", build)
+    result.update({name: {} for name in ("k1", "k2") if name in kernels})
+    for label, (grid, clouds, poses, window) in (("front_end", cs.front_end_kernel_inputs(device)),
+                                                 ("batched", cs.batched_scene(device))):
+        k, gsz, half, m, pw, n_th, n_groups = corr._window_geometry(window)
+        args, kw = corr.prep_inputs(grid, clouds, poses, window)
+        args = (*args, *(kw[key] for key in ("n_groups", "gsz", "margin", "ex", "ey")))
+        new1 = lambda a=args: k1.correlative_prep_2d(*a)
+        old1 = lambda a=args: old_k1(*a)
+        (flat, dlin), (flat_o, dlin_o) = new1(), old1()
+        same = bool(torch.equal(flat, flat_o) and torch.equal(dlin, dlin_o))
+        print(f"correlative_prep_2d {label} B={flat.shape[0]} T={dlin.shape[1]} N={flat.shape[2]}: equal to the "
+              f"earlier kernel: {same}", flush=True)
+        if not same:
+            sys.exit(f"kernel_ab: FAIL: correlative_prep_2d {label} differs from the earlier kernel")
+        if "k1" in kernels:
+            result["k1"][label] = {"equal": same, **turns("correlative_prep_2d", label, old1, new1, args)}
+        if "k2" not in kernels:
+            continue
+
+        table = corr.prepare_correlative_table(grid, window)
+        table_old = corr._wide_patch_table(grid.probability(), k, half)  # pw*pw lanes, the earlier layout
+        valid = clouds.mask.to(torch.float32).contiguous()
+        sargs = (table, flat, dlin, valid, n_groups, gsz, pw, k)
+        new2 = lambda a=sargs: k2.correlative_scores_2d(*a)
+        old2 = lambda a=sargs: old_k2(table_old, *a[1:])
+        diff = float((new2() - old2()).abs().max())
+        gate = 1e-4 * float(valid.sum(dim=1).max())
+        print(f"correlative_scores_2d {label} G={n_groups} rows {table.shape[1]} (earlier {table_old.shape[1]}) "
+              f"lanes: this vs earlier max |d| {diff:.3e} (gate {gate:.3e})", flush=True)
+        if not diff <= gate:
+            sys.exit(f"kernel_ab: FAIL: correlative_scores_2d {label} differs from the earlier kernel by {diff:.3e}")
+        result["k2"][label] = {"max_abs_diff": diff, **turns("correlative_scores_2d", label, old2, new2, sargs)}
+
+
+def run_designs(device, dirs, result):
+    """K2 of each design directory against this tree's, in turns."""
+    fns = {"this": k2.correlative_scores_2d}
+    for d in dirs:
+        fns[str(d)] = load_parent_wrapper(d.resolve(), "correlative_scores_2d", build_parent(d.resolve()))
+    shapes = {}
+    for label, (grid, clouds, poses, window) in (("front_end", cs.front_end_kernel_inputs(device)),
+                                                 ("batched", cs.batched_scene(device))):
+        k, gsz, half, m, pw, n_th, n_groups = corr._window_geometry(window)
+        args, kw = corr.prep_inputs(grid, clouds, poses, window)
+        flat, dlin = k1.correlative_prep_2d(*args, **kw)
+        table = corr.prepare_correlative_table(grid, window)
+        shapes[label] = (table, flat, dlin, clouds.mask.to(torch.float32).contiguous(), n_groups, gsz, pw, k)
+    table = shapes["batched"][0]
+    gen = torch.Generator(device="cpu").manual_seed(cs.SEED)
+    rand = lambda hi, shape: torch.randint(0, hi, shape, generator=gen, dtype=torch.int32).to(device)
+    shapes["few_items"] = (table, rand(table.shape[0], (1, 8, 2048)), rand(25, (1, 40, 2048)),
+                           torch.ones((1, 2048), device=device), 8, 5, 11, 3)
+    result["designs"] = {}
+    for label, sargs in shapes.items():
+        ref = fns["this"](*sargs)
+        rec = result["designs"][label] = {}
+        for which in list(fns) + list(fns)[::-1]:
+            ms = cs.device_ms(lambda: fns[which](*sargs), reps=30, match="correlative_scores_2d_kernel")
+            diff = float((fns[which](*sargs) - ref).abs().max())
+            rec.setdefault(which, []).append(ms)
+            print(f"correlative_scores_2d {label} {which}: device {cs._fmt(ms)}, max |d| from this tree's "
+                  f"{diff:.3e}", flush=True)
+
+
+def run_3d(device, parent, build, result, kernels):
+    """K3 and K4 (those in `kernels`), earlier against this, at their
+    main-path shapes."""
     old_k3 = load_parent_wrapper(parent, "ct_scan_block", build)
     old_k4 = load_parent_wrapper(parent, "fast_scores_3d", build)
-    result = {"card": card, "fill_device_ms": floor_ms, "k3": {}, "k4": {}}
-
+    result.update({name: {} for name in ("k3", "k4") if name in kernels})
     hi, lo, scan_pts = cs.ct_production_grids(device)
-    for label, c in (("front_end", 32), ("gn3d", 1)):
+    for label, c in (("front_end", 32), ("gn3d", 1)) if "k3" in kernels else ():
         args = cs.ct_kernel_inputs(device, hi, lo, scan_pts, c=c)
         new = lambda a=args: k3.ct_scan_block(*a[:10], gparams=a[10])
         old = lambda a=args: old_k3(*a[:10])
@@ -155,6 +233,8 @@ def main() -> int:
             result["host_parts"] = host_parts(device, args)
     del hi, lo
 
+    if "k4" not in kernels:
+        return
     _, match = cs.fast_match_setup(device, *cs.fast_match_submap(device))
     calls, _ = cs.recorded_score_sums(match)
     for label, (a, _) in cs.fast_score_shapes(calls).items():
@@ -167,8 +247,45 @@ def main() -> int:
             sys.exit(f"kernel_ab: FAIL: fast_scores_3d {label} is not bit-equal to the earlier kernel")
         result["k4"][label] = {"bit_equal": same, **turns("fast_scores_3d", label, old, new, a)}
 
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("parent", type=Path, nargs="?", help="directory holding the earlier checkout")
+    parser.add_argument("--designs", type=Path, nargs="+", default=[], help="directories holding K2 variants")
+    parser.add_argument("--kernels", nargs="+", choices=("k1", "k2", "k3", "k4"), default=["k1", "k2", "k3", "k4"])
+    parser.add_argument("--out", default=None, help="file name under chiprun_out/")
+    opts = parser.parse_args()
+    if (opts.parent is None) == (not opts.designs):
+        parser.error("give either PARENT_DIR or --designs")
+    if not torch.cuda.is_available():
+        sys.exit("kernel_ab: FAIL: torch.cuda.is_available() is false: this script needs a CUDA card")
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load_library()
+    print(" | ".join(l.strip() for l in _build.build_log.splitlines() if "registers" in l or "Compiling entry" in l),
+          flush=True)
+    scratch = torch.zeros(1, device=device)
+    floor_ms = cs.device_ms(lambda: scratch.fill_(1.0), reps=50)
+    print(f"smallest kernel (a one-element fill): device {floor_ms:.4f} ms", flush=True)
+    result = {"card": card, "fill_device_ms": floor_ms}
+    if opts.designs:
+        run_designs(device, opts.designs, result)
+    else:
+        parent = opts.parent.resolve()
+        build = build_parent(parent)
+        result["parent"] = str(opts.parent)
+        if {"k1", "k2"} & set(opts.kernels):
+            run_2d(device, parent, build, result, opts.kernels)
+        if {"k3", "k4"} & set(opts.kernels):
+            run_3d(device, parent, build, result, opts.kernels)
+
+    out = opts.out or ("kernel_ab_designs.json" if opts.designs else "kernel_ab.json")
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "kernel_ab.json"), "w") as f:
+    with open(os.path.join("chiprun_out", out), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({"ok": True, "card": card}), flush=True)
     return 0

@@ -95,10 +95,13 @@ def test_k4_gather_is_the_plain_sum(level):
 
 
 def test_k2_gather_is_the_plain_sum():
+    """On a table padded to row_stride lanes (25 used of 32)."""
     rng = np.random.default_rng(3)
     b, g, gsz, n, k = 2, 3, 3, 16, 1
     d, pw = 2 * k + 1, 2 * k + gsz
-    table = torch.from_numpy(rng.uniform(0, 1, (10, pw * pw)).astype(np.float32)).to(torch.bfloat16)
+    table = np.zeros((10, 32), np.float32)
+    table[:, : pw * pw] = rng.uniform(0, 1, (10, pw * pw))
+    table = torch.from_numpy(table).to(torch.bfloat16)
     flat = torch.from_numpy(rng.integers(0, 10, (b, g, n)).astype(np.int32))
     dlin = torch.from_numpy(rng.integers(0, gsz * gsz, (b, g * gsz, n)).astype(np.int32))
     valid = torch.from_numpy((rng.random((b, n)) < 0.7).astype(np.float32))
@@ -108,3 +111,24 @@ def test_k2_gather_is_the_plain_sum():
     torch.testing.assert_close(got, correlative_scores_2d_plain(*args), rtol=0, atol=1e-4)
     nbytes, ops = cs._work("correlative_scores_2d", args)
     assert ops == g * gsz * d * d * int(valid.sum())
+
+
+def test_bound_correlative_scores_2d_by_hand():
+    """One match, one group of gsz = 3 angles, k = 1 (pw = 5: 25 lanes of
+    a 32-lane row, 64 bytes = 2 sectors), four points naming table rows 2,
+    5, 2, 0, the third not valid: rows {0, 2, 5}, 6 sectors; flat (4),
+    delta_lin (3 x 4), valid (4) and the 3 x 3 x 3 outputs, 4 bytes each;
+    3 x 9 sums over 3 valid points."""
+    table = torch.zeros((6, 32), dtype=torch.bfloat16)
+    table[:, :25] = torch.arange(25, dtype=torch.float32) / 32
+    flat = i32([[[2, 5, 2, 0]]])
+    dlin = torch.full((1, 3, 4), 4, dtype=torch.int32)  # delta (1, 1): the window at lane 6
+    valid = torch.tensor([[1.0, 1.0, 0.0, 1.0]])
+    args = (table, flat, dlin, valid, 1, 3, 5, 1)
+    nbytes = 6 * 32 + 4 * (4 + 12 + 4 + 27)
+    ms, by, got_bytes, ops = cs.bound_ms("correlative_scores_2d", args)
+    assert (got_bytes, ops, by) == (nbytes, 81, "bytes")
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    # Score (ox, oy) of every angle: 3 valid points reading lane 6 + 5 ox + oy.
+    lanes = torch.tensor([[6, 7, 8], [11, 12, 13], [16, 17, 18]], dtype=torch.float32)
+    torch.testing.assert_close(correlative_scores_2d_plain(*args)[0], (3 * lanes / 32).expand(3, 3, 3))

@@ -9,7 +9,14 @@ at most 1e-5 of all outputs, and each is one cell on one axis.
 
 K2 tolerance: |delta| <= 1e-4 * n_valid — both sides sum at most n_valid
 bf16 values, each at most 1, in f32, in different orders.
+
+The K2 kernel pads the table's rows to row_stride(pw) lanes and computes
+a one-hot bucket product followed by shifted window sums; its
+decomposition is written out here in torch (kernel_decomposition) and
+held against the plain gather-sum.
 """
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +36,11 @@ from hectorgrapher_tpu.ops.pallas_prep2d import correlative_prep_2d_batched
 from hectorgrapher_tpu.transform.rigid import Rigid2
 from hectorgrapher_tpu_torch.mapping.scan_matching import correlative_2d as tcorr
 from hectorgrapher_tpu_torch.ops.correlative_prep_2d import correlative_prep_2d
-from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d
+from hectorgrapher_tpu_torch.ops.correlative_scores_2d import (
+    correlative_scores_2d,
+    correlative_scores_2d_plain,
+    row_stride,
+)
 from torch_parity import bf16_to_torch, perturbations, room_grid_and_cloud
 
 torch.set_num_threads(1)
@@ -161,3 +172,87 @@ def test_wrappers_refuse_other_devices():
         correlative_prep_2d(meta, meta, meta, meta, meta, n_groups=1, gsz=5, margin=5, ex=10, ey=10)
     with pytest.raises(ValueError):
         correlative_scores_2d(meta, meta.int(), meta.int(), meta, 1, 5, 11, 3)
+
+
+@pytest.mark.parametrize("linear_window", [0.15, 0.1])
+def test_prepared_table_is_pallas_table_p(scene, linear_window):
+    """prepare_correlative_table's padded rows are, bit for bit, the table_p
+    the Pallas path gathers from (correlative_2d.py:391)."""
+    grid, _, _ = scene
+    window = make_search_window(linear_window, np.radians(10.0), 0.05, 5.0)
+    k, gsz, half, m, pw, *_ = _window_geometry(window)
+    prob = grid.probability()
+    table_p = bf16_to_torch(jnp.pad(_wide_patch_table(prob, k, half), ((0, 0), (0, LANES - pw * pw))))
+    prob_t = torch.from_numpy(np.array(prob, np.float32))
+    table_t = tcorr.prepare_correlative_table(SimpleNamespace(probability=lambda: prob_t), window)
+    assert table_t.shape == table_p.shape and table_t.shape[1] == row_stride(pw) == LANES
+    assert torch.equal(table_t.view(torch.int16), table_p.view(torch.int16))
+
+
+@pytest.mark.parametrize("linear_window", [0.15, 0.1])
+def test_scores_plain_on_padded_table_matches_pallas_interpret(scene, linear_window):
+    grid, cloud, _ = scene
+    window, _, _, arrays, statics = _inputs(scene, linear_window)
+    k, gsz, half, m, pw, n_th, n_groups = _window_geometry(window)
+    d = 2 * k + 1
+    flat_j, dlin_j = correlative_prep_2d_batched(
+        *(jnp.asarray(arrays[k_]) for k_ in ("params", "px", "py", "ca", "sa")), **statics, interpret=True
+    )
+    table_p = jnp.pad(_wide_patch_table(grid.probability(), k, half), ((0, 0), (0, LANES - pw * pw)))
+    valid = jnp.broadcast_to(cloud.mask, (B,) + cloud.mask.shape).astype(jnp.float32)
+    wide = np.asarray(correlative_scores_2d_batched(
+        dlin_j, valid, jnp.take(table_p, flat_j, axis=0), n_groups=n_groups, gsz=gsz, pw=pw, interpret=True
+    ))
+    lanes = (np.arange(d)[:, None] * pw + np.arange(d)[None, :]).reshape(-1)
+    ref = wide[:, :, lanes].reshape(B, n_groups * gsz, d, d)
+    got = correlative_scores_2d(
+        bf16_to_torch(table_p), torch.from_numpy(np.array(flat_j)), torch.from_numpy(np.array(dlin_j)),
+        torch.from_numpy(np.array(valid)), n_groups, gsz, pw, k,
+    )
+    n_valid = float(np.asarray(cloud.mask).sum())
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-4 * n_valid)
+
+
+def kernel_decomposition(table, flat, delta_lin, valid, n_groups, gsz, pw, k):
+    """K2's computation written out in torch: per (match, group) the one-hot
+    (gsz^3, N) matrix [delta(l, n) = j] * valid(n), rows (l, j) l-major,
+    times the gathered rows -> bucket (gsz^3, stride) in f32; then
+    scores[l, ox, oy] = sum over j, in j order, of bucket[(l, j)] at lane
+    (ox + jx) * pw + oy + jy."""
+    d = 2 * k + 1
+    b, g, n = flat.shape
+    gsz2 = gsz * gsz
+    rows = table[flat.long()].float()  # (B, G, N, stride)
+    dl = delta_lin.reshape(b, g, gsz, 1, n).long()
+    onehot = (dl == torch.arange(gsz2).reshape(1, 1, 1, gsz2, 1)) & (valid > 0)[:, None, None, None, :]
+    bucket = onehot.float().reshape(b, g, gsz * gsz2, n) @ rows  # (B, G, gsz^3, stride)
+    bucket = bucket.reshape(b, g, gsz, gsz2, -1)
+    r = torch.arange(d)
+    out = torch.zeros((b, g, gsz, d, d))
+    for j in range(gsz2):
+        jx, jy = divmod(j, gsz)
+        q = (r[:, None] + jx) * pw + r[None, :] + jy  # (d, d)
+        out = out + bucket[:, :, :, j][..., q]
+    return out.reshape(b, g * gsz, d, d)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5])  # pw^2 = 49, 121, 225 (> 128: two lane chunks)
+def test_kernel_decomposition_is_the_plain_gather_sum(k):
+    rng = np.random.default_rng(k)
+    gsz, b, g, n = 5, 3, 4, 150
+    pw = 2 * k + gsz
+    stride = row_stride(pw)
+    table = np.zeros((40, stride), np.float32)
+    table[:, : pw * pw] = rng.uniform(0, 1, (40, pw * pw))
+    table = torch.from_numpy(table).to(torch.bfloat16)
+    flat = torch.from_numpy(rng.integers(0, 40, (b, g, n)).astype(np.int32))
+    dlin = torch.from_numpy(rng.integers(0, gsz * gsz, (b, g * gsz, n)).astype(np.int32))
+    valid = (rng.random((b, n)) < 0.6).astype(np.float32)
+    valid[1] = 0.0  # a match with no valid point scores 0
+    valid = torch.from_numpy(valid)
+    args = (table, flat, dlin, valid, g, gsz, pw, k)
+    got = kernel_decomposition(*args)
+    want = correlative_scores_2d_plain(*args)
+    n_valid = float(valid.sum(dim=1).max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * n_valid)
+    assert float(got[1].abs().max()) == 0.0
