@@ -402,14 +402,14 @@ def check_kernels(shapes):
     return out
 
 
-def check_k2(label, sargs):
-    """K2 against its plain version on sargs: finite, the same bits on two
-    launches, and within 1e-4 * n_valid of the plain version per match
-    (f32 sums of at most n_valid bf16 values, each at most 1, in another
-    order; exactly 0 where no point is valid). Returns the largest
+def check_k2(label, sargs, kernel=correlative_scores_2d):
+    """K2 (`kernel`) against its plain version on sargs: finite, the same
+    bits on two launches, and within 1e-4 * n_valid of the plain version
+    per match (f32 sums of at most n_valid bf16 values, each at most 1, in
+    another order; exactly 0 where no point is valid). Returns the largest
     difference."""
-    got = correlative_scores_2d(*sargs)
-    again = correlative_scores_2d(*sargs)
+    got = kernel(*sargs)
+    again = kernel(*sargs)
     ref = correlative_scores_2d_plain(*sargs)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
@@ -423,20 +423,29 @@ def check_k2(label, sargs):
     return float(err.max())
 
 
-def check_k2_cases(device, seed=SEED):
-    """Phase 4's K2 cases beyond the main path's two shapes, each against
-    the plain version (check_k2): ragged valid counts (not multiples of
-    the 64-point tile, one match with none, N = 1001 not a multiple of 4)
-    with one block per (b, g) item (B=132) and with each item's points split
-    over a thread-block cluster (B=4: clusters of 4 blocks); few items with
-    many points (B=1, G=8, N=2048 all valid: clusters of 8); and windows
-    wider than one 128-lane chunk (k = 5: pw^2 = 225 in 232-lane rows; k =
-    8: pw^2 = 441 in 448) on the batched scene through K1."""
+def _offset(x):
+    """A copy of x that is contiguous but starts one element past a 16-byte
+    boundary, so that a kernel must take its scalar loads."""
+    store = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = store[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def check_k2_cases(device, seed=SEED, kernel=correlative_scores_2d):
+    """Phase 4's K2 (`kernel`) cases beyond the main path's two shapes, each
+    against the plain version (check_k2): ragged valid counts (not
+    multiples of the 64-point tile, one match with none, N = 1001 not a
+    multiple of 4) at B=132 and B=4; all 2048 slots valid at B=1; N = 1024
+    with every input starting one element past a 16-byte boundary; and
+    windows wider than one 128-lane chunk (k = 5: pw^2 = 225 in 232-lane
+    rows; k = 8: pw^2 = 441 in 448) on the batched scene through K1."""
     rng = np.random.default_rng(seed)
     grid, clouds, poses, window = batched_scene(device, 64, seed)
     k, gsz, half, m, pw, n_th, n_groups = _window_geometry(window)
     table = prepare_correlative_table(grid, window)
-    for label, b, n, ragged in (("ragged", 132, 1001, True), ("ragged", 4, 1001, True), ("few items", 1, 2048, False)):
+    for label, b, n, ragged in (("ragged", 132, 1001, True), ("ragged", 4, 1001, True), ("all valid", 1, 2048, False),
+                                ("misaligned", 8, 1024, True)):
         flat = torch.from_numpy(rng.integers(0, table.shape[0], (b, n_groups, n)).astype(np.int32)).to(device)
         dlin = torch.from_numpy(rng.integers(0, gsz * gsz, (b, n_groups * gsz, n)).astype(np.int32)).to(device)
         counts = rng.integers(1, n + 1, b) if ragged else np.full(b, n)
@@ -444,7 +453,9 @@ def check_k2_cases(device, seed=SEED):
             counts[1] = 0
         keep = rng.random((b, n)).argsort(axis=1) < counts[:, None]
         valid = torch.from_numpy(keep.astype(np.float32)).to(device)
-        err = check_k2(f"{label} B={b}", (table, flat, dlin, valid, n_groups, gsz, pw, k))
+        if label == "misaligned":
+            flat, dlin, valid = _offset(flat), _offset(dlin), _offset(valid)
+        err = check_k2(f"{label} B={b}", (table, flat, dlin, valid, n_groups, gsz, pw, k), kernel)
         print(f"correlative_scores_2d {label} B={b} G={n_groups} N={n}, valid counts {int(counts.min())}.."
               f"{int(counts.max())}: max |d| {err:.3e}, two launches bit-equal", flush=True)
     for k_wide in (5, 8):
@@ -454,7 +465,7 @@ def check_k2_cases(device, seed=SEED):
         flat, dlin = correlative_prep_2d(*args, **kw)
         table = prepare_correlative_table(grid, wide)
         sargs = (table, flat, dlin, clouds.mask.to(torch.float32).contiguous(), n_groups, gsz, pw, k)
-        err = check_k2(f"wide k={k}", sargs)
+        err = check_k2(f"wide k={k}", sargs, kernel)
         print(f"correlative_scores_2d wide window k={k} pw^2={pw * pw} in {table.shape[1]}-lane rows, B=64 "
               f"G={n_groups}: max |d| {err:.3e}, two launches bit-equal", flush=True)
 
@@ -463,11 +474,12 @@ def check_k1_boundaries(device, seed=SEED):
     """Phase 4's K1 boundary sweep: points placed so that, for one random
     candidate angle each, (w - min) / res lands within a few ulps of an
     integer on both axes; K1 must equal its plain version exactly. At the
-    front end's shape (B=64 matches, T=425, N=2048) and with N = 1001 (the
-    kernel's scalar path)."""
+    front end's shape (B=64 matches, T=425, N=2048), and on the kernel's
+    scalar path: with N = 1001, and with N = 1024 but px and py starting
+    one element past a 16-byte boundary."""
     rng = np.random.default_rng(seed)
     res, minx, miny = 0.05, -16.0, -16.0
-    for b, n, n_groups in ((64, 2048, 85), (3, 1001, 85)):
+    for b, n, n_groups, shift in ((64, 2048, 85, False), (3, 1001, 85, False), (3, 1024, 85, True)):
         t_pad = n_groups * 5
         t = rng.uniform(-1.0, 1.0, (b, 2)).astype(np.float32)
         angles = (rng.uniform(-np.pi, np.pi, (b, 1)) + np.linspace(-0.35, 0.35, t_pad)[None]).astype(np.float32)
@@ -487,7 +499,8 @@ def check_k1_boundaries(device, seed=SEED):
         params = np.zeros((b, 8), np.float32)
         params[:, 0:2], params[:, 2], params[:, 3], params[:, 4] = t, minx, miny, res
         on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
-        args = (on(params), on(px), on(py), on(ca), on(sa), n_groups, 5, 7, 654, 654)
+        args = (on(params), *(_offset(on(a)) if shift else on(a) for a in (px, py)), on(ca), on(sa), n_groups, 5, 7,
+                654, 654)
         flat, dlin = correlative_prep_2d(*args)
         flat_p, dlin_p = correlative_prep_2d_plain(*args)
         torch.cuda.synchronize()
@@ -498,8 +511,9 @@ def check_k1_boundaries(device, seed=SEED):
         if bad:
             fail(f"K1 correlative_prep_2d differs from its plain version on the boundary sweep B={b} N={n}: "
                  f"{bad} outputs")
-        print(f"correlative_prep_2d boundary sweep B={b} T={t_pad} N={n}: exact ({near} of {b * n} picked-angle x "
-              f"quotients within 1e-4 of an integer)", flush=True)
+        where = " misaligned" if shift else ""
+        print(f"correlative_prep_2d boundary sweep B={b} T={t_pad} N={n}{where}: exact ({near} of {b * n} picked-angle "
+              f"x quotients within 1e-4 of an integer)", flush=True)
 
 
 def run_batched(device, batch=BATCH, reps=10):

@@ -20,7 +20,7 @@
 //
 // Design: one thread per 4 consecutive points, 16-byte loads of px/py and
 // 16-byte stores of flat and delta_lin (scalar ones when N is not a
-// multiple of 4); a block loops over a range of groups, so the match's
+// multiple of 4 or an array is not 16-byte aligned); a block loops over a range of groups, so the match's
 // cos/sin of those angles are read into shared memory once, and the
 // match's parameters and the reciprocal of its resolution are hoisted out
 // of the loop. The discretized cells must agree with the plain PyTorch
@@ -77,7 +77,7 @@ correlative_prep_2d_kernel(const float* __restrict__ params, const float* __rest
                            const float* __restrict__ py, const float* __restrict__ ca,
                            const float* __restrict__ sa, int32_t* __restrict__ flat,
                            int32_t* __restrict__ dlin, int n, int n_groups, int gsz, int groups_per_block,
-                           int margin, int ex, int ey) {
+                           int margin, int ex, int ey, bool vec) {
   extern __shared__ float s_cs[];  // cos, then sin, of the block's angles
   const int b = blockIdx.z;
   const int t_pad = n_groups * gsz;
@@ -93,7 +93,6 @@ correlative_prep_2d_kernel(const float* __restrict__ params, const float* __rest
   const float* p = params + static_cast<size_t>(b) * 8;
   const Match m{p[0], p[1], p[2], p[3], p[4], __frcp_rn(p[4])};
   const int i0 = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
-  const bool vec = (n & 3) == 0;  // rows are 16-byte aligned
   const int cnt = min(4, n - i0);
   float x[4] = {0.0f, 0.0f, 0.0f, 0.0f}, y[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   if (cnt > 0) {
@@ -166,7 +165,10 @@ extern "C" int hg_correlative_prep_2d(const float* params, const float* px, cons
   const int gpb = std::min((n_groups + splits - 1) / splits, std::max(1, kMaxAngles / gsz));
   const dim3 grid(nx, (n_groups + gpb - 1) / gpb, b);
   const size_t smem = 2 * static_cast<size_t>(gpb) * gsz * sizeof(float);
+  // 16-byte loads and stores only where every row starts 16-byte aligned.
+  const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  const bool vec = n % 4 == 0 && ((addr(px) | addr(py) | addr(flat) | addr(dlin)) & 15) == 0;
   correlative_prep_2d_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      params, px, py, ca, sa, flat, dlin, n, n_groups, gsz, gpb, margin, ex, ey);
+      params, px, py, ca, sa, flat, dlin, n, n_groups, gsz, gpb, margin, ex, ey, vec);
   return static_cast<int>(cudaGetLastError());
 }

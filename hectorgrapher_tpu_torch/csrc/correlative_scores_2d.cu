@@ -12,9 +12,9 @@
 //   scores[b, g*gsz+l, ox, oy] = sum_j bucket[(l, j), (ox+jx)*pw + (oy+jy)]
 //
 // with (jx, jy) = divmod(j, gsz), ox, oy < d = 2k+1, the sum over j in j
-// order. The table's rows are `stride` bf16 lanes, pw^2 of them used and
-// the rest zero, stride a multiple of 8 so that every row is 16-byte
-// aligned.
+// order, and gsz = 5, the port's ANGLE_GROUP (correlative_2d.py). The
+// table's rows are `stride` bf16 lanes, pw^2 of them used and the rest
+// zero, stride a multiple of 8 so that every row is 16-byte aligned.
 //
 // What bounds it on the H100: moving the rows. At the batched operating
 // point (B=1024, G=8, N=512, 256-byte rows) the valid points name ~1.07 GB
@@ -22,7 +22,8 @@
 // one-hot product is 128 x 128 x 512 MACs per (b, g), 1.4e11 flop on the
 // tensor cores; the bytes that must come from device memory (~34 us) are
 // far below either. At the front end's shape (B=1, G=85, N=2048, ~200
-// valid points) only 85 (b, g) items exist: latency.
+// valid points) only 85 (b, g) items exist: latency. One block per item
+// measured faster there than splitting an item's points over a cluster.
 //
 // Design, one block (8 warps) per (b, g):
 // - Valid points only: a block-wide prefix sum over `valid` compacts the
@@ -43,21 +44,14 @@
 //   0/1 times bf16 is exact; each bucket entry is an f32 sum of table
 //   values, as on the TPU's MXU.
 // - Combine in shared memory: the bucket replaces the ring, and one thread
-//   per output adds its gsz^2 windows in j order (gsz is a template
-//   parameter, so the window offsets are constants). Windows wider than
-//   128 lanes (pw^2 > 128) run chunk by chunk; the lane of window j grows
-//   with j, so chunk after chunk is still j order.
-// - Few items (at most half an item per SM, as with B=1 and a narrow
-//   angular window): the points of one (b, g) are split over a thread-block
-//   cluster of up to 8 blocks, and block 0 adds the blocks' scores in rank
-//   order through distributed shared memory.
+//   per output adds its gsz^2 windows in j order (gsz is a constant, so
+//   the window offsets are too). Windows wider than 128 lanes (pw^2 > 128)
+//   run chunk by chunk; the lane of window j grows with j, so chunk after
+//   chunk is still j order.
 // The order of every sum is fixed: no atomics, the same bits on every run.
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -78,8 +72,7 @@ constexpr int kKBlockB = kLanes / 8 * 128;  // bytes per 8 points of staged rows
 constexpr int kKBlockA = kRows / 8 * 128;  // bytes per 8 points of a one-hot tile
 constexpr int kPitchF = kLanes + 8;  // floats per bucket row
 constexpr int kSeg = 1024;  // slots compacted at a time (4 per thread)
-constexpr int kMaxGsz = 5;
-constexpr int kMaxCluster = 8;
+constexpr int kGsz = 5;  // angles per group: the port's ANGLE_GROUP
 static_assert(kThreads == 4 * kTileK, "each thread stages 4 pieces of a tile");
 constexpr int kTileB = kTileK / 8 * kKBlockB;  // one stage of staged rows
 constexpr int kTileA = kTileK / 8 * kKBlockA;  // one one-hot tile
@@ -94,7 +87,7 @@ constexpr int kUnionBytes =
 constexpr int kOffOneHot = kStageBytes;
 constexpr int kOffRow = kUnionBytes;
 constexpr int kOffDl = kOffRow + kSeg * 4;
-constexpr int kOffWarp = kOffDl + kMaxGsz * kSeg;
+constexpr int kOffWarp = kOffDl + kGsz * kSeg;
 constexpr int kOffPart = kOffWarp + 32 * 4;
 constexpr int kSmemAlign = 1024;  // the swizzled atoms' alignment
 constexpr uint16_t kOne = 0x3f80;  // bf16 1.0
@@ -193,12 +186,12 @@ __device__ __forceinline__ int block_scan(int v, int* s_warp, int& total) {
   return before;
 }
 
-template <int gsz>
 __global__ void __launch_bounds__(kThreads, 2)
 correlative_scores_2d_kernel(const __nv_bfloat16* __restrict__ table, const int32_t* __restrict__ flat,
                              const int32_t* __restrict__ dlin, const float* __restrict__ valid,
-                             float* __restrict__ out, int n, int n_groups, int pw, int d, int stride) {
-  static_assert(gsz * gsz * gsz <= kRows && gsz <= kMaxGsz, "the bucket's one-hot rows (l, j)");
+                             float* __restrict__ out, int n, int n_groups, int pw, int d, int stride, bool vec) {
+  constexpr int gsz = kGsz;
+  static_assert(gsz * gsz * gsz <= kRows, "the bucket's one-hot rows (l, j)");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((kSmemAlign - (smem_addr(smem_raw) & (kSmemAlign - 1))) & (kSmemAlign - 1));
   unsigned char* s_stage = smem;
@@ -209,11 +202,8 @@ correlative_scores_2d_kernel(const __nv_bfloat16* __restrict__ table, const int3
   int* s_warp = reinterpret_cast<int*>(smem + kOffWarp);
   float* s_part = reinterpret_cast<float*>(smem + kOffPart);  // this block's scores
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int csize = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int g = blockIdx.y;
-  const int b = blockIdx.z;
+  const int g = blockIdx.x;
+  const int b = blockIdx.y;
   const int t_pad = n_groups * gsz;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = lane >> 2, tq = lane & 3;
@@ -221,10 +211,7 @@ correlative_scores_2d_kernel(const __nv_bfloat16* __restrict__ table, const int3
   constexpr int gsz2 = gsz * gsz;
   const int n_out = gsz * d * d;
 
-  // This block's slice of the points.
-  const int per = ((n + csize - 1) / csize + 3) & ~3;
-  const int begin = min(n, rank * per), end = min(n, begin + per);
-  const int n_seg = max(1, (end - begin + kSeg - 1) / kSeg);
+  const int n_seg = (n + kSeg - 1) / kSeg;
   const float* valid_b = valid + static_cast<size_t>(b) * n;
   const int32_t* flat_bg = flat + (static_cast<size_t>(b) * n_groups + g) * n;
   const int32_t* dlin_bg = dlin + (static_cast<size_t>(b) * t_pad + static_cast<size_t>(g) * gsz) * n;
@@ -233,24 +220,21 @@ correlative_scores_2d_kernel(const __nv_bfloat16* __restrict__ table, const int3
   // Compacts the valid points of slots [s0, s1) into s_row / s_dl, in
   // point order; returns their number. Thread tid takes slots s0 + 4 tid
   // + [0, 4): all its loads are issued before the first is used (16-byte
-  // ones when N is a multiple of 4, so that every row is 16-byte aligned).
-  const bool vec = (n & 3) == 0;
+  // ones when `vec`: N a multiple of 4 and the inputs 16-byte aligned).
   auto compact = [&](int s0, int s1) {
     const int i0 = s0 + 4 * tid;
     float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     int f[4] = {0, 0, 0, 0};
-    int dl[kMaxGsz][4] = {};
+    int dl[gsz][4] = {};
     if (vec && i0 + 3 < s1) {
       const float4 a = *reinterpret_cast<const float4*>(valid_b + i0);
       const int4 r = *reinterpret_cast<const int4*>(flat_bg + i0);
       v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
       f[0] = r.x, f[1] = r.y, f[2] = r.z, f[3] = r.w;
 #pragma unroll
-      for (int l = 0; l < kMaxGsz; ++l) {
-        if (l < gsz) {
-          const int4 e = *reinterpret_cast<const int4*>(dlin_bg + static_cast<size_t>(l) * n + i0);
-          dl[l][0] = e.x, dl[l][1] = e.y, dl[l][2] = e.z, dl[l][3] = e.w;
-        }
+      for (int l = 0; l < gsz; ++l) {
+        const int4 e = *reinterpret_cast<const int4*>(dlin_bg + static_cast<size_t>(l) * n + i0);
+        dl[l][0] = e.x, dl[l][1] = e.y, dl[l][2] = e.z, dl[l][3] = e.w;
       }
     } else {
 #pragma unroll
@@ -259,8 +243,7 @@ correlative_scores_2d_kernel(const __nv_bfloat16* __restrict__ table, const int3
           v[u] = valid_b[i0 + u];
           f[u] = flat_bg[i0 + u];
 #pragma unroll
-          for (int l = 0; l < kMaxGsz; ++l)
-            if (l < gsz) dl[l][u] = dlin_bg[static_cast<size_t>(l) * n + i0 + u];
+          for (int l = 0; l < gsz; ++l) dl[l][u] = dlin_bg[static_cast<size_t>(l) * n + i0 + u];
         }
       }
     }
@@ -274,8 +257,7 @@ correlative_scores_2d_kernel(const __nv_bfloat16* __restrict__ table, const int3
       if (i0 + u < s1 && v[u] > 0.0f) {
         s_row[pos] = f[u];
 #pragma unroll
-        for (int l = 0; l < kMaxGsz; ++l)
-          if (l < gsz) s_dl[l * kSeg + pos] = static_cast<uint8_t>(dl[l][u]);
+        for (int l = 0; l < gsz; ++l) s_dl[l * kSeg + pos] = static_cast<uint8_t>(dl[l][u]);
         ++pos;
       }
     }
@@ -337,7 +319,7 @@ correlative_scores_2d_kernel(const __nv_bfloat16* __restrict__ table, const int3
     for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
 
     for (int s = 0; s < n_seg; ++s) {
-      if (n_seg > 1 || chunk == 0) count = compact(begin + s * kSeg, min(end, begin + (s + 1) * kSeg));
+      if (n_seg > 1 || chunk == 0) count = compact(s * kSeg, min(n, (s + 1) * kSeg));
       const int n_tiles = (count + kTileK - 1) / kTileK;
       // Tile `tile`'s rows into its stage: sixteen threads a row, one 16-byte
       // piece each, so that a warp copies two whole rows at a time; thread
@@ -421,76 +403,34 @@ correlative_scores_2d_kernel(const __nv_bfloat16* __restrict__ table, const int3
     __syncthreads();  // the bucket is read before the next chunk's ring and one-hot tiles overwrite it
   }
 
-  // Block 0 adds the cluster's scores in rank order.
   float* out_bg = out + (static_cast<size_t>(b) * t_pad + static_cast<size_t>(g) * gsz) * d * d;
-  if (csize > 1) cluster.sync();
-  if (rank == 0) {
-    for (int o = tid; o < n_out; o += kThreads) {
-      float v = s_part[o];
-      for (int r = 1; r < csize; ++r) v += cluster.map_shared_rank(s_part, r)[o];
-      out_bg[o] = v;
-    }
-  }
-  if (csize > 1) cluster.sync();  // no block leaves while block 0 reads its scores
+  for (int o = tid; o < n_out; o += kThreads) out_bg[o] = s_part[o];
 }
 
-int g_sm_count = 0;
-
-// Launches the kernel for group size gsz: one block per (b, g) item, or a
-// thread-block cluster of up to 8 blocks splitting its points while the
-// blocks would still number at most one per SM and each keeps at least 4
-// tiles of slots.
-template <int gsz>
-cudaError_t launch(const void* table, const int32_t* flat, const int32_t* dlin, const float* valid, float* out,
-                   int b, int n, int n_groups, int pw, int d, int stride, cudaStream_t stream) {
-  static int smem_set = 0;  // the dynamic shared memory the kernel is set up for
-  const int smem = kOffPart + ((gsz * d * d * 4 + 15) & ~15) + kSmemAlign;
-  cudaError_t err;
-  if (smem > smem_set) {
-    err = cudaFuncSetAttribute(correlative_scores_2d_kernel<gsz>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    smem_set = smem;
-  }
-  const long items = static_cast<long>(b) * n_groups;
-  unsigned cs = 1;
-  while (cs < kMaxCluster && items * cs * 2 <= g_sm_count && n >= 4 * static_cast<int>(cs) * kTileK) cs *= 2;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, n_groups, b);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cs > 1 ? 1 : 0;  // a plain launch schedules single blocks a little faster
-  err = cudaLaunchKernelEx(&cfg, correlative_scores_2d_kernel<gsz>, static_cast<const __nv_bfloat16*>(table), flat,
-                           dlin, valid, out, n, n_groups, pw, d, stride);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
+int g_smem_set = 0;  // the dynamic shared memory the kernel is set up for
 
 }  // namespace
 
 // table (R, stride) bf16, stride a multiple of 8 and >= pw*pw, 16-byte
 // aligned; flat (B, G, N) int32 rows of the table; dlin (B, T, N) int32 in
 // [0, gsz^2); valid (B, N) f32; out (B, T, d, d) f32 with T = n_groups *
-// gsz, gsz in {1, 3, 5}. Returns the launch's CUDA error code.
+// gsz and gsz = 5. One block per (b, g). Returns the launch's CUDA error
+// code.
 extern "C" int hg_correlative_scores_2d(const void* table, const int32_t* flat, const int32_t* dlin,
                                         const float* valid, float* out, int b, int n, int n_groups, int gsz,
                                         int pw, int d, int stride, void* stream) {
-  if (g_sm_count == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount, dev);
+  if (gsz != kGsz) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = kOffPart + ((kGsz * d * d * 4 + 15) & ~15) + kSmemAlign;
+  if (smem > g_smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(correlative_scores_2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
+    g_smem_set = smem;
   }
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (gsz) {
-    case 1: return static_cast<int>(launch<1>(table, flat, dlin, valid, out, b, n, n_groups, pw, d, stride, s));
-    case 3: return static_cast<int>(launch<3>(table, flat, dlin, valid, out, b, n, n_groups, pw, d, stride, s));
-    case 5: return static_cast<int>(launch<5>(table, flat, dlin, valid, out, b, n, n_groups, pw, d, stride, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // 16-byte loads of the point slots only where every row starts 16-byte aligned.
+  const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  const bool vec = n % 4 == 0 && ((addr(flat) | addr(dlin) | addr(valid)) & 15) == 0;
+  correlative_scores_2d_kernel<<<dim3(n_groups, b), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(table), flat, dlin, valid, out, n, n_groups, pw, d, stride, vec);
+  return static_cast<int>(cudaGetLastError());
 }

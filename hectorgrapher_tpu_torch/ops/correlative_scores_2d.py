@@ -80,8 +80,8 @@ def correlative_scores_2d(table, flat, delta_lin, valid, n_groups: int, gsz: int
     t_pad = n_groups * gsz
     if pw != d + gsz - 1:
         raise ValueError(f"correlative_scores_2d: pw={pw} does not fit k={k}, gsz={gsz}")
-    # The kernel's bucket has 128 one-hot rows (l, j): gsz^3 of them used.
-    if not (0 < b <= 65535 and 0 < n_groups <= 65535 and n > 0 and gsz in (1, 3, 5)):
+    # The kernel is built for the port's one group size, ANGLE_GROUP = 5.
+    if not (0 < b <= 65535 and 0 < n_groups <= 65535 and n > 0 and gsz == 5):
         raise ValueError(f"correlative_scores_2d: unsupported B={b}, G={n_groups}, N={n}, gsz={gsz}")
     stride = table.shape[1]
     if stride % 8 or stride < pw * pw or table.data_ptr() % 16:

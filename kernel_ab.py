@@ -22,10 +22,12 @@ call (enqueue only); then the outputs' largest difference and the bound
 (chip_smoke.bound_ms). Writes everything to chiprun_out/kernel_ab.json.
 
 With --designs, each DIR holds a copy of this package whose K2 source is a
-design variant (same wrapper and table layout); every variant's K2 and
-this tree's run in turns on the same inputs at the front end's and the
-batched shape and at few items (B=1, G=8, N=2048, all valid), and print
-their device time and largest difference from this tree's.
+design variant (same wrapper and table layout). Each variant's K2 is first
+held against the plain version by chip_smoke.py's K2 gates (the front
+end's and the batched shape, ragged and misaligned inputs, wide windows);
+then every variant that passed and this tree's K2 run in turns on the same
+inputs at the front end's and the batched shape, and print their device
+time and largest difference from this tree's.
 
 Imports torch, numpy and hectorgrapher_tpu_torch only; needs one card.
 """
@@ -181,10 +183,8 @@ def run_2d(device, parent, build, result, kernels):
 
 
 def run_designs(device, dirs, result):
-    """K2 of each design directory against this tree's, in turns."""
-    fns = {"this": k2.correlative_scores_2d}
-    for d in dirs:
-        fns[str(d)] = load_parent_wrapper(d.resolve(), "correlative_scores_2d", build_parent(d.resolve()))
+    """K2 of each design directory against this tree's, in turns, after
+    chip_smoke.py's K2 gates."""
     shapes = {}
     for label, (grid, clouds, poses, window) in (("front_end", cs.front_end_kernel_inputs(device)),
                                                  ("batched", cs.batched_scene(device))):
@@ -193,12 +193,24 @@ def run_designs(device, dirs, result):
         flat, dlin = k1.correlative_prep_2d(*args, **kw)
         table = corr.prepare_correlative_table(grid, window)
         shapes[label] = (table, flat, dlin, clouds.mask.to(torch.float32).contiguous(), n_groups, gsz, pw, k)
-    table = shapes["batched"][0]
-    gen = torch.Generator(device="cpu").manual_seed(cs.SEED)
-    rand = lambda hi, shape: torch.randint(0, hi, shape, generator=gen, dtype=torch.int32).to(device)
-    shapes["few_items"] = (table, rand(table.shape[0], (1, 8, 2048)), rand(25, (1, 40, 2048)),
-                           torch.ones((1, 2048), device=device), 8, 5, 11, 3)
-    result["designs"] = {}
+    fns = {"this": k2.correlative_scores_2d}
+    result["designs"] = {"gates": {}}
+    for d in dirs:
+        build = build_parent(d.resolve())
+        print(f"{d}: " + " | ".join(l.strip() for l in build.build_log.splitlines() if "registers" in l), flush=True)
+        fn = load_parent_wrapper(d.resolve(), "correlative_scores_2d", build)
+        try:
+            for label, sargs in shapes.items():
+                err = cs.check_k2(label, sargs, fn)
+                print(f"correlative_scores_2d {label} {d}: max |d| from plain {err:.3e}, two launches bit-equal",
+                      flush=True)
+            cs.check_k2_cases(device, kernel=fn)
+        except SystemExit as e:
+            print(f"design {d} failed a gate: {e}", flush=True)
+            result["designs"]["gates"][str(d)] = str(e)
+            continue
+        result["designs"]["gates"][str(d)] = "passed"
+        fns[str(d)] = fn
     for label, sargs in shapes.items():
         ref = fns["this"](*sargs)
         rec = result["designs"][label] = {}
