@@ -68,7 +68,16 @@ from hectorgrapher_tpu_torch.mapping.scan_matching.rotational_histogram import c
 from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.ops.correlative_prep_2d import correlative_prep_2d, correlative_prep_2d_plain
 from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d, correlative_scores_2d_plain
-from hectorgrapher_tpu_torch.ops.ct_scan_block import ct_scan_block, ct_scan_block_plain, grid_params
+from hectorgrapher_tpu_torch.mapping.pose_graph import pose_graph as pose_graph_module
+from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import PoseGraph3D
+from hectorgrapher_tpu_torch.ops.ct_scan_block import (
+    ct_scan_block,
+    ct_scan_block_plain,
+    ct_scan_block_slots,
+    ct_scan_block_slots_plain,
+    grid_params,
+    grid_slots,
+)
 from hectorgrapher_tpu_torch.ops.fast_scores_3d import fast_scores_3d, fast_scores_3d_plain
 from hectorgrapher_tpu_torch.sensor.types import (
     PointCloud,
@@ -205,11 +214,34 @@ def cuda_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def event_ms(fn, reps=20):
+    """Median device milliseconds of the one kernel a call of fn()
+    launches, by CUDA events around the call while a spin kernel ahead of
+    them keeps the stream busy: the host's enqueueing then leaves no gap
+    between the events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)  # ~1 ms of spinning, far longer than the host's enqueueing
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def device_ms(fn, reps=20, match=None):
     """Mean device milliseconds per call of fn(): the self time of every
-    kernel, copy and fill it ran (only those whose name holds `match`, when
-    given), from torch.profiler's CUDA trace. None when the trace holds no
-    such device time."""
+    kernel, copy and fill it ran, from torch.profiler's CUDA trace (None
+    when it holds none); with `match`, of the one kernel a call launches
+    whose name holds it, as the mean over the launches the trace holds.
+    Late in a long process the trace misses launches (a line says how
+    many); where it holds none, the time is event_ms's, which reads ~0.004
+    ms above the trace's at kernel_ab.py's shapes."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -218,9 +250,15 @@ def device_ms(fn, reps=20, match=None):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-                   if match is None or match in e.key)
-    return total_us / reps / 1e3 if total_us > 0 else None
+    events = [e for e in prof.key_averages() if match is None or match in e.key]
+    total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    if match is None:
+        return total_us / reps / 1e3 if total_us > 0 else None
+    n = sum(e.count for e in events) if total_us > 0 else 0
+    if n != reps:
+        print(f"device_ms: the trace holds {n} of {reps} launches of {match}"
+              + ("; the time is event_ms's" if n == 0 else ""), flush=True)
+    return total_us / n / 1e3 if n else event_ms(fn, reps)
 
 
 def _fmt(ms):
@@ -257,20 +295,22 @@ def k3_stencil_cells(grid, points, mask, pose7):
     return (((b[:, 0] * ny + b[:, 1]) * nz + b[:, 2])[:, None] + offs).reshape(-1), int(mask.sum())
 
 
-def k4_gather(table, bx, by, bz, valid, cand_t, off_x, off_y, off_z, level, y_shift, grid_shape):
+def k4_gather(table, bx, by, bz, valid, cand_t, off_x, off_y, off_z, level, y_shift, grid_shape, cand_base=None):
     """K4's gather-sum written out: flat table indices (C*X*Y*Z, P) int64
     and 0/1 weights of the same shape, f32, where a weight of 1 marks a
-    point that counts (fast_scores_3d_plain's cells for all points at once)."""
+    point that counts (fast_scores_3d_plain's cells for all points at once,
+    each candidate's rows from its row base)."""
     nx, ny, nz = grid_shape
     span = 1 << level
     nx_l, ny_l = -(-nx // span), table.shape[1]
     t = cand_t.long()
+    base = 0 if cand_base is None else cand_base.long()[:, None, None, None]
     ix = bx[t].long()[:, :, None] + off_x[:, None, :]  # (C, P, X)
     iy = by[t].long()[:, :, None] + off_y[:, None, :]
     iz = bz[t].long()[:, :, None] + off_z[:, None, :]
     xz_in = ((ix > -span) & (ix < nx))[..., :, None] & ((iz > -span) & (iz < nz))[..., None, :]  # (C, P, X, Z)
-    row = (torch.clamp(iz, min=0) // span)[..., None, :] * nx_l + (torch.clamp(ix, min=0) // span)[..., :, None]
-    pick = (iy > -span) & (iy < ny) & valid[None, :, None]  # (C, P, Y)
+    row = base + (torch.clamp(iz, min=0) // span)[..., None, :] * nx_l + (torch.clamp(ix, min=0) // span)[..., :, None]
+    pick = (iy > -span) & (iy < ny) & valid.expand(bx.shape)[t][:, :, None]  # (C, P, Y)
     lane = torch.clamp(iy, 0, ny - 1) // (1 << y_shift)
     idx = row[:, :, :, None, :] * ny_l + lane[:, :, None, :, None]  # (C, P, X, Y, Z)
     keep = xz_in[:, :, :, None, :] & pick[:, :, None, :, None]
@@ -318,23 +358,35 @@ def _work(kernel, args):
         n_valid = int((valid > 0).sum())
         return (32 * sectors.numel() + 4 * (flat.numel() + delta_lin.numel() + valid.numel() + b * g * gsz * d * d),
                 g * gsz * d * d * n_valid)
-    if kernel == "ct_scan_block":
-        hi, lo, hi_pts, hi_mask, lo_pts, lo_mask, pose7, dpose7, hi_scale, lo_scale = args[:10]
+    if kernel in ("ct_scan_block", "ct_scan_block_slots"):
+        if kernel == "ct_scan_block":
+            hi, lo, hi_pts, hi_mask, lo_pts, lo_mask, pose7, dpose7, hi_scale, lo_scale = args[:10]
+            grid_pairs, lanes, table_bytes = [(hi, lo)], [torch.ones_like(hi_mask[:, 0])], 4 * 8
+        else:  # the slot table (pointers, parameters) and the slots
+            slots, slot, hi_pts, hi_mask, lo_pts, lo_mask, pose7, dpose7, hi_scale, lo_scale = args[:10]
+            grid_pairs = list(zip(slots.hi, slots.lo))
+            lanes = [slot == d for d in range(len(grid_pairs))]
+            table_bytes = slots.ptrs.numel() * 8 + slots.gparams.numel() * 4 + slot.numel() * 4
         c = hi_mask.shape[0]
-        nbytes = (4 * (hi_pts.numel() + lo_pts.numel() + pose7.numel() + dpose7.numel() + 2 * c + 8)
+        nbytes = (4 * (hi_pts.numel() + lo_pts.numel() + pose7.numel() + dpose7.numel() + 2 * c) + table_bytes
                   + hi_mask.numel() + lo_mask.numel() + 4 * c * (18 * 18 + 18 + 1))
         n_masked = 0
-        for grid, pts, mask in ((hi, hi_pts, hi_mask), (lo, lo_pts, lo_mask)):
-            cells, n = k3_stencil_cells(grid, pts, mask, pose7)
-            nbytes += 2 * 32 * _sectors(cells)  # tsd and weight: one layout
-            n_masked += n
+        for (hi, lo), lane in zip(grid_pairs, lanes):
+            for grid, pts, mask in ((hi, hi_pts, hi_mask), (lo, lo_pts, lo_mask)):
+                cells, n = k3_stencil_cells(grid, pts[lane], mask[lane], pose7[lane])
+                nbytes += 2 * 32 * _sectors(cells)  # tsd and weight: one layout
+                n_masked += n
         return nbytes, K3_OPS_PER_POINT * n_masked
     if kernel == "fast_scores_3d":
         table, bx, by, bz, valid, cand_t, off_x, off_y, off_z = args[:9]
+        cand_base = args[12] if len(args) > 12 else None
         idx, weight = k4_gather(*args)
-        p = bx.shape[1]
-        nbytes = (32 * _sectors(idx[weight > 0]) + 12 * p * int(torch.unique(cand_t).numel()) + valid.numel()
-                  + 4 * (cand_t.numel() + off_x.numel() + off_y.numel() + off_z.numel() + idx.shape[0]))
+        p, rows = bx.shape[1], int(torch.unique(cand_t).numel())
+        # The point rows the candidates name: their cells, and their flags
+        # where each point row has its own.
+        nbytes = (32 * _sectors(idx[weight > 0]) + 12 * p * rows + (p * rows if valid.dim() == 2 else valid.numel())
+                  + 4 * (cand_t.numel() + off_x.numel() + off_y.numel() + off_z.numel() + idx.shape[0])
+                  + (0 if cand_base is None else 8 * cand_base.numel()))
         return nbytes, int(weight.sum())
     raise ValueError(f"no work model for {kernel}")
 
@@ -349,14 +401,17 @@ def bound_ms(kernel, args):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
-def measure(name, label, kernel, plain, args, err, library=None, note=""):
+def measure(name, label, kernel, plain, args, err, library=None, note="", kernel_name=None):
     """Time one kernel call against its plain version (and the library
     call, where there is one) at one shape, print one line and return the
     record: per call (CUDA events around the call, host gap included) and
-    device time (the kernel's own, from torch.profiler) beside its bound."""
+    device time (the kernel's own over 100 calls, device_ms: kernels whose
+    name holds kernel_name, by default name + "_kernel") beside its
+    bound."""
     b_ms, b_by, nbytes, ops = bound_ms(name, args)
     rec = dict(max_abs_err=err, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
-               device_ms=device_ms(kernel, match=f"{name}_kernel"), plain_device_ms=device_ms(plain),
+               device_ms=device_ms(kernel, reps=100, match=kernel_name or f"{name}_kernel"),
+               plain_device_ms=device_ms(plain),
                library_ms=None if library is None else cuda_ms(library), bound_ms=b_ms, bound_by=b_by)
     share = "not measured" if rec["device_ms"] is None else f"{100 * b_ms / rec['device_ms']:.1f}% of it"
     lib = "none" if library is None else f"{rec['library_ms']:.4f} ms"
@@ -1168,16 +1223,27 @@ SLAM_SPEED, SLAM_REST, SLAM_OUT = 0.8, 0.6, 3.0  # m/s, s at rest, m out (and ba
 # constants are the larger of each pair; the port must stay within twice
 # each, or 0.05 m above it.
 JAX_SLAM_LATE_GLOBAL, JAX_SLAM_MEDIAN_GLOBAL, JAX_SLAM_MAX_GLOBAL = 0.04393, 0.03436, 0.19620
+# Phase 12's: the same drive with the batched constraint search, two runs
+# of tests/jax_slam_reference.py --batched on a CPU: 70 nodes, 9 submaps (7
+# finished), 283 and 279 INTER constraints; the tail's local error 0.30263
+# m both times, its global error 0.03565 / 0.05800 m, the median global
+# error 0.02910 / 0.03771 m, the max 0.17575 / 0.16644 m. The larger of
+# each pair.
+JAX_SLAM12_LATE_GLOBAL, JAX_SLAM12_MEDIAN_GLOBAL, JAX_SLAM12_MAX_GLOBAL = 0.05800, 0.03771, 0.17575
+ROUND_PARITY_ROUNDS = 3  # phase 12's rounds re-run through the serial path
 
 
-def slam_options():
-    """tests/test_map_builder_3d.py loop_options() (over make_options())
-    at the CT front end's full width (256^3 / 128^3 grids, K=32, C=32,
-    P=256, 12 LM iterations), with the async work queue and the serial
-    constraint search."""
+def slam_overrides(batched=False):
+    """Phase 11's options as replace_deep overrides of MapBuilderOptions:
+    tests/test_map_builder_3d.py loop_options() (over make_options()) at
+    the CT front end's full width (256^3 / 128^3 grids, K=32, C=32, P=256,
+    12 LM iterations), with the async work queue; the serial constraint
+    search, or with `batched` the default batched one (phase 12). Plain
+    values, so that tests/jax_slam_reference.py applies them to the JAX
+    package's options."""
     ct = "trajectory_builder_3d.optimizing_local_trajectory_builder."
     fm = "pose_graph.constraint_builder.fast_correlative_scan_matcher_3d."
-    return cfg.replace_deep(cfg.MapBuilderOptions(), {
+    return {
         "use_trajectory_builder_3d": True,
         "trajectory_builder_3d.min_range": 0.4,
         "trajectory_builder_3d.max_range": 25.0,
@@ -1199,7 +1265,7 @@ def slam_options():
         ct + "low_resolution_grid_weight": 0.05,
         "pose_graph.optimize_every_n_nodes": 16,
         "pose_graph.async_work_queue": True,
-        "pose_graph.use_batched_constraint_search": False,
+        "pose_graph.use_batched_constraint_search": batched,
         "pose_graph.constraint_builder.sampling_ratio": 1.0,
         "pose_graph.constraint_builder.max_constraint_distance": 8.0,
         "pose_graph.constraint_builder.min_score": 0.45,
@@ -1208,7 +1274,12 @@ def slam_options():
         fm + "branch_and_bound_depth": 4,
         fm + "min_rotational_score": 0.2,
         fm + "min_low_resolution_score": 0.45,
-    })
+    }
+
+
+def slam_options(batched=False):
+    """slam_overrides(batched) applied to the port's MapBuilderOptions."""
+    return cfg.replace_deep(cfg.MapBuilderOptions(), slam_overrides(batched))
 
 
 def slam_truth(t):
@@ -1264,11 +1335,73 @@ def timed_method(obj, name, times, errors):
     setattr(obj, name, run)
 
 
-def run_slam(device, options=None, drive=None):
+def round_parity(pg, gated, global_search, results):
+    """Re-run each candidate of a batched round through the serial path
+    (the class's own _compute_constraint, past run_slam's wrappers) at the
+    round's scan range: the same gate outcome, zbar within 1e-3 m and |1 -
+    |dq0|| < 1e-6 (tests/test_batched_constraint_path.py:324-326). Returns
+    (ok, largest translation and quaternion differences, K4 launches)."""
+    k4 = fast_scores_3d.launches
+    scan_range = max(pg._scan_range_bucket(n) for _, _, n, _ in gated)
+    pg._scan_range_bucket = lambda node: scan_range
+    try:
+        serial = [PoseGraph3D._compute_constraint(pg, node, p, global_search=global_search) for _, _, node, p in gated]
+    finally:
+        del pg._scan_range_bucket
+    ok, dt, dq = True, 0.0, 0.0
+    for a, b in zip(results, serial):
+        if (a is None) != (b is None):
+            ok = False
+        elif a is not None:
+            dt = max(dt, float(np.linalg.norm(a.zbar.t - b.zbar.t)))
+            dq = max(dq, 1.0 - abs(float(nq.quat_multiply(nq.quat_conjugate(a.zbar.q), b.zbar.q)[0])))
+    return ok and dt <= 1e-3 and dq < 1e-6, dt, dq, fast_scores_3d.launches - k4
+
+
+def probe_batched_rounds(pg, rounds, errors, recorded):
+    """Wrap pg._compute_constraints_batched to append each round's record
+    to `rounds` (candidates, seconds ending in the refinement's readback,
+    K4 and slotted K3 launches, LAST_ROUND_BREAKDOWN), any exception to
+    `errors`, and the first ROUND_PARITY_ROUNDS rounds' serial re-run
+    (round_parity); each record keeps its round's candidates (rounds_alone).
+    The first round of >= 4 candidates over >= 2 submaps
+    whose scans differ in valid counts has its K4 calls appended to
+    `recorded` as (arguments, output)."""
+    fn = pg._compute_constraints_batched
+
+    def run(gated, global_search=False):
+        k4, k3 = fast_scores_3d.launches, ct_scan_block_slots.launches
+        record = (not recorded and len(gated) >= 4 and len({sid for _, sid, _, _ in gated}) >= 2
+                  and len({int(n.high_cloud.mask.sum()) for _, _, n, _ in gated}) >= 2)
+        t0 = time.perf_counter()
+        try:
+            if record:
+                with score_sums_through(lambda *a: recorded.append((a, fast_scores_3d(*a))) or recorded[-1][1]):
+                    results = fn(gated, global_search=global_search)
+            else:
+                results = fn(gated, global_search=global_search)
+            rec = dict(n=len(gated), s=time.perf_counter() - t0, k4=fast_scores_3d.launches - k4,
+                       k3=ct_scan_block_slots.launches - k3, stages=dict(pose_graph_module.LAST_ROUND_BREAKDOWN),
+                       found=sum(r is not None for r in results), parity=None, gated=list(gated),
+                       global_search=global_search)
+            if sum(r["parity"] is not None for r in rounds) < ROUND_PARITY_ROUNDS:
+                rec["parity"] = round_parity(pg, gated, global_search, results)
+        except Exception as e:
+            errors.append(f"_compute_constraints_batched: {e!r}")
+            raise
+        rounds.append(rec)
+        return results
+
+    pg._compute_constraints_batched = run
+
+
+def run_slam(device, options=None, drive=None, rounds=None, recorded=None):
     """Phase 11: MapBuilder 3D -> TrajectoryBuilder -> CT front end ->
     PoseGraph3D over the out-and-back drive, the constraint searches and
     SPA solves on the pose graph's worker thread, then the final
-    optimization. Returns a dict of the run's counts, errors and times."""
+    optimization. Returns a dict of the run's counts, errors, times and
+    the pose graph. With `rounds` (phase 12), probes the batched rounds
+    (probe_batched_rounds) into it and `recorded`."""
     mb = MapBuilder(options or slam_options(), device=device)
     tb = mb.get_trajectory_builder(mb.add_trajectory_builder())
     pg = mb.pose_graph
@@ -1276,6 +1409,8 @@ def run_slam(device, options=None, drive=None):
     timed_method(pg, "_compute_constraint", searches, errors)
     timed_method(pg, "_run_optimization", solves, errors)
     timed_method(pg, "_on_submap_finished", [], errors)
+    if rounds is not None:
+        probe_batched_rounds(pg, rounds, errors, recorded)
     latencies = []
     t_start = time.perf_counter()
     for kind, t, *payload in drive or slam_drive():
@@ -1293,20 +1428,244 @@ def run_slam(device, options=None, drive=None):
     front_s = time.perf_counter() - t_start
     pg.wait_for_all_computations()
     drain_s = time.perf_counter() - t_start - front_s
+    n_solves = len(solves)
+    return dict(slam_result(pg), optimizations=n_solves, errors=errors, latencies=latencies, searches=searches,
+                solves=solves, front_s=front_s, drain_s=drain_s, pose_graph=pg)
+
+
+def slam_result(pg):
+    """The drive's counts and errors from a drained pose graph of either
+    package: the returning tail's open-loop (local) error, then, after the
+    final optimization, the tail's, the median and the largest global
+    error against slam_truth."""
     late = pg.nodes[-max(4, len(pg.nodes) // 4):]
     local_errs = [float(np.linalg.norm(n.local_pose.t - slam_truth(n.time))) for n in late]
     n_inter = sum(c.tag == "INTER" for c in pg.constraints)
-    n_solves = len(solves)
     pg.run_final_optimization()
     global_errs = [float(np.linalg.norm(n.global_pose.t - slam_truth(n.time))) for n in pg.nodes]
-    late_global = global_errs[-len(late):]
     return dict(
         nodes=len(pg.nodes), submaps=len(pg.submaps), finished=sum(s.finished for s in pg.submaps), inter=n_inter,
-        optimizations=n_solves, errors=errors, late_local=max(local_errs), late_global=max(late_global),
-        median_global=float(np.median(global_errs)), max_global=max(global_errs), latencies=latencies,
-        searches=searches, solves=solves, front_s=front_s, drain_s=drain_s,
+        late_local=max(local_errs), late_global=max(global_errs[-len(late):]),
+        median_global=float(np.median(global_errs)), max_global=max(global_errs),
         finite=all(np.all(np.isfinite(n.global_pose.t)) for n in pg.nodes),
     )
+
+
+def check_k4_round(calls):
+    """Phase 12's K4 gate on one batched round's recorded calls (>= 4
+    candidates over >= 2 packed submaps, scans of different valid counts):
+    the coarse call and the first expansion, each within 1e-5 * max(1,
+    max|sum|) of its plain version, and bit-equal to one K4 call per
+    candidate against its own submap's block of the stacked table. Returns
+    {shape: measure's record}."""
+    stats = {}
+    for label, (a, out) in (("round_coarse", calls[0]), ("round_expansion", calls[1])):
+        table, bx, by, bz, valid, cand_t, off_x, off_y, off_z, level, y_shift, grid_shape, cand_base = a
+        want = fast_scores_3d_plain(*a)
+        span = 1 << level
+        rows = -(-grid_shape[2] // span) * -(-grid_shape[0] // span) + 1
+        singles = torch.cat([
+            fast_scores_3d(table[base:base + rows], bx, by, bz, valid, cand_t[k:k + 1], off_x[k:k + 1],
+                           off_y[k:k + 1], off_z[k:k + 1], level, y_shift, grid_shape)
+            for k, base in enumerate(cand_base.tolist())])
+        torch.cuda.synchronize()
+        e = float((out - want).abs().max())
+        if not bool(torch.isfinite(out).all()) or e > 1e-5 * max(1.0, float(want.abs().max())):
+            fail(f"K4 fast_scores_3d with row bases differs from its plain version at {label}: max {e:.3e}")
+        if not torch.equal(out, singles):
+            fail(f"K4 fast_scores_3d with row bases is not bit-equal to one call per candidate at {label}")
+        n_sub = len(set((cand_base // rows).tolist()))
+        idx, weight = k4_gather(*a)  # the yardstick's inputs, built outside its timing
+        flat_table = table.reshape(-1, 1)
+        library = lambda: torch.nn.functional.embedding_bag(idx, flat_table, mode="sum", per_sample_weights=weight)
+        c, x, y, z = out.shape
+        stats[label] = measure("fast_scores_3d", label, lambda: fast_scores_3d(*a), lambda: fast_scores_3d_plain(*a),
+                               a, e, library=library,
+                               note=f" level {level} C={c} X={x} Y={y} Z={z} P={bx.shape[1]} R={bx.shape[0]} over "
+                                    f"{n_sub} packed submaps, bit-equal to {c} single calls (library: embedding_bag, "
+                                    "the gather-sum only)")
+        del idx, weight
+    return stats
+
+
+def k3_slots_inputs(pg, device, lanes=(0, 1, 2, 0)):
+    """K3's slotted inputs from a drained SLAM pose graph: the first three
+    finished submaps' 256^3 / 128^3 grids, and per lane a node inserted
+    into its submap, posed in the submap's frame with GN3D's Jacobian and
+    scales (the lanes of a packed GN3D run)."""
+    from hectorgrapher_tpu_torch.transform.rigid import quat_left_matrix
+
+    subs = [i for i, s in enumerate(pg.submaps) if s.finished][:3]
+    slots = grid_slots([pg.submaps[i].submap.high_resolution_grid for i in subs],
+                       [pg.submaps[i].submap.low_resolution_grid for i in subs])
+    intra = {}
+    for c in pg.constraints:
+        if c.tag == "INTRA":
+            intra.setdefault(c.submap_index, []).append(c.node_index)
+    cm = pg._options.constraint_builder.ceres_scan_matcher_3d
+    nodes, poses = [], []
+    for k, d in enumerate(lanes):
+        node = pg.nodes[intra[subs[d]][k]]
+        pose, _ = pg._node_in_grid(node, pg.submaps[subs[d]])
+        nodes.append(node)
+        poses.append(np.concatenate([pose.translation, pose.rotation]))
+    f32 = dict(dtype=torch.float32, device=device)
+    pose7 = torch.tensor(np.stack(poses), **f32)
+    dpose7 = torch.zeros((len(lanes), 7, 18), **f32)
+    dpose7[:, :3, :3] = torch.eye(3, **f32)
+    dpose7[:, 3:, 3:6] = 0.5 * quat_left_matrix(pose7[:, 3:])[:, :, 1:]
+    hi_pts, hi_mask = (torch.stack([getattr(n.high_cloud, f) for n in nodes]) for f in ("positions", "mask"))
+    lo_pts, lo_mask = (torch.stack([getattr(n.low_cloud, f) for n in nodes]) for f in ("positions", "mask"))
+    s_hi = cm.occupied_space_weight_0 / torch.sqrt(hi_mask.sum(dim=1).clamp(min=1).to(torch.float32))
+    s_lo = cm.occupied_space_weight_1 / torch.sqrt(lo_mask.sum(dim=1).clamp(min=1).to(torch.float32))
+    return (slots, torch.tensor(lanes, dtype=torch.int32, device=device), hi_pts, hi_mask, lo_pts, lo_mask, pose7,
+            dpose7, s_hi, s_lo)
+
+
+def check_k3_slots(args):
+    """Phase 12's K3 gate: the slotted kernel on >= 4 lanes over 3 distinct
+    256^3 / 128^3 grid pairs, one repeated, within 1e-4 * max(1, max|S_c|)
+    per cloud of its plain version and bit-equal to one unslotted call per
+    lane. Returns measure's record."""
+    slots, slot = args[0], args[1]
+    got = ct_scan_block_slots(*args)
+    want = ct_scan_block_slots_plain(*args)
+    singles = [ct_scan_block(slots.hi[d], slots.lo[d], *(x[k:k + 1] for x in args[2:]),
+                             gparams=slots.gparams[d]) for k, d in enumerate(slot.tolist())]
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(x).all()) for x in got) or float(want[0].abs().max()) <= 0.0:
+        fail("K3 ct_scan_block_slots returned non-finite values, or its lanes see no observed cells")
+    bound = 1e-4 * torch.clamp(want[0].abs().amax(dim=(1, 2)), min=1.0)
+    errs = [(got[0] - want[0]).abs().amax(dim=(1, 2)), (got[1] - want[1]).abs().amax(dim=1), (got[2] - want[2]).abs()]
+    if any(bool((e > bound).any()) for e in errs):
+        fail(f"K3 ct_scan_block_slots differs from its plain version: max {max(float(e.max()) for e in errs):.3e}")
+    for k, one in enumerate(singles):
+        if not all(torch.equal(a[k:k + 1], b) for a, b in zip(got, one)):
+            fail(f"K3 ct_scan_block_slots lane {k} is not bit-equal to one call against its grids")
+    err = max(float(e.max()) for e in errs)
+    c, p_hi = args[3].shape
+    return measure("ct_scan_block_slots", "gn3d_packed", lambda: ct_scan_block_slots(*args),
+                   lambda: ct_scan_block_slots_plain(*args), args, err, kernel_name="ct_scan_block_kernel",
+                   note=f" C={c} lanes over {len(slots.hi)} distinct 256^3/128^3 grid pairs (slots {slot.tolist()}), "
+                        f"P={p_hi}+{args[5].shape[1]}, bit-equal to {c} single calls (library: none)")
+
+
+ROUND_STAGES = ("pack", "initials", "cand_build", "fm_launch", "fm_readback", "gn_prepare", "gn_launch",
+                "gn_readback")
+
+
+def stage_medians(stages):
+    """Median ms of each ROUND_STAGES stage over LAST_ROUND_BREAKDOWN records."""
+    return {k: float(np.median([s.get(k, 0.0) for s in stages])) * 1e3 for k in ROUND_STAGES}
+
+
+def rounds_alone(pg, rounds):
+    """Phase 12's rounds again once the drive has drained (no front end;
+    the nodes at their final poses): each round batched (the class's own
+    _compute_constraints_batched, ROUND_PROFILING on), then its candidates
+    serially at the round's scan range (round_parity), each timed to its
+    readback. Returns (batched ms, serial ms, stage records, parity records),
+    one entry a round."""
+    batched_ms, serial_ms, stages, parity = [], [], [], []
+    pose_graph_module.ROUND_PROFILING = True
+    try:
+        for r in rounds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = PoseGraph3D._compute_constraints_batched(pg, r["gated"], global_search=r["global_search"])
+            t1 = time.perf_counter()
+            stages.append(dict(pose_graph_module.LAST_ROUND_BREAKDOWN))
+            parity.append(round_parity(pg, r["gated"], r["global_search"], results))
+            batched_ms.append((t1 - t0) * 1e3)
+            serial_ms.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        pose_graph_module.ROUND_PROFILING = False
+    return np.array(batched_ms), np.array(serial_ms), stages, parity
+
+
+def run_phase_12(device, slam, k4_serial, options=None):
+    """Phase 12: run_slam over phase 11's drive with the default batched
+    constraint search (slam_options(batched=True), or `options`): K4 once
+    per pyramid level for a whole round, K3 once per LM iteration of the
+    round's packed GN3D; ROUND_PROFILING on for the whole phase. Gates the
+    rounds, the fallbacks, the launches, the errors against the JAX
+    package's batched run and the rounds' serial parity, prints the
+    phase's lines beside phase 11's latency (`slam`, whose K4 launches were
+    k4_serial), then holds K4 with row bases and K3 with slots to their
+    plain versions (check_k4_round, check_k3_slots). Last, it re-runs the
+    rounds with the card otherwise idle, batched and serially
+    (rounds_alone), and prints their times. Returns (K4 launches by path,
+    packed K3 launches, {kernel: {shape: measure's record}})."""
+    fast_correlative_3d.match_fast_3d.score_sums = 0
+    fast_scores_3d.launches = 0
+    ct_scan_block.launches = 0
+    ct_scan_block_slots.launches = 0
+    window_solver.solve_ct_window_block.assemblies = 0
+    rounds, recorded = [], []
+    pose_graph_module.ROUND_PROFILING = True
+    slam12 = run_slam(device, options or slam_options(batched=True), rounds=rounds, recorded=recorded)
+    pose_graph_module.ROUND_PROFILING = False
+    k4_12, score_sums12, k3_packed = (fast_scores_3d.launches, fast_correlative_3d.match_fast_3d.score_sums,
+                                      ct_scan_block_slots.launches)
+    pg12 = slam12.pop("pose_graph")
+    parity = [r["parity"] for r in rounds if r["parity"] is not None]
+    k4_parity = sum(p[3] for p in parity)
+    k4_paths = {"slam_serial": k4_serial, "slam_batched": k4_12 - k4_parity}
+    if slam12["errors"]:
+        fail(f"SLAM batched: pose-graph work failed: {slam12['errors'][:3]}")
+    if not rounds or max(r["n"] for r in rounds) < 2 or pg12.batched_fallbacks:
+        fail(f"SLAM batched: {len(rounds)} batched rounds, {pg12.batched_fallbacks} fallbacks to the serial path")
+    if k4_12 != score_sums12 or score_sums12 == 0 or k3_packed == 0:
+        fail(f"SLAM batched: {k4_12} K4 launches for {score_sums12} score_sum calls, {k3_packed} packed K3 launches")
+    if not slam12["finite"] or slam12["inter"] == 0:
+        fail(f"SLAM batched: {slam12['inter']} INTER constraints, finite {slam12['finite']}")
+    if not slam12["late_global"] < slam12["late_local"] / 2:
+        fail(f"SLAM batched: the returning tail's global error {slam12['late_global']:.5f} m is not below half its "
+             f"open-loop error {slam12['late_local']:.5f} m")
+    for key, jax_err in (("late_global", JAX_SLAM12_LATE_GLOBAL), ("median_global", JAX_SLAM12_MEDIAN_GLOBAL),
+                         ("max_global", JAX_SLAM12_MAX_GLOBAL)):
+        if slam12[key] > max(2 * jax_err, jax_err + 0.05):
+            fail(f"SLAM batched: {key} error {slam12[key]:.5f} m exceeds max(2 x, +0.05 m) of the JAX package's "
+                 f"batched {jax_err:.5f}")
+    if not parity or not all(p[0] for p in parity):
+        fail(f"SLAM batched: round parity with the serial path failed: {[p[:3] for p in parity]}")
+    if not recorded:
+        fail("SLAM batched: no round of >= 4 candidates over >= 2 submaps with different valid counts to hold K4 to")
+    n_cand = [r["n"] for r in rounds]
+    round_ms = np.array([r["s"] for r in rounds]) * 1e3
+    lat12, lat11 = np.array(slam12["latencies"]) * 1e3, np.array(slam["latencies"]) * 1e3
+    stages = stage_medians([r["stages"] for r in rounds])
+    print(f"SLAM 3D batched: {slam12['nodes']} nodes, {slam12['submaps']} submaps ({slam12['finished']} finished), "
+          f"{slam12['inter']} INTER constraints; {len(rounds)} batched rounds, candidates per round median "
+          f"{np.median(n_cand):.1f}, max {max(n_cand)}; fallbacks {pg12.batched_fallbacks}; per round median "
+          f"{np.median(round_ms):.3f} ms, p95 {np.percentile(round_ms, 95):.3f} ms, "
+          f"{round_ms.sum() / sum(n_cand):.3f} ms per candidate; K4 launches {k4_12} = score_sum calls "
+          f"{score_sums12} ({k4_parity} of them the parity re-runs), per round median "
+          f"{np.median([r['k4'] for r in rounds]):.0f}; packed K3 launches {k3_packed}, serial "
+          f"{ct_scan_block.launches - window_solver.solve_ct_window_block.assemblies} besides the CT assemblies; "
+          f"{len(parity)} rounds re-run serially at the round's scan range: max |dt| "
+          f"{max(p[1] for p in parity):.3e} m, max 1-|dq0| {max(p[2] for p in parity):.3e}; pack "
+          f"{pg12._pack3d['bytes'] / 2**20:.1f} MiB over {len(pg12._pack3d['order'])} submaps; returning tail local "
+          f"{slam12['late_local']:.5f} m, global {slam12['late_global']:.5f} m; global median "
+          f"{slam12['median_global']:.5f} m, max {slam12['max_global']:.5f} m (JAX batched on the CPU "
+          f"{JAX_SLAM12_LATE_GLOBAL:.5f} / {JAX_SLAM12_MEDIAN_GLOBAL:.5f} / {JAX_SLAM12_MAX_GLOBAL:.5f}); per-scan "
+          f"latency median {np.median(lat12):.3f} ms, p95 {np.percentile(lat12, 95):.3f} ms over {len(lat12)} scans "
+          f"(phase 11 in this run: {np.median(lat11):.3f} / {np.percentile(lat11, 95):.3f} ms); drive "
+          f"{slam12['front_s']:.1f} s, queue drained {slam12['drain_s']:.1f} s after", flush=True)
+    print("SLAM 3D batched round stages (LAST_ROUND_BREAKDOWN, ROUND_PROFILING on for the whole phase), median ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
+    shapes = {"fast_scores_3d": check_k4_round(recorded),
+              "ct_scan_block": {"gn3d_packed": check_k3_slots(k3_slots_inputs(pg12, device))}}
+    alone_ms, serial_ms, alone_stages, alone_parity = rounds_alone(pg12, rounds)
+    print(f"SLAM 3D batched rounds re-run after the drive (no front end, final poses): {len(rounds)} rounds, "
+          f"{sum(n_cand)} candidates; batched per round median {np.median(alone_ms):.3f} ms, p95 "
+          f"{np.percentile(alone_ms, 95):.3f} ms, {alone_ms.sum() / sum(n_cand):.3f} ms per candidate; the same "
+          f"candidates serially per round median {np.median(serial_ms):.3f} ms, p95 "
+          f"{np.percentile(serial_ms, 95):.3f} ms, {serial_ms.sum() / sum(n_cand):.3f} ms per candidate; "
+          f"{sum(not p[0] for p in alone_parity)} rounds off the serial results (max |dt| "
+          f"{max(p[1] for p in alone_parity):.3e} m, max 1-|dq0| {max(p[2] for p in alone_parity):.3e}); stage "
+          "medians ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stage_medians(alone_stages).items()), flush=True)
+    return k4_paths, k3_packed, shapes
 
 
 def main() -> int:
@@ -1424,6 +1783,7 @@ def main() -> int:
     ct_scan_block.launches = 0
     window_solver.solve_ct_window_block.assemblies = 0
     slam = run_slam(device)
+    del slam["pose_graph"]
     launches["fast_scores_3d"] = fast_scores_3d.launches
     score_sums = fast_correlative_3d.match_fast_3d.score_sums
     # Only the window solve and GN3D call K3: the solve once per assembly.
@@ -1459,6 +1819,11 @@ def main() -> int:
           f"median {np.median(solve_ms):.3f} ms, max {solve_ms.max():.3f} ms over {len(solve_ms)}; drive "
           f"{slam['front_s']:.1f} s, queue drained {slam['drain_s']:.1f} s after", flush=True)
 
+    # Phase 12: the same drive with the default batched constraint search.
+    k4_paths, k3_paths["slam_gn3d_packed"], shapes12 = run_phase_12(device, slam, launches["fast_scores_3d"])
+    checks["fast_scores_3d"].update(shapes12["fast_scores_3d"])
+    checks["ct_scan_block"].update(shapes12["ct_scan_block"])
+
     sources = {
         "correlative_prep_2d": ("hectorgrapher_tpu_torch/csrc/correlative_prep_2d.cu",
                                 "hectorgrapher_tpu/ops/pallas_prep2d.py:74"),
@@ -1474,8 +1839,8 @@ def main() -> int:
     # Each kernel's record at its main-path shape (K1 and K2 at B=1024, K3
     # at the CT front end's, K4 at the coarse stage's), its other shapes
     # under "shapes"; launches from its main path's run (K1, K2: phase 6;
-    # K3: phase 9, with phase 11's split under "launches_by_path"; K4:
-    # phase 11).
+    # K3: phase 9, with phases 11 and 12 under "launches_by_path"; K4:
+    # phase 11, with phase 12 beside it under "launches_by_path").
     main_shape = {"correlative_prep_2d": "batched", "correlative_scores_2d": "batched",
                   "ct_scan_block": "front_end", "fast_scores_3d": "coarse"}
     kernels = []
@@ -1487,7 +1852,8 @@ def main() -> int:
             **{k: rec[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "library_ms")},
             "max_abs_err": max(v["max_abs_err"] for v in checks[name].values()),
             "shapes": checks[name],
-            **({"launches_by_path": k3_paths} if name == "ct_scan_block" else {}),
+            **({"launches_by_path": {"ct_scan_block": k3_paths, "fast_scores_3d": k4_paths}[name]}
+               if name in ("ct_scan_block", "fast_scores_3d") else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,7 +39,13 @@
 // the blocks' sums in rank order, read from their shared memory through
 // the cluster (distributed shared memory): no scratch in device memory,
 // no atomics, and a fixed order, so the result is deterministic, which
-// the LM accept test needs. The world point and the cell floor must pick
+// the LM accept test needs. A packed GN3D run refines the lanes of one
+// constraint round against several submaps in one launch: cloud c then
+// reads the grids of slot[c], through a device table of the D distinct
+// submaps' volume pointers and their parameters (no stacked copy of the
+// volumes, 144 MiB a submap at 256^3 / 128^3), and computes exactly what
+// a one-cloud launch against those grids computes. The world point and
+// the cell floor must pick
 // the same cells as the plain version (ROADMAP C0): every multiply, add,
 // subtract and divide is a round-to-nearest intrinsic, and the library is
 // built with --fmad=false. The rest follows the plain version's order
@@ -176,8 +182,13 @@ __device__ __forceinline__ void point_row7(const Grid& grid, const float q[4], c
   }
 }
 
+// kSlotted: the cloud's grids are those of slot[c] (pointers from
+// grid_ptrs, parameters from gparams' row); otherwise hi and lo, with
+// gparams' one row.
+template <bool kSlotted>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-ct_scan_block_kernel(const Grid hi, const Grid lo, const float* __restrict__ gparams, const float* __restrict__ hi_pts,
+ct_scan_block_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_ptrs, const int* __restrict__ slot,
+                     const float* __restrict__ gparams, const float* __restrict__ hi_pts,
                      const uint8_t* __restrict__ hi_mask, const float* __restrict__ lo_pts,
                      const uint8_t* __restrict__ lo_mask, const float* __restrict__ pose7,
                      const float* __restrict__ dpose7, const float* __restrict__ hi_scale,
@@ -194,8 +205,16 @@ ct_scan_block_kernel(const Grid hi, const Grid lo, const float* __restrict__ gpa
   const int tid = threadIdx.x;
   if (tid < 7) sh_pose[tid] = pose7[c * 7 + tid];
   for (int k = tid; k < 7 * 18; k += kThreads) sh_dpose[k] = dpose7[static_cast<size_t>(c) * 126 + k];
+  int s = 0;
+  if (kSlotted) {
+    s = slot[c];
+    hi.tsd = reinterpret_cast<const float*>(grid_ptrs[4 * s]);
+    hi.weight = reinterpret_cast<const float*>(grid_ptrs[4 * s + 1]);
+    lo.tsd = reinterpret_cast<const float*>(grid_ptrs[4 * s + 2]);
+    lo.weight = reinterpret_cast<const float*>(grid_ptrs[4 * s + 3]);
+  }
   float gp[8];  // the grids' min corners and resolutions
-  for (int k = 0; k < 8; ++k) gp[k] = __ldg(gparams + k);
+  for (int k = 0; k < 8; ++k) gp[k] = __ldg(gparams + 8 * s + k);
 
   // The output this thread owns: upper-triangle entry (oa, ob) of S,
   // g[oa] (ob = 18, the residual column), or the cost (oa = ob = 18).
@@ -320,8 +339,27 @@ extern "C" int hg_ct_scan_block(const float* hi_tsd, const float* hi_weight, con
                                 int hnx, int hny, int hnz, int lnx, int lny, int lnz, void* stream) {
   const Grid hi{hi_tsd, hi_weight, hnx, hny, hnz, {0.0f, 0.0f, 0.0f}, 0.0f};
   const Grid lo{lo_tsd, lo_weight, lnx, lny, lnz, {0.0f, 0.0f, 0.0f}, 0.0f};
-  ct_scan_block_kernel<<<dim3(kCluster, c), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      hi, lo, gparams, hi_pts, hi_mask, lo_pts, lo_mask, pose7, dpose7, hi_scale, lo_scale, S, g, cost, p_hi,
-      p_lo);
+  ct_scan_block_kernel<false><<<dim3(kCluster, c), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      hi, lo, nullptr, nullptr, gparams, hi_pts, hi_mask, lo_pts, lo_mask, pose7, dpose7, hi_scale, lo_scale, S, g,
+      cost, p_hi, p_lo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The slotted form: grid_ptrs (D, 4) int64 device pointers [hi_tsd,
+// hi_weight, lo_tsd, lo_weight] of D submaps whose hi volumes are all
+// (hnx, hny, hnz) f32 and lo volumes (lnx, lny, lnz) f32; gparams (D, 8)
+// f32, one row per submap; slot (C,) int32 in [0, D): cloud c's submap.
+// The other arguments and the outputs as hg_ct_scan_block's.
+extern "C" int hg_ct_scan_block_slots(const int64_t* grid_ptrs, const int* slot, const float* gparams,
+                                      const float* hi_pts, const uint8_t* hi_mask, const float* lo_pts,
+                                      const uint8_t* lo_mask, const float* pose7, const float* dpose7,
+                                      const float* hi_scale, const float* lo_scale, float* S, float* g, float* cost,
+                                      int c, int p_hi, int p_lo, int hnx, int hny, int hnz, int lnx, int lny, int lnz,
+                                      void* stream) {
+  const Grid hi{nullptr, nullptr, hnx, hny, hnz, {0.0f, 0.0f, 0.0f}, 0.0f};
+  const Grid lo{nullptr, nullptr, lnx, lny, lnz, {0.0f, 0.0f, 0.0f}, 0.0f};
+  ct_scan_block_kernel<true><<<dim3(kCluster, c), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      hi, lo, grid_ptrs, slot, gparams, hi_pts, hi_mask, lo_pts, lo_mask, pose7, dpose7, hi_scale, lo_scale, S, g,
+      cost, p_hi, p_lo);
   return static_cast<int>(cudaGetLastError());
 }

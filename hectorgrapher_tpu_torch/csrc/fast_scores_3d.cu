@@ -5,15 +5,20 @@
 // its CPU branch (:344-359, :415-424). It has no Pallas source: on the TPU
 // score_sum is an XLA gather-reduce over a lax.scan of point chunks.
 //
-// Output (c, i, j, k), for candidate c with yaw row t = cand_t[c] and
+// Output (c, i, j, k), for candidate c with point row t = cand_t[c] and
 // offsets ox = off_x[c, i], oy = off_y[c, j], oz = off_z[c, k], is the sum
 // over points q in point order of the level's (bound - 0.1) value:
 //   ix = bx[t, q] + ox  (likewise iy, iz), span = 2^level
 //   x and z count when -span < i < n, at cell max(i, 0) >> level
-//   y counts when -span < iy < ny and valid[q], at lane
+//   y counts when -span < iy < ny and the point is valid (valid[t, q], or
+//     valid[q] when one flag row serves every point row), at lane
 //     clip(iy, 0, ny - 1) >> y_shift
 //   a point with x or z out contributes the zero row, one with y out or
-//   masked nothing: both add exactly 0 (table values are >= 0).
+//   masked nothing: both add exactly 0 (table values are >= 0), and the
+//   kernel reads no table row for either.
+// A batched constraint round stacks its submaps' level tables, each block
+// ending in its own zero row: candidate c reads rows from cand_base[c] on
+// (64-bit offsets: a large pack's level 0 passes 2^31 floats).
 //
 // What bounds it on the H100: latency. At the production shapes (256^3
 // grid, ~107 yaws x 5 x 5 x 3 coarse offsets, 256 x 2 x 2 x 2 per
@@ -54,10 +59,11 @@ constexpr int kMaxChunk = 512;  // points per chunk
 __global__ void __launch_bounds__(kThreads)
 fast_scores_3d_kernel(const float* __restrict__ table, const int* __restrict__ bx, const int* __restrict__ by,
                       const int* __restrict__ bz, const uint8_t* __restrict__ valid,
-                      const int* __restrict__ cand_t, const int* __restrict__ off_x,
-                      const int* __restrict__ off_y, const int* __restrict__ off_z, float* __restrict__ out,
-                      int p, int nxo, int nyo, int nzo, int nx, int ny, int nz, int level, int y_shift, int nx_l,
-                      int ny_l, int tile, int chunk) {
+                      const int* __restrict__ cand_t, const int64_t* __restrict__ cand_base,
+                      const int* __restrict__ off_x, const int* __restrict__ off_y,
+                      const int* __restrict__ off_z, float* __restrict__ out, int p, int valid_stride, int nxo,
+                      int nyo, int nzo, int nx, int ny, int nz, int level, int y_shift, int nx_l, int ny_l, int tile,
+                      int chunk) {
   __shared__ float vals[kVals];  // (point, output) values of the chunk, outputs fastest
   __shared__ int4 cells[kMaxChunk];  // the chunk's point cells and valid flags
   const int c = blockIdx.x;
@@ -66,7 +72,9 @@ fast_scores_3d_kernel(const float* __restrict__ table, const int* __restrict__ b
   const int n_tile = min(tile, n_per - o0);
   if (n_tile <= 0) return;
   const int tid = threadIdx.x;
-  const int row0 = cand_t[c] * p;
+  const size_t row0 = static_cast<size_t>(cand_t[c]) * p;
+  const uint8_t* valid_row = valid + static_cast<size_t>(cand_t[c]) * valid_stride;
+  const float* level_table = table + (cand_base != nullptr ? cand_base[c] : 0) * static_cast<int64_t>(ny_l);
   // Thread tid gathers for output o of points q_first, q_first + q_step, ...
   const int q_step = kThreads / n_tile;
   const bool gathers = tid < q_step * n_tile;
@@ -79,7 +87,7 @@ fast_scores_3d_kernel(const float* __restrict__ table, const int* __restrict__ b
     const int n_q = min(chunk, p - q0);
     for (int q = tid; q < n_q; q += kThreads) {
       cells[q] = make_int4(__ldg(bx + row0 + q0 + q), __ldg(by + row0 + q0 + q), __ldg(bz + row0 + q0 + q),
-                           valid[q0 + q]);
+                           valid_row[q0 + q]);
     }
     __syncthreads();
     for (int qb = q_first; gathers && qb < n_q; qb += q_step * kBatch) {
@@ -94,7 +102,7 @@ fast_scores_3d_kernel(const float* __restrict__ table, const int* __restrict__ b
           if (cell.w && iy > -span && iy < ny && ix > -span && ix < nx && iz > -span && iz < nz) {
             const int row = (max(iz, 0) >> level) * nx_l + (max(ix, 0) >> level);
             const int lane = min(max(iy, 0), ny - 1) >> y_shift;
-            v[u] = __ldg(table + static_cast<size_t>(row) * ny_l + lane);
+            v[u] = __ldg(level_table + static_cast<size_t>(row) * ny_l + lane);
           }
         }
       }
@@ -116,19 +124,23 @@ fast_scores_3d_kernel(const float* __restrict__ table, const int* __restrict__ b
 
 }  // namespace
 
-// table (nz_l * nx_l + 1, ny_l) f32; bx, by, bz (T, P) int32; valid (P,)
-// bool; cand_t (C,) int32; off_x (C, X), off_y (C, Y), off_z (C, Z) int32.
-// Writes out (C, X, Y, Z) f32. Returns the launch's cudaGetLastError().
+// table (S * (nz_l * nx_l + 1), ny_l) f32, S stacked level blocks; bx, by,
+// bz (R, P) int32; valid (R, P) bool (valid_stride P) or (P,) (valid_stride
+// 0); cand_t (C,) int32; cand_base (C,) int64 first rows of the candidates'
+// blocks, or null for one block; off_x (C, X), off_y (C, Y), off_z (C, Z)
+// int32. Writes out (C, X, Y, Z) f32. Returns the launch's
+// cudaGetLastError().
 extern "C" int hg_fast_scores_3d(const float* table, const int* bx, const int* by, const int* bz,
-                                 const uint8_t* valid, const int* cand_t, const int* off_x, const int* off_y,
-                                 const int* off_z, float* out, int c, int p, int nxo, int nyo, int nzo, int nx,
-                                 int ny, int nz, int level, int y_shift, int nx_l, int ny_l, void* stream) {
+                                 const uint8_t* valid, const int* cand_t, const int64_t* cand_base,
+                                 const int* off_x, const int* off_y, const int* off_z, float* out, int c, int p,
+                                 int valid_stride, int nxo, int nyo, int nzo, int nx, int ny, int nz, int level,
+                                 int y_shift, int nx_l, int ny_l, void* stream) {
   const int n_per = nxo * nyo * nzo;
   const int tiles = (n_per + kMaxTile - 1) / kMaxTile;
   const int tile = (n_per + tiles - 1) / tiles;
   const int chunk = kVals / tile < kMaxChunk ? kVals / tile : kMaxChunk;
   fast_scores_3d_kernel<<<dim3(c, tiles), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, bx, by, bz, valid, cand_t, off_x, off_y, off_z, out, p, nxo, nyo, nzo, nx, ny, nz, level, y_shift,
-      nx_l, ny_l, tile, chunk);
+      table, bx, by, bz, valid, cand_t, cand_base, off_x, off_y, off_z, out, p, valid_stride, nxo, nyo, nzo, nx, ny,
+      nz, level, y_shift, nx_l, ny_l, tile, chunk);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 """Pose graph back end, 3D: constraints, loop closure, global optimization
 (counterpart of hectorgrapher_tpu/mapping/pose_graph/pose_graph.py,
-PoseGraphBase :240-884 and PoseGraph3D :1602-2484, serial constraint
-search; ref: mapping/internal/3d/pose_graph_3d.cc,
+PoseGraphBase :240-884 and PoseGraph3D :1602-2484; ref:
+mapping/internal/3d/pose_graph_3d.cc,
 internal/constraints/constraint_builder_3d.cc).
 
 Bookkeeping (node and submap tables, constraint lists, sampling and
@@ -10,12 +10,19 @@ async_work_queue the constraint searches and the SPA solves run on a
 worker thread (ref: pose_graph_3d.cc AddWorkItem:162-177,
 DrainWorkQueue:512-535) while the front end streams; _lock guards the
 bookkeeping and _opt_lock serializes optimizations, the reference's
-structure. Each gated candidate is one fast-matcher search (kernel K4) and
-one GN3D refinement on the device.
+structure.
 
-Not ported: the batched constraint search and the solver mesh (the
-constructor and set_solver_mesh raise NotImplementedError), the trimmer
-classes, and PoseGraph2D.
+With use_batched_constraint_search (the default) a round of two or more
+gated candidates (local-window ones, then full-submap ones) is searched
+together: one fast-matcher search of the whole round over the finished
+submaps' pack on the card (kernel K4, one launch per pyramid level), then
+one packed GN3D refinement of the survivors (kernel K3, one launch per LM
+iteration). A round of one candidate, and every candidate with the option
+off, takes the serial path: one fast-matcher search (through the pack
+when its submap is packed) and one GN3D refinement.
+
+Not ported: the solver mesh (set_solver_mesh raises NotImplementedError),
+the trimmer classes, and PoseGraph2D.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import math
 import queue as queue_mod
 import threading
+import time
 import traceback
 from dataclasses import dataclass
 from enum import Enum
@@ -43,8 +51,19 @@ from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import (
 )
 from hectorgrapher_tpu_torch.mapping.pose_graph.trimmers import trim_submaps
 from hectorgrapher_tpu_torch.mapping.scan_matching.fast_correlative_3d import FastCorrelativeScanMatcher3D
-from hectorgrapher_tpu_torch.mapping.scan_matching.gn_3d import match_gn_3d
+from hectorgrapher_tpu_torch.mapping.scan_matching.gn_3d import (
+    match_gn_3d,
+    match_gn_3d_packed,
+    prepare_gn_pack_3d,
+)
 from hectorgrapher_tpu_torch.ops import _build
+from hectorgrapher_tpu_torch.parallel.constraint_search import (
+    host_arrays_3d_nbytes,
+    matcher_arrays_3d,
+    matcher_host_arrays_3d,
+    pack_submaps_3d_from_arrays,
+    sharded_fast_matches_3d_packed,
+)
 from hectorgrapher_tpu_torch.sensor.types import PointCloud
 from hectorgrapher_tpu_torch.transform import np_quat as nq
 from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
@@ -115,6 +134,33 @@ def _observe_constraint_score(kind: str, score: float) -> None:
     _metric(f"score_{kind}", lambda f: f.new_histogram_family(
         f"pose_graph_constraint_scores_{kind}", "loop-closure matcher scores (found + rejected candidates)",
         boundaries=[i / 20.0 for i in range(1, 21)]).add({})).observe(score)
+
+
+def _set_pack_bytes_gauge(kind: str, value: int) -> None:
+    """Device bytes of the constraint-search pack (see _get_pack_3d)."""
+    _metric(f"pack_bytes_{kind}", lambda f: f.new_gauge_family(
+        f"pose_graph_constraint_pack_bytes_{kind}",
+        "device-resident constraint-search pack residency in bytes").add({})).set(value)
+
+
+def _observe_batched_round(num_candidates: int) -> None:
+    """Count batched loop-closure rounds and the candidates of each."""
+    _metric("rounds", lambda f: f.new_counter_family(
+        "pose_graph_batched_constraint_rounds_total",
+        "loop-closure rounds scored by one batched matcher search").add({})).increment()
+    _metric("round_candidates", lambda f: f.new_histogram_family(
+        "pose_graph_batched_constraint_candidates", "gate-passing candidates per batched loop-closure round",
+        boundaries=[2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 512.0, 1024.0]).add({})).observe(
+        float(num_candidates))
+
+
+# Per-stage profiling of a batched constraint round: with ROUND_PROFILING
+# set, each round writes LAST_ROUND_BREAKDOWN (seconds per stage: pack,
+# initials, cand_build, fm_launch, fm_readback, gn_prepare, gn_launch,
+# gn_readback); device stages end in a synchronize, so they measure
+# completion, not enqueue.
+ROUND_PROFILING = False
+LAST_ROUND_BREAKDOWN: Dict[str, float] = {}
 
 
 class _SamplerState:
@@ -302,6 +348,11 @@ class PoseGraphBase:
     def _compute_constraint(self, node: PgNode, pg_submap: PgSubmap, global_search: bool = False):
         raise NotImplementedError
 
+    def _compute_constraints_batched(self, gated, global_search: bool = False):
+        """A round's constraints, aligned with gated, or NotImplementedError
+        to take the serial path."""
+        raise NotImplementedError
+
     def _run_optimization(self, num_iterations: int) -> None:
         raise NotImplementedError
 
@@ -370,9 +421,22 @@ class PoseGraphBase:
                 if gated is not None:
                     node, pg_submap, global_search = gated
                     (gated_global if global_search else gated_local).append((nid, sid, node, pg_submap))
+            # Local-window and full-submap candidates each form their own
+            # round; a round of two or more takes the batched search.
             for gated, global_search in ((gated_local, False), (gated_global, True)):
-                for nid, sid, node, pg_submap in gated:
-                    constraint = self._compute_constraint(node, pg_submap, global_search=global_search)
+                results = None
+                if self._options.use_batched_constraint_search and len(gated) >= 2:
+                    try:
+                        results = self._compute_constraints_batched(gated, global_search=global_search)
+                    except NotImplementedError:  # mixed candidate shapes: the serial path, as the reference
+                        self.batched_fallbacks += 1
+                        results = None
+                if results is not None:
+                    _observe_batched_round(len(gated))
+                else:
+                    results = [self._compute_constraint(node, pg_submap, global_search=global_search)
+                               for _, _, node, pg_submap in gated]
+                for (nid, sid, node, pg_submap), constraint in zip(gated, results):
                     if constraint is not None:
                         self._append_constraint(nid, sid, node, pg_submap, constraint)
 
@@ -554,9 +618,6 @@ class PoseGraph3D(PoseGraphBase):
     def __init__(self, options, histogram_size: int = 120, max_scan_range: float = 20.0, device="cuda"):
         """Runs on the card unless `device` says otherwise; without one it
         raises."""
-        if options.use_batched_constraint_search:
-            raise NotImplementedError(
-                "use_batched_constraint_search=True: only the serial constraint search is ported")
         self._device = torch.device(device)
         if self._device.type == "cuda":
             _build.load_library()  # before the worker thread can launch a kernel
@@ -569,6 +630,13 @@ class PoseGraph3D(PoseGraphBase):
         self._landmark_ids: Dict[str, int] = {}
         self._landmark_observations: List[dict] = []
         self._imu: Dict[int, List[Tuple[float, np.ndarray, np.ndarray]]] = {}
+        # The finished submaps' search state on the card for the batched
+        # search (see _get_pack_3d): the pack, the round counter and each
+        # submap's last round, for most-recently-used retention.
+        self._pack3d: Optional[dict] = None
+        self._pack3d_round = 0
+        self._pack3d_used: Dict[int, int] = {}
+        self.batched_fallbacks = 0  # rounds of mixed shapes sent to the serial path
         super().__init__(options)
 
     # -- sensor ingestion (ref: pose_graph_3d.cc AddOdometryData, AddImuData,
@@ -747,28 +815,124 @@ class PoseGraph3D(PoseGraphBase):
             self._histogram_size,
         )
 
+    def _get_pack_3d(self, needed_matchers: Dict[int, object]):
+        """The finished submaps' search state on the card for the batched
+        search (PoseGraph3D._get_pack_3d of the JAX package, :1930-2019):
+        rebuilt only when a needed submap is not packed. This round's
+        submaps are always members; the other finished submaps stay most
+        recently used first while the pack fits
+        constraint_builder.pack_hbm_budget_bytes. A CPU copy of each
+        member's state is cached per submap id, and the matcher's own copy
+        is demoted to it (to_host), so the pack is the only device copy;
+        an evicted submap is re-admitted from the cache. Unlike the JAX
+        rebuild, members that stay are copied from the old pack on the
+        card, and only new members are uploaded. Returns (slot by submap
+        id, PackedSubmaps3D)."""
+        self._pack3d_round += 1
+        for sid in needed_matchers:
+            self._pack3d_used[sid] = self._pack3d_round
+        state = self._pack3d
+        if state is not None and all(sid in state["slots"] for sid in needed_matchers):
+            return state["slots"], state["packed"]
+        with self._lock:
+            live = {s.submap_id: s.matcher for s in self.submaps if s.matcher is not None}
+        live.update(needed_matchers)
+        host = {sid: h for sid, h in (state["host"] if state is not None else {}).items() if sid in live}
+        fresh = {sid: matcher_host_arrays_3d(m) for sid, m in live.items() if sid not in host}
+        per_bytes = {sid: host_arrays_3d_nbytes(h) for sid, h in {**host, **fresh}.items()}
+        # Membership: the needed submaps, then the others most recently
+        # used first while under the budget.
+        budget = int(self._options.constraint_builder.pack_hbm_budget_bytes)
+        members = set(needed_matchers)
+        total = sum(per_bytes[sid] for sid in members)
+        for sid in sorted((s for s in live if s not in members), key=lambda s: -self._pack3d_used.get(s, 0)):
+            if total + per_bytes[sid] > budget:
+                break
+            members.add(sid)
+            total += per_bytes[sid]
+        prev_order = state["order"] if state is not None else []
+        order = [sid for sid in prev_order if sid in members]
+        order += [sid for sid in members if sid not in order]
+        arrays = {**host, **fresh}
+        if len({(tuple(tuple(t.shape) for t in arrays[sid]["pyr"]), tuple(arrays[sid]["low"].shape))
+                for sid in order}) != 1:
+            raise NotImplementedError("mixed pyramid shapes")
+        # A new member's tables come from its matcher while still on the
+        # card; a re-admitted one's from the host cache.
+        old_slots = state["slots"] if state is not None else {}
+        sources = [matcher_arrays_3d(live[sid]) if sid in fresh else host[sid] for sid in order]
+        packed = pack_submaps_3d_from_arrays(sources, self._device, state["packed"] if state is not None else None,
+                                             [old_slots.get(sid) for sid in order])
+        for sid, h in fresh.items():
+            live[sid].to_host(h["pyr"], h["low"], h["hist"])
+        host.update(fresh)
+        _set_pack_bytes_gauge("3d", total)
+        self._pack3d = {"order": order, "slots": {sid: i for i, sid in enumerate(order)}, "packed": packed,
+                        "host": host, "bytes": total}
+        return self._pack3d["slots"], packed
+
+    @staticmethod
+    def _node_in_grid(node: PgNode, pg_submap: PgSubmap):
+        """The node's current global pose in the submap's grid frame, as an
+        f32 numpy Rigid3, and its yaw there."""
+        node_in_grid = pg_submap.submap.local_pose.compose(pg_submap.global_pose.inverse().compose(node.global_pose))
+        return (Rigid3(node_in_grid.t.astype(np.float32), node_in_grid.q.astype(np.float32)),
+                float(nq.quat_yaw(node_in_grid.q)))
+
+    def _candidate(self, node: PgNode, pg_submap: PgSubmap, slot: int):
+        """One candidate of sharded_fast_matches_3d_packed: (pack slot,
+        clouds, histogram, initial pose, initial yaw)."""
+        return (slot, node.high_cloud, node.low_cloud, node.histogram, *self._node_in_grid(node, pg_submap))
+
+    def _inter_constraint(self, pg_submap: PgSubmap, t, q) -> Constraint:
+        """The INTER constraint of a refined pose (t, q) in the submap's grid
+        frame; the caller fills in its indices."""
+        cb = self._options.constraint_builder
+        return Constraint(
+            submap_index=-1,
+            node_index=-1,
+            zbar=pg_submap.submap.local_pose.inverse().compose(NpRigid3(np.asarray(t, np.float64),
+                                                                        np.asarray(q, np.float64))),
+            translation_weight=cb.loop_closure_translation_weight,
+            rotation_weight=cb.loop_closure_rotation_weight,
+            tag="INTER",
+        )
+
+    def _passes_gates(self, score: float, low_score: float, global_search: bool) -> bool:
+        """The score and low-resolution gates (ref: constraint_builder_3d.cc
+        :228-250), after observing the score."""
+        cb = self._options.constraint_builder
+        _observe_constraint_score("global" if global_search else "local", score)
+        min_score = cb.global_localization_min_score if global_search else cb.min_score
+        return not (score < min_score or low_score < cb.fast_correlative_scan_matcher_3d.min_low_resolution_score)
+
     def _compute_constraint(self, node: PgNode, pg_submap: PgSubmap, global_search: bool = False):
         """(ref: constraint_builder_3d.cc ComputeConstraint:191-296.) The
         fast match from the node's current global pose in the submap's grid
         frame (a full-submap search when global_search), the score and
-        low-resolution gates, then GN3D refinement. The returned
-        constraint's indices are filled in by the caller."""
+        low-resolution gates, then GN3D refinement. A submap in the pack is
+        searched through it, as a batched round of one; any other through
+        its matcher (which uploads demoted tables for the search). The
+        returned constraint's indices are filled in by the caller."""
         cb = self._options.constraint_builder
         if pg_submap.matcher is None:
             self._on_submap_finished(pg_submap)
-        init = pg_submap.global_pose.inverse().compose(node.global_pose)
-        node_in_grid = pg_submap.submap.local_pose.compose(init)
-        f32 = dict(dtype=torch.float32, device=self._device)
-        initial = Rigid3(torch.tensor(node_in_grid.t, **f32), torch.tensor(node_in_grid.q, **f32))
-        match_fn = pg_submap.matcher.match_full_submap if global_search else pg_submap.matcher.match
-        score, low_score, _, pose = match_fn(
-            initial, node.high_cloud, node.low_cloud, node.histogram, float(nq.quat_yaw(node_in_grid.q)),
-            max_scan_range=self._scan_range_bucket(node))
-        score, low_score = torch.stack([score, low_score.to(score.dtype)]).tolist()
-        _observe_constraint_score("global" if global_search else "local", score)
-        if score < (cb.global_localization_min_score if global_search else cb.min_score):
-            return None
-        if low_score < cb.fast_correlative_scan_matcher_3d.min_low_resolution_score:
+        scan_range = self._scan_range_bucket(node)
+        slot = None if self._pack3d is None else self._pack3d["slots"].get(pg_submap.submap_id)
+        if slot is not None:
+            config = pg_submap.matcher.search_config(scan_range, global_search)
+            [(score, low_score, pose)] = sharded_fast_matches_3d_packed(
+                self._pack3d["packed"], [self._candidate(node, pg_submap, slot)], config,
+                bool(cb.fast_correlative_scan_matcher_3d.use_rotational_scan_matcher))
+        else:
+            initial, initial_yaw = self._node_in_grid(node, pg_submap)
+            f32 = dict(dtype=torch.float32, device=self._device)
+            initial = Rigid3(torch.tensor(initial.translation, **f32), torch.tensor(initial.rotation, **f32))
+            match_fn = pg_submap.matcher.match_full_submap if global_search else pg_submap.matcher.match
+            score, low_score, _, pose = match_fn(initial, node.high_cloud, node.low_cloud, node.histogram,
+                                                 initial_yaw, max_scan_range=scan_range)
+            score, low_score = torch.stack([score, low_score.to(score.dtype)]).tolist()
+        if not self._passes_gates(score, low_score, global_search):
             return None
         cm = cb.ceres_scan_matcher_3d
         refined, _ = match_gn_3d(
@@ -777,15 +941,96 @@ class PoseGraph3D(PoseGraphBase):
             cm.occupied_space_weight_0, cm.occupied_space_weight_1, cm.translation_weight, cm.rotation_weight,
             num_iterations=cm.ceres_solver_options.max_num_iterations,
         )
-        tq = torch.cat([refined.translation, refined.rotation]).cpu().numpy().astype(np.float64)
-        return Constraint(
-            submap_index=-1,
-            node_index=-1,
-            zbar=pg_submap.submap.local_pose.inverse().compose(NpRigid3(tq[:3], tq[3:])),
-            translation_weight=cb.loop_closure_translation_weight,
-            rotation_weight=cb.loop_closure_rotation_weight,
-            tag="INTER",
-        )
+        tq = torch.cat([refined.translation, refined.rotation]).cpu().numpy()
+        return self._inter_constraint(pg_submap, tq[:3], tq[3:])
+
+    def _compute_constraints_batched(self, gated, global_search: bool = False):
+        """Every candidate of a round (local-window, or full-submap when
+        global_search) in one batched fast-matcher search over the pack and
+        one packed GN3D refinement of the survivors (the JAX package's
+        PoseGraph3D._compute_constraints_batched, :2115-2387, on one card).
+        The same gates and refinement parameters as _compute_constraint,
+        but one search configuration for the round: its scan range is the
+        largest of its nodes' (the serial path uses each node's own).
+        Returns a list of Optional[Constraint] aligned with gated; raises
+        NotImplementedError on mixed candidate shapes, for the serial path.
+
+        The JAX package splits the refinement into blocks of at most 8
+        distinct submaps (_GN3D_MAX_DISTINCT) to bound its prepared
+        tables; K3 reads the grids in place, so the port refines all the
+        survivors in one run."""
+        cb = self._options.constraint_builder
+        fc = cb.fast_correlative_scan_matcher_3d
+        matcher_by_sid: Dict[int, object] = {}
+        for _, sid, _, p in gated:
+            if sid not in matcher_by_sid:
+                if p.matcher is None:
+                    self._on_submap_finished(p)
+                matcher_by_sid[sid] = p.matcher
+        matchers = list(matcher_by_sid.values())
+        shapes = [
+            {tuple(tuple(t.shape) for t in m._pyramid_levels) for m in matchers},
+            {tuple(m._low_scores.shape) for m in matchers},
+            {m._resolution for m in matchers},
+            {tuple(n.high_cloud.positions.shape) for _, _, n, _ in gated},
+            {tuple(n.low_cloud.positions.shape) for _, _, n, _ in gated},
+            {np.asarray(n.histogram).shape for _, _, n, _ in gated},
+        ]
+        if any(len(x) != 1 for x in shapes):
+            raise NotImplementedError("mixed candidate shapes")
+        scan_range = max(self._scan_range_bucket(n) for _, _, n, _ in gated)
+        config = matchers[0].search_config(scan_range, global_search)
+
+        prof = {} if ROUND_PROFILING else None
+
+        def stage(name, t0):
+            if prof is not None:
+                if self._device.type == "cuda":
+                    torch.cuda.synchronize(self._device)
+                prof[name] = prof.get(name, 0.0) + time.perf_counter() - t0
+            return time.perf_counter()
+
+        t0 = time.perf_counter()
+        slot_by_sid, packed = self._get_pack_3d(matcher_by_sid)
+        t0 = stage("pack", t0)
+        candidates = [self._candidate(node, p, slot_by_sid[sid]) for _, sid, node, p in gated]
+        stage("initials", t0)
+        matches = sharded_fast_matches_3d_packed(packed, candidates, config, bool(fc.use_rotational_scan_matcher),
+                                                 profile=prof)
+        survivors = [i for i, (score, low_score, _) in enumerate(matches)
+                     if self._passes_gates(score, low_score, global_search)]
+        results: List[Optional[Constraint]] = [None] * len(gated)
+        if survivors:
+            t0 = time.perf_counter()
+            with self._lock:
+                submap_by_sid = {s.submap_id: s.submap for s in self.submaps}
+            distinct = list(dict.fromkeys(gated[i][1] for i in survivors))
+            pack = prepare_gn_pack_3d([submap_by_sid[sid].high_resolution_grid for sid in distinct],
+                                      [submap_by_sid[sid].low_resolution_grid for sid in distinct])
+            lane_d = torch.tensor([distinct.index(gated[i][1]) for i in survivors], dtype=torch.int32,
+                                  device=self._device)
+            nodes = [gated[i][2] for i in survivors]
+            poses = Rigid3(torch.stack([matches[i][2].translation for i in survivors]),
+                           torch.stack([matches[i][2].rotation for i in survivors]))
+            hi = PointCloud(torch.stack([n.high_cloud.positions for n in nodes]),
+                            torch.stack([n.high_cloud.mask for n in nodes]))
+            lo = PointCloud(torch.stack([n.low_cloud.positions for n in nodes]),
+                            torch.stack([n.low_cloud.mask for n in nodes]))
+            t0 = stage("gn_prepare", t0)
+            cm = cb.ceres_scan_matcher_3d
+            refined, _ = match_gn_3d_packed(
+                pack, lane_d, hi, lo, poses, poses.translation, cm.occupied_space_weight_0,
+                cm.occupied_space_weight_1, cm.translation_weight, cm.rotation_weight,
+                num_iterations=cm.ceres_solver_options.max_num_iterations)
+            t0 = stage("gn_launch", t0)
+            tq = torch.cat([refined.translation, refined.rotation], dim=1).cpu().numpy()
+            stage("gn_readback", t0)
+            for k, i in enumerate(survivors):
+                results[i] = self._inter_constraint(gated[i][3], tq[k, :3], tq[k, 3:])
+        if prof is not None:
+            LAST_ROUND_BREAKDOWN.clear()
+            LAST_ROUND_BREAKDOWN.update(prof)
+        return results
 
     def _run_optimization(self, num_iterations: int) -> None:
         """(ref: optimization_problem_3d.cc Solve:257-530.) The first submap

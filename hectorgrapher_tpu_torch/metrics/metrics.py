@@ -1,8 +1,8 @@
 """Host-side metrics registry (counterpart of the histogram and family
 factory of hectorgrapher_tpu/metrics/metrics.py; ref: cartographer/metrics/
-{histogram,family_factory}.h). The port writes histograms only: the pose
-graph's score and residual histograms and profiling.section's timings;
-counters and gauges come with the slices that write them.
+{counter,gauge,histogram,family_factory}.h): the pose graph's score and
+residual histograms, its batched-round counter and pack-bytes gauge, and
+profiling.section's timings.
 
 Plain Python, thread-safe: the pose graph's worker thread and the front
 end write to the same families.
@@ -41,6 +41,36 @@ class Histogram:
         return self._sum
 
 
+class Counter:
+    """(ref: metrics/counter.h)"""
+
+    def __init__(self):
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def increment(self, by: float = 1.0) -> None:
+        with self._lock:
+            self._value += by
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Gauge:
+    """(ref: metrics/gauge.h)"""
+
+    def __init__(self):
+        self._value = 0.0
+
+    def set(self, value: float) -> None:
+        self._value = float(value)
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
 class Family:
     """Labelled metric family (ref: metrics/family_factory.h Family<T>)."""
 
@@ -74,6 +104,16 @@ class FamilyFactory:
         self._families.append(f)
         return f
 
+    def new_counter_family(self, name: str, description: str) -> Family:
+        f = Family(name, description, Counter)
+        self._families.append(f)
+        return f
+
+    def new_gauge_family(self, name: str, description: str) -> Family:
+        f = Family(name, description, Gauge)
+        self._families.append(f)
+        return f
+
     def text_format(self) -> str:
         """Prometheus text exposition, cumulative buckets."""
         lines = []
@@ -82,6 +122,9 @@ class FamilyFactory:
             for labels, metric in fam.items():
                 label_str = ",".join(f'{k}="{v}"' for k, v in labels.items())
                 label_part = "{" + label_str + "}" if label_str else ""
+                if not isinstance(metric, Histogram):
+                    lines.append(f"{fam.name}{label_part} {metric.value}")
+                    continue
                 lines.append(f"{fam.name}_sum{label_part} {metric.sum}")
                 total = 0
                 for b, c in zip(list(metric._boundaries) + ["+Inf"], metric.counts_by_bucket):

@@ -21,9 +21,19 @@ card both pick the same cells. The per-point values agree to rounding;
 the sums over points run in another order (the kernel's over eight
 slices of each cloud, then the slices in order; the plain version's as
 matmuls).
+
+ct_scan_block_slots assembles the clouds of a packed GN3D run (one
+constraint round's lanes against D distinct submaps): cloud c against
+the grids of slot[c]. The kernel reads them through a table of the
+submaps' volume pointers (grid_slots), so the round stacks no copy of
+the volumes; per cloud it computes what ct_scan_block computes for that
+cloud alone, bit for bit, and its plain version calls the plain
+ct_scan_block once per cloud.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -145,3 +155,100 @@ def ct_scan_block(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask, pose
 
 
 ct_scan_block.launches = 0
+
+
+class GridSlots(NamedTuple):
+    """The grid pairs of D distinct submaps, as the slotted kernel reads
+    them: the grids themselves (which keep the volumes alive), their
+    volume pointers (D, 4) int64 [hi tsd, hi weight, lo tsd, lo weight]
+    and their parameters (D, 8) f32 (grid_params), both on the grids'
+    device."""
+
+    hi: Tuple[TSDFGrid, ...]
+    lo: Tuple[TSDFGrid, ...]
+    ptrs: torch.Tensor
+    gparams: torch.Tensor
+
+
+def grid_slots(hi_grids, lo_grids) -> GridSlots:
+    """GridSlots of the grid pairs (hi_grids[d], lo_grids[d]). Every hi
+    grid must have one shape, every lo grid one shape, all f32 and
+    contiguous on one device."""
+    hi_grids, lo_grids = tuple(hi_grids), tuple(lo_grids)
+    if not hi_grids or len(hi_grids) != len(lo_grids):
+        raise ValueError(f"grid_slots: {len(hi_grids)} hi and {len(lo_grids)} lo grids")
+    device = hi_grids[0].tsd.device
+    for label, grids in (("hi", hi_grids), ("lo", lo_grids)):
+        shape = grids[0].shape
+        if len(shape) != 3 or grids[0].tsd.numel() >= 2**31:
+            raise ValueError(f"grid_slots: unsupported {label} grid shape {shape}")
+        for d, grid in enumerate(grids):
+            _check(f"{label}_grids[{d}].tsd", grid.tsd, torch.float32, shape, device)
+            _check(f"{label}_grids[{d}].weight", grid.weight, torch.float32, shape, device)
+    ptrs = torch.tensor([[h.tsd.data_ptr(), h.weight.data_ptr(), lo.tsd.data_ptr(), lo.weight.data_ptr()]
+                         for h, lo in zip(hi_grids, lo_grids)], dtype=torch.int64).to(device)
+    gparams = torch.stack([grid_params(h, lo) for h, lo in zip(hi_grids, lo_grids)]).contiguous()
+    return GridSlots(hi_grids, lo_grids, ptrs, gparams)
+
+
+def ct_scan_block_slots_plain(slots: GridSlots, slot, hi_points, hi_mask, lo_points, lo_mask, pose7, dpose7,
+                              hi_scale, lo_scale):
+    """Plain PyTorch version: ct_scan_block_plain of each cloud alone
+    against its slot's grids, (S (C, 18, 18), g (C, 18), cost (C,))."""
+    per_cloud = []
+    for c, d in enumerate(slot.tolist()):
+        one = slice(c, c + 1)
+        per_cloud.append(ct_scan_block_plain(
+            slots.hi[d], slots.lo[d], hi_points[one], hi_mask[one], lo_points[one], lo_mask[one], pose7[one],
+            dpose7[one], hi_scale[one], lo_scale[one]))
+    return tuple(torch.cat(parts) for parts in zip(*per_cloud))
+
+
+def ct_scan_block_slots(slots: GridSlots, slot, hi_points, hi_mask, lo_points, lo_mask, pose7, dpose7, hi_scale,
+                        lo_scale):
+    """Per-cloud scan blocks against each cloud's own submap: (S (C, 18,
+    18), g (C, 18), cost (C,)) f32, cloud c against the grids
+    slots.hi[slot[c]], slots.lo[slot[c]].
+
+    slots: grid_slots of the D distinct submaps; slot: (C,) int32 in [0,
+    D); the clouds, poses and scales as ct_scan_block's. CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
+    device = hi_points.device
+    args = (slots, slot, hi_points, hi_mask, lo_points, lo_mask, pose7, dpose7, hi_scale, lo_scale)
+    if device.type == "cpu":
+        return ct_scan_block_slots_plain(*args)
+    if device.type != "cuda":
+        raise ValueError(f"ct_scan_block_slots: unsupported device {device}")
+    c, p_hi = hi_mask.shape
+    p_lo = lo_mask.shape[1]
+    d = len(slots.hi)
+    _check("slots.ptrs", slots.ptrs, torch.int64, (d, 4), device)
+    _check("slots.gparams", slots.gparams, torch.float32, (d, 8), device)
+    _check("slot", slot, torch.int32, (c,), device)
+    _check("hi_points", hi_points, torch.float32, (c, p_hi, 3), device)
+    _check("hi_mask", hi_mask, torch.bool, (c, p_hi), device)
+    _check("lo_points", lo_points, torch.float32, (c, p_lo, 3), device)
+    _check("lo_mask", lo_mask, torch.bool, (c, p_lo), device)
+    _check("pose7", pose7, torch.float32, (c, 7), device)
+    _check("dpose7", dpose7, torch.float32, (c, 7, 18), device)
+    _check("hi_scale", hi_scale, torch.float32, (c,), device)
+    _check("lo_scale", lo_scale, torch.float32, (c,), device)
+    if not 0 < c <= 65535:
+        raise ValueError(f"ct_scan_block_slots: unsupported C={c}")
+    out = torch.empty(c * (18 * 18 + 18 + 1), dtype=torch.float32, device=device)  # one allocation: S, g, cost
+    S = out[: c * 324].view(c, 18, 18)
+    g = out[c * 324 : c * 342].view(c, 18)
+    cost = out[c * 342 :]
+    # slots holds the grids, so their volumes outlive the enqueued launch.
+    _build.launch(
+        "hg_ct_scan_block_slots", device,
+        slots.ptrs.data_ptr(), slot.data_ptr(), slots.gparams.data_ptr(), hi_points.data_ptr(), hi_mask.data_ptr(),
+        lo_points.data_ptr(), lo_mask.data_ptr(), pose7.data_ptr(), dpose7.data_ptr(), hi_scale.data_ptr(),
+        lo_scale.data_ptr(), S.data_ptr(), g.data_ptr(), cost.data_ptr(),
+        c, p_hi, p_lo, *slots.hi[0].shape, *slots.lo[0].shape,
+    )
+    ct_scan_block_slots.launches += 1
+    return S, g, cost
+
+
+ct_scan_block_slots.launches = 0

@@ -14,12 +14,17 @@ the same inputs, in turns: earlier, this, this, earlier. The shapes: K1 and
 K2 at chip_smoke.py phases 3-4's front end (B=1, T=425, N=2048) and batched
 point (B=1024, T=40, N=512), the earlier K2 on its pw*pw-lane table and
 this one on the padded table (prepare_correlative_table), both built from
-one grid; K3 at the CT front end's C=32 and GN3D's C=1 at 256^3 / 128^3;
-K4 at chip_smoke.py phase 10's coarse call, first expansion and level-0
-expansion. Each turn prints per-call time (CUDA events around the call),
-the kernel's device time (torch.profiler) and the wrapper's host time per
-call (enqueue only); then the outputs' largest difference and the bound
-(chip_smoke.bound_ms). Writes everything to chiprun_out/kernel_ab.json.
+one grid; K3 at the CT front end's C=32 and GN3D's C=1 at 256^3 / 128^3,
+and slotted at a packed GN3D's shape (8 lanes over two grid pairs); K4 at
+chip_smoke.py phase 10's coarse call, first expansion and level-0
+expansion, and with row bases at a batched round's coarse call (four scans
+over a pack of two submaps). Where the earlier version lacks the input a
+shape needs (K3's slots, K4's row bases), this tree's kernel runs its two
+turns alone. Each turn prints per-call time (CUDA events around the call),
+the kernel's device time (torch.profiler; beside it the CUDA-event time of
+the call with the stream kept busy ahead of it, chip_smoke.event_ms) and
+the wrapper's host time per call (enqueue only); then the outputs'
+largest difference and the bound (chip_smoke.bound_ms). Writes everything to chiprun_out/kernel_ab.json.
 
 With --designs, each DIR holds a copy of this package whose K2 source is a
 design variant (same wrapper and table layout). Each variant's K2 is first
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -44,6 +50,7 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
@@ -79,11 +86,16 @@ def build_parent(parent: Path):
     return SimpleNamespace(load_library=lambda: lib, check_launch=_build.check_launch, launch=launch, build_log=log)
 
 
-def load_parent_wrapper(parent: Path, name: str, build):
+def load_parent_module(parent: Path, name: str, build):
     """The earlier ops/<name>.py, its kernel calls served by `build`."""
     mod = _load(parent / "hectorgrapher_tpu_torch" / "ops" / f"{name}.py", f"earlier_{name}")
     mod._build = build
-    return getattr(mod, name)
+    return mod
+
+
+def load_parent_wrapper(parent: Path, name: str, build):
+    """The earlier ops/<name>.py's function `name`."""
+    return getattr(load_parent_module(parent, name, build), name)
 
 
 def host_us(fn, n=200):
@@ -99,20 +111,22 @@ def host_us(fn, n=200):
     return (t1 - t0) / n * 1e6
 
 
-def turns(name, label, old, new, args):
-    """earlier, this, this, earlier: per-call, device and host time of each
-    turn; then the bound."""
-    kernel = f"{name}_kernel"
+def turns(name, label, old, new, args, kernel_name=None):
+    """earlier, this, this, earlier (this, this without an earlier
+    version): per-call, device and host time of each turn; then the
+    bound."""
+    kernel = kernel_name or f"{name}_kernel"
     out = {"turns": []}
-    for which, fn in (("earlier", old), ("this", new), ("this", new), ("earlier", old)):
+    order = (("earlier", old), ("this", new), ("this", new), ("earlier", old)) if old else (("this", new),) * 2
+    for which, fn in order:
         rec = {"version": which, "ms": cs.cuda_ms(fn, reps=50), "device_ms": cs.device_ms(fn, reps=50, match=kernel),
-               "host_us": host_us(fn)}
+               "event_ms": cs.event_ms(fn, reps=50), "host_us": host_us(fn)}
         out["turns"].append(rec)
-        print(f"{name} {label} {which}: per call {rec['ms']:.4f} ms, device {cs._fmt(rec['device_ms'])}, host "
-              f"{rec['host_us']:.1f} us", flush=True)
+        print(f"{name} {label} {which}: per call {rec['ms']:.4f} ms, device {cs._fmt(rec['device_ms'])} (events "
+              f"{rec['event_ms']:.4f} ms), host {rec['host_us']:.1f} us", flush=True)
     b_ms, b_by, nbytes, ops = cs.bound_ms(name, args)
     out.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops)
-    for which in ("earlier", "this"):
+    for which in ("earlier", "this") if old else ("this",):
         dev = [t["device_ms"] for t in out["turns"] if t["version"] == which]
         out[f"{which}_device_ms"] = sum(dev) / len(dev)
         print(f"{name} {label} {which}: mean device {out[f'{which}_device_ms']:.4f} ms, bound {b_ms * 1e3:.3f} us "
@@ -243,21 +257,68 @@ def run_3d(device, parent, build, result, kernels):
         result["k3"][label] = {"max_abs_diff": diff, **turns("ct_scan_block", label, old, new, args)}
         if label == "front_end":
             result["host_parts"] = host_parts(device, args)
+    if "k3" in kernels:
+        # A packed GN3D's shape: 8 lanes over two grid pairs (the production
+        # grids and a copy of them), alternating.
+        hi2, lo2 = (g._replace(tsd=g.tsd.clone(), weight=g.weight.clone()) for g in (hi, lo))
+        a = cs.ct_kernel_inputs(device, hi, lo, scan_pts, c=8)
+        args = (k3.grid_slots([hi, hi2], [lo, lo2]), torch.arange(8, dtype=torch.int32, device=device) % 2, *a[2:10])
+        old_slots = getattr(load_parent_module(parent, "ct_scan_block", build), "ct_scan_block_slots", None)
+        new = lambda a=args: k3.ct_scan_block_slots(*a)
+        old = None if old_slots is None else (lambda a=args: old_slots(*a))
+        result["k3"]["gn3d_packed"] = turns("ct_scan_block_slots", "gn3d_packed", old, new, args,
+                                            kernel_name="ct_scan_block_kernel")
+        del hi2, lo2
     del hi, lo
 
     if "k4" not in kernels:
         return
     _, match = cs.fast_match_setup(device, *cs.fast_match_submap(device))
     calls, _ = cs.recorded_score_sums(match)
+    # An earlier kernel without row bases takes the calls without their
+    # trailing cand_base (None for one submap).
+    takes_bases = "cand_base" in inspect.signature(old_k4).parameters
     for label, (a, _) in cs.fast_score_shapes(calls).items():
         new = lambda a=a: k4.fast_scores_3d(*a)
-        old = lambda a=a: old_k4(*a)
+        old = lambda a=a: old_k4(*(a if takes_bases else a[:12]))
         same = bool(torch.equal(new(), old()))
         print(f"fast_scores_3d {label} level {a[9]} C={a[5].shape[0]} outputs {new().shape}: bit-equal to the "
               f"earlier kernel: {same}", flush=True)
         if not same:
             sys.exit(f"kernel_ab: FAIL: fast_scores_3d {label} is not bit-equal to the earlier kernel")
         result["k4"][label] = {"bit_equal": same, **turns("fast_scores_3d", label, old, new, a)}
+    a = round_coarse_call(device)
+    result["k4"]["round_coarse"] = turns("fast_scores_3d", "round_coarse",
+                                         (lambda: old_k4(*a)) if takes_bases else None, lambda: k4.fast_scores_3d(*a), a)
+
+
+def round_coarse_call(device, n_scans=4):
+    """K4's arguments at a batched round's coarse call: n_scans scans of
+    the box room (chip_smoke.py phase 10's scan poses, moved 0.2 m apart)
+    searched together over a pack of two copies of phase 10's submap, one
+    scan each in turn."""
+    from hectorgrapher_tpu_torch.evaluation.scan_generator import raycast_box_room_3d
+    from hectorgrapher_tpu_torch.parallel import constraint_search as pcs
+    from hectorgrapher_tpu_torch.transform import np_quat as nq
+    from hectorgrapher_tpu_torch.transform.rigid import Rigid3
+
+    matcher, _ = cs.fast_match_setup(device, *cs.fast_match_submap(device))
+    packed = pcs.pack_submaps_3d([matcher, matcher], device)
+    truth_t, truth_yaw = cs.FM_TRUTH
+    rng = np.random.default_rng(cs.SEED)
+    candidates = []
+    for i in range(n_scans):
+        pts = raycast_box_room_3d(truth_t + [0.2 * i, 0.0, 0.0], nq.quat_from_axis_angle(np.array([0.0, 0.0, truth_yaw])),
+                                  num_azimuth=96, num_elevation=24, noise_std=0.004, rng=rng)
+        high, low, hist = cs.node_clouds(pts[~np.isnan(pts[:, 0])], device)
+        candidates.append((i % 2, high, low, hist, Rigid3(cs.FM_START.astype(np.float32) + [0.2 * i, 0.0, 0.0],
+                                                          np.array([1.0, 0.0, 0.0, 0.0], np.float32)), 0.0))
+    config = matcher._options
+    config = cs.fast_correlative_3d.make_fast_search_3d_config(config, matcher._resolution, 20.0, False, 256)
+    calls = []
+    with cs.score_sums_through(lambda *a: calls.append(a) or k4.fast_scores_3d(*a)):
+        pcs.sharded_fast_matches_3d_packed(packed, candidates, config)
+    return calls[0]
 
 
 def main() -> int:

@@ -13,6 +13,7 @@ import torch
 import chip_smoke as cs
 from hectorgrapher_tpu_torch.mapping.grids import make_tsdf_grid
 from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d_plain
+from hectorgrapher_tpu_torch.ops.ct_scan_block import grid_slots
 from hectorgrapher_tpu_torch.ops.fast_scores_3d import fast_scores_3d_plain
 
 CPU = torch.device("cpu")
@@ -59,6 +60,50 @@ def test_bound_ct_scan_block_by_hand():
     nbytes = 4 * (3 + 3 + 7 + 126 + 2 + 8) + 2 + 4 * (324 + 18 + 1) + 2 * 4 * 32
     ms, by, got_bytes, ops = cs.bound_ms("ct_scan_block", args)
     assert (got_bytes, ops, by) == (nbytes, cs.K3_OPS_PER_POINT, "bytes")
+    assert ms == pytest.approx(max(nbytes / 3.35e12, ops / 67e12) * 1e3, rel=1e-12)
+
+
+def test_bound_fast_scores_3d_row_bases_by_hand():
+    """A batched round's call: two 4^3 level-0 blocks stacked (17 rows
+    each, holding the flat index), two candidates on point rows 0 and 1
+    with row bases 0 and 17, one flag row per point row. Row 0's points
+    (1, 2, 0) and (3, 1, 3) read flats 6 and 61 (sectors 0 and 7); row 1's
+    (0, 0, 0) reads row 17 + 0, lane 0, flat 68 (sector 8), its second
+    point not valid."""
+    table = torch.arange(2 * 17 * 4, dtype=torch.float32).reshape(34, 4)
+    bx, by, bz = i32([[1, 3], [0, 2]]), i32([[2, 1], [0, 3]]), i32([[0, 3], [0, 1]])
+    valid = torch.tensor([[True, True], [True, False]])
+    zero = i32([[0], [0]])
+    args = (table, bx, by, bz, valid, i32([0, 1]), zero, zero, zero, 0, 0, (4, 4, 4),
+            torch.tensor([0, 17], dtype=torch.int64))
+    # 3 sectors of the table, both point rows' 2 x 3 int32 cells and 2 x 2
+    # flags, cand_t, the three offsets and the two outputs (4 bytes each),
+    # and the two int64 row bases.
+    nbytes = 3 * 32 + 2 * 2 * 3 * 4 + 2 * 2 + 4 * (2 + 2 + 2 + 2 + 2) + 2 * 8
+    ms, by, got_bytes, ops = cs.bound_ms("fast_scores_3d", args)
+    assert (got_bytes, ops, by) == (nbytes, 3, "bytes")
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    assert fast_scores_3d_plain(*args).reshape(-1).tolist() == [6.0 + 61.0, 68.0]
+
+
+def test_bound_ct_scan_block_slots_by_hand():
+    """Two lanes against two distinct 4^3 grid pairs at 1 m (slots 0 and
+    1), each with one hi-res point at cell coordinate 1.7 of its own grid:
+    4 sectors of tsd and of weight in each lane's grid; the lo-res points
+    masked out."""
+    pairs = [(make_tsdf_grid(1.0, (4, 4, 4), 0.3, 1000.0, CPU), make_tsdf_grid(1.0, (4, 4, 4), 0.3, 1000.0, CPU))
+             for _ in range(2)]
+    slots = grid_slots([h for h, _ in pairs], [lo for _, lo in pairs])
+    p = torch.stack([(h.meta.min_corner + 1.7)[None] for h, _ in pairs])  # (2, 1, 3)
+    pose7 = torch.tensor([[0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0]]).expand(2, 7)
+    args = (slots, i32([0, 1]), p, torch.ones((2, 1), dtype=torch.bool), p.clone(),
+            torch.zeros((2, 1), dtype=torch.bool), pose7, torch.zeros((2, 7, 18)), torch.ones(2), torch.ones(2))
+    # Points, pose7, dpose7 and scales (f32); the slot table: 2 x 4 int64
+    # pointers, 2 x 8 f32 parameters and 2 int32 slots; the two masks
+    # (bool); S + g + cost per lane; 4 sectors of tsd and weight per lane.
+    nbytes = 4 * (6 + 6 + 14 + 252 + 4) + (2 * 4 * 8 + 2 * 8 * 4 + 2 * 4) + 4 + 2 * 4 * (324 + 18 + 1) + 2 * 2 * 4 * 32
+    ms, by, got_bytes, ops = cs.bound_ms("ct_scan_block_slots", args)
+    assert (got_bytes, ops, by) == (nbytes, 2 * cs.K3_OPS_PER_POINT, "bytes")
     assert ms == pytest.approx(max(nbytes / 3.35e12, ops / 67e12) * 1e3, rel=1e-12)
 
 

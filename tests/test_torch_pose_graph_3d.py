@@ -196,10 +196,11 @@ def test_extras_landmarks_and_delete_match_jax(fix_z):
 
 def test_pose_graph_refuses_unported_paths():
     opts = tcfg.PoseGraphOptions(async_work_queue=False)
-    assert opts.use_batched_constraint_search  # the JAX default, which the port refuses
-    with pytest.raises(NotImplementedError):
-        PoseGraph3D(opts, device="cpu")
-    pg = PoseGraph3D(tcfg.replace_deep(opts, {"use_batched_constraint_search": False}), device="cpu")
+    assert opts.use_batched_constraint_search  # the JAX default, which the port runs
+    pg = PoseGraph3D(tcfg.PoseGraphOptions(), device="cpu")  # the default options construct
+    pg.wait_for_all_computations()
+    pg = PoseGraph3D(opts, device="cpu")
+    assert pg.batched_fallbacks == 0
     with pytest.raises(NotImplementedError):
         pg.set_solver_mesh(object())
     with pytest.raises(NotImplementedError):

@@ -169,3 +169,40 @@ def ct_drive(builder, rigid, timed_data, pad, duration=1.5, speed=0.2, yaw_rate=
             next_scan += 0.1
         t = round(t + 0.01, 6)
     return out
+
+
+def batched_anchors_3d():
+    """tests/test_batched_constraint_path.py's two finished anchor submaps
+    (96 x 96 x 32 at 0.1 m, 32 x 32 x 12 at 0.45 m; :224-284), built with
+    the JAX package."""
+    from test_batched_constraint_path import build_finished_submap_3d
+
+    return (build_finished_submap_3d([np.zeros(3), np.array([0.4, 0.3, 0.0])]),
+            build_finished_submap_3d([np.array([0.3, -0.3, 0.0]), np.array([0.7, 0.0, 0.0])]))
+
+
+def port_drive_3d(anchors, options, device=CPU):
+    """drive_3d of tests/test_batched_constraint_path.py (:287-296) through
+    the port's PoseGraph3D with `options` (the JAX package's
+    PoseGraphOptions, converted): two drift-free nodes INTRA to the
+    anchors, then a returning node 0.3 m off INTRA only to an active
+    submap, whose round has both anchors as candidates. The nodes are
+    built by the JAX test's node_3d and carried over."""
+    from hectorgrapher_tpu_torch import convert
+    from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import PoseGraph3D
+    from test_batched_constraint_path import HIST, active_submap_3d, node_3d
+
+    pg = PoseGraph3D(convert.options(options), histogram_size=HIST, device=device)
+    subs = [convert.submap_3d(a, device) for a in (*anchors, active_submap_3d())]
+    truth = np.array([0.3, -0.2, 0.0])
+    for time, local, true, k in ((0.0, np.zeros(3), np.zeros(3), 0), (0.1, [0.4, 0.3, 0.0], [0.4, 0.3, 0.0], 1),
+                                 (0.2, truth + [0.3, 0.0, 0.0], truth, 2)):
+        pg.add_node(convert.pg_node(node_3d(time, local, true), device), [subs[k]])
+    pg.wait_for_all_computations()
+    return pg
+
+
+def inter_constraints(pg):
+    """[(node id, submap id, constraint)] of pg's INTER constraints, sorted."""
+    return sorted(((pg.nodes[c.node_index].node_id, pg.submaps[c.submap_index].submap_id, c)
+                   for c in pg.constraints if c.tag == "INTER"), key=lambda x: (x[0], x[1]))
