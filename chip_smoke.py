@@ -17,7 +17,10 @@ fixture (256^3 / 128^3 TSDF grids), the continuous-time 3D front end
 one full fast 3D loop-closure match over a 256^3 submap, and the 3D SLAM
 path (MapBuilder -> CT front end -> PoseGraph3D: constraint searches and
 SPA on the pose graph's worker thread) over an out-and-back drive at the
-front end's full width.
+front end's full width: on TSDF submaps with the serial and with the
+batched constraint search (phases 11 and 12), and on the default
+occupancy submaps with the batched search (phase 13). K3 is held to its
+plain version in both of its modes (TSDF and probability, phase 7).
 Each phase prints one line; any failure exits non-zero before the last
 line. The second-to-last line is a JSON record of the kernels, the last
 line a JSON record of the device.
@@ -47,7 +50,7 @@ from hectorgrapher_tpu_torch.mapping.ct import window_solver
 from hectorgrapher_tpu_torch.mapping.ct.builder import OptimizingLocalTrajectoryBuilder
 from hectorgrapher_tpu_torch.mapping.ct.window_solver import CtProblem, CtState, CtWeights, solve_ct_window
 from hectorgrapher_tpu_torch.mapping.grids import make_probability_grid, make_tsdf_grid
-from hectorgrapher_tpu_torch.mapping.inserters_3d import make_tsdf_inserter_3d
+from hectorgrapher_tpu_torch.mapping.inserters_3d import make_probability_inserter_3d, make_tsdf_inserter_3d
 from hectorgrapher_tpu_torch.mapping.inserters_2d import make_probability_inserter_2d
 from hectorgrapher_tpu_torch.mapping.local_2d import LocalTrajectoryBuilder2D
 from hectorgrapher_tpu_torch.mapping.map_builder import MapBuilder
@@ -59,11 +62,13 @@ from hectorgrapher_tpu_torch.mapping.scan_matching.correlative_2d import (
     prep_inputs,
     prepare_correlative_table,
 )
+from hectorgrapher_tpu_torch.mapping.scan_matching import gn_3d as gn_3d_module
 from hectorgrapher_tpu_torch.mapping.scan_matching.fast_correlative_3d import FastCorrelativeScanMatcher3D
 from hectorgrapher_tpu_torch.mapping.scan_matching.gn_2d import (
     match_gn_2d_probability_batched,
     prepare_gn_probability_field,
 )
+from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import PreparedProb3D, prepare_grid_3d
 from hectorgrapher_tpu_torch.mapping.scan_matching.rotational_histogram import compute_histogram
 from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.ops.correlative_prep_2d import correlative_prep_2d, correlative_prep_2d_plain
@@ -271,8 +276,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 # f32 operations per masked point of K3, counted from csrc/ct_scan_block.cu:
 # 295 for the world point, stencil, quotient rule and dR(q)p/dq, 253 for
-# the 18-column projection and the residual, 380 for the 190 products.
+# the 18-column projection and the residual, 380 for the 190 products. In
+# probability mode the stencil part (two blends, the w*tsd products and
+# the quotient rule: 128) becomes one blend, 1 - p and the scaled
+# negation (58).
 K3_OPS_PER_POINT = 295 + 253 + 380
+K3_PROB_OPS_PER_POINT = 295 - 128 + 58 + 253 + 380
 
 
 def _sectors(idx):
@@ -371,12 +380,15 @@ def _work(kernel, args):
         nbytes = (4 * (hi_pts.numel() + lo_pts.numel() + pose7.numel() + dpose7.numel() + 2 * c) + table_bytes
                   + hi_mask.numel() + lo_mask.numel() + 4 * c * (18 * 18 + 18 + 1))
         n_masked = 0
+        prob = isinstance(grid_pairs[0][0], PreparedProb3D)
         for (hi, lo), lane in zip(grid_pairs, lanes):
             for grid, pts, mask in ((hi, hi_pts, hi_mask), (lo, lo_pts, lo_mask)):
+                # Points outside the interior read no cell (TSDF: unknown;
+                # probability: the pad taps are constants).
                 cells, n = k3_stencil_cells(grid, pts[lane], mask[lane], pose7[lane])
-                nbytes += 2 * 32 * _sectors(cells)  # tsd and weight: one layout
+                nbytes += (1 if prob else 2) * 32 * _sectors(cells)  # the field, or tsd and weight: one layout
                 n_masked += n
-        return nbytes, K3_OPS_PER_POINT * n_masked
+        return nbytes, (K3_PROB_OPS_PER_POINT if prob else K3_OPS_PER_POINT) * n_masked
     if kernel == "fast_scores_3d":
         table, bx, by, bz, valid, cand_t, off_x, off_y, off_z = args[:9]
         cand_base = args[12] if len(args) > 12 else None
@@ -686,13 +698,41 @@ def ct_production_grids(device):
     return grids[0], grids[1], first
 
 
-def ct_kernel_inputs(device, hi, lo, scan_pts, c=32, p=256, k=32, seed=SEED):
+def ct_production_probability_grids(device, n_scans=3):
+    """Phase 7's occupancy maps: the SubmapsOptions3D default grids (hi
+    256^3 at 0.1 m, lo 128^3 at 0.45 m), each filled by the default
+    occupancy inserters with the first n_scans of ct_production_grids'
+    three scans of the phase-9 room, then prepared for K3 (their
+    probability fields, prepare_grid_3d). Returns (hi, lo)."""
+    sub = cfg.SubmapsOptions3D()
+    grids, inserters = [], []
+    for res, size, ins in ((sub.high_resolution, sub.high_grid_size, sub.high_resolution_range_data_inserter),
+                           (sub.low_resolution, sub.low_grid_size, sub.low_resolution_range_data_inserter)):
+        grids.append(make_probability_grid(res, (size,) * 3, device))
+        inserters.append(make_probability_inserter_3d(ins.probability_grid_range_data_inserter))
+    for pose_t in (np.zeros(3), np.array([1.5, 1.0, 0.0]), np.array([-1.2, 0.8, 0.0]))[:n_scans]:
+        pts = raycast_box_room_3d(pose_t, nq.quat_identity(), half_extents=CT_ROOM, num_azimuth=256, num_elevation=48)
+        pts = pts[~np.isnan(pts[:, 0])].astype(np.float32)
+        rd = RangeData(
+            torch.tensor(pose_t, dtype=torch.float32, device=device),
+            pad_cloud(pts + pose_t.astype(np.float32), 16384, device),
+            pad_cloud(np.zeros((0, 3), np.float32), 4, device),
+        )
+        grids = [insert(g, rd) for insert, g in zip(inserters, grids)]
+    if not all(bool(g.known.any()) for g in grids):
+        fail("phase 7: an occupancy grid has no known cells")
+    return tuple(prepare_grid_3d(g) for g in grids)
+
+
+def ct_kernel_inputs(device, hi, lo, scan_pts, c=32, p=256, k=32, seed=SEED, outside=0):
     """K3's inputs at the CT front end's shape: C=32 clouds of P=256 hi-res
     and 256 lo-res points drawn from a scan (the last 32 lo-res points of
     each cloud masked out, as padding), posed between K=32 control points
     perturbed by up to 5 cm / 0.02 rad, with pose7/dpose7 and the scales
     as the window solver computes them, then the grid parameters. With
-    c=1, GN3D's shape: one cloud of 256 + 256 points."""
+    c=1, GN3D's shape: one cloud of 256 + 256 points. With `outside`, the
+    first `outside` hi-res and lo-res points of each cloud are moved along
+    their rays to 40 m, outside both grids."""
     from types import SimpleNamespace
 
     from hectorgrapher_tpu_torch.transform.rigid import quat_from_axis_angle
@@ -704,6 +744,8 @@ def ct_kernel_inputs(device, hi, lo, scan_pts, c=32, p=256, k=32, seed=SEED):
                                           for _ in range(c)])).to(device)
 
     hi_pts, lo_pts = clouds(), clouds()
+    for pts in (hi_pts, lo_pts):
+        pts[:, :outside] *= 40.0 / torch.linalg.vector_norm(pts[:, :outside], dim=-1, keepdim=True)
     hi_mask = torch.ones((c, p), dtype=torch.bool, device=device)
     lo_mask = hi_mask.clone()
     lo_mask[:, -32:] = False
@@ -755,7 +797,7 @@ def check_ct_scan_block(args, label, timed=True):
                    lambda: ct_scan_block_plain(*args[:10]), args, err,
                    note=f" grids {hi.shape[0]}^3/{lo.shape[0]}^3 C={c} P={p_hi}+{args[5].shape[1]} "
                         f"(error bound {float(bound.min()):.3e}..{float(bound.max()):.3e}; library: none, no one "
-                        "PyTorch call fuses the TSDF stencil, the pose Jacobian and J^T J)")
+                        "PyTorch call fuses the grid stencil, the pose Jacobian and J^T J)")
 
 
 def build_ct_example(device, K=8, C=8, P=256, grid=256, cube=True):
@@ -1230,20 +1272,31 @@ JAX_SLAM_LATE_GLOBAL, JAX_SLAM_MEDIAN_GLOBAL, JAX_SLAM_MAX_GLOBAL = 0.04393, 0.0
 # error 0.02910 / 0.03771 m, the max 0.17575 / 0.16644 m. The larger of
 # each pair.
 JAX_SLAM12_LATE_GLOBAL, JAX_SLAM12_MEDIAN_GLOBAL, JAX_SLAM12_MAX_GLOBAL = 0.05800, 0.03771, 0.17575
+# Phase 13's: the same drive with the batched search on the default
+# PROBABILITY_GRID submaps, two runs of tests/jax_slam_reference.py
+# --batched --probability on a CPU: 70 nodes, 9 submaps (7 finished), 236
+# and 218 INTER constraints; the tail's local error 0.30263 m both times,
+# its global error 0.08222 / 0.05621 m (below half the local error: the
+# JAX run meets phase 11's loop-closure gate), the median global error
+# 0.06135 / 0.05121 m, the max 0.30265 / 0.27505 m (ROADMAP C15: above
+# the TSDF runs'). The larger of each pair.
+JAX_SLAM13_LATE_GLOBAL, JAX_SLAM13_MEDIAN_GLOBAL, JAX_SLAM13_MAX_GLOBAL = 0.08222, 0.06135, 0.30265
 ROUND_PARITY_ROUNDS = 3  # phase 12's rounds re-run through the serial path
 
 
-def slam_overrides(batched=False):
+def slam_overrides(batched=False, probability=False):
     """Phase 11's options as replace_deep overrides of MapBuilderOptions:
     tests/test_map_builder_3d.py loop_options() (over make_options()) at
     the CT front end's full width (256^3 / 128^3 grids, K=32, C=32, P=256,
     12 LM iterations), with the async work queue; the serial constraint
-    search, or with `batched` the default batched one (phase 12). Plain
-    values, so that tests/jax_slam_reference.py applies them to the JAX
-    package's options."""
+    search, or with `batched` the default batched one (phase 12). With
+    `probability` (phase 13) the submaps keep their default grid_type,
+    PROBABILITY_GRID, in place of TSDF. Plain values, so that
+    tests/jax_slam_reference.py applies them to the JAX package's
+    options."""
     ct = "trajectory_builder_3d.optimizing_local_trajectory_builder."
     fm = "pose_graph.constraint_builder.fast_correlative_scan_matcher_3d."
-    return {
+    overrides = {
         "use_trajectory_builder_3d": True,
         "trajectory_builder_3d.min_range": 0.4,
         "trajectory_builder_3d.max_range": 25.0,
@@ -1275,11 +1328,15 @@ def slam_overrides(batched=False):
         fm + "min_rotational_score": 0.2,
         fm + "min_low_resolution_score": 0.45,
     }
+    if probability:
+        del overrides["trajectory_builder_3d.submaps.grid_type"]
+    return overrides
 
 
-def slam_options(batched=False):
-    """slam_overrides(batched) applied to the port's MapBuilderOptions."""
-    return cfg.replace_deep(cfg.MapBuilderOptions(), slam_overrides(batched))
+def slam_options(batched=False, probability=False):
+    """slam_overrides(batched, probability) applied to the port's
+    MapBuilderOptions."""
+    return cfg.replace_deep(cfg.MapBuilderOptions(), slam_overrides(batched, probability))
 
 
 def slam_truth(t):
@@ -1430,7 +1487,7 @@ def run_slam(device, options=None, drive=None, rounds=None, recorded=None):
     drain_s = time.perf_counter() - t_start - front_s
     n_solves = len(solves)
     return dict(slam_result(pg), optimizations=n_solves, errors=errors, latencies=latencies, searches=searches,
-                solves=solves, front_s=front_s, drain_s=drain_s, pose_graph=pg)
+                solves=solves, front_s=front_s, drain_s=drain_s, pose_graph=pg, local_builder=tb._local)
 
 
 def slam_result(pg):
@@ -1496,8 +1553,8 @@ def k3_slots_inputs(pg, device, lanes=(0, 1, 2, 0)):
     from hectorgrapher_tpu_torch.transform.rigid import quat_left_matrix
 
     subs = [i for i, s in enumerate(pg.submaps) if s.finished][:3]
-    slots = grid_slots([pg.submaps[i].submap.high_resolution_grid for i in subs],
-                       [pg.submaps[i].submap.low_resolution_grid for i in subs])
+    grids = [pg.submaps[i].submap.prepared_grids() for i in subs]
+    slots = grid_slots([hi for hi, _ in grids], [lo for _, lo in grids])
     intra = {}
     for c in pg.constraints:
         if c.tag == "INTRA":
@@ -1522,11 +1579,12 @@ def k3_slots_inputs(pg, device, lanes=(0, 1, 2, 0)):
             dpose7, s_hi, s_lo)
 
 
-def check_k3_slots(args):
-    """Phase 12's K3 gate: the slotted kernel on >= 4 lanes over 3 distinct
-    256^3 / 128^3 grid pairs, one repeated, within 1e-4 * max(1, max|S_c|)
-    per cloud of its plain version and bit-equal to one unslotted call per
-    lane. Returns measure's record."""
+def check_k3_slots(args, label="gn3d_packed"):
+    """Phase 12's K3 gate (and phase 7's in probability mode): the slotted
+    kernel on >= 4 lanes over 3 distinct 256^3 / 128^3 grid pairs, one
+    repeated, within 1e-4 * max(1, max|S_c|) per cloud of its plain
+    version and bit-equal to one unslotted call per lane. Returns
+    measure's record."""
     slots, slot = args[0], args[1]
     got = ct_scan_block_slots(*args)
     want = ct_scan_block_slots_plain(*args)
@@ -1534,17 +1592,18 @@ def check_k3_slots(args):
                              gparams=slots.gparams[d]) for k, d in enumerate(slot.tolist())]
     torch.cuda.synchronize()
     if not all(bool(torch.isfinite(x).all()) for x in got) or float(want[0].abs().max()) <= 0.0:
-        fail("K3 ct_scan_block_slots returned non-finite values, or its lanes see no observed cells")
+        fail(f"K3 ct_scan_block_slots returned non-finite values, or its lanes see no observed cells at {label}")
     bound = 1e-4 * torch.clamp(want[0].abs().amax(dim=(1, 2)), min=1.0)
     errs = [(got[0] - want[0]).abs().amax(dim=(1, 2)), (got[1] - want[1]).abs().amax(dim=1), (got[2] - want[2]).abs()]
     if any(bool((e > bound).any()) for e in errs):
-        fail(f"K3 ct_scan_block_slots differs from its plain version: max {max(float(e.max()) for e in errs):.3e}")
+        fail(f"K3 ct_scan_block_slots differs from its plain version at {label}: max "
+             f"{max(float(e.max()) for e in errs):.3e}")
     for k, one in enumerate(singles):
         if not all(torch.equal(a[k:k + 1], b) for a, b in zip(got, one)):
-            fail(f"K3 ct_scan_block_slots lane {k} is not bit-equal to one call against its grids")
+            fail(f"K3 ct_scan_block_slots lane {k} is not bit-equal to one call against its grids at {label}")
     err = max(float(e.max()) for e in errs)
     c, p_hi = args[3].shape
-    return measure("ct_scan_block_slots", "gn3d_packed", lambda: ct_scan_block_slots(*args),
+    return measure("ct_scan_block_slots", label, lambda: ct_scan_block_slots(*args),
                    lambda: ct_scan_block_slots_plain(*args), args, err, kernel_name="ct_scan_block_kernel",
                    note=f" C={c} lanes over {len(slots.hi)} distinct 256^3/128^3 grid pairs (slots {slot.tolist()}), "
                         f"P={p_hi}+{args[5].shape[1]}, bit-equal to {c} single calls (library: none)")
@@ -1595,7 +1654,8 @@ def run_phase_12(device, slam, k4_serial, options=None):
     plain versions (check_k4_round, check_k3_slots). Last, it re-runs the
     rounds with the card otherwise idle, batched and serially
     (rounds_alone), and prints their times. Returns (K4 launches by path,
-    packed K3 launches, {kernel: {shape: measure's record}})."""
+    packed K3 launches, {kernel: {shape: measure's record}}, (per-scan
+    latencies, ms per round))."""
     fast_correlative_3d.match_fast_3d.score_sums = 0
     fast_scores_3d.launches = 0
     ct_scan_block.launches = 0
@@ -1608,6 +1668,7 @@ def run_phase_12(device, slam, k4_serial, options=None):
     k4_12, score_sums12, k3_packed = (fast_scores_3d.launches, fast_correlative_3d.match_fast_3d.score_sums,
                                       ct_scan_block_slots.launches)
     pg12 = slam12.pop("pose_graph")
+    del slam12["local_builder"]
     parity = [r["parity"] for r in rounds if r["parity"] is not None]
     k4_parity = sum(p[3] for p in parity)
     k4_paths = {"slam_serial": k4_serial, "slam_batched": k4_12 - k4_parity}
@@ -1665,7 +1726,101 @@ def run_phase_12(device, slam, k4_serial, options=None):
           f"{sum(not p[0] for p in alone_parity)} rounds off the serial results (max |dt| "
           f"{max(p[1] for p in alone_parity):.3e} m, max 1-|dq0| {max(p[2] for p in alone_parity):.3e}); stage "
           "medians ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stage_medians(alone_stages).items()), flush=True)
-    return k4_paths, k3_packed, shapes
+    return k4_paths, k3_packed, shapes, (slam12["latencies"], round_ms)
+
+
+@contextlib.contextmanager
+def counted_gn3d_blocks(counts):
+    """Count GN3D's K3 calls by form: counts["serial"] (match_gn_3d, one
+    cloud) and counts["packed"] (match_gn_3d_packed, one slotted call per
+    LM iteration), at gn_3d's own call sites."""
+    single, slotted = gn_3d_module.ct_scan_block, gn_3d_module.ct_scan_block_slots
+
+    def count(key, fn):
+        def run(*a, **kw):
+            counts[key] += 1
+            return fn(*a, **kw)
+        return run
+
+    gn_3d_module.ct_scan_block = count("serial", single)
+    gn_3d_module.ct_scan_block_slots = count("packed", slotted)
+    try:
+        yield counts
+    finally:
+        gn_3d_module.ct_scan_block, gn_3d_module.ct_scan_block_slots = single, slotted
+
+
+def run_phase_13(device, slam12_latencies, round12_ms):
+    """Phase 13: run_slam over phase 11's drive with phase 12's options
+    (the batched search) and the default submaps (PROBABILITY_GRID), at
+    full width; phases 12 and 13 differ only in the grid. Every K3 launch
+    is in probability mode: the CT assemblies, serial GN3D (rounds of one
+    and the parity re-runs) and packed GN3D. Gates the launches, the work
+    queue, the fallbacks, the matching submap's known cells, the loop
+    closure and the errors against the JAX package's run on the same
+    drive (JAX_SLAM13_*); prints its latency and ms per round beside phase
+    12's. Phase 12's idle re-runs are not repeated. Returns the K3 and K4
+    launches by path."""
+    fast_correlative_3d.match_fast_3d.score_sums = 0
+    fast_scores_3d.launches = 0
+    for wrapper in (ct_scan_block, ct_scan_block_slots):
+        wrapper.launches = wrapper.prob_launches = 0
+    window_solver.solve_ct_window_block.assemblies = 0
+    rounds, recorded = [], []
+    options = slam_options(batched=True, probability=True)
+    if options.trajectory_builder_3d.submaps.grid_type != "PROBABILITY_GRID":
+        fail("SLAM occupancy: the default submaps are not PROBABILITY_GRID")
+    with counted_gn3d_blocks({"serial": 0, "packed": 0}) as gn3d:
+        slam13 = run_slam(device, options, rounds=rounds, recorded=recorded)
+    pg13, local = slam13.pop("pose_graph"), slam13.pop("local_builder")
+    assemblies = window_solver.solve_ct_window_block.assemblies
+    k3 = ct_scan_block.launches + ct_scan_block_slots.launches
+    k3_prob = ct_scan_block.prob_launches + ct_scan_block_slots.prob_launches
+    k4, score_sums = fast_scores_3d.launches, fast_correlative_3d.match_fast_3d.score_sums
+    paths = {"slam13_front_end": assemblies, "slam13_gn3d": gn3d["serial"], "slam13_gn3d_packed": gn3d["packed"]}
+    if slam13["errors"]:
+        fail(f"SLAM occupancy: pose-graph work failed: {slam13['errors'][:3]}")
+    if k3_prob != k3 or k3_prob != assemblies + gn3d["serial"] + gn3d["packed"] or assemblies == 0 or gn3d["packed"] == 0:
+        fail(f"SLAM occupancy: K3 launches {k3} ({k3_prob} in probability mode) for {paths}")
+    if k4 != score_sums or score_sums == 0:
+        fail(f"SLAM occupancy: {k4} K4 launches for {score_sums} score_sum calls")
+    if not rounds or max(r["n"] for r in rounds) < 2 or pg13.batched_fallbacks:
+        fail(f"SLAM occupancy: {len(rounds)} batched rounds, {pg13.batched_fallbacks} fallbacks to the serial path")
+    submap = local.active_submaps.matching_submap
+    if submap is None or not bool(submap.high_resolution_grid.known.any()):
+        fail("SLAM occupancy: the matching submap has no known cells")
+    if not slam13["finite"] or slam13["inter"] == 0:
+        fail(f"SLAM occupancy: {slam13['inter']} INTER constraints, finite {slam13['finite']}")
+    if not slam13["late_global"] < slam13["late_local"] / 2:
+        fail(f"SLAM occupancy: the returning tail's global error {slam13['late_global']:.5f} m is not below half its "
+             f"open-loop error {slam13['late_local']:.5f} m")
+    for key, jax_err in (("late_global", JAX_SLAM13_LATE_GLOBAL), ("median_global", JAX_SLAM13_MEDIAN_GLOBAL),
+                         ("max_global", JAX_SLAM13_MAX_GLOBAL)):
+        if slam13[key] > max(2 * jax_err, jax_err + 0.05):
+            fail(f"SLAM occupancy: {key} error {slam13[key]:.5f} m exceeds max(2 x, +0.05 m) of the JAX package's "
+                 f"{jax_err:.5f}")
+    parity = [r["parity"] for r in rounds if r["parity"] is not None]
+    if not parity or not all(p[0] for p in parity):
+        fail(f"SLAM occupancy: round parity with the serial path failed: {[p[:3] for p in parity]}")
+    n_cand = [r["n"] for r in rounds]
+    round_ms = np.array([r["s"] for r in rounds]) * 1e3
+    lat13, lat12 = np.array(slam13["latencies"]) * 1e3, np.array(slam12_latencies) * 1e3
+    print(f"SLAM 3D occupancy (PROBABILITY_GRID, batched): {slam13['nodes']} nodes, {slam13['submaps']} submaps "
+          f"({slam13['finished']} finished), {slam13['inter']} INTER constraints; {len(rounds)} batched rounds, "
+          f"candidates per round median {np.median(n_cand):.1f}, max {max(n_cand)}; fallbacks "
+          f"{pg13.batched_fallbacks}; per round median {np.median(round_ms):.3f} ms, p95 "
+          f"{np.percentile(round_ms, 95):.3f} ms (phase 12 in this run: {np.median(round12_ms):.3f} / "
+          f"{np.percentile(round12_ms, 95):.3f} ms); K3 launches {k3}, all in probability mode = {assemblies} CT "
+          f"assemblies + {gn3d['serial']} serial GN3D + {gn3d['packed']} packed GN3D; K4 launches {k4} = score_sum "
+          f"calls {score_sums}; {len(parity)} rounds re-run serially: max |dt| {max(p[1] for p in parity):.3e} m, "
+          f"max 1-|dq0| {max(p[2] for p in parity):.3e}; returning tail local {slam13['late_local']:.5f} m, global "
+          f"{slam13['late_global']:.5f} m; global median {slam13['median_global']:.5f} m, max "
+          f"{slam13['max_global']:.5f} m (JAX on the CPU {JAX_SLAM13_LATE_GLOBAL:.5f} / {JAX_SLAM13_MEDIAN_GLOBAL:.5f} / "
+          f"{JAX_SLAM13_MAX_GLOBAL:.5f}); per-scan latency median {np.median(lat13):.3f} ms, p95 "
+          f"{np.percentile(lat13, 95):.3f} ms over {len(lat13)} scans (phase 12 in this run: {np.median(lat12):.3f} / "
+          f"{np.percentile(lat12, 95):.3f} ms); drive {slam13['front_s']:.1f} s, queue drained "
+          f"{slam13['drain_s']:.1f} s after", flush=True)
+    return paths, {"slam13_batched": k4}
 
 
 def main() -> int:
@@ -1743,6 +1898,25 @@ def main() -> int:
     # A block loops over chunks of points only past 512 points a cloud.
     check_ct_scan_block(ct_kernel_inputs(device, hi, lo, scan_pts, c=4, p=1024), "chunks", timed=False)
     del hi, lo
+    # K3's probability mode on occupancy maps of the same scans, the same
+    # shapes, 16 points of each cloud outside both grids (the pad taps);
+    # slotted over three grid pairs (three, two and one scans inserted).
+    pairs = [ct_production_probability_grids(device, n) for n in (3, 2, 1)]
+    hi, lo = pairs[0]
+    checks["ct_scan_block"].update({
+        "prob_front_end": check_ct_scan_block(ct_kernel_inputs(device, hi, lo, scan_pts, outside=16),
+                                              "prob_front_end"),
+        "prob_gn3d": check_ct_scan_block(ct_kernel_inputs(device, hi, lo, scan_pts, c=1, outside=16), "prob_gn3d"),
+    })
+    check_ct_scan_block(ct_kernel_inputs(device, hi, lo, scan_pts, c=4, p=1024, outside=16), "prob_chunks",
+                        timed=False)
+    a = ct_kernel_inputs(device, hi, lo, scan_pts, c=4, outside=16)
+    slots = grid_slots([h for h, _ in pairs], [l for _, l in pairs])
+    checks["ct_scan_block"]["prob_gn3d_packed"] = check_k3_slots(
+        (slots, torch.tensor([0, 1, 2, 0], dtype=torch.int32, device=device), *a[2:10]), "prob_gn3d_packed")
+    if ct_scan_block.prob_launches == 0 or ct_scan_block_slots.prob_launches == 0:
+        fail("phase 7: K3 did not launch in probability mode")
+    del hi, lo, pairs, slots, a
 
     # Phase 8: the window solve on the production-extent fixture.
     run_ct_window(device)
@@ -1783,7 +1957,7 @@ def main() -> int:
     ct_scan_block.launches = 0
     window_solver.solve_ct_window_block.assemblies = 0
     slam = run_slam(device)
-    del slam["pose_graph"]
+    del slam["pose_graph"], slam["local_builder"]
     launches["fast_scores_3d"] = fast_scores_3d.launches
     score_sums = fast_correlative_3d.match_fast_3d.score_sums
     # Only the window solve and GN3D call K3: the solve once per assembly.
@@ -1820,9 +1994,15 @@ def main() -> int:
           f"{slam['front_s']:.1f} s, queue drained {slam['drain_s']:.1f} s after", flush=True)
 
     # Phase 12: the same drive with the default batched constraint search.
-    k4_paths, k3_paths["slam_gn3d_packed"], shapes12 = run_phase_12(device, slam, launches["fast_scores_3d"])
+    k4_paths, k3_paths["slam_gn3d_packed"], shapes12, (lat12, round12_ms) = run_phase_12(
+        device, slam, launches["fast_scores_3d"])
     checks["fast_scores_3d"].update(shapes12["fast_scores_3d"])
     checks["ct_scan_block"].update(shapes12["ct_scan_block"])
+
+    # Phase 13: the same drive and search on the default occupancy submaps.
+    k3_paths13, k4_paths13 = run_phase_13(device, lat12, round12_ms)
+    k3_paths.update(k3_paths13)
+    k4_paths.update(k4_paths13)
 
     sources = {
         "correlative_prep_2d": ("hectorgrapher_tpu_torch/csrc/correlative_prep_2d.cu",
@@ -1838,9 +2018,10 @@ def main() -> int:
     }
     # Each kernel's record at its main-path shape (K1 and K2 at B=1024, K3
     # at the CT front end's, K4 at the coarse stage's), its other shapes
-    # under "shapes"; launches from its main path's run (K1, K2: phase 6;
-    # K3: phase 9, with phases 11 and 12 under "launches_by_path"; K4:
-    # phase 11, with phase 12 beside it under "launches_by_path").
+    # under "shapes" (K3's probability mode under prob_*); launches from
+    # its main path's run (K1, K2: phase 6; K3: phase 9, with phases 11-13
+    # under "launches_by_path", slam13_* all in probability mode; K4: phase
+    # 11, with phases 12 and 13 beside it under "launches_by_path").
     main_shape = {"correlative_prep_2d": "batched", "correlative_scores_2d": "batched",
                   "ct_scan_block": "front_end", "fast_scores_3d": "coarse"}
     kernels = []

@@ -37,20 +37,27 @@ def grid_meta(meta, device) -> GridMeta:
     )
 
 
+def _f32_or_u16(x, device) -> torch.Tensor:
+    """A grid plane: uint16 codes stay codes, anything else becomes f32."""
+    a = np.asarray(x)
+    return tensor(a, device, torch.uint16 if a.dtype == np.uint16 else torch.float32)
+
+
 def probability_grid(grid, device) -> ProbabilityGrid:
-    """A JAX ProbabilityGrid (f32 log_odds, bool known, meta)."""
+    """A JAX ProbabilityGrid, 2D or 3D (f32 log_odds or uint16 codes, bool
+    known, meta)."""
     return ProbabilityGrid(
-        log_odds=tensor(grid.log_odds, device, torch.float32),
+        log_odds=_f32_or_u16(grid.log_odds, device),
         known=tensor(grid.known, device, torch.bool),
         meta=grid_meta(grid.meta, device),
     )
 
 
 def tsdf_grid(grid, device) -> TSDFGrid:
-    """A JAX TSDFGrid with float32 storage."""
+    """A JAX TSDFGrid: float32 storage, or uint16 codes as they are."""
     return TSDFGrid(
-        tsd=tensor(grid.tsd, device, torch.float32),
-        weight=tensor(grid.weight, device, torch.float32),
+        tsd=_f32_or_u16(grid.tsd, device),
+        weight=_f32_or_u16(grid.weight, device),
         truncation_distance=tensor(grid.truncation_distance, device, torch.float32),
         max_weight=tensor(grid.max_weight, device, torch.float32),
         meta=grid_meta(grid.meta, device),
@@ -101,15 +108,23 @@ def np_rigid3(pose) -> NpRigid3:
     return NpRigid3(np.array(pose.t, np.float64), np.array(pose.q, np.float64))
 
 
+def grid_3d(grid, device):
+    """A JAX 3D submap grid of either type (ProbabilityGrid or TSDFGrid,
+    told apart by their fields)."""
+    return probability_grid(grid, device) if hasattr(grid, "log_odds") else tsdf_grid(grid, device)
+
+
 def submap_3d(submap, device) -> Submap3D:
-    """A JAX Submap3D with float32 TSDF grids, finished or not."""
+    """A JAX Submap3D, finished or not, with grids of either type, f32 or
+    uint16-quantized."""
     return Submap3D(
         local_pose=np_rigid3(submap.local_pose),
-        high_resolution_grid=tsdf_grid(submap.high_resolution_grid, device),
-        low_resolution_grid=tsdf_grid(submap.low_resolution_grid, device),
+        high_resolution_grid=grid_3d(submap.high_resolution_grid, device),
+        low_resolution_grid=grid_3d(submap.low_resolution_grid, device),
         rotational_histogram=np.array(submap.rotational_histogram, np.float32),
         num_range_data=int(submap.num_range_data),
         insertion_finished=bool(submap.insertion_finished),
+        quantize_on_finish=bool(getattr(submap, "quantize_on_finish", False)),
     )
 
 

@@ -2,10 +2,11 @@
 //
 // Replaces the XLA fusion of hectorgrapher_tpu/mapping/ct/window_solver.py
 // scan_block (:467-513) plus the per-block einsums of _make_ct_assemble
-// (:611-613), over the 3D TSDF stencil of
-// hectorgrapher_tpu/mapping/scan_matching/interpolated_grid.py (:332-466).
-// It has no Pallas source: on the TPU this is one XLA fusion per LM
-// iteration.
+// (:611-613), over the 3D stencils of
+// hectorgrapher_tpu/mapping/scan_matching/interpolated_grid.py (:332-466):
+// the weighted TSDF (TSDF mode) or the occupancy probability (probability
+// mode, prob_value_and_dfrac :462-466). It has no Pallas source: on the
+// TPU this is one XLA fusion per LM iteration.
 //
 // For cloud c with interpolated pose (t, q) = pose7[c] and its Jacobian
 // dpose7[c] (7 x 18) on the cloud's control-point pair tangent, each point
@@ -13,9 +14,13 @@
 // gives:
 //   world  = R(q) p + t                         (the 15-mul quat_rotate)
 //   u      = ((world - min_corner) / res) - 0.5; base = floor(u), f = u - base
-//   the 2x2x2 stencil of w and w*tsd, interior cells only (else unknown),
-//   blended in x and y per z, then in z, with d/df (_field_and_dfrac);
-//   val    = (w*tsd)/w where w > 1e-6 (else 0), d/df by the quotient rule;
+//   TSDF mode: the 2x2x2 stencil of w and w*tsd, interior cells only
+//   (else unknown), blended in x and y per z, then in z, with d/df
+//   (_field_and_dfrac); val = (w*tsd)/w where w > 1e-6 (else 0), d/df by
+//   the quotient rule;
+//   probability mode: the stencil of the prepared probability field p,
+//   interior cells only (else eight MIN_PROBABILITY taps, JAX's pad row),
+//   blended the same way; val = 1 - p, d/df = -dp/df;
 //   row7   = [dval/dworld = dval/df / res, dval/dworld . dR(q)p/dq];
 //   J      = row7 @ dpose7 * s, r = val * s   (s = scale[c] where masked in)
 // and the block sums S = J^T J (18 x 18), g = J^T r, cost = 0.5 sum r^2.
@@ -49,7 +54,12 @@
 // the same cells as the plain version (ROADMAP C0): every multiply, add,
 // subtract and divide is a round-to-nearest intrinsic, and the library is
 // built with --fmad=false. The rest follows the plain version's order
-// too, except that the sums over points run by slice.
+// too, except that the sums over points run by slice. Probability mode
+// reads one 4-byte field where TSDF mode reads two (the field is built
+// once per grid version by prepare_grid_3d, not here: computing exp per
+// tap would read 5 bytes a cell and tie the result to the rounding of
+// expf); a point outside the interior does not return early but blends
+// the pad taps, so its cost matches the JAX package's.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,6 +75,7 @@ constexpr int kRow = 19;  // 18 Jacobian entries + the residual; odd stride
 constexpr int kRow7 = 9;  // row7, the residual and the scale of a point
 constexpr int kUpper = 171;  // 18 * 19 / 2
 constexpr int kOut = kUpper + 18 + 1;  // a block's sums: S's upper triangle, g, the cost
+constexpr float kMinProbability = 0.1f;  // probability_values.MIN_PROBABILITY: the pad taps
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -78,8 +89,8 @@ __device__ __forceinline__ void cross3(const float a[3], const float b[3], float
 }
 
 struct Grid {
-  const float* tsd;
-  const float* weight;
+  const float* tsd;  // probability mode: the prepared probability field
+  const float* weight;  // probability mode: unused
   int nx, ny, nz;
   float mc[3];  // min_corner and resolution: read from the device by the kernel
   float res;
@@ -105,6 +116,7 @@ __device__ __forceinline__ void field_and_dfrac(const float r[4][2], float fx, f
 }
 
 // Residual (unscaled) and row7 = [dval/dworld, dval/dq] of one point.
+template <bool kProb>
 __device__ __forceinline__ void point_row7(const Grid& grid, const float q[4], const float t[3], const float p[3],
                            float& val, float row7[7]) {
   // world = p + 2 * (w * (u x p) + u x (u x p)) + t
@@ -127,31 +139,44 @@ __device__ __forceinline__ void point_row7(const Grid& grid, const float q[4], c
        base[2] < static_cast<float>(grid.nz - 1);
   val = 0.0f;
   for (int k = 0; k < 7; ++k) row7[k] = 0.0f;
-  if (!ok) return;  // unknown: w = 0 everywhere, the gate zeroes value and derivative
+  if (!kProb && !ok) return;  // unknown: w = 0 everywhere, the gate zeroes value and derivative
 
   const size_t ny = grid.ny, nz = grid.nz;
-  const size_t b0 = (static_cast<size_t>(base[0]) * ny + static_cast<size_t>(base[1])) * nz +
-                    static_cast<size_t>(base[2]);
-  float rw[4][2], rt[4][2];
-  for (int c = 0; c < 4; ++c) {
-    const size_t idx = b0 + static_cast<size_t>(c >> 1) * ny * nz + static_cast<size_t>(c & 1) * nz;
-    for (int z = 0; z < 2; ++z) {
-      const float w = __ldg(grid.weight + idx + z);
-      rw[c][z] = w;
-      rt[c][z] = mul(w, __ldg(grid.tsd + idx + z));
-    }
-  }
-  float w, wtsd, dw[3], dwtsd[3];
-  field_and_dfrac(rw, f[0], f[1], f[2], w, dw);
-  field_and_dfrac(rt, f[0], f[1], f[2], wtsd, dwtsd);
-  if (!(w > 1e-6f)) return;
-  const float safe = fmaxf(w, 1e-6f);
-  val = dvd(wtsd, safe);
-  const float safe2 = mul(safe, safe);
+  const size_t b0 = ok ? (static_cast<size_t>(base[0]) * ny + static_cast<size_t>(base[1])) * nz +
+                             static_cast<size_t>(base[2])
+                       : 0;
   float dvw[3];
-  for (int i = 0; i < 3; ++i) {
-    const float dv = dvd(sub(mul(dwtsd[i], safe), mul(wtsd, dw[i])), safe2);
-    dvw[i] = dvd(dv, grid.res);
+  if (kProb) {
+    float r[4][2];
+    for (int c = 0; c < 4; ++c) {
+      const size_t idx = b0 + static_cast<size_t>(c >> 1) * ny * nz + static_cast<size_t>(c & 1) * nz;
+      for (int z = 0; z < 2; ++z) r[c][z] = ok ? __ldg(grid.tsd + idx + z) : kMinProbability;
+    }
+    float prob, dp[3];
+    field_and_dfrac(r, f[0], f[1], f[2], prob, dp);
+    val = sub(1.0f, prob);
+    for (int i = 0; i < 3; ++i) dvw[i] = dvd(-dp[i], grid.res);
+  } else {
+    float rw[4][2], rt[4][2];
+    for (int c = 0; c < 4; ++c) {
+      const size_t idx = b0 + static_cast<size_t>(c >> 1) * ny * nz + static_cast<size_t>(c & 1) * nz;
+      for (int z = 0; z < 2; ++z) {
+        const float w = __ldg(grid.weight + idx + z);
+        rw[c][z] = w;
+        rt[c][z] = mul(w, __ldg(grid.tsd + idx + z));
+      }
+    }
+    float w, wtsd, dw[3], dwtsd[3];
+    field_and_dfrac(rw, f[0], f[1], f[2], w, dw);
+    field_and_dfrac(rt, f[0], f[1], f[2], wtsd, dwtsd);
+    if (!(w > 1e-6f)) return;
+    const float safe = fmaxf(w, 1e-6f);
+    val = dvd(wtsd, safe);
+    const float safe2 = mul(safe, safe);
+    for (int i = 0; i < 3; ++i) {
+      const float dv = dvd(sub(mul(dwtsd[i], safe), mul(wtsd, dw[i])), safe2);
+      dvw[i] = dvd(dv, grid.res);
+    }
   }
 
   // D = dR(q)p/dq (3 x 4): column 0 = 2 (w p + v x p); column 1 + i =
@@ -184,8 +209,9 @@ __device__ __forceinline__ void point_row7(const Grid& grid, const float q[4], c
 
 // kSlotted: the cloud's grids are those of slot[c] (pointers from
 // grid_ptrs, parameters from gparams' row); otherwise hi and lo, with
-// gparams' one row.
-template <bool kSlotted>
+// gparams' one row. kProb: probability mode (each grid's tsd pointer is
+// its prepared probability field; weight is not read).
+template <bool kSlotted, bool kProb>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 ct_scan_block_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_ptrs, const int* __restrict__ slot,
                      const float* __restrict__ gparams, const float* __restrict__ hi_pts,
@@ -268,7 +294,7 @@ ct_scan_block_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_ptrs, co
                         is_hi ? hi.ny : lo.ny, is_hi ? hi.nz : lo.nz,
                         {is_hi ? gp[0] : gp[4], is_hi ? gp[1] : gp[5], is_hi ? gp[2] : gp[6]},
                         is_hi ? gp[3] : gp[7]};
-        point_row7(grid, q, t, p, val, row7);
+        point_row7<kProb>(grid, q, t, p, val, row7);
         s = is_hi ? hi_scale[c] : lo_scale[c];
       }
       float* dst = row7s + tid * kRow7;
@@ -323,43 +349,56 @@ ct_scan_block_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_ptrs, co
   cluster.sync();
 }
 
+// Launch the kernel in the mode `prob` names (host side of both entries).
+template <bool kSlotted, typename... Args>
+int launch(int prob, int c, void* stream, Args... args) {
+  const dim3 grid(kCluster, c);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (prob) {
+    ct_scan_block_kernel<kSlotted, true><<<grid, kThreads, 0, s>>>(args...);
+  } else {
+    ct_scan_block_kernel<kSlotted, false><<<grid, kThreads, 0, s>>>(args...);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // hi_tsd, hi_weight (hnx, hny, hnz) and lo_tsd, lo_weight (lnx, lny, lnz)
-// f32; gparams (8,) f32 on the device [hi min_corner (3), hi resolution,
-// lo min_corner (3), lo resolution]; hi_pts (C, P_hi, 3) f32, hi_mask
-// (C, P_hi) bool, likewise lo; pose7 (C, 7), dpose7 (C, 7, 18), hi_scale,
-// lo_scale (C,) f32. Writes S (C, 18, 18), g (C, 18), cost (C,) f32.
-// Returns the launch's cudaGetLastError().
+// f32, or with prob != 0 the prepared probability fields in hi_tsd and
+// lo_tsd (the weights unused, may be null); gparams (8,) f32 on the device
+// [hi min_corner (3), hi resolution, lo min_corner (3), lo resolution];
+// hi_pts (C, P_hi, 3) f32, hi_mask (C, P_hi) bool, likewise lo; pose7
+// (C, 7), dpose7 (C, 7, 18), hi_scale, lo_scale (C,) f32. Writes S (C, 18,
+// 18), g (C, 18), cost (C,) f32. Returns the launch's cudaGetLastError().
 extern "C" int hg_ct_scan_block(const float* hi_tsd, const float* hi_weight, const float* lo_tsd,
                                 const float* lo_weight, const float* gparams, const float* hi_pts,
                                 const uint8_t* hi_mask, const float* lo_pts, const uint8_t* lo_mask,
                                 const float* pose7, const float* dpose7, const float* hi_scale,
                                 const float* lo_scale, float* S, float* g, float* cost, int c, int p_hi, int p_lo,
-                                int hnx, int hny, int hnz, int lnx, int lny, int lnz, void* stream) {
+                                int hnx, int hny, int hnz, int lnx, int lny, int lnz, int prob, void* stream) {
   const Grid hi{hi_tsd, hi_weight, hnx, hny, hnz, {0.0f, 0.0f, 0.0f}, 0.0f};
   const Grid lo{lo_tsd, lo_weight, lnx, lny, lnz, {0.0f, 0.0f, 0.0f}, 0.0f};
-  ct_scan_block_kernel<false><<<dim3(kCluster, c), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      hi, lo, nullptr, nullptr, gparams, hi_pts, hi_mask, lo_pts, lo_mask, pose7, dpose7, hi_scale, lo_scale, S, g,
-      cost, p_hi, p_lo);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(prob, c, stream, hi, lo, static_cast<const int64_t*>(nullptr), static_cast<const int*>(nullptr),
+                       gparams, hi_pts, hi_mask, lo_pts, lo_mask, pose7, dpose7, hi_scale, lo_scale, S, g, cost, p_hi,
+                       p_lo);
 }
 
 // The slotted form: grid_ptrs (D, 4) int64 device pointers [hi_tsd,
 // hi_weight, lo_tsd, lo_weight] of D submaps whose hi volumes are all
-// (hnx, hny, hnz) f32 and lo volumes (lnx, lny, lnz) f32; gparams (D, 8)
-// f32, one row per submap; slot (C,) int32 in [0, D): cloud c's submap.
-// The other arguments and the outputs as hg_ct_scan_block's.
+// (hnx, hny, hnz) f32 and lo volumes (lnx, lny, lnz) f32 (with prob != 0,
+// entries 0 and 2 are the hi and lo probability fields and 1 and 3 are
+// unused); gparams (D, 8) f32, one row per submap; slot (C,) int32 in [0,
+// D): cloud c's submap. The other arguments and the outputs as
+// hg_ct_scan_block's.
 extern "C" int hg_ct_scan_block_slots(const int64_t* grid_ptrs, const int* slot, const float* gparams,
                                       const float* hi_pts, const uint8_t* hi_mask, const float* lo_pts,
                                       const uint8_t* lo_mask, const float* pose7, const float* dpose7,
                                       const float* hi_scale, const float* lo_scale, float* S, float* g, float* cost,
                                       int c, int p_hi, int p_lo, int hnx, int hny, int hnz, int lnx, int lny, int lnz,
-                                      void* stream) {
+                                      int prob, void* stream) {
   const Grid hi{nullptr, nullptr, hnx, hny, hnz, {0.0f, 0.0f, 0.0f}, 0.0f};
   const Grid lo{nullptr, nullptr, lnx, lny, lnz, {0.0f, 0.0f, 0.0f}, 0.0f};
-  ct_scan_block_kernel<true><<<dim3(kCluster, c), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      hi, lo, grid_ptrs, slot, gparams, hi_pts, hi_mask, lo_pts, lo_mask, pose7, dpose7, hi_scale, lo_scale, S, g,
-      cost, p_hi, p_lo);
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(prob, c, stream, hi, lo, grid_ptrs, slot, gparams, hi_pts, hi_mask, lo_pts, lo_mask, pose7,
+                      dpose7, hi_scale, lo_scale, S, g, cost, p_hi, p_lo);
 }

@@ -7,7 +7,8 @@ control points. On each scan it filters the scan into hi- and lo-res
 clouds, places control points (CONSTANT / SYNCED_WITH_RANGE_DATA /
 ADAPTIVE), solves the window (window_solver.py, through kernel K3),
 marginalizes the clouds that leave the ct_window_horizon, and inserts the
-accumulated scan into the active TSDF submaps with a rotational histogram.
+accumulated scan into the active submaps (occupancy, the default, or TSDF)
+with a rotational histogram.
 
 Host/device split, as in the JAX package: the streaming state (deques,
 extrapolator, control-point bookkeeping) is numpy on the host; the
@@ -163,8 +164,9 @@ class InsertionResult:
 class PendingWindowSolve:
     """One ready window solve, split from its writeback."""
 
-    high_grid: object
+    high_grid: object  # the matching submap's prepared grids (Submap3D.prepared_grids)
     low_grid: object
+    is_tsdf: bool
     problem: CtProblem
     state0: CtState
     weights: CtWeights
@@ -530,9 +532,11 @@ class OptimizingLocalTrajectoryBuilder:
         state0 = CtState(dev.pop("translation"), dev.pop("rotation"), dev.pop("velocity"))
         weights = CtWeights(*dev.pop("weights").unbind())
         submap = self._active_submaps.matching_submap
+        high_grid, low_grid = submap.prepared_grids()
         return PendingWindowSolve(
-            high_grid=submap.high_resolution_grid,
-            low_grid=submap.low_resolution_grid,
+            high_grid=high_grid,
+            low_grid=low_grid,
+            is_tsdf=self._active_submaps.is_tsdf,
             problem=CtProblem(**dev),
             state0=state0,
             weights=weights,
@@ -548,7 +552,7 @@ class OptimizingLocalTrajectoryBuilder:
             pending.problem,
             pending.state0,
             pending.weights,
-            is_tsdf=True,
+            is_tsdf=pending.is_tsdf,
             num_iterations=pending.num_iterations,
         )
         return solved

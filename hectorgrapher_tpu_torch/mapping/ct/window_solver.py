@@ -4,7 +4,8 @@ optimizing_local_trajectory_builder.cc MaybeOptimize:1114-1290 and the
 cost functors under internal/3d/scan_matching/).
 
 One LM solve of K control points (translation, rotation, velocity) against
-the matching submap's hi- and lo-resolution TSDF grids:
+the matching submap's hi- and lo-resolution grids, TSDF or occupancy
+(is_tsdf; the JAX package picks prob_value_and_dfrac at is_tsdf=False):
 
   * scan-match residuals per cloud, the cloud pose slerp/lerp-interpolated
     between its two bracketing control points. The per-cloud blocks
@@ -23,10 +24,14 @@ Every block touches two control points, so its Jacobian lives on an
 equations with matmuls, in a fixed order (no scatter-add atomics: the LM
 accept test compares costs).
 
-Per-scan TSDF mode only. Per-point unwarping, the DIRECT IMU term, the
-probability-grid path, the batched multi-window solve and
-unwarp_and_accumulate are not ported; the solver raises
-NotImplementedError on the first three.
+The grids are prepared once per solve (prepare_grid_3d, window_solver.py
+:667-668): an occupancy grid becomes its probability field, which K3's
+probability mode reads; a caller that holds prepared grids
+(Submap3D.prepared_grids) passes them as they are.
+
+Per-scan mode only. Per-point unwarping, the DIRECT IMU term, the batched
+multi-window solve and unwarp_and_accumulate are not ported; the solver
+raises NotImplementedError on the first two.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import _lm_drive
+from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import PreparedProb3D, prepare_grid_3d
 from hectorgrapher_tpu_torch.ops.ct_scan_block import ct_scan_block, grid_params
 from hectorgrapher_tpu_torch.transform.rigid import (
     Rigid3,
@@ -302,8 +308,6 @@ def make_ct_block_families(high_grid, low_grid, problem: CtProblem, weights: CtW
     scan_block returns pre-reduced blocks (S (C, 18, 18), g (C, 18), cost,
     idx (C, 18)) from kernel K3; pair_block returns raw blocks (J (K-1, 15,
     18), r (K-1, 15), idx (K-1, 18))."""
-    if not is_tsdf:
-        raise NotImplementedError("the probability-grid window solve is not ported")
     if per_point:
         raise NotImplementedError("per-point unwarping is not ported")
     if direct is not None:
@@ -320,6 +324,9 @@ def make_ct_block_families(high_grid, low_grid, problem: CtProblem, weights: CtW
     scan_idx = _pair_index(problem.cloud_prev.long(), problem.cloud_next.long())
     pairs = torch.arange(problem.pair_mask.shape[0], device=problem.pair_mask.device)
     pair_idx = _pair_index(pairs, pairs + 1)
+    high_grid, low_grid = prepare_grid_3d(high_grid), prepare_grid_3d(low_grid)
+    if is_tsdf == isinstance(high_grid, PreparedProb3D):
+        raise ValueError(f"is_tsdf={is_tsdf} with a {type(high_grid).__name__} grid")
     gparams = grid_params(high_grid, low_grid)
 
     def scan_block(state: CtState):

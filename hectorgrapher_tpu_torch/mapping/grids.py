@@ -7,8 +7,11 @@ Conventions, as in the JAX package:
   * cell_center = min_corner + (i + 0.5) * resolution.
   * Arrays are indexed [ix, iy] or [ix, iy, iz].
 
-TSDF grids store float32 only: the JAX package's uint16 codec and f16/bf16
-storage options are not ported.
+Occupancy grids (2D and 3D) store float32 log-odds and a known mask; TSDF
+grids float32 (tsd, weight). A finished 3D submap may hold either as the
+JAX package's uint16 codes (quantize_*_grid), which ensure_f32_grid
+decodes before any consumer reads them. The f16/bf16 storage options are
+not ported.
 """
 
 from __future__ import annotations
@@ -70,10 +73,10 @@ def flat_index(indices, shape):
 
 
 class ProbabilityGrid(NamedTuple):
-    """Occupancy grid: log-odds + known mask."""
+    """Occupancy grid, 2D or 3D: log-odds + known mask."""
 
-    log_odds: torch.Tensor  # (nx, ny) f32
-    known: torch.Tensor  # (nx, ny) bool
+    log_odds: torch.Tensor  # (nx, ny[, nz]) f32, or uint16 codes (quantize_probability_grid)
+    known: torch.Tensor  # same shape, bool
     meta: GridMeta
 
     @property
@@ -125,3 +128,76 @@ def make_tsdf_grid(
         max_weight=torch.tensor(max_weight, dtype=torch.float32, device=device),
         meta=make_meta(resolution, size_cells, device, center),
     )
+
+
+# ---------------------------------------------------------------------------
+# uint16 storage (grids.py :169-233 of the JAX package): a bounded value
+# range mapped linearly onto codes 1..65535, code 0 for "unknown". Codes
+# are torch.uint16, which supports little arithmetic: every computation
+# goes through int32 or float32.
+# ---------------------------------------------------------------------------
+
+_QUANT_LEVELS = 65534  # codes 1..65535 span the value range; 0 = unknown
+
+
+def _encode_u16(values, lo, hi, known):
+    """Linear [lo, hi] -> uint16 codes 1..65535; unknown -> 0. torch.round
+    rounds half to even, as jnp.round does."""
+    span = torch.clamp(torch.as_tensor(hi - lo, dtype=torch.float32), min=1e-12)
+    t = torch.clamp((values - lo) / span, 0.0, 1.0)
+    code = (torch.round(t * _QUANT_LEVELS) + 1.0).to(torch.int32)
+    return torch.where(known, code, 0).to(torch.uint16)
+
+
+def _decode_u16(codes, lo, hi, unknown_value):
+    c = codes.to(torch.int32)
+    t = (c.to(torch.float32) - 1.0) / _QUANT_LEVELS
+    return torch.where(c > 0, lo + t * (hi - lo), unknown_value)
+
+
+def quantize_tsdf_grid(grid: TSDFGrid) -> TSDFGrid:
+    """f32 (tsd, weight) -> uint16 codes: tsd spans [-td, td], weight [0,
+    max_weight]; weight code 0 keeps weight == 0 as the unknown mark."""
+    if grid.tsd.dtype == torch.uint16:
+        return grid
+    td = grid.truncation_distance
+    known = grid.weight > 0
+    return grid._replace(
+        tsd=_encode_u16(grid.tsd.to(torch.float32), -td, td, known),
+        weight=_encode_u16(grid.weight.to(torch.float32), 0.0, grid.max_weight, known),
+    )
+
+
+def dequantize_tsdf_grid(grid: TSDFGrid) -> TSDFGrid:
+    if grid.tsd.dtype != torch.uint16:
+        return grid
+    td = grid.truncation_distance
+    return grid._replace(
+        tsd=_decode_u16(grid.tsd, -td, td, td),
+        weight=_decode_u16(grid.weight, 0.0, grid.max_weight, 0.0),
+    )
+
+
+def quantize_probability_grid(grid: ProbabilityGrid) -> ProbabilityGrid:
+    """f32 log-odds -> one uint16 code plane in log_odds (the clamped
+    probability in [MIN, MAX] on codes 1..65535, 0 = unknown); known stays."""
+    if grid.log_odds.dtype == torch.uint16:
+        return grid
+    p = pv.clamp_probability(pv.probability_from_log_odds(grid.log_odds))
+    return grid._replace(log_odds=_encode_u16(p, pv.MIN_PROBABILITY, pv.MAX_PROBABILITY, grid.known))
+
+
+def dequantize_probability_grid(grid: ProbabilityGrid) -> ProbabilityGrid:
+    if grid.log_odds.dtype != torch.uint16:
+        return grid
+    p = _decode_u16(grid.log_odds, pv.MIN_PROBABILITY, pv.MAX_PROBABILITY, 0.5)
+    return grid._replace(log_odds=pv.log_odds(torch.clamp(p, 1e-6, 1 - 1e-6)))
+
+
+def ensure_f32_grid(grid):
+    """A uint16-coded grid decoded to float32; any other grid as it is."""
+    if isinstance(grid, TSDFGrid):
+        return dequantize_tsdf_grid(grid)
+    if isinstance(grid, ProbabilityGrid):
+        return dequantize_probability_grid(grid)
+    return grid

@@ -1,6 +1,14 @@
-"""3D TSDF range-data insertion (counterpart of the TSDF part of
-hectorgrapher_tpu/mapping/inserters_3d.py; ref:
-mapping/3d/tsdf_range_data_inserter_3d.cc — ray-directed updates
+"""3D range-data insertion (counterpart of hectorgrapher_tpu/mapping/
+inserters_3d.py, its occupancy and ray-mode TSDF parts).
+
+Occupancy (ref: mapping/3d/range_data_inserter_3d.cc Insert +
+InsertMissesIntoGrid): one odds update per hit cell, misses only on the
+last num_free_space_voxels samples before each hit, a hit winning over a
+miss in the same cell. Both are set-scatters of a constant into a mask,
+so the card's result is deterministic and equal to the JAX package's bit
+for bit.
+
+TSDF (ref: mapping/3d/tsdf_range_data_inserter_3d.cc — ray-directed updates
 (InsertHit, :294) with exponential weight drop-off behind the surface
 (:333-341), weighted-average cell update (UpdateCell, :725),
 insertion_ratio subsampling).
@@ -19,9 +27,12 @@ PCA, triangle fill-in) raise NotImplementedError.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from hectorgrapher_tpu_torch.mapping.grids import TSDFGrid, cell_center, cell_index, flat_index
+from hectorgrapher_tpu_torch.mapping import probability_values as pv
+from hectorgrapher_tpu_torch.mapping.grids import ProbabilityGrid, TSDFGrid, cell_center, cell_index, flat_index
 from hectorgrapher_tpu_torch.sensor.types import RangeData
 
 
@@ -35,6 +46,69 @@ def insertion_ratio_mask(valid, ratio: float):
     kept_before = torch.floor(ratio * (c - 1).to(torch.float32))
     kept_incl = torch.floor(ratio * c.to(torch.float32))
     return valid & (kept_incl > kept_before)
+
+
+def insert_probability_3d(
+    grid: ProbabilityGrid,
+    range_data: RangeData,
+    hit_log_odds: float,
+    miss_log_odds: float,
+    num_free_space_voxels: int = 2,
+) -> ProbabilityGrid:
+    """(inserters_3d.py insert_probability_3d :59-111.) Hits: one odds
+    update per hit cell. Misses: the cells origin + (delta * pos) // n of
+    the last num_free_space_voxels sample positions pos < n before each
+    hit, n the hit's Chebyshev cell distance from the origin's cell. Hits
+    take priority over misses in the same scan."""
+    shape = grid.shape
+    hits = range_data.returns.positions
+    valid = range_data.returns.mask
+    hit_idx = cell_index(grid.meta, hits)
+    hit_mask = _scatter_mask3(shape, flat_index(hit_idx, shape), valid)
+    if num_free_space_voxels > 0:
+        origin_cell = cell_index(grid.meta, range_data.origin[None, :])[0]
+        delta = hit_idx - origin_cell[None, :]
+        num_samples = torch.amax(torch.abs(delta), dim=-1)  # (P,)
+        offsets = torch.arange(num_free_space_voxels, dtype=torch.int32, device=hits.device)
+        pos = num_samples[:, None] - num_free_space_voxels + offsets[None, :]
+        pos_valid = (pos >= 0) & (pos < num_samples[:, None]) & valid[:, None]
+        n_safe = torch.clamp(num_samples, min=1)[:, None, None]
+        # delta is negative behind the origin: floor division, as JAX's //.
+        miss_cells = origin_cell + torch.div(delta[:, None, :] * pos[:, :, None], n_safe, rounding_mode="floor")
+        miss_mask = _scatter_mask3(shape, flat_index(miss_cells, shape).reshape(-1), pos_valid.reshape(-1))
+        miss_mask = miss_mask & ~hit_mask
+    else:
+        miss_mask = torch.zeros(shape, dtype=torch.bool, device=hits.device)
+    f32 = dict(dtype=torch.float32, device=hits.device)
+    delta_lo = torch.where(hit_mask, torch.tensor(hit_log_odds, **f32), 0.0) + torch.where(
+        miss_mask, torch.tensor(miss_log_odds, **f32), 0.0)
+    touched = hit_mask | miss_mask
+    return grid._replace(
+        log_odds=torch.where(touched, pv.clamp_log_odds(grid.log_odds + delta_lo), grid.log_odds),
+        known=grid.known | touched,
+    )
+
+
+def _scatter_mask3(shape, flat_idx, valid):
+    """A bool grid of `shape`, True at flat_idx where valid (flat_index
+    sends out-of-grid cells to the drop slot at the end)."""
+    size = math.prod(shape)
+    mask = torch.zeros(size + 1, dtype=torch.bool, device=flat_idx.device)
+    mask[torch.where(valid, flat_idx, size)] = True
+    return mask[:size].reshape(shape)
+
+
+def make_probability_inserter_3d(options):
+    """Bind ProbabilityGridRangeDataInserterOptions3D: the hit and miss
+    log-odds in Python float64, as the JAX package computes them."""
+    hit_lo = math.log(options.hit_probability / (1 - options.hit_probability))
+    miss_lo = math.log(options.miss_probability / (1 - options.miss_probability))
+    k = int(options.num_free_space_voxels)
+
+    def insert(grid: ProbabilityGrid, range_data: RangeData) -> ProbabilityGrid:
+        return insert_probability_3d(grid, range_data, hit_lo, miss_lo, num_free_space_voxels=k)
+
+    return insert
 
 
 def insert_tsdf_3d(

@@ -936,7 +936,7 @@ class PoseGraph3D(PoseGraphBase):
             return None
         cm = cb.ceres_scan_matcher_3d
         refined, _ = match_gn_3d(
-            pg_submap.submap.high_resolution_grid, pg_submap.submap.low_resolution_grid,
+            *pg_submap.submap.prepared_grids(),
             node.high_cloud, node.low_cloud, pose, pose.translation,
             cm.occupied_space_weight_0, cm.occupied_space_weight_1, cm.translation_weight, cm.rotation_weight,
             num_iterations=cm.ceres_solver_options.max_num_iterations,
@@ -953,7 +953,8 @@ class PoseGraph3D(PoseGraphBase):
         but one search configuration for the round: its scan range is the
         largest of its nodes' (the serial path uses each node's own).
         Returns a list of Optional[Constraint] aligned with gated; raises
-        NotImplementedError on mixed candidate shapes, for the serial path.
+        NotImplementedError on mixed candidate shapes or submap grid types,
+        for the serial path.
 
         The JAX package splits the refinement into blocks of at most 8
         distinct submaps (_GN3D_MAX_DISTINCT) to bound its prepared
@@ -975,9 +976,10 @@ class PoseGraph3D(PoseGraphBase):
             {tuple(n.high_cloud.positions.shape) for _, _, n, _ in gated},
             {tuple(n.low_cloud.positions.shape) for _, _, n, _ in gated},
             {np.asarray(n.histogram).shape for _, _, n, _ in gated},
+            {type(p.submap.high_resolution_grid) for _, _, _, p in gated},
         ]
         if any(len(x) != 1 for x in shapes):
-            raise NotImplementedError("mixed candidate shapes")
+            raise NotImplementedError("mixed candidate shapes or grid types")
         scan_range = max(self._scan_range_bucket(n) for _, _, n, _ in gated)
         config = matchers[0].search_config(scan_range, global_search)
 
@@ -1005,8 +1007,8 @@ class PoseGraph3D(PoseGraphBase):
             with self._lock:
                 submap_by_sid = {s.submap_id: s.submap for s in self.submaps}
             distinct = list(dict.fromkeys(gated[i][1] for i in survivors))
-            pack = prepare_gn_pack_3d([submap_by_sid[sid].high_resolution_grid for sid in distinct],
-                                      [submap_by_sid[sid].low_resolution_grid for sid in distinct])
+            grids = [submap_by_sid[sid].prepared_grids() for sid in distinct]
+            pack = prepare_gn_pack_3d([hi for hi, _ in grids], [lo for _, lo in grids])
             lane_d = torch.tensor([distinct.index(gated[i][1]) for i in survivors], dtype=torch.int32,
                                   device=self._device)
             nodes = [gated[i][2] for i in survivors]

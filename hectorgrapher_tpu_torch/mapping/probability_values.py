@@ -19,6 +19,10 @@ MIN_LOG_ODDS = math.log(MIN_PROBABILITY / (1.0 - MIN_PROBABILITY))
 MAX_LOG_ODDS = math.log(MAX_PROBABILITY / (1.0 - MAX_PROBABILITY))
 
 
+def log_odds(probability):
+    return torch.log(probability) - torch.log1p(-probability)
+
+
 def probability_from_log_odds(lo):
     # Spelled out as the JAX package writes it (not torch.sigmoid), so both
     # round the same way.

@@ -29,16 +29,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from hectorgrapher_tpu_torch.mapping.grids import TSDFGrid
+from hectorgrapher_tpu_torch.mapping.grids import ProbabilityGrid, ensure_f32_grid
 from hectorgrapher_tpu_torch.mapping.scan_matching.rotational_histogram import match_histograms
 from hectorgrapher_tpu_torch.ops.fast_scores_3d import fast_scores_3d
 from hectorgrapher_tpu_torch.sensor.types import PointCloud
 from hectorgrapher_tpu_torch.transform.rigid import Rigid3, quat_from_yaw, quat_multiply, quat_rotate
 
 
-def grid_match_scores(grid: TSDFGrid):
-    """Hit-likelihood field in [0.1, 0.9]: 0.9 (1 - |tsd| / truncation),
-    clipped, where the weight is above 1e-6, else 0.1."""
+def grid_match_scores(grid):
+    """Hit-likelihood field in [0.1, 0.9] (fast_correlative_3d.py :36-46),
+    of a grid decoded to f32 first: an occupancy grid's probability
+    (unknown cells 0.1); for a TSDF 0.9 (1 - |tsd| / truncation), clipped,
+    where the weight is above 1e-6, else 0.1."""
+    grid = ensure_f32_grid(grid)
+    if isinstance(grid, ProbabilityGrid):
+        return grid.probability()
     s = 0.9 * (1.0 - torch.abs(grid.tsd) / grid.truncation_distance)
     return torch.where(grid.weight > 1e-6, torch.clamp(s, 0.1, 0.9), 0.1)
 
@@ -325,11 +330,13 @@ class FastCorrelativeScanMatcher3D:
     built once, then searched per candidate node (ref:
     fast_correlative_scan_matcher_3d.h, built by the constraint builder)."""
 
-    def __init__(self, options, high_grid: TSDFGrid, low_grid: TSDFGrid, submap_histogram, histogram_size=120):
+    def __init__(self, options, high_grid, low_grid, submap_histogram, histogram_size=120):
+        """high_grid, low_grid: a submap's grids of either type, f32 or
+        uint16-coded; only their scores, geometry and shape are kept."""
         self._options = options
         self._high_grid = high_grid
         self._low_grid = low_grid
-        self._device = high_grid.tsd.device
+        self._device = high_grid.meta.min_corner.device
         scores = grid_match_scores(high_grid)
         # The full branch-and-bound depth, clamped only by the grid extent:
         # full-submap searches need deeper levels than a local window.

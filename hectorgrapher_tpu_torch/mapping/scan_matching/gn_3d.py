@@ -2,15 +2,20 @@
 hectorgrapher_tpu/mapping/scan_matching/gn_3d.py :88-248, unbatched; ref:
 internal/3d/scan_matching/ceres_scan_matcher_3d.cc).
 
-Residuals: the weight-gated TSDF value of each high-res point against the
-high-res grid (scaled by occupied_space_weight_0 / sqrt(n_hi)) and of each
-low-res point against the low-res grid (weight_1 / sqrt(n_lo)), plus the
-translation and rotation delta penalties. The grid terms are one scan
+Residuals: the match value of each high-res point against the high-res
+grid (scaled by occupied_space_weight_0 / sqrt(n_hi)) and of each low-res
+point against the low-res grid (weight_1 / sqrt(n_lo)), plus the
+translation and rotation delta penalties. The match value is the
+weight-gated TSDF value, or 1 - p over an occupancy grid's probability
+field (gn_3d.py :55-68); the grids go through prepare_grid_3d first, as
+in the JAX package, which decodes uint16 grids and turns an occupancy
+grid into its field (a no-op on grids already prepared, as the pose graph
+passes them from Submap3D.prepared_grids). The grid terms are one scan
 block of the CT window solve: kernel K3 (ops/ct_scan_block.py) gives
 J^T J, J^T r and the cost of both grids' points for a single cloud whose
 pose moves along the 6-dim tangent [dt, dtheta] of the right-multiplied
 boxplus (t + dt, q exp(dtheta)); its plain version reads the grids through
-tsdf_value_and_dfrac_3d, the same eight cells and arithmetic as the JAX
+value_and_dfrac_3d, the same eight cells and arithmetic as the JAX
 z-segment tables. The evaluation at the accepted pose is carried to the
 next iteration, as the JAX loop carries its gathered rows. The penalty's
 Jacobian is analytic where the JAX loop takes jax.jacfwd:
@@ -27,15 +32,17 @@ its submap lane_d[b]), batched 6 x 6 solves, and a per-lane accept; a lane
 that is done freezes, and the loop syncs the host once per iteration, on
 "all lanes done". So a lane's result is the serial match_gn_3d's, up to
 the order of the batched solves' sums. prepare_gn_pack_3d is the
-counterpart of the JAX function of that name: K3 reads the raw TSDF
-volumes, so the pack holds no prepared tables, only the D distinct
-submaps' grids as K3's slot table (grid_slots).
+counterpart of the JAX function of that name: K3 reads the TSDF volumes
+or probability fields in place, so the pack holds no z-segment tables,
+only the D distinct submaps' prepared grids as K3's slot table
+(grid_slots). All of a pack's submaps have one grid type.
 """
 
 from __future__ import annotations
 
 import torch
 
+from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import prepare_grid_3d
 from hectorgrapher_tpu_torch.ops.ct_scan_block import (
     GridSlots,
     ct_scan_block,
@@ -77,9 +84,10 @@ def match_gn_3d(
     num_iterations: int = 10,
     only_optimize_yaw: bool = False,
 ):
-    """Refine initial_pose against the high/low-resolution TSDF pair.
-    Returns (pose, final cost)."""
+    """Refine initial_pose against the high/low-resolution grid pair (TSDF
+    or occupancy, raw or prepared). Returns (pose, final cost)."""
     device = high_cloud.positions.device
+    high_grid, low_grid = prepare_grid_3d(high_grid), prepare_grid_3d(low_grid)
     f32 = dict(dtype=torch.float32, device=device)
     n_hi = torch.clamp(torch.sum(high_cloud.mask), min=1).to(torch.float32)
     n_lo = torch.clamp(torch.sum(low_cloud.mask), min=1).to(torch.float32)
@@ -146,8 +154,8 @@ def match_gn_3d(
 
 def prepare_gn_pack_3d(high_grids, low_grids) -> GridSlots:
     """The D distinct submaps of a packed refinement (high_grids[d],
-    low_grids[d], one shape each) as K3's slot table."""
-    return grid_slots(high_grids, low_grids)
+    low_grids[d], one shape and one grid type each) as K3's slot table."""
+    return grid_slots([prepare_grid_3d(g) for g in high_grids], [prepare_grid_3d(g) for g in low_grids])
 
 
 def match_gn_3d_packed(

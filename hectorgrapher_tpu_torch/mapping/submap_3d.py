@@ -1,24 +1,39 @@
-"""3D submaps: paired high/low-resolution TSDF grids + rotational histogram
-(counterpart of hectorgrapher_tpu/mapping/submap_3d.py, TSDF grids; ref:
+"""3D submaps: paired high/low-resolution grids + rotational histogram
+(counterpart of hectorgrapher_tpu/mapping/submap_3d.py; ref:
 cartographer/mapping/3d/submap_3d.{h,cc} — ActiveSubmaps3D keeps two
-submaps with the 2D spawn/finish cadence, InsertData :492-515).
+submaps with the 2D spawn/finish cadence, InsertData :492-515; the grid
+type switches between PROBABILITY_GRID, the default, and TSDF,
+CreateGrid :516-547).
 
 Grids are fixed-extent dense tensors in the local SLAM frame, centered on
-the submap origin. The probability-grid submaps, the uint16
-quantize-on-finish option and the sampled clip accounting (count_clipped)
-are not ported: the constructor raises on the first two.
+the submap origin. grid_storage_dtype "uint16" quantizes a submap's grids
+when it finishes, as the JAX package does; "float16" and "bfloat16" are
+not ported (ROADMAP A2b) and the constructor raises on them. The sampled
+clip accounting (count_clipped) is not ported.
+
+Submap3D.prepared_grids() is what the scan matchers read (K3 and the
+stencils): the grids decoded to f32, an occupancy grid as its probability
+field. It is cached under the submap's version, which every insertion
+and the finish bump, so a consumer never reads a stale field.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from hectorgrapher_tpu_torch.mapping.grids import TSDFGrid, make_tsdf_grid
-from hectorgrapher_tpu_torch.mapping.inserters_3d import make_tsdf_inserter_3d
+from hectorgrapher_tpu_torch.mapping.grids import (
+    ProbabilityGrid,
+    make_probability_grid,
+    make_tsdf_grid,
+    quantize_probability_grid,
+    quantize_tsdf_grid,
+)
+from hectorgrapher_tpu_torch.mapping.inserters_3d import make_probability_inserter_3d, make_tsdf_inserter_3d
+from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import prepare_grid_3d
 from hectorgrapher_tpu_torch.sensor.types import RangeData
 from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
 
@@ -26,43 +41,81 @@ from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
 @dataclass
 class Submap3D:
     local_pose: NpRigid3  # identity rotation: grids are axis-aligned in the local frame
-    high_resolution_grid: TSDFGrid
-    low_resolution_grid: TSDFGrid
+    high_resolution_grid: object  # ProbabilityGrid | TSDFGrid
+    low_resolution_grid: object
     rotational_histogram: np.ndarray
     num_range_data: int = 0
     insertion_finished: bool = False
+    quantize_on_finish: bool = False
+    version: int = 0  # bumped by every change of the grids
+    _prepared: tuple = field(default=None, repr=False, compare=False)
 
     def finish(self) -> None:
+        """(submap_3d.py Submap3D.finish :41-62.) With uint16 storage the
+        long-lived finished grids become codes; consumers decode them."""
         self.insertion_finished = True
+        if self.quantize_on_finish:
+            for attr in ("high_resolution_grid", "low_resolution_grid"):
+                g = getattr(self, attr)
+                setattr(self, attr, quantize_probability_grid(g) if isinstance(g, ProbabilityGrid)
+                        else quantize_tsdf_grid(g))
+            self.version += 1
+
+    def prepared_grids(self):
+        """(hi, lo) as kernel K3 and the 3D stencils read them
+        (prepare_grid_3d), built once per version (and grid objects, in
+        case a caller replaced a grid without bumping the version). A
+        uint16 submap's are decoded on every call, as the JAX package
+        decodes them per use: caching them would keep the f32 copy that
+        the codes exist to drop."""
+        hi, lo = self.high_resolution_grid, self.low_resolution_grid
+        key = (self.version, id(hi), id(lo))
+        if self._prepared is not None and self._prepared[0] == key:
+            return self._prepared[1]
+        prepared = (prepare_grid_3d(hi), prepare_grid_3d(lo))
+        self._prepared = None if self.quantize_on_finish and self.insertion_finished else (key, prepared)
+        return prepared
 
 
 class ActiveSubmaps3D:
     """(ref: submap_3d.cc ActiveSubmaps3D)"""
 
     def __init__(self, options, device, histogram_size: int = 120):
-        if options.grid_type != "TSDF":
-            raise NotImplementedError(f"grid_type={options.grid_type!r}: only TSDF submaps are ported")
-        if options.grid_storage_dtype != "float32":
-            raise NotImplementedError(f"grid_storage_dtype={options.grid_storage_dtype!r}: only float32 is ported")
+        storage = options.grid_storage_dtype
+        if storage not in ("float32", "uint16"):
+            raise NotImplementedError(f"grid_storage_dtype={storage!r}: half-precision grids are not ported "
+                                      "(ROADMAP A2b); 'float32' and 'uint16' are")
         self._options = options
         self._device = torch.device(device)
         self._histogram_size = histogram_size
         self._submaps: List[Submap3D] = []
+        self._is_tsdf = options.grid_type == "TSDF"
+        self._quantize_on_finish = storage == "uint16"  # active grids compute in f32
         hi_res, lo_res = options.high_resolution, options.low_resolution
-        hi_t = options.high_resolution_range_data_inserter.tsdf_range_data_inserter
-        lo_t = options.low_resolution_range_data_inserter.tsdf_range_data_inserter
-        self._make_high = lambda: make_tsdf_grid(
-            hi_res, (options.high_grid_size,) * 3,
-            truncation_distance=hi_t.relative_truncation_distance * hi_res,
-            max_weight=hi_t.maximum_weight, device=self._device,
-        )
-        self._make_low = lambda: make_tsdf_grid(
-            lo_res, (options.low_grid_size,) * 3,
-            truncation_distance=lo_t.relative_truncation_distance * lo_res,
-            max_weight=lo_t.maximum_weight, device=self._device,
-        )
-        self._insert_high = make_tsdf_inserter_3d(hi_t, hi_res)
-        self._insert_low = make_tsdf_inserter_3d(lo_t, lo_res)
+        hi_size, lo_size = (options.high_grid_size,) * 3, (options.low_grid_size,) * 3
+        hi_opts = options.high_resolution_range_data_inserter
+        lo_opts = options.low_resolution_range_data_inserter
+        if self._is_tsdf:
+            hi_t, lo_t = hi_opts.tsdf_range_data_inserter, lo_opts.tsdf_range_data_inserter
+            self._make_high = lambda: make_tsdf_grid(
+                hi_res, hi_size, truncation_distance=hi_t.relative_truncation_distance * hi_res,
+                max_weight=hi_t.maximum_weight, device=self._device,
+            )
+            self._make_low = lambda: make_tsdf_grid(
+                lo_res, lo_size, truncation_distance=lo_t.relative_truncation_distance * lo_res,
+                max_weight=lo_t.maximum_weight, device=self._device,
+            )
+            self._insert_high = make_tsdf_inserter_3d(hi_t, hi_res)
+            self._insert_low = make_tsdf_inserter_3d(lo_t, lo_res)
+        else:
+            self._make_high = lambda: make_probability_grid(hi_res, hi_size, self._device)
+            self._make_low = lambda: make_probability_grid(lo_res, lo_size, self._device)
+            self._insert_high = make_probability_inserter_3d(hi_opts.probability_grid_range_data_inserter)
+            self._insert_low = make_probability_inserter_3d(lo_opts.probability_grid_range_data_inserter)
+
+    @property
+    def is_tsdf(self) -> bool:
+        return self._is_tsdf
 
     @property
     def submaps(self) -> List[Submap3D]:
@@ -93,6 +146,7 @@ class ActiveSubmaps3D:
             submap.low_resolution_grid = self._insert_low(submap.low_resolution_grid, range_data_in_local)
             submap.rotational_histogram = submap.rotational_histogram + np.asarray(rotational_histogram)
             submap.num_range_data += 1
+            submap.version += 1
         if self._submaps[0].num_range_data == 2 * self._options.num_range_data:
             self._submaps[0].finish()
         return list(self._submaps)
@@ -103,7 +157,7 @@ class ActiveSubmaps3D:
             self._submaps.pop(0)
         origin_t = np.asarray(origin_local[:3], np.float64)
 
-        def place(grid: TSDFGrid) -> TSDFGrid:
+        def place(grid):
             """Center the empty grid on the submap origin, snapped so that
             voxel centers land on the index*resolution lattice of the
             submap frame (ref: hybrid_grid.h GetCenterOfCell). Snapped in
@@ -125,5 +179,6 @@ class ActiveSubmaps3D:
                 high_resolution_grid=place(self._make_high()),
                 low_resolution_grid=place(self._make_low()),
                 rotational_histogram=np.zeros(self._histogram_size, np.float32),
+                quantize_on_finish=self._quantize_on_finish,
             )
         )

@@ -139,9 +139,9 @@ def bind(path: Path) -> ctypes.CDLL:
     lib.hg_correlative_prep_2d.restype = i32
     lib.hg_correlative_scores_2d.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.hg_correlative_scores_2d.restype = i32
-    lib.hg_ct_scan_block.argtypes = [ptr] * 16 + [i32] * 9 + [ptr]
+    lib.hg_ct_scan_block.argtypes = [ptr] * 16 + [i32] * 10 + [ptr]
     lib.hg_ct_scan_block.restype = i32
-    lib.hg_ct_scan_block_slots.argtypes = [ptr] * 14 + [i32] * 9 + [ptr]
+    lib.hg_ct_scan_block_slots.argtypes = [ptr] * 14 + [i32] * 10 + [ptr]
     lib.hg_ct_scan_block_slots.restype = i32
     lib.hg_fast_scores_3d.argtypes = [ptr] * 11 + [i32] * 13 + [ptr]
     lib.hg_fast_scores_3d.restype = i32

@@ -2,11 +2,17 @@
 
 Replaces the XLA fusion of hectorgrapher_tpu/mapping/ct/window_solver.py
 scan_block (:467-513) with the per-block einsums of _make_ct_assemble
-(:611-613), over the 3D TSDF stencil of
+(:611-613), over the 3D stencils of
 hectorgrapher_tpu/mapping/scan_matching/interpolated_grid.py (:332-466).
 It has no Pallas source. The CUDA kernel is
 hectorgrapher_tpu_torch/csrc/ct_scan_block.cu; this module holds its
 wrapper and its plain PyTorch version.
+
+Two modes, by the grids' type: TSDFGrids take the weighted TSDF value
+(tsdf_value_and_dfrac_3d); PreparedProb3D fields, the occupancy grids
+prepared by prepare_grid_3d once per grid version, take 1 - p
+(prob_value_and_dfrac_3d). Both grids of a call have one type. An
+unprepared ProbabilityGrid is an error: nothing here builds its field.
 
 For each cloud c, with pose7[c] = [t, q] and its Jacobian dpose7[c] on
 the cloud's 18-dim control-point pair tangent, every hi-res point (scaled
@@ -37,8 +43,10 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+import math
+
 from hectorgrapher_tpu_torch.mapping.grids import TSDFGrid
-from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import tsdf_value_and_dfrac_3d
+from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import PreparedProb3D, value_and_dfrac_3d
 from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.ops.correlative_prep_2d import _check
 from hectorgrapher_tpu_torch.transform.rigid import cross, quat_rotate
@@ -68,11 +76,12 @@ def dquat_rotate_dq(q, p):
     return torch.stack(cols, dim=-1)
 
 
-def _grid_rows(grid: TSDFGrid, points, mask, pose7, dpose7, scale):
-    """Per-point residuals (C, P) and Jacobian rows (C, P, 18) of one grid."""
+def _grid_rows(grid, points, mask, pose7, dpose7, scale):
+    """Per-point residuals (C, P) and Jacobian rows (C, P, 18) of one grid
+    (a TSDFGrid or a PreparedProb3D)."""
     pose_t, pose_q = pose7[:, None, :3], pose7[:, None, 3:]
     world = quat_rotate(pose_q, points) + pose_t
-    val, dval_dfrac = tsdf_value_and_dfrac_3d(grid, world)
+    val, dval_dfrac = value_and_dfrac_3d(grid, world)
     sm = torch.where(mask, scale[:, None], 0.0)
     dval_dworld = dval_dfrac / grid.meta.resolution
     dval_dq = torch.einsum("cpi,cpij->cpj", dval_dworld, dquat_rotate_dq(pose_q, points))
@@ -91,21 +100,55 @@ def ct_scan_block_plain(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask
     return S, g, 0.5 * torch.sum(r * r, dim=1)
 
 
-def grid_params(hi_grid: TSDFGrid, lo_grid: TSDFGrid):
+def grid_params(hi_grid, lo_grid):
     """The kernel's grid parameters (8,) f32 on the grids' device: [hi
     min_corner (3), hi resolution, lo min_corner (3), lo resolution]. A
     caller that assembles many blocks over the same grids builds it once."""
     return torch.cat([
         hi_grid.meta.min_corner.reshape(3), hi_grid.meta.resolution.reshape(1),
         lo_grid.meta.min_corner.reshape(3), lo_grid.meta.resolution.reshape(1),
-    ]).to(device=hi_grid.tsd.device, dtype=torch.float32).contiguous()
+    ]).to(dtype=torch.float32).contiguous()
+
+
+def is_probability_pair(hi_grid, lo_grid, where: str) -> bool:
+    """Whether (hi_grid, lo_grid) take the kernel's probability mode
+    (PreparedProb3D fields) or its TSDF mode (TSDFGrids); raises on
+    anything else, an unprepared ProbabilityGrid included, and on a mixed
+    pair."""
+    kinds = []
+    for label, grid in (("hi", hi_grid), ("lo", lo_grid)):
+        if isinstance(grid, PreparedProb3D):
+            kinds.append(True)
+        elif isinstance(grid, TSDFGrid):
+            kinds.append(False)
+        else:
+            raise TypeError(f"{where}: {label} grid is a {type(grid).__name__}, not a TSDFGrid or a "
+                            "PreparedProb3D (prepare a ProbabilityGrid with prepare_grid_3d)")
+    if kinds[0] != kinds[1]:
+        raise TypeError(f"{where}: the hi and lo grids differ in type")
+    return kinds[0]
+
+
+def _volumes(label: str, grid, device, where: str):
+    """The checked volume pointers (field or tsd, weight or 0) of one 3D
+    grid."""
+    shape = grid.shape
+    if len(shape) != 3 or math.prod(shape) >= 2**31:
+        raise ValueError(f"{where}: unsupported {label} grid shape {shape}")
+    if isinstance(grid, PreparedProb3D):
+        _check(f"{label}.prob", grid.prob, torch.float32, shape, device)
+        return grid.prob.data_ptr(), 0
+    _check(f"{label}.tsd", grid.tsd, torch.float32, shape, device)
+    _check(f"{label}.weight", grid.weight, torch.float32, shape, device)
+    return grid.tsd.data_ptr(), grid.weight.data_ptr()
 
 
 def ct_scan_block(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask, pose7, dpose7, hi_scale, lo_scale,
                   gparams=None):
     """Per-cloud scan blocks: (S (C, 18, 18), g (C, 18), cost (C,)) f32.
 
-    hi_grid, lo_grid: TSDFGrids with contiguous f32 (nx, ny, nz) volumes;
+    hi_grid, lo_grid: both TSDFGrids with contiguous f32 (nx, ny, nz)
+    volumes, or both PreparedProb3D fields (probability mode);
     hi_points (C, P, 3) f32 and hi_mask (C, P) bool (likewise lo, with its
     own P); pose7 (C, 7) f32 [t, q wxyz]; dpose7 (C, 7, 18) f32; hi_scale,
     lo_scale (C,) f32; gparams: grid_params(hi_grid, lo_grid), built here
@@ -120,11 +163,9 @@ def ct_scan_block(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask, pose
         raise ValueError(f"ct_scan_block: unsupported device {device}")
     c, p_hi = hi_mask.shape
     p_lo = lo_mask.shape[1]
-    for label, grid in (("hi", hi_grid), ("lo", lo_grid)):
-        if len(grid.shape) != 3 or grid.tsd.numel() >= 2**31:
-            raise ValueError(f"ct_scan_block: unsupported {label} grid shape {grid.shape}")
-        _check(f"{label}_grid.tsd", grid.tsd, torch.float32, grid.shape, device)
-        _check(f"{label}_grid.weight", grid.weight, torch.float32, grid.shape, device)
+    prob = is_probability_pair(hi_grid, lo_grid, "ct_scan_block")
+    hi_ptrs = _volumes("hi_grid", hi_grid, device, "ct_scan_block")
+    lo_ptrs = _volumes("lo_grid", lo_grid, device, "ct_scan_block")
     _check("hi_points", hi_points, torch.float32, (c, p_hi, 3), device)
     _check("hi_mask", hi_mask, torch.bool, (c, p_hi), device)
     _check("lo_points", lo_points, torch.float32, (c, p_lo, 3), device)
@@ -143,52 +184,56 @@ def ct_scan_block(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask, pose
     g = out[c * 324 : c * 342].view(c, 18)
     cost = out[c * 342 :]
     _build.launch(
-        "hg_ct_scan_block", device,
-        hi_grid.tsd.data_ptr(), hi_grid.weight.data_ptr(), lo_grid.tsd.data_ptr(), lo_grid.weight.data_ptr(),
+        "hg_ct_scan_block", device, *hi_ptrs, *lo_ptrs,
         gparams.data_ptr(), hi_points.data_ptr(), hi_mask.data_ptr(), lo_points.data_ptr(), lo_mask.data_ptr(),
         pose7.data_ptr(), dpose7.data_ptr(), hi_scale.data_ptr(), lo_scale.data_ptr(),
         S.data_ptr(), g.data_ptr(), cost.data_ptr(),
-        c, p_hi, p_lo, *hi_grid.shape, *lo_grid.shape,
+        c, p_hi, p_lo, *hi_grid.shape, *lo_grid.shape, int(prob),
     )
     ct_scan_block.launches += 1
+    ct_scan_block.prob_launches += prob
     return S, g, cost
 
 
 ct_scan_block.launches = 0
+ct_scan_block.prob_launches = 0  # the launches in probability mode
 
 
 class GridSlots(NamedTuple):
     """The grid pairs of D distinct submaps, as the slotted kernel reads
     them: the grids themselves (which keep the volumes alive), their
-    volume pointers (D, 4) int64 [hi tsd, hi weight, lo tsd, lo weight]
-    and their parameters (D, 8) f32 (grid_params), both on the grids'
-    device."""
+    volume pointers (D, 4) int64 [hi tsd, hi weight, lo tsd, lo weight],
+    or [hi field, 0, lo field, 0] in probability mode, and their
+    parameters (D, 8) f32 (grid_params), both on the grids' device."""
 
-    hi: Tuple[TSDFGrid, ...]
-    lo: Tuple[TSDFGrid, ...]
+    hi: Tuple[object, ...]
+    lo: Tuple[object, ...]
     ptrs: torch.Tensor
     gparams: torch.Tensor
+    prob: bool = False  # PreparedProb3D fields: the kernel's probability mode
 
 
 def grid_slots(hi_grids, lo_grids) -> GridSlots:
-    """GridSlots of the grid pairs (hi_grids[d], lo_grids[d]). Every hi
-    grid must have one shape, every lo grid one shape, all f32 and
-    contiguous on one device."""
+    """GridSlots of the grid pairs (hi_grids[d], lo_grids[d]): all
+    TSDFGrids or all PreparedProb3D fields. Every hi grid must have one
+    shape, every lo grid one shape, all f32 and contiguous on one
+    device."""
     hi_grids, lo_grids = tuple(hi_grids), tuple(lo_grids)
     if not hi_grids or len(hi_grids) != len(lo_grids):
         raise ValueError(f"grid_slots: {len(hi_grids)} hi and {len(lo_grids)} lo grids")
-    device = hi_grids[0].tsd.device
-    for label, grids in (("hi", hi_grids), ("lo", lo_grids)):
-        shape = grids[0].shape
-        if len(shape) != 3 or grids[0].tsd.numel() >= 2**31:
-            raise ValueError(f"grid_slots: unsupported {label} grid shape {shape}")
-        for d, grid in enumerate(grids):
-            _check(f"{label}_grids[{d}].tsd", grid.tsd, torch.float32, shape, device)
-            _check(f"{label}_grids[{d}].weight", grid.weight, torch.float32, shape, device)
-    ptrs = torch.tensor([[h.tsd.data_ptr(), h.weight.data_ptr(), lo.tsd.data_ptr(), lo.weight.data_ptr()]
-                         for h, lo in zip(hi_grids, lo_grids)], dtype=torch.int64).to(device)
+    device = hi_grids[0].meta.min_corner.device
+    kinds = {is_probability_pair(h, lo, "grid_slots") for h, lo in zip(hi_grids, lo_grids)}
+    if len(kinds) != 1:
+        raise TypeError("grid_slots: the submaps differ in grid type")
+    rows = []
+    for d, (h, lo) in enumerate(zip(hi_grids, lo_grids)):
+        if h.shape != hi_grids[0].shape or lo.shape != lo_grids[0].shape:
+            raise ValueError(f"grid_slots: submap {d}'s grid shapes {h.shape}, {lo.shape} differ from submap 0's")
+        rows.append([*_volumes(f"hi_grids[{d}]", h, device, "grid_slots"),
+                     *_volumes(f"lo_grids[{d}]", lo, device, "grid_slots")])
+    ptrs = torch.tensor(rows, dtype=torch.int64).to(device)
     gparams = torch.stack([grid_params(h, lo) for h, lo in zip(hi_grids, lo_grids)]).contiguous()
-    return GridSlots(hi_grids, lo_grids, ptrs, gparams)
+    return GridSlots(hi_grids, lo_grids, ptrs, gparams, kinds.pop())
 
 
 def ct_scan_block_slots_plain(slots: GridSlots, slot, hi_points, hi_mask, lo_points, lo_mask, pose7, dpose7,
@@ -245,10 +290,12 @@ def ct_scan_block_slots(slots: GridSlots, slot, hi_points, hi_mask, lo_points, l
         slots.ptrs.data_ptr(), slot.data_ptr(), slots.gparams.data_ptr(), hi_points.data_ptr(), hi_mask.data_ptr(),
         lo_points.data_ptr(), lo_mask.data_ptr(), pose7.data_ptr(), dpose7.data_ptr(), hi_scale.data_ptr(),
         lo_scale.data_ptr(), S.data_ptr(), g.data_ptr(), cost.data_ptr(),
-        c, p_hi, p_lo, *slots.hi[0].shape, *slots.lo[0].shape,
+        c, p_hi, p_lo, *slots.hi[0].shape, *slots.lo[0].shape, int(slots.prob),
     )
     ct_scan_block_slots.launches += 1
+    ct_scan_block_slots.prob_launches += slots.prob
     return S, g, cost
 
 
 ct_scan_block_slots.launches = 0
+ct_scan_block_slots.prob_launches = 0  # the launches in probability mode

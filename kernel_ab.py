@@ -15,7 +15,10 @@ K2 at chip_smoke.py phases 3-4's front end (B=1, T=425, N=2048) and batched
 point (B=1024, T=40, N=512), the earlier K2 on its pw*pw-lane table and
 this one on the padded table (prepare_correlative_table), both built from
 one grid; K3 at the CT front end's C=32 and GN3D's C=1 at 256^3 / 128^3,
-and slotted at a packed GN3D's shape (8 lanes over two grid pairs); K4 at
+and slotted at a packed GN3D's shape (8 lanes over two grid pairs), in
+its TSDF mode, then in its probability mode at the same two shapes on
+chip_smoke.py phase 7's occupancy maps (this tree's kernel alone when the
+earlier version has no probability mode); K4 at
 chip_smoke.py phase 10's coarse call, first expansion and level-0
 expansion, and with row bases at a batched round's coarse call (four scans
 over a pack of two submaps). Where the earlier version lacks the input a
@@ -270,6 +273,19 @@ def run_3d(device, parent, build, result, kernels):
                                             kernel_name="ct_scan_block_kernel")
         del hi2, lo2
     del hi, lo
+    if "k3" in kernels:
+        # Probability mode, on phase 7's occupancy maps (16 points of each
+        # cloud outside both grids). An earlier kernel takes it only if its
+        # wrapper knows the prepared field.
+        hi, lo = cs.ct_production_probability_grids(device)
+        old_module = load_parent_module(parent, "ct_scan_block", build)
+        old_takes_prob = hasattr(old_module, "is_probability_pair")
+        for label, c in (("prob_front_end", 32), ("prob_gn3d", 1)):
+            args = cs.ct_kernel_inputs(device, hi, lo, scan_pts, c=c, outside=16)
+            new = lambda a=args: k3.ct_scan_block(*a[:10], gparams=a[10])
+            old = (lambda a=args: old_module.ct_scan_block(*a[:10])) if old_takes_prob else None
+            result["k3"][label] = turns("ct_scan_block", label, old, new, args)
+        del hi, lo
 
     if "k4" not in kernels:
         return

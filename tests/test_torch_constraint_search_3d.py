@@ -3,8 +3,9 @@ parallel/constraint_search.py, the packed GN3D of mapping/scan_matching/
 gn_3d.py, PoseGraph3D._get_pack_3d and _compute_constraints_batched) with
 the JAX package's and with the port's serial search, on the CPU over
 tests/test_batched_constraint_path.py's scene: two finished 96 x 96 x 32 /
-32 x 32 x 12 anchors and three nodes. The JAX side runs as its own tests
-run it, on the CPU, with a one-device mesh.
+32 x 32 x 12 anchors and three nodes, with TSDF anchors and with occupancy
+anchors of the same scans. The JAX side runs as its own tests run it, on
+the CPU, with a one-device mesh.
 
 Tolerances, with their reasons:
 - Constraints (zbar) within 1e-3 m and |1 - |dq0|| < 1e-6, the JAX test's
@@ -48,6 +49,7 @@ from hectorgrapher_tpu_torch.common import config as tcfg
 from hectorgrapher_tpu_torch.mapping.map_builder import MapBuilder
 from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import PoseGraph3D
 from hectorgrapher_tpu_torch.mapping.scan_matching import fast_correlative_3d as tfc
+from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import prepare_grid_3d
 from hectorgrapher_tpu_torch.mapping.scan_matching.gn_3d import (
     match_gn_3d,
     match_gn_3d_batched,
@@ -66,7 +68,7 @@ from hectorgrapher_tpu_torch.parallel import constraint_search as tcs
 from hectorgrapher_tpu_torch.sensor.types import PointCloud
 from hectorgrapher_tpu_torch.transform.rigid import Rigid3
 from test_batched_constraint_path import HIST, drive_3d, options_3d, scan_3d
-from torch_parity import CPU, batched_anchors_3d, inter_constraints, port_drive_3d
+from torch_parity import CPU, batched_anchors_3d, batched_probability_anchors_3d, inter_constraints, port_drive_3d
 
 torch.set_num_threads(1)
 
@@ -78,13 +80,24 @@ def one_device_mesh():
     return Mesh(np.array(jax.devices()[:1]), ("graph",))
 
 
+GRID_TYPES = ["TSDF", "PROBABILITY_GRID"]
+
+
 @pytest.fixture(scope="module")
 def anchors():
     return batched_anchors_3d()
 
 
 @pytest.fixture(scope="module")
-def port_batched(anchors):
+def anchors_probability():
+    return batched_probability_anchors_3d()
+
+
+def _anchors(request, grid_type):
+    return request.getfixturevalue("anchors" if grid_type == "TSDF" else "anchors_probability")
+
+
+def _port_batched(anchors):
     """The port's graph over the scene with the batched search, and the
     candidate counts of its batched rounds."""
     calls = []
@@ -95,6 +108,20 @@ def port_batched(anchors):
     finally:
         pg_mod._observe_batched_round = orig
     return pg, calls
+
+
+@pytest.fixture(scope="module")
+def port_batched(anchors):
+    return _port_batched(anchors)
+
+
+@pytest.fixture(scope="module")
+def port_batched_probability(anchors_probability):
+    return _port_batched(anchors_probability)
+
+
+def _port_batched_of(request, grid_type):
+    return request.getfixturevalue("port_batched" if grid_type == "TSDF" else "port_batched_probability")
 
 
 def _assert_same_inter(got, want):
@@ -108,10 +135,12 @@ def _assert_same_inter(got, want):
         assert abs(1.0 - abs(dq[0])) < 1e-6
 
 
-def test_batched_round_matches_serial(anchors, port_batched):
+@pytest.mark.parametrize("grid_type", GRID_TYPES)
+def test_batched_round_matches_serial(request, grid_type):
     """(a) The batched round runs (a round of >= 2 candidates, no fallback)
     and gives the serial search's constraints."""
-    pg, calls = port_batched
+    anchors = _anchors(request, grid_type)
+    pg, calls = _port_batched_of(request, grid_type)
     assert calls and max(calls) >= 2, "no batched round ran"
     assert pg.batched_fallbacks == 0
     serial = port_drive_3d(anchors, options_3d(False))
@@ -119,18 +148,19 @@ def test_batched_round_matches_serial(anchors, port_batched):
     _assert_same_inter(inter_constraints(pg), inter_constraints(serial))
 
 
-def test_batched_round_matches_jax(anchors, port_batched, monkeypatch):
+@pytest.mark.parametrize("grid_type", GRID_TYPES)
+def test_batched_round_matches_jax(request, grid_type, monkeypatch):
     """(b) The port's batched round against the JAX package's, same scene."""
     monkeypatch.setattr(jpg_mod, "constraint_search_mesh", one_device_mesh)
-    jax_pg = drive_3d(anchors, batched=True)
-    _assert_same_inter(inter_constraints(port_batched[0]), inter_constraints(jax_pg))
+    jax_pg = drive_3d(_anchors(request, grid_type), batched=True)
+    _assert_same_inter(inter_constraints(_port_batched_of(request, grid_type)[0]), inter_constraints(jax_pg))
 
 
 def _scene_matchers(anchors, opts):
     jms = [jfc.FastCorrelativeScanMatcher3D(opts, a.high_resolution_grid, a.low_resolution_grid,
                                             a.rotational_histogram, HIST) for a in anchors]
-    tms = [tfc.FastCorrelativeScanMatcher3D(convert.options(opts), convert.tsdf_grid(a.high_resolution_grid, CPU),
-                                            convert.tsdf_grid(a.low_resolution_grid, CPU), a.rotational_histogram,
+    tms = [tfc.FastCorrelativeScanMatcher3D(convert.options(opts), convert.grid_3d(a.high_resolution_grid, CPU),
+                                            convert.grid_3d(a.low_resolution_grid, CPU), a.rotational_histogram,
                                             HIST) for a in anchors]
     return jms, tms
 
@@ -149,11 +179,13 @@ def _small_node(true_t, yaw, capacity, n_valid=None):
     return high, low, np.asarray(compute_histogram(high.positions, high.mask, HIST))
 
 
+@pytest.mark.parametrize("grid_type", GRID_TYPES)
 @pytest.mark.parametrize("full_submap", [False, True])
-def test_sharded_fast_matches_match_jax(anchors, full_submap):
+def test_sharded_fast_matches_match_jax(request, full_submap, grid_type):
     """(c) sharded_fast_matches_3d_packed against the JAX function: two
     submaps x two nodes with different valid counts, local window and full
     submap."""
+    anchors = _anchors(request, grid_type)
     opts = options_3d(True).constraint_builder.fast_correlative_scan_matcher_3d
     jms, tms = _scene_matchers(anchors, opts)
     nodes = [_small_node([0.3, -0.2, 0.0], 0.0, 256), _small_node([0.5, 0.2, 0.05], 0.1, 256, n_valid=200)]
@@ -194,11 +226,13 @@ def test_sharded_fast_matches_match_jax(anchors, full_submap):
         assert torch.equal(p.translation, pose.translation) and torch.equal(p.rotation, pose.rotation)
 
 
-def test_packed_gn_matches_jax_and_serial(anchors):
+@pytest.mark.parametrize("grid_type", GRID_TYPES)
+def test_packed_gn_matches_jax_and_serial(request, grid_type):
     """(d) The packed GN3D against the JAX match_gn_3d_packed, three lanes
     over two distinct submaps (the first repeated), and each lane against
     the port's serial match_gn_3d; the unpacked match_gn_3d_batched against
     JAX's and the packed run."""
+    anchors = _anchors(request, grid_type)
     lanes = [(0, [0.3, -0.2, 0.0], 0.0, [0.04, -0.03, 0.02], 0.03), (1, [0.5, 0.2, 0.05], 0.1, [-0.05, 0.02, 0.0],
                                                                         0.06), (0, [0.1, 0.1, 0.0], 0.0,
                                                                                 [0.03, 0.03, -0.02], -0.02)]
@@ -220,8 +254,8 @@ def test_packed_gn_matches_jax_and_serial(anchors):
     want, _ = jgn.match_gn_3d_packed(flat_hi, flat_lo, tmpl_hi, tmpl_lo, mc_hi, mc_lo, jnp.asarray(lane_d),
                                      *jclouds, JRigid3(jnp.asarray(t0), jnp.asarray(q0)), jnp.asarray(t0), *WEIGHTS,
                                      r_hi=r_hi, r_lo=r_lo, num_iterations=10)
-    hi = [convert.tsdf_grid(a.high_resolution_grid, CPU) for a in anchors]
-    lo = [convert.tsdf_grid(a.low_resolution_grid, CPU) for a in anchors]
+    hi = [convert.grid_3d(a.high_resolution_grid, CPU) for a in anchors]
+    lo = [convert.grid_3d(a.low_resolution_grid, CPU) for a in anchors]
     tclouds = [PointCloud(torch.stack([convert.point_cloud(c[k], CPU).positions for c in clouds]),
                           torch.stack([convert.point_cloud(c[k], CPU).mask for c in clouds])) for k in (0, 1)]
     got, cost = match_gn_3d_packed(prepare_gn_pack_3d(hi, lo), torch.from_numpy(lane_d), *tclouds,
@@ -303,9 +337,12 @@ def test_get_pack_matches_jax(anchors):
         np.testing.assert_allclose(got.zbar.q, want.zbar.q, rtol=0, atol=1e-6)
 
 
-def test_plain_versions_with_row_bases_and_slots_equal_single_calls(anchors):
+@pytest.mark.parametrize("grid_type", GRID_TYPES)
+def test_plain_versions_with_row_bases_and_slots_equal_single_calls(request, grid_type):
     """(f) K4's plain version over stacked tables with row bases, and K3's
-    with slots, exactly equal one call per candidate or lane."""
+    with slots (TSDF or probability mode), exactly equal one call per
+    candidate or lane."""
+    anchors = _anchors(request, grid_type)
     rng = np.random.default_rng(5)
     grid_shape, level, y_shift = (20, 24, 12), 1, 0
     rows, ny_l = 6 * 10 + 1, 24
@@ -331,10 +368,11 @@ def test_plain_versions_with_row_bases_and_slots_equal_single_calls(anchors):
     assert torch.equal(shared, fast_scores_3d_plain(table, *cells, valid[:1].expand(r, p), cand_t, *offs, level,
                                                     y_shift, grid_shape, torch.from_numpy(slot * rows)))
 
-    hi = [convert.tsdf_grid(a.high_resolution_grid, CPU) for a in anchors]
-    lo = [convert.tsdf_grid(a.low_resolution_grid, CPU) for a in anchors]
+    hi = [prepare_grid_3d(convert.grid_3d(a.high_resolution_grid, CPU)) for a in anchors]
+    lo = [prepare_grid_3d(convert.grid_3d(a.low_resolution_grid, CPU)) for a in anchors]
     slots = grid_slots(hi, lo)
     assert slots.ptrs.shape == (2, 4) and slots.gparams.shape == (2, 8)
+    assert slots.prob == (grid_type != "TSDF")
     lanes = torch.tensor([0, 1, 0, 1], dtype=torch.int32)
     pts = torch.from_numpy(scan_3d(np.array([0.3, -0.2, 0.0]))[rng.choice(1000, (4, 2, 64))].astype(np.float32))
     mask = torch.from_numpy(rng.random((4, 2, 64)) < 0.9)
@@ -372,13 +410,32 @@ def test_mixed_grid_shapes_fall_back_to_serial(anchors, monkeypatch):
     assert [(n, s) for n, s, _ in inter_constraints(pg)] == [(n, s) for n, s, _ in inter_constraints(jax_pg)]
 
 
+def test_mixed_grid_types_fall_back_to_serial(anchors, anchors_probability, monkeypatch):
+    """(g') A round over a TSDF submap and an occupancy one takes the
+    serial path, once, and finds the constraints of the serial search
+    (each candidate refined against its own grid type)."""
+    calls = []
+    orig = pg_mod._observe_batched_round
+    monkeypatch.setattr(pg_mod, "_observe_batched_round", lambda n: (calls.append(n), orig(n)))
+    mixed = (anchors[0], anchors_probability[1])
+    pg = port_drive_3d(mixed, options_3d(True))
+    serial = port_drive_3d(mixed, options_3d(False))
+    assert calls == [] and pg.batched_fallbacks == 1
+    _assert_same_inter(inter_constraints(pg), inter_constraints(serial))
+    grids = [prepare_grid_3d(convert.grid_3d(a.high_resolution_grid, CPU)) for a in mixed]
+    with pytest.raises(TypeError, match="grid type"):
+        grid_slots(grids, grids)
+
+
 _CT = "trajectory_builder_3d.optimizing_local_trajectory_builder."
 
 
-def test_map_builder_default_options_run_batched_rounds(monkeypatch):
+@pytest.mark.parametrize("grid_type", ["PROBABILITY_GRID", "TSDF"])
+def test_map_builder_default_options_run_batched_rounds(monkeypatch, grid_type):
     """(h) MapBuilder with the default pose-graph options (the batched
-    search on the async worker, default samplers, gates and matcher):
-    only the trajectory builder is cut to a short CPU scene (TSDF grids of
+    search on the async worker, default samplers, gates and matcher) and
+    the default submap grid (PROBABILITY_GRID; the TSDF case overrides
+    it): only the trajectory builder is cut to a short CPU scene (grids of
     48^3 / 16^3, submaps of 4 range data, a small CT window). At least one
     batched round runs, none falls back, and every pose is finite."""
     from hectorgrapher_tpu_torch.evaluation.scan_generator import raycast_box_room_3d
@@ -388,14 +445,18 @@ def test_map_builder_default_options_run_batched_rounds(monkeypatch):
     calls = []
     orig = pg_mod._observe_batched_round
     monkeypatch.setattr(pg_mod, "_observe_batched_round", lambda n: (calls.append(n), orig(n)))
-    opts = tcfg.replace_deep(tcfg.MapBuilderOptions(), {
+    overrides = {
         "use_trajectory_builder_3d": True, "trajectory_builder_3d.min_range": 0.4,
-        "trajectory_builder_3d.submaps.grid_type": "TSDF", "trajectory_builder_3d.submaps.high_grid_size": 48,
+        "trajectory_builder_3d.submaps.high_grid_size": 48,
         "trajectory_builder_3d.submaps.low_grid_size": 16, "trajectory_builder_3d.submaps.num_range_data": 4,
         "trajectory_builder_3d.motion_filter.max_time_seconds": 0.05, _CT + "initialization_duration": 0.45,
         _CT + "max_control_points": 12, _CT + "max_clouds_in_window": 12, _CT + "points_per_cloud": 64,
-        _CT + "max_num_iterations": 2})
+        _CT + "max_num_iterations": 2}
+    if grid_type == "TSDF":
+        overrides["trajectory_builder_3d.submaps.grid_type"] = "TSDF"
+    opts = tcfg.replace_deep(tcfg.MapBuilderOptions(), overrides)
     assert opts.pose_graph == tcfg.PoseGraphOptions()
+    assert opts.trajectory_builder_3d.submaps.grid_type == grid_type
     mb = MapBuilder(opts, device="cpu")
     tb = mb.get_trajectory_builder(mb.add_trajectory_builder())
     for i in range(301):

@@ -1,7 +1,8 @@
 """Parity of the port's CT front end (hectorgrapher_tpu_torch) with the JAX
-package's: the timed voxel filters and compaction, the 3D TSDF inserter,
-the rotational histogram, the 3D submaps, the interpolation buffer and
-OptimizingLocalTrajectoryBuilder, on the CPU with the same seeded inputs.
+package's: the timed voxel filters and compaction, the 3D TSDF and
+occupancy inserters, the rotational histogram, the 3D submaps of both
+grid types, the interpolation buffer and OptimizingLocalTrajectoryBuilder
+over TSDF and occupancy submaps, on the CPU with the same seeded inputs.
 
 Tolerances, each with its reason:
   * voxel filters and compaction: exact — the port's stable sorts keep
@@ -11,12 +12,16 @@ Tolerances, each with its reason:
     computes the band points in float64 (jnp.linspace defaults to it)
     before flooring them in float32; the port stays in float32, so a band
     sample on a cell boundary can land one cell over;
+  * occupancy inserter: known equal to the bit (set-scatters of one
+    value), log-odds within 1e-6 (the same f32 adds and clamps);
   * histogram: within 1e-4 of its sum — the same buckets, sums of f32
     values in another order;
   * interpolation buffer: 1e-12 (the same float64 numpy);
   * front end: local poses within 1e-3 m and 1e-3 rad over 1.5 s of the
     tests/test_ct_builder.py scenario (LM solves that agree to ~1e-6, fed
-    maps within the inserter's tolerance).
+    maps within the inserter's tolerance), on either grid type. The JAX
+    package's own occupancy front end drifts from the truth on this drive
+    (ROADMAP C15); the port is held to its output.
 """
 
 import jax.numpy as jnp
@@ -26,8 +31,8 @@ import torch
 
 from hectorgrapher_tpu.common import config as jcfg
 from hectorgrapher_tpu.mapping.ct.builder import OptimizingLocalTrajectoryBuilder
-from hectorgrapher_tpu.mapping.grids import make_tsdf_grid
-from hectorgrapher_tpu.mapping.inserters_3d import make_tsdf_inserter_3d
+from hectorgrapher_tpu.mapping.grids import make_probability_grid, make_tsdf_grid
+from hectorgrapher_tpu.mapping.inserters_3d import make_probability_inserter_3d, make_tsdf_inserter_3d
 from hectorgrapher_tpu.mapping.scan_matching.rotational_histogram import compute_histogram
 from hectorgrapher_tpu.mapping.submap_3d import ActiveSubmaps3D
 from hectorgrapher_tpu.sensor.types import PointCloud, RangeData, TimedPointCloud, TimedPointCloudData, pad_cloud
@@ -124,6 +129,39 @@ def test_insert_tsdf_3d_matches_jax(which):
     assert bad.sum() <= max(1, 1e-4 * w.size), f"{bad.sum()} of {w.size} cells differ"
 
 
+def _assert_same_occupancy(tgrid, grid):
+    np.testing.assert_array_equal(tgrid.known.numpy(), np.asarray(grid.known))
+    np.testing.assert_allclose(tgrid.log_odds.numpy(), np.asarray(grid.log_odds), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("which", ["high", "low", "behind"])
+def test_insert_probability_3d_matches_jax(which):
+    """The default occupancy inserters (hi: two free-space voxels before
+    each hit; lo: none), and with "behind" the hi inserter from an origin
+    at the grid's center, so that hits lie behind it on every axis and the
+    miss cells' (delta * pos) // n floors negative quotients."""
+    sub = jcfg.SubmapsOptions3D()
+    inserter = (sub.low_resolution_range_data_inserter if which == "low"
+                else sub.high_resolution_range_data_inserter).probability_grid_range_data_inserter
+    res, size = (0.45, 48) if which == "low" else (0.1, 96)
+    grid = make_probability_grid(res, (size,) * 3)
+    tgrid = convert.probability_grid(grid, CPU)
+    insert = make_probability_inserter_3d(inserter)
+    tinsert = tins.make_probability_inserter_3d(convert.options(inserter))
+    for seed in (3, 4, 5):
+        rd = _room_range_data(seed)
+        if which == "behind":
+            origin = np.asarray(rd.origin)
+            delta = np.floor((np.asarray(rd.returns.positions) - origin) / res)[np.asarray(rd.returns.mask)]
+            assert (delta < 0).any(axis=0).all() and (delta > 0).any(axis=0).all()
+        grid = insert(grid, rd)
+        tgrid = tinsert(tgrid, convert.range_data(rd, CPU))
+    assert int(np.asarray(grid.known).sum()) > 1000
+    if which != "low":
+        assert int((np.asarray(grid.log_odds) < 0).sum()) > 100  # miss cells were written
+    _assert_same_occupancy(tgrid, grid)
+
+
 def test_tsdf_inserter_refuses_unported_modes():
     opts = convert.options(jcfg.TSDFRangeDataInserterOptions3D(normal_computation_method="KNN_PCA"))
     with pytest.raises(NotImplementedError):
@@ -143,9 +181,10 @@ def test_compute_histogram_matches_jax(seed):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * want.sum())
 
 
-def test_active_submaps_match_jax():
+@pytest.mark.parametrize("grid_type", ["TSDF", "PROBABILITY_GRID"])
+def test_active_submaps_match_jax(grid_type):
     opts = jcfg.replace_deep(jcfg.SubmapsOptions3D(), {
-        "grid_type": "TSDF", "high_grid_size": 48, "low_grid_size": 24, "num_range_data": 2})
+        "grid_type": grid_type, "high_grid_size": 48, "low_grid_size": 24, "num_range_data": 2})
     jsub = ActiveSubmaps3D(opts, 120)
     tsubmaps = tsub.ActiveSubmaps3D(convert.options(opts), CPU, 120)
     hist = np.ones(120, np.float32)
@@ -163,9 +202,66 @@ def test_active_submaps_match_jax():
             jg, tg = getattr(js, attr), getattr(ts, attr)
             # The snapped corner decides every cell floor: equal to the bit.
             np.testing.assert_array_equal(tg.meta.min_corner.numpy(), np.asarray(jg.meta.min_corner))
-            assert (np.abs(tg.weight.numpy() - np.asarray(jg.weight)) > 1e-5).sum() <= 1e-4 * tg.weight.numel()
-    with pytest.raises(NotImplementedError):
-        tsub.ActiveSubmaps3D(convert.options(jcfg.SubmapsOptions3D()), CPU)
+            if grid_type == "TSDF":
+                assert (np.abs(tg.weight.numpy() - np.asarray(jg.weight)) > 1e-5).sum() <= 1e-4 * tg.weight.numel()
+            else:
+                assert int(np.asarray(jg.known).sum()) > 100
+                _assert_same_occupancy(tg, jg)
+    # Half-precision storage is not ported (ROADMAP A2b).
+    for dtype in ("float16", "bfloat16"):
+        with pytest.raises(NotImplementedError, match="A2b"):
+            tsub.ActiveSubmaps3D(convert.options(jcfg.replace_deep(opts, {"grid_storage_dtype": dtype})), CPU)
+
+
+@pytest.mark.parametrize("grid_type", ["TSDF", "PROBABILITY_GRID"])
+def test_submap_uint16_finish_and_codec_match_jax(grid_type):
+    """grid_storage_dtype="uint16": a finished submap's grids become the
+    JAX package's codes (occupancy: equal to the bit; TSDF: within one code,
+    9.2e-6 m at a 0.3 m truncation, about the inserter's 1e-5, in all but
+    its 1e-4 of cells). On the same f32 grids (the active submap,
+    carried across) the codes are equal to the bit and decode within 1e-6
+    in log-odds, exactly for a TSDF. prepared_grids decodes a uint16
+    submap on every call and caches an f32 one by version."""
+    from hectorgrapher_tpu.mapping import grids as jgrids
+    from hectorgrapher_tpu_torch.mapping import grids as tgrids
+
+    opts = jcfg.replace_deep(jcfg.SubmapsOptions3D(), {
+        "grid_type": grid_type, "high_grid_size": 32, "low_grid_size": 16, "num_range_data": 1,
+        "grid_storage_dtype": "uint16"})
+    jsub = ActiveSubmaps3D(opts, 120)
+    tsubmaps = tsub.ActiveSubmaps3D(convert.options(opts), CPU, 120)
+    hist = np.ones(120, np.float32)
+    for seed, origin in ((3, [0.31, -0.17, 0.05]), (4, [0.63, 0.02, -0.11])):
+        rd = _room_range_data(seed)
+        jsub.insert_data(rd, hist, np.asarray(origin))
+        tsubmaps.insert_data(convert.range_data(rd, CPU), hist, np.asarray(origin))
+    (js, jactive), (ts, tactive) = jsub.submaps, tsubmaps.submaps
+    assert js.insertion_finished and ts.insertion_finished and not tactive.insertion_finished
+    quantize = tgrids.quantize_tsdf_grid if grid_type == "TSDF" else tgrids.quantize_probability_grid
+    jquantize = jgrids.quantize_tsdf_grid if grid_type == "TSDF" else jgrids.quantize_probability_grid
+    planes = ("tsd", "weight") if grid_type == "TSDF" else ("log_odds",)
+    for attr in ("high_resolution_grid", "low_resolution_grid"):
+        jg, tg = getattr(js, attr), getattr(ts, attr)
+        for plane in planes:
+            got, want = getattr(tg, plane), np.asarray(getattr(jg, plane))
+            assert got.dtype == torch.uint16 and int((want > 0).sum()) > 50
+            step = np.abs(got.numpy().astype(np.int64) - want.astype(np.int64))
+            differ = int((step > (1 if grid_type == "TSDF" else 0)).sum())
+            assert differ <= (1e-4 * want.size if grid_type == "TSDF" else 0), f"{plane}: {differ} codes differ"
+        # The codec on the same f32 grid.
+        jf = getattr(jactive, attr)
+        jq, tq = jquantize(jf), quantize(convert.grid_3d(jf, CPU))
+        jd, td = jgrids.ensure_f32_grid(jq), tgrids.ensure_f32_grid(tq)
+        for plane in planes:
+            np.testing.assert_array_equal(getattr(tq, plane).numpy(), np.asarray(getattr(jq, plane)))
+            np.testing.assert_allclose(getattr(td, plane).numpy(), np.asarray(getattr(jd, plane)), rtol=0,
+                                       atol=1e-6 if plane == "log_odds" else 0)
+    assert tactive.prepared_grids() is tactive.prepared_grids()  # one field per version
+    hi, _ = ts.prepared_grids()
+    assert hi is not ts.prepared_grids()[0]  # decoded per call
+    if grid_type != "TSDF":
+        want = np.asarray(jgrids.dequantize_probability_grid(js.high_resolution_grid).probability())
+        np.testing.assert_allclose(hi.prob.numpy(), want, rtol=0, atol=1e-6)
 
 
 def test_interpolation_buffer_matches_jax():
@@ -189,15 +285,19 @@ def test_interpolation_buffer_matches_jax():
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def jax_front_end():
-    builder = OptimizingLocalTrajectoryBuilder(make_options())
-    return ct_drive(builder, NpRigid3, TimedPointCloudData, pad_timed_cloud), builder
+def _front_end_options(grid_type):
+    return jcfg.replace_deep(make_options(), {"submaps.grid_type": grid_type})
+
+
+@pytest.fixture(scope="module", params=["TSDF", "PROBABILITY_GRID"])
+def jax_front_end(request):
+    builder = OptimizingLocalTrajectoryBuilder(_front_end_options(request.param))
+    return ct_drive(builder, NpRigid3, TimedPointCloudData, pad_timed_cloud), builder, request.param
 
 
 def test_front_end_matches_jax(jax_front_end):
-    want, jbuilder = jax_front_end
-    builder = tbuilder.OptimizingLocalTrajectoryBuilder(convert.options(make_options()), CPU)
+    want, jbuilder, grid_type = jax_front_end
+    builder = tbuilder.OptimizingLocalTrajectoryBuilder(convert.options(_front_end_options(grid_type)), CPU)
     got = ct_drive(builder, TNpRigid3, ttypes.TimedPointCloudData, ttypes.pad_timed_cloud)
     assert len(got) == len(want) >= 4
     assert builder.num_optimizations == jbuilder.num_optimizations > 0
@@ -206,7 +306,9 @@ def test_front_end_matches_jax(jax_front_end):
         assert np.abs(pg.t - pw.t).max() < 1e-3
         assert nq.quat_angle(nq.quat_multiply(nq.quat_conjugate(pw.q), pg.q)) < 1e-3
     submap = builder.active_submaps.matching_submap
-    assert int((submap.high_resolution_grid.weight > 0).sum()) > 1000
+    grid = submap.high_resolution_grid
+    known = grid.weight > 0 if grid_type == "TSDF" else grid.known
+    assert int(known.sum()) > 1000
     assert submap.rotational_histogram.sum() > 0
 
 

@@ -1,7 +1,8 @@
 """Parity of the port's CT window solve (hectorgrapher_tpu_torch) with the JAX
-package's: 3D quaternion ops, the TSDF stencil, the scan-block assembly
-(the plain version of kernel K3), the normal equations and the LM solve,
-on the CPU with the same inputs.
+package's: 3D quaternion ops, the TSDF and occupancy stencils, the
+scan-block assembly (the plain version of kernel K3), the normal equations
+and the LM solve, over TSDF and occupancy grids (is_tsdf=False), on the
+CPU with the same inputs.
 
 Tolerances, each with its reason:
   * quaternion ops: 1e-6 — f32 ops in the same order; XLA on the CPU may
@@ -10,7 +11,8 @@ Tolerances, each with its reason:
     are all identity (the lerp branch); 1e-5 with rotations;
   * stencil value and d/dfrac: 1e-5 absolute (values of at most the
     truncation distance, d/dfrac of at most a few of it) — the same eight
-    cells, another rounding of the blends;
+    cells, another rounding of the blends; the occupancy stencil's value
+    (1 - p, in [0.1, 0.9]) within 1e-6, its d/dfrac within 1e-5;
   * scan blocks and normal equations: 1e-5 * max(1, max|S|) — sums over
     512 points per cloud in another order;
   * solve: cost within 1e-5 relative, state within 1e-5 — the same LM
@@ -27,11 +29,13 @@ from hectorgrapher_tpu.mapping.ct import window_solver as jws
 from hectorgrapher_tpu.mapping.scan_matching.interpolated_grid import (
     gather_rows_3d,
     prepare_grid_3d,
+    prob_value_and_dfrac,
     tsdf_value_and_dfrac,
 )
 from hectorgrapher_tpu.transform import rigid as jr
 from hectorgrapher_tpu_torch import convert
 from hectorgrapher_tpu_torch.mapping.ct import window_solver as tws
+from hectorgrapher_tpu_torch.mapping.scan_matching import interpolated_grid as tig
 from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import tsdf_value_and_dfrac_3d
 from hectorgrapher_tpu_torch.ops.ct_scan_block import ct_scan_block, ct_scan_block_plain
 from hectorgrapher_tpu_torch.transform import rigid as tr
@@ -107,12 +111,31 @@ def test_rigid3_compose_inverse_apply():
 # ---------------------------------------------------------------------------
 
 
+GRID_TYPES = ["TSDF", "PROBABILITY_GRID"]
+
+
+def _with_port(hi, lo, problem, state, weights):
+    """The JAX example and its port: TSDF grids as they are, occupancy
+    grids prepared (their probability fields), as K3 reads them."""
+    grids = [convert.grid_3d(g, CPU) for g in (hi, lo)]
+    port = (*map(tig.prepare_grid_3d, grids), convert.ct_problem(problem, CPU), convert.ct_state(state, CPU),
+            convert.ct_weights(weights, CPU))
+    return (hi, lo, problem, state, weights), port
+
+
 @pytest.fixture(scope="module")
 def example():
-    hi, lo, problem, state, weights = ct_example(grid=32)
-    port = (convert.tsdf_grid(hi, CPU), convert.tsdf_grid(lo, CPU), convert.ct_problem(problem, CPU),
-            convert.ct_state(state, CPU), convert.ct_weights(weights, CPU))
-    return (hi, lo, problem, state, weights), port
+    return _with_port(*ct_example(grid=32))
+
+
+@pytest.fixture(scope="module")
+def example_probability():
+    return _with_port(*ct_example(grid=32, grid_type="PROBABILITY_GRID"))
+
+
+def _example(request, grid_type, lo_filtered=False):
+    name = "example" + ("_lo_filtered" if lo_filtered else "") + ("_probability" if grid_type != "TSDF" else "")
+    return request.getfixturevalue(name)
 
 
 def _jax_cloud_poses(problem, state):
@@ -203,13 +226,62 @@ def test_tsdf_stencil_interior_boundary_outside(example, which):
     _close(got_d, want_d, 1e-5)
 
 
+def _small_room_probability_grid():
+    """_small_room_grid's scan in a 32^3 occupancy grid at 0.1 m (the
+    default high-resolution occupancy inserter)."""
+    from hectorgrapher_tpu.common.config import SubmapsOptions3D
+    from hectorgrapher_tpu.evaluation.scan_generator import raycast_box_room_3d
+    from hectorgrapher_tpu.mapping.grids import make_probability_grid
+    from hectorgrapher_tpu.mapping.inserters_3d import make_probability_inserter_3d
+    from hectorgrapher_tpu.sensor.types import RangeData, pad_cloud
+
+    pts = raycast_box_room_3d(np.zeros(3), np.array([1.0, 0, 0, 0]), half_extents=(1.23, 1.01, 0.72))
+    pts = pts[~np.isnan(pts[:, 0])]
+    opts = SubmapsOptions3D().high_resolution_range_data_inserter.probability_grid_range_data_inserter
+    rd = RangeData(jnp.zeros(3, jnp.float32), pad_cloud(pts, 1024), pad_cloud(np.zeros((0, 3), np.float32), 4))
+    insert = make_probability_inserter_3d(opts)
+    grid = insert(insert(make_probability_grid(0.1, (32, 32, 32)), rd), rd)
+    return grid, pts
+
+
+@pytest.mark.parametrize("which", ["room", "lo"])
+def test_prob_stencil_interior_boundary_outside(example_probability, which):
+    """The occupancy stencil against JAX's prob_value_and_dfrac: near the
+    surfaces, on the boundary and outside, where JAX reads its pad row of
+    MIN_PROBABILITY taps (value ~0.9, derivative 0)."""
+    if which == "room":
+        grid, surface = _small_room_probability_grid()
+    else:
+        (_, grid, problem, _, _), _ = example_probability
+        surface = np.asarray(problem.hi_points).reshape(-1, 3)
+    prepared_t = tig.prepare_grid_3d(convert.probability_grid(grid, CPU))
+    rng = np.random.default_rng(15)
+    res = float(grid.meta.resolution)
+    lo_c = np.asarray(grid.meta.min_corner)
+    ext = np.asarray(grid.log_odds.shape) * res
+    near = surface[rng.choice(len(surface), 768)] + rng.normal(0, 0.5 * res, (768, 3))
+    boundary = lo_c + ext - rng.uniform(0.0, 0.1, (64, 3)) * res
+    outside = lo_c + rng.choice([-0.2, 1.2], (64, 3)) * ext
+    pts = np.concatenate([near, boundary, outside]).astype(np.float32)
+    prepared = prepare_grid_3d(grid)
+    want_v, want_d = prob_value_and_dfrac(prepared, gather_rows_3d(prepared, jnp.asarray(pts)), jnp.asarray(pts))
+    got_v, got_d = tig.prob_value_and_dfrac_3d(prepared_t, _t(pts))
+    want_v, want_d = np.asarray(want_v), np.asarray(want_d)
+    assert np.count_nonzero(np.abs(want_d[:768]).sum(-1)) > 50  # observed cells are read
+    assert np.allclose(want_v[768:], 0.9, atol=1e-6) and not want_d[768:].any()  # the pad taps
+    _close(got_v, want_v, 1e-6)
+    _close(got_d, want_d, 1e-5)
+
+
+@pytest.mark.parametrize("grid_type", GRID_TYPES)
 @pytest.mark.parametrize("rotated", [False, True], ids=["entry", "rotated"])
-def test_scan_block_plain_matches_jax(example, rotated):
-    (hi, lo, problem, state, weights), (thi, tlo, tproblem, tstate, tweights) = example
+def test_scan_block_plain_matches_jax(request, rotated, grid_type):
+    (hi, lo, problem, state, weights), (thi, tlo, tproblem, tstate, tweights) = _example(request, grid_type)
     if rotated:
         state = rotated_state(state, 12)
         tstate = convert.ct_state(state, CPU)
-    scan_block, _ = jws.make_ct_block_families(prepare_grid_3d(hi), prepare_grid_3d(lo), problem, weights, True)
+    scan_block, _ = jws.make_ct_block_families(prepare_grid_3d(hi), prepare_grid_3d(lo), problem, weights,
+                                               grid_type == "TSDF")
     J, r, _ = scan_block(state)
     hp = jax.lax.Precision.HIGHEST
     want_S = np.asarray(jnp.einsum("cri,crj->cij", J, J, precision=hp))
@@ -243,33 +315,41 @@ def test_scan_block_refuses_other_devices(example):
 
 @pytest.fixture(scope="module")
 def example_lo_filtered():
-    hi, lo, problem, state, weights = ct_example(grid=32, lo_filtered=True)
-    port = (convert.tsdf_grid(hi, CPU), convert.tsdf_grid(lo, CPU), convert.ct_problem(problem, CPU),
-            convert.ct_state(state, CPU), convert.ct_weights(weights, CPU))
-    return (hi, lo, problem, state, weights), port
+    return _with_port(*ct_example(grid=32, lo_filtered=True))
 
 
+@pytest.fixture(scope="module")
+def example_lo_filtered_probability():
+    return _with_port(*ct_example(grid=32, lo_filtered=True, grid_type="PROBABILITY_GRID"))
+
+
+@pytest.mark.parametrize("grid_type", GRID_TYPES)
 @pytest.mark.parametrize("case", ["entry", "lo_filtered", "rotated"])
-def test_normal_equations_match_jax(example, example_lo_filtered, case):
-    (hi, lo, problem, state, weights), port = example if case != "lo_filtered" else example_lo_filtered
+def test_normal_equations_match_jax(request, case, grid_type):
+    (hi, lo, problem, state, weights), port = _example(request, grid_type, lo_filtered=case == "lo_filtered")
+    is_tsdf = grid_type == "TSDF"
     if case == "lo_filtered":  # the lo-res clouds differ from the hi-res ones (ROADMAP C4)
         assert int(np.asarray(problem.lo_mask).sum()) < int(np.asarray(problem.hi_mask).sum())
     if case == "rotated":  # the slerp branch, and odometry errors off the identity
         state = rotated_state(state, 13)
         port = port[:3] + (convert.ct_state(state, CPU),) + port[4:]
-    want = [np.asarray(x) for x in jws.ct_normal_equations(hi, lo, problem, state, weights, is_tsdf=True)]
-    got = [x.numpy() for x in tws.ct_normal_equations(*port[:2], port[2], port[3], port[4], is_tsdf=True)]
+    want = [np.asarray(x) for x in jws.ct_normal_equations(hi, lo, problem, state, weights, is_tsdf=is_tsdf)]
+    got = [x.numpy() for x in tws.ct_normal_equations(*port[:2], port[2], port[3], port[4], is_tsdf=is_tsdf)]
     tol = 1e-5 * max(1.0, float(np.abs(want[0]).max()))
     _close(got[0], want[0], tol)
     _close(got[1], want[1], tol)
     np.testing.assert_allclose(got[2], want[2], rtol=1e-5)
 
 
-def test_solve_matches_jax(example):
-    (hi, lo, problem, state, weights), port = example
-    js, jf, ji = jws.solve_ct_window(hi, lo, problem, state, weights, is_tsdf=True, num_iterations=8)
+@pytest.mark.parametrize("grid_type", GRID_TYPES)
+def test_solve_matches_jax(request, grid_type):
+    (hi, lo, problem, state, weights), port = _example(request, grid_type)
+    is_tsdf = grid_type == "TSDF"
+    js, jf, ji = jws.solve_ct_window(hi, lo, problem, state, weights, is_tsdf=is_tsdf, num_iterations=8)
     before = tws.solve_ct_window_block.assemblies
-    ts, tf, ti = tws.solve_ct_window(*port, is_tsdf=True, num_iterations=8)
+    # The raw grids: the solve prepares them itself, once.
+    raw = tuple(convert.grid_3d(g, CPU) for g in (hi, lo))
+    ts, tf, ti = tws.solve_ct_window(*raw, *port[2:], is_tsdf=is_tsdf, num_iterations=8)
     assert tws.solve_ct_window_block.assemblies - before == 9  # 1 + num_iterations
     assert float(tf) < float(ti)
     np.testing.assert_allclose(float(ti), float(ji), rtol=1e-5)
@@ -305,5 +385,20 @@ def test_unported_modes_raise(example):
     for kw in ({"per_point": True}, {"direct": object()}):
         with pytest.raises(NotImplementedError):
             tws.solve_ct_window(thi, tlo, tproblem, tstate, tweights, is_tsdf=True, **kw)
-    with pytest.raises(NotImplementedError):
+
+
+def test_grid_type_mismatch_and_unprepared_grids_raise(example, example_probability):
+    """is_tsdf must name the grids' type; K3's wrapper and its plain
+    version take an occupancy grid only as its prepared field."""
+    (hi, lo, *_), (thi, tlo, tproblem, tstate, tweights) = example
+    (phi, plo, *_), (pthi, ptlo, *_) = example_probability
+    with pytest.raises(ValueError, match="is_tsdf"):
         tws.solve_ct_window(thi, tlo, tproblem, tstate, tweights, is_tsdf=False)
+    with pytest.raises(ValueError, match="is_tsdf"):
+        tws.solve_ct_window(pthi, ptlo, tproblem, tstate, tweights, is_tsdf=True)
+    pose7, dpose7 = tws.cloud_poses(tstate, tproblem)
+    c = pose7.shape[0]
+    clouds = (tproblem.hi_points, tproblem.hi_mask, tproblem.lo_points, tproblem.lo_mask, pose7, dpose7,
+              torch.ones(c), torch.ones(c))
+    with pytest.raises(TypeError, match="prepare_grid_3d"):
+        ct_scan_block(convert.probability_grid(phi, CPU), convert.probability_grid(plo, CPU), *clouds)

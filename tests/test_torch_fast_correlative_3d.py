@@ -1,7 +1,8 @@
 """Parity of the port's fast 3D correlative matcher and its kernel K4's
 plain version (hectorgrapher_tpu_torch/mapping/scan_matching/
 fast_correlative_3d.py, ops/fast_scores_3d.py) with the JAX package's CPU
-branch, on the CPU with the same inputs.
+branch, on the CPU with the same inputs, over a TSDF submap and an
+occupancy one.
 
 Tolerances: pyramid levels and flat tables are exact (the same max and
 copy ops in f32). score_sum's plain version sums f32 values below 0.8 in
@@ -32,9 +33,9 @@ from torch_parity import CPU, box_room_submap_3d
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def submap():
-    return box_room_submap_3d()
+@pytest.fixture(scope="module", params=["TSDF", "PROBABILITY_GRID"])
+def submap(request):
+    return box_room_submap_3d(grid_type=request.param)
 
 
 @pytest.fixture(scope="module")
@@ -44,8 +45,8 @@ def matchers(submap):
     opts = pose_graph_options().constraint_builder.fast_correlative_scan_matcher_3d
     jm = jfc.FastCorrelativeScanMatcher3D(opts, submap.high_resolution_grid, submap.low_resolution_grid,
                                           submap.rotational_histogram, 120)
-    tm = tfc.FastCorrelativeScanMatcher3D(convert.options(opts), convert.tsdf_grid(submap.high_resolution_grid, CPU),
-                                          convert.tsdf_grid(submap.low_resolution_grid, CPU),
+    tm = tfc.FastCorrelativeScanMatcher3D(convert.options(opts), convert.grid_3d(submap.high_resolution_grid, CPU),
+                                          convert.grid_3d(submap.low_resolution_grid, CPU),
                                           submap.rotational_histogram, 120)
     return jm, tm
 
@@ -69,7 +70,7 @@ def test_submap_tables_equal_jax(matchers, submap):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     np.testing.assert_array_equal(tm._low_scores.numpy(), np.asarray(jm._low_scores))
     np.testing.assert_array_equal(
-        tfc.grid_match_scores(convert.tsdf_grid(submap.high_resolution_grid, CPU)).numpy(),
+        tfc.grid_match_scores(convert.grid_3d(submap.high_resolution_grid, CPU)).numpy(),
         np.asarray(jfc.grid_match_scores(submap.high_resolution_grid)))
 
 

@@ -1,6 +1,10 @@
 """Parity of the port's GN3D refinement (hectorgrapher_tpu_torch/mapping/
 scan_matching/gn_3d.py) with the JAX package's match_gn_3d, on the CPU
-with the same grids, clouds and starting poses.
+with the same grids, clouds and starting poses, over a TSDF submap and an
+occupancy one (the match value 1 - p).
+
+Over the occupancy submap the JAX package's refinement moves away from
+the truth in this scene (ROADMAP C15); the port is held to its output.
 
 Tolerances: the refined pose within 1e-4 m / 1e-4 (quaternion entries)
 and the final cost within 1e-5 relative. Both read the same eight cells
@@ -29,10 +33,10 @@ torch.set_num_threads(1)
 WEIGHTS = (5.0, 30.0, 10.0, 1.0)
 
 
-@pytest.fixture(scope="module")
-def scene():
-    submap = box_room_submap_3d()
-    return submap, convert.tsdf_grid(submap.high_resolution_grid, CPU), convert.tsdf_grid(
+@pytest.fixture(scope="module", params=["TSDF", "PROBABILITY_GRID"])
+def scene(request):
+    submap = box_room_submap_3d(grid_type=request.param)
+    return submap, convert.grid_3d(submap.high_resolution_grid, CPU), convert.grid_3d(
         submap.low_resolution_grid, CPU)
 
 
@@ -60,5 +64,6 @@ def test_match_gn_3d_matches_jax(scene, case):
     np.testing.assert_allclose(got_pose.translation.numpy(), np.asarray(want_pose.translation), rtol=0, atol=1e-4)
     np.testing.assert_allclose(got_pose.rotation.numpy(), np.asarray(want_pose.rotation), rtol=0, atol=1e-4)
     assert abs(float(got_cost) - float(want_cost)) <= 1e-5 * abs(float(want_cost))
-    # The refinement moves toward the truth.
-    assert np.linalg.norm(got_pose.translation.numpy() - np.asarray(truth)) < np.linalg.norm(t0 - np.asarray(truth))
+    # Over the TSDF submap the refinement moves toward the truth.
+    if "tsd" in hi._fields:
+        assert np.linalg.norm(got_pose.translation.numpy() - np.asarray(truth)) < np.linalg.norm(t0 - np.asarray(truth))

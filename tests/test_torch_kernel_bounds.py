@@ -11,7 +11,8 @@ import pytest
 import torch
 
 import chip_smoke as cs
-from hectorgrapher_tpu_torch.mapping.grids import make_tsdf_grid
+from hectorgrapher_tpu_torch.mapping.grids import make_probability_grid, make_tsdf_grid
+from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import prepare_grid_3d
 from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d_plain
 from hectorgrapher_tpu_torch.ops.ct_scan_block import grid_slots
 from hectorgrapher_tpu_torch.ops.fast_scores_3d import fast_scores_3d_plain
@@ -42,13 +43,17 @@ def test_bound_fast_scores_3d_by_hand():
     assert float(fast_scores_3d_plain(*args).reshape(())) == 6.0 + 61.0
 
 
-def test_bound_ct_scan_block_by_hand():
+@pytest.mark.parametrize("grid_type", ["TSDF", "PROBABILITY_GRID"])
+def test_bound_ct_scan_block_by_hand(grid_type):
     """One hi-res point at cell coordinate 1.7 on every axis of a 4^3 grid
     at 1 m (identity pose): stencil base (1, 1, 1), cells 21 + {0, 1, 4, 5,
-    16, 17, 20, 21}, sectors 2..5 of both tsd and weight; the lo-res point
-    is masked out."""
-    hi = make_tsdf_grid(1.0, (4, 4, 4), 0.3, 1000.0, CPU)
-    lo = make_tsdf_grid(1.0, (4, 4, 4), 0.3, 1000.0, CPU)
+    16, 17, 20, 21}, sectors 2..5 of both tsd and weight (TSDF mode) or of
+    the one probability field (probability mode, with its own operation
+    count); the lo-res point is masked out."""
+    prob = grid_type != "TSDF"
+    make = ((lambda: prepare_grid_3d(make_probability_grid(1.0, (4, 4, 4), CPU))) if prob
+            else (lambda: make_tsdf_grid(1.0, (4, 4, 4), 0.3, 1000.0, CPU)))
+    hi, lo = make(), make()
     p = (hi.meta.min_corner + 1.7)[None, None]
     pose7 = torch.tensor([[0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0]])
     args = (hi, lo, p, torch.ones((1, 1), dtype=torch.bool), p.clone(), torch.zeros((1, 1), dtype=torch.bool),
@@ -56,10 +61,10 @@ def test_bound_ct_scan_block_by_hand():
     cells, n = cs.k3_stencil_cells(hi, p, args[3], pose7)
     assert sorted(cells.tolist()) == [21, 22, 25, 26, 37, 38, 41, 42] and n == 1
     # Points, pose7, dpose7, scales and the 8 grid parameters (f32), the
-    # two masks (bool), S + g + cost, and 4 sectors of each of tsd, weight.
-    nbytes = 4 * (3 + 3 + 7 + 126 + 2 + 8) + 2 + 4 * (324 + 18 + 1) + 2 * 4 * 32
+    # two masks (bool), S + g + cost, and 4 sectors of each volume read.
+    nbytes = 4 * (3 + 3 + 7 + 126 + 2 + 8) + 2 + 4 * (324 + 18 + 1) + (1 if prob else 2) * 4 * 32
     ms, by, got_bytes, ops = cs.bound_ms("ct_scan_block", args)
-    assert (got_bytes, ops, by) == (nbytes, cs.K3_OPS_PER_POINT, "bytes")
+    assert (got_bytes, ops, by) == (nbytes, cs.K3_PROB_OPS_PER_POINT if prob else cs.K3_OPS_PER_POINT, "bytes")
     assert ms == pytest.approx(max(nbytes / 3.35e12, ops / 67e12) * 1e3, rel=1e-12)
 
 

@@ -58,11 +58,37 @@ def bf16_to_torch(x) -> torch.Tensor:
     return torch.from_numpy(np.asarray(x).view(np.uint16).copy()).view(torch.bfloat16)
 
 
-def ct_example(grid=32, lo_filtered=False):
+def probability_grids_of(hi, lo):
+    """Occupancy grids (JAX) of the TSDF pair's shapes and geometry, filled
+    by the default 3D occupancy inserters (SubmapsOptions3D) with the
+    scan that _build_ct_example inserts into the TSDF pair."""
+    import jax.numpy as jnp
+
+    from hectorgrapher_tpu.common.config import SubmapsOptions3D
+    from hectorgrapher_tpu.evaluation.scan_generator import raycast_box_room_3d
+    from hectorgrapher_tpu.mapping.grids import ProbabilityGrid
+    from hectorgrapher_tpu.mapping.inserters_3d import make_probability_inserter_3d
+    from hectorgrapher_tpu.transform import np_quat as nq
+
+    pts = raycast_box_room_3d(np.zeros(3), nq.quat_identity(), num_azimuth=128, num_elevation=32)
+    pts = pts[~np.isnan(pts[:, 0])]
+    rd = RangeData(origin=jnp.zeros(3, jnp.float32), returns=pad_cloud(pts.astype(np.float32), 4096),
+                   misses=pad_cloud(np.zeros((0, 3), np.float32), 4))
+    sub = SubmapsOptions3D()
+    out = []
+    for tsdf, ins in ((hi, sub.high_resolution_range_data_inserter), (lo, sub.low_resolution_range_data_inserter)):
+        empty = ProbabilityGrid(jnp.zeros(tsdf.tsd.shape, jnp.float32), jnp.zeros(tsdf.tsd.shape, bool), tsdf.meta)
+        out.append(make_probability_inserter_3d(ins.probability_grid_range_data_inserter)(empty, rd))
+    return tuple(out)
+
+
+def ct_example(grid=32, lo_filtered=False, grid_type="TSDF"):
     """__graft_entry__._build_ct_example(grid) (JAX: hi, lo, problem,
     state, weights). With lo_filtered, each lo-res cloud is its hi-res
     cloud voxel-filtered at 0.45 m and compacted, as ct/builder.py builds
-    it (ROADMAP C4), so the lo-res path sees another point set."""
+    it (ROADMAP C4), so the lo-res path sees another point set. With
+    grid_type="PROBABILITY_GRID" the grids are occupancy grids of the same
+    geometry and scan (probability_grids_of)."""
     import jax.numpy as jnp
 
     from __graft_entry__ import _build_ct_example
@@ -70,6 +96,8 @@ def ct_example(grid=32, lo_filtered=False):
     from hectorgrapher_tpu.sensor.voxel_filter import compact_cloud, voxel_filter
 
     hi, lo, problem, state, weights = _build_ct_example(grid=grid)
+    if grid_type == "PROBABILITY_GRID":
+        hi, lo = probability_grids_of(hi, lo)
     if lo_filtered:
         p = problem.hi_points.shape[1]
         clouds = [
@@ -107,25 +135,34 @@ def box_room_scan(seed, pose_t=(0.3, -0.2, 0.1), yaw=0.2, az=96, el=24):
 
 
 def box_room_submap_3d(hi_shape=(80, 72, 32), lo_shape=(20, 18, 8), az=128, el=32,
-                       scan_poses=((0.0, 0.0, 0.0), (0.4, 0.3, 0.0), (0.8, -0.3, 0.0))):
+                       scan_poses=((0.0, 0.0, 0.0), (0.4, 0.3, 0.0), (0.8, -0.3, 0.0)), grid_type="TSDF"):
     """tests/test_pose_graph_3d_integration.py build_finished_submap at
     smaller extents: a finished JAX Submap3D at the origin (hi 0.1 m, lo
     0.45 m TSDF grids) filled by the ray-mode inserter with one scan of the
-    asymmetric box room (its scan_at) from each pose, and its histogram."""
+    asymmetric box room (its scan_at) from each pose, and its histogram.
+    With grid_type="PROBABILITY_GRID", occupancy grids of the same
+    geometry filled by the default 3D occupancy inserters
+    (SubmapsOptions3D)."""
     import jax.numpy as jnp
 
-    from hectorgrapher_tpu.common.config import TSDFRangeDataInserterOptions3D
-    from hectorgrapher_tpu.mapping.grids import make_tsdf_grid
-    from hectorgrapher_tpu.mapping.inserters_3d import make_tsdf_inserter_3d
+    from hectorgrapher_tpu.common.config import SubmapsOptions3D, TSDFRangeDataInserterOptions3D
+    from hectorgrapher_tpu.mapping.grids import make_probability_grid, make_tsdf_grid
+    from hectorgrapher_tpu.mapping.inserters_3d import make_probability_inserter_3d, make_tsdf_inserter_3d
     from hectorgrapher_tpu.mapping.scan_matching.rotational_histogram import compute_histogram
     from hectorgrapher_tpu.mapping.submap_3d import Submap3D
     from hectorgrapher_tpu.transform.np_quat import NpRigid3
     from test_pose_graph_3d_integration import HIST, scan_at
 
-    hi = make_tsdf_grid(0.1, hi_shape, truncation_distance=0.3, max_weight=1000.0)
-    lo = make_tsdf_grid(0.45, lo_shape, truncation_distance=1.0, max_weight=1000.0)
-    opts = TSDFRangeDataInserterOptions3D(normal_computation_method="NONE", min_range=0.4, max_range=30.0)
-    ins_hi, ins_lo = make_tsdf_inserter_3d(opts, 0.1), make_tsdf_inserter_3d(opts, 0.45)
+    if grid_type == "TSDF":
+        hi = make_tsdf_grid(0.1, hi_shape, truncation_distance=0.3, max_weight=1000.0)
+        lo = make_tsdf_grid(0.45, lo_shape, truncation_distance=1.0, max_weight=1000.0)
+        opts = TSDFRangeDataInserterOptions3D(normal_computation_method="NONE", min_range=0.4, max_range=30.0)
+        ins_hi, ins_lo = make_tsdf_inserter_3d(opts, 0.1), make_tsdf_inserter_3d(opts, 0.45)
+    else:
+        sub = SubmapsOptions3D()
+        hi, lo = make_probability_grid(0.1, hi_shape), make_probability_grid(0.45, lo_shape)
+        ins_hi, ins_lo = (make_probability_inserter_3d(o.probability_grid_range_data_inserter) for o in
+                          (sub.high_resolution_range_data_inserter, sub.low_resolution_range_data_inserter))
     hist = np.zeros(HIST, np.float32)
     for pose_t in scan_poses:
         pts = scan_at(pose_t, n_az=az, n_el=el) + np.asarray(pose_t, np.float32)
@@ -179,6 +216,42 @@ def batched_anchors_3d():
 
     return (build_finished_submap_3d([np.zeros(3), np.array([0.4, 0.3, 0.0])]),
             build_finished_submap_3d([np.array([0.3, -0.3, 0.0]), np.array([0.7, 0.0, 0.0])]))
+
+
+def batched_probability_anchors_3d(repeats=4):
+    """batched_anchors_3d's two anchors with occupancy grids of the same
+    geometry, filled from the same scans by the default 3D occupancy
+    inserters (SubmapsOptions3D), each scan inserted `repeats` times. A
+    finished submap sees its place in 2 * num_range_data scans; two
+    insertions leave hit cells at p <= 0.6, and the scene's scores (0.38-0.40)
+    under its 0.4 gate, so no constraint would be found."""
+    import jax.numpy as jnp
+
+    from hectorgrapher_tpu.common.config import SubmapsOptions3D
+    from hectorgrapher_tpu.mapping.grids import make_probability_grid
+    from hectorgrapher_tpu.mapping.inserters_3d import make_probability_inserter_3d
+    from hectorgrapher_tpu.mapping.scan_matching.rotational_histogram import compute_histogram
+    from hectorgrapher_tpu.mapping.submap_3d import Submap3D
+    from hectorgrapher_tpu.transform.np_quat import NpRigid3
+    from test_batched_constraint_path import HIST, scan_3d
+
+    sub = SubmapsOptions3D()
+    ins_hi, ins_lo = (make_probability_inserter_3d(o.probability_grid_range_data_inserter) for o in
+                      (sub.high_resolution_range_data_inserter, sub.low_resolution_range_data_inserter))
+    anchors = []
+    for scan_poses in ([np.zeros(3), np.array([0.4, 0.3, 0.0])], [np.array([0.3, -0.3, 0.0]), np.array([0.7, 0.0, 0.0])]):
+        hi, lo = make_probability_grid(0.1, (96, 96, 32)), make_probability_grid(0.45, (32, 32, 12))
+        hist = np.zeros(HIST, np.float32)
+        for pose_t in scan_poses:
+            pts = scan_3d(pose_t, n_az=192, n_el=40) + np.asarray(pose_t, np.float32)
+            rd = RangeData(origin=jnp.asarray(pose_t, jnp.float32), returns=pad_cloud(pts, 8192),
+                           misses=pad_cloud(np.zeros((0, 3), np.float32), 4))
+            for _ in range(repeats):
+                hi, lo = ins_hi(hi, rd), ins_lo(lo, rd)
+            hist += np.asarray(compute_histogram(rd.returns.positions, rd.returns.mask, HIST))
+        anchors.append(Submap3D(local_pose=NpRigid3(np.zeros(3)), high_resolution_grid=hi, low_resolution_grid=lo,
+                                rotational_histogram=hist, num_range_data=len(scan_poses), insertion_finished=True))
+    return tuple(anchors)
 
 
 def port_drive_3d(anchors, options, device=CPU):
