@@ -18,9 +18,13 @@ one full fast 3D loop-closure match over a 256^3 submap, and the 3D SLAM
 path (MapBuilder -> CT front end -> PoseGraph3D: constraint searches and
 SPA on the pose graph's worker thread) over an out-and-back drive at the
 front end's full width: on TSDF submaps with the serial and with the
-batched constraint search (phases 11 and 12), and on the default
-occupancy submaps with the batched search (phase 13). K3 is held to its
-plain version in both of its modes (TSDF and probability, phase 7).
+batched constraint search (phases 11 and 12), on the default occupancy
+submaps with the batched search (phase 13) and on float16 TSDF submaps
+(phase 14); then the plain SPA at the production operating point through
+its PCG and its Schur path (phase 15), and pure localization of a second
+trajectory on phase 14's map with PureLocalizationTrimmer (phase 16). K3
+is held to its plain version in each of its modes (TSDF over f32, f16 and
+bf16 volumes, and probability; phase 7).
 Each phase prints one line; any failure exits non-zero before the last
 line. The second-to-last line is a JSON record of the kernels, the last
 line a JSON record of the device.
@@ -49,7 +53,8 @@ from hectorgrapher_tpu_torch.evaluation.scan_generator import raycast_box_room_3
 from hectorgrapher_tpu_torch.mapping.ct import window_solver
 from hectorgrapher_tpu_torch.mapping.ct.builder import OptimizingLocalTrajectoryBuilder
 from hectorgrapher_tpu_torch.mapping.ct.window_solver import CtProblem, CtState, CtWeights, solve_ct_window
-from hectorgrapher_tpu_torch.mapping.grids import make_probability_grid, make_tsdf_grid
+from hectorgrapher_tpu_torch.evaluation.graph_generator import make_scale_spa_problem
+from hectorgrapher_tpu_torch.mapping.grids import grid_nbytes, make_probability_grid, make_tsdf_grid
 from hectorgrapher_tpu_torch.mapping.inserters_3d import make_probability_inserter_3d, make_tsdf_inserter_3d
 from hectorgrapher_tpu_torch.mapping.inserters_2d import make_probability_inserter_2d
 from hectorgrapher_tpu_torch.mapping.local_2d import LocalTrajectoryBuilder2D
@@ -73,8 +78,10 @@ from hectorgrapher_tpu_torch.mapping.scan_matching.rotational_histogram import c
 from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.ops.correlative_prep_2d import correlative_prep_2d, correlative_prep_2d_plain
 from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d, correlative_scores_2d_plain
+from hectorgrapher_tpu_torch.mapping.pose_graph import optimization as spa
 from hectorgrapher_tpu_torch.mapping.pose_graph import pose_graph as pose_graph_module
 from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import PoseGraph3D
+from hectorgrapher_tpu_torch.mapping.pose_graph.trimmers import PureLocalizationTrimmer
 from hectorgrapher_tpu_torch.ops.ct_scan_block import (
     ct_scan_block,
     ct_scan_block_plain,
@@ -284,9 +291,9 @@ K3_OPS_PER_POINT = 295 + 253 + 380
 K3_PROB_OPS_PER_POINT = 295 - 128 + 58 + 253 + 380
 
 
-def _sectors(idx):
-    """Distinct 32-byte sectors of 4-byte elements at flat indices idx."""
-    return int(torch.unique(idx.reshape(-1) // 8).numel())
+def _sectors(idx, element_bytes=4):
+    """Distinct 32-byte sectors of the elements at flat indices idx."""
+    return int(torch.unique(idx.reshape(-1) // (32 // element_bytes)).numel())
 
 
 def k3_stencil_cells(grid, points, mask, pose7):
@@ -384,9 +391,12 @@ def _work(kernel, args):
         for (hi, lo), lane in zip(grid_pairs, lanes):
             for grid, pts, mask in ((hi, hi_pts, hi_mask), (lo, lo_pts, lo_mask)):
                 # Points outside the interior read no cell (TSDF: unknown;
-                # probability: the pad taps are constants).
+                # probability: the pad taps are constants). The field, or
+                # tsd and weight (one layout, f32 or half: two bytes a
+                # cell halve the sectors a stencil touches).
                 cells, n = k3_stencil_cells(grid, pts[lane], mask[lane], pose7[lane])
-                nbytes += (1 if prob else 2) * 32 * _sectors(cells)  # the field, or tsd and weight: one layout
+                element = 4 if prob else grid.tsd.element_size()
+                nbytes += (1 if prob else 2) * 32 * _sectors(cells, element)
                 n_masked += n
         return nbytes, (K3_PROB_OPS_PER_POINT if prob else K3_OPS_PER_POINT) * n_masked
     if kernel == "fast_scores_3d":
@@ -669,23 +679,24 @@ CT_MAX_YAW_ERROR = 2 * JAX_CT_YAW_ERROR
 CT_PARITY_TRANSLATION, CT_PARITY_YAW = 0.1, 0.01
 
 
-def ct_production_grids(device):
+def ct_production_grids(device, dtype=torch.float32, n_scans=3):
     """Phase 7's maps: the SubmapsOptions3D default grids (hi 256^3 at
-    0.1 m, lo 128^3 at 0.45 m, truncation 2.5 cells), each filled with
-    three scans of a 9.5 x 7.5 x 2.4 m half-extent box room (256 x 48
-    rays, from three poses) by the port's ray-mode inserter, as
-    bench.py:670-696 builds its production submap. Returns (hi, lo, the
-    first scan's points)."""
+    0.1 m, lo 128^3 at 0.45 m, truncation 2.5 cells) with planes stored in
+    `dtype`, each filled with the first n_scans of three scans of a 9.5 x
+    7.5 x 2.4 m half-extent box room (256 x 48 rays, from three poses) by
+    the port's ray-mode inserter, as bench.py:670-696 builds its
+    production submap. Returns (hi, lo, the first scan's points)."""
     sub = cfg.SubmapsOptions3D()
     grids, inserters = [], []
     opts = cfg.TSDFRangeDataInserterOptions3D(normal_computation_method="NONE", min_range=0.4, max_range=60.0)
     for res, size, ins in ((sub.high_resolution, sub.high_grid_size, sub.high_resolution_range_data_inserter),
                            (sub.low_resolution, sub.low_grid_size, sub.low_resolution_range_data_inserter)):
         t = ins.tsdf_range_data_inserter
-        grids.append(make_tsdf_grid(res, (size,) * 3, t.relative_truncation_distance * res, t.maximum_weight, device))
+        grids.append(make_tsdf_grid(res, (size,) * 3, t.relative_truncation_distance * res, t.maximum_weight, device,
+                                    dtype=dtype))
         inserters.append(make_tsdf_inserter_3d(opts, res))
     first = None
-    for pose_t in (np.zeros(3), np.array([1.5, 1.0, 0.0]), np.array([-1.2, 0.8, 0.0])):
+    for pose_t in (np.zeros(3), np.array([1.5, 1.0, 0.0]), np.array([-1.2, 0.8, 0.0]))[:n_scans]:
         pts = raycast_box_room_3d(pose_t, nq.quat_identity(), half_extents=CT_ROOM, num_azimuth=256, num_elevation=48)
         pts = pts[~np.isnan(pts[:, 0])].astype(np.float32)
         rd = RangeData(
@@ -1281,19 +1292,32 @@ JAX_SLAM12_LATE_GLOBAL, JAX_SLAM12_MEDIAN_GLOBAL, JAX_SLAM12_MAX_GLOBAL = 0.0580
 # 0.06135 / 0.05121 m, the max 0.30265 / 0.27505 m (ROADMAP C15: above
 # the TSDF runs'). The larger of each pair.
 JAX_SLAM13_LATE_GLOBAL, JAX_SLAM13_MEDIAN_GLOBAL, JAX_SLAM13_MAX_GLOBAL = 0.08222, 0.06135, 0.30265
+# Phase 14's: phase 12's drive and options with grid_storage_dtype
+# "float16", two runs of tests/jax_slam_reference.py --batched --storage
+# float16 on a CPU: 70 nodes, 9 submaps (7 finished), 287 and 266 INTER
+# constraints; the tail's local error 0.30263 m both times, its global
+# error 0.04274 / 0.03928 m, the median global error 0.03090 / 0.02765 m,
+# the max 0.16993 / 0.18697 m. The larger of each pair.
+JAX_SLAM14_LATE_GLOBAL, JAX_SLAM14_MEDIAN_GLOBAL, JAX_SLAM14_MAX_GLOBAL = 0.04274, 0.03090, 0.18697
 ROUND_PARITY_ROUNDS = 3  # phase 12's rounds re-run through the serial path
 
 
-def slam_overrides(batched=False, probability=False):
+def slam_overrides(batched=False, probability=False, storage=None):
     """Phase 11's options as replace_deep overrides of MapBuilderOptions:
     tests/test_map_builder_3d.py loop_options() (over make_options()) at
     the CT front end's full width (256^3 / 128^3 grids, K=32, C=32, P=256,
     12 LM iterations), with the async work queue; the serial constraint
     search, or with `batched` the default batched one (phase 12). With
     `probability` (phase 13) the submaps keep their default grid_type,
-    PROBABILITY_GRID, in place of TSDF. Plain values, so that
-    tests/jax_slam_reference.py applies them to the JAX package's
-    options."""
+    PROBABILITY_GRID, in place of TSDF. With `storage` (phase 14:
+    "float16") the TSDF submaps store their planes in that dtype, and a
+    later trajectory searches the first one's submaps in full on every
+    node (global_sampling_ratio 1) under the local searches' score gate
+    (0.45 in place of 0.6: in this box room a right full-submap match
+    scores 0.50-0.55 at 96^3 on the CPU, local ones 0.40-0.58); both only
+    bear on phase 16's second trajectory, as one trajectory searches
+    locally. Plain values, so that tests/jax_slam_reference.py applies
+    them to the JAX package's options."""
     ct = "trajectory_builder_3d.optimizing_local_trajectory_builder."
     fm = "pose_graph.constraint_builder.fast_correlative_scan_matcher_3d."
     overrides = {
@@ -1330,13 +1354,17 @@ def slam_overrides(batched=False, probability=False):
     }
     if probability:
         del overrides["trajectory_builder_3d.submaps.grid_type"]
+    if storage is not None:
+        overrides["trajectory_builder_3d.submaps.grid_storage_dtype"] = storage
+        overrides["pose_graph.global_sampling_ratio"] = 1.0
+        overrides["pose_graph.constraint_builder.global_localization_min_score"] = 0.45
     return overrides
 
 
-def slam_options(batched=False, probability=False):
-    """slam_overrides(batched, probability) applied to the port's
+def slam_options(batched=False, probability=False, storage=None):
+    """slam_overrides(batched, probability, storage) applied to the port's
     MapBuilderOptions."""
-    return cfg.replace_deep(cfg.MapBuilderOptions(), slam_overrides(batched, probability))
+    return cfg.replace_deep(cfg.MapBuilderOptions(), slam_overrides(batched, probability, storage))
 
 
 def slam_truth(t):
@@ -1456,9 +1484,10 @@ def run_slam(device, options=None, drive=None, rounds=None, recorded=None):
     """Phase 11: MapBuilder 3D -> TrajectoryBuilder -> CT front end ->
     PoseGraph3D over the out-and-back drive, the constraint searches and
     SPA solves on the pose graph's worker thread, then the final
-    optimization. Returns a dict of the run's counts, errors, times and
-    the pose graph. With `rounds` (phase 12), probes the batched rounds
-    (probe_batched_rounds) into it and `recorded`."""
+    optimization. Returns a dict of the run's counts, errors, times, the
+    pose graph, the local builder and the MapBuilder. With `rounds` (phase
+    12), probes the batched rounds (probe_batched_rounds) into it and
+    `recorded`."""
     mb = MapBuilder(options or slam_options(), device=device)
     tb = mb.get_trajectory_builder(mb.add_trajectory_builder())
     pg = mb.pose_graph
@@ -1487,7 +1516,8 @@ def run_slam(device, options=None, drive=None, rounds=None, recorded=None):
     drain_s = time.perf_counter() - t_start - front_s
     n_solves = len(solves)
     return dict(slam_result(pg), optimizations=n_solves, errors=errors, latencies=latencies, searches=searches,
-                solves=solves, front_s=front_s, drain_s=drain_s, pose_graph=pg, local_builder=tb._local)
+                solves=solves, front_s=front_s, drain_s=drain_s, pose_graph=pg, local_builder=tb._local,
+                map_builder=mb)
 
 
 def slam_result(pg):
@@ -1655,7 +1685,7 @@ def run_phase_12(device, slam, k4_serial, options=None):
     rounds with the card otherwise idle, batched and serially
     (rounds_alone), and prints their times. Returns (K4 launches by path,
     packed K3 launches, {kernel: {shape: measure's record}}, (per-scan
-    latencies, ms per round))."""
+    latencies, ms per round, the finished submaps' grid bytes))."""
     fast_correlative_3d.match_fast_3d.score_sums = 0
     fast_scores_3d.launches = 0
     ct_scan_block.launches = 0
@@ -1668,7 +1698,7 @@ def run_phase_12(device, slam, k4_serial, options=None):
     k4_12, score_sums12, k3_packed = (fast_scores_3d.launches, fast_correlative_3d.match_fast_3d.score_sums,
                                       ct_scan_block_slots.launches)
     pg12 = slam12.pop("pose_graph")
-    del slam12["local_builder"]
+    del slam12["local_builder"], slam12["map_builder"]
     parity = [r["parity"] for r in rounds if r["parity"] is not None]
     k4_parity = sum(p[3] for p in parity)
     k4_paths = {"slam_serial": k4_serial, "slam_batched": k4_12 - k4_parity}
@@ -1726,7 +1756,9 @@ def run_phase_12(device, slam, k4_serial, options=None):
           f"{sum(not p[0] for p in alone_parity)} rounds off the serial results (max |dt| "
           f"{max(p[1] for p in alone_parity):.3e} m, max 1-|dq0| {max(p[2] for p in alone_parity):.3e}); stage "
           "medians ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stage_medians(alone_stages).items()), flush=True)
-    return k4_paths, k3_packed, shapes, (slam12["latencies"], round_ms)
+    grid_bytes = [grid_nbytes(s.submap.high_resolution_grid) + grid_nbytes(s.submap.low_resolution_grid)
+                  for s in pg12.submaps if s.finished]
+    return k4_paths, k3_packed, shapes, (slam12["latencies"], round_ms, grid_bytes)
 
 
 @contextlib.contextmanager
@@ -1750,6 +1782,12 @@ def counted_gn3d_blocks(counts):
         gn_3d_module.ct_scan_block, gn_3d_module.ct_scan_block_slots = single, slotted
 
 
+def reset_k3_counts():
+    """Zero K3's launch counts, in all and by mode, on both entries."""
+    for wrapper in (ct_scan_block, ct_scan_block_slots):
+        wrapper.launches = wrapper.prob_launches = wrapper.f16_launches = wrapper.bf16_launches = 0
+
+
 def run_phase_13(device, slam12_latencies, round12_ms):
     """Phase 13: run_slam over phase 11's drive with phase 12's options
     (the batched search) and the default submaps (PROBABILITY_GRID), at
@@ -1763,8 +1801,7 @@ def run_phase_13(device, slam12_latencies, round12_ms):
     launches by path."""
     fast_correlative_3d.match_fast_3d.score_sums = 0
     fast_scores_3d.launches = 0
-    for wrapper in (ct_scan_block, ct_scan_block_slots):
-        wrapper.launches = wrapper.prob_launches = 0
+    reset_k3_counts()
     window_solver.solve_ct_window_block.assemblies = 0
     rounds, recorded = [], []
     options = slam_options(batched=True, probability=True)
@@ -1773,6 +1810,7 @@ def run_phase_13(device, slam12_latencies, round12_ms):
     with counted_gn3d_blocks({"serial": 0, "packed": 0}) as gn3d:
         slam13 = run_slam(device, options, rounds=rounds, recorded=recorded)
     pg13, local = slam13.pop("pose_graph"), slam13.pop("local_builder")
+    del slam13["map_builder"]
     assemblies = window_solver.solve_ct_window_block.assemblies
     k3 = ct_scan_block.launches + ct_scan_block_slots.launches
     k3_prob = ct_scan_block.prob_launches + ct_scan_block_slots.prob_launches
@@ -1821,6 +1859,234 @@ def run_phase_13(device, slam12_latencies, round12_ms):
           f"{np.percentile(lat12, 95):.3f} ms); drive {slam13['front_s']:.1f} s, queue drained "
           f"{slam13['drain_s']:.1f} s after", flush=True)
     return paths, {"slam13_batched": k4}
+
+
+def run_phase_14(device, slam12_latencies, round12_ms, grid_bytes12):
+    """Phase 14: run_slam over phase 11's drive with phase 12's options
+    (TSDF submaps, the batched search) and grid_storage_dtype "float16",
+    at full width. Every K3 launch is in its f16 mode: the CT assemblies,
+    serial GN3D (rounds of one and the parity re-runs) and packed GN3D.
+    Gates the launches, the work queue, the fallbacks, the finished
+    submaps' planes and bytes (half of phase 12's per submap), the loop
+    closure and the errors against the JAX package's run on the same
+    options (JAX_SLAM14_*); prints its latency and ms per round beside
+    phase 12's. Returns (K3 launches by path, K4 launches by path, the
+    MapBuilder, the run's error list), for phase 16."""
+    fast_correlative_3d.match_fast_3d.score_sums = 0
+    fast_scores_3d.launches = 0
+    reset_k3_counts()
+    window_solver.solve_ct_window_block.assemblies = 0
+    rounds, recorded = [], []
+    options = slam_options(batched=True, storage="float16")
+    with counted_gn3d_blocks({"serial": 0, "packed": 0}) as gn3d:
+        slam14 = run_slam(device, options, rounds=rounds, recorded=recorded)
+    pg14, mb14 = slam14.pop("pose_graph"), slam14.pop("map_builder")
+    del slam14["local_builder"]
+    assemblies = window_solver.solve_ct_window_block.assemblies
+    k3 = ct_scan_block.launches + ct_scan_block_slots.launches
+    k3_f16 = ct_scan_block.f16_launches + ct_scan_block_slots.f16_launches
+    k4, score_sums = fast_scores_3d.launches, fast_correlative_3d.match_fast_3d.score_sums
+    paths = {"slam14_front_end": assemblies, "slam14_gn3d": gn3d["serial"], "slam14_gn3d_packed": gn3d["packed"]}
+    if slam14["errors"]:
+        fail(f"SLAM float16: pose-graph work failed: {slam14['errors'][:3]}")
+    if k3_f16 != k3 or k3_f16 != assemblies + gn3d["serial"] + gn3d["packed"] or assemblies == 0 or gn3d["packed"] == 0:
+        fail(f"SLAM float16: K3 launches {k3} ({k3_f16} in f16 mode) for {paths}")
+    if k4 != score_sums or score_sums == 0:
+        fail(f"SLAM float16: {k4} K4 launches for {score_sums} score_sum calls")
+    if not rounds or max(r["n"] for r in rounds) < 2 or pg14.batched_fallbacks:
+        fail(f"SLAM float16: {len(rounds)} batched rounds, {pg14.batched_fallbacks} fallbacks to the serial path")
+    finished = [s.submap for s in pg14.submaps if s.finished]
+    grid_bytes = [grid_nbytes(s.high_resolution_grid) + grid_nbytes(s.low_resolution_grid) for s in finished]
+    if not finished or any(g.dtype != torch.float16 for s in finished for grid in (s.high_resolution_grid,
+                                                                                   s.low_resolution_grid)
+                           for g in (grid.tsd, grid.weight)):
+        fail("SLAM float16: no finished submap, or a finished submap holds planes other than f16")
+    if len(grid_bytes) != len(grid_bytes12) or set(2 * b for b in grid_bytes) != set(grid_bytes12):
+        fail(f"SLAM float16: finished submaps' grid bytes {grid_bytes} are not half of phase 12's {grid_bytes12}")
+    if not slam14["finite"] or slam14["inter"] == 0:
+        fail(f"SLAM float16: {slam14['inter']} INTER constraints, finite {slam14['finite']}")
+    if not slam14["late_global"] < slam14["late_local"] / 2:
+        fail(f"SLAM float16: the returning tail's global error {slam14['late_global']:.5f} m is not below half its "
+             f"open-loop error {slam14['late_local']:.5f} m")
+    for key, jax_err in (("late_global", JAX_SLAM14_LATE_GLOBAL), ("median_global", JAX_SLAM14_MEDIAN_GLOBAL),
+                         ("max_global", JAX_SLAM14_MAX_GLOBAL)):
+        if slam14[key] > max(2 * jax_err, jax_err + 0.05):
+            fail(f"SLAM float16: {key} error {slam14[key]:.5f} m exceeds max(2 x, +0.05 m) of the JAX package's "
+                 f"{jax_err:.5f}")
+    parity = [r["parity"] for r in rounds if r["parity"] is not None]
+    if not parity or not all(p[0] for p in parity):
+        fail(f"SLAM float16: round parity with the serial path failed: {[p[:3] for p in parity]}")
+    n_cand = [r["n"] for r in rounds]
+    round_ms = np.array([r["s"] for r in rounds]) * 1e3
+    lat14, lat12 = np.array(slam14["latencies"]) * 1e3, np.array(slam12_latencies) * 1e3
+    print(f"SLAM 3D float16 (TSDF, grid_storage_dtype float16, batched): {slam14['nodes']} nodes, "
+          f"{slam14['submaps']} submaps ({slam14['finished']} finished), {slam14['inter']} INTER constraints; "
+          f"{len(rounds)} batched rounds, candidates per round median {np.median(n_cand):.1f}, max {max(n_cand)}; "
+          f"fallbacks {pg14.batched_fallbacks}; per round median {np.median(round_ms):.3f} ms, p95 "
+          f"{np.percentile(round_ms, 95):.3f} ms (phase 12 in this run: {np.median(round12_ms):.3f} / "
+          f"{np.percentile(round12_ms, 95):.3f} ms); K3 launches {k3}, all in f16 mode = {assemblies} CT "
+          f"assemblies + {gn3d['serial']} serial GN3D + {gn3d['packed']} packed GN3D; K4 launches {k4} = score_sum "
+          f"calls {score_sums}; finished submaps' grids {grid_bytes[0] / 1e6:.3f} MB each (phase 12: "
+          f"{grid_bytes12[0] / 1e6:.3f} MB) over {len(grid_bytes)} submaps; pack "
+          f"{pg14._pack3d['bytes'] / 2**20:.1f} MiB; {len(parity)} rounds re-run serially: max |dt| "
+          f"{max(p[1] for p in parity):.3e} m, max 1-|dq0| {max(p[2] for p in parity):.3e}; returning tail local "
+          f"{slam14['late_local']:.5f} m, global {slam14['late_global']:.5f} m; global median "
+          f"{slam14['median_global']:.5f} m, max {slam14['max_global']:.5f} m (JAX on the CPU "
+          f"{JAX_SLAM14_LATE_GLOBAL:.5f} / {JAX_SLAM14_MEDIAN_GLOBAL:.5f} / {JAX_SLAM14_MAX_GLOBAL:.5f}); per-scan "
+          f"latency median {np.median(lat14):.3f} ms, p95 {np.percentile(lat14, 95):.3f} ms over {len(lat14)} scans "
+          f"(phase 12 in this run: {np.median(lat12):.3f} / {np.percentile(lat12, 95):.3f} ms); drive "
+          f"{slam14['front_s']:.1f} s, queue drained {slam14['drain_s']:.1f} s after", flush=True)
+    return paths, {"slam14_batched": k4}, mb14, slam14["errors"]
+
+
+def device_kernels(fn):
+    """(fn(), kernels on the device trace of the call) by torch.profiler
+    (copies and fills not counted); late in a long process the trace can
+    miss launches, so the count is a floor."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset")))
+    return out, n
+
+
+SPA_SCALE = dict(num_nodes=5000, num_submaps=500, num_constraints=20000, noise=0.5, seed=0)
+
+
+def run_phase_15(device, reps=3, num_iterations=10):
+    """Phase 15: the plain SPA at the reference's production operating
+    point (tests/test_spa_scale.py: 5000 nodes, 500 submaps, 20000
+    constraints, 0.5 m noise), solve_spa_3d with "auto" (S*N = 2.5e6 above
+    the Schur budget: the PCG path) and with the Schur path on the same
+    problem. Gates: node and submap errors to the truth below 0.01 m on
+    both, the PCG within 5e-3 m of the Schur path on every node
+    (tests/test_spa_cg.py), final costs below 1. Prints ms per solve
+    (median over `reps` after one checked solve), PCG iterations per LM
+    step, kernels and host syncs a solve."""
+    problem, t_gt, s_gt = make_scale_spa_problem(**SPA_SCALE, device=device)
+    out, stats = {}, {}
+    for solver in ("auto", "schur"):
+        result, kernels = device_kernels(lambda: spa.solve_spa_3d(problem, num_iterations=num_iterations,
+                                                                  linear_solver=solver))
+        stats[solver] = dict(spa.LAST_SOLVE_STATS, kernels=kernels)
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            spa.solve_spa_3d(problem, num_iterations=num_iterations, linear_solver=solver)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        stats[solver]["ms"] = statistics.median(times)
+        st, _, nt, _, cost = (x.cpu().numpy() for x in result)
+        out[solver] = nt
+        node_err, sub_err = (float(np.linalg.norm(a - b, axis=1).max()) for a, b in ((nt, t_gt), (st, s_gt)))
+        stats[solver].update(node_err=node_err, submap_err=sub_err, cost=float(cost))
+        if not (node_err < 0.01 and sub_err < 0.01 and float(cost) < 1.0):
+            fail(f"SPA scale ({solver}): node error {node_err:.3e} m, submap error {sub_err:.3e} m, cost {float(cost)}")
+    if stats["auto"]["linear_solver"] != "cg" or stats["schur"]["linear_solver"] != "schur":
+        fail(f"SPA scale: auto took {stats['auto']['linear_solver']!r} above the Schur budget")
+    gap = float(np.abs(out["auto"] - out["schur"]).max())
+    if not gap < 5e-3:
+        fail(f"SPA scale: the PCG path is {gap:.3e} m off the Schur path")
+    line = "; ".join(
+        f"{name}: {s['ms']:.3f} ms per solve (median of {reps}), {s['lm_iterations']} LM steps"
+        + (f", PCG iterations per step {s['cg_iterations']}" if s["cg_iterations"] else "")
+        + f", {s['kernels']} kernels and {s['host_syncs']} host syncs a solve, node error {s['node_err']:.3e} m, "
+        f"submap error {s['submap_err']:.3e} m, cost {s['cost']:.3e}"
+        for name, s in (("PCG (auto)", stats["auto"]), ("Schur", stats["schur"])))
+    print(f"SPA scale (N={SPA_SCALE['num_nodes']}, S={SPA_SCALE['num_submaps']}, C={SPA_SCALE['num_constraints']}, "
+          f"{num_iterations} LM iterations): {line}; PCG vs Schur max |dt| {gap:.3e} m", flush=True)
+    return stats
+
+
+def packed_ids(pose_graph):
+    """The submap ids the batched search's pack holds, in its order or its
+    host cache."""
+    pack = pose_graph._pack3d
+    return set() if pack is None else set(pack["order"]) | set(pack["host"])
+
+
+class RecordingTrimmer(PureLocalizationTrimmer):
+    """A PureLocalizationTrimmer that records, at each trim, how many
+    submaps its trajectory keeps, which ids it trimmed, and the trimmed
+    ids the pack still holds right after."""
+
+    def __init__(self, trajectory_id, max_submaps_to_keep):
+        super().__init__(trajectory_id, max_submaps_to_keep)
+        self.kept, self.trimmed, self.held, self.packs_dropped = [], set(), set(), 0
+
+    def trim(self, pose_graph):
+        own = lambda: {s.submap_id for s in pose_graph.submaps if s.trajectory_id == self.trajectory_id}
+        before, had_pack = own(), pose_graph._pack3d is not None
+        super().trim(pose_graph)
+        after = own()
+        self.kept.append(len(after))
+        self.trimmed |= before - after
+        self.held |= packed_ids(pose_graph) & (before - after)
+        self.packs_dropped += had_pack and pose_graph._pack3d is None
+
+
+def run_phase_16(device, mb, errors, seconds=4.5):
+    """Phase 16: pure localization on phase 14's finished map. Trajectory
+    0 is finished and frozen; a second trajectory drives the first
+    `seconds` of the same route (another noise seed) with
+    PureLocalizationTrimmer(1, max_submaps_to_keep=3) in
+    pose_graph.trimmers. Gates: after every optimization the trajectory
+    holds at most 3 submaps and some were trimmed, INTER constraints tie
+    its nodes to trajectory 0's submaps, no work item failed, a trim
+    dropped a pack that held a trimmed submap, and neither the pack nor
+    its host cache holds a trimmed id, right after each trim or at the
+    end. Returns K3's f16 launches in the phase."""
+    pg = mb.pose_graph
+    mb.finish_trajectory(0)
+    pg.freeze_trajectory(0)
+    k3 = ct_scan_block.f16_launches + ct_scan_block_slots.f16_launches
+    tid = mb.add_trajectory_builder()
+    trimmer = RecordingTrimmer(tid, 3)
+    pg.trimmers.append(trimmer)
+    timed_method(pg, "_compute_constraints_for_node", [], errors)
+    tb = mb.get_trajectory_builder(tid)
+    t0 = time.perf_counter()
+    for kind, t, *payload in slam_drive(seed=2):
+        if t > seconds:
+            break
+        if kind == "imu":
+            tb.add_imu_data(t, *payload)
+        elif kind == "odom":
+            tb.add_odometry_data(t, payload[0])
+        else:
+            tb.add_range_data(payload[0])
+    pg.wait_for_all_computations()
+    pg.run_final_optimization()
+    wall = time.perf_counter() - t0
+    with pg._lock:
+        own = [s for s in pg.submaps if s.trajectory_id == tid]
+        inter = sum(c.tag == "INTER" and pg.nodes[c.node_index].trajectory_id == tid
+                    and pg.submaps[c.submap_index].trajectory_id == 0 for c in pg.constraints)
+        nodes = sum(n.trajectory_id == tid for n in pg.nodes)
+    pack = pg._pack3d
+    held = trimmer.held | (packed_ids(pg) & trimmer.trimmed)
+    if errors:
+        fail(f"pure localization: pose-graph work failed: {errors[:3]}")
+    if not trimmer.kept or max(trimmer.kept) > 3 or not trimmer.trimmed or len(own) > 3:
+        fail(f"pure localization: the trajectory kept {trimmer.kept} submaps after its optimizations "
+             f"({len(own)} now), trimmed {sorted(trimmer.trimmed)}")
+    if inter == 0:
+        fail(f"pure localization: no INTER constraint from trajectory {tid} to trajectory 0's submaps")
+    if held or not trimmer.packs_dropped:
+        fail(f"pure localization: the pack holds trimmed submaps {sorted(held)}, or no trim dropped a pack "
+             f"({trimmer.packs_dropped})")
+    k3 = ct_scan_block.f16_launches + ct_scan_block_slots.f16_launches - k3
+    print(f"pure localization (trajectory {tid} on phase 14's frozen map, PureLocalizationTrimmer keeping 3): "
+          f"{nodes} nodes over {seconds} s, {inter} INTER constraints to trajectory 0's submaps; submaps kept after "
+          f"each of {len(trimmer.kept)} optimizations {trimmer.kept}, trimmed ids {sorted(trimmer.trimmed)}, packs "
+          f"dropped {trimmer.packs_dropped}; pack at the end {'none' if pack is None else sorted(pack['order'])}; "
+          f"{pg.batched_fallbacks} fallbacks; K3 f16 "
+          f"launches {k3}; {wall:.1f} s", flush=True)
+    return k3
 
 
 def main() -> int:
@@ -1917,6 +2183,26 @@ def main() -> int:
     if ct_scan_block.prob_launches == 0 or ct_scan_block_slots.prob_launches == 0:
         fail("phase 7: K3 did not launch in probability mode")
     del hi, lo, pairs, slots, a
+    # K3's f16 and bf16 TSDF modes: maps of the same scans filled by the
+    # half inserter, the same shapes and tolerance as the f32 rows;
+    # slotted over three grid pairs (three, two and one scans inserted).
+    for dtype, tag in ((torch.float16, "f16"), (torch.bfloat16, "bf16")):
+        pairs = [ct_production_grids(device, dtype, n)[:2] for n in (3, 2, 1)]
+        hi, lo = pairs[0]
+        if hi.tsd.dtype != dtype or not bool((hi.weight > 0).any()):
+            fail(f"phase 7: the {tag} maps hold {hi.tsd.dtype} planes or no observed cell")
+        checks["ct_scan_block"].update({
+            f"{tag}_front_end": check_ct_scan_block(ct_kernel_inputs(device, hi, lo, scan_pts), f"{tag}_front_end"),
+            f"{tag}_gn3d": check_ct_scan_block(ct_kernel_inputs(device, hi, lo, scan_pts, c=1), f"{tag}_gn3d"),
+        })
+        a = ct_kernel_inputs(device, hi, lo, scan_pts, c=4)
+        slots = grid_slots([h for h, _ in pairs], [l for _, l in pairs])
+        checks["ct_scan_block"][f"{tag}_gn3d_packed"] = check_k3_slots(
+            (slots, torch.tensor([0, 1, 2, 0], dtype=torch.int32, device=device), *a[2:10]), f"{tag}_gn3d_packed")
+        del hi, lo, pairs, slots, a
+    if not all((ct_scan_block.f16_launches, ct_scan_block.bf16_launches, ct_scan_block_slots.f16_launches,
+                ct_scan_block_slots.bf16_launches)):
+        fail("phase 7: K3 did not launch in its f16 and bf16 modes")
 
     # Phase 8: the window solve on the production-extent fixture.
     run_ct_window(device)
@@ -1957,7 +2243,7 @@ def main() -> int:
     ct_scan_block.launches = 0
     window_solver.solve_ct_window_block.assemblies = 0
     slam = run_slam(device)
-    del slam["pose_graph"], slam["local_builder"]
+    del slam["pose_graph"], slam["local_builder"], slam["map_builder"]
     launches["fast_scores_3d"] = fast_scores_3d.launches
     score_sums = fast_correlative_3d.match_fast_3d.score_sums
     # Only the window solve and GN3D call K3: the solve once per assembly.
@@ -1994,7 +2280,7 @@ def main() -> int:
           f"{slam['front_s']:.1f} s, queue drained {slam['drain_s']:.1f} s after", flush=True)
 
     # Phase 12: the same drive with the default batched constraint search.
-    k4_paths, k3_paths["slam_gn3d_packed"], shapes12, (lat12, round12_ms) = run_phase_12(
+    k4_paths, k3_paths["slam_gn3d_packed"], shapes12, (lat12, round12_ms, grid_bytes12) = run_phase_12(
         device, slam, launches["fast_scores_3d"])
     checks["fast_scores_3d"].update(shapes12["fast_scores_3d"])
     checks["ct_scan_block"].update(shapes12["ct_scan_block"])
@@ -2003,6 +2289,18 @@ def main() -> int:
     k3_paths13, k4_paths13 = run_phase_13(device, lat12, round12_ms)
     k3_paths.update(k3_paths13)
     k4_paths.update(k4_paths13)
+
+    # Phase 14: the same drive and search on float16 TSDF submaps.
+    k3_paths14, k4_paths14, mb14, errors14 = run_phase_14(device, lat12, round12_ms, grid_bytes12)
+    k3_paths.update(k3_paths14)
+    k4_paths.update(k4_paths14)
+
+    # Phase 15: the plain SPA at the production operating point, PCG and Schur.
+    run_phase_15(device)
+
+    # Phase 16: pure localization on phase 14's map.
+    k3_paths["slam16_pure_localization"] = run_phase_16(device, mb14, errors14)
+    del mb14
 
     sources = {
         "correlative_prep_2d": ("hectorgrapher_tpu_torch/csrc/correlative_prep_2d.cu",
@@ -2018,10 +2316,12 @@ def main() -> int:
     }
     # Each kernel's record at its main-path shape (K1 and K2 at B=1024, K3
     # at the CT front end's, K4 at the coarse stage's), its other shapes
-    # under "shapes" (K3's probability mode under prob_*); launches from
-    # its main path's run (K1, K2: phase 6; K3: phase 9, with phases 11-13
-    # under "launches_by_path", slam13_* all in probability mode; K4: phase
-    # 11, with phases 12 and 13 beside it under "launches_by_path").
+    # under "shapes" (K3's probability mode under prob_*, its f16 and bf16
+    # TSDF modes under f16_* and bf16_*); launches from its main path's run
+    # (K1, K2: phase 6; K3: phase 9, with phases 11-14 and 16 under
+    # "launches_by_path", slam13_* all in probability mode, slam14_* and
+    # slam16_* all in f16 mode; K4: phase 11, with phases 12-14 beside it
+    # under "launches_by_path").
     main_shape = {"correlative_prep_2d": "batched", "correlative_scores_2d": "batched",
                   "ct_scan_block": "front_end", "fast_scores_3d": "coarse"}
     kernels = []

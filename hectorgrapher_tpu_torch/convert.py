@@ -37,27 +37,36 @@ def grid_meta(meta, device) -> GridMeta:
     )
 
 
-def _f32_or_u16(x, device) -> torch.Tensor:
-    """A grid plane: uint16 codes stay codes, anything else becomes f32."""
+def _grid_plane(x, device) -> torch.Tensor:
+    """A grid plane in its storage dtype, bit for bit: uint16 codes stay
+    codes, float16 stays float16, bfloat16 (numpy's ml_dtypes.bfloat16)
+    becomes torch.bfloat16 through a uint16 view; anything else f32."""
     a = np.asarray(x)
-    return tensor(a, device, torch.uint16 if a.dtype == np.uint16 else torch.float32)
+    if a.dtype == np.uint16:
+        return tensor(a, device, torch.uint16)
+    if a.dtype == np.float16:
+        return tensor(a, device, torch.float16)
+    if a.dtype.name == "bfloat16":
+        return tensor(a.view(np.uint16), device).view(torch.bfloat16)
+    return tensor(a, device, torch.float32)
 
 
 def probability_grid(grid, device) -> ProbabilityGrid:
     """A JAX ProbabilityGrid, 2D or 3D (f32 log_odds or uint16 codes, bool
     known, meta)."""
     return ProbabilityGrid(
-        log_odds=_f32_or_u16(grid.log_odds, device),
+        log_odds=_grid_plane(grid.log_odds, device),
         known=tensor(grid.known, device, torch.bool),
         meta=grid_meta(grid.meta, device),
     )
 
 
 def tsdf_grid(grid, device) -> TSDFGrid:
-    """A JAX TSDFGrid: float32 storage, or uint16 codes as they are."""
+    """A JAX TSDFGrid in its storage dtype: float32, float16 or bfloat16
+    planes, or uint16 codes, as they are."""
     return TSDFGrid(
-        tsd=_f32_or_u16(grid.tsd, device),
-        weight=_f32_or_u16(grid.weight, device),
+        tsd=_grid_plane(grid.tsd, device),
+        weight=_grid_plane(grid.weight, device),
         truncation_distance=tensor(grid.truncation_distance, device, torch.float32),
         max_weight=tensor(grid.max_weight, device, torch.float32),
         meta=grid_meta(grid.meta, device),
@@ -115,8 +124,8 @@ def grid_3d(grid, device):
 
 
 def submap_3d(submap, device) -> Submap3D:
-    """A JAX Submap3D, finished or not, with grids of either type, f32 or
-    uint16-quantized."""
+    """A JAX Submap3D, finished or not, with grids of either type in their
+    storage dtype (f32, f16 or bf16 TSDF planes, or uint16 codes)."""
     return Submap3D(
         local_pose=np_rigid3(submap.local_pose),
         high_resolution_grid=grid_3d(submap.high_resolution_grid, device),

@@ -17,7 +17,11 @@
 //   TSDF mode: the 2x2x2 stencil of w and w*tsd, interior cells only
 //   (else unknown), blended in x and y per z, then in z, with d/df
 //   (_field_and_dfrac); val = (w*tsd)/w where w > 1e-6 (else 0), d/df by
-//   the quotient rule;
+//   the quotient rule. The volumes are f32, f16 or bf16 (the submaps'
+//   grid_storage_dtype); a half tap is converted to f32 as it is loaded
+//   (__half2float, __bfloat162float, both exact), and everything after
+//   is the f32 arithmetic of the f32 mode, as the JAX package upcasts
+//   the planes before w * tsd (interpolated_grid.py :298-300);
 //   probability mode: the stencil of the prepared probability field p,
 //   interior cells only (else eight MIN_PROBABILITY taps, JAX's pad row),
 //   blended the same way; val = 1 - p, d/df = -dp/df;
@@ -59,8 +63,12 @@
 // once per grid version by prepare_grid_3d, not here: computing exp per
 // tap would read 5 bytes a cell and tie the result to the rounding of
 // expf); a point outside the interior does not return early but blends
-// the pad taps, so its cost matches the JAX package's.
+// the pad taps, so its cost matches the JAX package's. Half storage
+// halves the stencil's bytes and nothing else: each tap is upcast in a
+// register, so no f32 copy of a volume is made anywhere.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,6 +85,12 @@ constexpr int kUpper = 171;  // 18 * 19 / 2
 constexpr int kOut = kUpper + 18 + 1;  // a block's sums: S's upper triangle, g, the cost
 constexpr float kMinProbability = 0.1f;  // probability_values.MIN_PROBABILITY: the pad taps
 
+// The kernel's modes, as the host names them (ops/ct_scan_block.py).
+constexpr int kModeTsdf = 0;  // TSDF volumes in f32
+constexpr int kModeProb = 1;  // prepared f32 probability fields
+constexpr int kModeTsdfF16 = 2;  // TSDF volumes in f16
+constexpr int kModeTsdfBf16 = 3;  // TSDF volumes in bf16
+
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
@@ -88,9 +102,14 @@ __device__ __forceinline__ void cross3(const float a[3], const float b[3], float
   out[2] = sub(mul(a[0], b[1]), mul(a[1], b[0]));
 }
 
+// A volume tap as f32: exact for every storage type.
+__device__ __forceinline__ float tap(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float tap(const __half* p) { return __half2float(__ldg(p)); }
+__device__ __forceinline__ float tap(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+
 struct Grid {
-  const float* tsd;  // probability mode: the prepared probability field
-  const float* weight;  // probability mode: unused
+  const void* tsd;  // of the mode's storage type; probability mode: the prepared probability field
+  const void* weight;  // probability mode: unused
   int nx, ny, nz;
   float mc[3];  // min_corner and resolution: read from the device by the kernel
   float res;
@@ -115,8 +134,9 @@ __device__ __forceinline__ void field_and_dfrac(const float r[4][2], float fx, f
   d[2] = sub(m[1], m[0]);
 }
 
-// Residual (unscaled) and row7 = [dval/dworld, dval/dq] of one point.
-template <bool kProb>
+// Residual (unscaled) and row7 = [dval/dworld, dval/dq] of one point; T
+// is the volumes' storage type (float in probability mode).
+template <bool kProb, typename T>
 __device__ __forceinline__ void point_row7(const Grid& grid, const float q[4], const float t[3], const float p[3],
                            float& val, float row7[7]) {
   // world = p + 2 * (w * (u x p) + u x (u x p)) + t
@@ -150,20 +170,22 @@ __device__ __forceinline__ void point_row7(const Grid& grid, const float q[4], c
     float r[4][2];
     for (int c = 0; c < 4; ++c) {
       const size_t idx = b0 + static_cast<size_t>(c >> 1) * ny * nz + static_cast<size_t>(c & 1) * nz;
-      for (int z = 0; z < 2; ++z) r[c][z] = ok ? __ldg(grid.tsd + idx + z) : kMinProbability;
+      for (int z = 0; z < 2; ++z) r[c][z] = ok ? tap(static_cast<const T*>(grid.tsd) + idx + z) : kMinProbability;
     }
     float prob, dp[3];
     field_and_dfrac(r, f[0], f[1], f[2], prob, dp);
     val = sub(1.0f, prob);
     for (int i = 0; i < 3; ++i) dvw[i] = dvd(-dp[i], grid.res);
   } else {
+    const T* weight = static_cast<const T*>(grid.weight);
+    const T* tsd = static_cast<const T*>(grid.tsd);
     float rw[4][2], rt[4][2];
     for (int c = 0; c < 4; ++c) {
       const size_t idx = b0 + static_cast<size_t>(c >> 1) * ny * nz + static_cast<size_t>(c & 1) * nz;
       for (int z = 0; z < 2; ++z) {
-        const float w = __ldg(grid.weight + idx + z);
+        const float w = tap(weight + idx + z);
         rw[c][z] = w;
-        rt[c][z] = mul(w, __ldg(grid.tsd + idx + z));
+        rt[c][z] = mul(w, tap(tsd + idx + z));
       }
     }
     float w, wtsd, dw[3], dwtsd[3];
@@ -210,8 +232,9 @@ __device__ __forceinline__ void point_row7(const Grid& grid, const float q[4], c
 // kSlotted: the cloud's grids are those of slot[c] (pointers from
 // grid_ptrs, parameters from gparams' row); otherwise hi and lo, with
 // gparams' one row. kProb: probability mode (each grid's tsd pointer is
-// its prepared probability field; weight is not read).
-template <bool kSlotted, bool kProb>
+// its prepared probability field; weight is not read). T: the storage
+// type of the volumes (float, __half or __nv_bfloat16; float with kProb).
+template <bool kSlotted, bool kProb, typename T>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 ct_scan_block_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_ptrs, const int* __restrict__ slot,
                      const float* __restrict__ gparams, const float* __restrict__ hi_pts,
@@ -234,10 +257,10 @@ ct_scan_block_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_ptrs, co
   int s = 0;
   if (kSlotted) {
     s = slot[c];
-    hi.tsd = reinterpret_cast<const float*>(grid_ptrs[4 * s]);
-    hi.weight = reinterpret_cast<const float*>(grid_ptrs[4 * s + 1]);
-    lo.tsd = reinterpret_cast<const float*>(grid_ptrs[4 * s + 2]);
-    lo.weight = reinterpret_cast<const float*>(grid_ptrs[4 * s + 3]);
+    hi.tsd = reinterpret_cast<const void*>(grid_ptrs[4 * s]);
+    hi.weight = reinterpret_cast<const void*>(grid_ptrs[4 * s + 1]);
+    lo.tsd = reinterpret_cast<const void*>(grid_ptrs[4 * s + 2]);
+    lo.weight = reinterpret_cast<const void*>(grid_ptrs[4 * s + 3]);
   }
   float gp[8];  // the grids' min corners and resolutions
   for (int k = 0; k < 8; ++k) gp[k] = __ldg(gparams + 8 * s + k);
@@ -294,7 +317,7 @@ ct_scan_block_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_ptrs, co
                         is_hi ? hi.ny : lo.ny, is_hi ? hi.nz : lo.nz,
                         {is_hi ? gp[0] : gp[4], is_hi ? gp[1] : gp[5], is_hi ? gp[2] : gp[6]},
                         is_hi ? gp[3] : gp[7]};
-        point_row7<kProb>(grid, q, t, p, val, row7);
+        point_row7<kProb, T>(grid, q, t, p, val, row7);
         s = is_hi ? hi_scale[c] : lo_scale[c];
       }
       float* dst = row7s + tid * kRow7;
@@ -349,15 +372,26 @@ ct_scan_block_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_ptrs, co
   cluster.sync();
 }
 
-// Launch the kernel in the mode `prob` names (host side of both entries).
+// Launch the kernel in `mode` (kMode*; host side of both entries).
 template <bool kSlotted, typename... Args>
-int launch(int prob, int c, void* stream, Args... args) {
+int launch(int mode, int c, void* stream, Args... args) {
   const dim3 grid(kCluster, c);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (prob) {
-    ct_scan_block_kernel<kSlotted, true><<<grid, kThreads, 0, s>>>(args...);
-  } else {
-    ct_scan_block_kernel<kSlotted, false><<<grid, kThreads, 0, s>>>(args...);
+  switch (mode) {
+    case kModeTsdf:
+      ct_scan_block_kernel<kSlotted, false, float><<<grid, kThreads, 0, s>>>(args...);
+      break;
+    case kModeProb:
+      ct_scan_block_kernel<kSlotted, true, float><<<grid, kThreads, 0, s>>>(args...);
+      break;
+    case kModeTsdfF16:
+      ct_scan_block_kernel<kSlotted, false, __half><<<grid, kThreads, 0, s>>>(args...);
+      break;
+    case kModeTsdfBf16:
+      ct_scan_block_kernel<kSlotted, false, __nv_bfloat16><<<grid, kThreads, 0, s>>>(args...);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -365,30 +399,31 @@ int launch(int prob, int c, void* stream, Args... args) {
 }  // namespace
 
 // hi_tsd, hi_weight (hnx, hny, hnz) and lo_tsd, lo_weight (lnx, lny, lnz)
-// f32, or with prob != 0 the prepared probability fields in hi_tsd and
-// lo_tsd (the weights unused, may be null); gparams (8,) f32 on the device
+// in the storage type `mode` names (kModeTsdf f32, kModeTsdfF16 f16,
+// kModeTsdfBf16 bf16), or with kModeProb the prepared f32 probability
+// fields in hi_tsd and lo_tsd (the weights unused, may be null); gparams (8,) f32 on the device
 // [hi min_corner (3), hi resolution, lo min_corner (3), lo resolution];
 // hi_pts (C, P_hi, 3) f32, hi_mask (C, P_hi) bool, likewise lo; pose7
 // (C, 7), dpose7 (C, 7, 18), hi_scale, lo_scale (C,) f32. Writes S (C, 18,
 // 18), g (C, 18), cost (C,) f32. Returns the launch's cudaGetLastError().
-extern "C" int hg_ct_scan_block(const float* hi_tsd, const float* hi_weight, const float* lo_tsd,
-                                const float* lo_weight, const float* gparams, const float* hi_pts,
+extern "C" int hg_ct_scan_block(const void* hi_tsd, const void* hi_weight, const void* lo_tsd,
+                                const void* lo_weight, const float* gparams, const float* hi_pts,
                                 const uint8_t* hi_mask, const float* lo_pts, const uint8_t* lo_mask,
                                 const float* pose7, const float* dpose7, const float* hi_scale,
                                 const float* lo_scale, float* S, float* g, float* cost, int c, int p_hi, int p_lo,
-                                int hnx, int hny, int hnz, int lnx, int lny, int lnz, int prob, void* stream) {
+                                int hnx, int hny, int hnz, int lnx, int lny, int lnz, int mode, void* stream) {
   const Grid hi{hi_tsd, hi_weight, hnx, hny, hnz, {0.0f, 0.0f, 0.0f}, 0.0f};
   const Grid lo{lo_tsd, lo_weight, lnx, lny, lnz, {0.0f, 0.0f, 0.0f}, 0.0f};
-  return launch<false>(prob, c, stream, hi, lo, static_cast<const int64_t*>(nullptr), static_cast<const int*>(nullptr),
+  return launch<false>(mode, c, stream, hi, lo, static_cast<const int64_t*>(nullptr), static_cast<const int*>(nullptr),
                        gparams, hi_pts, hi_mask, lo_pts, lo_mask, pose7, dpose7, hi_scale, lo_scale, S, g, cost, p_hi,
                        p_lo);
 }
 
 // The slotted form: grid_ptrs (D, 4) int64 device pointers [hi_tsd,
 // hi_weight, lo_tsd, lo_weight] of D submaps whose hi volumes are all
-// (hnx, hny, hnz) f32 and lo volumes (lnx, lny, lnz) f32 (with prob != 0,
-// entries 0 and 2 are the hi and lo probability fields and 1 and 3 are
-// unused); gparams (D, 8) f32, one row per submap; slot (C,) int32 in [0,
+// (hnx, hny, hnz) and lo volumes (lnx, lny, lnz), all in the storage type
+// `mode` names (with kModeProb, entries 0 and 2 are the hi and lo
+// probability fields and 1 and 3 are unused); gparams (D, 8) f32, one row per submap; slot (C,) int32 in [0,
 // D): cloud c's submap. The other arguments and the outputs as
 // hg_ct_scan_block's.
 extern "C" int hg_ct_scan_block_slots(const int64_t* grid_ptrs, const int* slot, const float* gparams,
@@ -396,9 +431,9 @@ extern "C" int hg_ct_scan_block_slots(const int64_t* grid_ptrs, const int* slot,
                                       const uint8_t* lo_mask, const float* pose7, const float* dpose7,
                                       const float* hi_scale, const float* lo_scale, float* S, float* g, float* cost,
                                       int c, int p_hi, int p_lo, int hnx, int hny, int hnz, int lnx, int lny, int lnz,
-                                      int prob, void* stream) {
+                                      int mode, void* stream) {
   const Grid hi{nullptr, nullptr, hnx, hny, hnz, {0.0f, 0.0f, 0.0f}, 0.0f};
   const Grid lo{nullptr, nullptr, lnx, lny, lnz, {0.0f, 0.0f, 0.0f}, 0.0f};
-  return launch<true>(prob, c, stream, hi, lo, grid_ptrs, slot, gparams, hi_pts, hi_mask, lo_pts, lo_mask, pose7,
+  return launch<true>(mode, c, stream, hi, lo, grid_ptrs, slot, gparams, hi_pts, hi_mask, lo_pts, lo_mask, pose7,
                       dpose7, hi_scale, lo_scale, S, g, cost, p_hi, p_lo);
 }

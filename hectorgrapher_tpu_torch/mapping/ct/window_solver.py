@@ -26,8 +26,10 @@ accept test compares costs).
 
 The grids are prepared once per solve (prepare_grid_3d, window_solver.py
 :667-668): an occupancy grid becomes its probability field, which K3's
-probability mode reads; a caller that holds prepared grids
-(Submap3D.prepared_grids) passes them as they are.
+probability mode reads; a TSDF grid stays as it is stored, f32 or half
+(grid_storage_dtype "float16" / "bfloat16"), and K3 reads its volumes
+in place, so no solve makes an f32 copy of them. A caller that holds
+prepared grids (Submap3D.prepared_grids) passes them as they are.
 
 Per-scan mode only. Per-point unwarping, the DIRECT IMU term, the batched
 multi-window solve and unwarp_and_accumulate are not ported; the solver

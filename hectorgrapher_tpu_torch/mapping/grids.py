@@ -8,10 +8,11 @@ Conventions, as in the JAX package:
   * Arrays are indexed [ix, iy] or [ix, iy, iz].
 
 Occupancy grids (2D and 3D) store float32 log-odds and a known mask; TSDF
-grids float32 (tsd, weight). A finished 3D submap may hold either as the
-JAX package's uint16 codes (quantize_*_grid), which ensure_f32_grid
-decodes before any consumer reads them. The f16/bf16 storage options are
-not ported.
+grids (tsd, weight) in their storage dtype (STORAGE_DTYPES): float32, or
+float16 / bfloat16 planes that every consumer upcasts to float32 after
+reading, as the JAX package does. A finished 3D submap may hold either
+grid type as the JAX package's uint16 codes (quantize_*_grid), which
+ensure_f32_grid decodes before any consumer reads them.
 """
 
 from __future__ import annotations
@@ -102,8 +103,8 @@ class TSDFGrid(NamedTuple):
     mapping/3d/hybrid_grid_tsdf.h). weight == 0 marks an unknown cell,
     whose tsd reads +truncation_distance."""
 
-    tsd: torch.Tensor  # (nx, ny[, nz]) f32
-    weight: torch.Tensor  # same shape, f32
+    tsd: torch.Tensor  # (nx, ny[, nz]) f32, f16 or bf16 (or uint16 codes)
+    weight: torch.Tensor  # same shape and dtype
     truncation_distance: torch.Tensor  # scalar f32
     max_weight: torch.Tensor  # scalar f32
     meta: GridMeta
@@ -113,6 +114,18 @@ class TSDFGrid(NamedTuple):
         return tuple(self.tsd.shape)
 
 
+# grid_storage_dtype names (grids.py STORAGE_DTYPES :146-156 of the JAX
+# package). "uint16" grids compute in f32 and quantize when their submap
+# finishes; "float16" and "bfloat16" TSDF planes are stored in half
+# precision and upcast to f32 by every consumer after reading.
+STORAGE_DTYPES = {
+    "float32": torch.float32,
+    "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+    "uint16": torch.uint16,
+}
+
+
 def make_tsdf_grid(
     resolution: float,
     size_cells: Tuple[int, ...],
@@ -120,10 +133,13 @@ def make_tsdf_grid(
     max_weight: float,
     device,
     center=None,
+    dtype=torch.float32,
 ) -> TSDFGrid:
+    """(grids.py make_tsdf_grid :240-258.) dtype: the planes' storage
+    precision; the truncation distance and the weight cap stay f32."""
     return TSDFGrid(
-        tsd=torch.full(size_cells, truncation_distance, dtype=torch.float32, device=device),
-        weight=torch.zeros(size_cells, dtype=torch.float32, device=device),
+        tsd=torch.full(size_cells, truncation_distance, dtype=dtype, device=device),
+        weight=torch.zeros(size_cells, dtype=dtype, device=device),
         truncation_distance=torch.tensor(truncation_distance, dtype=torch.float32, device=device),
         max_weight=torch.tensor(max_weight, dtype=torch.float32, device=device),
         meta=make_meta(resolution, size_cells, device, center),
@@ -195,9 +211,25 @@ def dequantize_probability_grid(grid: ProbabilityGrid) -> ProbabilityGrid:
 
 
 def ensure_f32_grid(grid):
-    """A uint16-coded grid decoded to float32; any other grid as it is."""
+    """A uint16-coded grid decoded to float32; any other grid as it is, f16
+    and bf16 planes included (grids.py :221-228: consumers upcast after
+    reading)."""
     if isinstance(grid, TSDFGrid):
         return dequantize_tsdf_grid(grid)
     if isinstance(grid, ProbabilityGrid):
         return dequantize_probability_grid(grid)
     return grid
+
+
+def volume_dtype(grid) -> torch.dtype:
+    """The dtype in which consumers read a grid's planes: uint16 codes
+    decode to f32; f32 and half planes as they are stored."""
+    planes = grid.tsd if isinstance(grid, TSDFGrid) else grid.log_odds
+    return torch.float32 if planes.dtype == torch.uint16 else planes.dtype
+
+
+def grid_nbytes(grid) -> int:
+    """Storage bytes of a grid's cell planes (grids.py :231-235)."""
+    if isinstance(grid, TSDFGrid):
+        return grid.tsd.numel() * grid.tsd.element_size() + grid.weight.numel() * grid.weight.element_size()
+    return grid.log_odds.numel() * grid.log_odds.element_size() + grid.known.numel() * grid.known.element_size()

@@ -155,13 +155,16 @@ def insert_tsdf_3d(
     w_sum = w_sum[:size].reshape(shape)
     wd_sum = wd_sum[:size].reshape(shape)
 
-    new_w_raw = grid.weight + w_sum
-    new_tsd = torch.where(
-        w_sum > 0,
-        (grid.tsd * grid.weight + wd_sum) / torch.clamp(new_w_raw, min=1e-9),
-        grid.tsd,
-    )
-    return grid._replace(tsd=new_tsd, weight=torch.minimum(new_w_raw, grid.max_weight))
+    # Half planes (f16, bf16) are read in f32 and the update rounded back
+    # to their dtype to nearest even, as the JAX package's astype does. A
+    # bf16 weight holds integers exactly only up to 256: above that it
+    # stops growing, in the JAX package and here alike.
+    tsd32 = grid.tsd.to(torch.float32)
+    wgt32 = grid.weight.to(torch.float32)
+    new_w_raw = wgt32 + w_sum
+    new_tsd = torch.where(w_sum > 0, (tsd32 * wgt32 + wd_sum) / torch.clamp(new_w_raw, min=1e-9), tsd32)
+    return grid._replace(tsd=new_tsd.to(grid.tsd.dtype),
+                         weight=torch.minimum(new_w_raw, grid.max_weight).to(grid.weight.dtype))
 
 
 def make_tsdf_inserter_3d(options, resolution: float):

@@ -1,8 +1,9 @@
 """Levenberg-Marquardt loop and 3D sparse pose adjustment (counterpart of
 hectorgrapher_tpu/mapping/pose_graph/optimization.py: _lm_drive :75-144,
-the block-Schur SPA :47-72, :167-186, :285-330, solve_spa_3d :335-472 and
-solve_spa_3d_full :480-883; ref: internal/optimization/
-optimization_problem_3d.cc, cost_functions/spa_cost_function_3d.h).
+the block-Schur SPA :47-72, :167-186, :285-330, the matrix-free PCG SPA
+:147-166, :189-279, solve_spa_3d :335-472 and solve_spa_3d_full
+:480-883; ref: internal/optimization/optimization_problem_3d.cc,
+cost_functions/spa_cost_function_3d.h).
 
 The CT window solve (mapping/ct/window_solver.py) runs its LM loop through
 _lm_drive too.
@@ -10,12 +11,13 @@ _lm_drive too.
 Jacobians: the JAX solve takes each residual family's per-block Jacobian
 with a vmapped jax.jacfwd; here each family's is a closed form over the
 whole batch of blocks (the same derivatives; torch.func.jacfwd issued ~8k
-small ops per family and evaluation). Assembly is in a fixed order:
-one-hot matmuls for the Schur blocks, a dense row-stacked Jacobian and one
-matmul for the full system (no entry is summed twice, so no atomic order
-can change the cost the LM accept test compares). Not ported: the
-matrix-free PCG path (_spa_cg_solve, chosen when S*N > 1e6) and the 2D
-solvers.
+small ops per family and evaluation). Assembly is in a fixed order, with
+no atomics, so a step does not change from run to run: the plain SPA's
+sums over constraints (Schur blocks and the PCG path's) gather each
+submap's, node's and submap-node pair's rows through a padded index
+table built once per solve (_segment_table) and add them in constraint
+order; the full system is a dense row-stacked Jacobian and one matmul.
+Not ported: the 2D solvers.
 """
 
 from __future__ import annotations
@@ -129,26 +131,79 @@ def _chol_solve(a, b):
     return torch.where(info == 0, x, torch.nan)
 
 
-def _spa_partial_blocks(j_s, j_n, r, c_submap, c_node, s_count: int, n_count: int):
+def _segment_table(index, mask, count: int):
+    """(count, width) int64: row k lists, in constraint order, the
+    constraints c with index[c] == k and mask[c], padded with C (the index
+    of an appended zero row); width is the largest such count. One host
+    sync (the width)."""
+    c = index.shape[0]
+    seg = torch.where(mask, index, count)  # masked-out constraints go to a dropped segment
+    order = torch.argsort(seg, stable=True)
+    counts = torch.bincount(seg, minlength=count + 1)
+    width = max(int(counts[:count].max()), 1)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(c, device=index.device) - starts[seg[order]]
+    table = torch.full((count + 1, width), c, dtype=torch.int64, device=index.device)
+    keep = seg[order] < count
+    table[seg[order][keep], rank[keep]] = order[keep]
+    return table[:count]
+
+
+def _segment_sum(rows, table):
+    """Per-segment sums of rows (C, ...) over table's members, in a fixed
+    order: (count, ...)."""
+    padded = torch.cat([rows, torch.zeros_like(rows[:1])])
+    return padded[table].sum(dim=1)
+
+
+def _spa_tables(c_submap, c_node, mask, s_count: int, n_count: int, coupling: bool):
+    """The segment tables of a solve, built once: the submaps' and the
+    nodes' (_segment_table) and, with coupling, the distinct submap-node
+    pairs (S*N flat indices, and S*N for masked constraints) and their
+    table. Two host syncs, four with coupling."""
+    t_s, t_n = _segment_table(c_submap, mask, s_count), _segment_table(c_node, mask, n_count)
+    if not coupling:
+        return t_s, t_n, None, None
+    pairs, inverse = torch.unique(torch.where(mask, c_submap * n_count + c_node, s_count * n_count),
+                                  return_inverse=True)
+    return t_s, t_n, pairs, _segment_table(inverse, mask, pairs.shape[0])
+
+
+def _spa_diag_blocks(j_s, j_n, r, tables):
+    """Block-diagonal normal-equation operands (no submap-node coupling),
+    summed over the constraints (optimization.py _spa_diag_blocks
+    :147-166): (a_blocks (S, P, P), c_blocks (N, P, P), g_s (S, P), g_n (N,
+    P)). tables: the submap and node _segment_tables."""
+    t_s, t_n = tables[:2]
+    return (
+        _segment_sum(torch.einsum("cri,crj->cij", j_s, j_s), t_s),
+        _segment_sum(torch.einsum("cri,crj->cij", j_n, j_n), t_n),
+        _segment_sum(torch.einsum("cri,cr->ci", j_s, r), t_s),
+        _segment_sum(torch.einsum("cri,cr->ci", j_n, r), t_n),
+    )
+
+
+def _spa_partial_blocks(j_s, j_n, r, tables, s_count: int, n_count: int):
     """Block normal-equation operands summed over the constraints: submap
     blocks (S, P, P), node blocks (N, P, P), couplings (S, N, P, P) and the
     gradients (S, P), (N, P). j_s, j_n: (C, R, P) masked Jacobian halves;
-    r: (C, R). The per-constraint products are summed by one-hot matmuls."""
+    r: (C, R); tables: _spa_tables with coupling. Each pair's products are
+    summed over its constraints, then written to its one coupling block."""
     p = j_s.shape[-1]
-    oh_s = torch.nn.functional.one_hot(c_submap, s_count).to(torch.float32)  # (C, S)
-    oh_n = torch.nn.functional.one_hot(c_node, n_count).to(torch.float32)
-    oh_sn = torch.nn.functional.one_hot(c_submap * n_count + c_node, s_count * n_count).to(torch.float32)
-    a_blocks = (oh_s.T @ torch.einsum("cri,crj->cij", j_s, j_s).reshape(-1, p * p)).reshape(s_count, p, p)
-    c_blocks = (oh_n.T @ torch.einsum("cri,crj->cij", j_n, j_n).reshape(-1, p * p)).reshape(n_count, p, p)
-    b_blocks = (oh_sn.T @ torch.einsum("cri,crj->cij", j_s, j_n).reshape(-1, p * p)).reshape(s_count, n_count, p, p)
-    g_s = oh_s.T @ torch.einsum("cri,cr->ci", j_s, r)
-    g_n = oh_n.T @ torch.einsum("cri,cr->ci", j_n, r)
+    a_blocks, c_blocks, g_s, g_n = _spa_diag_blocks(j_s, j_n, r, tables)
+    pairs, t_p = tables[2], tables[3]
+    b_flat = torch.zeros((s_count * n_count + 1, p * p), dtype=torch.float32, device=j_s.device)
+    b_flat[pairs] = _segment_sum(torch.einsum("cri,crj->cij", j_s, j_n).reshape(-1, p * p), t_p)
+    b_blocks = b_flat[:-1].reshape(s_count, n_count, p, p)
     return a_blocks, c_blocks, b_blocks, g_s, g_n
 
 
-# b_blocks coupling tensors above this element count take the CG path,
-# which is not ported.
+# b_blocks coupling tensors above this element count take the CG path.
 _SCHUR_COUPLING_BUDGET = 1_000_000
+
+# What the last solve_spa_3d did: its linear solver, LM iterations, PCG
+# iterations per LM step, and the host syncs it made.
+LAST_SOLVE_STATS: dict = {}
 
 
 def _spa_schur_solve(blocks, fixed_s, fixed_n, lam):
@@ -187,6 +242,88 @@ def _spa_schur_solve(blocks, fixed_s, fixed_n, lam):
     delta = -torch.cat([x_s, x_n])
     fixed_coord = torch.cat([torch.repeat_interleave(fixed_s, p), torch.repeat_interleave(fixed_n, p)])
     return torch.where(fixed_coord, 0.0, delta)
+
+
+# ---------------------------------------------------------------------------
+# Matrix-free block-Jacobi PCG solver of the plain SPA system
+# ---------------------------------------------------------------------------
+
+
+def _spa_cg_solve(j_s, j_n, blocks, c_submap, c_node, tables, fixed_s, fixed_n, lam, max_iters: int = 200,
+                  tol: float = 1e-6, check_every: int = 10):
+    """LM step of the SPA system by block-Jacobi preconditioned CG
+    (optimization.py _spa_cg_solve :189-279): the damped normal matrix is
+    applied as v -> J^T (J v) + damping * v, never formed, so memory stays
+    O(C + S + N) with no (S, N) coupling tensor. The damped, fixed-masked
+    system is _spa_schur_solve's.
+
+    The JAX loop is a while_loop: at most max_iters iterations while
+    r.r > tol^2 b.b. Here an iteration whose stop test holds leaves the
+    state as it is (torch.where), so running on past the stop changes
+    nothing, and the host reads the stop test back every check_every
+    iterations: the result is an early stop's, bit for bit. Returns (the
+    step (S*P + N*P,), the iterations taken (a device scalar), the host
+    syncs made)."""
+    a_blocks, c_blocks, g_s, g_n = blocks
+    p = a_blocks.shape[-1]
+    t_s, t_n = tables[:2]
+    j_s = torch.where(fixed_s[c_submap][:, None, None], 0.0, j_s)
+    j_n = torch.where(fixed_n[c_node][:, None, None], 0.0, j_n)
+    a_blocks = torch.where(fixed_s[:, None, None], 0.0, a_blocks)
+    c_blocks = torch.where(fixed_n[:, None, None], 0.0, c_blocks)
+    g_s = torch.where(fixed_s[:, None], 0.0, g_s)
+    g_n = torch.where(fixed_n[:, None], 0.0, g_n)
+    eye = torch.eye(p, dtype=torch.float32, device=a_blocks.device)
+
+    def damp(blk, fixed):
+        add = lam * torch.clamp(torch.diagonal(blk, dim1=-2, dim2=-1), min=1e-8) + 1e-8 + fixed[:, None].float()
+        return blk + add[:, :, None] * eye, add
+
+    a_d, add_s = damp(a_blocks, fixed_s)
+    c_d, add_n = damp(c_blocks, fixed_n)
+    a_inv, c_inv = torch.linalg.inv_ex(a_d)[0], torch.linalg.inv_ex(c_d)[0]
+
+    def matvec(v_s, v_n):
+        t = torch.einsum("crp,cp->cr", j_s, v_s[c_submap]) + torch.einsum("crp,cp->cr", j_n, v_n[c_node])
+        y_s = _segment_sum(torch.einsum("crp,cr->cp", j_s, t), t_s)
+        y_n = _segment_sum(torch.einsum("crp,cr->cp", j_n, t), t_n)
+        return y_s + add_s * v_s, y_n + add_n * v_n
+
+    def precond(r_s, r_n):
+        return torch.einsum("sij,sj->si", a_inv, r_s), torch.einsum("nij,nj->ni", c_inv, r_n)
+
+    def vdot(a_s, a_n, b_s, b_n):
+        return torch.sum(a_s * b_s) + torch.sum(a_n * b_n)
+
+    limit = tol * tol * vdot(g_s, g_n, g_s, g_n)
+    x_s, x_n = torch.zeros_like(g_s), torch.zeros_like(g_n)
+    r_s, r_n = g_s, g_n
+    z_s, z_n = precond(r_s, r_n)
+    d_s, d_n = z_s, z_n
+    rz = vdot(r_s, r_n, z_s, z_n)
+    iters = torch.zeros((), dtype=torch.int32, device=g_s.device)
+    syncs = 0
+    for it in range(max_iters):
+        live = vdot(r_s, r_n, r_s, r_n) > limit
+        if it % check_every == 0 and it > 0:
+            syncs += 1
+            if not bool(live):
+                break
+        ap_s, ap_n = matvec(d_s, d_n)
+        alpha = rz / torch.clamp(vdot(d_s, d_n, ap_s, ap_n), min=1e-30)
+        nx_s, nx_n = x_s + alpha * d_s, x_n + alpha * d_n
+        nr_s, nr_n = r_s - alpha * ap_s, r_n - alpha * ap_n
+        nz_s, nz_n = precond(nr_s, nr_n)
+        rz_new = vdot(nr_s, nr_n, nz_s, nz_n)
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        nd_s, nd_n = nz_s + beta * d_s, nz_n + beta * d_n
+        x_s, x_n, r_s, r_n, d_s, d_n, rz = (
+            torch.where(live, new, old) for old, new in
+            ((x_s, nx_s), (x_n, nx_n), (r_s, nr_s), (r_n, nr_n), (d_s, nd_s), (d_n, nd_n), (rz, rz_new)))
+        iters = iters + live.to(torch.int32)
+    delta = -torch.cat([x_s.reshape(-1), x_n.reshape(-1)])
+    fixed_coord = torch.cat([torch.repeat_interleave(fixed_s, p), torch.repeat_interleave(fixed_n, p)])
+    return torch.where(fixed_coord, 0.0, delta), iters, syncs
 
 
 # ---------------------------------------------------------------------------
@@ -263,16 +400,24 @@ def _retract_poses(t, q, d):
 
 def solve_spa_3d(problem: SpaProblem3D, num_iterations: int = 20, init_lambda: float = 1e-4,
                  linear_solver: str = "auto"):
-    """Plain SPA (submap-node constraints only), Schur path. Returns
+    """Plain SPA (submap-node constraints only). Returns
     (submap_translation, submap_rotation, node_translation, node_rotation,
-    final_cost)."""
+    final_cost).
+
+    linear_solver: "schur" (exact block-Schur elimination, O(S*N)
+    memory), "cg" (matrix-free block-Jacobi PCG, O(C + S + N) memory), or
+    "auto" (schur up to _SCHUR_COUPLING_BUDGET submap-node products).
+    LAST_SOLVE_STATS records the solve."""
     S = problem.submap_translation.shape[0]
     N = problem.node_translation.shape[0]
     if linear_solver == "auto":
         linear_solver = "schur" if S * N <= _SCHUR_COUPLING_BUDGET else "cg"
-    if linear_solver != "schur":
-        raise NotImplementedError(f"linear_solver={linear_solver!r}: only the Schur path is ported")
+    if linear_solver not in ("schur", "cg"):
+        raise ValueError(f"linear_solver={linear_solver!r}: 'auto', 'schur' or 'cg'")
     cs, cn, m = problem.c_submap, problem.c_node, problem.c_mask
+    tables = _spa_tables(cs, cn, m, S, N, coupling=linear_solver == "schur")
+    stats = {"linear_solver": linear_solver, "lm_iterations": 0, "cg_iterations": [],
+             "host_syncs": 2 if linear_solver == "cg" else 4}
 
     def retract(params, delta):
         st, sq, nt, nq = params
@@ -288,15 +433,32 @@ def solve_spa_3d(problem: SpaProblem3D, num_iterations: int = 20, init_lambda: f
         J = torch.where(m[:, None, None], J * w[:, :, None], 0.0)
         r = r * w
         cost = 0.5 * torch.sum(r * r)
-        return _spa_partial_blocks(J[:, :, :6], J[:, :, 6:], r, cs, cn, S, N), cost
+        j_s, j_n = J[:, :, :6], J[:, :, 6:]
+        if linear_solver == "cg":  # the diagonal blocks only: no (S, N) coupling tensor
+            return (j_s, j_n, *_spa_diag_blocks(j_s, j_n, r, tables)), cost
+        return _spa_partial_blocks(j_s, j_n, r, tables, S, N), cost
 
-    def delta_of(blocks, lam):
-        return _spa_schur_solve(blocks, problem.submap_fixed, problem.node_fixed, lam)
+    def delta_of(quant, lam):
+        stats["lm_iterations"] += 1
+        stats["host_syncs"] += 1  # _lm_drive's stop test
+        if linear_solver == "cg":
+            j_s, j_n, *diag = quant
+            delta, iters, syncs = _spa_cg_solve(j_s, j_n, diag, cs, cn, tables, problem.submap_fixed,
+                                                problem.node_fixed, lam)
+            stats["cg_iterations"].append(iters)
+            stats["host_syncs"] += syncs
+            return delta
+        return _spa_schur_solve(quant, problem.submap_fixed, problem.node_fixed, lam)
 
     params0 = (problem.submap_translation, problem.submap_rotation, problem.node_translation,
                problem.node_rotation)
     params, cost, _ = _lm_drive(eval_fn, delta_of, retract, params0, num_iterations, init_lambda,
                                 stop_on_host=True)
+    if stats["cg_iterations"]:  # one readback for the record
+        stats["cg_iterations"] = torch.stack(stats["cg_iterations"]).tolist()
+        stats["host_syncs"] += 1
+    LAST_SOLVE_STATS.clear()
+    LAST_SOLVE_STATS.update(stats)
     return params + (cost,)
 
 

@@ -21,8 +21,14 @@ iteration). A round of one candidate, and every candidate with the option
 off, takes the serial path: one fast-matcher search (through the pack
 when its submap is packed) and one GN3D refinement.
 
+Trimmers (trimmers.py: PureLocalizationTrimmer) run after each
+optimization; a trim drops the batched search's pack when it held a
+trimmed submap. A round that a trim overtakes between its fast match and
+its refinement refines the submaps it captured and adds no constraint to
+a trimmed one.
+
 Not ported: the solver mesh (set_solver_mesh raises NotImplementedError),
-the trimmer classes, and PoseGraph2D.
+OverlappingSubmapsTrimmer2D and PoseGraph2D.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch
 
 from hectorgrapher_tpu_torch.common import profiling
 from hectorgrapher_tpu_torch.mapping.ct import imu_integration
+from hectorgrapher_tpu_torch.mapping.grids import volume_dtype
 from hectorgrapher_tpu_torch.mapping.pose_graph.connectivity import TrajectoryConnectivityState
 from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import (
     SpaExtras3D,
@@ -953,8 +960,8 @@ class PoseGraph3D(PoseGraphBase):
         but one search configuration for the round: its scan range is the
         largest of its nodes' (the serial path uses each node's own).
         Returns a list of Optional[Constraint] aligned with gated; raises
-        NotImplementedError on mixed candidate shapes or submap grid types,
-        for the serial path.
+        NotImplementedError on mixed candidate shapes, submap grid types or
+        storage dtypes (K3's slot table reads one), for the serial path.
 
         The JAX package splits the refinement into blocks of at most 8
         distinct submaps (_GN3D_MAX_DISTINCT) to bound its prepared
@@ -977,9 +984,10 @@ class PoseGraph3D(PoseGraphBase):
             {tuple(n.low_cloud.positions.shape) for _, _, n, _ in gated},
             {np.asarray(n.histogram).shape for _, _, n, _ in gated},
             {type(p.submap.high_resolution_grid) for _, _, _, p in gated},
+            {volume_dtype(p.submap.high_resolution_grid) for _, _, _, p in gated},
         ]
         if any(len(x) != 1 for x in shapes):
-            raise NotImplementedError("mixed candidate shapes or grid types")
+            raise NotImplementedError("mixed candidate shapes, grid types or storage dtypes")
         scan_range = max(self._scan_range_bucket(n) for _, _, n, _ in gated)
         config = matchers[0].search_config(scan_range, global_search)
 
@@ -1004,9 +1012,12 @@ class PoseGraph3D(PoseGraphBase):
         results: List[Optional[Constraint]] = [None] * len(gated)
         if survivors:
             t0 = time.perf_counter()
-            with self._lock:
-                submap_by_sid = {s.submap_id: s.submap for s in self.submaps}
-            distinct = list(dict.fromkeys(gated[i][1] for i in survivors))
+            # The submaps captured at the gate, not looked up again: a trim
+            # since the fast match would have dropped them from
+            # self.submaps (a KeyError in the JAX package, ROADMAP C6);
+            # _append_constraint then adds nothing to a trimmed one.
+            submap_by_sid = {gated[i][1]: gated[i][3].submap for i in survivors}
+            distinct = list(submap_by_sid)
             grids = [submap_by_sid[sid].prepared_grids() for sid in distinct]
             pack = prepare_gn_pack_3d([hi for hi, _ in grids], [lo for _, lo in grids])
             lane_d = torch.tensor([distinct.index(gated[i][1]) for i in survivors], dtype=torch.int32,

@@ -40,11 +40,15 @@ def grid_match_scores(grid):
     """Hit-likelihood field in [0.1, 0.9] (fast_correlative_3d.py :36-46),
     of a grid decoded to f32 first: an occupancy grid's probability
     (unknown cells 0.1); for a TSDF 0.9 (1 - |tsd| / truncation), clipped,
-    where the weight is above 1e-6, else 0.1."""
+    where the weight is above 1e-6, else 0.1. Always f32: a half tsd plane
+    is upcast after its abs, where JAX promotes it against the f32
+    truncation distance (torch would keep the quotient in half); the
+    weight test stays in the plane's dtype, as JAX compares it against
+    the weakly typed 1e-6."""
     grid = ensure_f32_grid(grid)
     if isinstance(grid, ProbabilityGrid):
         return grid.probability()
-    s = 0.9 * (1.0 - torch.abs(grid.tsd) / grid.truncation_distance)
+    s = 0.9 * (1.0 - torch.abs(grid.tsd).to(torch.float32) / grid.truncation_distance)
     return torch.where(grid.weight > 1e-6, torch.clamp(s, 0.1, 0.9), 0.1)
 
 

@@ -35,7 +35,10 @@ the order of the batched solves' sums. prepare_gn_pack_3d is the
 counterpart of the JAX function of that name: K3 reads the TSDF volumes
 or probability fields in place, so the pack holds no z-segment tables,
 only the D distinct submaps' prepared grids as K3's slot table
-(grid_slots). All of a pack's submaps have one grid type.
+(grid_slots). All of a pack's submaps have one grid type and, for TSDF
+grids, one storage dtype (f32, f16 or bf16: K3 reads half volumes in
+place); grid_slots refuses a mix, and the pose graph sends such a round
+to the serial path.
 """
 
 from __future__ import annotations

@@ -92,7 +92,8 @@ def prepare_prob_3d(grid: ProbabilityGrid) -> PreparedProb3D:
 def prepare_grid_3d(grid):
     """A grid as the 3D stencil and kernel K3 read it
     (interpolated_grid.py prepare_grid_3d :469-477): uint16 codes decoded
-    first; a TSDFGrid as it is (its volumes are read in place), a
+    first; a TSDFGrid as it is (its volumes are read in place, f32 or
+    half), a
     ProbabilityGrid as its PreparedProb3D; a PreparedProb3D passes
     through."""
     grid = ensure_f32_grid(grid)
@@ -145,7 +146,10 @@ def tsdf_value_and_dfrac_3d(grid: TSDFGrid, points):
     """Weight-gated match value (...,) and its d/dfrac (..., 3) at world
     points (interpolated_grid.py tsdf_value_and_dfrac :445-459): the
     trilinear blends of w and w*tsd, val = (w*tsd)/w where w > 1e-6 and 0
-    elsewhere, and the quotient rule for the derivative."""
+    elsewhere, and the quotient rule for the derivative. Half planes (f16,
+    bf16) are read as f32 before the product w * tsd, as the JAX prepare
+    upcasts them (interpolated_grid.py :298-300): tap by tap, as K3 does,
+    so no f32 copy of the volumes is made."""
     nx, ny, nz = grid.shape
     ok, base, frac = stencil_3d(grid, points)
     weight = grid.weight.reshape(-1)
@@ -156,9 +160,9 @@ def tsdf_value_and_dfrac_3d(grid: TSDFGrid, points):
         zw, zt = [], []
         for dz in range(2):
             idx = base + (dx * ny * nz + dy * nz + dz)
-            w = weight[idx] * okf
+            w = weight[idx].to(torch.float32) * okf
             zw.append(w)
-            zt.append(w * tsd[idx])
+            zt.append(w * tsd[idx].to(torch.float32))
         rw.append(zw)
         rt.append(zt)
     fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]

@@ -7,12 +7,14 @@ CreateGrid :516-547).
 
 Grids are fixed-extent dense tensors in the local SLAM frame, centered on
 the submap origin. grid_storage_dtype "uint16" quantizes a submap's grids
-when it finishes, as the JAX package does; "float16" and "bfloat16" are
-not ported (ROADMAP A2b) and the constructor raises on them. The sampled
-clip accounting (count_clipped) is not ported.
+when it finishes, as the JAX package does; "float16" and "bfloat16" store
+a TSDF submap's planes in half precision from the start (half the bytes
+on the card), and are a ValueError for occupancy grids, as in the JAX
+package. The sampled clip accounting (count_clipped) is not ported.
 
 Submap3D.prepared_grids() is what the scan matchers read (K3 and the
-stencils): the grids decoded to f32, an occupancy grid as its probability
+stencils): uint16 grids decoded to f32, half TSDF planes as they are (K3
+and the stencils upcast each tap), an occupancy grid as its probability
 field. It is cached under the submap's version, which every insertion
 and the finish bump, so a consumer never reads a stale field.
 """
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from hectorgrapher_tpu_torch.mapping.grids import (
+    STORAGE_DTYPES,
     ProbabilityGrid,
     make_probability_grid,
     make_tsdf_grid,
@@ -82,15 +85,18 @@ class ActiveSubmaps3D:
 
     def __init__(self, options, device, histogram_size: int = 120):
         storage = options.grid_storage_dtype
-        if storage not in ("float32", "uint16"):
-            raise NotImplementedError(f"grid_storage_dtype={storage!r}: half-precision grids are not ported "
-                                      "(ROADMAP A2b); 'float32' and 'uint16' are")
+        if storage not in STORAGE_DTYPES:
+            raise ValueError(f"grid_storage_dtype={storage!r}: one of {sorted(STORAGE_DTYPES)}")
+        if options.grid_type != "TSDF" and storage in ("float16", "bfloat16"):
+            raise ValueError(f"grid_storage_dtype={storage!r} is only supported for TSDF grids (use 'uint16' "
+                             "for quantize-on-finish of probability grids)")
         self._options = options
         self._device = torch.device(device)
         self._histogram_size = histogram_size
         self._submaps: List[Submap3D] = []
         self._is_tsdf = options.grid_type == "TSDF"
         self._quantize_on_finish = storage == "uint16"  # active grids compute in f32
+        dtype = STORAGE_DTYPES["float32" if self._quantize_on_finish else storage]
         hi_res, lo_res = options.high_resolution, options.low_resolution
         hi_size, lo_size = (options.high_grid_size,) * 3, (options.low_grid_size,) * 3
         hi_opts = options.high_resolution_range_data_inserter
@@ -99,11 +105,11 @@ class ActiveSubmaps3D:
             hi_t, lo_t = hi_opts.tsdf_range_data_inserter, lo_opts.tsdf_range_data_inserter
             self._make_high = lambda: make_tsdf_grid(
                 hi_res, hi_size, truncation_distance=hi_t.relative_truncation_distance * hi_res,
-                max_weight=hi_t.maximum_weight, device=self._device,
+                max_weight=hi_t.maximum_weight, device=self._device, dtype=dtype,
             )
             self._make_low = lambda: make_tsdf_grid(
                 lo_res, lo_size, truncation_distance=lo_t.relative_truncation_distance * lo_res,
-                max_weight=lo_t.maximum_weight, device=self._device,
+                max_weight=lo_t.maximum_weight, device=self._device, dtype=dtype,
             )
             self._insert_high = make_tsdf_inserter_3d(hi_t, hi_res)
             self._insert_low = make_tsdf_inserter_3d(lo_t, lo_res)

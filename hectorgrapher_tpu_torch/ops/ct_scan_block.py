@@ -8,11 +8,16 @@ It has no Pallas source. The CUDA kernel is
 hectorgrapher_tpu_torch/csrc/ct_scan_block.cu; this module holds its
 wrapper and its plain PyTorch version.
 
-Two modes, by the grids' type: TSDFGrids take the weighted TSDF value
-(tsdf_value_and_dfrac_3d); PreparedProb3D fields, the occupancy grids
-prepared by prepare_grid_3d once per grid version, take 1 - p
-(prob_value_and_dfrac_3d). Both grids of a call have one type. An
-unprepared ProbabilityGrid is an error: nothing here builds its field.
+Modes, by the grids' type and storage: TSDFGrids take the weighted TSDF
+value (tsdf_value_and_dfrac_3d), in the kernel's f32, f16 or bf16 TSDF
+mode by the dtype of their planes (grid_storage_dtype); PreparedProb3D
+fields, the occupancy grids prepared by prepare_grid_3d once per grid
+version, take 1 - p (prob_value_and_dfrac_3d). Both grids of a call, and
+all the submaps of a slot table, have one type and one storage dtype. A
+half plane is read in place: the kernel converts each tap to f32 as it
+loads it, and the plain version upcasts the gathered taps, so neither
+makes an f32 copy of a volume. An unprepared ProbabilityGrid is an
+error: nothing here builds its field.
 
 For each cloud c, with pose7[c] = [t, q] and its Jacobian dpose7[c] on
 the cloud's 18-dim control-point pair tangent, every hi-res point (scaled
@@ -39,11 +44,10 @@ ct_scan_block once per cloud.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
-
-import math
 
 from hectorgrapher_tpu_torch.mapping.grids import TSDFGrid
 from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import PreparedProb3D, value_and_dfrac_3d
@@ -110,23 +114,33 @@ def grid_params(hi_grid, lo_grid):
     ]).to(dtype=torch.float32).contiguous()
 
 
-def is_probability_pair(hi_grid, lo_grid, where: str) -> bool:
-    """Whether (hi_grid, lo_grid) take the kernel's probability mode
-    (PreparedProb3D fields) or its TSDF mode (TSDFGrids); raises on
-    anything else, an unprepared ProbabilityGrid included, and on a mixed
-    pair."""
-    kinds = []
-    for label, grid in (("hi", hi_grid), ("lo", lo_grid)):
-        if isinstance(grid, PreparedProb3D):
-            kinds.append(True)
-        elif isinstance(grid, TSDFGrid):
-            kinds.append(False)
-        else:
-            raise TypeError(f"{where}: {label} grid is a {type(grid).__name__}, not a TSDFGrid or a "
-                            "PreparedProb3D (prepare a ProbabilityGrid with prepare_grid_3d)")
-    if kinds[0] != kinds[1]:
-        raise TypeError(f"{where}: the hi and lo grids differ in type")
-    return kinds[0]
+# The kernel's modes (kMode* of csrc/ct_scan_block.cu), by name.
+MODE_TSDF, MODE_PROB, MODE_TSDF_F16, MODE_TSDF_BF16 = 0, 1, 2, 3
+_TSDF_MODES = {torch.float32: MODE_TSDF, torch.float16: MODE_TSDF_F16, torch.bfloat16: MODE_TSDF_BF16}
+
+
+def _grid_mode(label: str, grid, where: str) -> int:
+    if isinstance(grid, PreparedProb3D):
+        return MODE_PROB
+    if not isinstance(grid, TSDFGrid):
+        raise TypeError(f"{where}: {label} grid is a {type(grid).__name__}, not a TSDFGrid or a "
+                        "PreparedProb3D (prepare a ProbabilityGrid with prepare_grid_3d)")
+    if grid.tsd.dtype != grid.weight.dtype or grid.tsd.dtype not in _TSDF_MODES:
+        raise TypeError(f"{where}: {label} grid's planes are {grid.tsd.dtype} and {grid.weight.dtype}; "
+                        "the kernel reads f32, f16 or bf16 planes of one dtype (decode uint16 grids with "
+                        "prepare_grid_3d)")
+    return _TSDF_MODES[grid.tsd.dtype]
+
+
+def kernel_mode(hi_grid, lo_grid, where: str) -> int:
+    """The kernel mode (MODE_*) of the grid pair: probability mode for
+    PreparedProb3D fields, a TSDF mode by the planes' dtype for TSDFGrids.
+    Raises on anything else, an unprepared ProbabilityGrid or uint16 codes
+    included, and on a pair of two types or two storage dtypes."""
+    modes = [_grid_mode(label, g, where) for label, g in (("hi", hi_grid), ("lo", lo_grid))]
+    if modes[0] != modes[1]:
+        raise TypeError(f"{where}: the hi and lo grids differ in type or storage dtype")
+    return modes[0]
 
 
 def _volumes(label: str, grid, device, where: str):
@@ -138,17 +152,26 @@ def _volumes(label: str, grid, device, where: str):
     if isinstance(grid, PreparedProb3D):
         _check(f"{label}.prob", grid.prob, torch.float32, shape, device)
         return grid.prob.data_ptr(), 0
-    _check(f"{label}.tsd", grid.tsd, torch.float32, shape, device)
-    _check(f"{label}.weight", grid.weight, torch.float32, shape, device)
+    _check(f"{label}.tsd", grid.tsd, grid.tsd.dtype, shape, device)
+    _check(f"{label}.weight", grid.weight, grid.tsd.dtype, shape, device)
     return grid.tsd.data_ptr(), grid.weight.data_ptr()
+
+
+def _count(fn, mode: int) -> None:
+    """One launch of fn in `mode`, counted in total and by mode."""
+    fn.launches += 1
+    fn.prob_launches += mode == MODE_PROB
+    fn.f16_launches += mode == MODE_TSDF_F16
+    fn.bf16_launches += mode == MODE_TSDF_BF16
 
 
 def ct_scan_block(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask, pose7, dpose7, hi_scale, lo_scale,
                   gparams=None):
     """Per-cloud scan blocks: (S (C, 18, 18), g (C, 18), cost (C,)) f32.
 
-    hi_grid, lo_grid: both TSDFGrids with contiguous f32 (nx, ny, nz)
-    volumes, or both PreparedProb3D fields (probability mode);
+    hi_grid, lo_grid: both TSDFGrids with contiguous (nx, ny, nz) volumes
+    of one dtype, f32, f16 or bf16, or both PreparedProb3D fields
+    (probability mode);
     hi_points (C, P, 3) f32 and hi_mask (C, P) bool (likewise lo, with its
     own P); pose7 (C, 7) f32 [t, q wxyz]; dpose7 (C, 7, 18) f32; hi_scale,
     lo_scale (C,) f32; gparams: grid_params(hi_grid, lo_grid), built here
@@ -163,7 +186,7 @@ def ct_scan_block(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask, pose
         raise ValueError(f"ct_scan_block: unsupported device {device}")
     c, p_hi = hi_mask.shape
     p_lo = lo_mask.shape[1]
-    prob = is_probability_pair(hi_grid, lo_grid, "ct_scan_block")
+    mode = kernel_mode(hi_grid, lo_grid, "ct_scan_block")
     hi_ptrs = _volumes("hi_grid", hi_grid, device, "ct_scan_block")
     lo_ptrs = _volumes("lo_grid", lo_grid, device, "ct_scan_block")
     _check("hi_points", hi_points, torch.float32, (c, p_hi, 3), device)
@@ -188,15 +211,15 @@ def ct_scan_block(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask, pose
         gparams.data_ptr(), hi_points.data_ptr(), hi_mask.data_ptr(), lo_points.data_ptr(), lo_mask.data_ptr(),
         pose7.data_ptr(), dpose7.data_ptr(), hi_scale.data_ptr(), lo_scale.data_ptr(),
         S.data_ptr(), g.data_ptr(), cost.data_ptr(),
-        c, p_hi, p_lo, *hi_grid.shape, *lo_grid.shape, int(prob),
+        c, p_hi, p_lo, *hi_grid.shape, *lo_grid.shape, mode,
     )
-    ct_scan_block.launches += 1
-    ct_scan_block.prob_launches += prob
+    _count(ct_scan_block, mode)
     return S, g, cost
 
 
-ct_scan_block.launches = 0
-ct_scan_block.prob_launches = 0  # the launches in probability mode
+# Launches in all, and in the probability, f16 and bf16 TSDF modes.
+ct_scan_block.launches = ct_scan_block.prob_launches = 0
+ct_scan_block.f16_launches = ct_scan_block.bf16_launches = 0
 
 
 class GridSlots(NamedTuple):
@@ -204,27 +227,33 @@ class GridSlots(NamedTuple):
     them: the grids themselves (which keep the volumes alive), their
     volume pointers (D, 4) int64 [hi tsd, hi weight, lo tsd, lo weight],
     or [hi field, 0, lo field, 0] in probability mode, and their
-    parameters (D, 8) f32 (grid_params), both on the grids' device."""
+    parameters (D, 8) f32 (grid_params), both on the grids' device; the
+    kernel mode of the whole table."""
 
     hi: Tuple[object, ...]
     lo: Tuple[object, ...]
     ptrs: torch.Tensor
     gparams: torch.Tensor
-    prob: bool = False  # PreparedProb3D fields: the kernel's probability mode
+    mode: int = MODE_TSDF  # MODE_*: one grid type and storage dtype for every submap
+
+    @property
+    def prob(self) -> bool:
+        """Whether the table takes the kernel's probability mode."""
+        return self.mode == MODE_PROB
 
 
 def grid_slots(hi_grids, lo_grids) -> GridSlots:
     """GridSlots of the grid pairs (hi_grids[d], lo_grids[d]): all
-    TSDFGrids or all PreparedProb3D fields. Every hi grid must have one
-    shape, every lo grid one shape, all f32 and contiguous on one
-    device."""
+    TSDFGrids of one storage dtype (f32, f16 or bf16) or all
+    PreparedProb3D fields. Every hi grid must have one shape, every lo
+    grid one shape, all contiguous on one device."""
     hi_grids, lo_grids = tuple(hi_grids), tuple(lo_grids)
     if not hi_grids or len(hi_grids) != len(lo_grids):
         raise ValueError(f"grid_slots: {len(hi_grids)} hi and {len(lo_grids)} lo grids")
     device = hi_grids[0].meta.min_corner.device
-    kinds = {is_probability_pair(h, lo, "grid_slots") for h, lo in zip(hi_grids, lo_grids)}
-    if len(kinds) != 1:
-        raise TypeError("grid_slots: the submaps differ in grid type")
+    modes = {kernel_mode(h, lo, "grid_slots") for h, lo in zip(hi_grids, lo_grids)}
+    if len(modes) != 1:
+        raise TypeError("grid_slots: the submaps differ in grid type or storage dtype")
     rows = []
     for d, (h, lo) in enumerate(zip(hi_grids, lo_grids)):
         if h.shape != hi_grids[0].shape or lo.shape != lo_grids[0].shape:
@@ -233,7 +262,7 @@ def grid_slots(hi_grids, lo_grids) -> GridSlots:
                      *_volumes(f"lo_grids[{d}]", lo, device, "grid_slots")])
     ptrs = torch.tensor(rows, dtype=torch.int64).to(device)
     gparams = torch.stack([grid_params(h, lo) for h, lo in zip(hi_grids, lo_grids)]).contiguous()
-    return GridSlots(hi_grids, lo_grids, ptrs, gparams, kinds.pop())
+    return GridSlots(hi_grids, lo_grids, ptrs, gparams, modes.pop())
 
 
 def ct_scan_block_slots_plain(slots: GridSlots, slot, hi_points, hi_mask, lo_points, lo_mask, pose7, dpose7,
@@ -290,12 +319,11 @@ def ct_scan_block_slots(slots: GridSlots, slot, hi_points, hi_mask, lo_points, l
         slots.ptrs.data_ptr(), slot.data_ptr(), slots.gparams.data_ptr(), hi_points.data_ptr(), hi_mask.data_ptr(),
         lo_points.data_ptr(), lo_mask.data_ptr(), pose7.data_ptr(), dpose7.data_ptr(), hi_scale.data_ptr(),
         lo_scale.data_ptr(), S.data_ptr(), g.data_ptr(), cost.data_ptr(),
-        c, p_hi, p_lo, *slots.hi[0].shape, *slots.lo[0].shape, int(slots.prob),
+        c, p_hi, p_lo, *slots.hi[0].shape, *slots.lo[0].shape, slots.mode,
     )
-    ct_scan_block_slots.launches += 1
-    ct_scan_block_slots.prob_launches += slots.prob
+    _count(ct_scan_block_slots, slots.mode)
     return S, g, cost
 
 
-ct_scan_block_slots.launches = 0
-ct_scan_block_slots.prob_launches = 0  # the launches in probability mode
+ct_scan_block_slots.launches = ct_scan_block_slots.prob_launches = 0
+ct_scan_block_slots.f16_launches = ct_scan_block_slots.bf16_launches = 0

@@ -13,6 +13,9 @@ whole round (match_fast_3d_batched), one readback of the round's scores.
 The pose graph keeps the pack across rounds and rebuilds it only when a
 needed submap is missing (PoseGraph3D._get_pack_3d): the members that stay
 are copied from the old pack on the card, only new members are uploaded.
+The tables are f32 whatever the submaps' grid_storage_dtype: the
+matcher's score field upcasts a half TSDF (grid_match_scores), so a
+pack of f16 or bf16 submaps takes the bytes of an f32 one.
 """
 
 from __future__ import annotations

@@ -18,7 +18,10 @@ one grid; K3 at the CT front end's C=32 and GN3D's C=1 at 256^3 / 128^3,
 and slotted at a packed GN3D's shape (8 lanes over two grid pairs), in
 its TSDF mode, then in its probability mode at the same two shapes on
 chip_smoke.py phase 7's occupancy maps (this tree's kernel alone when the
-earlier version has no probability mode); K4 at
+earlier version has no probability mode), then this tree's f16 and bf16
+TSDF modes (phase 7's maps of the same scans stored in half precision) at
+the three shapes in turns with the earlier kernel's f32 TSDF mode on the
+f32 maps (the same work at half the stencil's bytes); K4 at
 chip_smoke.py phase 10's coarse call, first expansion and level-0
 expansion, and with row bases at a batched round's coarse call (four scans
 over a pack of two submaps). Where the earlier version lacks the input a
@@ -114,10 +117,11 @@ def host_us(fn, n=200):
     return (t1 - t0) / n * 1e6
 
 
-def turns(name, label, old, new, args, kernel_name=None):
+def turns(name, label, old, new, args, kernel_name=None, old_args=None):
     """earlier, this, this, earlier (this, this without an earlier
     version): per-call, device and host time of each turn; then the
-    bound."""
+    bound of each version's inputs (old_args: the earlier version's, where
+    they differ from this one's)."""
     kernel = kernel_name or f"{name}_kernel"
     out = {"turns": []}
     order = (("earlier", old), ("this", new), ("this", new), ("earlier", old)) if old else (("this", new),) * 2
@@ -129,9 +133,12 @@ def turns(name, label, old, new, args, kernel_name=None):
               f"{rec['event_ms']:.4f} ms), host {rec['host_us']:.1f} us", flush=True)
     b_ms, b_by, nbytes, ops = cs.bound_ms(name, args)
     out.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops)
+    if old_args is not None:
+        out["earlier_bound_ms"] = cs.bound_ms(name, old_args)[0]
     for which in ("earlier", "this") if old else ("this",):
         dev = [t["device_ms"] for t in out["turns"] if t["version"] == which]
         out[f"{which}_device_ms"] = sum(dev) / len(dev)
+        b_ms = out["earlier_bound_ms"] if which == "earlier" and old_args is not None else out["bound_ms"]
         print(f"{name} {label} {which}: mean device {out[f'{which}_device_ms']:.4f} ms, bound {b_ms * 1e3:.3f} us "
               f"by {b_by}: {100 * b_ms / out[f'{which}_device_ms']:.2f}% of bound", flush=True)
     return out
@@ -279,13 +286,45 @@ def run_3d(device, parent, build, result, kernels):
         # wrapper knows the prepared field.
         hi, lo = cs.ct_production_probability_grids(device)
         old_module = load_parent_module(parent, "ct_scan_block", build)
-        old_takes_prob = hasattr(old_module, "is_probability_pair")
+        old_takes_prob = hasattr(old_module, "is_probability_pair") or hasattr(old_module, "kernel_mode")
         for label, c in (("prob_front_end", 32), ("prob_gn3d", 1)):
             args = cs.ct_kernel_inputs(device, hi, lo, scan_pts, c=c, outside=16)
             new = lambda a=args: k3.ct_scan_block(*a[:10], gparams=a[10])
             old = (lambda a=args: old_module.ct_scan_block(*a[:10])) if old_takes_prob else None
             result["k3"][label] = turns("ct_scan_block", label, old, new, args)
         del hi, lo
+        # The f16 and bf16 TSDF modes on maps of the same scans stored in
+        # half precision, in turns with the earlier kernel's f32 TSDF mode
+        # on the f32 maps; their outputs differ by the storage's rounding.
+        hi, lo, _ = cs.ct_production_grids(device)
+        hi2, lo2 = (g._replace(tsd=g.tsd.clone(), weight=g.weight.clone()) for g in (hi, lo))
+        old_slots = getattr(old_module, "ct_scan_block_slots", None)
+        for dtype, tag in ((torch.float16, "f16"), (torch.bfloat16, "bf16")):
+            hh, lh, _ = cs.ct_production_grids(device, dtype)
+            hh2, lh2 = (g._replace(tsd=g.tsd.clone(), weight=g.weight.clone()) for g in (hh, lh))
+            for label, c in (("front_end", 32), ("gn3d", 1), ("gn3d_packed", 8)):
+                a32 = cs.ct_kernel_inputs(device, hi, lo, scan_pts, c=c)
+                ah = cs.ct_kernel_inputs(device, hh, lh, scan_pts, c=c)
+                if label == "gn3d_packed":
+                    lanes = torch.arange(8, dtype=torch.int32, device=device) % 2
+                    args = (k3.grid_slots([hh, hh2], [lh, lh2]), lanes, *ah[2:10])
+                    args32 = (k3.grid_slots([hi, hi2], [lo, lo2]), lanes, *a32[2:10])
+                    new = lambda a=args: k3.ct_scan_block_slots(*a)
+                    old = None if old_slots is None else (lambda a=args32: old_slots(*a))
+                    name, old_args = "ct_scan_block_slots", args32
+                else:
+                    args, old_args = ah, a32
+                    new = lambda a=ah: k3.ct_scan_block(*a[:10], gparams=a[10])
+                    old = lambda a=a32: old_k3(*a[:10])
+                    name = "ct_scan_block"
+                diff = max(float((x - y).abs().max()) for x, y in zip(new(), old())) if old else None
+                print(f"ct_scan_block {tag}_{label}: this ({tag} maps) vs earlier (f32 maps) max |d| "
+                      f"{'not compared' if diff is None else f'{diff:.3e}'}", flush=True)
+                result["k3"][f"{tag}_{label}"] = {"max_abs_diff_from_f32": diff, **turns(
+                    name, f"{tag}_{label}", old, new, args, kernel_name="ct_scan_block_kernel",
+                    old_args=old_args)}
+            del hh, lh, hh2, lh2
+        del hi, lo, hi2, lo2
 
     if "k4" not in kernels:
         return

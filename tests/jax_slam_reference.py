@@ -1,14 +1,15 @@
 """The JAX package's MapBuilder over chip_smoke.py's 3D SLAM drive, on the
 CPU: the reference errors that chip_smoke.py holds phases 11 and 12 to.
 
-    JAX_PLATFORMS=cpu python tests/jax_slam_reference.py [--batched] [--probability] [--runs 2]
+    JAX_PLATFORMS=cpu python tests/jax_slam_reference.py [--batched] [--probability] [--storage float16] [--runs 2]
 
 The drive (chip_smoke.slam_drive) and the options (chip_smoke.
 slam_overrides, applied to the JAX package's MapBuilderOptions) are those
 of the chip phase: serial constraint search, or with --batched the default
 batched search (phase 12); --probability drops the TSDF override, so the
 submaps keep the default grid_type, PROBABILITY_GRID (with --batched,
-phase 13). Each run prints one JSON line with the counts
+phase 13); --storage float16 stores the TSDF submaps' planes in float16
+(with --batched, phase 14). Each run prints one JSON line with the counts
 and errors of chip_smoke.slam_result; with the async work queue the
 worker's timing against the front end moves the solves' starting poses,
 so the constants chip_smoke.py records are the larger of each over the
@@ -42,8 +43,8 @@ from hectorgrapher_tpu.sensor.types import TimedPointCloud, TimedPointCloudData 
 from hectorgrapher_tpu.transform.np_quat import NpRigid3  # noqa: E402
 
 
-def run(batched: bool, probability: bool) -> dict:
-    mb = MapBuilder(replace_deep(MapBuilderOptions(), chip_smoke.slam_overrides(batched, probability)))
+def run(batched: bool, probability: bool, storage=None) -> dict:
+    mb = MapBuilder(replace_deep(MapBuilderOptions(), chip_smoke.slam_overrides(batched, probability, storage)))
     tb = mb.get_trajectory_builder(mb.add_trajectory_builder())
     t0 = time.perf_counter()
     for kind, t, *payload in chip_smoke.slam_drive():
@@ -81,6 +82,8 @@ def main() -> int:
     parser.add_argument("--batched", action="store_true", help="the batched constraint search (phase 12)")
     parser.add_argument("--probability", action="store_true",
                         help="the default PROBABILITY_GRID submaps in place of TSDF (with --batched, phase 13)")
+    parser.add_argument("--storage", choices=("float16", "bfloat16"), default=None,
+                        help="the TSDF submaps' grid_storage_dtype (with --batched, phase 14)")
     parser.add_argument("--runs", type=int, default=2)
     parser.add_argument("--ct-drift", action="store_true",
                         help="the CT front end's drift on either grid type instead (ROADMAP C15)")
@@ -89,8 +92,8 @@ def main() -> int:
         ct_drift()
         return 0
     for _ in range(opts.runs):
-        print(json.dumps(dict(run(opts.batched, opts.probability), batched=opts.batched,
-                              probability=opts.probability)), flush=True)
+        print(json.dumps(dict(run(opts.batched, opts.probability, opts.storage), batched=opts.batched,
+                              probability=opts.probability, storage=opts.storage)), flush=True)
     return 0
 
 

@@ -207,10 +207,21 @@ def test_active_submaps_match_jax(grid_type):
             else:
                 assert int(np.asarray(jg.known).sum()) > 100
                 _assert_same_occupancy(tg, jg)
-    # Half-precision storage is not ported (ROADMAP A2b).
+    # Half-precision storage: TSDF planes in the storage dtype, as the JAX
+    # package's; occupancy grids refuse it in both packages
+    # (tests/test_torch_half_storage.py holds the half path's values).
     for dtype in ("float16", "bfloat16"):
-        with pytest.raises(NotImplementedError, match="A2b"):
-            tsub.ActiveSubmaps3D(convert.options(jcfg.replace_deep(opts, {"grid_storage_dtype": dtype})), CPU)
+        half = jcfg.replace_deep(opts, {"grid_storage_dtype": dtype})
+        if grid_type == "TSDF":
+            jg = ActiveSubmaps3D(half)._make_high()
+            tg = tsub.ActiveSubmaps3D(convert.options(half), CPU)._make_high()
+            assert tg.tsd.dtype == tg.weight.dtype == getattr(torch, dtype)
+            assert torch.equal(convert.tsdf_grid(jg, CPU).tsd, tg.tsd)
+        else:
+            with pytest.raises(ValueError, match="only supported for TSDF"):
+                ActiveSubmaps3D(half)
+            with pytest.raises(ValueError, match="only supported for TSDF"):
+                tsub.ActiveSubmaps3D(convert.options(half), CPU)
 
 
 @pytest.mark.parametrize("grid_type", ["TSDF", "PROBABILITY_GRID"])

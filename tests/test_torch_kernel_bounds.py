@@ -68,6 +68,22 @@ def test_bound_ct_scan_block_by_hand(grid_type):
     assert ms == pytest.approx(max(nbytes / 3.35e12, ops / 67e12) * 1e3, rel=1e-12)
 
 
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_bound_ct_scan_block_half_by_hand(dtype):
+    """test_bound_ct_scan_block_by_hand's point over TSDF planes stored in
+    half precision: the same cells 21..42, at 2 bytes a cell in sectors 1
+    and 2 of each plane (16 cells a sector), so two sectors a plane where
+    f32 planes take four; the operations do not change."""
+    hi, lo = (make_tsdf_grid(1.0, (4, 4, 4), 0.3, 1000.0, CPU, dtype=dtype) for _ in range(2))
+    p = (hi.meta.min_corner + 1.7)[None, None]
+    pose7 = torch.tensor([[0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0]])
+    args = (hi, lo, p, torch.ones((1, 1), dtype=torch.bool), p.clone(), torch.zeros((1, 1), dtype=torch.bool),
+            pose7, torch.zeros((1, 7, 18)), torch.ones(1), torch.ones(1))
+    nbytes = 4 * (3 + 3 + 7 + 126 + 2 + 8) + 2 + 4 * (324 + 18 + 1) + 2 * 2 * 32
+    ms, by, got_bytes, ops = cs.bound_ms("ct_scan_block", args)
+    assert (got_bytes, ops, by) == (nbytes, cs.K3_OPS_PER_POINT, "bytes")
+
+
 def test_bound_fast_scores_3d_row_bases_by_hand():
     """A batched round's call: two 4^3 level-0 blocks stacked (17 rows
     each, holding the flat index), two candidates on point rows 0 and 1

@@ -97,9 +97,84 @@ def test_solve_spa_3d_matches_jax(huber):
     _assert_close(got, want)
 
 
-def test_solve_spa_3d_refuses_cg():
-    with pytest.raises(NotImplementedError):
-        topt.solve_spa_3d(convert.spa_problem_3d(_chain_problem(), CPU), linear_solver="cg")
+@pytest.mark.parametrize("huber", [1e6, 0.05])
+def test_solve_spa_3d_cg_matches_jax_on_chain(huber):
+    """The PCG path against the JAX package's, on the chain: the same
+    tolerances as the Schur path's (the PCG converges to 1e-6 of the
+    gradient in both)."""
+    problem = _chain_problem()._replace(c_huber_scale=jnp.full(16, huber, jnp.float32))
+    want = solve_spa_3d(problem, num_iterations=25, linear_solver="cg")
+    got = topt.solve_spa_3d(convert.spa_problem_3d(problem, CPU), num_iterations=25, linear_solver="cg")
+    _assert_close(got, want)
+    assert topt.LAST_SOLVE_STATS["linear_solver"] == "cg"
+
+
+def test_cg_matches_jax_cg_and_port_schur_on_medium_graph():
+    """tests/test_spa_cg.py's 200-node, 24-submap, 800-constraint graph:
+    the port's PCG within 1e-4 of the JAX PCG's poses, both of the port's
+    paths within 0.01 m of the truth, and the PCG within 5e-3 m of the
+    Schur path on every node (the JAX test's bounds)."""
+    from hectorgrapher_tpu.evaluation.graph_generator import make_scale_spa_problem
+    from hectorgrapher_tpu_torch.evaluation.graph_generator import make_scale_spa_problem as port_problem
+
+    problem, t_gt, s_gt = make_scale_spa_problem(num_nodes=200, num_submaps=24, num_constraints=800, noise=0.3,
+                                                 seed=3)
+    tproblem, t_gt_port, s_gt_port = port_problem(200, 24, 800, noise=0.3, seed=3, device=CPU)
+    np.testing.assert_array_equal(t_gt_port, t_gt)
+    np.testing.assert_array_equal(s_gt_port, s_gt)
+    for field, a in zip(tproblem._fields, tproblem):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(getattr(problem, field)), err_msg=field)
+    want = solve_spa_3d(problem, num_iterations=15, linear_solver="cg")
+    cg = topt.solve_spa_3d(tproblem, num_iterations=15, linear_solver="cg")
+    stats = dict(topt.LAST_SOLVE_STATS)
+    schur = topt.solve_spa_3d(tproblem, num_iterations=15, linear_solver="schur")
+    for g, w in zip(cg[:4], want[:4]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0)
+    for out in (cg, schur):
+        assert np.linalg.norm(out[2].numpy() - t_gt, axis=1).max() < 0.01
+        assert np.linalg.norm(out[0].numpy() - s_gt, axis=1).max() < 0.01
+    assert np.abs(cg[2].numpy() - schur[2].numpy()).max() < 5e-3
+    assert stats["linear_solver"] == "cg" and len(stats["cg_iterations"]) == stats["lm_iterations"] > 0
+    assert all(0 < n <= 200 for n in stats["cg_iterations"])
+
+
+def test_auto_picks_cg_above_budget(monkeypatch):
+    """"auto" takes the Schur path up to _SCHUR_COUPLING_BUDGET submap-node
+    products and the PCG path above it (the JAX package's budget)."""
+    from hectorgrapher_tpu.mapping.pose_graph import optimization as jopt
+
+    assert topt._SCHUR_COUPLING_BUDGET == jopt._SCHUR_COUPLING_BUDGET
+    assert 500 * 5000 > topt._SCHUR_COUPLING_BUDGET >= 64 * 512
+    problem = convert.spa_problem_3d(_chain_problem(), CPU)  # S * N = 18
+    for budget, solver in ((18, "schur"), (17, "cg")):
+        monkeypatch.setattr(topt, "_SCHUR_COUPLING_BUDGET", budget)
+        topt.solve_spa_3d(problem, num_iterations=3)
+        assert topt.LAST_SOLVE_STATS["linear_solver"] == solver
+
+
+def test_cg_frozen_iterations_equal_an_early_stop():
+    """The PCG freezes its state once r.r <= tol^2 b.b, so reading the stop
+    test back every 10 iterations (or never) gives the step of a loop that
+    stops at once, bit for bit."""
+    from hectorgrapher_tpu_torch.evaluation.graph_generator import make_scale_spa_problem as port_problem
+
+    p, _, _ = port_problem(200, 24, 800, noise=0.3, seed=3, device=CPU)
+    tables = topt._spa_tables(p.c_submap, p.c_node, p.c_mask, 24, 200, coupling=False)
+    J, r = topt._pair_blocks(p.submap_translation[p.c_submap], p.submap_rotation[p.c_submap],
+                             p.node_translation[p.c_node], p.node_rotation[p.c_node], p.c_rel_translation,
+                             p.c_rel_rotation, p.c_translation_weight, p.c_rotation_weight)
+    j_s, j_n = J[:, :, :6], J[:, :, 6:]
+    diag = topt._spa_diag_blocks(j_s, j_n, r, tables)
+    lam = torch.tensor(1e-4)
+    steps = {}
+    for every in (1, 10, 200):
+        steps[every] = topt._spa_cg_solve(j_s, j_n, diag, p.c_submap, p.c_node, tables, p.submap_fixed,
+                                          p.node_fixed, lam, check_every=every)
+    n_iter = int(steps[1][1])
+    assert 0 < n_iter < 200
+    for every in (10, 200):
+        assert torch.equal(steps[every][0], steps[1][0]) and int(steps[every][1]) == n_iter
+    assert steps[200][2] == 0 and steps[10][2] == -(-n_iter // 10)
 
 
 def _nn_case():
