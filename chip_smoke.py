@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -85,10 +86,16 @@ from hectorgrapher_tpu_torch.mapping.pose_graph.trimmers import PureLocalization
 from hectorgrapher_tpu_torch.ops.ct_scan_block import (
     ct_scan_block,
     ct_scan_block_plain,
+    ct_scan_block_points,
+    ct_scan_block_points_plain,
+    ct_scan_block_points_slots,
+    ct_scan_block_points_slots_plain,
     ct_scan_block_slots,
     ct_scan_block_slots_plain,
     grid_params,
     grid_slots,
+    point_poses,
+    window_plan,
 )
 from hectorgrapher_tpu_torch.ops.fast_scores_3d import fast_scores_3d, fast_scores_3d_plain
 from hectorgrapher_tpu_torch.sensor.types import (
@@ -289,6 +296,13 @@ PEAK_F32_OPS_PER_S = 67e12
 # negation (58).
 K3_OPS_PER_POINT = 295 + 253 + 380
 K3_PROB_OPS_PER_POINT = 295 - 128 + 58 + 253 + 380
+# K3's per-point mode, per point of a segment, counted from the same file:
+# 554 for the pose and its 4 x 6 rotation Jacobian (point_pose; each f64
+# acos, sin or cos counted as one operation), the per-cloud mode's 295
+# (its probability variant likewise), 62 for the 18-wide row and the
+# residual, 380 for the 190 products.
+K3P_OPS_PER_POINT = 554 + 295 + 62 + 380
+K3P_PROB_OPS_PER_POINT = 554 + 295 - 128 + 58 + 62 + 380
 
 
 def _sectors(idx, element_bytes=4):
@@ -399,6 +413,38 @@ def _work(kernel, args):
                 nbytes += (1 if prob else 2) * 32 * _sectors(cells, element)
                 n_masked += n
         return nbytes, (K3_PROB_OPS_PER_POINT if prob else K3_OPS_PER_POINT) * n_masked
+    if kernel in ("ct_scan_block_points", "ct_scan_block_points_slots"):
+        if kernel == "ct_scan_block_points":
+            hi, lo, plan, cp7 = args[:4]
+            grid_pairs, window_slot, table_bytes = [(hi, lo)], [0], 4 * 8
+        else:
+            slots, slot, plan, cp7 = args[:4]
+            grid_pairs, window_slot = list(zip(slots.hi, slots.lo)), slot.tolist()
+            table_bytes = slots.ptrs.numel() * 8 + slots.gparams.numel() * 4 + slot.numel() * 4
+        # The points of some segment (the plan's dropped points are never
+        # read): point, factor, scale and grid flag each; the control
+        # points, the segment starts, the outputs.
+        m = int(plan.starts[-1])
+        nbytes = (21 * m + 4 * (cp7.numel() + plan.starts.numel() + plan.segments * (18 * 18 + 18 + 1))
+                  + table_bytes)
+        k1 = plan.k - 1
+        pair = plan.pair[:m]
+        row = pair % k1 + (pair // k1) * plan.k
+        t, q, _ = point_poses(cp7[row], cp7[row + 1], plan.factor[:m])
+        pose7 = torch.cat([t, q], dim=-1)
+        window = (pair // k1).long()
+        prob = isinstance(grid_pairs[0][0], PreparedProb3D)
+        for d, (hi, lo) in enumerate(grid_pairs):
+            lane = torch.zeros_like(window, dtype=torch.bool)
+            for b, sd in enumerate(window_slot):
+                if sd == d:
+                    lane |= window == b
+            for grid, use in ((hi, ~plan.lo[:m]), (lo, plan.lo[:m])):
+                sel = lane & use
+                cells, _ = k3_stencil_cells(grid, plan.points[:m][sel][:, None, :], sel[sel][:, None], pose7[sel])
+                element = 4 if prob else grid.tsd.element_size()
+                nbytes += (1 if prob else 2) * 32 * _sectors(cells, element)
+        return nbytes, (K3P_PROB_OPS_PER_POINT if prob else K3P_OPS_PER_POINT) * m
     if kernel == "fast_scores_3d":
         table, bx, by, bz, valid, cand_t, off_x, off_y, off_z = args[:9]
         cand_base = args[12] if len(args) > 12 else None
@@ -423,17 +469,17 @@ def bound_ms(kernel, args):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
-def measure(name, label, kernel, plain, args, err, library=None, note="", kernel_name=None):
+def measure(name, label, kernel, plain, args, err, library=None, note="", kernel_name=None, plain_reps=20):
     """Time one kernel call against its plain version (and the library
     call, where there is one) at one shape, print one line and return the
     record: per call (CUDA events around the call, host gap included) and
     device time (the kernel's own over 100 calls, device_ms: kernels whose
     name holds kernel_name, by default name + "_kernel") beside its
-    bound."""
+    bound; the plain version over plain_reps calls."""
     b_ms, b_by, nbytes, ops = bound_ms(name, args)
-    rec = dict(max_abs_err=err, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+    rec = dict(max_abs_err=err, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain, reps=plain_reps),
                device_ms=device_ms(kernel, reps=100, match=kernel_name or f"{name}_kernel"),
-               plain_device_ms=device_ms(plain),
+               plain_device_ms=device_ms(plain, reps=plain_reps),
                library_ms=None if library is None else cuda_ms(library), bound_ms=b_ms, bound_by=b_by)
     share = "not measured" if rec["device_ms"] is None else f"{100 * b_ms / rec['device_ms']:.1f}% of it"
     lib = "none" if library is None else f"{rec['library_ms']:.4f} ms"
@@ -677,6 +723,15 @@ JAX_CT_YAW_ERROR = 0.02423
 CT_MAX_TRANSLATION_ERROR = 2 * JAX_CT_TRANSLATION_ERROR
 CT_MAX_YAW_ERROR = 2 * JAX_CT_YAW_ERROR
 CT_PARITY_TRANSLATION, CT_PARITY_YAW = 0.1, 0.01
+# Phases 17 and 18: the JAX package's CT front end over the same scans at
+# phase 9's options with per-point unwarping (17: all 80) and with the
+# DIRECT IMU term as well (18: the first CT18_SCANS), on a CPU
+# (tests/jax_slam_reference.py --ct-drift --per-point [--direct]): max
+# translation and yaw errors. The port must stay within max(2x, +0.05 m)
+# and max(2x, +0.01 rad) of them.
+JAX_CT17_TRANSLATION_ERROR, JAX_CT17_YAW_ERROR = 0.55642, 0.04008
+JAX_CT18_TRANSLATION_ERROR, JAX_CT18_YAW_ERROR = 0.21674, 0.04728
+CT18_SCANS = 40  # phase 18 (DIRECT: ~0.7 s a scan on the card) drives the first 4 s
 
 
 def ct_production_grids(device, dtype=torch.float32, n_scans=3):
@@ -811,6 +866,154 @@ def check_ct_scan_block(args, label, timed=True):
                         "PyTorch call fuses the grid stencil, the pose Jacobian and J^T J)")
 
 
+def ct_point_problem(device, scan_pts, c=32, p=256, k=32, seed=SEED, outside=0):
+    """Phase 7's per-point window at the CT front end's shape: C=32 clouds
+    of 256 hi-res and 256 lo-res points drawn from a scan (the last 32
+    lo-res points of each cloud masked out, the first `outside` of each
+    set moved to 40 m, outside both grids), K=32 control points 0.1 s
+    apart, the last one masked (its time +inf, its state the identity),
+    perturbed by up to 5 cm / 0.02 rad. Cloud times put cloud 0's sweep
+    partly before the first control point, the last cloud's after the last
+    valid one, and no point in pair 5; each cloud's sweep times over
+    [-0.05, 0.049] s are shuffled (a filtered cloud is not time-ordered).
+    Returns (problem, weights, state): a CtProblem's per-point fields, CtWeights."""
+    from types import SimpleNamespace
+
+    from hectorgrapher_tpu_torch.transform.rigid import quat_from_axis_angle
+
+    rng = np.random.default_rng(seed)
+    to = lambda a, dtype=torch.float32: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def clouds():
+        pts = np.stack([scan_pts[rng.choice(len(scan_pts), p, replace=False)] for _ in range(c)])
+        pts[:, :outside] *= 40.0 / np.linalg.norm(pts[:, :outside], axis=-1, keepdims=True)
+        return to(pts)
+
+    times = lambda: to(np.stack([rng.permutation(np.linspace(-0.05, 0.049, p, dtype=np.float32)) for _ in range(c)]))
+    cloud_time = np.arange(c) * 0.1 + 0.05 + np.where(np.arange(c) >= 5, 0.11, 0.0)  # pair 5: no point
+    cloud_time[0] = -0.02  # partly before control point 0
+    lo_mask = np.ones((c, p), bool)
+    lo_mask[:, -32:] = False
+    cp_mask = np.ones(k, bool)
+    cp_mask[-1] = False
+    problem = SimpleNamespace(
+        cp_mask=to(cp_mask, torch.bool), cp_times=to(np.arange(k) * 0.1), cloud_mask=to(np.ones(c, bool), torch.bool),
+        cloud_time=to(cloud_time), hi_points=clouds(), hi_mask=to(np.ones((c, p), bool), torch.bool),
+        hi_times=times(), lo_points=clouds(), lo_mask=to(lo_mask, torch.bool), lo_times=times())
+    aa = rng.uniform(-0.02, 0.02, (k, 3)).astype(np.float32)
+    aa[-1] = 0.0
+    trans = rng.uniform(-0.05, 0.05, (k, 3)).astype(np.float32)
+    trans[-1] = 0.0
+    state = CtState(to(trans), quat_from_axis_angle(to(aa)), torch.zeros((k, 3), device=device))
+    weights = CtWeights(*(to(w) for w in (1.0, 1.0, 1.0, 1.0, 1.0)))
+    return problem, weights, state
+
+
+def ct_point_inputs(device, hi, lo, scan_pts, outside=0, seed=SEED):
+    """K3 per-point mode's arguments at phase 7's shape (ct_point_problem):
+    (hi, lo, plan, cp7, gparams)."""
+    problem, weights, state = ct_point_problem(device, scan_pts, seed=seed, outside=outside)
+    plan = window_solver.problem_plan(problem, weights)
+    k1 = plan.k - 1
+    counts = (plan.starts[1:] - plan.starts[:-1]).tolist()
+    if counts[5] != 0 or min(counts[:5] + counts[6:k1 - 1]) == 0:
+        fail(f"phase 7: per-point segment sizes {counts} do not leave exactly pair 5 empty")
+    return hi, lo, plan, torch.cat([state.translation, state.rotation], dim=-1).contiguous(), grid_params(hi, lo)
+
+
+def _pair_errors(got, want):
+    """Per pair block: the largest |difference| of S, g and cost, and the
+    gate 1e-4 * max(1, max|S_p|) of the plain version."""
+    bound = 1e-4 * torch.clamp(want[0].abs().amax(dim=(1, 2)), min=1.0)
+    errs = [(got[0] - want[0]).abs().amax(dim=(1, 2)), (got[1] - want[1]).abs().amax(dim=1), (got[2] - want[2]).abs()]
+    return errs, bound
+
+
+def check_ct_points(args, label, timed=True):
+    """Phase 7: K3's per-point mode against its plain twin on one window's
+    plan (ct_point_inputs): every pair block within 1e-4 * max(1,
+    max|S_p|), the empty pair's block zero in both. Returns measure's
+    record (timed) or the largest difference."""
+    hi, lo, plan, cp7, gparams = args
+    got = ct_scan_block_points(hi, lo, plan, cp7, gparams=gparams)
+    want = ct_scan_block_points_plain(hi, lo, plan, cp7)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(x).all()) for x in got) or float(want[0].abs().max()) <= 0.0:
+        fail(f"K3 ct_scan_block_points returned non-finite values or sees no observed cell at {label}")
+    if any(float(x[5].abs().max()) != 0.0 for x in (*got, *want)):
+        fail(f"K3 ct_scan_block_points: the empty pair 5 has a nonzero block at {label}")
+    errs, bound = _pair_errors(got, want)
+    for name, e in zip(("S", "g", "cost"), errs):
+        if bool((e > bound).any()):
+            fail(f"K3 ct_scan_block_points {name} differs from its plain twin at {label}: max {float(e.max()):.3e}, "
+                 f"bound {float(bound.min()):.3e}")
+    err = max(float(e.max()) for e in errs)
+    m = int(plan.starts[-1])
+    if not timed:
+        return err
+    return measure("ct_scan_block_points", label, lambda: ct_scan_block_points(hi, lo, plan, cp7, gparams=gparams),
+                   lambda: ct_scan_block_points_plain(hi, lo, plan, cp7), args, err,
+                   note=f" grids {hi.shape[0]}^3/{lo.shape[0]}^3 K={plan.k} ({plan.segments} pairs, pair 5 empty, "
+                        f"control point {plan.k - 1} masked) C=32 P=256+256, {m} points (error bound "
+                        f"{float(bound.min()):.3e}..{float(bound.max()):.3e} per pair; library: none, no one PyTorch "
+                        "call fuses the per-point slerp, the stencil and the per-pair J^T J)")
+
+
+def ct_points_slots_inputs(device, pairs, scan_pts, windows=4):
+    """K3 per-point slotted arguments: `windows` windows of phase 7's shape
+    (other seeds) over the grid pairs `pairs` (slots 0, 1, 2, 0, ...)."""
+    problems = [ct_point_problem(device, scan_pts, seed=SEED + 1 + b, outside=16) for b in range(windows)]
+    batch = type(problems[0][0])(**{f: torch.stack([getattr(pr, f) for pr, _, _ in problems])
+                                     for f in vars(problems[0][0])})
+    plan = window_solver.problem_plan(batch, problems[0][1])
+    cp7 = torch.cat([torch.cat([st.translation, st.rotation], dim=-1) for _, _, st in problems]).contiguous()
+    slots = grid_slots([h for h, _ in pairs], [l for _, l in pairs])
+    slot = torch.tensor([b % len(pairs) for b in range(windows)], dtype=torch.int32, device=device)
+    return slots, slot, plan, cp7
+
+
+def check_ct_points_slots(args, label):
+    """Phase 7: K3's slotted per-point form on several windows over three
+    grid pairs, within the per-pair gate of its plain version and bit-equal
+    to one launch per window. Returns measure's record."""
+    slots, slot, plan, cp7 = args
+    got = ct_scan_block_points_slots(*args)
+    want = ct_scan_block_points_slots_plain(*args)
+    k = plan.k
+    singles = [ct_scan_block_points(slots.hi[d], slots.lo[d], window_plan(plan, b), cp7[b * k:(b + 1) * k],
+                                    gparams=slots.gparams[d]) for b, d in enumerate(slot.tolist())]
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(x).all()) for x in got) or float(want[0].abs().max()) <= 0.0:
+        fail(f"K3 ct_scan_block_points_slots returned non-finite values or sees no observed cell at {label}")
+    errs, bound = _pair_errors(got, want)
+    if any(bool((e > bound).any()) for e in errs):
+        fail(f"K3 ct_scan_block_points_slots differs from its plain twin at {label}: max "
+             f"{max(float(e.max()) for e in errs):.3e}")
+    k1 = k - 1
+    for b, one in enumerate(singles):
+        if not all(torch.equal(a[b * k1:(b + 1) * k1], o) for a, o in zip(got, one)):
+            fail(f"K3 ct_scan_block_points_slots window {b} is not bit-equal to one launch for it alone at {label}")
+    err = max(float(e.max()) for e in errs)
+    return measure("ct_scan_block_points_slots", label, lambda: ct_scan_block_points_slots(*args),
+                   lambda: ct_scan_block_points_slots_plain(*args), args, err,
+                   kernel_name="ct_scan_block_points_kernel", plain_reps=5,
+                   note=f" B={slot.shape[0]} windows over {len(slots.hi)} distinct 256^3/128^3 grid pairs (slots "
+                        f"{slot.tolist()}), K={k}, bit-equal to {slot.shape[0]} single launches (library: none)")
+
+
+def check_points_mode(device, tag, pairs, scan_pts, checks):
+    """Phase 7, K3's per-point mode on one mode's maps: `pairs` of grids
+    filled with three, two and one scans. At the CT front end's shape
+    against pairs[0] (points outside both grids, a masked control point,
+    points before the first and after the last valid control point, an
+    empty pair), then slotted: 8 windows over the three pairs."""
+    hi, lo = pairs[0]
+    rec = checks.setdefault("ct_scan_block_points", {})
+    rec[f"{tag}front_end"] = check_ct_points(ct_point_inputs(device, hi, lo, scan_pts, outside=16), f"{tag}front_end")
+    rec[f"{tag}front_end_slotted_b8"] = check_ct_points_slots(
+        ct_points_slots_inputs(device, pairs, scan_pts, windows=8), f"{tag}front_end_slotted_b8")
+
+
 def build_ct_example(device, K=8, C=8, P=256, grid=256, cube=True):
     """__graft_entry__._build_ct_example(grid, cube) rebuilt from the port's
     modules, with the same seeded draws: hi/lo TSDF grids (0.1 m / 0.45 m)
@@ -909,16 +1112,37 @@ def run_ct_window(device, reps=20):
     return med, p95
 
 
-def ct_options():
-    """TrajectoryBuilder3DOptions defaults (256^3/128^3 grids, K=32, C=32,
-    P=256, 12 LM iterations, RK4 preintegration, CONSTANT sampling) with
-    TSDF submaps, min_range 0.4 and a 0.45 s initialization, as
-    tests/test_ct_builder.py and bench.py:874-886 set them."""
-    return cfg.replace_deep(cfg.TrajectoryBuilder3DOptions(), {
+def ct_overrides(per_point=False, direct=False):
+    """Phase 9's overrides of TrajectoryBuilder3DOptions: TSDF submaps,
+    min_range 0.4 and a 0.45 s initialization, as tests/test_ct_builder.py
+    and bench.py:874-886 set them; with `per_point` per-point unwarping
+    (phase 17), with `direct` the DIRECT IMU cost term (phase 18).
+    tests/jax_slam_reference.py applies them to the JAX package's options."""
+    out = {
         "min_range": 0.4,
         "submaps.grid_type": "TSDF",
         "optimizing_local_trajectory_builder.initialization_duration": 0.45,
-    })
+    }
+    if per_point:
+        out["optimizing_local_trajectory_builder.use_per_point_unwarping"] = True
+    if direct:
+        out["optimizing_local_trajectory_builder.imu_cost_term"] = "DIRECT"
+    return out
+
+
+def ct_options(per_point=False, direct=False):
+    """TrajectoryBuilder3DOptions defaults (256^3/128^3 grids, K=32, C=32,
+    P=256, 12 LM iterations, RK4 preintegration, CONSTANT sampling) with
+    ct_overrides."""
+    return cfg.replace_deep(cfg.TrajectoryBuilder3DOptions(), ct_overrides(per_point, direct))
+
+
+def ct_pose_error(time_s, t, q):
+    """(translation error m, yaw error rad) of a CT front-end pose at
+    time_s against ct_truth."""
+    truth_t, truth_q = ct_truth(time_s)
+    d = nq.quat_yaw(q) - nq.quat_yaw(truth_q)
+    return float(np.linalg.norm(t - truth_t)), abs((d + np.pi) % (2 * np.pi) - np.pi)
 
 
 def ct_truth(t):
@@ -987,18 +1211,23 @@ def ct_stage_ranges(builder):
                 setattr(obj, name, fn)
 
 
-def run_ct_front_end(device, n_scans=CT_SCANS, profile_scans=0):
-    """Phase 9: OptimizingLocalTrajectoryBuilder over the CT drive. Returns
+def run_ct_front_end(device, n_scans=CT_SCANS, profile_scans=0, options=None, hook=None, count_scans=3):
+    """Phases 9, 17 and 18: OptimizingLocalTrajectoryBuilder over the CT
+    drive at `options` (phase 9's ct_options() by default), its solves
+    through `hook` (the builder's window_solve_fn) when given. Returns
     (scans, per-scan seconds from the first window solve on, max
-    translation and yaw errors against ground truth, the builder, K3
-    launches, solver assemblies). With profile_scans, profiles that many
-    more scans afterwards and prints their breakdown."""
-    builder = OptimizingLocalTrajectoryBuilder(ct_options(), device)
+    translation and yaw errors against ground truth, the builder, counts:
+    K3 launches per cloud and per point, solver assemblies, over the
+    n_scans; and "kernels_per_scan", the kernels on the device trace of
+    each of count_scans more scans, a floor). With profile_scans, profiles
+    that many more scans afterwards and prints their breakdown."""
+    builder = OptimizingLocalTrajectoryBuilder(options or ct_options(), device)
+    builder.window_solve_fn = hook
     window_solver.solve_ct_window_block.assemblies = 0
-    ct_scan_block.launches = 0
-    latencies, t_err, y_err, n, counts = [], 0.0, 0.0, 0, None
+    ct_scan_block.launches = ct_scan_block_points.launches = 0
+    latencies, t_err, y_err, n, counts, kernels = [], 0.0, 0.0, 0, None, []
     prof = None
-    for kind, t, *payload in ct_drive(n_scans + profile_scans):
+    for kind, t, *payload in ct_drive(n_scans + count_scans + profile_scans):
         if kind == "imu":
             builder.add_imu_data(t, *payload)
             continue
@@ -1006,11 +1235,17 @@ def run_ct_front_end(device, n_scans=CT_SCANS, profile_scans=0):
             builder.add_odometry_data(t, payload[0])
             continue
         if n == n_scans:
-            counts = (ct_scan_block.launches, window_solver.solve_ct_window_block.assemblies)
+            counts = dict(k3=ct_scan_block.launches, k3_points=ct_scan_block_points.launches,
+                          assemblies=window_solver.solve_ct_window_block.assemblies)
+        if n == n_scans + count_scans and profile_scans:
             prof = profile_ct_start(builder)
         solves = builder.num_optimizations
         t0 = time.perf_counter()
-        result = builder.add_range_data(payload[0])
+        if n_scans <= n < n_scans + count_scans:
+            result, n_kernels = device_kernels(lambda: builder.add_range_data(payload[0]))
+            kernels.append(n_kernels)
+        else:
+            result = builder.add_range_data(payload[0])
         sync(device)
         n += 1
         if n > n_scans:
@@ -1020,15 +1255,36 @@ def run_ct_front_end(device, n_scans=CT_SCANS, profile_scans=0):
         if result is not None:
             if not np.all(np.isfinite(result.local_pose.t)):
                 fail(f"CT front end: no finite pose at t={t:.1f}")
-            truth_t, truth_q = ct_truth(result.time)
-            t_err = max(t_err, float(np.linalg.norm(result.local_pose.t - truth_t)))
-            d = nq.quat_yaw(result.local_pose.q) - nq.quat_yaw(truth_q)
-            y_err = max(y_err, abs((d + np.pi) % (2 * np.pi) - np.pi))
+            e_t, e_y = ct_pose_error(result.time, result.local_pose.t, result.local_pose.q)
+            t_err, y_err = max(t_err, e_t), max(y_err, e_y)
     if counts is None:
-        counts = (ct_scan_block.launches, window_solver.solve_ct_window_block.assemblies)
+        counts = dict(k3=ct_scan_block.launches, k3_points=ct_scan_block_points.launches,
+                      assemblies=window_solver.solve_ct_window_block.assemblies)
+    counts["kernels_per_scan"] = float(np.mean(kernels)) if kernels else None
     if prof is not None:
         profile_ct_finish(prof, profile_scans)
     return n_scans, latencies, t_err, y_err, builder, counts
+
+
+def latency_snapshot():
+    """The CT front ends' latency histogram's bucket counts (FrontEndMetrics
+    "ct_3d", shared by every CT builder of the process)."""
+    from hectorgrapher_tpu_torch.mapping.frontend_metrics import FrontEndMetrics
+
+    return FrontEndMetrics("ct_3d").latency.counts_by_bucket
+
+
+def print_front_end_metrics(label, builder, before):
+    """One line of FrontEndMetrics for a phase's CT builder: its steps per
+    latency bucket (the counts since `before`) and its real-time ratios."""
+    from hectorgrapher_tpu_torch.mapping.frontend_metrics import LATENCY_BUCKETS
+
+    counts = [a - b for a, b in zip(latency_snapshot(), before)]
+    edges = [f"<={b:g}s" for b in LATENCY_BUCKETS] + [f">{LATENCY_BUCKETS[-1]:g}s"]
+    m = builder.frontend_metrics
+    print(f"{label} FrontEndMetrics: latency buckets {dict(zip(edges, counts))}; real-time ratio "
+          f"{m.real_time_ratio:.4f}, CPU real-time ratio {m.cpu_real_time_ratio:.4f} (last {m.WINDOW} steps)",
+          flush=True)
 
 
 def profile_ct_start(builder):
@@ -1070,6 +1326,218 @@ def profile_ct_finish(handle, n_scans):
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
         f.write("\n")
         f.write(events.table(sort_by="cpu_time_total", row_limit=60))
+
+
+def solve_inline(pending):
+    """A PendingWindowSolve solved as the builder solves it inline."""
+    return solve_ct_window(pending.high_grid, pending.low_grid, pending.problem, pending.state0, pending.weights,
+                           is_tsdf=pending.is_tsdf, num_iterations=pending.num_iterations,
+                           per_point=pending.per_point, direct=pending.direct)[0]
+
+
+class WindowCapture:
+    """A window_solve_fn that solves inline and keeps the solves numbered
+    in `picks`, each with clones of its grids (so that later insertions do
+    not change them): phase 19's distinct full-width windows."""
+
+    def __init__(self, picks):
+        self.picks, self.count, self.kept = set(picks), 0, []
+
+    def __call__(self, pending):
+        if self.count in self.picks:
+            clone = lambda g: g._replace(tsd=g.tsd.clone(), weight=g.weight.clone())
+            self.kept.append(dataclasses.replace(pending, high_grid=clone(pending.high_grid),
+                                                 low_grid=clone(pending.low_grid), cps=[]))
+        self.count += 1
+        return solve_inline(pending)
+
+
+def check_ct_drive(label, n_scans, lat, t_err, y_err, builder, counts, jax_t, jax_y, before):
+    """Phases 17 and 18's gates and line: every assembly one per-point K3
+    launch and none per cloud; errors within max(2x, +0.05 m) and max(2x,
+    +0.01 rad) of the JAX package's on the same options and scans."""
+    if counts["k3"] != 0 or counts["k3_points"] != counts["assemblies"] or counts["assemblies"] == 0:
+        fail(f"{label}: K3 launches {counts['k3']} per cloud and {counts['k3_points']} per point for "
+             f"{counts['assemblies']} assemblies")
+    t_bound, y_bound = max(2 * jax_t, jax_t + 0.05), max(2 * jax_y, jax_y + 0.01)
+    if t_err > t_bound or y_err > y_bound:
+        fail(f"{label}: max error {t_err:.5f} m / {y_err:.5f} rad exceeds {t_bound:.5f} m / {y_bound:.5f} rad "
+             f"(JAX {jax_t:.5f} / {jax_y:.5f})")
+    lat_ms = np.array(lat) * 1e3
+    print(f"{label}: {n_scans} scans, {builder.num_optimizations} window solves, K3 per-point launches "
+          f"{counts['k3_points']} = assemblies {counts['assemblies']}, per-cloud launches {counts['k3']}; "
+          f"{counts['kernels_per_scan']:.0f} kernels a scan (device trace of 3 scans); max error {t_err:.5f} m / "
+          f"{y_err:.5f} rad (JAX on the CPU {jax_t:.5f} / {jax_y:.5f}, bounds {t_bound:.5f} / {y_bound:.5f}); "
+          f"per-scan latency median {np.median(lat_ms):.3f} ms, p95 {np.percentile(lat_ms, 95):.3f} ms over "
+          f"{len(lat_ms)} scans", flush=True)
+    print_front_end_metrics(label, builder, before)
+
+
+def check_knn_insertion(device, size=256):
+    """Phase 17's setup: the first scan of the CT drive inserted into an
+    empty size^3 TSDF grid (0.1 m, the hi-res submap's) with KNN_PCA
+    normals (knn_pca_normals: topk over the dense distances and eigh on
+    the card), timed, and held to the same insertion on the CPU within
+    ROADMAP C3's tolerance: tsd and weight within 1e-5 in all but 1e-4 of
+    the cells."""
+    scan = next(payload[0] for kind, _, *payload in ct_drive(1) if kind == "scan")
+    opts = cfg.TSDFRangeDataInserterOptions3D(normal_computation_method="KNN_PCA", min_range=0.4, max_range=60.0)
+    insert = make_tsdf_inserter_3d(opts, 0.1)
+
+    def on(dev):
+        grid = make_tsdf_grid(0.1, (size,) * 3, 0.3, 1000.0, dev)
+        rd = RangeData(torch.zeros(3, device=dev), PointCloud(torch.from_numpy(scan.ranges.positions).to(dev),
+                                                              torch.from_numpy(scan.ranges.mask).to(dev)),
+                       pad_cloud(np.zeros((0, 3), np.float32), 4, dev))
+        return grid, rd
+
+    grid, rd = on(device)
+    got = insert(grid, rd)
+    ms = cuda_ms(lambda: insert(grid, rd), reps=5)
+    want = insert(*on(torch.device("cpu")))
+    bad = sum(int(((a.cpu() - b).abs() > 1e-5).sum()) for a, b in ((got.tsd, want.tsd), (got.weight, want.weight)))
+    cells = 2 * want.tsd.numel()
+    observed = int((want.weight > 0).sum())
+    if observed == 0 or bad > max(1, 1e-4 * cells):
+        fail(f"phase 17: KNN_PCA insertion on the card differs from the CPU's in {bad} of {cells} values "
+             f"({observed} cells observed)")
+    print(f"KNN_PCA TSDF insertion of one CT scan ({int(rd.returns.mask.sum())} points) into a {size}^3 grid: "
+          f"{observed} cells observed, {bad} of {cells} values beyond 1e-5 of the CPU's (C3 allows "
+          f"{int(max(1, 1e-4 * cells))}); per insertion {ms:.3f} ms (CUDA events, topk and eigh on the card)",
+          flush=True)
+
+
+def run_phase_17(device, picks=range(10, 74, 8)):
+    """Phase 17: the CT front end with per-point unwarping over phase 9's
+    drive, capturing the solves numbered in `picks` for phase 19, after a
+    KNN_PCA insertion check (check_knn_insertion). Returns (the captured
+    PendingWindowSolves, K3 per-point launches)."""
+    check_knn_insertion(device)
+    capture = WindowCapture(picks)
+    before = latency_snapshot()
+    n, lat, t_err, y_err, builder, counts = run_ct_front_end(device, options=ct_options(per_point=True),
+                                                             hook=capture)
+    check_ct_drive("CT front end, per-point unwarping (phase 17)", n, lat, t_err, y_err, builder, counts,
+                   JAX_CT17_TRANSLATION_ERROR, JAX_CT17_YAW_ERROR, before)
+    if len(capture.kept) != len(capture.picks):
+        fail(f"phase 17: captured {len(capture.kept)} of {len(capture.picks)} windows")
+    return capture.kept, counts["k3_points"]
+
+
+def run_phase_18(device):
+    """Phase 18: per-point unwarping and the DIRECT IMU term over the first
+    CT18_SCANS scans of phase 9's drive; the kernels a pair-residual evaluation takes with the M = 16
+    sub-steps against the preintegration form's, on the drive's first
+    window. Returns K3 per-point launches."""
+    capture = WindowCapture([0])
+    before = latency_snapshot()
+    n, lat, t_err, y_err, builder, counts = run_ct_front_end(
+        device, n_scans=CT18_SCANS, options=ct_options(per_point=True, direct=True), hook=capture)
+    check_ct_drive("CT front end, per-point unwarping and DIRECT IMU (phase 18)", n, lat, t_err, y_err, builder,
+                   counts, JAX_CT18_TRANSLATION_ERROR, JAX_CT18_YAW_ERROR, before)
+    pending = capture.kept[0]
+    if pending.direct is None:
+        fail("phase 18: the window carries no DIRECT IMU samples")
+    pair = lambda direct: device_kernels(
+        lambda: window_solver.pair_residuals(pending.state0, pending.problem, pending.weights, direct))[1]
+    pair(pending.direct)
+    direct_kernels, preint_kernels = pair(pending.direct), pair(None)
+    print(f"phase 18: a pair-residual evaluation takes {direct_kernels} kernels with DIRECT (M = "
+          f"{pending.direct.dt.shape[-1]} sub-steps) against {preint_kernels} in the preintegration form: "
+          f"{direct_kernels - preint_kernels} more a scan-block assembly", flush=True)
+    return counts["k3_points"]
+
+
+def _stack(items, cls):
+    return cls(*(torch.stack(list(leaves)) for leaves in zip(*items)))
+
+
+def _lane_gaps(batched, single):
+    """(max translation/velocity difference m, max rotation angle rad) of
+    one lane's state against its serial solve."""
+    from hectorgrapher_tpu_torch.transform.rigid import quat_conjugate, quat_multiply
+
+    d = quat_multiply(quat_conjugate(batched.rotation), single.rotation)
+    angle = 2.0 * torch.atan2(torch.linalg.vector_norm(d[..., 1:], dim=-1), d[..., 0].abs())
+    return (max(float((batched.translation - single.translation).abs().max()),
+                float((batched.velocity - single.velocity).abs().max())), float(angle.max()))
+
+
+def run_batched_windows(device, label, windows, weights, iters, per_point, reps=2):
+    """Phase 19: B windows (hi, lo, problem, state0, is_tsdf) in one
+    solve_ct_window_batched against B serial solve_ct_window calls. Gates
+    each lane within 1e-3 m / 1e-3 rad of its serial solve, final cost
+    within 1e-4 relative and not above the initial, and one slotted K3
+    launch per batched assembly. Returns (batched ms, serial ms) medians
+    of `reps` turns."""
+    b = len(windows)
+    his, los = [w[0] for w in windows], [w[1] for w in windows]
+    problems = _stack([w[2] for w in windows], CtProblem)
+    states0 = _stack([w[3] for w in windows], CtState)
+    is_tsdf = windows[0][4]
+    slotted = ct_scan_block_points_slots if per_point else ct_scan_block_slots
+    batched = lambda: window_solver.solve_ct_window_batched(his, los, problems, states0, weights, is_tsdf=is_tsdf,
+                                                            num_iterations=iters, per_point=per_point)
+    serial = lambda: [solve_ct_window(h, lo, p, s0, weights, is_tsdf=is_tsdf, num_iterations=iters,
+                                      per_point=per_point) for h, lo, p, s0, _ in windows]
+    window_solver.solve_ct_window_batched.assemblies = 0
+    slotted.launches = 0
+    states, final, initial = batched()
+    sync(device)
+    assemblies = window_solver.solve_ct_window_batched.assemblies
+    n_launches = slotted.launches
+    if n_launches != assemblies or assemblies != 1 + iters:
+        fail(f"phase 19 {label}: {slotted.launches} slotted K3 launches for {assemblies} batched assemblies")
+    singles = serial()
+    worst = [0.0, 0.0, 0.0]
+    for lane, (s1, f1, i1) in enumerate(singles):
+        gap_t, gap_r = _lane_gaps(CtState(*(x[lane] for x in states)), s1)
+        gap_c = abs(float(final[lane]) - float(f1)) / max(abs(float(f1)), 1e-12)
+        if gap_t > 1e-3 or gap_r > 1e-3 or gap_c > 1e-4:
+            fail(f"phase 19 {label}: lane {lane} is {gap_t:.3e} m / {gap_r:.3e} rad / cost {gap_c:.3e} from its "
+                 "serial solve")
+        if not float(final[lane]) <= float(initial[lane]):
+            fail(f"phase 19 {label}: lane {lane}'s final cost {float(final[lane])} is above its initial cost "
+                 f"{float(initial[lane])}")
+        worst = [max(worst[0], gap_t), max(worst[1], gap_r), max(worst[2], gap_c)]
+
+    def timed(fn):
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        return (time.perf_counter() - t0) * 1e3
+
+    t_b, t_s = [], []
+    for _ in range(reps):
+        t_b.append(timed(batched))
+        t_s.append(timed(serial))
+    med_b, med_s = float(np.median(t_b)), float(np.median(t_s))
+    print(f"batched window solve {label} ({'per-point' if per_point else 'per-scan'}), B={b}, {iters} "
+          f"iterations: {assemblies} assemblies, slotted K3 launches {n_launches} (one each); lanes within "
+          f"{worst[0]:.2e} m / {worst[1]:.2e} rad / cost {worst[2]:.2e} relative of their serial solves; per batched "
+          f"solve median {med_b:.3f} ms against {med_s:.3f} ms for {b} serial solves ({med_s / med_b:.2f}x) over "
+          f"{reps} turns", flush=True)
+    return med_b, med_s
+
+
+def run_phase_19(device, captured):
+    """Phase 19: the batched window solve at B = 8, per-scan and per-point:
+    (a) the entry() fixture of phase 8 broadcast to 8 lanes, 8 LM
+    iterations, the TPU bench's operating point; (b) 8 distinct full-width
+    windows of phase 17's drive, each against clones of its matching
+    submap's grids, 12 iterations. Returns {label: (batched ms, serial
+    ms)}."""
+    hi, lo, problem, state, weights = build_ct_example(device)
+    entry = [(hi, lo, problem, state, True)] * 8
+    drive = [(p.high_grid, p.low_grid, p.problem, p.state0, p.is_tsdf) for p in captured]
+    out = {}
+    for per_point in (False, True):
+        mode = "per_point" if per_point else "per_scan"
+        out[f"entry_{mode}"] = run_batched_windows(device, "(a) entry() fixture x 8", entry, weights, 8, per_point)
+        out[f"drive_{mode}"] = run_batched_windows(device, f"(b) {len(drive)} phase-17 windows, own grids", drive,
+                                                   captured[0].weights, captured[0].num_iterations, per_point)
+    return out
 
 
 FM_TRUTH = (np.array([0.4, -0.3, 0.05]), 0.05)  # phase 10's scan pose: position, yaw
@@ -2089,12 +2557,21 @@ def run_phase_16(device, mb, errors, seconds=4.5):
     return k3
 
 
+PHASE_MARKS = []
+
+
+def mark(label):
+    """The start of a phase of main(), for the seconds-by-phase line."""
+    PHASE_MARKS.append((label, time.perf_counter()))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile-ct", type=int, default=0, metavar="N",
                         help="after phase 9, profile N more CT front-end scans with torch.profiler")
     args = parser.parse_args()
 
+    mark("1")
     # Phase 1: device.
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2110,6 +2587,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
+    mark("2")
     # Phase 2: build the kernels from csrc/.
     t0 = time.perf_counter()
     _build.load_library()
@@ -2117,6 +2595,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s); "
           + " | ".join(ptxas), flush=True)
 
+    mark("3 and 4")
     # Phases 3 and 4: each kernel against its plain version, at the front
     # end's shape and at the batched shape.
     checks = check_kernels({
@@ -2126,6 +2605,7 @@ def main() -> int:
     check_k1_boundaries(device)
     check_k2_cases(device)
 
+    mark("5")
     # Phase 5: the batched matcher, through both kernels.
     correlative_prep_2d.launches = 0
     correlative_scores_2d.launches = 0
@@ -2133,6 +2613,7 @@ def main() -> int:
     if correlative_prep_2d.launches == 0 or correlative_scores_2d.launches == 0:
         fail("batched matcher did not launch both kernels")
 
+    mark("6")
     # Phase 6: the front end, through both kernels on every matched scan.
     correlative_prep_2d.launches = 0
     correlative_scores_2d.launches = 0
@@ -2151,6 +2632,7 @@ def main() -> int:
           f"(bounds {MAX_TRANSLATION_ERROR:.5f} / {MAX_YAW_ERROR:.5f}); per-scan latency median "
           f"{np.median(lat_ms):.3f} ms, p95 {np.percentile(lat_ms, 95):.3f} ms", flush=True)
 
+    mark("7")
     # Phase 7: K3 against its plain version at the CT front end's shape
     # and at GN3D's.
     # Every f32 matmul and solve of the CT path runs at full precision (C2).
@@ -2163,6 +2645,10 @@ def main() -> int:
     }
     # A block loops over chunks of points only past 512 points a cloud.
     check_ct_scan_block(ct_kernel_inputs(device, hi, lo, scan_pts, c=4, p=1024), "chunks", timed=False)
+    # K3's per-point mode on the f32 maps (and below on the occupancy and
+    # f16 ones), alone and slotted over three grid pairs.
+    check_points_mode(device, "", [(hi, lo)] + [ct_production_grids(device, n_scans=n)[:2] for n in (2, 1)],
+                      scan_pts, checks)
     del hi, lo
     # K3's probability mode on occupancy maps of the same scans, the same
     # shapes, 16 points of each cloud outside both grids (the pad taps);
@@ -2180,6 +2666,7 @@ def main() -> int:
     slots = grid_slots([h for h, _ in pairs], [l for _, l in pairs])
     checks["ct_scan_block"]["prob_gn3d_packed"] = check_k3_slots(
         (slots, torch.tensor([0, 1, 2, 0], dtype=torch.int32, device=device), *a[2:10]), "prob_gn3d_packed")
+    check_points_mode(device, "prob_", pairs, scan_pts, checks)
     if ct_scan_block.prob_launches == 0 or ct_scan_block_slots.prob_launches == 0:
         fail("phase 7: K3 did not launch in probability mode")
     del hi, lo, pairs, slots, a
@@ -2199,17 +2686,26 @@ def main() -> int:
         slots = grid_slots([h for h, _ in pairs], [l for _, l in pairs])
         checks["ct_scan_block"][f"{tag}_gn3d_packed"] = check_k3_slots(
             (slots, torch.tensor([0, 1, 2, 0], dtype=torch.int32, device=device), *a[2:10]), f"{tag}_gn3d_packed")
+        if tag == "f16":
+            check_points_mode(device, "f16_", pairs, scan_pts, checks)
         del hi, lo, pairs, slots, a
     if not all((ct_scan_block.f16_launches, ct_scan_block.bf16_launches, ct_scan_block_slots.f16_launches,
                 ct_scan_block_slots.bf16_launches)):
         fail("phase 7: K3 did not launch in its f16 and bf16 modes")
+    if not all((ct_scan_block_points.launches, ct_scan_block_points.f16_launches, ct_scan_block_points.prob_launches,
+                ct_scan_block_points_slots.f16_launches, ct_scan_block_points_slots.prob_launches)):
+        fail("phase 7: K3's per-point mode did not launch in its f32, f16 and probability modes")
 
+    mark("8")
     # Phase 8: the window solve on the production-extent fixture.
     run_ct_window(device)
 
+    mark("9")
     # Phase 9: the CT front end, through K3 on every assembly.
-    n_scans, ct_lat, ct_t_err, ct_y_err, ct_builder, (k3_launches, assemblies) = run_ct_front_end(
+    before = latency_snapshot()
+    n_scans, ct_lat, ct_t_err, ct_y_err, ct_builder, ct_counts = run_ct_front_end(
         device, profile_scans=args.profile_ct)
+    k3_launches, assemblies = ct_counts["k3"], ct_counts["assemblies"]
     launches["ct_scan_block"] = k3_launches
     if k3_launches != assemblies or k3_launches == 0:
         fail(f"CT front end: {k3_launches} K3 launches for {assemblies} solver assemblies")
@@ -2229,13 +2725,31 @@ def main() -> int:
           f"{assemblies}; max error {ct_t_err:.5f} m / {ct_y_err:.5f} rad (JAX on the CPU "
           f"{JAX_CT_TRANSLATION_ERROR:.5f} / {JAX_CT_YAW_ERROR:.5f}, bounds {CT_MAX_TRANSLATION_ERROR:.5f} / "
           f"{CT_MAX_YAW_ERROR:.5f}); per-scan latency median {np.median(lat_ms):.3f} ms, "
-          f"p95 {np.percentile(lat_ms, 95):.3f} ms over {len(lat_ms)} scans", flush=True)
+          f"p95 {np.percentile(lat_ms, 95):.3f} ms over {len(lat_ms)} scans; {ct_counts['kernels_per_scan']:.0f} "
+          "kernels a scan (device trace of 3 scans)", flush=True)
+    print_front_end_metrics("CT front end (phase 9)", ct_builder, before)
+    del ct_builder
 
+    # Phases 17-19: the CT front end with per-point unwarping, then with
+    # the DIRECT IMU term as well, each assembly one per-point K3 launch;
+    # the batched window solve at B = 8, one slotted K3 launch an assembly.
+    mark("17")
+    captured, launches["ct_scan_block_points"] = run_phase_17(device)
+    mark("18")
+    k3p_paths = {"ct17_per_point": launches["ct_scan_block_points"], "ct18_direct": run_phase_18(device)}
+    mark("19")
+    ct_scan_block_points_slots.launches = 0
+    run_phase_19(device, captured)
+    k3p_paths["batched19_slotted"] = ct_scan_block_points_slots.launches
+    del captured
+
+    mark("10")
     # Phase 10: K4 against its plain version in a full fast match over a
     # production-extent submap.
     checks["fast_scores_3d"] = run_fast_match(device, *fast_match_submap(device))
     check_fast_scores_chunks(device)
 
+    mark("11")
     # Phase 11: the 3D SLAM path, through K4 on every score sum of every
     # constraint search, and K3 on every CT assembly and GN3D evaluation.
     fast_correlative_3d.match_fast_3d.score_sums = 0
@@ -2279,25 +2793,30 @@ def main() -> int:
           f"median {np.median(solve_ms):.3f} ms, max {solve_ms.max():.3f} ms over {len(solve_ms)}; drive "
           f"{slam['front_s']:.1f} s, queue drained {slam['drain_s']:.1f} s after", flush=True)
 
+    mark("12")
     # Phase 12: the same drive with the default batched constraint search.
     k4_paths, k3_paths["slam_gn3d_packed"], shapes12, (lat12, round12_ms, grid_bytes12) = run_phase_12(
         device, slam, launches["fast_scores_3d"])
     checks["fast_scores_3d"].update(shapes12["fast_scores_3d"])
     checks["ct_scan_block"].update(shapes12["ct_scan_block"])
 
+    mark("13")
     # Phase 13: the same drive and search on the default occupancy submaps.
     k3_paths13, k4_paths13 = run_phase_13(device, lat12, round12_ms)
     k3_paths.update(k3_paths13)
     k4_paths.update(k4_paths13)
 
+    mark("14")
     # Phase 14: the same drive and search on float16 TSDF submaps.
     k3_paths14, k4_paths14, mb14, errors14 = run_phase_14(device, lat12, round12_ms, grid_bytes12)
     k3_paths.update(k3_paths14)
     k4_paths.update(k4_paths14)
 
+    mark("15")
     # Phase 15: the plain SPA at the production operating point, PCG and Schur.
     run_phase_15(device)
 
+    mark("16")
     # Phase 16: pure localization on phase 14's map.
     k3_paths["slam16_pure_localization"] = run_phase_16(device, mb14, errors14)
     del mb14
@@ -2310,6 +2829,9 @@ def main() -> int:
         "ct_scan_block": ("hectorgrapher_tpu_torch/csrc/ct_scan_block.cu",
                           "hectorgrapher_tpu/mapping/ct/window_solver.py:467 (XLA fusion of scan_block, "
                           "with interpolated_grid.py:332-466)"),
+        "ct_scan_block_points": ("hectorgrapher_tpu_torch/csrc/ct_scan_block.cu",
+                                 "hectorgrapher_tpu/mapping/ct/window_solver.py:366 (XLA fusion of the per-point "
+                                 "point_scan_block, :366-462, with interpolated_grid.py:332-466)"),
         "fast_scores_3d": ("hectorgrapher_tpu_torch/csrc/fast_scores_3d.cu",
                            "hectorgrapher_tpu/mapping/scan_matching/fast_correlative_3d.py:329 (score_sum of "
                            "_match_fast_3d_core, an XLA gather-reduce)"),
@@ -2323,7 +2845,8 @@ def main() -> int:
     # slam16_* all in f16 mode; K4: phase 11, with phases 12-14 beside it
     # under "launches_by_path").
     main_shape = {"correlative_prep_2d": "batched", "correlative_scores_2d": "batched",
-                  "ct_scan_block": "front_end", "fast_scores_3d": "coarse"}
+                  "ct_scan_block": "front_end", "ct_scan_block_points": "front_end", "fast_scores_3d": "coarse"}
+    paths = {"ct_scan_block": k3_paths, "ct_scan_block_points": k3p_paths, "fast_scores_3d": k4_paths}
     kernels = []
     for name, (source, replaces) in sources.items():
         rec = checks[name][main_shape[name]]
@@ -2333,9 +2856,11 @@ def main() -> int:
             **{k: rec[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "library_ms")},
             "max_abs_err": max(v["max_abs_err"] for v in checks[name].values()),
             "shapes": checks[name],
-            **({"launches_by_path": {"ct_scan_block": k3_paths, "fast_scores_3d": k4_paths}[name]}
-               if name in ("ct_scan_block", "fast_scores_3d") else {}),
+            **({"launches_by_path": paths[name]} if name in paths else {}),
         })
+    mark("end")
+    print("seconds by phase (from the start of each to the next): " + ", ".join(
+        f"{a}: {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(PHASE_MARKS, PHASE_MARKS[1:])), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

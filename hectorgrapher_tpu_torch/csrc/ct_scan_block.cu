@@ -66,6 +66,39 @@
 // the pad taps, so its cost matches the JAX package's. Half storage
 // halves the stencil's bytes and nothing else: each tap is upcast in a
 // register, so no f32 copy of a volume is made anywhere.
+//
+// Per-point mode (ct_scan_block_points_kernel). Replaces the XLA fusion of
+// window_solver.py point_scan_block (:366-462), per-point unwarping: every
+// hi- and lo-res point is a scalar block on its own control-point pair
+// (p, p + 1) at its own time, and the blocks are summed per pair into K - 1
+// pair blocks S (18 x 18), g, cost. The host sorts the points by pair once
+// per solve (ops/ct_scan_block.py point_plan: the brackets and factors do
+// not move while the state does), so a pair's points are one contiguous
+// segment whatever clouds they came from; a cloud may span any number of
+// pairs, and a pair that no point reaches is an empty segment whose block
+// is zero. One cluster per pair (per window and pair in the slotted form),
+// each block a slice of the segment, summed as the per-cloud mode sums:
+// no atomics, a fixed order, and a window's clusters compute the same bits
+// in the slotted form as alone. The pose comes from the kernel, not the
+// host: the cluster stages its pair's two control-point states [t, q] in
+// shared memory, and each thread turns its point's factor f into the pose
+// (lerp of t; slerp of the two rotations retracted at a zero tangent,
+// without normalizing, then two normalizations, as point_scan_block's
+// _quat_of) and its 4 x 6 rotation Jacobian, the lerp branch's weights
+// constant below sin(theta) = 1e-6 and their tangents zero. Per assembly
+// the host adds one concatenation of the state (B*K x 7 floats) to the one
+// launch, whatever N is; a per-point pose from the host would move 11
+// floats a point and cost ~60 launches of the tangent helpers. The world
+// point and cell floor must equal the plain twin's (ROADMAP C0), so the
+// pose's arithmetic follows the twin's op order, every op a
+// round-to-nearest intrinsic, and acos, sin and cos run in f64 and are
+// rounded once to f32 on both sides: the twin's torch kernels and this
+// library are built with different contraction flags, and the f32 library
+// functions could round apart where a double rounded to f32 agrees. What
+// bounds it at the front end's shape (N = 32 x 512 points, K - 1 = 31
+// pairs): latency, as in the per-cloud mode (~0.6 MB of points and
+// sectors, ~20 MFLOP); 31 clusters of 8 blocks take 248 of the 132 SMs'
+// block slots, each block ~66 points in one chunk of up to 192.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -372,6 +405,239 @@ ct_scan_block_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_ptrs, co
   cluster.sync();
 }
 
+// f32 of a function evaluated in f64 (the plain twin's rounding, see the
+// per-point note).
+__device__ __forceinline__ float acos64(float x) { return __double2float_rn(acos(static_cast<double>(x))); }
+__device__ __forceinline__ float sin64(float x) { return __double2float_rn(sin(static_cast<double>(x))); }
+__device__ __forceinline__ float cos64(float x) { return __double2float_rn(cos(static_cast<double>(x))); }
+
+__device__ __forceinline__ float dot4(const float a[4], const float b[4]) {
+  return add(add(add(mul(a[0], b[0]), mul(a[1], b[1])), mul(a[2], b[2])), mul(a[3], b[3]));
+}
+
+// t[i] of q * [0, e_k / 2] for k = 0, 1, 2: the tangent of the rotation
+// retracted at a zero tangent (quat_multiply(q, quat_from_axis_angle(d)),
+// whose Taylor branch moves as [0, d / 2]); column k of the (4 x 3) t.
+__device__ __forceinline__ void half_products(const float q[4], float t[4][3]) {
+  const float h0 = mul(0.5f, q[0]), h1 = mul(0.5f, q[1]), h2 = mul(0.5f, q[2]), h3 = mul(0.5f, q[3]);
+  t[0][0] = -h1; t[1][0] = h0;  t[2][0] = h3;  t[3][0] = -h2;
+  t[0][1] = -h2; t[1][1] = -h3; t[2][1] = h0;  t[3][1] = h1;
+  t[0][2] = -h3; t[1][2] = h2;  t[2][2] = -h1; t[3][2] = h0;
+}
+
+// x / |x| and the tangent columns tx -> (tx - y (y . tx)) / |x|, in place.
+__device__ __forceinline__ void normalize_with_tangent(float x[4], float tx[4][6]) {
+  const float n = __fsqrt_rn(dot4(x, x));
+  for (int i = 0; i < 4; ++i) x[i] = dvd(x[i], n);
+  for (int k = 0; k < 6; ++k) {
+    const float col[4] = {tx[0][k], tx[1][k], tx[2][k], tx[3][k]};
+    const float yt = dot4(x, col);
+    for (int i = 0; i < 4; ++i) tx[i][k] = dvd(sub(col[i], mul(x[i], yt)), n);
+  }
+}
+
+// The pose (t, q) of a point at factor f between control points ca and cb
+// ([t, q] each) and dq (4 x 6), q's Jacobian on the rotation columns of the
+// pair tangent (first control point's 3, then the second's), in the op
+// order of the plain twin (ops/ct_scan_block.py point_poses).
+__device__ __forceinline__ void point_pose(const float* ca, const float* cb, float f, float t[3], float q[4],
+                                           float dq[4][6]) {
+  for (int i = 0; i < 3; ++i) t[i] = add(ca[i], mul(f, sub(cb[i], ca[i])));
+  const float a[4] = {ca[3], ca[4], ca[5], ca[6]};
+  float b[4] = {cb[3], cb[4], cb[5], cb[6]};
+  float ta[4][3], tb[4][3];
+  half_products(a, ta);
+  half_products(b, tb);
+  float dot = dot4(a, b);
+  float tdot[6];
+  for (int k = 0; k < 3; ++k) {
+    const float ca_k[4] = {ta[0][k], ta[1][k], ta[2][k], ta[3][k]};
+    const float cb_k[4] = {tb[0][k], tb[1][k], tb[2][k], tb[3][k]};
+    tdot[k] = dot4(b, ca_k);
+    tdot[3 + k] = dot4(a, cb_k);
+  }
+  if (dot < 0.0f) {
+    for (int i = 0; i < 4; ++i) {
+      b[i] = -b[i];
+      for (int k = 0; k < 3; ++k) tb[i][k] = -tb[i][k];
+    }
+    for (int k = 0; k < 6; ++k) tdot[k] = -tdot[k];
+  }
+  const float c = fminf(fabsf(dot), 1.0f);  // clip(clip(|dot|, -1, 1), 0, 1)
+  const float theta = acos64(c);
+  const float s = sin64(theta);
+  const bool lerp = s < 1e-6f;
+  const float denom = lerp ? 1.0f : s;
+  const float g = sub(1.0f, f);
+  const float ua = mul(g, theta), ub = mul(f, theta);
+  const float sa = sin64(ua), sb = sin64(ub);
+  const float wa = lerp ? g : dvd(sa, denom);
+  const float wb = lerp ? f : dvd(sb, denom);
+  float x[4];
+  for (int i = 0; i < 4; ++i) x[i] = add(mul(wa, a[i]), mul(wb, b[i]));
+  // Tangents: d theta = -d dot / sqrt(1 - c^2) in the slerp branch, 0 in
+  // the lerp branch (its weights are constants).
+  const float ct = cos64(theta), cua = cos64(ua), cub = cos64(ub);
+  const float root = lerp ? 1.0f : __fsqrt_rn(sub(1.0f, mul(c, c)));
+  const float denom2 = mul(denom, denom);
+  for (int k = 0; k < 6; ++k) {
+    const float dth = lerp ? 0.0f : dvd(-tdot[k], root);
+    const float ds = mul(ct, dth);
+    const float dwa = lerp ? 0.0f : sub(dvd(mul(cua, mul(g, dth)), denom), dvd(mul(sa, ds), denom2));
+    const float dwb = lerp ? 0.0f : sub(dvd(mul(cub, mul(f, dth)), denom), dvd(mul(sb, ds), denom2));
+    for (int i = 0; i < 4; ++i) {
+      const float own = k < 3 ? mul(wa, ta[i][k]) : mul(wb, tb[i][k - 3]);
+      dq[i][k] = add(add(mul(dwa, a[i]), mul(dwb, b[i])), own);
+    }
+  }
+  normalize_with_tangent(x, dq);  // quat_slerp's normalize
+  normalize_with_tangent(x, dq);  // _quat_of's
+  for (int i = 0; i < 4; ++i) q[i] = x[i];
+}
+
+// Per-point mode: cluster j (blockIdx.y) sums the points of segment j =
+// b * (k - 1) + p (window b's pair p), points starts[j] .. starts[j + 1]
+// of the sorted plan, into S_out[j], g_out[j], cost_out[j]. cp7 (B*k, 7)
+// holds every window's control points [t, q]. kSlotted: window b reads the
+// grids of slot[b].
+template <bool kSlotted, bool kProb, typename T>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+ct_scan_block_points_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_ptrs, const int* __restrict__ slot,
+                            const float* __restrict__ gparams, const float* __restrict__ cp7,
+                            const float* __restrict__ pts, const float* __restrict__ fac,
+                            const float* __restrict__ scl, const uint8_t* __restrict__ is_lo,
+                            const int* __restrict__ starts, float* __restrict__ S_out, float* __restrict__ g_out,
+                            float* __restrict__ cost_out, int k) {
+  __shared__ float rows[kThreads * kRow];
+  __shared__ float sh_cp[14];
+  __shared__ float sums[kOut];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int j = blockIdx.y;
+  const int b = j / (k - 1);
+  const int pair = j - b * (k - 1);
+  const int tid = threadIdx.x;
+  if (tid < 14) sh_cp[tid] = cp7[(static_cast<size_t>(b) * k + pair) * 7 + tid];
+  int s = 0;
+  if (kSlotted) {
+    s = slot[b];
+    hi.tsd = reinterpret_cast<const void*>(grid_ptrs[4 * s]);
+    hi.weight = reinterpret_cast<const void*>(grid_ptrs[4 * s + 1]);
+    lo.tsd = reinterpret_cast<const void*>(grid_ptrs[4 * s + 2]);
+    lo.weight = reinterpret_cast<const void*>(grid_ptrs[4 * s + 3]);
+  }
+  float gp[8];
+  for (int i = 0; i < 8; ++i) gp[i] = __ldg(gparams + 8 * s + i);
+
+  int oa = 18, ob = 18;
+  if (tid < kUpper) {
+    int r = tid, a = 0;
+    while (r >= 18 - a) {
+      r -= 18 - a;
+      ++a;
+    }
+    oa = a;
+    ob = a + r;
+  } else if (tid < kUpper + 18) {
+    oa = tid - kUpper;
+  }
+
+  const int seg_begin = starts[j];
+  const int n_pts = starts[j + 1] - seg_begin;
+  const int per = (n_pts + kCluster - 1) / kCluster;
+  const int begin = seg_begin + min(n_pts, rank * per), end = seg_begin + min(n_pts, rank * per + per);
+  float acc = 0.0f;
+  for (int start = begin; start < end; start += kThreads) {
+    const int chunk = min(kThreads, end - start);
+    const int n = start + tid;
+    float p[3] = {0.0f, 0.0f, 0.0f}, f = 0.0f, sc = 0.0f;
+    bool use_lo = false;
+    if (tid < chunk) {
+      p[0] = pts[static_cast<size_t>(n) * 3];
+      p[1] = pts[static_cast<size_t>(n) * 3 + 1];
+      p[2] = pts[static_cast<size_t>(n) * 3 + 2];
+      f = fac[n];
+      sc = scl[n];
+      use_lo = is_lo[n] != 0;
+    }
+    __syncthreads();  // the control points are in shared memory; the last chunk's rows are consumed
+
+    if (tid < chunk) {
+      float row[kRow];
+      for (int i = 0; i < kRow; ++i) row[i] = 0.0f;
+      if (sc != 0.0f) {
+        float t[3], q[4], dq[4][6];
+        point_pose(sh_cp, sh_cp + 7, f, t, q, dq);
+        const Grid grid{use_lo ? lo.tsd : hi.tsd, use_lo ? lo.weight : hi.weight, use_lo ? lo.nx : hi.nx,
+                        use_lo ? lo.ny : hi.ny, use_lo ? lo.nz : hi.nz,
+                        {use_lo ? gp[4] : gp[0], use_lo ? gp[5] : gp[1], use_lo ? gp[6] : gp[2]},
+                        use_lo ? gp[7] : gp[3]};
+        float val, row7[7];
+        point_row7<kProb, T>(grid, q, t, p, val, row7);
+        const float g = sub(1.0f, f);
+        for (int i = 0; i < 3; ++i) {
+          row[i] = mul(mul(g, row7[i]), sc);
+          row[9 + i] = mul(mul(f, row7[i]), sc);
+        }
+        for (int c = 0; c < 6; ++c) {
+          float jr = mul(row7[3], dq[0][c]);
+          for (int i = 1; i < 4; ++i) jr = add(jr, mul(row7[3 + i], dq[i][c]));
+          row[(c < 3 ? 3 : 9) + c] = mul(jr, sc);
+        }
+        row[18] = mul(val, sc);
+      }
+      float* dst = rows + tid * kRow;
+      for (int i = 0; i < kRow; ++i) dst[i] = row[i];
+    }
+    __syncthreads();
+
+    if (tid < kOut) {
+#pragma unroll 8
+      for (int r = 0; r < chunk; ++r) acc = add(acc, mul(rows[r * kRow + oa], rows[r * kRow + ob]));
+    }
+  }
+
+  if (tid < kOut) sums[tid] = acc;
+  cluster.sync();
+  if (rank == 0 && tid < kOut) {
+    float total = 0.0f;
+    for (int r = 0; r < kCluster; ++r) total = add(total, cluster.map_shared_rank(sums, r)[tid]);
+    if (tid < kUpper) {
+      S_out[(static_cast<size_t>(j) * 18 + oa) * 18 + ob] = total;
+      S_out[(static_cast<size_t>(j) * 18 + ob) * 18 + oa] = total;
+    } else if (tid < kUpper + 18) {
+      g_out[static_cast<size_t>(j) * 18 + oa] = total;
+    } else {
+      cost_out[j] = mul(0.5f, total);
+    }
+  }
+  cluster.sync();
+}
+
+// Launch the per-point kernel in `mode` over `segments` clusters.
+template <bool kSlotted, typename... Args>
+int launch_points(int mode, int segments, void* stream, Args... args) {
+  const dim3 grid(kCluster, segments);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kModeTsdf:
+      ct_scan_block_points_kernel<kSlotted, false, float><<<grid, kThreads, 0, s>>>(args...);
+      break;
+    case kModeProb:
+      ct_scan_block_points_kernel<kSlotted, true, float><<<grid, kThreads, 0, s>>>(args...);
+      break;
+    case kModeTsdfF16:
+      ct_scan_block_points_kernel<kSlotted, false, __half><<<grid, kThreads, 0, s>>>(args...);
+      break;
+    case kModeTsdfBf16:
+      ct_scan_block_points_kernel<kSlotted, false, __nv_bfloat16><<<grid, kThreads, 0, s>>>(args...);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Launch the kernel in `mode` (kMode*; host side of both entries).
 template <bool kSlotted, typename... Args>
 int launch(int mode, int c, void* stream, Args... args) {
@@ -436,4 +702,36 @@ extern "C" int hg_ct_scan_block_slots(const int64_t* grid_ptrs, const int* slot,
   const Grid lo{nullptr, nullptr, lnx, lny, lnz, {0.0f, 0.0f, 0.0f}, 0.0f};
   return launch<true>(mode, c, stream, hi, lo, grid_ptrs, slot, gparams, hi_pts, hi_mask, lo_pts, lo_mask, pose7,
                       dpose7, hi_scale, lo_scale, S, g, cost, p_hi, p_lo);
+}
+
+// Per-point mode. Grids and gparams as hg_ct_scan_block's; cp7 (B*k, 7)
+// f32 control points [t, q] of B windows; the plan sorted by segment
+// (window b's pair p is segment b * (k - 1) + p): pts (M, 3), fac, scl (M,)
+// f32, is_lo (M,) bool (the point reads the lo-res grid), starts
+// (segments + 1,) int32. Writes S (segments, 18, 18), g (segments, 18),
+// cost (segments,) f32.
+extern "C" int hg_ct_scan_block_points(const void* hi_tsd, const void* hi_weight, const void* lo_tsd,
+                                       const void* lo_weight, const float* gparams, const float* cp7,
+                                       const float* pts, const float* fac, const float* scl, const uint8_t* is_lo,
+                                       const int* starts, float* S, float* g, float* cost, int segments, int k,
+                                       int hnx, int hny, int hnz, int lnx, int lny, int lnz, int mode, void* stream) {
+  const Grid hi{hi_tsd, hi_weight, hnx, hny, hnz, {0.0f, 0.0f, 0.0f}, 0.0f};
+  const Grid lo{lo_tsd, lo_weight, lnx, lny, lnz, {0.0f, 0.0f, 0.0f}, 0.0f};
+  return launch_points<false>(mode, segments, stream, hi, lo, static_cast<const int64_t*>(nullptr),
+                              static_cast<const int*>(nullptr), gparams, cp7, pts, fac, scl, is_lo, starts, S, g,
+                              cost, k);
+}
+
+// The slotted per-point form: window b reads the grids of slot[b] (B,)
+// int32, through grid_ptrs (D, 4) and gparams (D, 8) as in
+// hg_ct_scan_block_slots; the rest as hg_ct_scan_block_points.
+extern "C" int hg_ct_scan_block_points_slots(const int64_t* grid_ptrs, const int* slot, const float* gparams,
+                                             const float* cp7, const float* pts, const float* fac, const float* scl,
+                                             const uint8_t* is_lo, const int* starts, float* S, float* g, float* cost,
+                                             int segments, int k, int hnx, int hny, int hnz, int lnx, int lny,
+                                             int lnz, int mode, void* stream) {
+  const Grid hi{nullptr, nullptr, hnx, hny, hnz, {0.0f, 0.0f, 0.0f}, 0.0f};
+  const Grid lo{nullptr, nullptr, lnx, lny, lnz, {0.0f, 0.0f, 0.0f}, 0.0f};
+  return launch_points<true>(mode, segments, stream, hi, lo, grid_ptrs, slot, gparams, cp7, pts, fac, scl, is_lo,
+                             starts, S, g, cost, k);
 }

@@ -17,9 +17,13 @@ filters, the window solve, the histogram and the insertion run on
 the solved state in one copy, and the histogram; the window problem goes
 up in one copy.
 
-Not ported: per-point unwarping and the DIRECT IMU term (the constructor
-raises NotImplementedError), the batched multi-trajectory solve hook and
-FrontEndMetrics.
+Every option of the JAX builder runs: use_per_point_unwarping (the window
+solve in per-point mode, K3's per-point launch, and each marginalized
+point unwarped by its own pose), imu_cost_term="DIRECT" (M = 16 raw IMU
+samples a control point pair), and the window_solve_fn hook through which
+a caller batches several builders' solves (solve_ct_window_batched).
+add_range_data feeds FrontEndMetrics: the step's wall time ends in a host
+readback, so it holds the step's device work.
 """
 
 from __future__ import annotations
@@ -31,8 +35,17 @@ from typing import Deque, List, Optional, Tuple
 import numpy as np
 import torch
 
+import time as _time
+
 from hectorgrapher_tpu_torch.mapping.ct import imu_integration
-from hectorgrapher_tpu_torch.mapping.ct.window_solver import CtProblem, CtState, CtWeights, solve_ct_window
+from hectorgrapher_tpu_torch.mapping.ct.window_solver import (
+    CtProblem,
+    CtState,
+    CtWeights,
+    DirectImuData,
+    solve_ct_window,
+)
+from hectorgrapher_tpu_torch.mapping.frontend_metrics import FrontEndMetrics
 from hectorgrapher_tpu_torch.mapping.motion_filter import MotionFilter
 from hectorgrapher_tpu_torch.mapping.pose_extrapolator import PoseExtrapolator
 from hectorgrapher_tpu_torch.mapping.scan_matching.rotational_histogram import compute_histogram
@@ -162,7 +175,8 @@ class InsertionResult:
 
 @dataclass
 class PendingWindowSolve:
-    """One ready window solve, split from its writeback."""
+    """One trajectory's ready window solve, split from its writeback so
+    that a caller can batch solves across trajectories (window_solve_fn)."""
 
     high_grid: object  # the matching submap's prepared grids (Submap3D.prepared_grids)
     low_grid: object
@@ -171,6 +185,8 @@ class PendingWindowSolve:
     state0: CtState
     weights: CtWeights
     num_iterations: int
+    per_point: bool
+    direct: Optional[DirectImuData]
     cps: list
     k: int
 
@@ -186,17 +202,18 @@ class MatchingResult:
 class OptimizingLocalTrajectoryBuilder:
     def __init__(self, options, device):
         """options: TrajectoryBuilder3DOptions."""
-        opt = options.optimizing_local_trajectory_builder
-        if opt.use_per_point_unwarping:
-            raise NotImplementedError("use_per_point_unwarping: per-point unwarping is not ported")
-        if opt.imu_cost_term == "DIRECT":
-            raise NotImplementedError("imu_cost_term='DIRECT' is not ported")
         self._options = options
-        self._opt = opt
+        self._opt = options.optimizing_local_trajectory_builder
         self._device = torch.device(device)
         self._active_submaps = ActiveSubmaps3D(options.submaps, self._device, options.rotational_histogram_size)
         self._motion_filter = MotionFilter(options.motion_filter)
         self._extrapolator: Optional[PoseExtrapolator] = None
+        # Optional hook: PendingWindowSolve -> solved CtState. A caller that
+        # serves several trajectories installs a batcher here so that their
+        # window solves run as one solve_ct_window_batched; None solves
+        # inline (_solve_window_direct).
+        self.window_solve_fn = None
+        self._frontend_metrics = FrontEndMetrics("ct_3d")
 
         self._imu_times: List[float] = []
         self._imu_acc: List[np.ndarray] = []
@@ -211,9 +228,9 @@ class OptimizingLocalTrajectoryBuilder:
         self._acc_calibration = np.eye(3)
         self._gyro_calibration = np.eye(3)
 
-        self._K = opt.max_control_points
-        self._C = opt.max_clouds_in_window
-        self._P = opt.points_per_cloud
+        self._K = self._opt.max_control_points
+        self._C = self._opt.max_clouds_in_window
+        self._P = self._opt.points_per_cloud
         self.num_optimizations = 0
 
     # ------------------------------------------------------------------
@@ -245,6 +262,20 @@ class OptimizingLocalTrajectoryBuilder:
         self._extrapolator.add_odometry_data(time, pose)
 
     def add_range_data(self, data: TimedPointCloudData) -> Optional[MatchingResult]:
+        """The front-end step, timed into FrontEndMetrics: per-scan latency
+        and real-time ratios (ref: optimizing_local_trajectory_builder.cc
+        :1667-1678). The step ends in host readbacks (the filtered clouds,
+        the solved state), so its wall time holds its device work."""
+        t0w, t0c = _time.perf_counter(), _time.thread_time()
+        result = self._add_range_data_impl(data)
+        self._frontend_metrics.observe_step(float(data.time), _time.perf_counter() - t0w, _time.thread_time() - t0c)
+        return result
+
+    @property
+    def frontend_metrics(self) -> FrontEndMetrics:
+        return self._frontend_metrics
+
+    def _add_range_data_impl(self, data: TimedPointCloudData) -> Optional[MatchingResult]:
         """(ref: AddRangeData :188-264)"""
         if self._extrapolator is None:
             return None  # IMU not yet initialized
@@ -365,7 +396,8 @@ class OptimizingLocalTrajectoryBuilder:
         # Solve the window, when a submap exists to match against.
         if self._active_submaps.submaps:
             pending = self._build_window_solve()
-            self._apply_window_solution(pending, self._solve_window_direct(pending))
+            solve_fn = self.window_solve_fn or self._solve_window_direct
+            self._apply_window_solution(pending, solve_fn(pending))
         optimized_pose = self._control_points[0].state.to_rigid()
 
         time_optimized_pose = self._control_points[0].time
@@ -515,6 +547,22 @@ class OptimizingLocalTrajectoryBuilder:
                 odom_wt[i - 1] = wt
                 odom_wr[i - 1] = wr
 
+        # DIRECT IMU cost term: the raw calibrated samples of each pair
+        # (ref: optimizing_local_trajectory_builder.cc:942-968 proto::DIRECT).
+        direct_arrays = {}
+        if self._opt.imu_cost_term == "DIRECT" and len(self._imu_times):
+            M = 16
+            d_dt = np.zeros((K - 1, M), np.float32)
+            d_gy = np.zeros((K - 1, M, 3), np.float32)
+            d_ac = np.zeros((K - 1, M, 3), np.float32)
+            for i in range(1, k):
+                d_dt[i - 1], d_gy[i - 1], d_ac[i - 1] = imu_integration.direct_imu_samples(
+                    imu_t, imu_a, imu_g, cp_times[i - 1], cp_times[i], M,
+                    self._acc_calibration, self._gyro_calibration,
+                )
+            direct_arrays = dict(direct_dt=d_dt, direct_gyro=d_gy, direct_accel=d_ac,
+                                 direct_gravity=np.float32(self._gravity_constant))
+
         cp_times_arr = np.zeros(K, np.float32)
         cp_times_arr[:k] = cp_times - t_ref
         o = self._opt
@@ -528,9 +576,14 @@ class OptimizingLocalTrajectoryBuilder:
             translation=trans, rotation=rot, velocity=vel,
             weights=np.array([o.high_resolution_grid_weight, o.low_resolution_grid_weight,
                               o.translation_weight, o.velocity_weight, o.rotation_weight], np.float32),
+            **direct_arrays,
         ))
         state0 = CtState(dev.pop("translation"), dev.pop("rotation"), dev.pop("velocity"))
         weights = CtWeights(*dev.pop("weights").unbind())
+        direct = None
+        if direct_arrays:
+            direct = DirectImuData(dev.pop("direct_dt"), dev.pop("direct_gyro"), dev.pop("direct_accel"),
+                                   dev.pop("direct_gravity"))
         submap = self._active_submaps.matching_submap
         high_grid, low_grid = submap.prepared_grids()
         return PendingWindowSolve(
@@ -541,6 +594,8 @@ class OptimizingLocalTrajectoryBuilder:
             state0=state0,
             weights=weights,
             num_iterations=int(self._opt.max_num_iterations),
+            per_point=bool(self._opt.use_per_point_unwarping),
+            direct=direct,
             cps=cps,
             k=k,
         )
@@ -554,6 +609,8 @@ class OptimizingLocalTrajectoryBuilder:
             pending.weights,
             is_tsdf=pending.is_tsdf,
             num_iterations=pending.num_iterations,
+            per_point=pending.per_point,
+            direct=pending.direct,
         )
         return solved
 
@@ -581,6 +638,34 @@ class OptimizingLocalTrajectoryBuilder:
         ta = a.state.translation
         tb = b.state.translation
         return NpRigid3(ta + f * (tb - ta), nq.quat_slerp(a.state.rotation, b.state.rotation, f))
+
+    def _unwarp_points_per_point(self, pcs: PointCloudSet, inv: NpRigid3) -> np.ndarray:
+        """Per-point unwarping of a marginalized cloud: each point by its own
+        pose at its own time, into the frame of `inv`'s inverse (ref:
+        MaybeOptimize per-point branch :1331-1378; JAX builder.py
+        :715-743). The rotation is a sign-aligned lerp, then normalized
+        (nlerp), as the JAX builder interpolates here; the window solve
+        slerps."""
+        cps = list(self._control_points)
+        cp_t = np.array([cp.time for cp in cps])
+        cp_trans = np.stack([cp.state.translation for cp in cps])
+        cp_rot = np.stack([cp.state.rotation for cp in cps])
+        abs_t = pcs.time + pcs.times
+        nxt = np.clip(np.searchsorted(cp_t, abs_t, side="right"), 1, len(cps) - 1)
+        prv = nxt - 1
+        f = np.clip((abs_t - cp_t[prv]) / np.maximum(cp_t[nxt] - cp_t[prv], 1e-9), 0.0, 1.0)[:, None]
+        trans = cp_trans[prv] + f * (cp_trans[nxt] - cp_trans[prv])
+        q0 = cp_rot[prv]
+        q1 = cp_rot[nxt]
+        dot = np.sum(q0 * q1, axis=-1, keepdims=True)
+        q1 = np.where(dot < 0, -q1, q1)
+        q = q0 + f * (q1 - q0)
+        q = q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-12)
+        u, w = q[:, 1:], q[:, :1]
+        v = pcs.points
+        uv = np.cross(u, v)
+        world = v + 2.0 * (w * uv + np.cross(u, uv)) + trans
+        return nq.quat_rotate(inv.q, world) + inv.t
 
     def _marginalize(self, optimized_pose: NpRigid3):
         """Pop the clouds leaving the window; unwarp them into the frame of
@@ -613,7 +698,10 @@ class OptimizingLocalTrajectoryBuilder:
                 self._control_points.popleft()
             pcs = self._clouds.popleft()
             tf = inv.compose(self._interp_cp_pose(pcs.time))
-            accumulated.append(nq.quat_rotate(tf.q, pcs.points) + tf.t)
+            if self._opt.use_per_point_unwarping:
+                accumulated.append(self._unwarp_points_per_point(pcs, inv))
+            else:
+                accumulated.append(nq.quat_rotate(tf.q, pcs.points) + tf.t)
             acc_origin = tf.apply(pcs.origin)
         if not accumulated:
             return None, None

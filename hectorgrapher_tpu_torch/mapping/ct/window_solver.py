@@ -31,9 +31,23 @@ probability mode reads; a TSDF grid stays as it is stored, f32 or half
 in place, so no solve makes an f32 copy of them. A caller that holds
 prepared grids (Submap3D.prepared_grids) passes them as they are.
 
-Per-scan mode only. Per-point unwarping, the DIRECT IMU term, the batched
-multi-window solve and unwarp_and_accumulate are not ported; the solver
-raises NotImplementedError on the first two.
+Per-point unwarping (per_point=True, window_solver.py :366-462): every
+point is a scalar residual on its own control-point pair at its own time;
+the point bracket comes from per_point_brackets once per solve, and K3's
+per-point mode (ct_scan_block_points) turns the state into the K - 1 pair
+blocks, one launch per assembly. The DIRECT IMU term (direct=
+DirectImuData, :109-138, :529-537) re-integrates the raw IMU samples from
+the start state inside the pair residual, its Jacobian in closed form
+through the M sub-steps.
+
+solve_ct_window_batched solves B windows at once (:729-764, the
+multi-robot server's operating point): one slotted K3 launch per LM
+iteration for all B windows (grid_slots: each window's own grid pair),
+the pair blocks of all B * (K - 1) pairs at once, one batched solve of the
+B damped systems, and per-window LM state (_lm_drive_batched: each window
+keeps its own damping, accept and done flags, as jax.vmap of the JAX
+package's while_loop does). unwarp_and_accumulate (:767-788) carries
+marginalized clouds into the optimized pose's frame.
 """
 
 from __future__ import annotations
@@ -42,9 +56,18 @@ from typing import NamedTuple
 
 import torch
 
-from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import _lm_drive
+from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import _lm_drive, _lm_drive_batched
 from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import PreparedProb3D, prepare_grid_3d
-from hectorgrapher_tpu_torch.ops.ct_scan_block import ct_scan_block, grid_params
+from hectorgrapher_tpu_torch.ops.ct_scan_block import (
+    GridSlots,
+    ct_scan_block,
+    ct_scan_block_points,
+    ct_scan_block_points_slots,
+    ct_scan_block_slots,
+    grid_params,
+    grid_slots,
+    point_plan,
+)
 from hectorgrapher_tpu_torch.transform.rigid import (
     Rigid3,
     cross,
@@ -52,6 +75,7 @@ from hectorgrapher_tpu_torch.transform.rigid import (
     quat_from_axis_angle,
     quat_multiply,
     quat_normalize,
+    quat_rotate,
     quat_slerp,
 )
 
@@ -104,6 +128,19 @@ class CtWeights(NamedTuple):
     rotation_weight: torch.Tensor
 
 
+class DirectImuData(NamedTuple):
+    """Raw (calibrated) IMU samples per control point pair for the DIRECT
+    cost term (ref: prediction_direct_imu_integration_cost_functor.h),
+    resampled on the host onto M uniform sub-steps (zero-order hold);
+    masked pairs carry dt == 0. A batched solve gives each leaf a leading
+    window axis."""
+
+    dt: torch.Tensor  # (K-1, M) sub-step durations, 0 where inactive
+    gyro: torch.Tensor  # (K-1, M, 3) calibrated angular velocity
+    accel: torch.Tensor  # (K-1, M, 3) calibrated linear acceleration
+    gravity: torch.Tensor  # () m/s^2 (a batch: (B,))
+
+
 def interpolate_pose(state: CtState, prev_idx, next_idx, factor) -> Rigid3:
     """Pose at `factor` between two control points, batched."""
     t0 = state.translation[prev_idx]
@@ -125,12 +162,13 @@ def _rpy_of_quat(q):
 
 
 def ct_retract(state: CtState, delta) -> CtState:
-    """Tangent (K*9,) -> state: [dt(3), dtheta(3), dv(3)] per control point."""
-    d = delta.reshape(state.translation.shape[0], 9)
+    """Tangent (K*9,) -> state: [dt(3), dtheta(3), dv(3)] per control point
+    (a batch of windows: (B, K*9) -> (B, K, ...))."""
+    d = delta.reshape(state.translation.shape[:-1] + (9,))
     return CtState(
-        translation=state.translation + d[:, 0:3],
-        rotation=quat_normalize(quat_multiply(state.rotation, quat_from_axis_angle(d[:, 3:6]))),
-        velocity=state.velocity + d[:, 6:9],
+        translation=state.translation + d[..., 0:3],
+        rotation=quat_normalize(quat_multiply(state.rotation, quat_from_axis_angle(d[..., 3:6]))),
+        velocity=state.velocity + d[..., 6:9],
     )
 
 
@@ -138,6 +176,34 @@ def _pair_index(prev_idx, next_idx):
     """(B, 18) tangent indices of each block's two control points."""
     nine = torch.arange(9, device=prev_idx.device)
     return torch.cat([prev_idx[:, None] * 9 + nine, next_idx[:, None] * 9 + nine], dim=1)
+
+
+def per_point_brackets(problem: CtProblem, times):
+    """(prev, next, factor) of every point: times (C, P) relative point
+    times, absolute = cloud_time + relative; the bracket from a search over
+    the control-point times, masked ones at +inf, clipped to [1, K-1]; the
+    factor clipped to [0, 1] and 0 where it is not finite
+    (window_solver.py :164-183). A batch of windows: (B, C, P)."""
+    k = problem.cp_times.shape[-1]
+    cp_t = torch.where(problem.cp_mask.to(torch.bool), problem.cp_times, torch.inf)
+    abs_t = problem.cloud_time[..., None] + times
+    lead = cp_t.shape[:-1]
+    nxt = torch.searchsorted(cp_t.contiguous(), abs_t.reshape(lead + (-1,)).contiguous(), right=True)
+    nxt = torch.clamp(nxt, 1, k - 1).reshape(abs_t.shape)
+    prv = nxt - 1
+    flat = cp_t.reshape(lead + (1, -1)).expand(abs_t.shape[:-1] + (k,))
+    t0, t1 = torch.gather(flat, -1, prv), torch.gather(flat, -1, nxt)
+    factor = torch.clamp((abs_t - t0) / torch.clamp(t1 - t0, min=1e-9), 0.0, 1.0)
+    return prv, nxt, torch.where(torch.isfinite(factor), factor, 0.0)
+
+
+def _take(x, idx):
+    """Rows idx of x per window: x (K, n), idx (C,) -> (C, n); a batch x (B,
+    K, n), idx (B, C) -> (B, C, n)."""
+    if idx.dim() == 1:
+        return x[idx]
+    off = torch.arange(idx.shape[0], device=idx.device)[:, None] * x.shape[-2]
+    return x.reshape(-1, x.shape[-1])[idx + off]
 
 
 # ---------------------------------------------------------------------------
@@ -258,37 +324,68 @@ def _jrpy(q, tq):
 def cloud_poses(state: CtState, problem: CtProblem):
     """(pose7 (C, 7), dpose7 (C, 7, 18)): each cloud's interpolated pose
     [t, q] after retracting its two control points by a zero pair tangent
-    (window_solver.py scan_block pose_of, :479-488), and its Jacobian."""
+    (window_solver.py scan_block pose_of, :479-488), and its Jacobian. A
+    batch of windows gives (B, C, 7) and (B, C, 7, 18)."""
     p, n, f = problem.cloud_prev, problem.cloud_next, problem.cloud_factor
-    tp, tn = state.translation[p], state.translation[n]
-    q0, tq0 = _retract_rotation(state.rotation[p], 3)
-    q1, tq1 = _retract_rotation(state.rotation[n], 12)
-    pose_t = tp + f[:, None] * (tn - tp)
-    dpose_t = (1.0 - f)[:, None, None] * _unit_tangent(tp, 0) + f[:, None, None] * _unit_tangent(tn, 9)
+    tp, tn = _take(state.translation, p), _take(state.translation, n)
+    q0, tq0 = _retract_rotation(_take(state.rotation, p), 3)
+    q1, tq1 = _retract_rotation(_take(state.rotation, n), 12)
+    pose_t = tp + f[..., None] * (tn - tp)
+    dpose_t = (1.0 - f)[..., None, None] * _unit_tangent(tp, 0) + f[..., None, None] * _unit_tangent(tn, 9)
     pose_q, dpose_q = _jnormalize(*_jslerp(q0, tq0, q1, tq1, f))
-    return torch.cat([pose_t, pose_q], dim=-1), torch.cat([dpose_t, dpose_q], dim=-1).transpose(1, 2)
+    return torch.cat([pose_t, pose_q], dim=-1), torch.cat([dpose_t, dpose_q], dim=-1).transpose(-1, -2)
 
 
-def pair_residuals(state: CtState, problem: CtProblem, weights: CtWeights):
-    """(r (K-1, 15), J (K-1, 15, 18)): the IMU (live preintegration form)
-    and odometry residuals of each control point pair and their Jacobian
-    on the pair tangent (window_solver.py pair_block :515-577)."""
-    ta, tb = state.translation[:-1], state.translation[1:]
-    va, vb = state.velocity[:-1], state.velocity[1:]
-    dt = problem.pair_dt[:, None]
-    m_imu = problem.pair_mask.to(torch.float32)[:, None]
-    m_odom = problem.odom_mask.to(torch.float32)[:, None]
-    q0, tq0 = _retract_rotation(state.rotation[:-1], 3)
-    q1, tq1 = _retract_rotation(state.rotation[1:], 12)
+def _integrate_direct(t, tt, q, tq, v, tv, direct: DirectImuData):
+    """_integrate_direct (window_solver.py :123-138) with tangents: Euler /
+    zero-order hold through the M sub-steps, q renormalized after every
+    step (a padding step, dt == 0, only renormalizes q), gravity along +z."""
+    ez = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=t.device)
+    g_vec = direct.gravity.reshape(direct.gravity.shape + (1, 1)) * ez
+    steps = quat_from_axis_angle(direct.gyro * direct.dt[..., None])  # (..., K-1, M, 4), state-free
+    still = torch.zeros_like(tt)
+    for m in range(direct.dt.shape[-1]):
+        dt = direct.dt[..., m, None]
+        q, tq = _jnormalize(*_jmul(q, tq, steps[..., m, :], None))
+        rot, trot = _jrotate(q, tq, direct.accel[..., m, :], still)
+        v = v + (rot - g_vec) * dt
+        tv = tv + trot * dt[..., None]
+        t = t + v * dt
+        tt = tt + tv * dt[..., None]
+    return t, tt, q, tq, v, tv
+
+
+def pair_residuals(state: CtState, problem: CtProblem, weights: CtWeights, direct=None):
+    """(r (K-1, 15), J (K-1, 15, 18)): the IMU (live preintegration form,
+    or with `direct` the DIRECT term) and odometry residuals of each
+    control point pair and their Jacobian on the pair tangent
+    (window_solver.py pair_block :515-577). A batch of windows gives (B,
+    K-1, 15) and (B, K-1, 15, 18)."""
+    ta, tb = state.translation[..., :-1, :], state.translation[..., 1:, :]
+    va, vb = state.velocity[..., :-1, :], state.velocity[..., 1:, :]
+    dt = problem.pair_dt[..., None]
+    m_imu = problem.pair_mask.to(torch.float32)[..., None]
+    m_odom = problem.odom_mask.to(torch.float32)[..., None]
+    q0, tq0 = _retract_rotation(state.rotation[..., :-1, :], 3)
+    q1, tq1 = _retract_rotation(state.rotation[..., 1:, :], 12)
     dt0, dt1 = _unit_tangent(ta, 0), _unit_tangent(tb, 9)
     dv0, dv1 = _unit_tangent(va, 6), _unit_tangent(vb, 15)
 
-    translation_error = tb - ta - dt * va
-    d_translation = dt1 - dt0 - dt[..., None] * dv0
-    err_q, d_err_q = _jmul(*_jmul(*_jconj(q1, tq1), q0, tq0), problem.imu_delta_rotation, None)
-    imu_r = torch.cat([weights.translation_weight * translation_error, weights.velocity_weight * (vb - va),
+    if direct is not None:
+        # DIRECT: the prediction integrates the raw IMU from the START
+        # state, so its Jacobian runs through every sub-step.
+        pt, d_pt, pq, d_pq, pv, d_pv = _integrate_direct(ta, dt0, q0, tq0, va, dv0, direct)
+        translation_error, d_translation = tb - pt, dt1 - d_pt
+        velocity_error, d_velocity = vb - pv, dv1 - d_pv
+        err_q, d_err_q = _jmul(*_jconj(q1, tq1), pq, d_pq)
+    else:
+        translation_error = tb - ta - dt * va
+        d_translation = dt1 - dt0 - dt[..., None] * dv0
+        velocity_error, d_velocity = vb - va, dv1 - dv0
+        err_q, d_err_q = _jmul(*_jmul(*_jconj(q1, tq1), q0, tq0), problem.imu_delta_rotation, None)
+    imu_r = torch.cat([weights.translation_weight * translation_error, weights.velocity_weight * velocity_error,
                        weights.rotation_weight * err_q[..., 1:]], dim=-1) * m_imu
-    imu_j = torch.cat([weights.translation_weight * d_translation, weights.velocity_weight * (dv1 - dv0),
+    imu_j = torch.cat([weights.translation_weight * d_translation, weights.velocity_weight * d_velocity,
                        weights.rotation_weight * d_err_q[..., 1:]], dim=-1) * m_imu[..., None]
 
     rel_q, d_rel_q = _jmul(*_jconj(q0, tq0), q1, tq1)
@@ -296,34 +393,48 @@ def pair_residuals(state: CtState, problem: CtProblem, weights: CtWeights):
     oerr_q, d_oerr_q = _jmul(*_jconj(rel_q, d_rel_q), problem.odom_delta_rotation, None)
     oerr_t, d_oerr_t = _jrotate(*_jconj(rel_q, d_rel_q), problem.odom_delta_translation - rel_t, -d_rel_t)
     rpy, d_rpy = _jrpy(oerr_q, d_oerr_q)
-    wt = problem.odom_translation_weight[:, None]
-    wr = problem.odom_rotation_weight[:, None]
+    wt = problem.odom_translation_weight[..., None]
+    wr = problem.odom_rotation_weight[..., None]
     odom_r = torch.cat([wt * oerr_t, wr * rpy], dim=-1) * m_odom
     odom_j = torch.cat([wt[..., None] * d_oerr_t, wr[..., None] * d_rpy], dim=-1) * m_odom[..., None]
-    return torch.cat([imu_r, odom_r], dim=-1), torch.cat([imu_j, odom_j], dim=-1).transpose(1, 2)
+    return torch.cat([imu_r, odom_r], dim=-1), torch.cat([imu_j, odom_j], dim=-1).transpose(-1, -2)
+
+
+def _scan_scales(problem: CtProblem, weights: CtWeights):
+    """Per-cloud residual scales (hi, lo): grid weight / sqrt(points), 0 for
+    masked clouds (window_solver.py :419-420)."""
+    n_hi = torch.clamp(torch.sum(problem.hi_mask, dim=-1), min=1).to(torch.float32)
+    n_lo = torch.clamp(torch.sum(problem.lo_mask, dim=-1), min=1).to(torch.float32)
+    cloud_mask = problem.cloud_mask.to(torch.float32)
+    return ((weights.high_resolution_grid_weight / torch.sqrt(n_hi) * cloud_mask).contiguous(),
+            (weights.low_resolution_grid_weight / torch.sqrt(n_lo) * cloud_mask).contiguous())
+
+
+def problem_plan(problem: CtProblem, weights: CtWeights):
+    """K3's per-point plan of a window (or, with a leading window axis, of
+    a batch): every point's bracket and factor (per_point_brackets) and its
+    scale where masked in, sorted by pair. Once per solve."""
+    k = problem.cp_times.shape[-1]
+    b = problem.cp_times.shape[0] if problem.cp_times.dim() == 2 else 1
+    hi_scale, lo_scale = _scan_scales(problem, weights)
+    parts = []
+    for pts, mask, times, scale in ((problem.hi_points, problem.hi_mask, problem.hi_times, hi_scale),
+                                    (problem.lo_points, problem.lo_mask, problem.lo_times, lo_scale)):
+        prv, _, f = per_point_brackets(problem, times)
+        sm = torch.where(mask.to(torch.bool), scale[..., None], 0.0)
+        parts += [pts.reshape(b, -1, 3), prv.reshape(b, -1), f.reshape(b, -1), sm.reshape(b, -1)]
+    return point_plan(*parts, k)
 
 
 def make_ct_block_families(high_grid, low_grid, problem: CtProblem, weights: CtWeights, is_tsdf: bool,
                            direct=None, per_point: bool = False):
     """(scan_block, pair_block): state -> a block family.
 
-    scan_block returns pre-reduced blocks (S (C, 18, 18), g (C, 18), cost,
-    idx (C, 18)) from kernel K3; pair_block returns raw blocks (J (K-1, 15,
-    18), r (K-1, 15), idx (K-1, 18))."""
-    if per_point:
-        raise NotImplementedError("per-point unwarping is not ported")
-    if direct is not None:
-        raise NotImplementedError("the DIRECT IMU cost term is not ported")
-    n_hi = torch.clamp(torch.sum(problem.hi_mask, dim=1), min=1).to(torch.float32)
-    n_lo = torch.clamp(torch.sum(problem.lo_mask, dim=1), min=1).to(torch.float32)
-    cloud_mask = problem.cloud_mask.to(torch.float32)
-    hi_scale = (weights.high_resolution_grid_weight / torch.sqrt(n_hi) * cloud_mask).contiguous()
-    lo_scale = (weights.low_resolution_grid_weight / torch.sqrt(n_lo) * cloud_mask).contiguous()
-    hi_points = problem.hi_points.contiguous()
-    lo_points = problem.lo_points.contiguous()
-    hi_mask = problem.hi_mask.to(torch.bool).contiguous()
-    lo_mask = problem.lo_mask.to(torch.bool).contiguous()
-    scan_idx = _pair_index(problem.cloud_prev.long(), problem.cloud_next.long())
+    scan_block returns pre-reduced blocks from kernel K3: per cloud (S (C,
+    18, 18), g (C, 18), cost, idx (C, 18)), or with per_point per control
+    point pair (S (K-1, 18, 18), g (K-1, 18), cost, idx (K-1, 18)) from
+    K3's per-point mode; pair_block returns raw blocks (J (K-1, 15, 18), r
+    (K-1, 15), idx (K-1, 18))."""
     pairs = torch.arange(problem.pair_mask.shape[0], device=problem.pair_mask.device)
     pair_idx = _pair_index(pairs, pairs + 1)
     high_grid, low_grid = prepare_grid_3d(high_grid), prepare_grid_3d(low_grid)
@@ -331,16 +442,31 @@ def make_ct_block_families(high_grid, low_grid, problem: CtProblem, weights: CtW
         raise ValueError(f"is_tsdf={is_tsdf} with a {type(high_grid).__name__} grid")
     gparams = grid_params(high_grid, low_grid)
 
-    def scan_block(state: CtState):
-        pose7, dpose7 = cloud_poses(state, problem)
-        S, g, cost = ct_scan_block(
-            high_grid, low_grid, hi_points, hi_mask, lo_points, lo_mask,
-            pose7.contiguous(), dpose7.contiguous(), hi_scale, lo_scale, gparams=gparams,
-        )
-        return S, g, torch.sum(cost), scan_idx
+    if per_point:
+        plan = problem_plan(problem, weights)  # brackets and factors once per solve
+
+        def scan_block(state: CtState):
+            cp7 = torch.cat([state.translation, state.rotation], dim=-1)
+            S, g, cost = ct_scan_block_points(high_grid, low_grid, plan, cp7, gparams=gparams)
+            return S, g, torch.sum(cost), pair_idx
+    else:
+        hi_scale, lo_scale = _scan_scales(problem, weights)
+        hi_points = problem.hi_points.contiguous()
+        lo_points = problem.lo_points.contiguous()
+        hi_mask = problem.hi_mask.to(torch.bool).contiguous()
+        lo_mask = problem.lo_mask.to(torch.bool).contiguous()
+        scan_idx = _pair_index(problem.cloud_prev.long(), problem.cloud_next.long())
+
+        def scan_block(state: CtState):
+            pose7, dpose7 = cloud_poses(state, problem)
+            S, g, cost = ct_scan_block(
+                high_grid, low_grid, hi_points, hi_mask, lo_points, lo_mask,
+                pose7.contiguous(), dpose7.contiguous(), hi_scale, lo_scale, gparams=gparams,
+            )
+            return S, g, torch.sum(cost), scan_idx
 
     def pair_block(state: CtState):
-        r, J = pair_residuals(state, problem, weights)
+        r, J = pair_residuals(state, problem, weights, direct)
         return J, r, pair_idx
 
     return scan_block, pair_block
@@ -380,17 +506,24 @@ def ct_normal_equations(high_grid, low_grid, problem: CtProblem, state: CtState,
                              per_point=per_point)(state)
 
 
+def _fixed(cp_mask):
+    """Tangent entries the solve freezes: those of masked control points
+    and of the first one, (..., K*9) bool."""
+    per_cp_fixed = ~cp_mask.to(torch.bool)
+    per_cp_fixed[..., 0] = True
+    return torch.repeat_interleave(per_cp_fixed, 9, dim=-1)
+
+
 def solve_ct_window_block(high_grid, low_grid, problem: CtProblem, state0: CtState, weights: CtWeights,
                           is_tsdf: bool, num_iterations: int = 12, direct=None, per_point: bool = False):
     """Block-assembled LM solve of the window: (state, final_cost,
     initial_cost). Every call runs 1 + num_iterations assemblies, each
-    one K3 launch; solve_ct_window_block.assemblies counts them."""
+    one K3 launch (per-cloud, or per-point with per_point);
+    solve_ct_window_block.assemblies counts them."""
     D = 9 * state0.translation.shape[0]
     assemble = _make_ct_assemble(high_grid, low_grid, problem, weights, is_tsdf, D, direct=direct,
                                  per_point=per_point)
-    per_cp_fixed = ~problem.cp_mask.to(torch.bool)
-    per_cp_fixed[0] = True
-    fixed = torch.repeat_interleave(per_cp_fixed, 9)
+    fixed = _fixed(problem.cp_mask)
     fixed_f = fixed.to(torch.float32)
     fixed_2d = fixed[:, None] | fixed[None, :]
 
@@ -416,3 +549,125 @@ def solve_ct_window(high_grid, low_grid, problem: CtProblem, state0: CtState, we
     """Solve the window; returns (CtState, final_cost, initial_cost)."""
     return solve_ct_window_block(high_grid, low_grid, problem, state0, weights, is_tsdf=is_tsdf,
                                  num_iterations=num_iterations, direct=direct, per_point=per_point)
+
+
+# ---------------------------------------------------------------------------
+# B windows in one solve
+# ---------------------------------------------------------------------------
+
+
+def window_slots(high_grids, low_grids):
+    """(GridSlots of the distinct grid pairs, slot (B,) int32): window b's
+    grids are the table's entry slot[b]. Each grid is prepared
+    (prepare_grid_3d) once; a pair that several windows share is one
+    entry."""
+    pairs, slot = [], []
+    for h, lo in zip(high_grids, low_grids):
+        key = next((i for i, (ph, pl, rh, rl) in enumerate(pairs) if rh is h and rl is lo), None)
+        if key is None:
+            key = len(pairs)
+            pairs.append((prepare_grid_3d(h), prepare_grid_3d(lo), h, lo))
+        slot.append(key)
+    slots = grid_slots([p[0] for p in pairs], [p[1] for p in pairs])
+    return slots, torch.tensor(slot, dtype=torch.int32).to(slots.ptrs.device)
+
+
+def _make_ct_assemble_batched(slots: GridSlots, slot, problems: CtProblem, weights: CtWeights, directs,
+                              per_point: bool):
+    """states (B windows) -> (JtJ (B, D, D), g (B, D), cost (B,)): every
+    window's normal equations, from one slotted K3 launch for all B
+    windows and the pair blocks of all B * (K-1) pairs at once."""
+    b, k = problems.cp_mask.shape
+    c = problems.cloud_mask.shape[1]
+    D = 9 * k
+    device = problems.cp_mask.device
+    pairs = torch.arange(k - 1, device=device)
+    pair_idx = _pair_index(pairs, pairs + 1).expand(b, k - 1, 18)
+    if per_point:
+        plan = problem_plan(problems, weights)
+        scan_idx = pair_idx
+    else:
+        hi_scale, lo_scale = _scan_scales(problems, weights)
+        flat = lambda x: x.reshape((b * c,) + x.shape[2:]).contiguous()
+        clouds = (flat(problems.hi_points), flat(problems.hi_mask.to(torch.bool)), flat(problems.lo_points),
+                  flat(problems.lo_mask.to(torch.bool)))
+        cloud_slot = torch.repeat_interleave(slot, c)
+        scales = (flat(hi_scale), flat(lo_scale))
+        scan_idx = _pair_index(problems.cloud_prev.long().reshape(-1),
+                               problems.cloud_next.long().reshape(-1)).reshape(b, c, 18)
+    idx = torch.cat([scan_idx, pair_idx], dim=1)  # (B, blocks, 18)
+    blocks = idx.shape[1]
+    E = (idx[..., None] == torch.arange(D, device=device)).to(torch.float32)  # (B, blocks, 18, D)
+    Et = E.reshape(b, blocks * 18, D).transpose(1, 2)
+
+    def assemble(states: CtState):
+        if per_point:
+            cp7 = torch.cat([states.translation, states.rotation], dim=-1).reshape(b * k, 7)
+            S_scan, g_scan, cost_scan = ct_scan_block_points_slots(slots, slot, plan, cp7)
+        else:
+            pose7, dpose7 = cloud_poses(states, problems)
+            S_scan, g_scan, cost_scan = ct_scan_block_slots(
+                slots, cloud_slot, *clouds, pose7.reshape(b * c, 7).contiguous(),
+                dpose7.reshape(b * c, 7, 18).contiguous(), *scales)
+        r, J = pair_residuals(states, problems, weights, directs)
+        S = torch.cat([S_scan.reshape(b, -1, 18, 18), torch.einsum("bcri,bcrj->bcij", J, J)], dim=1)
+        gb = torch.cat([g_scan.reshape(b, -1, 18), torch.einsum("bcri,bcr->bci", J, r)], dim=1)
+        SE = torch.bmm(S.reshape(-1, 18, 18), E.reshape(-1, 18, D)).reshape(b, blocks * 18, D)
+        JtJ = torch.bmm(Et, SE)
+        g = torch.bmm(Et, gb.reshape(b, -1, 1))[..., 0]
+        return JtJ, g, cost_scan.reshape(b, -1).sum(dim=1) + 0.5 * torch.sum(r * r, dim=(1, 2))
+
+    return assemble
+
+
+def solve_ct_window_batched(high_grids, low_grids, problems: CtProblem, states0: CtState, weights: CtWeights,
+                            is_tsdf: bool, num_iterations: int = 12, per_point: bool = False, directs=None):
+    """B windows in one solve (window_solver.py solve_ct_window_batched
+    :729-764): (states (B, K, ...), final costs (B,), initial costs (B,)).
+
+    high_grids, low_grids: B grids each, window b against (high_grids[b],
+    low_grids[b]), all of one type, storage dtype and pair of shapes (a
+    grid object several windows share is read once); problems, states0
+    and directs (DirectImuData, or None) carry a leading window axis on
+    every leaf; the weights are shared. Each LM iteration makes one
+    slotted K3 launch for all B windows; every window keeps its own LM
+    state (damping, accept, done), so each follows its own solve's steps,
+    up to the rounding of the batched linear solve.
+    solve_ct_window_batched.assemblies counts the batched assemblies."""
+    slots, slot = window_slots(high_grids, low_grids)
+    if is_tsdf == slots.prob:
+        raise ValueError(f"is_tsdf={is_tsdf} with {'occupancy' if slots.prob else 'TSDF'} grids")
+    assemble = _make_ct_assemble_batched(slots, slot, problems, weights, directs, per_point)
+    fixed = _fixed(problems.cp_mask)
+    fixed_f = fixed.to(torch.float32)
+    fixed_2d = fixed[:, :, None] | fixed[:, None, :]
+
+    def eval_fn(states):
+        solve_ct_window_batched.assemblies += 1
+        JtJ, g, cost = assemble(states)
+        return (torch.where(fixed_2d, 0.0, JtJ), torch.where(fixed, 0.0, g)), cost
+
+    def delta_of(quant, lam):
+        JtJ, g = quant
+        diag = torch.diagonal(JtJ, dim1=-2, dim2=-1)
+        damped = JtJ + torch.diag_embed(lam[:, None] * torch.clamp(diag, min=1e-12) + 1e-12) + torch.diag_embed(fixed_f)
+        return torch.where(fixed, 0.0, -torch.linalg.solve(damped, g))
+
+    return _lm_drive_batched(eval_fn, delta_of, ct_retract, states0, num_iterations, init_lambda=1e-4,
+                             max_lambda=1e6)
+
+
+solve_ct_window_batched.assemblies = 0
+
+
+def unwarp_and_accumulate(state: CtState, optimized_pose_t, optimized_pose_q, points, mask, prev_idx, next_idx,
+                          factor):
+    """Marginalized clouds in the frame of the optimized pose
+    (window_solver.py :767-788; ref: MaybeOptimize :1383-1407): each cloud
+    (C, P, 3) posed between its bracketing control points, then
+    optimized_pose^-1 applied; masked points are 0."""
+    poses = interpolate_pose(state, prev_idx, next_idx, factor)
+    inv_q = quat_conjugate(optimized_pose_q)
+    world = quat_rotate(poses.rotation[:, None, :], points) + poses.translation[:, None, :]
+    out = quat_rotate(inv_q[None, None, :], world - optimized_pose_t[None, None, :])
+    return torch.where(mask[..., None].to(torch.bool), out, 0.0)

@@ -1,5 +1,5 @@
 """3D range-data insertion (counterpart of hectorgrapher_tpu/mapping/
-inserters_3d.py, its occupancy and ray-mode TSDF parts).
+inserters_3d.py).
 
 Occupancy (ref: mapping/3d/range_data_inserter_3d.cc Insert +
 InsertMissesIntoGrid): one odds update per hit cell, misses only on the
@@ -10,8 +10,12 @@ for bit.
 
 TSDF (ref: mapping/3d/tsdf_range_data_inserter_3d.cc — ray-directed updates
 (InsertHit, :294) with exponential weight drop-off behind the surface
-(:333-341), weighted-average cell update (UpdateCell, :725),
-insertion_ratio subsampling).
+(:333-341), or normal-directed ones (InsertHitWithNormal, :197) with the
+normals of the organized cloud's neighbours (CLOUD_STRUCTURE, :503-607) or
+of a k-NN PCA (KNN_PCA, PCL, OPEN3D: Open3D's EstimateNormals, :405-489),
+or triangle fill-in between adjacent rays (TRIANGLE_FILL_IN, :83-195);
+weighted-average cell update (UpdateCell, :725), insertion_ratio
+subsampling).
 
 The per-sample UpdateCell loop becomes a scatter-add of (sum w, sum w*d)
 followed by one combined update: the running weighted mean is
@@ -19,10 +23,13 @@ order-independent, except that the weight cap applies once at scan end.
 On the card index_add_ sums with atomics in no fixed order (ROADMAP C3),
 so a map matches the JAX package's to a tolerance, not bit for bit.
 
-Only the ray mode is ported. The builder hands over range data with
-width 0, so the default CLOUD_STRUCTURE method falls through to it as in
-the JAX package; the normal-directed modes (organized-cloud normals, KNN
-PCA, triangle fill-in) raise NotImplementedError.
+make_tsdf_inserter_3d dispatches as the JAX package does: CLOUD_STRUCTURE
+and TRIANGLE_FILL_IN need organized range data (width > 0, from the
+classic 3D builder and the tools); the CT builder hands over width 0, so
+they fall through to the ray mode there, while the k-NN PCA methods run
+at any width. knn_pca_normals forms the dense (P, P) distances, takes the
+k nearest with topk and the smallest eigenvector of each neighbourhood's
+covariance with eigh, all on the grid's device.
 """
 
 from __future__ import annotations
@@ -111,54 +118,88 @@ def make_probability_inserter_3d(options):
     return insert
 
 
-def insert_tsdf_3d(
-    grid: TSDFGrid,
-    hits,
-    valid,
-    origin,
-    num_band_samples: int,
-    weight_epsilon: float,
-    weight_sigma: float,
-) -> TSDFGrid:
-    """Ray-mode TSDF integration (ref InsertHit :294): the truncation band
-    is swept along the ray through each hit; the update distance is
-    range - |cell_center - origin|, with an exponential weight drop-off
-    behind the surface (:333-341)."""
-    shape = grid.shape
-    td = grid.truncation_distance
-    ray = hits - origin[None, :]
-    ranges = torch.linalg.vector_norm(ray, dim=-1)
-    ray_dir = ray / torch.clamp(ranges[:, None], min=1e-9)
-    valid = valid & (ranges > td)
+def structured_cloud_normals(cloud, origin, width: int, vertical_stride: int = 1, horizontal_stride: int = 5,
+                             resolution: float = 0.1):
+    """Surface normals from an organized cloud's neighbour structure
+    (inserters_3d.py :137-207; ref: tsdf_range_data_inserter_3d.cc:503-607
+    CLOUD_STRUCTURE): per point, the index offsets up to +-vertical_stride
+    (adjacent points) and +-horizontal_stride * width (adjacent scan
+    lines) are tried farthest-first for a neighbour whose range differs by
+    at most resolution / 0.05, falling back to the point's own index; the
+    normal is the normalized cross product of the two neighbour
+    differences, valid where each axis found two distinct indices.
+    Returns (normals (N, 3), valid (N,))."""
+    pts = cloud.positions
+    n = pts.shape[0]
+    r = torch.linalg.vector_norm(pts - origin[None, :], dim=-1)
+    max_range_delta = resolution / 0.05
+    base = torch.arange(n, device=pts.device)
 
-    s = torch.linspace(-1.0, 1.0, num_band_samples, dtype=torch.float32, device=hits.device)
-    band_pts = hits[:, None, :] + (s[None, :, None] * td) * ray_dir[:, None, :]
-    idx = cell_index(grid.meta, band_pts)
-    centers = cell_center(grid.meta, idx)
-    d = ranges[:, None] - torch.linalg.vector_norm(centers - origin[None, None, :], dim=-1)
-    d = torch.clamp(d, -td, td)
-    nd_norm = d / td
-    w = torch.where(
-        nd_norm < -weight_epsilon,
-        torch.exp(-weight_sigma * (-nd_norm - weight_epsilon) ** 2),
-        torch.ones_like(nd_norm),
-    )
+    def find_neighbor(offsets):
+        best, found = base, torch.zeros(n, dtype=torch.bool, device=pts.device)
+        for off in offsets:
+            j = base + off
+            jc = torch.clamp(j, 0, n - 1)
+            ok = (j >= 0) & (j < n) & cloud.mask[jc] & (torch.abs(r - r[jc]) <= max_range_delta)
+            best = torch.where(~found & ok, j, best)
+            found = found | ok
+        return best, found
 
-    flat = flat_index(idx, shape)
-    vmask = valid[:, None].expand(flat.shape)
+    up = list(range(vertical_stride, 0, -1))
+    h = max(1, horizontal_stride) * max(1, width)
+    right = list(range(h, 0, -max(1, width)))
+    i_vu, f_vu = find_neighbor(up)
+    i_vl, f_vl = find_neighbor([-o for o in up])
+    i_hu, f_hu = find_neighbor(right)
+    i_hl, f_hl = find_neighbor([-o for o in right])
+    normal = torch.linalg.cross(pts[i_hl] - pts[i_hu], pts[i_vl] - pts[i_vu])
+    norm = torch.linalg.vector_norm(normal, dim=-1, keepdim=True)
+    ok = cloud.mask & (f_vu | f_vl) & (f_hu | f_hl) & (i_vu != i_vl) & (i_hu != i_hl) & (norm[:, 0] > 1e-9)
+    return normal / torch.clamp(norm, min=1e-9), ok
+
+
+def knn_pca_normals(points, valid, origin, k: int = 16, radius: float = 0.4):
+    """k-NN PCA surface normals (inserters_3d.py :406-439; ref:
+    tsdf_range_data_inserter_3d.cc:405-489, Open3D EstimateNormals with a
+    hybrid radius / k-NN search): the dense (P, P) squared distances of
+    the valid points, the k nearest (self included) by topk, the
+    covariance of those within `radius`, the eigenvector of its smallest
+    eigenvalue (eigh), turned toward the sensor. Returns (normals (P, 3),
+    ok (P,)): ok needs >= 3 neighbours in the radius. An eigenvector is
+    defined up to its sign and, for a repeated smallest eigenvalue, up to
+    a rotation within its eigenspace."""
+    p = points.shape[0]
+    d2 = torch.sum((points[:, None, :] - points[None, :, :]) ** 2, dim=-1)
+    d2 = torch.where(valid[None, :] & valid[:, None], d2, 1e30)
+    neg, idx = torch.topk(-d2, min(k, p), dim=1)
+    nbr = points[idx]
+    w = ((-neg) <= radius * radius) & valid[idx] & valid[:, None]
+    n = torch.clamp(torch.sum(w, dim=-1), min=1).to(points.dtype)[:, None]
+    mean = torch.sum(torch.where(w[..., None], nbr, 0.0), dim=1) / n
+    centered = torch.where(w[..., None], nbr - mean[:, None, :], 0.0)
+    cov = torch.einsum("pki,pkj->pij", centered, centered) / n[..., None]
+    _, eigvecs = torch.linalg.eigh(cov)  # ascending eigenvalues
+    normal = eigvecs[..., 0]
+    flip = torch.sum(normal * (origin[None, :] - points), dim=-1) < 0.0
+    normal = torch.where(flip[:, None], -normal, normal)
+    return normal, valid & (torch.sum(w, dim=-1) >= 3)
+
+
+def _update_cells(grid: TSDFGrid, flat, ok, w, d) -> TSDFGrid:
+    """The weighted-average cell update (UpdateCell, :725) of the samples
+    at flat cell indices where ok, with weights w and distances d: a
+    scatter-add of (sum w, sum w*d), then one update. Half planes (f16,
+    bf16) are read in f32 and the update rounded back to their dtype to
+    nearest even, as the JAX package's astype does. A bf16 weight holds
+    integers exactly only up to 256: above that it stops growing, in the
+    JAX package and here alike."""
     size = grid.tsd.numel()
-    slot = torch.where(vmask, flat, size).reshape(-1)
-    w_flat = torch.where(vmask, w, 0.0).reshape(-1)
-    wd_flat = torch.where(vmask, w * d, 0.0).reshape(-1)
-    w_sum = torch.zeros(size + 1, dtype=torch.float32, device=hits.device).index_add_(0, slot, w_flat)
-    wd_sum = torch.zeros(size + 1, dtype=torch.float32, device=hits.device).index_add_(0, slot, wd_flat)
-    w_sum = w_sum[:size].reshape(shape)
-    wd_sum = wd_sum[:size].reshape(shape)
-
-    # Half planes (f16, bf16) are read in f32 and the update rounded back
-    # to their dtype to nearest even, as the JAX package's astype does. A
-    # bf16 weight holds integers exactly only up to 256: above that it
-    # stops growing, in the JAX package and here alike.
+    device = flat.device
+    slot = torch.where(ok, flat, size).reshape(-1)
+    w_sum = torch.zeros(size + 1, dtype=torch.float32, device=device).index_add_(
+        0, slot, torch.where(ok, w, 0.0).reshape(-1))[:size].reshape(grid.shape)
+    wd_sum = torch.zeros(size + 1, dtype=torch.float32, device=device).index_add_(
+        0, slot, torch.where(ok, w * d, 0.0).reshape(-1))[:size].reshape(grid.shape)
     tsd32 = grid.tsd.to(torch.float32)
     wgt32 = grid.weight.to(torch.float32)
     new_w_raw = wgt32 + w_sum
@@ -167,27 +208,132 @@ def insert_tsdf_3d(
                          weight=torch.minimum(new_w_raw, grid.max_weight).to(grid.weight.dtype))
 
 
+def insert_tsdf_3d(
+    grid: TSDFGrid,
+    hits,
+    valid,
+    origin,
+    num_band_samples: int,
+    weight_epsilon: float,
+    weight_sigma: float,
+    normals=None,
+) -> TSDFGrid:
+    """TSDF integration (inserters_3d.py insert_tsdf_3d :215-290). Without
+    normals, the ray mode (ref InsertHit :294): the truncation band is
+    swept along the ray through each hit; the update distance is range -
+    |cell_center - origin|, with an exponential weight drop-off behind the
+    surface (:333-341). With normals (N, 3) (ref InsertHitWithNormal
+    :197): the band is swept along the normal, turned against the ray
+    (:210-211), the distance is (cell_center - hit) . normal, weight 1."""
+    td = grid.truncation_distance
+    ray = hits - origin[None, :]
+    ranges = torch.linalg.vector_norm(ray, dim=-1)
+    ray_dir = ray / torch.clamp(ranges[:, None], min=1e-9)
+    valid = valid & (ranges > td)
+
+    s = torch.linspace(-1.0, 1.0, num_band_samples, dtype=torch.float32, device=hits.device)
+    if normals is not None:
+        nd = torch.where(torch.sum(normals * ray, dim=-1) > 0, -1.0, 1.0)
+        n_oriented = nd[:, None] * normals
+        band_pts = hits[:, None, :] + (s[None, :, None] * td) * n_oriented[:, None, :]
+        idx = cell_index(grid.meta, band_pts)
+        centers = cell_center(grid.meta, idx)
+        d = torch.clamp(torch.sum((centers - hits[:, None, :]) * n_oriented[:, None, :], dim=-1), -td, td)
+        w = torch.ones_like(d)
+    else:
+        band_pts = hits[:, None, :] + (s[None, :, None] * td) * ray_dir[:, None, :]
+        idx = cell_index(grid.meta, band_pts)
+        centers = cell_center(grid.meta, idx)
+        d = ranges[:, None] - torch.linalg.vector_norm(centers - origin[None, None, :], dim=-1)
+        d = torch.clamp(d, -td, td)
+        nd_norm = d / td
+        w = torch.where(
+            nd_norm < -weight_epsilon,
+            torch.exp(-weight_sigma * (-nd_norm - weight_epsilon) ** 2),
+            torch.ones_like(nd_norm),
+        )
+    flat = flat_index(idx, grid.shape)
+    return _update_cells(grid, flat, valid[:, None].expand(flat.shape), w, d)
+
+
+def insert_tsdf_3d_triangles(grid: TSDFGrid, cloud, origin, width: int, num_layers: int, bary_samples: int = 6,
+                             max_edge: float = 1.0) -> TSDFGrid:
+    """TRIANGLE_FILL_IN (inserters_3d.py :296-404; ref:
+    tsdf_range_data_inserter_3d.cc:83-195 InsertTriangle/RasterTriangle):
+    each quad of the organized cloud forms two triangles (edges below
+    max_edge, oriented toward the sensor); each is sampled on a fixed
+    barycentric grid on num_layers layers offset along its normal by
+    multiples of the resolution, with distance (cell_center - v0) .
+    normal, weight 1."""
+    td = grid.truncation_distance
+    res = grid.meta.resolution
+    pts = cloud.positions
+    device = pts.device
+    rows = pts.shape[0] // width
+    idx = torch.arange((rows - 1) * (width - 1), device=device)
+    r, c = idx // (width - 1), idx % (width - 1)
+    i00 = r * width + c
+    i01, i10 = i00 + 1, i00 + width
+    i11 = i10 + 1
+    norm = lambda x: torch.linalg.vector_norm(x, dim=-1)
+
+    def tri_arrays(a, b, cc):
+        v0, v1, v2 = pts[a], pts[b], pts[cc]
+        e = torch.maximum(norm(v1 - v0), torch.maximum(norm(v2 - v0), norm(v2 - v1)))
+        nrm = torch.linalg.cross(v1 - v0, v2 - v0)
+        nn = norm(nrm)[:, None]
+        valid = cloud.mask[a] & cloud.mask[b] & cloud.mask[cc] & (e < max_edge) & (nn[:, 0] > 1e-9)
+        nrm = nrm / torch.clamp(nn, min=1e-9)
+        flip = torch.sum(nrm * (origin[None, :] - v0), dim=-1) < 0
+        return v0, v1, v2, torch.where(flip[:, None], -nrm, nrm), valid
+
+    v0, v1, v2, nrm, valid = (torch.cat(pair) for pair in zip(tri_arrays(i00, i01, i10), tri_arrays(i01, i11, i10)))
+    lin = (torch.arange(bary_samples, dtype=torch.float32, device=device) + 0.5) / bary_samples
+    aa, bb = torch.meshgrid(lin, lin, indexing="ij")
+    bary_ok = ((aa + bb) <= 1.0).reshape(-1)
+    aa, bb = aa.reshape(-1), bb.reshape(-1)
+    offsets = (torch.arange(num_layers, dtype=torch.float32, device=device) - num_layers // 2) * res
+    base = v0[:, None, :] + aa[None, :, None] * (v1 - v0)[:, None, :] + bb[None, :, None] * (v2 - v0)[:, None, :]
+    q = base[:, None, :, :] + offsets[None, :, None, None] * nrm[:, None, None, :]
+    cell = cell_index(grid.meta, q)
+    centers = cell_center(grid.meta, cell)
+    d = torch.clamp(torch.sum((centers - v0[:, None, None, :]) * nrm[:, None, None, :], dim=-1), -td, td)
+    flat = flat_index(cell, grid.shape)
+    ok = (valid[:, None, None] & bary_ok[None, None, :]).expand(flat.shape)
+    return _update_cells(grid, flat, ok, torch.ones_like(d), d)
+
+
 def make_tsdf_inserter_3d(options, resolution: float):
-    """Bind TSDFRangeDataInserterOptions3D into an insert function."""
+    """Bind TSDFRangeDataInserterOptions3D into an insert function; the
+    normal_computation_method dispatch of inserters_3d.py :441-506:
+    TRIANGLE_FILL_IN and CLOUD_STRUCTURE on organized range data (width >
+    0), KNN_PCA / PCL / OPEN3D at any width, else the ray mode."""
     num_band_samples = max(4, int(2.0 * options.relative_truncation_distance / 0.5) + 1)
     method = options.normal_computation_method
-    if method in ("KNN_PCA", "PCL", "OPEN3D"):
-        raise NotImplementedError(f"normal_computation_method={method!r}: KNN PCA normals are not ported")
+    num_layers = 2 * int(round(options.relative_truncation_distance)) + 1
+    weights = dict(weight_epsilon=options.weight_function_epsilon, weight_sigma=options.weight_function_sigma)
 
     def insert(grid: TSDFGrid, range_data: RangeData) -> TSDFGrid:
-        if range_data.width > 0 and method in ("CLOUD_STRUCTURE", "TRIANGLE_FILL_IN"):
-            raise NotImplementedError(
-                f"normal_computation_method={method!r} on organized range data: not ported"
-            )
         hits = range_data.returns.positions
         r = torch.linalg.vector_norm(hits - range_data.origin[None, :], dim=-1)
         valid = range_data.returns.mask & (r >= options.min_range) & (r <= options.max_range)
         valid = insertion_ratio_mask(valid, float(options.insertion_ratio))
-        return insert_tsdf_3d(
-            grid, hits, valid, range_data.origin,
-            num_band_samples=num_band_samples,
-            weight_epsilon=options.weight_function_epsilon,
-            weight_sigma=options.weight_function_sigma,
-        )
+        width = int(range_data.width)
+        if method == "TRIANGLE_FILL_IN" and width > 0:
+            return insert_tsdf_3d_triangles(grid, range_data.returns._replace(mask=valid), range_data.origin,
+                                            width=width, num_layers=num_layers)
+        normals = None
+        if method == "CLOUD_STRUCTURE" and width > 0:
+            normals, n_ok = structured_cloud_normals(
+                range_data.returns, range_data.origin, width=width,
+                vertical_stride=int(options.normal_computation_vertical_stride),
+                horizontal_stride=int(options.normal_computation_horizontal_stride), resolution=resolution)
+            valid = valid & n_ok
+        elif method in ("KNN_PCA", "PCL", "OPEN3D"):
+            normals, n_ok = knn_pca_normals(hits, valid, range_data.origin, k=int(options.normal_estimate_max_nn),
+                                            radius=float(options.normal_estimate_radius))
+            valid = valid & n_ok
+        return insert_tsdf_3d(grid, hits, valid, range_data.origin, num_band_samples=num_band_samples,
+                              normals=normals, **weights)
 
     return insert

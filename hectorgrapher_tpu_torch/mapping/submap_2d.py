@@ -16,10 +16,37 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from hectorgrapher_tpu_torch.mapping.grids import ProbabilityGrid, make_probability_grid
+from hectorgrapher_tpu_torch.common.profiling import global_factory
+from hectorgrapher_tpu_torch.mapping.grids import ProbabilityGrid, cell_index, in_bounds, make_probability_grid
 from hectorgrapher_tpu_torch.mapping.inserters_2d import make_probability_inserter_2d
 from hectorgrapher_tpu_torch.sensor.types import RangeData
 from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
+
+_CLIPPED = None
+
+
+def clipped_points_counter():
+    """Counter of scan returns outside the fixed submap extent
+    (submap_2d.py :21-43): the reference grows its grids on demand
+    (grid_2d.h GrowLimits:79-94), fixed-extent tensors clip instead, and
+    this counter makes a misconfigured extent visible."""
+    global _CLIPPED
+    if _CLIPPED is None:
+        _CLIPPED = global_factory().new_counter_family(
+            "mapping_points_clipped_total", "scan returns outside the fixed submap grid extent").add({})
+    return _CLIPPED
+
+
+def count_clipped(grid, range_data: RangeData) -> None:
+    """Sampled accounting of out-of-extent returns (submap_2d.py :46-60):
+    the masked returns whose cell lies outside `grid` (2D or 3D, any grid
+    type) are added to clipped_points_counter; one host read of a scalar,
+    so callers run it at a sampled cadence."""
+    pts = range_data.returns.positions[..., : grid.meta.min_corner.shape[0]]
+    idx = cell_index(grid.meta, pts)
+    n = int(torch.sum(range_data.returns.mask & ~in_bounds(idx, grid.shape)))
+    if n:
+        clipped_points_counter().increment(n)
 
 
 @dataclass
@@ -83,6 +110,9 @@ class ActiveSubmaps2D:
             # Grids are stored in the local SLAM frame (min_corner is
             # shifted to center the array on the submap origin).
             submap.insert(range_data_in_local, self._inserter)
+        # Sampled clip accounting (one host scalar every 8 inserts).
+        if self._submaps[0].num_range_data % 8 == 1:
+            count_clipped(self._submaps[0].grid, range_data_in_local)
         if self._submaps[0].num_range_data == 2 * self._options.num_range_data:
             self._submaps[0].finish()
         return list(self._submaps)

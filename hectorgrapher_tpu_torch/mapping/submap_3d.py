@@ -10,7 +10,8 @@ the submap origin. grid_storage_dtype "uint16" quantizes a submap's grids
 when it finishes, as the JAX package does; "float16" and "bfloat16" store
 a TSDF submap's planes in half precision from the start (half the bytes
 on the card), and are a ValueError for occupancy grids, as in the JAX
-package. The sampled clip accounting (count_clipped) is not ported.
+package. Every 8th insertion counts the returns outside the lo-res grid
+(submap_2d.count_clipped), as the JAX package does.
 
 Submap3D.prepared_grids() is what the scan matchers read (K3 and the
 stencils): uint16 grids decoded to f32, half TSDF planes as they are (K3
@@ -37,6 +38,7 @@ from hectorgrapher_tpu_torch.mapping.grids import (
 )
 from hectorgrapher_tpu_torch.mapping.inserters_3d import make_probability_inserter_3d, make_tsdf_inserter_3d
 from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import prepare_grid_3d
+from hectorgrapher_tpu_torch.mapping.submap_2d import count_clipped
 from hectorgrapher_tpu_torch.sensor.types import RangeData
 from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
 
@@ -155,6 +157,9 @@ class ActiveSubmaps3D:
             submap.version += 1
         if self._submaps[0].num_range_data == 2 * self._options.num_range_data:
             self._submaps[0].finish()
+        # Sampled clip accounting (see submap_2d.count_clipped).
+        if self._submaps[0].num_range_data % 8 == 1:
+            count_clipped(self._submaps[0].low_resolution_grid, range_data_in_local)
         return list(self._submaps)
 
     def _add_submap(self, origin_local: np.ndarray) -> None:

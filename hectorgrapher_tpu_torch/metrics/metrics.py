@@ -1,8 +1,10 @@
 """Host-side metrics registry (counterpart of the histogram and family
-factory of hectorgrapher_tpu/metrics/metrics.py; ref: cartographer/metrics/
-{counter,gauge,histogram,family_factory}.h): the pose graph's score and
-residual histograms, its batched-round counter and pack-bytes gauge, and
-profiling.section's timings.
+factory and RateTimer of hectorgrapher_tpu/metrics/metrics.py; ref:
+cartographer/metrics/{counter,gauge,histogram,family_factory}.h,
+common/rate_timer.h): the pose graph's score and residual histograms, its
+batched-round counter and pack-bytes gauge, profiling.section's timings,
+the front ends' latency and real-time ratios (mapping/frontend_metrics.py)
+and the collators' sensor rates.
 
 Plain Python, thread-safe: the pose graph's worker thread and the front
 end write to the same families.
@@ -137,3 +139,26 @@ class FamilyFactory:
 
 
 GLOBAL_FACTORY = FamilyFactory()
+
+
+class RateTimer:
+    """Event-rate estimator (ref: common/rate_timer.h RateTimer): pulses in
+    a sliding window of `window_duration` seconds; the collators log each
+    sensor's rate with it (collated_trajectory_builder.cc:66-84)."""
+
+    def __init__(self, window_duration: float):
+        from collections import deque
+
+        self._window = window_duration
+        self._events = deque()
+
+    def pulse(self, time: float) -> None:
+        self._events.append(time)
+        while self._events and self._events[0] < time - self._window:
+            self._events.popleft()
+
+    def compute_rate(self) -> float:
+        if len(self._events) < 2:
+            return 0.0
+        dt = self._events[-1] - self._events[0]
+        return (len(self._events) - 1) / dt if dt > 0 else 0.0

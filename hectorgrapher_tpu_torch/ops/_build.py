@@ -143,6 +143,10 @@ def bind(path: Path) -> ctypes.CDLL:
     lib.hg_ct_scan_block.restype = i32
     lib.hg_ct_scan_block_slots.argtypes = [ptr] * 14 + [i32] * 10 + [ptr]
     lib.hg_ct_scan_block_slots.restype = i32
+    lib.hg_ct_scan_block_points.argtypes = [ptr] * 14 + [i32] * 9 + [ptr]
+    lib.hg_ct_scan_block_points.restype = i32
+    lib.hg_ct_scan_block_points_slots.argtypes = [ptr] * 12 + [i32] * 9 + [ptr]
+    lib.hg_ct_scan_block_points_slots.restype = i32
     lib.hg_fast_scores_3d.argtypes = [ptr] * 11 + [i32] * 13 + [ptr]
     lib.hg_fast_scores_3d.restype = i32
     return lib

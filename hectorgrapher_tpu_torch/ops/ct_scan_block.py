@@ -40,6 +40,16 @@ submaps' volume pointers (grid_slots), so the round stacks no copy of
 the volumes; per cloud it computes what ct_scan_block computes for that
 cloud alone, bit for bit, and its plain version calls the plain
 ct_scan_block once per cloud.
+
+ct_scan_block_points is the kernel's per-point mode, the per-point
+unwarping family of window_solver.py (point_scan_block, :366-462): every
+point is a scalar block on its own control-point pair at its own time,
+with its own pose computed in the kernel from the pair's two states and
+its factor (point_poses), and the blocks are summed per pair into K - 1
+pair blocks. point_plan sorts the points by pair once per solve;
+ct_scan_block_points_slots assembles B windows at once, window b against
+the grids of slot[b], each window's pair blocks bit for bit those of a
+launch for it alone.
 """
 
 from __future__ import annotations
@@ -157,6 +167,13 @@ def _volumes(label: str, grid, device, where: str):
     return grid.tsd.data_ptr(), grid.weight.data_ptr()
 
 
+def _block_outputs(n: int, device):
+    """(S (n, 18, 18), g (n, 18), cost (n,)) f32 for n blocks, in one
+    allocation."""
+    out = torch.empty(n * (18 * 18 + 18 + 1), dtype=torch.float32, device=device)
+    return out[: n * 324].view(n, 18, 18), out[n * 324 : n * 342].view(n, 18), out[n * 342 :]
+
+
 def _count(fn, mode: int) -> None:
     """One launch of fn in `mode`, counted in total and by mode."""
     fn.launches += 1
@@ -202,10 +219,7 @@ def ct_scan_block(hi_grid, lo_grid, hi_points, hi_mask, lo_points, lo_mask, pose
     _check("gparams", gparams, torch.float32, (8,), device)
     if not 0 < c <= 65535:
         raise ValueError(f"ct_scan_block: unsupported C={c}")
-    out = torch.empty(c * (18 * 18 + 18 + 1), dtype=torch.float32, device=device)  # one allocation: S, g, cost
-    S = out[: c * 324].view(c, 18, 18)
-    g = out[c * 324 : c * 342].view(c, 18)
-    cost = out[c * 342 :]
+    S, g, cost = _block_outputs(c, device)
     _build.launch(
         "hg_ct_scan_block", device, *hi_ptrs, *lo_ptrs,
         gparams.data_ptr(), hi_points.data_ptr(), hi_mask.data_ptr(), lo_points.data_ptr(), lo_mask.data_ptr(),
@@ -309,10 +323,7 @@ def ct_scan_block_slots(slots: GridSlots, slot, hi_points, hi_mask, lo_points, l
     _check("lo_scale", lo_scale, torch.float32, (c,), device)
     if not 0 < c <= 65535:
         raise ValueError(f"ct_scan_block_slots: unsupported C={c}")
-    out = torch.empty(c * (18 * 18 + 18 + 1), dtype=torch.float32, device=device)  # one allocation: S, g, cost
-    S = out[: c * 324].view(c, 18, 18)
-    g = out[c * 324 : c * 342].view(c, 18)
-    cost = out[c * 342 :]
+    S, g, cost = _block_outputs(c, device)
     # slots holds the grids, so their volumes outlive the enqueued launch.
     _build.launch(
         "hg_ct_scan_block_slots", device,
@@ -327,3 +338,255 @@ def ct_scan_block_slots(slots: GridSlots, slot, hi_points, hi_mask, lo_points, l
 
 ct_scan_block_slots.launches = ct_scan_block_slots.prob_launches = 0
 ct_scan_block_slots.f16_launches = ct_scan_block_slots.bf16_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Per-point mode
+# ---------------------------------------------------------------------------
+
+
+class PointPlan(NamedTuple):
+    """The points of B windows' per-point families as the kernel reads
+    them, sorted by segment (window b's control-point pair p is segment b *
+    (k - 1) + p; points whose scale is 0, masked points and the points of
+    masked clouds, go last, past every segment): points (M, 3) f32,
+    factor, scale (M,) f32, lo (M,) bool (the point reads the lo-res grid),
+    pair (M,) int64 (its segment), starts (B * (k - 1) + 1,) int32 (segment
+    j is points starts[j] .. starts[j + 1]), and k, the control points a
+    window."""
+
+    points: torch.Tensor
+    factor: torch.Tensor
+    scale: torch.Tensor
+    lo: torch.Tensor
+    pair: torch.Tensor
+    starts: torch.Tensor
+    k: int
+
+    @property
+    def segments(self) -> int:
+        return self.starts.shape[0] - 1
+
+
+def point_plan(hi_points, hi_pair, hi_factor, hi_scale, lo_points, lo_pair, lo_factor, lo_scale, k: int) -> PointPlan:
+    """PointPlan of B windows: hi_points (B, Nh, 3), hi_pair (B, Nh) the
+    first control point of each point's pair, hi_factor and hi_scale (B,
+    Nh) (0 where the point is masked out), likewise lo; a window's hi
+    points come before its lo points, each set in its given order, within
+    a segment. Built once per solve: the brackets do not move with the
+    state."""
+    b = hi_points.shape[0]
+    segments = b * (k - 1)
+    window = torch.arange(b, device=hi_points.device)[:, None] * (k - 1)
+    points = torch.cat([hi_points, lo_points], dim=1).reshape(-1, 3)
+    factor = torch.cat([hi_factor, lo_factor], dim=1).reshape(-1)
+    scale = torch.cat([hi_scale, lo_scale], dim=1).reshape(-1)
+    lo = torch.cat([torch.zeros_like(hi_pair, dtype=torch.bool), torch.ones_like(lo_pair, dtype=torch.bool)],
+                   dim=1).reshape(-1)
+    pair = torch.cat([hi_pair, lo_pair], dim=1).long() + window
+    pair = torch.where(scale.reshape(pair.shape) != 0, pair, segments).reshape(-1)
+    pair, order = torch.sort(pair, stable=True)
+    starts = torch.searchsorted(pair, torch.arange(segments + 1, device=pair.device)).to(torch.int32)
+    return PointPlan(points[order].contiguous(), factor[order].contiguous(), scale[order].contiguous(),
+                     lo[order].contiguous(), pair, starts, k)
+
+
+def _dot4(a, b):
+    """a . b over the last axis, summed left to right (the kernel's dot4)."""
+    return ((a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]) + a[..., 3] * b[..., 3]
+
+
+def _f64(fn, x):
+    """fn evaluated in f64, rounded once to f32 (the kernel's acos64 etc.)."""
+    return fn(x.to(torch.float64)).to(torch.float32)
+
+
+def _normalize_with_tangent(x, tx):
+    """x / |x| (N, 4) and its tangent columns tx (N, 6, 4)."""
+    n = torch.sqrt(_dot4(x, x))[:, None]
+    y = x / n
+    return y, (tx - y[:, None, :] * _dot4(y[:, None, :], tx)[..., None]) / n[:, None]
+
+
+def _half_products(q):
+    """(N, 3, 4): q * [0, e_k / 2] for k = 0, 1, 2."""
+    h = 0.5 * q
+    w, x, y, z = h.unbind(-1)
+    return torch.stack([torch.stack([-x, w, z, -y], -1), torch.stack([-y, -z, w, x], -1),
+                        torch.stack([-z, y, -x, w], -1)], dim=1)
+
+
+def point_poses(ca, cb, f):
+    """Per-point poses of the per-point family (window_solver.py
+    point_scan_block, :388-402): ca, cb (N, 7) the two control points [t,
+    q] of each point's pair, f (N,) its factor. Returns (t (N, 3), q (N, 4),
+    dq (N, 6, 4)): the lerp of the translations; the slerp of the rotations
+    retracted at a zero tangent (not normalized), normalized twice; and q's
+    Jacobian on the pair tangent's six rotation columns. Every op in the
+    kernel's order (csrc/ct_scan_block.cu point_pose), acos, sin and cos in
+    f64 rounded to f32, so on the card both compute the same pose."""
+    t = ca[:, :3] + f[:, None] * (cb[:, :3] - ca[:, :3])
+    a, b = ca[:, 3:], cb[:, 3:]
+    ta, tb = _half_products(a), _half_products(b)
+    dot = _dot4(a, b)
+    tdot = torch.cat([_dot4(b[:, None, :], ta), _dot4(a[:, None, :], tb)], dim=1)  # (N, 6)
+    neg = dot < 0
+    b = torch.where(neg[:, None], -b, b)
+    tb = torch.where(neg[:, None, None], -tb, tb)
+    tdot = torch.where(neg[:, None], -tdot, tdot)
+    c = torch.clamp(torch.abs(dot), max=1.0)
+    theta = _f64(torch.arccos, c)
+    s = _f64(torch.sin, theta)
+    lerp = s < 1e-6
+    denom = torch.where(lerp, 1.0, s)
+    g = 1.0 - f
+    ua, ub = g * theta, f * theta
+    sa, sb = _f64(torch.sin, ua), _f64(torch.sin, ub)
+    wa = torch.where(lerp, g, sa / denom)
+    wb = torch.where(lerp, f, sb / denom)
+    x = wa[:, None] * a + wb[:, None] * b
+    ct, cua, cub = _f64(torch.cos, theta), _f64(torch.cos, ua), _f64(torch.cos, ub)
+    root = torch.where(lerp, 1.0, torch.sqrt(1.0 - c * c))
+    dth = torch.where(lerp[:, None], 0.0, -tdot / root[:, None])  # (N, 6)
+    ds = ct[:, None] * dth
+    denom2 = (denom * denom)[:, None]
+    dwa = torch.where(lerp[:, None], 0.0, (cua[:, None] * (g[:, None] * dth)) / denom[:, None] - (sa[:, None] * ds) / denom2)
+    dwb = torch.where(lerp[:, None], 0.0, (cub[:, None] * (f[:, None] * dth)) / denom[:, None] - (sb[:, None] * ds) / denom2)
+    own = torch.cat([wa[:, None, None] * ta, wb[:, None, None] * tb], dim=1)
+    tx = (dwa[..., None] * a[:, None, :] + dwb[..., None] * b[:, None, :]) + own
+    q, tq = _normalize_with_tangent(*_normalize_with_tangent(x, tx))
+    return t, q, tq
+
+
+def _point_rows(grid, points, q, t, dq, f, s):
+    """Residuals (n,) and 18-wide rows (n, 18) of points against one grid."""
+    world = quat_rotate(q, points) + t
+    val, dval_dfrac = value_and_dfrac_3d(grid, world)
+    dvw = dval_dfrac / grid.meta.resolution
+    dval_dq = torch.einsum("ni,nij->nj", dvw, dquat_rotate_dq(q, points))
+    jrot = torch.einsum("nq,nkq->nk", dval_dq, dq)
+    z = torch.zeros_like(dvw)
+    g = (1.0 - f)[:, None]
+    rows = torch.cat([(g * dvw) * s[:, None], jrot[:, :3] * s[:, None], z,
+                      (f[:, None] * dvw) * s[:, None], jrot[:, 3:] * s[:, None], z], dim=1)
+    return val * s, rows
+
+
+def ct_scan_block_points_plain(hi_grid, lo_grid, plan: PointPlan, cp7):
+    """Plain PyTorch version of one window (plan.segments == k - 1):
+    (S (k-1, 18, 18), g (k-1, 18), cost (k-1,)), the pair blocks summed as
+    the JAX package sums them (a one-hot per pair, point_scan_block
+    :432-453)."""
+    k1 = plan.k - 1
+    m = int(plan.starts[-1])  # the points of some segment; the dropped ones follow
+    pair, f, s = plan.pair[:m], plan.factor[:m], plan.scale[:m]
+    p = pair % k1 + (pair // k1) * plan.k  # the pair's first control point's row of cp7
+    t, q, dq = point_poses(cp7[p], cp7[p + 1], f)
+    r = torch.empty(m, dtype=torch.float32, device=f.device)
+    J = torch.empty((m, 18), dtype=torch.float32, device=f.device)
+    for grid, sel in ((hi_grid, ~plan.lo[:m]), (lo_grid, plan.lo[:m])):
+        r[sel], J[sel] = _point_rows(grid, plan.points[:m][sel], q[sel], t[sel], dq[sel], f[sel], s[sel])
+    onehot = (pair[None, :] == torch.arange(k1, device=pair.device)[:, None]).to(torch.float32)  # (k1, m)
+    Jk = onehot[:, :, None] * J[None, :, :]
+    S = torch.einsum("kni,nj->kij", Jk, J)
+    g = torch.einsum("kni,n->ki", Jk, r)
+    return S, g, 0.5 * (onehot @ (r * r))
+
+
+def _check_plan(plan: PointPlan, cp7, windows: int, device, where: str):
+    m = plan.points.shape[0]
+    if plan.segments != windows * (plan.k - 1) or not 0 < plan.segments <= 65535 or plan.k < 2:
+        raise ValueError(f"{where}: {plan.segments} segments for {windows} windows of k={plan.k}")
+    _check("cp7", cp7, torch.float32, (windows * plan.k, 7), device)
+    _check("plan.points", plan.points, torch.float32, (m, 3), device)
+    _check("plan.factor", plan.factor, torch.float32, (m,), device)
+    _check("plan.scale", plan.scale, torch.float32, (m,), device)
+    _check("plan.lo", plan.lo, torch.bool, (m,), device)
+    _check("plan.starts", plan.starts, torch.int32, (plan.segments + 1,), device)
+
+
+def ct_scan_block_points(hi_grid, lo_grid, plan: PointPlan, cp7, gparams=None):
+    """Per-point pair blocks of one window: (S (k-1, 18, 18), g (k-1, 18),
+    cost (k-1,)) f32.
+
+    hi_grid, lo_grid as ct_scan_block's; plan: point_plan of this one
+    window; cp7 (k, 7) f32 its control points [t, q wxyz]; gparams:
+    grid_params(hi_grid, lo_grid), built here when not given. CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    device = plan.points.device
+    if device.type == "cpu":
+        return ct_scan_block_points_plain(hi_grid, lo_grid, plan, cp7)
+    if device.type != "cuda":
+        raise ValueError(f"ct_scan_block_points: unsupported device {device}")
+    mode = kernel_mode(hi_grid, lo_grid, "ct_scan_block_points")
+    hi_ptrs = _volumes("hi_grid", hi_grid, device, "ct_scan_block_points")
+    lo_ptrs = _volumes("lo_grid", lo_grid, device, "ct_scan_block_points")
+    _check_plan(plan, cp7, 1, device, "ct_scan_block_points")
+    if gparams is None:
+        gparams = grid_params(hi_grid, lo_grid)
+    _check("gparams", gparams, torch.float32, (8,), device)
+    S, g, cost = _block_outputs(plan.segments, device)
+    _build.launch(
+        "hg_ct_scan_block_points", device, *hi_ptrs, *lo_ptrs, gparams.data_ptr(), cp7.data_ptr(),
+        plan.points.data_ptr(), plan.factor.data_ptr(), plan.scale.data_ptr(), plan.lo.data_ptr(),
+        plan.starts.data_ptr(), S.data_ptr(), g.data_ptr(), cost.data_ptr(),
+        plan.segments, plan.k, *hi_grid.shape, *lo_grid.shape, mode,
+    )
+    _count(ct_scan_block_points, mode)
+    return S, g, cost
+
+
+ct_scan_block_points.launches = ct_scan_block_points.prob_launches = 0
+ct_scan_block_points.f16_launches = ct_scan_block_points.bf16_launches = 0
+
+
+def window_plan(plan: PointPlan, b: int) -> PointPlan:
+    """Window b's part of a plan of several windows, as a plan of its own
+    (its segments renumbered from 0)."""
+    k1 = plan.k - 1
+    lo_pt, hi_pt = int(plan.starts[b * k1]), int(plan.starts[(b + 1) * k1])
+    starts = plan.starts[b * k1 : (b + 1) * k1 + 1] - lo_pt
+    one = slice(lo_pt, hi_pt)
+    return PointPlan(plan.points[one], plan.factor[one], plan.scale[one], plan.lo[one], plan.pair[one] - b * k1,
+                     starts, plan.k)
+
+
+def ct_scan_block_points_slots_plain(slots: GridSlots, slot, plan: PointPlan, cp7):
+    """Plain PyTorch version: ct_scan_block_points_plain of each window
+    alone against its slot's grids."""
+    k = plan.k
+    per_window = [ct_scan_block_points_plain(slots.hi[d], slots.lo[d], window_plan(plan, b), cp7[b * k:(b + 1) * k])
+                  for b, d in enumerate(slot.tolist())]
+    return tuple(torch.cat(parts) for parts in zip(*per_window))
+
+
+def ct_scan_block_points_slots(slots: GridSlots, slot, plan: PointPlan, cp7):
+    """Per-point pair blocks of B windows, window b against the grids
+    slots.hi[slot[b]], slots.lo[slot[b]]: (S (B*(k-1), 18, 18), g, cost).
+
+    slot: (B,) int32; plan: point_plan of the B windows; cp7 (B*k, 7).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    device = plan.points.device
+    if device.type == "cpu":
+        return ct_scan_block_points_slots_plain(slots, slot, plan, cp7)
+    if device.type != "cuda":
+        raise ValueError(f"ct_scan_block_points_slots: unsupported device {device}")
+    b = slot.shape[0]
+    d = len(slots.hi)
+    _check("slots.ptrs", slots.ptrs, torch.int64, (d, 4), device)
+    _check("slots.gparams", slots.gparams, torch.float32, (d, 8), device)
+    _check("slot", slot, torch.int32, (b,), device)
+    _check_plan(plan, cp7, b, device, "ct_scan_block_points_slots")
+    S, g, cost = _block_outputs(plan.segments, device)
+    _build.launch(
+        "hg_ct_scan_block_points_slots", device, slots.ptrs.data_ptr(), slot.data_ptr(), slots.gparams.data_ptr(),
+        cp7.data_ptr(), plan.points.data_ptr(), plan.factor.data_ptr(), plan.scale.data_ptr(), plan.lo.data_ptr(),
+        plan.starts.data_ptr(), S.data_ptr(), g.data_ptr(), cost.data_ptr(),
+        plan.segments, plan.k, *slots.hi[0].shape, *slots.lo[0].shape, slots.mode,
+    )
+    _count(ct_scan_block_points_slots, slots.mode)
+    return S, g, cost
+
+
+ct_scan_block_points_slots.launches = ct_scan_block_points_slots.prob_launches = 0
+ct_scan_block_points_slots.f16_launches = ct_scan_block_points_slots.bf16_launches = 0

@@ -188,6 +188,34 @@ def quat_slerp(a, b, t):
     return quat_normalize(wa * a + wb * b)
 
 
+def quat_to_matrix(q):
+    """Quaternion (..., 4) -> rotation matrix (..., 3, 3) from its entries
+    (rigid.py quat_to_matrix :133-151)."""
+    w, x, y, z = q.unbind(-1)
+    rows = [[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def matrix_to_quat(m):
+    """Rotation matrix (..., 3, 3) -> quaternion (..., 4), branch-free
+    (rigid.py matrix_to_quat :154-181): of four unnormalized candidates,
+    the one with the largest pivot (the first of equal ones), normalized."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1)
+    best = torch.argmax(pivots, dim=-1)[..., None]
+    q = torch.where(best == 0, qw, torch.where(best == 1, qx, torch.where(best == 2, qy, qz)))
+    return quat_normalize(q)
+
+
 # ---------------------------------------------------------------------------
 # Rigid3
 # ---------------------------------------------------------------------------
@@ -220,3 +248,15 @@ def apply(p: Rigid3, points):
     if points.ndim > q.ndim:
         q, t = q[..., None, :], t[..., None, :]
     return quat_rotate(q, points) + t
+
+
+def log(p: Rigid3):
+    """SE(3)-as-product log: [translation, angle-axis] (..., 6) (rigid.py
+    :244-246)."""
+    return torch.cat([p.translation, quat_to_axis_angle(p.rotation)], dim=-1)
+
+
+def exp(xi) -> Rigid3:
+    """Inverse of `log` (the product manifold, not the true SE(3) exp;
+    rigid.py :249-251)."""
+    return Rigid3(translation=xi[..., :3], rotation=quat_from_axis_angle(xi[..., 3:]))

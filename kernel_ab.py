@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """K1-K4 against an earlier version of themselves, on one CUDA card.
 
-    python3 kernel_ab.py PARENT_DIR [--kernels k1 k2 k3 k4] [--out kernel_ab.json]
+    python3 kernel_ab.py PARENT_DIR [--kernels k1 k2 k3 k3p k4] [--out kernel_ab.json]
 
     python3 kernel_ab.py --designs DIR [DIR ...] [--out kernel_ab_designs.json]
 
@@ -21,7 +21,10 @@ chip_smoke.py phase 7's occupancy maps (this tree's kernel alone when the
 earlier version has no probability mode), then this tree's f16 and bf16
 TSDF modes (phase 7's maps of the same scans stored in half precision) at
 the three shapes in turns with the earlier kernel's f32 TSDF mode on the
-f32 maps (the same work at half the stencil's bytes); K4 at
+f32 maps (the same work at half the stencil's bytes); K3's per-point mode
+(k3p) at phase 7's shape, alone and slotted over 8 windows, on f32 and
+f16 maps (this tree's kernel alone where the earlier one lacks the mode);
+K4 at
 chip_smoke.py phase 10's coarse call, first expansion and level-0
 expansion, and with row bases at a batched round's coarse call (four scans
 over a pack of two submaps). Where the earlier version lacks the input a
@@ -326,6 +329,8 @@ def run_3d(device, parent, build, result, kernels):
             del hh, lh, hh2, lh2
         del hi, lo, hi2, lo2
 
+    if "k3p" in kernels:
+        run_points(device, parent, build, result, scan_pts)
     if "k4" not in kernels:
         return
     _, match = cs.fast_match_setup(device, *cs.fast_match_submap(device))
@@ -345,6 +350,31 @@ def run_3d(device, parent, build, result, kernels):
     a = round_coarse_call(device)
     result["k4"]["round_coarse"] = turns("fast_scores_3d", "round_coarse",
                                          (lambda: old_k4(*a)) if takes_bases else None, lambda: k4.fast_scores_3d(*a), a)
+
+
+def run_points(device, parent, build, result, scan_pts):
+    """K3's per-point mode at chip_smoke.py phase 7's shape (K = 32, C =
+    32, 256 + 256 points), alone and slotted over 8 windows and three grid
+    pairs, on f32 and f16 TSDF maps; the earlier kernel takes turns only
+    if it has the mode."""
+    old_module = load_parent_module(parent, "ct_scan_block", build)
+    old_points = getattr(old_module, "ct_scan_block_points", None)
+    old_slots = getattr(old_module, "ct_scan_block_points_slots", None)
+    result["k3p"] = {}
+    for dtype, tag in ((torch.float32, ""), (torch.float16, "f16_")):
+        pairs = [cs.ct_production_grids(device, dtype, n)[:2] for n in (3, 2, 1)]
+        a = cs.ct_point_inputs(device, *pairs[0], scan_pts, outside=16)
+        new = lambda a=a: k3.ct_scan_block_points(*a[:4], gparams=a[4])
+        old = None if old_points is None else (lambda a=a: old_points(*a[:4]))
+        result["k3p"][f"{tag}front_end"] = turns("ct_scan_block_points", f"{tag}front_end", old, new, a[:4],
+                                                  kernel_name="ct_scan_block_points_kernel")
+        sargs = cs.ct_points_slots_inputs(device, pairs, scan_pts, windows=8)
+        new = lambda a=sargs: k3.ct_scan_block_points_slots(*a)
+        old = None if old_slots is None else (lambda a=sargs: old_slots(*a))
+        result["k3p"][f"{tag}front_end_slotted_b8"] = turns(
+            "ct_scan_block_points_slots", f"{tag}front_end_slotted_b8", old, new, sargs,
+            kernel_name="ct_scan_block_points_kernel")
+        del pairs
 
 
 def round_coarse_call(device, n_scans=4):
@@ -380,7 +410,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("parent", type=Path, nargs="?", help="directory holding the earlier checkout")
     parser.add_argument("--designs", type=Path, nargs="+", default=[], help="directories holding K2 variants")
-    parser.add_argument("--kernels", nargs="+", choices=("k1", "k2", "k3", "k4"), default=["k1", "k2", "k3", "k4"])
+    parser.add_argument("--kernels", nargs="+", choices=("k1", "k2", "k3", "k3p", "k4"),
+                        default=["k1", "k2", "k3", "k3p", "k4"])
     parser.add_argument("--out", default=None, help="file name under chiprun_out/")
     opts = parser.parse_args()
     if (opts.parent is None) == (not opts.designs):
@@ -408,7 +439,7 @@ def main() -> int:
         result["parent"] = str(opts.parent)
         if {"k1", "k2"} & set(opts.kernels):
             run_2d(device, parent, build, result, opts.kernels)
-        if {"k3", "k4"} & set(opts.kernels):
+        if {"k3", "k3p", "k4"} & set(opts.kernels):
             run_3d(device, parent, build, result, opts.kernels)
 
     out = opts.out or ("kernel_ab_designs.json" if opts.designs else "kernel_ab.json")

@@ -162,14 +162,28 @@ def test_insert_probability_3d_matches_jax(which):
     _assert_same_occupancy(tgrid, grid)
 
 
-def test_tsdf_inserter_refuses_unported_modes():
-    opts = convert.options(jcfg.TSDFRangeDataInserterOptions3D(normal_computation_method="KNN_PCA"))
-    with pytest.raises(NotImplementedError):
-        tins.make_tsdf_inserter_3d(opts, 0.1)
-    insert = tins.make_tsdf_inserter_3d(convert.options(jcfg.TSDFRangeDataInserterOptions3D()), 0.1)
-    rd = convert.range_data(_room_range_data(3), CPU)._replace(width=96)
-    with pytest.raises(NotImplementedError):
-        insert(convert.tsdf_grid(make_tsdf_grid(0.1, (8, 8, 8), 0.25, 1000.0), CPU), rd)
+@pytest.mark.parametrize("method", ["KNN_PCA", "CLOUD_STRUCTURE", "TRIANGLE_FILL_IN"])
+def test_tsdf_inserter_refuses_unported_modes(method):
+    """The normal-directed modes, once refused, now run: one organized
+    scan inserted by each method matches the JAX package's insertion
+    within the TSDF inserter's tolerance (1e-5 in all but 1e-4 of the
+    cells): a box-room scan (width 96) for the organized-cloud methods, a
+    wall patch for KNN_PCA, whose neighbourhoods in a sparse room scan are
+    rows of points with no defined normal (an eigenvector of two near-equal
+    eigenvalues). tests/test_torch_frontend_extras.py holds the normals
+    themselves."""
+    from torch_parity import organized_room_range_data, wall_range_data
+
+    opts = jcfg.TSDFRangeDataInserterOptions3D(normal_computation_method=method, min_range=0.4, max_range=30.0)
+    rd, width = wall_range_data(3) if method == "KNN_PCA" else organized_room_range_data(3)
+    grid = make_tsdf_grid(0.1, (80, 72, 32), 0.3, 1000.0)
+    want = make_tsdf_inserter_3d(opts, 0.1)(grid, rd)
+    got = tins.make_tsdf_inserter_3d(convert.options(opts), 0.1)(convert.tsdf_grid(grid, CPU),
+                                                                 convert.range_data(rd, CPU))
+    w, tsd = np.asarray(want.weight), np.asarray(want.tsd)
+    assert (w > 0).sum() > (300 if method == "KNN_PCA" else 1000)
+    bad = (np.abs(got.weight.numpy() - w) > 1e-5) | (np.abs(got.tsd.numpy() - tsd) > 1e-5)
+    assert bad.sum() <= max(1, 1e-4 * w.size), f"{bad.sum()} of {w.size} cells differ"
 
 
 @pytest.mark.parametrize("seed", [6, 7])
@@ -323,8 +337,24 @@ def test_front_end_matches_jax(jax_front_end):
     assert submap.rotational_histogram.sum() > 0
 
 
-def test_front_end_refuses_unported_options():
-    for key, value in (("use_per_point_unwarping", True), ("imu_cost_term", "DIRECT")):
-        opts = jcfg.replace_deep(make_options(), {f"optimizing_local_trajectory_builder.{key}": value})
-        with pytest.raises(NotImplementedError):
-            tbuilder.OptimizingLocalTrajectoryBuilder(convert.options(opts), CPU)
+@pytest.mark.parametrize("per_point,direct", [(True, False), (False, True), (True, True)],
+                         ids=["per_point", "direct", "per_point_direct"])
+def test_front_end_refuses_unported_options(per_point, direct):
+    """use_per_point_unwarping and imu_cost_term="DIRECT", once refused,
+    now run: over the 1.5 s drive the port's front end gives the JAX
+    package's results within 1e-3 m and 1e-3 rad, with as many window
+    solves, on TSDF submaps."""
+    over = {"optimizing_local_trajectory_builder.use_per_point_unwarping": per_point}
+    if direct:
+        over["optimizing_local_trajectory_builder.imu_cost_term"] = "DIRECT"
+    opts = jcfg.replace_deep(_front_end_options("TSDF"), over)
+    jbuilder = OptimizingLocalTrajectoryBuilder(opts)
+    want = ct_drive(jbuilder, NpRigid3, TimedPointCloudData, pad_timed_cloud)
+    builder = tbuilder.OptimizingLocalTrajectoryBuilder(convert.options(opts), CPU)
+    got = ct_drive(builder, TNpRigid3, ttypes.TimedPointCloudData, ttypes.pad_timed_cloud)
+    assert len(got) == len(want) >= 4
+    assert builder.num_optimizations == jbuilder.num_optimizations > 0
+    for (tg, pg), (tw, pw) in zip(got, want):
+        assert tg == tw
+        assert np.abs(pg.t - pw.t).max() < 1e-3
+        assert nq.quat_angle(nq.quat_multiply(nq.quat_conjugate(pw.q), pg.q)) < 1e-3

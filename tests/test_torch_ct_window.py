@@ -39,7 +39,7 @@ from hectorgrapher_tpu_torch.mapping.scan_matching import interpolated_grid as t
 from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import tsdf_value_and_dfrac_3d
 from hectorgrapher_tpu_torch.ops.ct_scan_block import ct_scan_block, ct_scan_block_plain
 from hectorgrapher_tpu_torch.transform import rigid as tr
-from torch_parity import CPU, ct_example, rotated_state
+from torch_parity import CPU, ct_example, direct_payload, rotated_state
 
 torch.set_num_threads(1)
 
@@ -381,10 +381,17 @@ CtProblemFields = tws.CtProblem._fields
 
 
 def test_unported_modes_raise(example):
-    _, (thi, tlo, tproblem, tstate, tweights) = example
-    for kw in ({"per_point": True}, {"direct": object()}):
-        with pytest.raises(NotImplementedError):
-            tws.solve_ct_window(thi, tlo, tproblem, tstate, tweights, is_tsdf=True, **kw)
+    """Per-point unwarping and the DIRECT IMU term, once refused, now run:
+    the solve in each mode matches the JAX package's within the solve's
+    tolerance (tests/test_torch_ct_per_point.py holds them in depth)."""
+    (hi, lo, problem, state, weights), (thi, tlo, tproblem, tstate, tweights) = example
+    jdirect, tdirect = direct_payload(state.translation.shape[0])
+    for kw, jkw in (({"per_point": True}, {"per_point": True}), ({"direct": tdirect}, {"direct": jdirect})):
+        ts, tf, ti = tws.solve_ct_window(thi, tlo, tproblem, tstate, tweights, is_tsdf=True, num_iterations=4, **kw)
+        js, jf, ji = jws.solve_ct_window(hi, lo, problem, state, weights, is_tsdf=True, num_iterations=4, **jkw)
+        np.testing.assert_allclose(float(tf), float(jf), rtol=1e-5)
+        for got, want in zip(ts, js):
+            _close(got, want, 1e-5)
 
 
 def test_grid_type_mismatch_and_unprepared_grids_raise(example, example_probability):

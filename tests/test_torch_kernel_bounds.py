@@ -198,3 +198,55 @@ def test_bound_correlative_scores_2d_by_hand():
     # Score (ox, oy) of every angle: 3 valid points reading lane 6 + 5 ox + oy.
     lanes = torch.tensor([[6, 7, 8], [11, 12, 13], [16, 17, 18]], dtype=torch.float32)
     torch.testing.assert_close(correlative_scores_2d_plain(*args)[0], (3 * lanes / 32).expand(3, 3, 3))
+
+
+def _one_point_plan(grid, masked_lo=True):
+    """K3 per-point mode's plan of one window of K = 2 control points at
+    the identity: one hi-res point at cell coordinate 1.7 on every axis of
+    `grid`, factor 0.5, scale 1; a lo-res point of scale 0 (dropped)."""
+    from hectorgrapher_tpu_torch.ops.ct_scan_block import point_plan
+
+    p = (grid.meta.min_corner + 1.7)[None, None]
+    plan = point_plan(p, torch.zeros((1, 1), dtype=torch.int64), torch.full((1, 1), 0.5), torch.ones(1, 1),
+                      p.clone(), torch.zeros((1, 1), dtype=torch.int64), torch.full((1, 1), 0.5),
+                      torch.zeros(1, 1), k=2)
+    cp7 = torch.tensor([[0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0]] * 2)
+    return plan, cp7
+
+
+@pytest.mark.parametrize("grid_type", ["TSDF", "PROBABILITY_GRID"])
+def test_bound_ct_scan_block_points_by_hand(grid_type):
+    """K3's per-point mode on test_bound_ct_scan_block_by_hand's point: the
+    same stencil cells (sectors 2..5 of both TSDF planes or of the one
+    field); the one kept point's position, factor, scale and grid flag
+    (21 bytes), the two control points, the two segment starts, one pair
+    block's outputs and the 8 grid parameters; the dropped lo-res point is
+    not read."""
+    prob = grid_type != "TSDF"
+    make = ((lambda: prepare_grid_3d(make_probability_grid(1.0, (4, 4, 4), CPU))) if prob
+            else (lambda: make_tsdf_grid(1.0, (4, 4, 4), 0.3, 1000.0, CPU)))
+    hi, lo = make(), make()
+    plan, cp7 = _one_point_plan(hi)
+    assert plan.starts.tolist() == [0, 1] and plan.points.shape[0] == 2
+    nbytes = 21 + 4 * (14 + 2 + 324 + 18 + 1) + 4 * 8 + (1 if prob else 2) * 4 * 32
+    ms, by, got_bytes, ops = cs.bound_ms("ct_scan_block_points", (hi, lo, plan, cp7))
+    assert (got_bytes, ops, by) == (nbytes, cs.K3P_PROB_OPS_PER_POINT if prob else cs.K3P_OPS_PER_POINT, "bytes")
+    assert ms == pytest.approx(max(nbytes / 3.35e12, ops / 67e12) * 1e3, rel=1e-12)
+
+
+def test_bound_ct_scan_block_points_front_end_shape():
+    """The bound at phase 7's shape (chip_smoke.ct_point_inputs: C = 32
+    clouds of 256 + 224 kept points, K = 32, 256^3 / 128^3 TSDF maps of
+    one scan): every kept point is counted once in bytes and operations,
+    the stencil adds at most two planes' 8 sectors a point, and the call is
+    bounded by bytes at 2.0-2.6 MB."""
+    hi, lo, scan = cs.ct_production_grids(CPU, n_scans=1)
+    args = cs.ct_point_inputs(CPU, hi, lo, scan, outside=16)
+    plan = args[2]
+    m = int(plan.starts[-1])
+    assert m == 32 * (256 + 224) and plan.points.shape[0] == 32 * 512  # the masked ones dropped
+    fixed = 21 * m + 4 * (32 * 7 + 32 + 31 * 343) + 4 * 8
+    ms, by, nbytes, ops = cs.bound_ms("ct_scan_block_points", args[:4])
+    assert ops == cs.K3P_OPS_PER_POINT * m and by == "bytes"
+    assert fixed < nbytes <= fixed + 2 * 8 * 32 * m
+    assert 2.0e6 < nbytes < 2.6e6

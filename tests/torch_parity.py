@@ -122,6 +122,65 @@ def rotated_state(state, seed, angle=0.05):
     return state._replace(rotation=quat_normalize(quat_multiply(state.rotation, quat_from_axis_angle(jnp.asarray(aa)))))
 
 
+def direct_payload(k, m=16, seed=3):
+    """DIRECT IMU samples for a window of k control points 0.1 s apart, as
+    (JAX DirectImuData, the port's): M uniform sub-steps a pair with
+    seeded gyro (0.1 rad/s noise) and accelerometer readings (gravity plus
+    0.2 m/s^2 noise); the last pair's last sub-steps are padding (dt 0)."""
+    import jax.numpy as jnp
+
+    from hectorgrapher_tpu.mapping.ct.window_solver import DirectImuData
+    from hectorgrapher_tpu_torch.mapping.ct.window_solver import DirectImuData as TDirectImuData
+
+    rng = np.random.default_rng(seed)
+    dt = np.full((k - 1, m), 0.1 / m, np.float32)
+    dt[-1, m - 6:] = 0.0
+    gyro = rng.normal(0.0, 0.1, (k - 1, m, 3)).astype(np.float32)
+    accel = (rng.normal(0.0, 0.2, (k - 1, m, 3)) + [0.0, 0.0, 9.80665]).astype(np.float32)
+    jax_direct = DirectImuData(jnp.asarray(dt), jnp.asarray(gyro), jnp.asarray(accel), jnp.asarray(9.80665, jnp.float32))
+    port = TDirectImuData(torch.from_numpy(dt), torch.from_numpy(gyro), torch.from_numpy(accel),
+                          torch.tensor(9.80665, dtype=torch.float32))
+    return jax_direct, port
+
+
+def organized_room_range_data(seed, pose_t=(0.3, -0.2, 0.1), yaw=0.2, az=96, el=24):
+    """One organized scan (el rows of az rays, width az) of the default box
+    room with 4 mm range noise, seen from pose_t at `yaw`, as JAX
+    RangeData in the room's frame: rays that miss stay in their slot,
+    masked out at position 0. Returns (range data, width)."""
+    import jax.numpy as jnp
+
+    from hectorgrapher_tpu.evaluation.scan_generator import raycast_box_room_3d
+    from hectorgrapher_tpu.sensor.types import PointCloud
+    from hectorgrapher_tpu.transform import np_quat as nq
+
+    rng = np.random.default_rng(seed)
+    q = nq.quat_from_axis_angle(np.array([0.0, 0.0, yaw]))
+    pts = raycast_box_room_3d(np.asarray(pose_t), q, num_azimuth=az, num_elevation=el, noise_std=0.004, rng=rng)
+    mask = ~np.isnan(pts[:, 0])
+    pts = np.where(mask[:, None], pts + np.asarray(pose_t), 0.0).astype(np.float32)
+    rd = RangeData(origin=jnp.asarray(pose_t, jnp.float32), returns=PointCloud(jnp.asarray(pts), jnp.asarray(mask)),
+                   misses=pad_cloud(np.zeros((0, 3), np.float32), 8), width=az)
+    return rd, az
+
+
+def wall_range_data(seed, n=24, noise=0.002):
+    """An organized n x n scan of a wall patch at x = 1 m over y, z in
+    [-0.6, 0.6] m (5 cm apart, `noise` m of noise along x) from the origin,
+    as JAX RangeData (width n): planar neighbourhoods, whose smallest
+    eigenvector is well defined (a row of a sparse scan is not)."""
+    import jax.numpy as jnp
+
+    from hectorgrapher_tpu.sensor.types import PointCloud
+
+    rng = np.random.default_rng(seed)
+    ys, zs = np.meshgrid(np.linspace(-0.6, 0.6, n), np.linspace(-0.6, 0.6, n))
+    pts = np.stack([1.0 + rng.normal(0.0, noise, ys.size), ys.ravel(), zs.ravel()], axis=-1).astype(np.float32)
+    rd = RangeData(origin=jnp.zeros(3, jnp.float32), returns=PointCloud(jnp.asarray(pts), jnp.ones(len(pts), bool)),
+                   misses=pad_cloud(np.zeros((0, 3), np.float32), 8), width=n)
+    return rd, n
+
+
 def box_room_scan(seed, pose_t=(0.3, -0.2, 0.1), yaw=0.2, az=96, el=24):
     """The valid points of one raycast_box_room_3d scan (default room) with
     4 mm range noise, seen from pose_t at `yaw`."""
