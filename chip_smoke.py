@@ -1469,7 +1469,7 @@ def run_batched_windows(device, label, windows, weights, iters, per_point, reps=
     each lane within 1e-3 m / 1e-3 rad of its serial solve, final cost
     within 1e-4 relative and not above the initial, and one slotted K3
     launch per batched assembly. Returns (batched ms, serial ms) medians
-    of `reps` turns."""
+    of `reps` turns, and the slotted K3 launches of the gated solve."""
     b = len(windows)
     his, los = [w[0] for w in windows], [w[1] for w in windows]
     problems = _stack([w[2] for w in windows], CtProblem)
@@ -1518,7 +1518,7 @@ def run_batched_windows(device, label, windows, weights, iters, per_point, reps=
           f"{worst[0]:.2e} m / {worst[1]:.2e} rad / cost {worst[2]:.2e} relative of their serial solves; per batched "
           f"solve median {med_b:.3f} ms against {med_s:.3f} ms for {b} serial solves ({med_s / med_b:.2f}x) over "
           f"{reps} turns", flush=True)
-    return med_b, med_s
+    return med_b, med_s, n_launches
 
 
 def run_phase_19(device, captured):
@@ -1527,17 +1527,22 @@ def run_phase_19(device, captured):
     iterations, the TPU bench's operating point; (b) 8 distinct full-width
     windows of phase 17's drive, each against clones of its matching
     submap's grids, 12 iterations. Returns {label: (batched ms, serial
-    ms)}."""
+    ms)} and the slotted K3 launches of each gated batched solve by path,
+    per-scan ({"batched19_entry": n, ...}, ct_scan_block_slots) and
+    per-point (ct_scan_block_points_slots)."""
     hi, lo, problem, state, weights = build_ct_example(device)
     entry = [(hi, lo, problem, state, True)] * 8
     drive = [(p.high_grid, p.low_grid, p.problem, p.state0, p.is_tsdf) for p in captured]
-    out = {}
+    out, per_scan, per_point_paths = {}, {}, {}
     for per_point in (False, True):
         mode = "per_point" if per_point else "per_scan"
-        out[f"entry_{mode}"] = run_batched_windows(device, "(a) entry() fixture x 8", entry, weights, 8, per_point)
-        out[f"drive_{mode}"] = run_batched_windows(device, f"(b) {len(drive)} phase-17 windows, own grids", drive,
-                                                   captured[0].weights, captured[0].num_iterations, per_point)
-    return out
+        paths = per_point_paths if per_point else per_scan
+        *out[f"entry_{mode}"], paths["batched19_entry"] = run_batched_windows(
+            device, "(a) entry() fixture x 8", entry, weights, 8, per_point)
+        *out[f"drive_{mode}"], paths["batched19_drive"] = run_batched_windows(
+            device, f"(b) {len(drive)} phase-17 windows, own grids", drive, captured[0].weights,
+            captured[0].num_iterations, per_point)
+    return out, per_scan, per_point_paths
 
 
 FM_TRUTH = (np.array([0.4, -0.3, 0.05]), 0.05)  # phase 10's scan pose: position, yaw
@@ -2738,9 +2743,8 @@ def main() -> int:
     mark("18")
     k3p_paths = {"ct17_per_point": launches["ct_scan_block_points"], "ct18_direct": run_phase_18(device)}
     mark("19")
-    ct_scan_block_points_slots.launches = 0
-    run_phase_19(device, captured)
-    k3p_paths["batched19_slotted"] = ct_scan_block_points_slots.launches
+    _, k3_paths19, k3p_paths19 = run_phase_19(device, captured)
+    k3p_paths.update(k3p_paths19)
     del captured
 
     mark("10")
@@ -2763,7 +2767,8 @@ def main() -> int:
     # Only the window solve and GN3D call K3: the solve once per assembly.
     k3_slam_front, k3_gn3d = (window_solver.solve_ct_window_block.assemblies,
                               ct_scan_block.launches - window_solver.solve_ct_window_block.assemblies)
-    k3_paths = {"ct_front_end": launches["ct_scan_block"], "slam_front_end": k3_slam_front, "slam_gn3d": k3_gn3d}
+    k3_paths = {"ct_front_end": launches["ct_scan_block"], "slam_front_end": k3_slam_front, "slam_gn3d": k3_gn3d,
+                **k3_paths19}
     if slam["errors"]:
         fail(f"SLAM: pose-graph work failed: {slam['errors'][:3]}")
     if fast_scores_3d.launches != score_sums or score_sums == 0:
@@ -2842,8 +2847,10 @@ def main() -> int:
     # TSDF modes under f16_* and bf16_*); launches from its main path's run
     # (K1, K2: phase 6; K3: phase 9, with phases 11-14 and 16 under
     # "launches_by_path", slam13_* all in probability mode, slam14_* and
-    # slam16_* all in f16 mode; K4: phase 11, with phases 12-14 beside it
-    # under "launches_by_path").
+    # slam16_* all in f16 mode, and phase 19's per-scan batched solves as
+    # batched19_entry / batched19_drive, slotted launches of the gated
+    # solve only; K3 per point: phase 17, with phases 18 and 19 beside it;
+    # K4: phase 11, with phases 12-14 beside it under "launches_by_path").
     main_shape = {"correlative_prep_2d": "batched", "correlative_scores_2d": "batched",
                   "ct_scan_block": "front_end", "ct_scan_block_points": "front_end", "fast_scores_3d": "coarse"}
     paths = {"ct_scan_block": k3_paths, "ct_scan_block_points": k3p_paths, "fast_scores_3d": k4_paths}

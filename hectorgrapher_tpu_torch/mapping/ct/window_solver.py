@@ -44,9 +44,9 @@ solve_ct_window_batched solves B windows at once (:729-764, the
 multi-robot server's operating point): one slotted K3 launch per LM
 iteration for all B windows (grid_slots: each window's own grid pair),
 the pair blocks of all B * (K - 1) pairs at once, one batched solve of the
-B damped systems, and per-window LM state (_lm_drive_batched: each window
-keeps its own damping, accept and done flags, as jax.vmap of the JAX
-package's while_loop does). unwarp_and_accumulate (:767-788) carries
+B damped systems, and per-window LM state (_lm_drive with a (B,) cost:
+each window keeps its own damping, accept and done flags, as jax.vmap of
+the JAX package's while_loop does). unwarp_and_accumulate (:767-788) carries
 marginalized clouds into the optimized pose's frame.
 """
 
@@ -56,10 +56,9 @@ from typing import NamedTuple
 
 import torch
 
-from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import _lm_drive, _lm_drive_batched
+from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import _lm_drive
 from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import PreparedProb3D, prepare_grid_3d
 from hectorgrapher_tpu_torch.ops.ct_scan_block import (
-    GridSlots,
     ct_scan_block,
     ct_scan_block_points,
     ct_scan_block_points_slots,
@@ -427,43 +426,70 @@ def problem_plan(problem: CtProblem, weights: CtWeights):
 
 
 def make_ct_block_families(high_grid, low_grid, problem: CtProblem, weights: CtWeights, is_tsdf: bool,
-                           direct=None, per_point: bool = False):
+                           direct=None, per_point: bool = False, slots=None):
     """(scan_block, pair_block): state -> a block family.
 
     scan_block returns pre-reduced blocks from kernel K3: per cloud (S (C,
     18, 18), g (C, 18), cost, idx (C, 18)), or with per_point per control
     point pair (S (K-1, 18, 18), g (K-1, 18), cost, idx (K-1, 18)) from
     K3's per-point mode; pair_block returns raw blocks (J (K-1, 15, 18), r
-    (K-1, 15), idx (K-1, 18))."""
-    pairs = torch.arange(problem.pair_mask.shape[0], device=problem.pair_mask.device)
-    pair_idx = _pair_index(pairs, pairs + 1)
-    high_grid, low_grid = prepare_grid_3d(high_grid), prepare_grid_3d(low_grid)
-    if is_tsdf == isinstance(high_grid, PreparedProb3D):
-        raise ValueError(f"is_tsdf={is_tsdf} with a {type(high_grid).__name__} grid")
-    gparams = grid_params(high_grid, low_grid)
+    (K-1, 15), idx (K-1, 18)).
+
+    B windows: slots = window_slots(...) in place of the grid pair (then
+    None, None), and every leaf of problem, direct and the state with a
+    leading window axis; one slotted K3 launch serves all B windows, and
+    every output gains the leading B (the cost is then (B,))."""
+    lead = problem.cp_mask.shape[:-1]
+    k = problem.cp_mask.shape[-1]
+    pairs = torch.arange(k - 1, device=problem.pair_mask.device)
+    pair_idx = _pair_index(pairs, pairs + 1).expand(lead + (k - 1, 18))
+    if slots is None:
+        high_grid, low_grid = prepare_grid_3d(high_grid), prepare_grid_3d(low_grid)
+        if is_tsdf == isinstance(high_grid, PreparedProb3D):
+            raise ValueError(f"is_tsdf={is_tsdf} with a {type(high_grid).__name__} grid")
+        gparams = grid_params(high_grid, low_grid)
+    else:
+        table, slot = slots
+        if is_tsdf == table.prob:
+            raise ValueError(f"is_tsdf={is_tsdf} with {'occupancy' if table.prob else 'TSDF'} grids")
+
+    def blocks(S, g, cost, idx):
+        """The kernel's flat outputs with the windows' leading axis."""
+        return (S.reshape(lead + (-1, 18, 18)), g.reshape(lead + (-1, 18)),
+                torch.sum(cost.reshape(lead + (-1,)), dim=-1), idx)
 
     if per_point:
         plan = problem_plan(problem, weights)  # brackets and factors once per solve
 
         def scan_block(state: CtState):
-            cp7 = torch.cat([state.translation, state.rotation], dim=-1)
-            S, g, cost = ct_scan_block_points(high_grid, low_grid, plan, cp7, gparams=gparams)
-            return S, g, torch.sum(cost), pair_idx
+            cp7 = torch.cat([state.translation, state.rotation], dim=-1).reshape(-1, 7)
+            if slots is None:
+                out = ct_scan_block_points(high_grid, low_grid, plan, cp7, gparams=gparams)
+            else:
+                out = ct_scan_block_points_slots(table, slot, plan, cp7)
+            return blocks(*out, pair_idx)
     else:
+        def flat(x):
+            """(..., C, ...) -> (B*C, ...), contiguous."""
+            return x.reshape((-1,) + x.shape[len(lead) + 1:]).contiguous()
+
         hi_scale, lo_scale = _scan_scales(problem, weights)
-        hi_points = problem.hi_points.contiguous()
-        lo_points = problem.lo_points.contiguous()
-        hi_mask = problem.hi_mask.to(torch.bool).contiguous()
-        lo_mask = problem.lo_mask.to(torch.bool).contiguous()
-        scan_idx = _pair_index(problem.cloud_prev.long(), problem.cloud_next.long())
+        clouds = (flat(problem.hi_points), flat(problem.hi_mask.to(torch.bool)), flat(problem.lo_points),
+                  flat(problem.lo_mask.to(torch.bool)))
+        scales = (flat(hi_scale), flat(lo_scale))
+        scan_idx = _pair_index(problem.cloud_prev.long().reshape(-1),
+                               problem.cloud_next.long().reshape(-1)).reshape(lead + (-1, 18))
+        if slots is not None:
+            cloud_slot = torch.repeat_interleave(slot, problem.cloud_mask.shape[-1])
 
         def scan_block(state: CtState):
             pose7, dpose7 = cloud_poses(state, problem)
-            S, g, cost = ct_scan_block(
-                high_grid, low_grid, hi_points, hi_mask, lo_points, lo_mask,
-                pose7.contiguous(), dpose7.contiguous(), hi_scale, lo_scale, gparams=gparams,
-            )
-            return S, g, torch.sum(cost), scan_idx
+            pose7, dpose7 = flat(pose7), flat(dpose7)
+            if slots is None:
+                out = ct_scan_block(high_grid, low_grid, *clouds, pose7, dpose7, *scales, gparams=gparams)
+            else:
+                out = ct_scan_block_slots(table, cloud_slot, *clouds, pose7, dpose7, *scales)
+            return blocks(*out, scan_idx)
 
     def pair_block(state: CtState):
         r, J = pair_residuals(state, problem, weights, direct)
@@ -473,27 +499,30 @@ def make_ct_block_families(high_grid, low_grid, problem: CtProblem, weights: CtW
 
 
 def _make_ct_assemble(high_grid, low_grid, problem: CtProblem, weights: CtWeights, is_tsdf: bool, D: int,
-                      direct=None, per_point: bool = False):
+                      direct=None, per_point: bool = False, slots=None):
     """state -> (JtJ (D, D), g (D,), cost): the window's dense normal
-    equations (window_solver.py _make_ct_assemble :582-620)."""
+    equations (window_solver.py _make_ct_assemble :582-620); with slots,
+    B windows' (JtJ (B, D, D), g (B, D), cost (B,)) (make_ct_block_families)."""
     scan_block, pair_block = make_ct_block_families(
-        high_grid, low_grid, problem, weights, is_tsdf, direct=direct, per_point=per_point
+        high_grid, low_grid, problem, weights, is_tsdf, direct=direct, per_point=per_point, slots=slots
     )
     dims = torch.arange(D, device=problem.cp_mask.device)
-    E = None  # (B*18, D) one-hot of every block's tangent indices, scan blocks then pair blocks
+    E = None  # (..., blocks*18, D) one-hot of every block's tangent indices, scan blocks then pair blocks
 
     def assemble(state: CtState):
         nonlocal E
         S_scan, g_scan, cost_scan, scan_idx = scan_block(state)
         J, r, pair_idx = pair_block(state)
-        S = torch.cat([S_scan, torch.einsum("cri,crj->cij", J, J)])
-        gb = torch.cat([g_scan, torch.einsum("cri,cr->ci", J, r)])
+        S = torch.cat([S_scan, torch.einsum("...cri,...crj->...cij", J, J)], dim=-3)
+        gb = torch.cat([g_scan, torch.einsum("...cri,...cr->...ci", J, r)], dim=-2)
         if E is None:
-            idx = torch.cat([scan_idx, pair_idx])
-            E = (idx[:, :, None] == dims[None, None, :]).to(torch.float32).reshape(-1, D)
+            idx = torch.cat([scan_idx, pair_idx], dim=-2)
+            E = (idx[..., None] == dims).to(torch.float32).flatten(-3, -2)
         # E^T S E and E^T g as matmuls: a fixed-order sum, no atomics.
-        JtJ = E.T @ torch.bmm(S, E.reshape(S.shape[0], 18, D)).reshape(-1, D)
-        return JtJ, E.T @ gb.reshape(-1), cost_scan + 0.5 * torch.sum(r * r)
+        Et = E.transpose(-1, -2)
+        JtJ = Et @ (S @ E.unflatten(-2, S.shape[-3:-1])).flatten(-3, -2)
+        g = (Et @ gb.flatten(-2)[..., None])[..., 0]
+        return JtJ, g, cost_scan + 0.5 * torch.sum(r * r, dim=(-2, -1))
 
     return assemble
 
@@ -514,6 +543,29 @@ def _fixed(cp_mask):
     return torch.repeat_interleave(per_cp_fixed, 9, dim=-1)
 
 
+def _solve_lm(assemble, cp_mask, state0: CtState, num_iterations: int, counter):
+    """_lm_drive over the assembled normal equations of one window, or of
+    B windows at once (every shape with a leading B; per-window LM state);
+    counter.assemblies counts the assemblies."""
+    fixed = _fixed(cp_mask)
+    fixed_f = fixed.to(torch.float32)
+    fixed_2d = fixed[..., :, None] | fixed[..., None, :]
+
+    def eval_fn(state):
+        counter.assemblies += 1
+        JtJ, g, cost = assemble(state)
+        return (torch.where(fixed_2d, 0.0, JtJ), torch.where(fixed, 0.0, g)), cost
+
+    def delta_of(quant, lam):
+        JtJ, g = quant
+        diag = torch.diagonal(JtJ, dim1=-2, dim2=-1)
+        damp = lam[..., None] * torch.clamp(diag, min=1e-12) + 1e-12
+        damped = JtJ + torch.diag_embed(damp) + torch.diag_embed(fixed_f)
+        return torch.where(fixed, 0.0, -torch.linalg.solve(damped, g))
+
+    return _lm_drive(eval_fn, delta_of, ct_retract, state0, num_iterations, init_lambda=1e-4, max_lambda=1e6)
+
+
 def solve_ct_window_block(high_grid, low_grid, problem: CtProblem, state0: CtState, weights: CtWeights,
                           is_tsdf: bool, num_iterations: int = 12, direct=None, per_point: bool = False):
     """Block-assembled LM solve of the window: (state, final_cost,
@@ -523,22 +575,7 @@ def solve_ct_window_block(high_grid, low_grid, problem: CtProblem, state0: CtSta
     D = 9 * state0.translation.shape[0]
     assemble = _make_ct_assemble(high_grid, low_grid, problem, weights, is_tsdf, D, direct=direct,
                                  per_point=per_point)
-    fixed = _fixed(problem.cp_mask)
-    fixed_f = fixed.to(torch.float32)
-    fixed_2d = fixed[:, None] | fixed[None, :]
-
-    def eval_fn(state):
-        solve_ct_window_block.assemblies += 1
-        JtJ, g, cost = assemble(state)
-        return (torch.where(fixed_2d, 0.0, JtJ), torch.where(fixed, 0.0, g)), cost
-
-    def delta_of(quant, lam):
-        JtJ, g = quant
-        diag = torch.diagonal(JtJ)
-        damped = JtJ + torch.diag(lam * torch.clamp(diag, min=1e-12) + 1e-12) + torch.diag(fixed_f)
-        return torch.where(fixed, 0.0, -torch.linalg.solve(damped, g))
-
-    return _lm_drive(eval_fn, delta_of, ct_retract, state0, num_iterations, init_lambda=1e-4, max_lambda=1e6)
+    return _solve_lm(assemble, problem.cp_mask, state0, num_iterations, solve_ct_window_block)
 
 
 solve_ct_window_block.assemblies = 0
@@ -572,54 +609,6 @@ def window_slots(high_grids, low_grids):
     return slots, torch.tensor(slot, dtype=torch.int32).to(slots.ptrs.device)
 
 
-def _make_ct_assemble_batched(slots: GridSlots, slot, problems: CtProblem, weights: CtWeights, directs,
-                              per_point: bool):
-    """states (B windows) -> (JtJ (B, D, D), g (B, D), cost (B,)): every
-    window's normal equations, from one slotted K3 launch for all B
-    windows and the pair blocks of all B * (K-1) pairs at once."""
-    b, k = problems.cp_mask.shape
-    c = problems.cloud_mask.shape[1]
-    D = 9 * k
-    device = problems.cp_mask.device
-    pairs = torch.arange(k - 1, device=device)
-    pair_idx = _pair_index(pairs, pairs + 1).expand(b, k - 1, 18)
-    if per_point:
-        plan = problem_plan(problems, weights)
-        scan_idx = pair_idx
-    else:
-        hi_scale, lo_scale = _scan_scales(problems, weights)
-        flat = lambda x: x.reshape((b * c,) + x.shape[2:]).contiguous()
-        clouds = (flat(problems.hi_points), flat(problems.hi_mask.to(torch.bool)), flat(problems.lo_points),
-                  flat(problems.lo_mask.to(torch.bool)))
-        cloud_slot = torch.repeat_interleave(slot, c)
-        scales = (flat(hi_scale), flat(lo_scale))
-        scan_idx = _pair_index(problems.cloud_prev.long().reshape(-1),
-                               problems.cloud_next.long().reshape(-1)).reshape(b, c, 18)
-    idx = torch.cat([scan_idx, pair_idx], dim=1)  # (B, blocks, 18)
-    blocks = idx.shape[1]
-    E = (idx[..., None] == torch.arange(D, device=device)).to(torch.float32)  # (B, blocks, 18, D)
-    Et = E.reshape(b, blocks * 18, D).transpose(1, 2)
-
-    def assemble(states: CtState):
-        if per_point:
-            cp7 = torch.cat([states.translation, states.rotation], dim=-1).reshape(b * k, 7)
-            S_scan, g_scan, cost_scan = ct_scan_block_points_slots(slots, slot, plan, cp7)
-        else:
-            pose7, dpose7 = cloud_poses(states, problems)
-            S_scan, g_scan, cost_scan = ct_scan_block_slots(
-                slots, cloud_slot, *clouds, pose7.reshape(b * c, 7).contiguous(),
-                dpose7.reshape(b * c, 7, 18).contiguous(), *scales)
-        r, J = pair_residuals(states, problems, weights, directs)
-        S = torch.cat([S_scan.reshape(b, -1, 18, 18), torch.einsum("bcri,bcrj->bcij", J, J)], dim=1)
-        gb = torch.cat([g_scan.reshape(b, -1, 18), torch.einsum("bcri,bcr->bci", J, r)], dim=1)
-        SE = torch.bmm(S.reshape(-1, 18, 18), E.reshape(-1, 18, D)).reshape(b, blocks * 18, D)
-        JtJ = torch.bmm(Et, SE)
-        g = torch.bmm(Et, gb.reshape(b, -1, 1))[..., 0]
-        return JtJ, g, cost_scan.reshape(b, -1).sum(dim=1) + 0.5 * torch.sum(r * r, dim=(1, 2))
-
-    return assemble
-
-
 def solve_ct_window_batched(high_grids, low_grids, problems: CtProblem, states0: CtState, weights: CtWeights,
                             is_tsdf: bool, num_iterations: int = 12, per_point: bool = False, directs=None):
     """B windows in one solve (window_solver.py solve_ct_window_batched
@@ -634,27 +623,10 @@ def solve_ct_window_batched(high_grids, low_grids, problems: CtProblem, states0:
     state (damping, accept, done), so each follows its own solve's steps,
     up to the rounding of the batched linear solve.
     solve_ct_window_batched.assemblies counts the batched assemblies."""
-    slots, slot = window_slots(high_grids, low_grids)
-    if is_tsdf == slots.prob:
-        raise ValueError(f"is_tsdf={is_tsdf} with {'occupancy' if slots.prob else 'TSDF'} grids")
-    assemble = _make_ct_assemble_batched(slots, slot, problems, weights, directs, per_point)
-    fixed = _fixed(problems.cp_mask)
-    fixed_f = fixed.to(torch.float32)
-    fixed_2d = fixed[:, :, None] | fixed[:, None, :]
-
-    def eval_fn(states):
-        solve_ct_window_batched.assemblies += 1
-        JtJ, g, cost = assemble(states)
-        return (torch.where(fixed_2d, 0.0, JtJ), torch.where(fixed, 0.0, g)), cost
-
-    def delta_of(quant, lam):
-        JtJ, g = quant
-        diag = torch.diagonal(JtJ, dim1=-2, dim2=-1)
-        damped = JtJ + torch.diag_embed(lam[:, None] * torch.clamp(diag, min=1e-12) + 1e-12) + torch.diag_embed(fixed_f)
-        return torch.where(fixed, 0.0, -torch.linalg.solve(damped, g))
-
-    return _lm_drive_batched(eval_fn, delta_of, ct_retract, states0, num_iterations, init_lambda=1e-4,
-                             max_lambda=1e6)
+    D = 9 * states0.translation.shape[-2]
+    assemble = _make_ct_assemble(None, None, problems, weights, is_tsdf, D, direct=directs, per_point=per_point,
+                                 slots=window_slots(high_grids, low_grids))
+    return _solve_lm(assemble, problems.cp_mask, states0, num_iterations, solve_ct_window_batched)
 
 
 solve_ct_window_batched.assemblies = 0

@@ -46,10 +46,22 @@ def _leaves(x):
 
 
 def _select(take, old, new):
+    """new's leaves where take, else old's; take (lanes) broadcasts over
+    each leaf's trailing axes."""
+    def one(a, b):
+        return torch.where(take.reshape(take.shape + (1,) * (a.dim() - take.dim())), b, a)
     if isinstance(old, tuple):
-        leaves = [torch.where(take, b, a) for a, b in zip(old, new)]
+        leaves = [one(a, b) for a, b in zip(old, new)]
         return type(old)(*leaves) if hasattr(old, "_fields") else tuple(leaves)
-    return torch.where(take, new, old)
+    return one(old, new)
+
+
+def _lane_norm(leaves, lanes: int):
+    """Euclidean norm over every leaf, per lane: over all but a leaf's
+    leading `lanes` axes."""
+    def sq(x):
+        return torch.sum(x * x) if lanes == 0 else torch.sum((x * x).reshape(x.shape[:lanes] + (-1,)), dim=-1)
+    return torch.sqrt(sum(sq(x) for x in leaves))
 
 
 def _lm_drive(
@@ -85,70 +97,17 @@ def _lm_drive(
     costs more than a sync). The result is the same either way. The
     initial cost is returned too, so the caller needs no extra evaluation
     for it.
+
+    B independent problems solve at once when the cost is (B,) and every
+    leaf of params, quantities and the step has a leading lane axis: lam,
+    accept and done are then per lane, and a lane whose loop has ended is
+    frozen while the others go on, as jax.vmap of the JAX package's
+    while_loop does; each lane follows the steps of its own solve.
     """
     quant, cost = eval_fn(params0)
     cost0 = cost
     params = params0
-    done = torch.zeros((), dtype=torch.bool, device=cost.device)
-    lam = torch.tensor(init_lambda, dtype=torch.float32, device=cost.device)
-    for _ in range(num_iterations):
-        delta = delta_of(quant, lam)
-        new_params = retract(params, delta)
-        new_quant, new_cost = eval_fn(new_params)
-        accept = new_cost < cost
-        lam_next = torch.where(accept, torch.clamp(lam * 0.33, min=1e-10), torch.clamp(lam * 4.0, max=max_lambda))
-        done_next = done | (accept & (cost - new_cost <= function_tolerance * cost))
-        if parameter_tolerance > 0.0:
-            step_norm = torch.sqrt(sum(torch.sum(d * d) for d in _leaves(delta)))
-            x_norm = torch.sqrt(sum(torch.sum(p * p) for p in _leaves(params)))
-            done_next = done_next | (step_norm <= parameter_tolerance * (x_norm + parameter_tolerance))
-        live = ~done
-        take = live & accept
-        params = _select(take, params, new_params)
-        quant = _select(take, quant, new_quant)
-        cost = torch.where(take, new_cost, cost)
-        lam = torch.where(live, lam_next, lam)
-        done = done_next
-        if stop_on_host and bool(done):
-            break
-    return params, cost, cost0
-
-
-def _lane_sum(x):
-    """(B,) sums of x (B, ...) over all but the lane axis."""
-    return torch.sum(x.reshape(x.shape[0], -1), dim=1)
-
-
-def _select_lanes(take, old, new):
-    """Per lane b, new's leaves where take[b], else old's."""
-    def one(a, b):
-        return torch.where(take.reshape(take.shape + (1,) * (a.dim() - 1)), b, a)
-    if isinstance(old, tuple):
-        leaves = [one(a, b) for a, b in zip(old, new)]
-        return type(old)(*leaves) if hasattr(old, "_fields") else tuple(leaves)
-    return one(old, new)
-
-
-def _lm_drive_batched(
-    eval_fn,
-    delta_of,
-    retract,
-    params0,
-    num_iterations: int,
-    init_lambda: float,
-    max_lambda: float = 1e8,
-    function_tolerance: float = 1e-6,
-    parameter_tolerance: float = 1e-7,
-):
-    """_lm_drive over B independent problems at once, every leaf of params
-    and quantities with a leading lane axis and the cost (B,): each lane
-    keeps its own damping, accept and done flags, as jax.vmap of the JAX
-    package's while_loop does (a lane whose loop has ended is frozen while
-    the others go on), so each follows _lm_drive's steps for its own
-    problem. Returns (params, cost (B,), initial cost (B,))."""
-    quant, cost = eval_fn(params0)
-    cost0 = cost
-    params = params0
+    lanes = cost.dim()
     done = torch.zeros_like(cost, dtype=torch.bool)
     lam = torch.full_like(cost, init_lambda)
     for _ in range(num_iterations):
@@ -159,16 +118,18 @@ def _lm_drive_batched(
         lam_next = torch.where(accept, torch.clamp(lam * 0.33, min=1e-10), torch.clamp(lam * 4.0, max=max_lambda))
         done_next = done | (accept & (cost - new_cost <= function_tolerance * cost))
         if parameter_tolerance > 0.0:
-            step_norm = torch.sqrt(sum(_lane_sum(d * d) for d in _leaves(delta)))
-            x_norm = torch.sqrt(sum(_lane_sum(p * p) for p in _leaves(params)))
+            step_norm = _lane_norm(_leaves(delta), lanes)
+            x_norm = _lane_norm(_leaves(params), lanes)
             done_next = done_next | (step_norm <= parameter_tolerance * (x_norm + parameter_tolerance))
         live = ~done
         take = live & accept
-        params = _select_lanes(take, params, new_params)
-        quant = _select_lanes(take, quant, new_quant)
+        params = _select(take, params, new_params)
+        quant = _select(take, quant, new_quant)
         cost = torch.where(take, new_cost, cost)
         lam = torch.where(live, lam_next, lam)
         done = done_next
+        if stop_on_host and bool(done.all()):
+            break
     return params, cost, cost0
 
 

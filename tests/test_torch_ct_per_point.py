@@ -30,7 +30,7 @@ from hectorgrapher_tpu.mapping.ct import window_solver as jws
 from hectorgrapher_tpu.transform import rigid as jr
 from hectorgrapher_tpu_torch import convert
 from hectorgrapher_tpu_torch.mapping.ct import window_solver as tws
-from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import _lm_drive, _lm_drive_batched
+from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import _lm_drive
 from hectorgrapher_tpu_torch.mapping.scan_matching import interpolated_grid as tig
 from hectorgrapher_tpu_torch.ops import ct_scan_block as k3
 from torch_parity import CPU, ct_example, direct_payload, rotated_state
@@ -220,7 +220,7 @@ def test_solve_batched_matches_jax_and_single(per_point, direct):
 
 
 def test_lm_drive_batched_freezes_finished_lanes():
-    """_lm_drive_batched over three independent quadratic problems with
+    """_lm_drive with a (3,) cost over three independent quadratic problems with
     different curvatures (one converges in a step, one never accepts a
     step at a huge damping, one takes several) equals _lm_drive run on
     each alone: per-lane damping, accept and done flags."""
@@ -241,7 +241,7 @@ def test_lm_drive_batched_freezes_finished_lanes():
         return (jtj, g), 0.5 * torch.sum(curv[:, None] * (x - targets) ** 2, dim=1)
 
     x0 = torch.zeros(3, 2)
-    xs, costs, costs0 = _lm_drive_batched(eval_batched, delta_of, lambda x, d: x + d, x0, 6, init_lambda=1e-4)
+    xs, costs, costs0 = _lm_drive(eval_batched, delta_of, lambda x, d: x + d, x0, 6, init_lambda=1e-4)
     for lane in range(3):
         x1, c1, c01 = _lm_drive(lambda x: eval_one(x, targets[lane], curv[lane]),
                                 lambda q, lam: delta_of(q, lam.reshape(())), lambda x, d: x + d, x0[lane], 6,
