@@ -94,7 +94,9 @@ from hectorgrapher_tpu_torch.ops.ct_scan_block import (
     ct_scan_block_slots_plain,
     grid_params,
     grid_slots,
-    point_poses,
+    plan_poses,
+    point_plan,
+    segment_terms,
     window_plan,
 )
 from hectorgrapher_tpu_torch.ops.fast_scores_3d import fast_scores_3d, fast_scores_3d_plain
@@ -296,13 +298,21 @@ PEAK_F32_OPS_PER_S = 67e12
 # negation (58).
 K3_OPS_PER_POINT = 295 + 253 + 380
 K3_PROB_OPS_PER_POINT = 295 - 128 + 58 + 253 + 380
-# K3's per-point mode, per point of a segment, counted from the same file:
-# 554 for the pose and its 4 x 6 rotation Jacobian (point_pose; each f64
-# acos, sin or cos counted as one operation), the per-cloud mode's 295
-# (its probability variant likewise), 62 for the 18-wide row and the
+# K3's per-point mode, counted from the same file, every f32 add, sub,
+# mul, div, sqrt, reciprocal, negation, abs or min and each f64 acos, sin
+# or cos as one operation (the sign flip onto one hemisphere a choice, not
+# counted): 101 a pair with points for its terms (pair_terms: the
+# translation difference, the half products, dot and tdot, theta, sin and
+# cos of theta, the tangents, 1 / denom and 1 / denom^2), then per point 473
+# for its pose and 4 x 6 rotation Jacobian (point_pose: two sin and two
+# cos, the weights, two normalizations; dq_column six times), 393 on a pair
+# in the lerp branch (no angles, constant weights); the per-cloud mode's
+# 295 (its probability variant likewise), 62 for the 18-wide row and the
 # residual, 380 for the 190 products.
-K3P_OPS_PER_POINT = 554 + 295 + 62 + 380
-K3P_PROB_OPS_PER_POINT = 554 + 295 - 128 + 58 + 62 + 380
+K3P_OPS_PER_PAIR = 101
+K3P_POSE_OPS, K3P_LERP_POSE_OPS = 473, 393
+K3P_ROW_OPS = 295 + 62 + 380
+K3P_PROB_ROW_OPS = 295 - 128 + 58 + 62 + 380
 
 
 def _sectors(idx, element_bytes=4):
@@ -423,17 +433,22 @@ def _work(kernel, args):
             table_bytes = slots.ptrs.numel() * 8 + slots.gparams.numel() * 4 + slot.numel() * 4
         # The points of some segment (the plan's dropped points are never
         # read): point, factor, scale and grid flag each; the control
-        # points, the segment starts, the outputs.
+        # points, the segment starts, the tile table (16 bytes a tile),
+        # the segment counters (read and written), the outputs.
         m = int(plan.starts[-1])
-        nbytes = (21 * m + 4 * (cp7.numel() + plan.starts.numel() + plan.segments * (18 * 18 + 18 + 1))
-                  + table_bytes)
+        nbytes = (21 * m + 4 * (cp7.numel() + plan.starts.numel() + 4 * plan.tiles.shape[0] + 2 * plan.segments
+                                + plan.segments * (18 * 18 + 18 + 1)) + table_bytes)
         k1 = plan.k - 1
         pair = plan.pair[:m]
-        row = pair % k1 + (pair // k1) * plan.k
-        t, q, _ = point_poses(cp7[row], cp7[row + 1], plan.factor[:m])
+        t, q, _ = plan_poses(plan, cp7, m)
         pose7 = torch.cat([t, q], dim=-1)
         window = (pair // k1).long()
         prob = isinstance(grid_pairs[0][0], PreparedProb3D)
+        lerp = segment_terms(plan, cp7).lerp
+        used = torch.diff(plan.starts) > 0
+        n_lerp = int((torch.diff(plan.starts) * lerp).sum())
+        ops = (K3P_OPS_PER_PAIR * int(used.sum()) + K3P_POSE_OPS * (m - n_lerp) + K3P_LERP_POSE_OPS * n_lerp
+               + (K3P_PROB_ROW_OPS if prob else K3P_ROW_OPS) * m)
         for d, (hi, lo) in enumerate(grid_pairs):
             lane = torch.zeros_like(window, dtype=torch.bool)
             for b, sd in enumerate(window_slot):
@@ -444,7 +459,7 @@ def _work(kernel, args):
                 cells, _ = k3_stencil_cells(grid, plan.points[:m][sel][:, None, :], sel[sel][:, None], pose7[sel])
                 element = 4 if prob else grid.tsd.element_size()
                 nbytes += (1 if prob else 2) * 32 * _sectors(cells, element)
-        return nbytes, (K3P_PROB_OPS_PER_POINT if prob else K3P_OPS_PER_POINT) * m
+        return nbytes, ops
     if kernel == "fast_scores_3d":
         table, bx, by, bz, valid, cand_t, off_x, off_y, off_z = args[:9]
         cand_base = args[12] if len(args) > 12 else None
@@ -929,19 +944,57 @@ def _pair_errors(got, want):
     return errs, bound
 
 
-def check_ct_points(args, label, timed=True):
+def ct_point_segment_inputs(device, hi, lo, scan_pts, case, seed=SEED):
+    """K3 per-point mode's arguments on one window of uneven segments:
+    "long", K = 4 control points whose pair 0 draws 4,600 points (~4,370
+    kept: 34 tiles, whose sums its last block adds), pair 1 none and pair 2
+    100; "skewed", K = 32 with pair 3 drawing 12,000 points beside one to
+    three in every other pair but pair 5, which is empty. Points drawn from
+    a scan, hi or lo res at random, 5% of them dropped (scale 0), factors
+    uniform on [0, 1), control points perturbed by up to 5 cm / 0.05 rad.
+    Returns (hi, lo, plan, cp7, gparams, empty pair)."""
+    from hectorgrapher_tpu_torch.transform.rigid import quat_from_axis_angle
+
+    rng = np.random.default_rng(seed)
+    if case == "long":
+        k, counts, empty = 4, [4600, 0, 100], 1
+    else:
+        k, empty = 32, 5
+        counts = rng.integers(1, 4, k - 1)
+        counts[3], counts[empty] = 12000, 0
+    pair = rng.permutation(np.repeat(np.arange(k - 1), counts))
+    n = pair.size
+    lo_flag = rng.random(n) < 0.5
+    scale = np.where(rng.random(n) < 0.05, 0.0, 1.0 / math.sqrt(n)).astype(np.float32)
+    to = lambda a, dtype=torch.float32: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    parts = []
+    for sel in (~lo_flag, lo_flag):
+        cnt = int(sel.sum())
+        parts += [to(scan_pts[rng.choice(len(scan_pts), cnt)][None]), to(pair[sel][None], torch.int64),
+                  to(rng.random(cnt).astype(np.float32)[None]), to(scale[sel][None])]
+    plan = point_plan(*parts, k)
+    cp7 = torch.cat([to(rng.uniform(-0.05, 0.05, (k, 3)).astype(np.float32)),
+                     quat_from_axis_angle(to(rng.uniform(-0.05, 0.05, (k, 3)).astype(np.float32)))], dim=-1)
+    return hi, lo, plan, cp7.contiguous(), grid_params(hi, lo), empty
+
+
+def check_ct_points(args, label, timed=True, empty=5):
     """Phase 7: K3's per-point mode against its plain twin on one window's
-    plan (ct_point_inputs): every pair block within 1e-4 * max(1,
-    max|S_p|), the empty pair's block zero in both. Returns measure's
-    record (timed) or the largest difference."""
+    plan (ct_point_inputs or ct_point_segment_inputs): every pair block
+    within 1e-4 * max(1, max|S_p|), the empty pair's block zero in both,
+    two launches bit-equal. Returns measure's record (timed) or the largest
+    difference."""
     hi, lo, plan, cp7, gparams = args
     got = ct_scan_block_points(hi, lo, plan, cp7, gparams=gparams)
+    again = ct_scan_block_points(hi, lo, plan, cp7, gparams=gparams)
     want = ct_scan_block_points_plain(hi, lo, plan, cp7)
     torch.cuda.synchronize()
     if not all(bool(torch.isfinite(x).all()) for x in got) or float(want[0].abs().max()) <= 0.0:
         fail(f"K3 ct_scan_block_points returned non-finite values or sees no observed cell at {label}")
-    if any(float(x[5].abs().max()) != 0.0 for x in (*got, *want)):
-        fail(f"K3 ct_scan_block_points: the empty pair 5 has a nonzero block at {label}")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"K3 ct_scan_block_points: two launches differ at {label}")
+    if any(float(x[empty].abs().max()) != 0.0 for x in (*got, *want)):
+        fail(f"K3 ct_scan_block_points: the empty pair {empty} has a nonzero block at {label}")
     errs, bound = _pair_errors(got, want)
     for name, e in zip(("S", "g", "cost"), errs):
         if bool((e > bound).any()):
@@ -950,13 +1003,18 @@ def check_ct_points(args, label, timed=True):
     err = max(float(e.max()) for e in errs)
     m = int(plan.starts[-1])
     if not timed:
+        sizes = torch.diff(plan.starts)
+        print(f"ct_scan_block_points {label} K={plan.k}: {m} points, segments of {int(sizes.min())}.."
+              f"{int(sizes.max())}, pair {empty} empty; max |d| {err:.3e} (bound {float(bound.min()):.3e}.."
+              f"{float(bound.max()):.3e} per pair), two launches bit-equal", flush=True)
         return err
     return measure("ct_scan_block_points", label, lambda: ct_scan_block_points(hi, lo, plan, cp7, gparams=gparams),
                    lambda: ct_scan_block_points_plain(hi, lo, plan, cp7), args, err,
                    note=f" grids {hi.shape[0]}^3/{lo.shape[0]}^3 K={plan.k} ({plan.segments} pairs, pair 5 empty, "
                         f"control point {plan.k - 1} masked) C=32 P=256+256, {m} points (error bound "
-                        f"{float(bound.min()):.3e}..{float(bound.max()):.3e} per pair; library: none, no one PyTorch "
-                        "call fuses the per-point slerp, the stencil and the per-pair J^T J)")
+                        f"{float(bound.min()):.3e}..{float(bound.max()):.3e} per pair, two launches bit-equal; "
+                        "library: none, no one PyTorch call fuses the per-point slerp, the stencil and the per-pair "
+                        "J^T J)")
 
 
 def ct_points_slots_inputs(device, pairs, scan_pts, windows=4):
@@ -974,10 +1032,12 @@ def ct_points_slots_inputs(device, pairs, scan_pts, windows=4):
 
 def check_ct_points_slots(args, label):
     """Phase 7: K3's slotted per-point form on several windows over three
-    grid pairs, within the per-pair gate of its plain version and bit-equal
-    to one launch per window. Returns measure's record."""
+    grid pairs, within the per-pair gate of its plain version, bit-equal
+    to one launch per window and over two launches. Returns measure's
+    record."""
     slots, slot, plan, cp7 = args
     got = ct_scan_block_points_slots(*args)
+    again = ct_scan_block_points_slots(*args)
     want = ct_scan_block_points_slots_plain(*args)
     k = plan.k
     singles = [ct_scan_block_points(slots.hi[d], slots.lo[d], window_plan(plan, b), cp7[b * k:(b + 1) * k],
@@ -989,6 +1049,8 @@ def check_ct_points_slots(args, label):
     if any(bool((e > bound).any()) for e in errs):
         fail(f"K3 ct_scan_block_points_slots differs from its plain twin at {label}: max "
              f"{max(float(e.max()) for e in errs):.3e}")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"K3 ct_scan_block_points_slots: two launches differ at {label}")
     k1 = k - 1
     for b, one in enumerate(singles):
         if not all(torch.equal(a[b * k1:(b + 1) * k1], o) for a, o in zip(got, one)):
@@ -998,7 +1060,8 @@ def check_ct_points_slots(args, label):
                    lambda: ct_scan_block_points_slots_plain(*args), args, err,
                    kernel_name="ct_scan_block_points_kernel", plain_reps=5,
                    note=f" B={slot.shape[0]} windows over {len(slots.hi)} distinct 256^3/128^3 grid pairs (slots "
-                        f"{slot.tolist()}), K={k}, bit-equal to {slot.shape[0]} single launches (library: none)")
+                        f"{slot.tolist()}), K={k}, bit-equal to {slot.shape[0]} single launches and over two launches "
+                        "(library: none)")
 
 
 def check_points_mode(device, tag, pairs, scan_pts, checks):
@@ -1006,12 +1069,16 @@ def check_points_mode(device, tag, pairs, scan_pts, checks):
     filled with three, two and one scans. At the CT front end's shape
     against pairs[0] (points outside both grids, a masked control point,
     points before the first and after the last valid control point, an
-    empty pair), then slotted: 8 windows over the three pairs."""
+    empty pair), then slotted: 8 windows over the three pairs; then
+    untimed, a long segment and a skewed window (ct_point_segment_inputs)."""
     hi, lo = pairs[0]
     rec = checks.setdefault("ct_scan_block_points", {})
     rec[f"{tag}front_end"] = check_ct_points(ct_point_inputs(device, hi, lo, scan_pts, outside=16), f"{tag}front_end")
     rec[f"{tag}front_end_slotted_b8"] = check_ct_points_slots(
         ct_points_slots_inputs(device, pairs, scan_pts, windows=8), f"{tag}front_end_slotted_b8")
+    for case in ("long", "skewed"):
+        *args, empty = ct_point_segment_inputs(device, hi, lo, scan_pts, case)
+        check_ct_points(args, f"{tag}{case}_segment", timed=False, empty=empty)
 
 
 def build_ct_example(device, K=8, C=8, P=256, grid=256, cube=True):

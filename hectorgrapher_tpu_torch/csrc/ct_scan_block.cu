@@ -76,29 +76,52 @@
 // not move while the state does), so a pair's points are one contiguous
 // segment whatever clouds they came from; a cloud may span any number of
 // pairs, and a pair that no point reaches is an empty segment whose block
-// is zero. One cluster per pair (per window and pair in the slotted form),
-// each block a slice of the segment, summed as the per-cloud mode sums:
-// no atomics, a fixed order, and a window's clusters compute the same bits
-// in the slotted form as alone. The pose comes from the kernel, not the
-// host: the cluster stages its pair's two control-point states [t, q] in
-// shared memory, and each thread turns its point's factor f into the pose
-// (lerp of t; slerp of the two rotations retracted at a zero tangent,
-// without normalizing, then two normalizations, as point_scan_block's
-// _quat_of) and its 4 x 6 rotation Jacobian, the lerp branch's weights
-// constant below sin(theta) = 1e-6 and their tangents zero. Per assembly
-// the host adds one concatenation of the state (B*K x 7 floats) to the one
-// launch, whatever N is; a per-point pose from the host would move 11
-// floats a point and cost ~60 launches of the tangent helpers. The world
-// point and cell floor must equal the plain twin's (ROADMAP C0), so the
-// pose's arithmetic follows the twin's op order, every op a
-// round-to-nearest intrinsic, and acos, sin and cos run in f64 and are
-// rounded once to f32 on both sides: the twin's torch kernels and this
-// library are built with different contraction flags, and the f32 library
-// functions could round apart where a double rounded to f32 agrees. What
-// bounds it at the front end's shape (N = 32 x 512 points, K - 1 = 31
-// pairs): latency, as in the per-cloud mode (~0.6 MB of points and
-// sectors, ~20 MFLOP); 31 clusters of 8 blocks take 248 of the 132 SMs'
-// block slots, each block ~66 points in one chunk of up to 192.
+// is zero. The pose comes from the kernel, not the host: per assembly the
+// host adds one concatenation of the state (B*K x 7 floats) to the one
+// launch, whatever N is. The world point and cell floor must equal the
+// plain twin's (ROADMAP C0), so the pose's arithmetic follows the twin's op
+// order, every op a round-to-nearest intrinsic, and acos, sin and cos run
+// in f64 and are rounded once to f32 on both sides: the twin's torch
+// kernels and this library are built with different contraction flags,
+// and the f32 library functions could round apart where a double rounded
+// to f32 agrees.
+//
+// What bounds it: latency. At the front end's shape (N = 32 x 480 kept
+// points, K - 1 = 31 pairs, ~480 points a pair but 1,486 in the last, whose
+// clouds lie past the last valid control point) it moves ~2.1 MB (~0.62 us
+// at 3.35 TB/s) and does ~18 MFLOP; a block's time is one point's chain
+// (the pair's terms, the pose's f64 sin and cos and IEEE divisions, the
+// 16-tap stencil's loads, the Jacobian columns) and then the sum of its
+// rows. The design:
+// - A tile table built once per solve (ops/ct_scan_block.py point_tiles):
+//   each segment cut in order into tiles of kPtThreads = 128 points, one
+//   block a tile, one point a thread, so every thread holds a point but in
+//   a segment's last tile, and a long segment takes as many blocks as it
+//   needs (a fixed cluster of 8 blocks a pair would hold ~62 points a
+//   block, and run a longer segment in rounds). An empty
+//   segment is one tile of no point, whose block writes the zero block.
+// - Thread 0 computes the pair's terms once a block (pair_terms: the sign
+//   flip, the half products, tdot, theta = acos, sin and cos of theta, the
+//   tangents of theta and sin theta), while the other threads load their
+//   points; a point then takes the sin and cos of its own two angles, the
+//   weights and the normalizations (point_pose). The same ops in the same
+//   order on the same inputs: the pose's bits do not change. Its Jacobian
+//   runs one rotation column at a time (dq_column), its quotients products
+//   with correctly rounded reciprocals, as the twin computes them.
+// - R^T R over a tile's rows [J (18), r, 0 x 5] on the f64 tensor cores
+//   (mma.m8n8k4): warp w takes rows 32 w .. 32 w + 31, four a step, into
+//   the six 8 x 8 upper tiles of the 24 x 24 product; S, g and 2 cost are
+//   its blocks. The products of f32 values are exact in f64 and the sums
+//   are f64 in a fixed order: the warps' in warp order into the tile's
+//   scratch row; then the segment's last block to finish (an atomic ticket
+//   picks the block, not the order) adds its tiles in tile order, rounds
+//   once to f32 and sets the segment's counter back to zero. So a result
+//   is the same on every launch, and a window's segments compute the same
+//   bits in the slotted form as alone: their tiles are the same.
+// - No cluster: blocks are independent until the last one of a segment,
+//   so none waits at a cluster barrier, and at 62-64 registers
+//   (__launch_bounds__(128, 6), no spills) six blocks share an SM.
+
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -425,30 +448,31 @@ __device__ __forceinline__ void half_products(const float q[4], float t[4][3]) {
   t[0][2] = -h3; t[1][2] = h2;  t[2][2] = -h1; t[3][2] = h0;
 }
 
-// x / |x| and the tangent columns tx -> (tx - y (y . tx)) / |x|, in place.
-__device__ __forceinline__ void normalize_with_tangent(float x[4], float tx[4][6]) {
-  const float n = __fsqrt_rn(dot4(x, x));
-  for (int i = 0; i < 4; ++i) x[i] = dvd(x[i], n);
-  for (int k = 0; k < 6; ++k) {
-    const float col[4] = {tx[0][k], tx[1][k], tx[2][k], tx[3][k]};
-    const float yt = dot4(x, col);
-    for (int i = 0; i < 4; ++i) tx[i][k] = dvd(sub(col[i], mul(x[i], yt)), n);
-  }
-}
+// What a point's pose takes from its control-point pair alone, computed
+// once a block (pair_terms).
+struct PairTerms {
+  float t0[3], dt[3];  // the first translation and the difference of the two
+  float a[4], b[4];  // the two rotations, b flipped onto a's hemisphere
+  float ta[4][3], tb[4][3];  // their half products (tb flipped with b)
+  float dth[6], ds[6];  // d theta and d sin(theta) on the six rotation columns
+  float theta, denom;
+  float rdenom, rdenom2;  // 1 / denom and 1 / denom^2, each correctly rounded
+  int lerp;  // sin(theta) < 1e-6: the weights are the constants 1 - f and f
+};
 
-// The pose (t, q) of a point at factor f between control points ca and cb
-// ([t, q] each) and dq (4 x 6), q's Jacobian on the rotation columns of the
-// pair tangent (first control point's 3, then the second's), in the op
-// order of the plain twin (ops/ct_scan_block.py point_poses).
-__device__ __forceinline__ void point_pose(const float* ca, const float* cb, float f, float t[3], float q[4],
-                                           float dq[4][6]) {
-  for (int i = 0; i < 3; ++i) t[i] = add(ca[i], mul(f, sub(cb[i], ca[i])));
-  const float a[4] = {ca[3], ca[4], ca[5], ca[6]};
+// The pair's terms from control points ca and cb ([t, q] each), in the op
+// order of the plain twin (ops/ct_scan_block.py pair_terms).
+__device__ void pair_terms(const float* ca, const float* cb, PairTerms& P) {
+  for (int i = 0; i < 3; ++i) {
+    P.t0[i] = ca[i];
+    P.dt[i] = sub(cb[i], ca[i]);
+  }
+  float a[4] = {ca[3], ca[4], ca[5], ca[6]};
   float b[4] = {cb[3], cb[4], cb[5], cb[6]};
   float ta[4][3], tb[4][3];
   half_products(a, ta);
   half_products(b, tb);
-  float dot = dot4(a, b);
+  const float dot = dot4(a, b);
   float tdot[6];
   for (int k = 0; k < 3; ++k) {
     const float ca_k[4] = {ta[0][k], ta[1][k], ta[2][k], ta[3][k]};
@@ -468,56 +492,153 @@ __device__ __forceinline__ void point_pose(const float* ca, const float* cb, flo
   const float s = sin64(theta);
   const bool lerp = s < 1e-6f;
   const float denom = lerp ? 1.0f : s;
-  const float g = sub(1.0f, f);
-  const float ua = mul(g, theta), ub = mul(f, theta);
-  const float sa = sin64(ua), sb = sin64(ub);
-  const float wa = lerp ? g : dvd(sa, denom);
-  const float wb = lerp ? f : dvd(sb, denom);
-  float x[4];
-  for (int i = 0; i < 4; ++i) x[i] = add(mul(wa, a[i]), mul(wb, b[i]));
   // Tangents: d theta = -d dot / sqrt(1 - c^2) in the slerp branch, 0 in
   // the lerp branch (its weights are constants).
-  const float ct = cos64(theta), cua = cos64(ua), cub = cos64(ub);
+  const float ct = cos64(theta);
   const float root = lerp ? 1.0f : __fsqrt_rn(sub(1.0f, mul(c, c)));
-  const float denom2 = mul(denom, denom);
   for (int k = 0; k < 6; ++k) {
-    const float dth = lerp ? 0.0f : dvd(-tdot[k], root);
-    const float ds = mul(ct, dth);
-    const float dwa = lerp ? 0.0f : sub(dvd(mul(cua, mul(g, dth)), denom), dvd(mul(sa, ds), denom2));
-    const float dwb = lerp ? 0.0f : sub(dvd(mul(cub, mul(f, dth)), denom), dvd(mul(sb, ds), denom2));
-    for (int i = 0; i < 4; ++i) {
-      const float own = k < 3 ? mul(wa, ta[i][k]) : mul(wb, tb[i][k - 3]);
-      dq[i][k] = add(add(mul(dwa, a[i]), mul(dwb, b[i])), own);
+    P.dth[k] = lerp ? 0.0f : dvd(-tdot[k], root);
+    P.ds[k] = mul(ct, P.dth[k]);
+  }
+  for (int i = 0; i < 4; ++i) {
+    P.a[i] = a[i];
+    P.b[i] = b[i];
+    for (int k = 0; k < 3; ++k) {
+      P.ta[i][k] = ta[i][k];
+      P.tb[i][k] = tb[i][k];
     }
   }
-  normalize_with_tangent(x, dq);  // quat_slerp's normalize
-  normalize_with_tangent(x, dq);  // _quat_of's
-  for (int i = 0; i < 4; ++i) q[i] = x[i];
+  P.theta = theta;
+  P.denom = denom;
+  P.rdenom = __frcp_rn(denom);
+  P.rdenom2 = __frcp_rn(mul(denom, denom));
+  P.lerp = lerp;
 }
 
-// Per-point mode: cluster j (blockIdx.y) sums the points of segment j =
-// b * (k - 1) + p (window b's pair p), points starts[j] .. starts[j + 1]
-// of the sorted plan, into S_out[j], g_out[j], cost_out[j]. cp7 (B*k, 7)
-// holds every window's control points [t, q]. kSlotted: window b reads the
-// grids of slot[b].
+// A point's pose (t, q) and what the columns of its rotation Jacobian take
+// from it: the weights and angles, and the two normalizations' inputs.
+struct PointPose {
+  float t[3], q[4];  // q = x1 / n2
+  float x1[4], r1, r2;  // x1 = x / n1, the slerp normalized once; 1 / n1, 1 / n2
+  float g, wa, wb, sa, sb, cua, cub;
+};
+
+// The pose of a point at factor f on the pair P (in shared memory: every
+// thread reads the same words), in the op order of the plain twin
+// (ops/ct_scan_block.py point_poses_from_terms): the lerp of t; the slerp
+// of the rotations retracted at a zero tangent, normalized twice.
+__device__ __forceinline__ void point_pose(const PairTerms& P, float f, PointPose& o) {
+  for (int i = 0; i < 3; ++i) o.t[i] = add(P.t0[i], mul(f, P.dt[i]));
+  o.g = sub(1.0f, f);
+  o.wa = o.g;
+  o.wb = f;
+  o.sa = o.sb = o.cua = o.cub = 0.0f;
+  if (!P.lerp) {  // one branch for the whole block: the pair decides it
+    const float ua = mul(o.g, P.theta), ub = mul(f, P.theta);
+    o.sa = sin64(ua);
+    o.sb = sin64(ub);
+    o.cua = cos64(ua);
+    o.cub = cos64(ub);
+    o.wa = dvd(o.sa, P.denom);
+    o.wb = dvd(o.sb, P.denom);
+  }
+  float x[4];
+  for (int i = 0; i < 4; ++i) x[i] = add(mul(o.wa, P.a[i]), mul(o.wb, P.b[i]));
+  const float n1 = __fsqrt_rn(dot4(x, x));  // quat_slerp's normalize
+  for (int i = 0; i < 4; ++i) o.x1[i] = dvd(x[i], n1);
+  const float n2 = __fsqrt_rn(dot4(o.x1, o.x1));  // _quat_of's
+  for (int i = 0; i < 4; ++i) o.q[i] = dvd(o.x1[i], n2);
+  o.r1 = __frcp_rn(n1);
+  o.r2 = __frcp_rn(n2);
+}
+
+// Column k of dq, q's Jacobian on the pair tangent's rotation columns
+// (first control point's 3, then the second's): the slerp's tangent, then
+// through both normalizations (y = x / |x|: tx -> (tx - y (y . tx)) / |x|),
+// in the twin's op order. The Jacobian does not pick cells, so its
+// quotients are products with the divisor's correctly rounded reciprocal
+// (1 / denom and 1 / denom^2 once a pair, 1 / |x| twice a point), where the
+// pose keeps its IEEE divisions: 4 reciprocals instead of 72 divisions a
+// point. One column at a time keeps the code short.
+__device__ __forceinline__ void dq_column(const PairTerms& P, const PointPose& o, float f, int k, float col[4]) {
+  float dwa = 0.0f, dwb = 0.0f;
+  if (!P.lerp) {
+    const float dth = P.dth[k], ds = P.ds[k];
+    dwa = sub(mul(mul(o.cua, mul(o.g, dth)), P.rdenom), mul(mul(o.sa, ds), P.rdenom2));
+    dwb = sub(mul(mul(o.cub, mul(f, dth)), P.rdenom), mul(mul(o.sb, ds), P.rdenom2));
+  }
+  for (int i = 0; i < 4; ++i) {
+    const float own = k < 3 ? mul(o.wa, P.ta[i][k]) : mul(o.wb, P.tb[i][k - 3]);
+    col[i] = add(add(mul(dwa, P.a[i]), mul(dwb, P.b[i])), own);
+  }
+  const float yt1 = dot4(o.x1, col);
+  for (int i = 0; i < 4; ++i) col[i] = mul(sub(col[i], mul(o.x1[i], yt1)), o.r1);
+  const float yt2 = dot4(o.q, col);
+  for (int i = 0; i < 4; ++i) col[i] = mul(sub(col[i], mul(o.q[i], yt2)), o.r2);
+}
+
+// c += a * b on the f64 tensor cores: one 8 x 8 x 4 step of a warp, A (8 x
+// 4, row) one value a lane at [lane / 4][lane % 4], B (4 x 8, col) at
+// [lane % 4][lane / 4], C (8 x 8) two values a lane at [lane / 4][2 (lane
+// % 4) + v]. Products of f32 values are exact in f64; the sums round in
+// f64, in the hardware's fixed order.
+__device__ __forceinline__ void mma_f64(double c[2], double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+               : "+d"(c[0]), "+d"(c[1])
+               : "d"(a), "d"(b));
+}
+
+constexpr int kPtThreads = 128;  // points a tile holds, one a thread (ops/ct_scan_block.py POINT_TILE)
+constexpr int kPtWarps = kPtThreads / 32;
+constexpr int kPtMinBlocks = 6;  // blocks an SM must hold (__launch_bounds__): <= 85 registers
+constexpr int kPad = 24;  // a row's 19 entries and 5 zeros: three 8-wide column tiles
+constexpr int kTiles = 6;  // the 8 x 8 tiles (I, J), I <= J, of the 24 x 24 R^T R
+
+// Tile (I, J) (I <= J < 3) of the upper triangle, numbered row by row.
+__device__ __forceinline__ int tile_of(int i, int j) { return i == 0 ? j : (i == 1 ? 2 + j : 5); }
+
+// Upper-triangle entry o < kUpper of S as (a, b), a <= b.
+__device__ __forceinline__ void upper_entry(int o, int& a, int& b) {
+  int r = o;
+  a = 0;
+  while (r >= 18 - a) {
+    r -= 18 - a;
+    ++a;
+  }
+  b = a + r;
+}
+
+// Per-point mode: block t sums tile t of the plan's tile table, tiles[t] =
+// (segment j, first point, points, the segment's first tile): up to
+// kPtThreads points of segment j = b * (k - 1) + p (window b's pair p),
+// never two segments. Its R^T R goes to scratch[t] (kOut f64); the
+// segment's last block to finish (by an atomic ticket on counters[j],
+// which it sets back to 0) adds the segment's tiles in tile order and
+// writes S_out[j], g_out[j], cost_out[j]. cp7 (B*k, 7) holds every
+// window's control points [t, q]. kSlotted: window b reads the grids of
+// slot[b].
 template <bool kSlotted, bool kProb, typename T>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPtThreads, kPtMinBlocks)
 ct_scan_block_points_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_ptrs, const int* __restrict__ slot,
                             const float* __restrict__ gparams, const float* __restrict__ cp7,
                             const float* __restrict__ pts, const float* __restrict__ fac,
                             const float* __restrict__ scl, const uint8_t* __restrict__ is_lo,
-                            const int* __restrict__ starts, float* __restrict__ S_out, float* __restrict__ g_out,
-                            float* __restrict__ cost_out, int k) {
-  __shared__ float rows[kThreads * kRow];
-  __shared__ float sh_cp[14];
-  __shared__ float sums[kOut];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int j = blockIdx.y;
+                            const int* __restrict__ starts, const int4* __restrict__ tiles,
+                            int* __restrict__ counters, double* __restrict__ scratch, float* __restrict__ S_out,
+                            float* __restrict__ g_out, float* __restrict__ cost_out, int k) {
+  __shared__ __align__(16) float rows[kPtThreads * kPad];
+  __shared__ __align__(16) double part[kPtWarps][kTiles][64];  // each warp's sums, C's layout (64 = 8 m + n)
+  __shared__ PairTerms pair_sh;
+  __shared__ int last;
+  const int4 tl = tiles[blockIdx.x];
+  const int j = tl.x;
   const int b = j / (k - 1);
   const int pair = j - b * (k - 1);
-  const int tid = threadIdx.x;
-  if (tid < 14) sh_cp[tid] = cp7[(static_cast<size_t>(b) * k + pair) * 7 + tid];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    const float* ca = cp7 + (static_cast<size_t>(b) * k + pair) * 7;
+    pair_terms(ca, ca + 7, pair_sh);
+  }
   int s = 0;
   if (kSlotted) {
     s = slot[b];
@@ -529,108 +650,137 @@ ct_scan_block_points_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_p
   float gp[8];
   for (int i = 0; i < 8; ++i) gp[i] = __ldg(gparams + 8 * s + i);
 
-  int oa = 18, ob = 18;
-  if (tid < kUpper) {
-    int r = tid, a = 0;
-    while (r >= 18 - a) {
-      r -= 18 - a;
-      ++a;
-    }
-    oa = a;
-    ob = a + r;
-  } else if (tid < kUpper + 18) {
-    oa = tid - kUpper;
+  // This thread's point (none past the tile's count, or dropped: scale 0).
+  const int n = tl.y + tid;
+  float p[3] = {0.0f, 0.0f, 0.0f}, f = 0.0f, sc = 0.0f;
+  bool use_lo = false;
+  if (tid < tl.z) {
+    p[0] = pts[static_cast<size_t>(n) * 3];
+    p[1] = pts[static_cast<size_t>(n) * 3 + 1];
+    p[2] = pts[static_cast<size_t>(n) * 3 + 2];
+    f = fac[n];
+    sc = scl[n];
+    use_lo = is_lo[n] != 0;
   }
+  __syncthreads();  // the pair's terms are in shared memory
 
-  const int seg_begin = starts[j];
-  const int n_pts = starts[j + 1] - seg_begin;
-  const int per = (n_pts + kCluster - 1) / kCluster;
-  const int begin = seg_begin + min(n_pts, rank * per), end = seg_begin + min(n_pts, rank * per + per);
-  float acc = 0.0f;
-  for (int start = begin; start < end; start += kThreads) {
-    const int chunk = min(kThreads, end - start);
-    const int n = start + tid;
-    float p[3] = {0.0f, 0.0f, 0.0f}, f = 0.0f, sc = 0.0f;
-    bool use_lo = false;
-    if (tid < chunk) {
-      p[0] = pts[static_cast<size_t>(n) * 3];
-      p[1] = pts[static_cast<size_t>(n) * 3 + 1];
-      p[2] = pts[static_cast<size_t>(n) * 3 + 2];
-      f = fac[n];
-      sc = scl[n];
-      use_lo = is_lo[n] != 0;
+  float row[kPad];
+  for (int i = 0; i < kPad; ++i) row[i] = 0.0f;
+  float row7[7];
+  PointPose o;
+  if (sc != 0.0f) {
+    point_pose(pair_sh, f, o);
+    const Grid grid{use_lo ? lo.tsd : hi.tsd, use_lo ? lo.weight : hi.weight, use_lo ? lo.nx : hi.nx,
+                    use_lo ? lo.ny : hi.ny, use_lo ? lo.nz : hi.nz,
+                    {use_lo ? gp[4] : gp[0], use_lo ? gp[5] : gp[1], use_lo ? gp[6] : gp[2]},
+                    use_lo ? gp[7] : gp[3]};
+    float val;
+    point_row7<kProb, T>(grid, o.q, o.t, p, val, row7);
+    const float g = sub(1.0f, f);
+    for (int i = 0; i < 3; ++i) {
+      row[i] = mul(mul(g, row7[i]), sc);
+      row[9 + i] = mul(mul(f, row7[i]), sc);
     }
-    __syncthreads();  // the control points are in shared memory; the last chunk's rows are consumed
-
-    if (tid < chunk) {
-      float row[kRow];
-      for (int i = 0; i < kRow; ++i) row[i] = 0.0f;
-      if (sc != 0.0f) {
-        float t[3], q[4], dq[4][6];
-        point_pose(sh_cp, sh_cp + 7, f, t, q, dq);
-        const Grid grid{use_lo ? lo.tsd : hi.tsd, use_lo ? lo.weight : hi.weight, use_lo ? lo.nx : hi.nx,
-                        use_lo ? lo.ny : hi.ny, use_lo ? lo.nz : hi.nz,
-                        {use_lo ? gp[4] : gp[0], use_lo ? gp[5] : gp[1], use_lo ? gp[6] : gp[2]},
-                        use_lo ? gp[7] : gp[3]};
-        float val, row7[7];
-        point_row7<kProb, T>(grid, q, t, p, val, row7);
-        const float g = sub(1.0f, f);
-        for (int i = 0; i < 3; ++i) {
-          row[i] = mul(mul(g, row7[i]), sc);
-          row[9 + i] = mul(mul(f, row7[i]), sc);
-        }
-        for (int c = 0; c < 6; ++c) {
-          float jr = mul(row7[3], dq[0][c]);
-          for (int i = 1; i < 4; ++i) jr = add(jr, mul(row7[3 + i], dq[i][c]));
-          row[(c < 3 ? 3 : 9) + c] = mul(jr, sc);
-        }
-        row[18] = mul(val, sc);
-      }
-      float* dst = rows + tid * kRow;
-      for (int i = 0; i < kRow; ++i) dst[i] = row[i];
-    }
-    __syncthreads();
-
-    if (tid < kOut) {
-#pragma unroll 8
-      for (int r = 0; r < chunk; ++r) acc = add(acc, mul(rows[r * kRow + oa], rows[r * kRow + ob]));
+    row[18] = mul(val, sc);
+  }
+  float* own_row = rows + tid * kPad;
+  float4* dst = reinterpret_cast<float4*>(own_row);
+  for (int i = 0; i < kPad / 4; ++i) dst[i] = make_float4(row[4 * i], row[4 * i + 1], row[4 * i + 2], row[4 * i + 3]);
+  if (sc != 0.0f) {
+    // The rotation columns: dval/dq . dq[:, c], one column at a time.
+#pragma unroll 1
+    for (int c = 0; c < 6; ++c) {
+      float col[4];
+      dq_column(pair_sh, o, f, c, col);
+      float jr = mul(row7[3], col[0]);
+      for (int i = 1; i < 4; ++i) jr = add(jr, mul(row7[3 + i], col[i]));
+      own_row[(c < 3 ? 3 : 9) + c] = mul(jr, sc);
     }
   }
+  __syncthreads();
 
-  if (tid < kOut) sums[tid] = acc;
-  cluster.sync();
-  if (rank == 0 && tid < kOut) {
-    float total = 0.0f;
-    for (int r = 0; r < kCluster; ++r) total = add(total, cluster.map_shared_rank(sums, r)[tid]);
-    if (tid < kUpper) {
-      S_out[(static_cast<size_t>(j) * 18 + oa) * 18 + ob] = total;
-      S_out[(static_cast<size_t>(j) * 18 + ob) * 18 + oa] = total;
-    } else if (tid < kUpper + 18) {
-      g_out[static_cast<size_t>(j) * 18 + oa] = total;
+  // R^T R over the tile's rows: warp w takes rows 32 w .. 32 w + 31, four
+  // at a time, into the six upper tiles of its own sums.
+  double acc[kTiles][2];
+  for (int t = 0; t < kTiles; ++t) acc[t][0] = acc[t][1] = 0.0;
+  for (int step = 0; step < 8; ++step) {
+    const float* r = rows + (32 * warp + 4 * step + (lane & 3)) * kPad + (lane >> 2);
+    const double v0 = r[0], v1 = r[8], v2 = r[16];
+    mma_f64(acc[0], v0, v0);
+    mma_f64(acc[1], v0, v1);
+    mma_f64(acc[2], v0, v2);
+    mma_f64(acc[3], v1, v1);
+    mma_f64(acc[4], v1, v2);
+    mma_f64(acc[5], v2, v2);
+  }
+  for (int t = 0; t < kTiles; ++t) {
+    part[warp][t][2 * lane] = acc[t][0];
+    part[warp][t][2 * lane + 1] = acc[t][1];
+  }
+  __syncthreads();
+
+  // Output o: upper-triangle entry (oa, ob) of S, g[oa] (ob = 18, the
+  // residual column) or the cost (oa = ob = 18): the warps' sums in warp
+  // order into the tile's scratch row.
+  double* own = scratch + static_cast<size_t>(blockIdx.x) * kOut;
+  for (int o = tid; o < kOut; o += kPtThreads) {
+    int oa = 18, ob = 18;
+    if (o < kUpper) {
+      upper_entry(o, oa, ob);
+    } else if (o < kUpper + 18) {
+      oa = o - kUpper;
+    }
+    const int at = tile_of(oa >> 3, ob >> 3) * 64 + (oa & 7) * 8 + (ob & 7);
+    double total = (&part[0][0][0])[at];
+    for (int w = 1; w < kPtWarps; ++w) total += (&part[w][0][0])[at];
+    own[o] = total;
+  }
+  // The segment's last tile to finish adds its tiles in tile order: the
+  // ticket picks the block, not the order of the sum.
+  __threadfence();
+  __syncthreads();
+  const int n_seg = starts[j + 1] - starts[j];
+  const int n_tiles = n_seg > 0 ? (n_seg + kPtThreads - 1) / kPtThreads : 1;
+  if (tid == 0) last = atomicAdd(counters + j, 1) == n_tiles - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const double* seg = scratch + static_cast<size_t>(tl.w) * kOut;
+  for (int o = tid; o < kOut; o += kPtThreads) {
+    double total = __ldcg(seg + o);
+    for (int t = 1; t < n_tiles; ++t) total += __ldcg(seg + static_cast<size_t>(t) * kOut + o);
+    if (o < kUpper) {
+      int a, bb;
+      upper_entry(o, a, bb);
+      const float v = __double2float_rn(total);
+      S_out[(static_cast<size_t>(j) * 18 + a) * 18 + bb] = v;
+      S_out[(static_cast<size_t>(j) * 18 + bb) * 18 + a] = v;
+    } else if (o < kUpper + 18) {
+      g_out[static_cast<size_t>(j) * 18 + o - kUpper] = __double2float_rn(total);
     } else {
-      cost_out[j] = mul(0.5f, total);
+      cost_out[j] = __double2float_rn(0.5 * total);
     }
   }
-  cluster.sync();
+  if (tid == 0) counters[j] = 0;  // ready for the plan's next launch
 }
 
-// Launch the per-point kernel in `mode` over `segments` clusters.
+// Launch the per-point kernel in `mode`: one block per tile.
 template <bool kSlotted, typename... Args>
-int launch_points(int mode, int segments, void* stream, Args... args) {
-  const dim3 grid(kCluster, segments);
+int launch_points(int mode, int n_tiles, void* stream, Args... args) {
+  const dim3 grid(n_tiles);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kModeTsdf:
-      ct_scan_block_points_kernel<kSlotted, false, float><<<grid, kThreads, 0, s>>>(args...);
+      ct_scan_block_points_kernel<kSlotted, false, float><<<grid, kPtThreads, 0, s>>>(args...);
       break;
     case kModeProb:
-      ct_scan_block_points_kernel<kSlotted, true, float><<<grid, kThreads, 0, s>>>(args...);
+      ct_scan_block_points_kernel<kSlotted, true, float><<<grid, kPtThreads, 0, s>>>(args...);
       break;
     case kModeTsdfF16:
-      ct_scan_block_points_kernel<kSlotted, false, __half><<<grid, kThreads, 0, s>>>(args...);
+      ct_scan_block_points_kernel<kSlotted, false, __half><<<grid, kPtThreads, 0, s>>>(args...);
       break;
     case kModeTsdfBf16:
-      ct_scan_block_points_kernel<kSlotted, false, __nv_bfloat16><<<grid, kThreads, 0, s>>>(args...);
+      ct_scan_block_points_kernel<kSlotted, false, __nv_bfloat16><<<grid, kPtThreads, 0, s>>>(args...);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -708,18 +858,21 @@ extern "C" int hg_ct_scan_block_slots(const int64_t* grid_ptrs, const int* slot,
 // f32 control points [t, q] of B windows; the plan sorted by segment
 // (window b's pair p is segment b * (k - 1) + p): pts (M, 3), fac, scl (M,)
 // f32, is_lo (M,) bool (the point reads the lo-res grid), starts
-// (segments + 1,) int32. Writes S (segments, 18, 18), g (segments, 18),
-// cost (segments,) f32.
+// (segments + 1,) int32, tiles (n_tiles, 4) int32 (ops/ct_scan_block.py
+// point_tiles), counters (segments,) int32, zero before the launch and
+// after it; scratch (n_tiles, 190) f64. Writes S (segments, 18, 18), g
+// (segments, 18), cost (segments,) f32.
 extern "C" int hg_ct_scan_block_points(const void* hi_tsd, const void* hi_weight, const void* lo_tsd,
                                        const void* lo_weight, const float* gparams, const float* cp7,
                                        const float* pts, const float* fac, const float* scl, const uint8_t* is_lo,
-                                       const int* starts, float* S, float* g, float* cost, int segments, int k,
-                                       int hnx, int hny, int hnz, int lnx, int lny, int lnz, int mode, void* stream) {
+                                       const int* starts, const int* tiles, int* counters, double* scratch, float* S,
+                                       float* g, float* cost, int n_tiles, int k, int hnx, int hny, int hnz, int lnx,
+                                       int lny, int lnz, int mode, void* stream) {
   const Grid hi{hi_tsd, hi_weight, hnx, hny, hnz, {0.0f, 0.0f, 0.0f}, 0.0f};
   const Grid lo{lo_tsd, lo_weight, lnx, lny, lnz, {0.0f, 0.0f, 0.0f}, 0.0f};
-  return launch_points<false>(mode, segments, stream, hi, lo, static_cast<const int64_t*>(nullptr),
-                              static_cast<const int*>(nullptr), gparams, cp7, pts, fac, scl, is_lo, starts, S, g,
-                              cost, k);
+  return launch_points<false>(mode, n_tiles, stream, hi, lo, static_cast<const int64_t*>(nullptr),
+                              static_cast<const int*>(nullptr), gparams, cp7, pts, fac, scl, is_lo, starts,
+                              reinterpret_cast<const int4*>(tiles), counters, scratch, S, g, cost, k);
 }
 
 // The slotted per-point form: window b reads the grids of slot[b] (B,)
@@ -727,11 +880,12 @@ extern "C" int hg_ct_scan_block_points(const void* hi_tsd, const void* hi_weight
 // hg_ct_scan_block_slots; the rest as hg_ct_scan_block_points.
 extern "C" int hg_ct_scan_block_points_slots(const int64_t* grid_ptrs, const int* slot, const float* gparams,
                                              const float* cp7, const float* pts, const float* fac, const float* scl,
-                                             const uint8_t* is_lo, const int* starts, float* S, float* g, float* cost,
-                                             int segments, int k, int hnx, int hny, int hnz, int lnx, int lny,
-                                             int lnz, int mode, void* stream) {
+                                             const uint8_t* is_lo, const int* starts, const int* tiles, int* counters,
+                                             double* scratch, float* S, float* g, float* cost, int n_tiles, int k,
+                                             int hnx, int hny, int hnz, int lnx, int lny, int lnz, int mode,
+                                             void* stream) {
   const Grid hi{nullptr, nullptr, hnx, hny, hnz, {0.0f, 0.0f, 0.0f}, 0.0f};
   const Grid lo{nullptr, nullptr, lnx, lny, lnz, {0.0f, 0.0f, 0.0f}, 0.0f};
-  return launch_points<true>(mode, segments, stream, hi, lo, grid_ptrs, slot, gparams, cp7, pts, fac, scl, is_lo,
-                             starts, S, g, cost, k);
+  return launch_points<true>(mode, n_tiles, stream, hi, lo, grid_ptrs, slot, gparams, cp7, pts, fac, scl, is_lo,
+                             starts, reinterpret_cast<const int4*>(tiles), counters, scratch, S, g, cost, k);
 }

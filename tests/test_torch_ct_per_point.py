@@ -317,6 +317,133 @@ def test_scan_block_points_refuses_other_devices(example):
     _, (grids, tproblem, tstate, tweights), _ = example
     plan = tws.problem_plan(tproblem, tweights)
     meta = torch.device("meta")
-    moved = k3.PointPlan(*(x.to(meta) for x in plan[:6]), plan.k)
+    moved = k3.PointPlan(*(x.to(meta) if torch.is_tensor(x) else x for x in plan))
     with pytest.raises(ValueError, match="unsupported device"):
         k3.ct_scan_block_points(*grids, moved, torch.zeros((8, 7), device=meta))
+
+
+def _pair_case_cp7(case, k=6, seed=3):
+    """Control points [t, q] (k, 7) for the pair-term tests: "slerp",
+    rotations within 0.3 rad; "dot_negative", the same with every other
+    rotation negated (the pair's dot below 0, the sign flip taken);
+    "lerp", every rotation exactly [0, 0, 1, 0] (theta = 0, the lerp
+    branch)."""
+    rng = np.random.default_rng(seed)
+    trans = torch.from_numpy(rng.uniform(-1.0, 1.0, (k, 3)).astype(np.float32))
+    if case == "lerp":
+        q = torch.tensor([[0.0, 0.0, 1.0, 0.0]]).expand(k, 4)
+    else:
+        q = _quat_of_aa(rng.uniform(-0.3, 0.3, (k, 3)).astype(np.float32))
+        if case == "dot_negative":
+            q = torch.where((torch.arange(k) % 2 == 1)[:, None], -q, q)
+    return torch.cat([trans, q], dim=1).contiguous()
+
+
+def _quat_of_aa(aa):
+    return torch.from_numpy(np.array(jr.quat_from_axis_angle(jnp.asarray(aa))))
+
+
+@pytest.mark.parametrize("case", ["slerp", "dot_negative", "lerp"])
+def test_pair_terms_hoisted_match_per_point(case):
+    """The plain twin computes a pair's terms once a pair and gathers them
+    (plan_poses), as the kernel computes them once a block: the same bits
+    as point_poses, which computes them once a point, on both branches of
+    the sign flip and on the lerp branch; and the pose still matches
+    window_solver.py's _quat_of."""
+    k, n = 6, 300
+    cp7 = _pair_case_cp7(case, k)
+    rng = np.random.default_rng(7)
+    pts = lambda: torch.from_numpy(rng.uniform(-5.0, 5.0, (1, n, 3)).astype(np.float32))
+    pair = lambda: torch.from_numpy(rng.integers(0, k - 1, (1, n)))
+    fac = lambda: torch.from_numpy(rng.random((1, n)).astype(np.float32))
+    scale = lambda: torch.from_numpy(np.where(rng.random((1, n)) < 0.1, 0.0, 1.0).astype(np.float32))
+    plan = k3.point_plan(pts(), pair(), fac(), scale(), pts(), pair(), fac(), scale(), k)
+    terms = k3.pair_terms(cp7[:-1], cp7[1:])
+    dot = k3._dot4(cp7[:-1, 3:], cp7[1:, 3:])
+    assert bool(terms.lerp.all()) if case == "lerp" else not bool(terms.lerp.any())
+    assert bool((dot < 0).all()) if case == "dot_negative" else bool((dot > 0).all())
+    m = int(plan.starts[-1])
+    pair_m = plan.pair[:m]
+    hoisted = k3.plan_poses(plan, cp7, m)
+    per_point = k3.point_poses(cp7[pair_m], cp7[pair_m + 1], plan.factor[:m])
+    for got, want in zip(hoisted, per_point):
+        assert torch.equal(got, want)
+    q0, q1, f = (np.asarray(x) for x in (cp7[pair_m, 3:], cp7[pair_m + 1, 3:], plan.factor[:m]))
+    want_q = np.asarray(jax.vmap(lambda a, b, t: jr.quat_normalize(jr.quat_slerp(a, b, t)))(q0, q1, f))
+    _close(hoisted[1], want_q, 1e-6)
+
+
+@pytest.mark.parametrize("case", ["long", "skewed"])
+def test_chip_segment_plans(case):
+    """chip_smoke.py's uneven per-point plans (phase 7's long and skewed
+    segments): the long pair holds more than 4,000 kept points (32 tiles
+    and more), the skewed pair holds most of the window beside
+    pairs of one to three points, the empty pair is an empty segment and
+    its plain block zero, the dropped points lie past every segment, and
+    the plain twin's pair blocks are finite and symmetric."""
+    import chip_smoke as cs
+    from hectorgrapher_tpu_torch.mapping.grids import make_tsdf_grid
+
+    hi = make_tsdf_grid(0.5, (24, 24, 24), 1.25, 1000.0, CPU)
+    hi = hi._replace(meta=hi.meta._replace(min_corner=torch.full((3,), -6.0)))
+    hi = hi._replace(weight=torch.ones_like(hi.weight), tsd=torch.linspace(-1, 1, hi.tsd.numel()).reshape(hi.shape))
+    lo = hi
+    scan = np.random.default_rng(2).uniform(-4.0, 4.0, (500, 3)).astype(np.float32)
+    hi_, lo_, plan, cp7, gparams, empty = cs.ct_point_segment_inputs(CPU, hi, lo, scan, case)
+    sizes = torch.diff(plan.starts)
+    m = int(plan.starts[-1])
+    assert int(sizes[empty]) == 0 and bool((plan.scale[:m] != 0).all()) and bool((plan.scale[m:] == 0).all())
+    if case == "long":
+        assert plan.k == 4 and int(sizes[0]) > 4000
+    else:
+        big = int(sizes.argmax())
+        assert plan.k == 32 and int(sizes[big]) > 0.9 * m
+        assert 1 <= int(torch.cat([sizes[:big], sizes[big + 1:]]).max()) <= 3
+    S, g, cost = k3.ct_scan_block_points(hi_, lo_, plan, cp7, gparams=gparams)
+    assert all(bool(torch.isfinite(x).all()) for x in (S, g, cost))
+    assert float(S[empty].abs().max()) == 0.0 and float(cost[empty]) == 0.0
+    assert float(S.abs().max()) > 0.0 and torch.equal(S, S.transpose(1, 2))
+
+
+@pytest.mark.parametrize("sizes", [[480, 0, 482, 1486, 128, 129, 1], [4600, 0, 100], [0, 0, 0]],
+                         ids=["front_end", "long", "empty"])
+def test_point_tiles_cover_segments_in_order(sizes):
+    """The kernel's tile table: each segment cut in order into consecutive
+    tiles of up to POINT_TILE points that never cross it, the segment's
+    first tile recorded on each of its tiles, an empty segment one tile of
+    no point."""
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    tiles = k3.point_tiles(starts)
+    assert tiles.dtype == np.int32 and tiles.shape[1] == 4
+    assert tiles.shape[0] == sum(max(1, -(-n // k3.POINT_TILE)) for n in sizes)
+    assert (np.diff(tiles[:, 0]) >= 0).all()  # segments in order
+    for j, n in enumerate(sizes):
+        mine = tiles[tiles[:, 0] == j]
+        first = int(np.flatnonzero(tiles[:, 0] == j)[0])
+        assert (mine[:, 3] == first).all()
+        if n == 0:
+            assert mine.tolist() == [[j, starts[j], 0, first]]
+            continue
+        assert (mine[:, 1] == starts[j] + k3.POINT_TILE * np.arange(len(mine))).all()
+        assert (mine[:, 2] > 0).all() and (mine[:, 2] <= k3.POINT_TILE).all() and mine[:, 2].sum() == n
+        assert (mine[:, 1] + mine[:, 2] <= starts[j + 1]).all()
+
+
+def test_point_plan_carries_its_tile_table():
+    """point_plan and window_plan carry the tile table of their own starts
+    and one zero counter a segment; a window's tiles in a batched plan are
+    its single plan's, moved by the window's first point and tile."""
+    _, _, problem, _, weights = ct_example(grid=32)
+    tproblem, tweights = convert.ct_problem(problem, CPU), convert.ct_weights(weights, CPU)
+    batch = tws.CtProblem(*(torch.stack([x, x]) for x in tproblem))
+    plan = tws.problem_plan(batch, tweights)
+    np.testing.assert_array_equal(plan.tiles.numpy(), k3.point_tiles(plan.starts.numpy()))
+    assert plan.counters.dtype == torch.int32 and plan.counters.tolist() == [0] * plan.segments
+    k1 = plan.k - 1
+    for b in range(2):
+        one = k3.window_plan(plan, b)
+        np.testing.assert_array_equal(one.tiles.numpy(), k3.point_tiles(one.starts.numpy()))
+        mine = plan.tiles[(plan.tiles[:, 0] >= b * k1) & (plan.tiles[:, 0] < (b + 1) * k1)].clone()
+        first_point, first_tile = int(plan.starts[b * k1]), int(mine[0, 3])
+        mine -= torch.tensor([b * k1, first_point, 0, first_tile], dtype=torch.int32)
+        assert torch.equal(mine, one.tiles)
