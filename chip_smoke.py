@@ -431,13 +431,14 @@ def _work(kernel, args):
             slots, slot, plan, cp7 = args[:4]
             grid_pairs, window_slot = list(zip(slots.hi, slots.lo)), slot.tolist()
             table_bytes = slots.ptrs.numel() * 8 + slots.gparams.numel() * 4 + slot.numel() * 4
-        # The points of some segment (the plan's dropped points are never
-        # read): point, factor, scale and grid flag each; the control
-        # points, the segment starts, the tile table (16 bytes a tile),
-        # the segment counters (read and written), the outputs.
+        # What the function reads and writes, not what the kernel's design
+        # adds (its tickets and scratch): the points of some segment (the
+        # plan's dropped points are never read), point, factor, scale and
+        # grid flag each; the control points, the segment starts, the
+        # outputs.
         m = int(plan.starts[-1])
-        nbytes = (21 * m + 4 * (cp7.numel() + plan.starts.numel() + 4 * plan.tiles.shape[0] + 2 * plan.segments
-                                + plan.segments * (18 * 18 + 18 + 1)) + table_bytes)
+        nbytes = (21 * m + 4 * (cp7.numel() + plan.starts.numel() + plan.segments * (18 * 18 + 18 + 1))
+                  + table_bytes)
         k1 = plan.k - 1
         pair = plan.pair[:m]
         t, q, _ = plan_poses(plan, cp7, m)

@@ -87,19 +87,24 @@
 // to f32 agrees.
 //
 // What bounds it: latency. At the front end's shape (N = 32 x 480 kept
-// points, K - 1 = 31 pairs, ~480 points a pair but 1,486 in the last, whose
+// points, K - 1 = 31 pairs, ~480 points a pair but 1,483 in the last, whose
 // clouds lie past the last valid control point) it moves ~2.1 MB (~0.62 us
 // at 3.35 TB/s) and does ~18 MFLOP; a block's time is one point's chain
 // (the pair's terms, the pose's f64 sin and cos and IEEE divisions, the
 // 16-tap stencil's loads, the Jacobian columns) and then the sum of its
 // rows. The design:
-// - A tile table built once per solve (ops/ct_scan_block.py point_tiles):
-//   each segment cut in order into tiles of kPtThreads = 128 points, one
-//   block a tile, one point a thread, so every thread holds a point but in
-//   a segment's last tile, and a long segment takes as many blocks as it
-//   needs (a fixed cluster of 8 blocks a pair would hold ~62 points a
-//   block, and run a longer segment in rounds). An empty
+// - Tiles of kPtThreads = 128 points, one block a tile, one point a
+//   thread: each segment cut in order from its start, so every thread
+//   holds a point but in a segment's last tile, and a long segment takes
+//   as many blocks as it needs (a fixed cluster of 8 blocks a pair would
+//   hold ~62 points a block, and run a longer segment in rounds). An empty
 //   segment is one tile of no point, whose block writes the zero block.
+//   Block t holds tile t of the segments' tiles in order, found from the
+//   segment starts alone: its threads count the tiles of the segments (a
+//   run of them a thread) and scan the counts across the block, so the
+//   rule lives in the kernel, no table is built or copied, and the real
+//   tiles take the grid's first blocks. The grid, segments + m / 128
+//   blocks, holds every tile of any plan; the spare blocks exit.
 // - Thread 0 computes the pair's terms once a block (pair_terms: the sign
 //   flip, the half products, tdot, theta = acos, sin and cos of theta, the
 //   tangents of theta and sin theta), while the other threads load their
@@ -107,7 +112,8 @@
 //   weights and the normalizations (point_pose). The same ops in the same
 //   order on the same inputs: the pose's bits do not change. Its Jacobian
 //   runs one rotation column at a time (dq_column), its quotients products
-//   with correctly rounded reciprocals, as the twin computes them.
+//   with correctly rounded reciprocals where the twin divides: the pair
+//   blocks agree with the twin's within the per-pair gate, not bit for bit.
 // - R^T R over a tile's rows [J (18), r, 0 x 5] on the f64 tensor cores
 //   (mma.m8n8k4): warp w takes rows 32 w .. 32 w + 31, four a step, into
 //   the six 8 x 8 upper tiles of the 24 x 24 product; S, g and 2 cost are
@@ -119,7 +125,7 @@
 //   is the same on every launch, and a window's segments compute the same
 //   bits in the slotted form as alone: their tiles are the same.
 // - No cluster: blocks are independent until the last one of a segment,
-//   so none waits at a cluster barrier, and at 62-64 registers
+//   so none waits at a cluster barrier, and at 63-69 registers
 //   (__launch_bounds__(128, 6), no spills) six blocks share an SM.
 
 #include <cooperative_groups.h>
@@ -558,8 +564,8 @@ __device__ __forceinline__ void point_pose(const PairTerms& P, float f, PointPos
 // in the twin's op order. The Jacobian does not pick cells, so its
 // quotients are products with the divisor's correctly rounded reciprocal
 // (1 / denom and 1 / denom^2 once a pair, 1 / |x| twice a point), where the
-// pose keeps its IEEE divisions: 4 reciprocals instead of 72 divisions a
-// point. One column at a time keeps the code short.
+// pose and the twin keep their IEEE divisions: 4 reciprocals instead of 72
+// divisions a point. One column at a time keeps the code short.
 __device__ __forceinline__ void dq_column(const PairTerms& P, const PointPose& o, float f, int k, float col[4]) {
   float dwa = 0.0f, dwb = 0.0f;
   if (!P.lerp) {
@@ -597,6 +603,9 @@ constexpr int kTiles = 6;  // the 8 x 8 tiles (I, J), I <= J, of the 24 x 24 R^T
 // Tile (I, J) (I <= J < 3) of the upper triangle, numbered row by row.
 __device__ __forceinline__ int tile_of(int i, int j) { return i == 0 ? j : (i == 1 ? 2 + j : 5); }
 
+// The tiles of a segment of n points: an empty one is one tile of no point.
+__device__ __forceinline__ int tiles_of(int n) { return n > 0 ? (n + kPtThreads - 1) / kPtThreads : 1; }
+
 // Upper-triangle entry o < kUpper of S as (a, b), a <= b.
 __device__ __forceinline__ void upper_entry(int o, int& a, int& b) {
   int r = o;
@@ -608,33 +617,69 @@ __device__ __forceinline__ void upper_entry(int o, int& a, int& b) {
   b = a + r;
 }
 
-// Per-point mode: block t sums tile t of the plan's tile table, tiles[t] =
-// (segment j, first point, points, the segment's first tile): up to
-// kPtThreads points of segment j = b * (k - 1) + p (window b's pair p),
-// never two segments. Its R^T R goes to scratch[t] (kOut f64); the
-// segment's last block to finish (by an atomic ticket on counters[j],
-// which it sets back to 0) adds the segment's tiles in tile order and
-// writes S_out[j], g_out[j], cost_out[j]. cp7 (B*k, 7) holds every
-// window's control points [t, q]. kSlotted: window b reads the grids of
-// slot[b].
+// Per-point mode. Segment j = b * (k - 1) + p (window b's pair p) is cut
+// in order into tiles of kPtThreads points, tile i its points starts[j] +
+// kPtThreads i on, never two segments, and an empty segment is one tile
+// of no point. Block t holds tile t of all the segments' tiles in order
+// (they fit in segments + m / kPtThreads blocks; the spare ones exit). Its
+// R^T R goes to scratch[t]
+// (kOut f64); the segment's last tile to finish (by an atomic ticket on
+// counters[j], which it sets back to 0) adds the segment's tiles in tile
+// order and writes S_out[j], g_out[j], cost_out[j]. cp7 (B*k, 7) holds
+// every window's control points [t, q]. kSlotted: window b reads the grids
+// of slot[b].
 template <bool kSlotted, bool kProb, typename T>
 __global__ void __launch_bounds__(kPtThreads, kPtMinBlocks)
 ct_scan_block_points_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_ptrs, const int* __restrict__ slot,
                             const float* __restrict__ gparams, const float* __restrict__ cp7,
                             const float* __restrict__ pts, const float* __restrict__ fac,
                             const float* __restrict__ scl, const uint8_t* __restrict__ is_lo,
-                            const int* __restrict__ starts, const int4* __restrict__ tiles,
-                            int* __restrict__ counters, double* __restrict__ scratch, float* __restrict__ S_out,
-                            float* __restrict__ g_out, float* __restrict__ cost_out, int k) {
+                            const int* __restrict__ starts, int* __restrict__ counters,
+                            double* __restrict__ scratch, float* __restrict__ S_out, float* __restrict__ g_out,
+                            float* __restrict__ cost_out, int k, int segments) {
   __shared__ __align__(16) float rows[kPtThreads * kPad];
   __shared__ __align__(16) double part[kPtWarps][kTiles][64];  // each warp's sums, C's layout (64 = 8 m + n)
   __shared__ PairTerms pair_sh;
-  __shared__ int last;
-  const int4 tl = tiles[blockIdx.x];
-  const int j = tl.x;
+  __shared__ int seg_sh[4], warp_tiles[kPtWarps], last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int block = blockIdx.x;
+  // The tiles of the segments before each: thread tid counts those of its
+  // run of `per` segments, and a scan over the block adds them up.
+  const int per = (segments + kPtThreads - 1) / kPtThreads;
+  const int i0 = min(tid * per, segments), i1 = min(i0 + per, segments);
+  int own_tiles = 0;
+  for (int i = i0; i < i1; ++i) own_tiles += tiles_of(__ldg(starts + i + 1) - __ldg(starts + i));
+  int before = own_tiles;  // inclusive scan over the warp, then over the warps
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, before, d);
+    if (lane >= d) before += v;
+  }
+  if (lane == 31) warp_tiles[warp] = before;
+  __syncthreads();
+  int n_all = 0;
+  for (int w = 0; w < kPtWarps; ++w) {
+    if (w < warp) before += warp_tiles[w];
+    n_all += warp_tiles[w];
+  }
+  if (block >= n_all) return;  // past every tile: the grid's spare blocks
+  before -= own_tiles;
+  for (int i = i0; i < i1; ++i) {
+    const int s0 = __ldg(starts + i), s1 = __ldg(starts + i + 1), t = tiles_of(s1 - s0);
+    if (before <= block && block < before + t) {
+      seg_sh[0] = i;
+      seg_sh[1] = s0;
+      seg_sh[2] = s1;
+      seg_sh[3] = before;
+    }
+    before += t;
+  }
+  __syncthreads();
+  const int j = seg_sh[0], first = seg_sh[3];
+  const int n_seg = seg_sh[2] - seg_sh[1];
+  const int n_tiles = tiles_of(n_seg);
+  const int tile = block - first;
   const int b = j / (k - 1);
   const int pair = j - b * (k - 1);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   if (tid == 0) {
     const float* ca = cp7 + (static_cast<size_t>(b) * k + pair) * 7;
     pair_terms(ca, ca + 7, pair_sh);
@@ -650,11 +695,11 @@ ct_scan_block_points_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_p
   float gp[8];
   for (int i = 0; i < 8; ++i) gp[i] = __ldg(gparams + 8 * s + i);
 
-  // This thread's point (none past the tile's count, or dropped: scale 0).
-  const int n = tl.y + tid;
+  // This thread's point (none past the tile's points, or dropped: scale 0).
+  const int n = seg_sh[1] + tile * kPtThreads + tid;
   float p[3] = {0.0f, 0.0f, 0.0f}, f = 0.0f, sc = 0.0f;
   bool use_lo = false;
-  if (tid < tl.z) {
+  if (tile * kPtThreads + tid < n_seg) {
     p[0] = pts[static_cast<size_t>(n) * 3];
     p[1] = pts[static_cast<size_t>(n) * 3 + 1];
     p[2] = pts[static_cast<size_t>(n) * 3 + 2];
@@ -722,7 +767,7 @@ ct_scan_block_points_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_p
   // Output o: upper-triangle entry (oa, ob) of S, g[oa] (ob = 18, the
   // residual column) or the cost (oa = ob = 18): the warps' sums in warp
   // order into the tile's scratch row.
-  double* own = scratch + static_cast<size_t>(blockIdx.x) * kOut;
+  double* own = scratch + static_cast<size_t>(block) * kOut;
   for (int o = tid; o < kOut; o += kPtThreads) {
     int oa = 18, ob = 18;
     if (o < kUpper) {
@@ -739,13 +784,11 @@ ct_scan_block_points_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_p
   // ticket picks the block, not the order of the sum.
   __threadfence();
   __syncthreads();
-  const int n_seg = starts[j + 1] - starts[j];
-  const int n_tiles = n_seg > 0 ? (n_seg + kPtThreads - 1) / kPtThreads : 1;
   if (tid == 0) last = atomicAdd(counters + j, 1) == n_tiles - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const double* seg = scratch + static_cast<size_t>(tl.w) * kOut;
+  const double* seg = scratch + static_cast<size_t>(first) * kOut;
   for (int o = tid; o < kOut; o += kPtThreads) {
     double total = __ldcg(seg + o);
     for (int t = 1; t < n_tiles; ++t) total += __ldcg(seg + static_cast<size_t>(t) * kOut + o);
@@ -764,23 +807,27 @@ ct_scan_block_points_kernel(Grid hi, Grid lo, const int64_t* __restrict__ grid_p
   if (tid == 0) counters[j] = 0;  // ready for the plan's next launch
 }
 
-// Launch the per-point kernel in `mode`: one block per tile.
+// Launch the per-point kernel in `mode` on segments + m / kPtThreads
+// blocks (m points in all), given a scratch of that many rows.
 template <bool kSlotted, typename... Args>
-int launch_points(int mode, int n_tiles, void* stream, Args... args) {
-  const dim3 grid(n_tiles);
+int launch_points(int mode, int segments, int m, int scratch_rows, void* stream, Args... args) {
+  if (segments < 1 || m < 0 || scratch_rows != segments + m / kPtThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(scratch_rows);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kModeTsdf:
-      ct_scan_block_points_kernel<kSlotted, false, float><<<grid, kPtThreads, 0, s>>>(args...);
+      ct_scan_block_points_kernel<kSlotted, false, float><<<grid, kPtThreads, 0, s>>>(args..., segments);
       break;
     case kModeProb:
-      ct_scan_block_points_kernel<kSlotted, true, float><<<grid, kPtThreads, 0, s>>>(args...);
+      ct_scan_block_points_kernel<kSlotted, true, float><<<grid, kPtThreads, 0, s>>>(args..., segments);
       break;
     case kModeTsdfF16:
-      ct_scan_block_points_kernel<kSlotted, false, __half><<<grid, kPtThreads, 0, s>>>(args...);
+      ct_scan_block_points_kernel<kSlotted, false, __half><<<grid, kPtThreads, 0, s>>>(args..., segments);
       break;
     case kModeTsdfBf16:
-      ct_scan_block_points_kernel<kSlotted, false, __nv_bfloat16><<<grid, kPtThreads, 0, s>>>(args...);
+      ct_scan_block_points_kernel<kSlotted, false, __nv_bfloat16><<<grid, kPtThreads, 0, s>>>(args..., segments);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -856,23 +903,24 @@ extern "C" int hg_ct_scan_block_slots(const int64_t* grid_ptrs, const int* slot,
 
 // Per-point mode. Grids and gparams as hg_ct_scan_block's; cp7 (B*k, 7)
 // f32 control points [t, q] of B windows; the plan sorted by segment
-// (window b's pair p is segment b * (k - 1) + p): pts (M, 3), fac, scl (M,)
-// f32, is_lo (M,) bool (the point reads the lo-res grid), starts
-// (segments + 1,) int32, tiles (n_tiles, 4) int32 (ops/ct_scan_block.py
-// point_tiles), counters (segments,) int32, zero before the launch and
-// after it; scratch (n_tiles, 190) f64. Writes S (segments, 18, 18), g
-// (segments, 18), cost (segments,) f32.
+// (window b's pair p is segment b * (k - 1) + p): pts (m, 3), fac, scl (m,)
+// f32, is_lo (m,) bool (the point reads the lo-res grid), starts
+// (segments + 1,) int32, counters (segments,) int32, zero before the
+// launch and after it; scratch (scratch_rows, 190) f64, scratch_rows =
+// segments + m / kPtThreads (ops/ct_scan_block.py POINT_TILE; another
+// count is refused). Writes S (segments, 18, 18), g (segments, 18), cost
+// (segments,) f32.
 extern "C" int hg_ct_scan_block_points(const void* hi_tsd, const void* hi_weight, const void* lo_tsd,
                                        const void* lo_weight, const float* gparams, const float* cp7,
                                        const float* pts, const float* fac, const float* scl, const uint8_t* is_lo,
-                                       const int* starts, const int* tiles, int* counters, double* scratch, float* S,
-                                       float* g, float* cost, int n_tiles, int k, int hnx, int hny, int hnz, int lnx,
-                                       int lny, int lnz, int mode, void* stream) {
+                                       const int* starts, int* counters, double* scratch, float* S, float* g,
+                                       float* cost, int segments, int m, int scratch_rows, int k, int hnx, int hny,
+                                       int hnz, int lnx, int lny, int lnz, int mode, void* stream) {
   const Grid hi{hi_tsd, hi_weight, hnx, hny, hnz, {0.0f, 0.0f, 0.0f}, 0.0f};
   const Grid lo{lo_tsd, lo_weight, lnx, lny, lnz, {0.0f, 0.0f, 0.0f}, 0.0f};
-  return launch_points<false>(mode, n_tiles, stream, hi, lo, static_cast<const int64_t*>(nullptr),
-                              static_cast<const int*>(nullptr), gparams, cp7, pts, fac, scl, is_lo, starts,
-                              reinterpret_cast<const int4*>(tiles), counters, scratch, S, g, cost, k);
+  return launch_points<false>(mode, segments, m, scratch_rows, stream, hi, lo, static_cast<const int64_t*>(nullptr),
+                              static_cast<const int*>(nullptr), gparams, cp7, pts, fac, scl, is_lo, starts, counters,
+                              scratch, S, g, cost, k);
 }
 
 // The slotted per-point form: window b reads the grids of slot[b] (B,)
@@ -880,12 +928,12 @@ extern "C" int hg_ct_scan_block_points(const void* hi_tsd, const void* hi_weight
 // hg_ct_scan_block_slots; the rest as hg_ct_scan_block_points.
 extern "C" int hg_ct_scan_block_points_slots(const int64_t* grid_ptrs, const int* slot, const float* gparams,
                                              const float* cp7, const float* pts, const float* fac, const float* scl,
-                                             const uint8_t* is_lo, const int* starts, const int* tiles, int* counters,
-                                             double* scratch, float* S, float* g, float* cost, int n_tiles, int k,
-                                             int hnx, int hny, int hnz, int lnx, int lny, int lnz, int mode,
+                                             const uint8_t* is_lo, const int* starts, int* counters, double* scratch,
+                                             float* S, float* g, float* cost, int segments, int m, int scratch_rows,
+                                             int k, int hnx, int hny, int hnz, int lnx, int lny, int lnz, int mode,
                                              void* stream) {
   const Grid hi{nullptr, nullptr, hnx, hny, hnz, {0.0f, 0.0f, 0.0f}, 0.0f};
   const Grid lo{nullptr, nullptr, lnx, lny, lnz, {0.0f, 0.0f, 0.0f}, 0.0f};
-  return launch_points<true>(mode, n_tiles, stream, hi, lo, grid_ptrs, slot, gparams, cp7, pts, fac, scl, is_lo,
-                             starts, reinterpret_cast<const int4*>(tiles), counters, scratch, S, g, cost, k);
+  return launch_points<true>(mode, segments, m, scratch_rows, stream, hi, lo, grid_ptrs, slot, gparams, cp7, pts, fac,
+                             scl, is_lo, starts, counters, scratch, S, g, cost, k);
 }

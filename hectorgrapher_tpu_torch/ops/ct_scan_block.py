@@ -47,8 +47,8 @@ point is a scalar block on its own control-point pair at its own time,
 with its own pose computed in the kernel from the pair's terms
 (pair_terms, once a pair) and its factor (point_poses_from_terms), and
 the blocks are summed per pair into K - 1 pair blocks. point_plan sorts
-the points by pair and cuts each pair's segment into the kernel's tiles
-(point_tiles) once per solve; each tile's sums are added per pair in tile
+the points by pair once per solve; the kernel cuts each pair's segment
+into tiles of POINT_TILE points and adds their sums per pair in tile
 order, so two launches give the same bits. ct_scan_block_points_slots
 assembles B windows at once, window b against the grids of slot[b], each
 window's pair blocks bit for bit those of a launch for it alone. A plan's
@@ -60,7 +60,6 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Tuple
 
-import numpy as np
 import torch
 
 from hectorgrapher_tpu_torch.mapping.grids import TSDFGrid
@@ -349,7 +348,8 @@ ct_scan_block_slots.f16_launches = ct_scan_block_slots.bf16_launches = 0
 # ---------------------------------------------------------------------------
 
 
-# Points a kernel block holds (kPtThreads of csrc/ct_scan_block.cu).
+# Points a kernel block holds (kPtThreads of csrc/ct_scan_block.cu, which
+# refuses a launch whose scratch this does not size).
 POINT_TILE = 128
 
 
@@ -360,9 +360,9 @@ class PointPlan(NamedTuple):
     masked clouds, go last, past every segment): points (M, 3) f32,
     factor, scale (M,) f32, lo (M,) bool (the point reads the lo-res grid),
     pair (M,) int64 (its segment), starts (B * (k - 1) + 1,) int32 (segment
-    j is points starts[j] .. starts[j + 1]), and k, the control points a
-    window; the kernel's tile table (point_tiles) and its per-segment
-    counters (zero between launches), both int32 on the plan's device."""
+    j is points starts[j] .. starts[j + 1]), k, the control points a
+    window, and counters (B * (k - 1),) int32, the kernel's per-segment
+    tickets (zero between launches)."""
 
     points: torch.Tensor
     factor: torch.Tensor
@@ -371,7 +371,6 @@ class PointPlan(NamedTuple):
     pair: torch.Tensor
     starts: torch.Tensor
     k: int
-    tiles: torch.Tensor
     counters: torch.Tensor
 
     @property
@@ -379,31 +378,9 @@ class PointPlan(NamedTuple):
         return self.starts.shape[0] - 1
 
 
-def point_tiles(starts) -> np.ndarray:
-    """The kernel's tile table of a plan's segment starts (segments + 1
-    host integers): (n_tiles, 4) int32 rows (segment, first point, points,
-    the segment's first tile). Each segment is cut in order into tiles of
-    POINT_TILE points, the last one shorter; an empty segment is one tile
-    of no point, so that its block writes its zero pair block. A tile never
-    holds two segments, and a segment's tiles are consecutive: the kernel
-    adds them in this order."""
-    starts = np.asarray(starts, dtype=np.int64)
-    sizes = np.diff(starts)
-    per = np.maximum(1, -(-sizes // POINT_TILE))
-    first = np.concatenate([[0], np.cumsum(per)[:-1]])
-    seg = np.repeat(np.arange(sizes.size), per)
-    i = np.arange(seg.size) - first[seg]
-    count = np.minimum(POINT_TILE, sizes[seg] - i * POINT_TILE)
-    return np.stack([seg, starts[seg] + i * POINT_TILE, count, first[seg]], axis=1).astype(np.int32)
-
-
-def _tile_table(starts):
-    """(tiles, counters) of point_tiles on starts' device: one copy from
-    the device and one to it, no kernel. A plan is built once per solve."""
-    tiles = point_tiles(starts.cpu().numpy())
-    buf = torch.from_numpy(np.concatenate([tiles.reshape(-1), np.zeros(starts.shape[0] - 1, np.int32)]))
-    buf = buf.to(starts.device)
-    return buf[: tiles.size].view(-1, 4), buf[tiles.size :]
+def _counters(segments: int, device):
+    """A plan's zero tickets: one copy to the device, no kernel."""
+    return torch.zeros(segments, dtype=torch.int32).to(device)
 
 
 def point_plan(hi_points, hi_pair, hi_factor, hi_scale, lo_points, lo_pair, lo_factor, lo_scale, k: int) -> PointPlan:
@@ -426,7 +403,7 @@ def point_plan(hi_points, hi_pair, hi_factor, hi_scale, lo_points, lo_pair, lo_f
     pair, order = torch.sort(pair, stable=True)
     starts = torch.searchsorted(pair, torch.arange(segments + 1, device=pair.device)).to(torch.int32)
     return PointPlan(points[order].contiguous(), factor[order].contiguous(), scale[order].contiguous(),
-                     lo[order].contiguous(), pair, starts, k, *_tile_table(starts))
+                     lo[order].contiguous(), pair, starts, k, _counters(segments, starts.device))
 
 
 def _dot4(a, b):
@@ -452,9 +429,8 @@ class PairTerms(NamedTuple):
     alone (n pairs): t0, dt (n, 3) the first translation and the
     difference of the two; a, b (n, 4) the rotations, b flipped onto a's
     hemisphere; ta, tb (n, 3, 4) their half products (tb flipped with b);
-    theta, denom (n,) and rdenom, rdenom2 (n,), 1 / denom and 1 / denom^2;
-    lerp (n,) bool, sin(theta) < 1e-6; dth, ds (n, 6) the tangents of theta
-    and sin(theta)."""
+    theta, denom (n,); lerp (n,) bool, sin(theta) < 1e-6; dth, ds (n, 6)
+    the tangents of theta and sin(theta)."""
 
     t0: torch.Tensor
     dt: torch.Tensor
@@ -464,8 +440,6 @@ class PairTerms(NamedTuple):
     tb: torch.Tensor
     theta: torch.Tensor
     denom: torch.Tensor
-    rdenom: torch.Tensor
-    rdenom2: torch.Tensor
     lerp: torch.Tensor
     dth: torch.Tensor
     ds: torch.Tensor
@@ -490,16 +464,27 @@ def pair_terms(ca, cb) -> PairTerms:
     ct = _f64(torch.cos, theta)
     root = torch.where(lerp, 1.0, torch.sqrt(1.0 - c * c))
     dth = torch.where(lerp[:, None], 0.0, -tdot / root[:, None])  # (n, 6)
-    return PairTerms(ca[:, :3], cb[:, :3] - ca[:, :3], a, b, ta, tb, theta, denom, 1.0 / denom,
-                     1.0 / (denom * denom), lerp, dth, ct[:, None] * dth)
+    return PairTerms(ca[:, :3], cb[:, :3] - ca[:, :3], a, b, ta, tb, theta, denom, lerp, dth, ct[:, None] * dth)
+
+
+def _normalize_with_tangent(x, tx):
+    """x / |x| (N, 4) and its tangent columns tx (N, 6, 4)."""
+    n = torch.sqrt(_dot4(x, x))[:, None]
+    y = x / n
+    return y, (tx - y[:, None, :] * _dot4(y[:, None, :], tx)[..., None]) / n[:, None]
 
 
 def point_poses_from_terms(P: PairTerms, f):
-    """(t (N, 3), q (N, 4), dq (N, 6, 4)) of N points at factors f (N,) on
-    the pairs P (N pairs: each point's own, gathered), in the kernel's op
-    order (csrc/ct_scan_block.cu point_pose, dq_column): the pose with IEEE
-    divisions; dq's quotients as products with the divisor's correctly
-    rounded reciprocal."""
+    """Per-point poses of the per-point family (window_solver.py
+    point_scan_block, :388-402) of N points at factors f (N,) on the pairs
+    P (N pairs: each point's own, gathered; pair_terms(ca, cb) of its two
+    control points [t, q]). Returns (t (N, 3), q (N, 4), dq (N, 6, 4)): the
+    lerp of the translations; the slerp of the rotations retracted at a
+    zero tangent (not normalized), normalized twice; and q's Jacobian on
+    the pair tangent's six rotation columns. Every op of the pose in the
+    kernel's order (csrc/ct_scan_block.cu point_pose), acos, sin and cos in
+    f64 rounded to f32, so on the card both compute the same pose; dq
+    divides where the kernel multiplies by reciprocals."""
     t = P.t0 + f[:, None] * P.dt
     g = 1.0 - f
     ua, ub = g * P.theta, f * P.theta
@@ -507,33 +492,14 @@ def point_poses_from_terms(P: PairTerms, f):
     wa = torch.where(P.lerp, g, sa / P.denom)
     wb = torch.where(P.lerp, f, sb / P.denom)
     x = wa[:, None] * P.a + wb[:, None] * P.b
-    n1 = torch.sqrt(_dot4(x, x))[:, None]
-    x1 = x / n1
-    n2 = torch.sqrt(_dot4(x1, x1))[:, None]
-    q = x1 / n2
     cua, cub = _f64(torch.cos, ua), _f64(torch.cos, ub)
-    rdenom, rdenom2, lerp = P.rdenom[:, None], P.rdenom2[:, None], P.lerp[:, None]
-    dwa = torch.where(lerp, 0.0, (cua[:, None] * (g[:, None] * P.dth)) * rdenom - (sa[:, None] * P.ds) * rdenom2)
-    dwb = torch.where(lerp, 0.0, (cub[:, None] * (f[:, None] * P.dth)) * rdenom - (sb[:, None] * P.ds) * rdenom2)
+    denom, denom2, lerp = P.denom[:, None], (P.denom * P.denom)[:, None], P.lerp[:, None]
+    dwa = torch.where(lerp, 0.0, (cua[:, None] * (g[:, None] * P.dth)) / denom - (sa[:, None] * P.ds) / denom2)
+    dwb = torch.where(lerp, 0.0, (cub[:, None] * (f[:, None] * P.dth)) / denom - (sb[:, None] * P.ds) / denom2)
     own = torch.cat([wa[:, None, None] * P.ta, wb[:, None, None] * P.tb], dim=1)
     tx = (dwa[..., None] * P.a[:, None, :] + dwb[..., None] * P.b[:, None, :]) + own
-    tx = (tx - x1[:, None, :] * _dot4(x1[:, None, :], tx)[..., None]) * (1.0 / n1)[:, None]
-    tx = (tx - q[:, None, :] * _dot4(q[:, None, :], tx)[..., None]) * (1.0 / n2)[:, None]
-    return t, q, tx
-
-
-def point_poses(ca, cb, f):
-    """Per-point poses of the per-point family (window_solver.py
-    point_scan_block, :388-402): ca, cb (N, 7) the two control points [t,
-    q] of each point's pair, f (N,) its factor. Returns (t (N, 3), q (N, 4),
-    dq (N, 6, 4)): the lerp of the translations; the slerp of the rotations
-    retracted at a zero tangent (not normalized), normalized twice; and q's
-    Jacobian on the pair tangent's six rotation columns. Every op in the
-    kernel's order, acos, sin and cos in f64 rounded to f32, so on the card
-    both compute the same pose. The pair's terms are computed here once a
-    point; ct_scan_block_points_plain computes them once a pair, as the
-    kernel does, with the same bits."""
-    return point_poses_from_terms(pair_terms(ca, cb), f)
+    q, tq = _normalize_with_tangent(*_normalize_with_tangent(x, tx))
+    return t, q, tq
 
 
 def segment_terms(plan: PointPlan, cp7) -> PairTerms:
@@ -546,8 +512,8 @@ def segment_terms(plan: PointPlan, cp7) -> PairTerms:
 
 
 def plan_poses(plan: PointPlan, cp7, m: int):
-    """point_poses of the plan's first m points (those of some segment),
-    the pair terms computed once a segment and gathered."""
+    """point_poses_from_terms of the plan's first m points (those of some
+    segment), the pair terms computed once a segment and gathered."""
     pair = plan.pair[:m]
     return point_poses_from_terms(PairTerms(*(x[pair] for x in segment_terms(plan, cp7))), plan.factor[:m])
 
@@ -596,16 +562,22 @@ def _check_plan(plan: PointPlan, cp7, windows: int, device, where: str):
     _check("plan.scale", plan.scale, torch.float32, (m,), device)
     _check("plan.lo", plan.lo, torch.bool, (m,), device)
     _check("plan.starts", plan.starts, torch.int32, (plan.segments + 1,), device)
-    _check("plan.tiles", plan.tiles, torch.int32, (plan.tiles.shape[0], 4), device)
     _check("plan.counters", plan.counters, torch.int32, (plan.segments,), device)
-    if not 0 < plan.tiles.shape[0] < 2**31:
-        raise ValueError(f"{where}: unsupported {plan.tiles.shape[0]} tiles")
+    if _blocks(plan) >= 2**31:
+        raise ValueError(f"{where}: unsupported {m} points in {plan.segments} segments")
+
+
+def _blocks(plan: PointPlan) -> int:
+    """The kernel's blocks for the plan: room for every tile (a segment cut
+    into tiles of POINT_TILE points, an empty one a tile); the kernel's
+    spare blocks exit."""
+    return plan.segments + plan.points.shape[0] // POINT_TILE
 
 
 def _tile_scratch(plan: PointPlan):
-    """Each tile's R^T R sums (n_tiles, 190) f64, for one launch: the
+    """Each block's R^T R sums (_blocks, 190) f64, for one launch: the
     caching allocator's memory, no kernel."""
-    return torch.empty((plan.tiles.shape[0], 190), dtype=torch.float64, device=plan.tiles.device)
+    return torch.empty((_blocks(plan), 190), dtype=torch.float64, device=plan.points.device)
 
 
 def ct_scan_block_points(hi_grid, lo_grid, plan: PointPlan, cp7, gparams=None):
@@ -633,9 +605,9 @@ def ct_scan_block_points(hi_grid, lo_grid, plan: PointPlan, cp7, gparams=None):
     _build.launch(
         "hg_ct_scan_block_points", device, *hi_ptrs, *lo_ptrs, gparams.data_ptr(), cp7.data_ptr(),
         plan.points.data_ptr(), plan.factor.data_ptr(), plan.scale.data_ptr(), plan.lo.data_ptr(),
-        plan.starts.data_ptr(), plan.tiles.data_ptr(), plan.counters.data_ptr(), scratch.data_ptr(),
-        S.data_ptr(), g.data_ptr(), cost.data_ptr(), plan.tiles.shape[0], plan.k, *hi_grid.shape, *lo_grid.shape,
-        mode,
+        plan.starts.data_ptr(), plan.counters.data_ptr(), scratch.data_ptr(), S.data_ptr(), g.data_ptr(),
+        cost.data_ptr(), plan.segments, plan.points.shape[0], scratch.shape[0], plan.k, *hi_grid.shape,
+        *lo_grid.shape, mode,
     )
     _count(ct_scan_block_points, mode)
     return S, g, cost
@@ -653,7 +625,7 @@ def window_plan(plan: PointPlan, b: int) -> PointPlan:
     starts = plan.starts[b * k1 : (b + 1) * k1 + 1] - lo_pt
     one = slice(lo_pt, hi_pt)
     return PointPlan(plan.points[one], plan.factor[one], plan.scale[one], plan.lo[one], plan.pair[one] - b * k1,
-                     starts, plan.k, *_tile_table(starts))
+                     starts, plan.k, _counters(k1, starts.device))
 
 
 def ct_scan_block_points_slots_plain(slots: GridSlots, slot, plan: PointPlan, cp7):
@@ -687,8 +659,8 @@ def ct_scan_block_points_slots(slots: GridSlots, slot, plan: PointPlan, cp7):
     _build.launch(
         "hg_ct_scan_block_points_slots", device, slots.ptrs.data_ptr(), slot.data_ptr(), slots.gparams.data_ptr(),
         cp7.data_ptr(), plan.points.data_ptr(), plan.factor.data_ptr(), plan.scale.data_ptr(), plan.lo.data_ptr(),
-        plan.starts.data_ptr(), plan.tiles.data_ptr(), plan.counters.data_ptr(), scratch.data_ptr(),
-        S.data_ptr(), g.data_ptr(), cost.data_ptr(), plan.tiles.shape[0], plan.k, *slots.hi[0].shape,
+        plan.starts.data_ptr(), plan.counters.data_ptr(), scratch.data_ptr(), S.data_ptr(), g.data_ptr(),
+        cost.data_ptr(), plan.segments, plan.points.shape[0], scratch.shape[0], plan.k, *slots.hi[0].shape,
         *slots.lo[0].shape, slots.mode,
     )
     _count(ct_scan_block_points_slots, slots.mode)

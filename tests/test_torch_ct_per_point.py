@@ -88,7 +88,8 @@ def test_per_point_brackets_match_jax(case):
 
 @pytest.mark.parametrize("rotated", [False, True], ids=["entry", "rotated"])
 def test_point_poses_match_jacfwd(rotated):
-    """K3 per-point mode's pose and 4 x 6 rotation Jacobian (point_poses)
+    """K3 per-point mode's pose and 4 x 6 rotation Jacobian
+    (point_poses_from_terms of pair_terms)
     against window_solver.py point_scan_block's _quat_of and its jacfwd,
     on the lerp branch (identity rotations) and the slerp branch."""
     _, _, problem, state, _ = ct_example(grid=32)
@@ -108,8 +109,8 @@ def test_point_poses_match_jacfwd(rotated):
     want_q = np.asarray(jax.vmap(quat_of, in_axes=(0, 0, 0, None))(*args, z6))
     want_dq = np.asarray(jax.vmap(jax.jacfwd(quat_of, argnums=3), in_axes=(0, 0, 0, None))(*args, z6))
     cp7 = torch.from_numpy(np.concatenate([np.asarray(state.translation), np.asarray(state.rotation)], axis=1))
-    t, q, dq = k3.point_poses(cp7[torch.from_numpy(np.array(prv))], cp7[torch.from_numpy(np.array(nxt))],
-                              torch.from_numpy(np.array(f)))
+    terms = k3.pair_terms(cp7[torch.from_numpy(np.array(prv))], cp7[torch.from_numpy(np.array(nxt))])
+    t, q, dq = k3.point_poses_from_terms(terms, torch.from_numpy(np.array(f)))
     tp, tn = np.asarray(state.translation)[np.asarray(prv)], np.asarray(state.translation)[np.asarray(nxt)]
     _close(t, tp + np.asarray(f)[:, None] * (tn - tp), 1e-6)
     _close(q, want_q, 1e-6)
@@ -347,7 +348,7 @@ def _quat_of_aa(aa):
 def test_pair_terms_hoisted_match_per_point(case):
     """The plain twin computes a pair's terms once a pair and gathers them
     (plan_poses), as the kernel computes them once a block: the same bits
-    as point_poses, which computes them once a point, on both branches of
+    as pair terms computed once a point, on both branches of
     the sign flip and on the lerp branch; and the pose still matches
     window_solver.py's _quat_of."""
     k, n = 6, 300
@@ -365,7 +366,7 @@ def test_pair_terms_hoisted_match_per_point(case):
     m = int(plan.starts[-1])
     pair_m = plan.pair[:m]
     hoisted = k3.plan_poses(plan, cp7, m)
-    per_point = k3.point_poses(cp7[pair_m], cp7[pair_m + 1], plan.factor[:m])
+    per_point = k3.point_poses_from_terms(k3.pair_terms(cp7[pair_m], cp7[pair_m + 1]), plan.factor[:m])
     for got, want in zip(hoisted, per_point):
         assert torch.equal(got, want)
     q0, q1, f = (np.asarray(x) for x in (cp7[pair_m, 3:], cp7[pair_m + 1, 3:], plan.factor[:m]))
@@ -407,43 +408,42 @@ def test_chip_segment_plans(case):
 
 @pytest.mark.parametrize("sizes", [[480, 0, 482, 1486, 128, 129, 1], [4600, 0, 100], [0, 0, 0]],
                          ids=["front_end", "long", "empty"])
-def test_point_tiles_cover_segments_in_order(sizes):
-    """The kernel's tile table: each segment cut in order into consecutive
-    tiles of up to POINT_TILE points that never cross it, the segment's
-    first tile recorded on each of its tiles, an empty segment one tile of
-    no point."""
-    starts = np.concatenate([[0], np.cumsum(sizes)])
-    tiles = k3.point_tiles(starts)
-    assert tiles.dtype == np.int32 and tiles.shape[1] == 4
-    assert tiles.shape[0] == sum(max(1, -(-n // k3.POINT_TILE)) for n in sizes)
-    assert (np.diff(tiles[:, 0]) >= 0).all()  # segments in order
-    for j, n in enumerate(sizes):
-        mine = tiles[tiles[:, 0] == j]
-        first = int(np.flatnonzero(tiles[:, 0] == j)[0])
-        assert (mine[:, 3] == first).all()
-        if n == 0:
-            assert mine.tolist() == [[j, starts[j], 0, first]]
-            continue
-        assert (mine[:, 1] == starts[j] + k3.POINT_TILE * np.arange(len(mine))).all()
-        assert (mine[:, 2] > 0).all() and (mine[:, 2] <= k3.POINT_TILE).all() and mine[:, 2].sum() == n
-        assert (mine[:, 1] + mine[:, 2] <= starts[j + 1]).all()
+def test_point_plan_blocks_cover_every_segment(sizes):
+    """point_plan's segment starts and zero tickets, and the kernel's block
+    count: every segment cut into tiles of up to POINT_TILE points (an
+    empty segment one tile, csrc/ct_scan_block.cu) fits in _blocks of the
+    plan, dropped points included, with at most a block a segment
+    spare."""
+    k, tile = len(sizes) + 1, k3.POINT_TILE
+    pair = torch.repeat_interleave(torch.arange(k - 1), torch.tensor(sizes))[None]
+    n = pair.shape[1]
+    rng = np.random.default_rng(5)
+    pts = torch.from_numpy(rng.uniform(-1.0, 1.0, (1, n + 40, 3)).astype(np.float32))
+    pair = torch.cat([pair, torch.zeros((1, 40), dtype=torch.int64)], dim=1)
+    scale = torch.cat([torch.ones(1, n), torch.zeros(1, 40)], dim=1)  # 40 dropped points
+    fac = torch.full((1, n + 40), 0.5)
+    plan = k3.point_plan(pts, pair, fac, scale, pts[:, :0], pair[:, :0], fac[:, :0], scale[:, :0], k)
+    starts = plan.starts.tolist()
+    assert starts == np.concatenate([[0], np.cumsum(sizes)]).tolist() and plan.points.shape[0] == n + 40
+    assert plan.counters.dtype == torch.int32 and plan.counters.tolist() == [0] * (k - 1)
+    tiles = sum(max(1, -(-size // tile)) for size in sizes)
+    assert tiles <= k3._blocks(plan) == (k - 1) + (n + 40) // tile <= tiles + (k - 1) + 40 // tile
 
 
-def test_point_plan_carries_its_tile_table():
-    """point_plan and window_plan carry the tile table of their own starts
-    and one zero counter a segment; a window's tiles in a batched plan are
-    its single plan's, moved by the window's first point and tile."""
+def test_window_plan_is_the_single_plan():
+    """window_plan's part of a batched plan is that window's own plan:
+    the same points, factors, scales, grid flags, pairs and starts, and
+    zero tickets of its own."""
     _, _, problem, _, weights = ct_example(grid=32)
     tproblem, tweights = convert.ct_problem(problem, CPU), convert.ct_weights(weights, CPU)
     batch = tws.CtProblem(*(torch.stack([x, x]) for x in tproblem))
     plan = tws.problem_plan(batch, tweights)
-    np.testing.assert_array_equal(plan.tiles.numpy(), k3.point_tiles(plan.starts.numpy()))
-    assert plan.counters.dtype == torch.int32 and plan.counters.tolist() == [0] * plan.segments
-    k1 = plan.k - 1
+    single = tws.problem_plan(tws.CtProblem(*(x[None] for x in tproblem)), tweights)
+    m = int(single.starts[-1])
     for b in range(2):
         one = k3.window_plan(plan, b)
-        np.testing.assert_array_equal(one.tiles.numpy(), k3.point_tiles(one.starts.numpy()))
-        mine = plan.tiles[(plan.tiles[:, 0] >= b * k1) & (plan.tiles[:, 0] < (b + 1) * k1)].clone()
-        first_point, first_tile = int(plan.starts[b * k1]), int(mine[0, 3])
-        mine -= torch.tensor([b * k1, first_point, 0, first_tile], dtype=torch.int32)
-        assert torch.equal(mine, one.tiles)
+        assert one.k == single.k and torch.equal(one.starts, single.starts)
+        for name in ("points", "factor", "scale", "lo", "pair"):
+            assert torch.equal(getattr(one, name)[:m], getattr(single, name)[:m]), name
+        assert one.counters.tolist() == [0] * single.segments
+        assert one.counters.data_ptr() != plan.counters.data_ptr()
