@@ -22,9 +22,13 @@ batched constraint search (phases 11 and 12), on the default occupancy
 submaps with the batched search (phase 13) and on float16 TSDF submaps
 (phase 14); then the plain SPA at the production operating point through
 its PCG and its Schur path (phase 15), and pure localization of a second
-trajectory on phase 14's map with PureLocalizationTrimmer (phase 16). K3
-is held to its plain version in each of its modes (TSDF over f32, f16 and
-bf16 volumes, and probability; phase 7).
+trajectory on phase 14's map with PureLocalizationTrimmer (phase 16);
+then the 2D SLAM path (MapBuilder -> 2D front end -> PoseGraph2D, the
+default batched constraint search through K5) over two laps of phase 6's
+circle (phase 20), and the 2D SPA through its Schur, PCG and dense paths
+(phase 21). K3 is held to its plain version in each of its modes (TSDF
+over f32, f16 and bf16 volumes, and probability; phase 7), K5 at phase
+20's round, a full-submap search and a round over four packed submaps.
 Each phase prints one line; any failure exits non-zero before the last
 line. The second-to-last line is a JSON record of the kernels, the last
 line a JSON record of the device.
@@ -54,13 +58,17 @@ from hectorgrapher_tpu_torch.evaluation.scan_generator import raycast_box_room_3
 from hectorgrapher_tpu_torch.mapping.ct import window_solver
 from hectorgrapher_tpu_torch.mapping.ct.builder import OptimizingLocalTrajectoryBuilder
 from hectorgrapher_tpu_torch.mapping.ct.window_solver import CtProblem, CtState, CtWeights, solve_ct_window
-from hectorgrapher_tpu_torch.evaluation.graph_generator import make_scale_spa_problem
+from hectorgrapher_tpu_torch.evaluation.graph_generator import (
+    make_scale_spa_problem,
+    make_scale_spa_problem_2d,
+    odometry_extras_2d,
+)
 from hectorgrapher_tpu_torch.mapping.grids import grid_nbytes, make_probability_grid, make_tsdf_grid
 from hectorgrapher_tpu_torch.mapping.inserters_3d import make_probability_inserter_3d, make_tsdf_inserter_3d
 from hectorgrapher_tpu_torch.mapping.inserters_2d import make_probability_inserter_2d
 from hectorgrapher_tpu_torch.mapping.local_2d import LocalTrajectoryBuilder2D
 from hectorgrapher_tpu_torch.mapping.map_builder import MapBuilder
-from hectorgrapher_tpu_torch.mapping.scan_matching import fast_correlative_3d
+from hectorgrapher_tpu_torch.mapping.scan_matching import fast_correlative_2d, fast_correlative_3d
 from hectorgrapher_tpu_torch.mapping.scan_matching.correlative_2d import (
     _window_geometry,
     make_search_window,
@@ -81,7 +89,7 @@ from hectorgrapher_tpu_torch.ops.correlative_prep_2d import correlative_prep_2d,
 from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d, correlative_scores_2d_plain
 from hectorgrapher_tpu_torch.mapping.pose_graph import optimization as spa
 from hectorgrapher_tpu_torch.mapping.pose_graph import pose_graph as pose_graph_module
-from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import PoseGraph3D
+from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import PoseGraph2D, PoseGraph3D
 from hectorgrapher_tpu_torch.mapping.pose_graph.trimmers import PureLocalizationTrimmer
 from hectorgrapher_tpu_torch.ops.ct_scan_block import (
     ct_scan_block,
@@ -99,7 +107,9 @@ from hectorgrapher_tpu_torch.ops.ct_scan_block import (
     segment_terms,
     window_plan,
 )
+from hectorgrapher_tpu_torch.ops.fast_scores_2d import fast_scores_2d, fast_scores_2d_plain
 from hectorgrapher_tpu_torch.ops.fast_scores_3d import fast_scores_3d, fast_scores_3d_plain
+from hectorgrapher_tpu_torch.parallel.constraint_search import pack_submaps_2d, sharded_fast_matches_2d_packed
 from hectorgrapher_tpu_torch.sensor.types import (
     PointCloud,
     RangeData,
@@ -129,35 +139,39 @@ def fail(msg: str):
     sys.exit(f"chip_smoke: FAIL: {msg}")
 
 
+# The repo's 2D mapping-evaluation configuration with the real-time window
+# of tests/test_map_builder_2d.py, as replace_deep overrides of
+# TrajectoryBuilder2DOptions (plain values, so that
+# tests/jax_slam_reference.py applies them to the JAX package's options).
+SLICE_OVERRIDES = {
+    "use_imu_data": False,
+    "use_online_correlative_scan_matching": True,
+    "real_time_correlative_scan_matcher.linear_search_window": 0.15,
+    "submaps.grid_size": 640,
+    "submaps.num_range_data": 12,
+    "max_num_points": 2048,
+    "motion_filter.max_distance_meters": 0.05,
+    "motion_filter.max_time_seconds": 0.1,
+}
+
+
 def slice_options():
-    """The repo's 2D mapping-evaluation configuration with the real-time
-    window of tests/test_map_builder_2d.py."""
-    return cfg.replace_deep(
-        cfg.TrajectoryBuilder2DOptions(),
-        {
-            "use_imu_data": False,
-            "use_online_correlative_scan_matching": True,
-            "real_time_correlative_scan_matcher.linear_search_window": 0.15,
-            "submaps.grid_size": 640,
-            "submaps.num_range_data": 12,
-            "max_num_points": 2048,
-            "motion_filter.max_distance_meters": 0.05,
-            "motion_filter.max_time_seconds": 0.1,
-        },
-    )
+    """The 2D front end's options (SLICE_OVERRIDES)."""
+    return cfg.replace_deep(cfg.TrajectoryBuilder2DOptions(), SLICE_OVERRIDES)
 
 
-def circle_scans(n_scans=N_SCANS, seed=SEED):
+def circle_scans(n_scans=N_SCANS, seed=SEED, laps=1):
     """(time, ground-truth pose, odometry pose, timed cloud) along the
     mapping-evaluation circle: radius 1.4 m around (0.6, 0.5), 10 Hz,
     1440-ray rect-room scans with 0.004 m range noise, 0.003 m odometry
-    noise."""
+    noise. With `laps`, the n_scans scans go round that many times at the
+    same speed (n_scans = laps * (N_SCANS - 1) + 1 keeps phase 6's)."""
     rng = np.random.default_rng(seed)
     radius, center = 1.4, (0.6, 0.5)
     out = []
     for i in range(n_scans):
         t = 0.1 * i
-        a = 2 * np.pi * i / max(n_scans - 1, 1)
+        a = 2 * np.pi * laps * i / max(n_scans - 1, 1)
         xy = np.array([center[0] + radius * np.cos(a), center[1] + radius * np.sin(a)])
         yaw = a + np.pi / 2
         pose = NpRigid3(np.array([xy[0], xy[1], 0.0]), nq.quat_from_axis_angle(np.array([0.0, 0.0, yaw])))
@@ -360,6 +374,26 @@ def k4_gather(table, bx, by, bz, valid, cand_t, off_x, off_y, off_z, level, y_sh
     return to_rows(idx), to_rows(keep.to(torch.float32))
 
 
+def k5_gather(table, bx, by, valid, cand_t, off_x, off_y, level, dims, cand_base=None):
+    """K5's gather-sum written out: flat table indices (C*X*Y, P) int64 and
+    0/1 weights of the same shape, f32, where a weight of 1 marks a point
+    that counts (fast_scores_2d_plain's cells for all points at once, each
+    candidate's rows from its row base)."""
+    nx, ny = dims
+    span = 1 << level
+    t = cand_t.long()
+    base = (0 if cand_base is None else cand_base.long()[:, None, None]) + level * (nx + 1)
+    ix = bx[t].long()[:, :, None] + off_x[:, None, :]  # (C, P, X)
+    iy = by[t].long()[:, :, None] + off_y[:, None, :]  # (C, P, Y)
+    pick = (iy > -span) & (iy < ny) & valid.expand(bx.shape)[t][:, :, None]
+    keep = ((ix > -span) & (ix < nx))[:, :, :, None] & pick[:, :, None, :]  # (C, P, X, Y)
+    idx = (base + torch.clamp(ix, min=0))[:, :, :, None] * ny + torch.clamp(iy, 0, ny - 1)[:, :, None, :]
+    idx = torch.where(keep, idx, 0)
+    p = idx.shape[1]
+    to_rows = lambda x: x.permute(0, 2, 3, 1).reshape(-1, p).contiguous()
+    return to_rows(idx), to_rows(keep.to(torch.float32))
+
+
 def k2_gather(table, flat, delta_lin, valid, n_groups, gsz, pw, k):
     """K2's gather-sum written out: flat table indices (B*T*d*d, N) int64
     and the valid flags as weights of the same shape, in the table's
@@ -470,6 +504,21 @@ def _work(kernel, args):
         # where each point row has its own.
         nbytes = (32 * _sectors(idx[weight > 0]) + 12 * p * rows + (p * rows if valid.dim() == 2 else valid.numel())
                   + 4 * (cand_t.numel() + off_x.numel() + off_y.numel() + off_z.numel() + idx.shape[0])
+                  + (0 if cand_base is None else 8 * cand_base.numel()))
+        return nbytes, int(weight.sum())
+    if kernel == "fast_scores_2d":
+        table, bx, by, valid, cand_t, off_x, off_y = args[:7]
+        cand_base = args[9] if len(args) > 9 else None
+        idx, weight = k5_gather(*args)
+        p, rows = bx.shape[1], torch.unique(cand_t).long()
+        # The point rows the candidates name: the sectors of their valid
+        # points' cells in bx and in by (the kernel reads no invalid
+        # point's cells), every flag of each row where each point row has
+        # its own; the offsets, row bases and the output.
+        named = (rows[:, None] * p + torch.arange(p, device=rows.device))[valid.expand(bx.shape)[rows]]
+        nbytes = (32 * _sectors(idx[weight > 0]) + 2 * 32 * _sectors(named)
+                  + (p * rows.numel() if valid.dim() == 2 else valid.numel())
+                  + 4 * (cand_t.numel() + off_x.numel() + off_y.numel() + idx.shape[0])
                   + (0 if cand_base is None else 8 * cand_base.numel()))
         return nbytes, int(weight.sum())
     raise ValueError(f"no work model for {kernel}")
@@ -2630,6 +2679,373 @@ def run_phase_16(device, mb, errors, seconds=4.5):
     return k3
 
 
+SLAM2D_LAPS = 2  # phase 20 drives phase 6's circle twice
+SLAM2D_SCANS = SLAM2D_LAPS * (N_SCANS - 1) + 1
+
+
+def slam2d_overrides():
+    """Phase 20's options as replace_deep overrides of MapBuilderOptions:
+    the 2D pipeline with phase 6's front end (SLICE_OVERRIDES) and the
+    pose-graph overrides of tests/test_map_builder_2d.py make_options(),
+    the async work queue and the batched constraint search left at their
+    defaults (on). Plain values, so that tests/jax_slam_reference.py
+    applies them to the JAX package's options."""
+    cb = "pose_graph.constraint_builder."
+    return {
+        "use_trajectory_builder_2d": True,
+        "use_trajectory_builder_3d": False,
+        **{f"trajectory_builder_2d.{k}": v for k, v in SLICE_OVERRIDES.items()},
+        "pose_graph.optimize_every_n_nodes": 10,
+        cb + "sampling_ratio": 1.0,
+        cb + "min_score": 0.45,
+        cb + "fast_correlative_scan_matcher.linear_search_window": 2.0,
+        cb + "max_constraint_distance": 12.0,
+    }
+
+
+def slam2d_options():
+    """slam2d_overrides() applied to the port's MapBuilderOptions."""
+    return cfg.replace_deep(cfg.MapBuilderOptions(), slam2d_overrides())
+
+
+def slam2d_scans():
+    """Phase 20's drive: circle_scans over SLAM2D_LAPS laps."""
+    return circle_scans(SLAM2D_SCANS, laps=SLAM2D_LAPS)
+
+
+def slam2d_result(pg, scans):
+    """Phase 20's counts and errors from a drained 2D pose graph of either
+    package, against the truth in the first pose's frame: the returning
+    lap's open-loop (local) error, then, after the final optimization, the
+    returning lap's, the median and the largest global error."""
+    anchor = scans[0][1]
+    truth = {round(t * 10): anchor.inverse().compose(pose).t[:2] for t, pose, _, _ in scans}
+    lap = N_SCANS - 1
+    late = [n for n in pg.nodes if round(n.time * 10) >= lap]
+    local_errs = [float(np.linalg.norm(n.local_pose.t[:2] - truth[round(n.time * 10)])) for n in late]
+    n_inter = sum(c.tag == "INTER" for c in pg.constraints)
+    pg.run_final_optimization()
+    global_errs = [float(np.linalg.norm(n.global_pose.t[:2] - truth[round(n.time * 10)])) for n in pg.nodes]
+    late_global = [e for n, e in zip(pg.nodes, global_errs) if round(n.time * 10) >= lap]
+    return dict(
+        nodes=len(pg.nodes), submaps=len(pg.submaps), finished=sum(s.finished for s in pg.submaps), inter=n_inter,
+        late_local=max(local_errs), late_global=max(late_global), median_global=float(np.median(global_errs)),
+        max_global=max(global_errs), finite=all(np.all(np.isfinite(n.global_pose.t)) for n in pg.nodes),
+    )
+
+
+# Phase 20's JAX reference: tests/jax_slam_reference.py --slam-2d on a CPU,
+# two runs over the same drive and options: 119 nodes, 10 submaps (8
+# finished), 488 and 478 INTER constraints; the returning lap's local error
+# 0.03607 m both times, its global error 0.09279 / 0.08871 m, the median
+# global error 0.06357 / 0.06007 m, the max 0.09279 / 0.08871 m (the
+# returning lap holds the largest). The larger of each pair; the port must
+# stay within twice each, or 0.05 m above it.
+JAX_SLAM20_LATE_GLOBAL, JAX_SLAM20_MEDIAN_GLOBAL = 0.09279, 0.06357
+
+
+@contextlib.contextmanager
+def score_sums_2d_through(fn):
+    """Route the fast 2D matcher's score sums through fn."""
+    fast_correlative_2d.fast_scores_2d = fn
+    try:
+        yield
+    finally:
+        fast_correlative_2d.fast_scores_2d = fast_scores_2d
+
+
+def recorded_k5(fn):
+    """Run fn() with every K5 call recorded: ([(arguments, output)], fn())."""
+    calls = []
+
+    def recorded(*a):
+        out = fast_scores_2d(*a)
+        calls.append((a, out))
+        return out
+
+    with score_sums_2d_through(recorded):
+        result = fn()
+    return calls, result
+
+
+def round_parity_2d(pg, gated, global_search, results):
+    """Re-run each candidate of a batched 2D round through the serial path
+    (the class's own _compute_constraint, past the phase's wrappers) at the
+    round's scan range: the same gate outcome, zbar within 1e-3 m and 1e-3
+    rad. Returns (ok, largest translation and angle differences, K5
+    launches)."""
+    k5 = fast_scores_2d.launches
+    scan_range = max(pg._scan_range_bucket(n) for _, _, n, _ in gated)
+    pg._scan_range_bucket = lambda node: scan_range
+    try:
+        serial = [PoseGraph2D._compute_constraint(pg, node, p, global_search=global_search) for _, _, node, p in gated]
+    finally:
+        del pg._scan_range_bucket
+    ok, dt, da = True, 0.0, 0.0
+    for a, b in zip(results, serial):
+        if (a is None) != (b is None):
+            ok = False
+        elif a is not None:
+            dt = max(dt, float(np.linalg.norm(a.zbar.t - b.zbar.t)))
+            d = nq.quat_yaw(a.zbar.q) - nq.quat_yaw(b.zbar.q)
+            da = max(da, abs((d + np.pi) % (2 * np.pi) - np.pi))
+    return ok and dt <= 1e-3 and da <= 1e-3, dt, da, fast_scores_2d.launches - k5
+
+
+def probe_rounds_2d(pg, rounds, errors, recorded):
+    """Wrap pg._compute_constraints_batched to append each round's record
+    to `rounds` (candidates, seconds ending in the refinement's readback,
+    K5 launches and the round's search depth, LAST_ROUND_BREAKDOWN), any
+    exception to `errors`, and the first ROUND_PARITY_ROUNDS rounds' serial
+    re-run (round_parity_2d). The first round's K5 calls are appended to
+    `recorded` as (arguments, output)."""
+    fn = pg._compute_constraints_batched
+
+    def run(gated, global_search=False):
+        k5 = fast_scores_2d.launches
+        t0 = time.perf_counter()
+        try:
+            if not recorded:
+                calls, results = recorded_k5(lambda: fn(gated, global_search=global_search))
+                recorded.extend(calls)
+            else:
+                results = fn(gated, global_search=global_search)
+            scan_range = max(pg._scan_range_bucket(n) for _, _, n, _ in gated)
+            depth = pg._search_config(gated[0][3], scan_range, global_search)[0].depth
+            rec = dict(n=len(gated), s=time.perf_counter() - t0, k5=fast_scores_2d.launches - k5, depth=depth,
+                       submaps=len({sid for _, sid, _, _ in gated}), stages=dict(pose_graph_module.LAST_ROUND_BREAKDOWN),
+                       found=sum(r is not None for r in results), parity=None)
+            if sum(r["parity"] is not None for r in rounds) < ROUND_PARITY_ROUNDS:
+                rec["parity"] = round_parity_2d(pg, gated, global_search, results)
+        except Exception as e:
+            errors.append(f"_compute_constraints_batched: {e!r}")
+            raise
+        rounds.append(rec)
+        return results
+
+    pg._compute_constraints_batched = run
+
+
+def check_k5_calls(label, calls, block_rows=None, all_calls=False):
+    """K5 against its plain version on recorded calls: every output within
+    1e-5 * max(1, max|sum|) (sums of at most P values below 0.8, in a
+    fixed order against the plain version's chunks of 32), the same bits
+    on two launches, and, with row bases, bit-equal to one call per
+    candidate against its own submap's block of block_rows rows. Holds the
+    coarse call and the first expansion (every call with all_calls) and
+    measures those two. Returns {shape: measure's record}."""
+    stats, err = {}, 0.0
+    picked = list(enumerate(calls)) if all_calls else [(0, calls[0]), (1, calls[1])]
+    for i, (a, out) in picked:
+        table, bx, by, valid, cand_t, off_x, off_y, level, dims, cand_base = a
+        want = fast_scores_2d_plain(*a)
+        again = fast_scores_2d(*a)
+        torch.cuda.synchronize()
+        e = float((out - want).abs().max())
+        if not bool(torch.isfinite(out).all()) or e > 1e-5 * max(1.0, float(want.abs().max())):
+            fail(f"K5 fast_scores_2d differs from its plain version at {label} call {i}: max {e:.3e}")
+        if not torch.equal(out, again):
+            fail(f"K5 fast_scores_2d differs between two launches at {label} call {i}")
+        n_sub = 1
+        if cand_base is not None:
+            singles = torch.cat([
+                fast_scores_2d(table[base:base + block_rows], bx, by, valid, cand_t[k:k + 1], off_x[k:k + 1],
+                               off_y[k:k + 1], level, dims) for k, base in enumerate(cand_base.tolist())])
+            torch.cuda.synchronize()
+            if not torch.equal(out, singles):
+                fail(f"K5 fast_scores_2d with row bases is not bit-equal to one call per candidate at {label} call {i}")
+            n_sub = len(set(cand_base.tolist()))
+        err = max(err, e)
+        if i < 2:
+            shape = f"{label}_{'coarse' if i == 0 else 'expansion'}"
+            idx, weight = k5_gather(*a)  # the yardstick's inputs, built outside its timing
+            flat_table = table.reshape(-1, 1)
+            library = lambda: torch.nn.functional.embedding_bag(idx, flat_table, mode="sum", per_sample_weights=weight)
+            c, x, y = out.shape
+            stats[shape] = measure(
+                "fast_scores_2d", shape, lambda: fast_scores_2d(*a), lambda: fast_scores_2d_plain(*a), a, e,
+                library=library, note=f" level {level} C={c} X={x} Y={y} P={bx.shape[1]} R={bx.shape[0]} over "
+                                      f"{n_sub} packed submaps{', bit-equal to single calls' if cand_base is not None else ''}"
+                                      " (library: embedding_bag, the gather-sum only)")
+            del idx, weight
+    return stats
+
+
+def k5_global_calls(pg, device):
+    """K5's calls in a full-submap search (a window of half the grid, the
+    full angular range: the global constraint search's shape) of a node of
+    phase 20's graph against its first finished submap."""
+    sub = next(s for s in pg.submaps if s.finished)
+    node = pg.nodes[len(pg.nodes) // 2]
+    config, _ = pg._search_config(sub, pg._scan_range_bucket(node), True)
+    fast = pg._submap_matcher(sub, config.depth)
+    t, yaw = pg._initial_in_grid(node, sub)
+    f32 = dict(dtype=torch.float32, device=device)
+    initial = Rigid2(torch.tensor(t, **f32), torch.tensor(yaw, **f32))
+    calls, _ = recorded_k5(lambda: fast_correlative_2d.match_fast_2d_prepared(fast, node.cloud, initial, config))
+    return calls, config
+
+
+def k5_rows_calls(pg, device, n_submaps=4, n_nodes=3):
+    """K5's calls in a round over a pack of n_submaps of phase 20's
+    finished submaps: n_nodes nodes of the returning lap, each against
+    every packed submap, at the local search's configuration."""
+    subs = [s for s in pg.submaps if s.finished][:n_submaps]
+    nodes = pg.nodes[-n_nodes:]
+    config, _ = pg._search_config(subs[0], max(pg._scan_range_bucket(n) for n in nodes), False)
+    packed = pack_submaps_2d([pg._submap_matcher(s, config.depth) for s in subs], device)
+    candidates = [(k, node.cloud, Rigid2(*pg._initial_in_grid(node, s))) for node in nodes for k, s in enumerate(subs)]
+    calls, _ = recorded_k5(lambda: sharded_fast_matches_2d_packed(packed, candidates, config))
+    return calls, packed, len(subs)
+
+
+def run_phase_20(device):
+    """Phase 20: MapBuilder 2D -> LocalTrajectoryBuilder2D -> PoseGraph2D
+    over two laps of phase 6's circle at the front end's full width
+    (slam2d_options: 640^2 submaps, 2048 points, online correlative
+    matching through K1 and K2), the constraint searches and SPA solves on
+    the pose graph's worker thread with the default batched search (K5 once
+    per pyramid level a round), ROUND_PROFILING on; then the final
+    optimization. Gates the work items, K5's launches against the rounds,
+    the first ROUND_PARITY_ROUNDS rounds against the serial path, the final
+    optimization's cost, and the returning lap's global error against the
+    JAX package's; then holds K5 to its plain version at the first round's
+    shapes, a full-submap search's and a round over >= 3 packed submaps.
+    Returns (K5 launches of the run, {shape: measure's record})."""
+    for kernel in (fast_scores_2d, correlative_prep_2d, correlative_scores_2d):
+        kernel.launches = 0
+    fast_correlative_2d.match_fast_2d_batched.score_sums = 0
+    mb = MapBuilder(slam2d_options(), device=device)
+    tb = mb.get_trajectory_builder(mb.add_trajectory_builder())
+    pg = mb.pose_graph
+    searches, solves, errors, rounds, recorded = [], [], [], [], []
+    timed_method(pg, "_compute_constraint", searches, errors)
+    timed_method(pg, "_run_optimization", solves, errors)
+    probe_rounds_2d(pg, rounds, errors, recorded)
+    pose_graph_module.ROUND_PROFILING = True
+    scans = slam2d_scans()
+    latencies = []
+    t_start = time.perf_counter()
+    for i, (t, _, odom, cloud) in enumerate(scans):
+        tb.add_odometry_data(t, odom)
+        t0 = time.perf_counter()
+        tb.add_range_data(TimedPointCloudData(t, np.zeros(3, np.float32),
+                                              TimedPointCloud(cloud.positions, cloud.times, cloud.mask)))
+        sync(device)
+        if i:
+            latencies.append(time.perf_counter() - t0)
+    front_s = time.perf_counter() - t_start
+    pg.wait_for_all_computations()
+    drain_s = time.perf_counter() - t_start - front_s
+    pose_graph_module.ROUND_PROFILING = False
+    k5, score_sums = fast_scores_2d.launches, fast_correlative_2d.match_fast_2d_batched.score_sums
+    k12 = (correlative_prep_2d.launches, correlative_scores_2d.launches)
+    n_solves = len(solves)
+    result = slam2d_result(pg, scans)  # runs the final optimization
+    cost0, cost1 = (float(spa.LAST_SOLVE_STATS[k]) for k in ("initial_cost", "final_cost"))
+    parity = [r["parity"] for r in rounds if r["parity"] is not None]
+    k5_parity = sum(p[3] for p in parity)
+    bad_rounds = [(r["k5"], r["depth"]) for r in rounds if r["k5"] != r["depth"]]
+    if errors:
+        fail(f"SLAM 2D: pose-graph work failed: {errors[:3]}")
+    if not rounds or bad_rounds or k5 != score_sums or pg.batched_fallbacks:
+        fail(f"SLAM 2D: {len(rounds)} batched rounds, rounds whose K5 launches are not their levels "
+             f"{bad_rounds[:5]}, {k5} K5 launches for {score_sums} score sums, {pg.batched_fallbacks} fallbacks")
+    if min(k12) == 0:
+        fail(f"SLAM 2D: the front end launched K1 / K2 {k12} times")
+    if not result["finite"] or result["finished"] == 0 or result["inter"] == 0:
+        fail(f"SLAM 2D: {result['finished']} finished submaps, {result['inter']} INTER constraints, finite "
+             f"{result['finite']}")
+    if not cost1 < cost0:
+        fail(f"SLAM 2D: the final optimization did not lower the SPA cost: {cost0:.6e} -> {cost1:.6e}")
+    if not parity or not all(p[0] for p in parity):
+        fail(f"SLAM 2D: round parity with the serial path failed: {[p[:3] for p in parity]}")
+    for key, jax_err in (("late_global", JAX_SLAM20_LATE_GLOBAL), ("median_global", JAX_SLAM20_MEDIAN_GLOBAL)):
+        if result[key] > max(2 * jax_err, jax_err + 0.05):
+            fail(f"SLAM 2D: {key} error {result[key]:.5f} m exceeds max(2 x, +0.05 m) of the JAX package's "
+                 f"{jax_err:.5f}")
+    lat, search_ms, solve_ms = (np.array(x) * 1e3 for x in (latencies, searches, solves))
+    round_ms = np.array([r["s"] for r in rounds]) * 1e3
+    n_cand = [r["n"] for r in rounds]
+    print(f"SLAM 2D: {result['nodes']} nodes, {result['submaps']} submaps ({result['finished']} finished), "
+          f"{result['inter']} INTER constraints, {n_solves} optimizations; K1 / K2 launches {k12}; {len(rounds)} "
+          f"batched rounds (candidates median {np.median(n_cand):.1f}, max {max(n_cand)}, submaps max "
+          f"{max(r['submaps'] for r in rounds)}), each {rounds[0]['depth']}-level round one K5 launch a level: K5 "
+          f"launches {k5} = score sums {score_sums} ({k5_parity} of them the parity re-runs), {len(searches)} serial "
+          f"searches; per round median {np.median(round_ms):.3f} ms, p95 {np.percentile(round_ms, 95):.3f} ms; "
+          f"serial search median {np.median(search_ms) if len(search_ms) else float('nan'):.3f} ms; SPA solve median "
+          f"{np.median(solve_ms):.3f} ms, max {solve_ms.max():.3f} ms over {len(solve_ms)}; final optimization cost "
+          f"{cost0:.6e} -> {cost1:.6e}; {len(parity)} rounds re-run serially: max |dt| {max(p[1] for p in parity):.3e} "
+          f"m, max |da| {max(p[2] for p in parity):.3e} rad; returning lap local {result['late_local']:.5f} m, global "
+          f"{result['late_global']:.5f} m; global median {result['median_global']:.5f} m, max "
+          f"{result['max_global']:.5f} m (JAX on the CPU {JAX_SLAM20_LATE_GLOBAL:.5f} / {JAX_SLAM20_MEDIAN_GLOBAL:.5f}); "
+          f"per-scan latency median {np.median(lat):.3f} ms, p95 {np.percentile(lat, 95):.3f} ms over {len(lat)} scans; "
+          f"drive {front_s:.1f} s, queue drained {drain_s:.1f} s after", flush=True)
+    print("SLAM 2D round stages (LAST_ROUND_BREAKDOWN), median ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stage_medians([r["stages"] for r in rounds]).items()), flush=True)
+    stats = check_k5_calls("round", recorded, pg._packs2d[rounds[0]["depth"]]["packed"].block_rows, all_calls=True)
+    calls, config = k5_global_calls(pg, device)
+    stats.update(check_k5_calls("global", calls))
+    print(f"fast_scores_2d global: a full-submap search ({2 * config.num_angles + 1} angles, {config.depth} levels, "
+          f"{calls[0][0][5].shape[1]} x {calls[0][0][6].shape[1]} coarse offsets)", flush=True)
+    calls, packed, n_sub = k5_rows_calls(pg, device)
+    stats.update(check_k5_calls("rows", calls, packed.block_rows, all_calls=True))
+    return k5 - k5_parity, stats
+
+
+def run_phase_21(device, reps=3, num_iterations=10):
+    """Phase 21: the 2D SPA on generated graphs (make_scale_spa_problem_2d,
+    0.5 m / 0.02 rad noise): solve_spa_2d with "auto" on 1000 nodes, 100
+    submaps and 4000 constraints (S*N = 1e5, the Schur path) and on 5000 /
+    500 / 20000 (2.5e6, above the Schur budget: the PCG path), the big one
+    through the Schur path as well; solve_spa_2d_full on the small graph
+    with the odometry chain of a pose graph. Gates: node and submap errors
+    to the truth below 0.01 m, final costs below 1, the PCG within 5e-3 m
+    of the Schur path. Prints ms per solve (median over `reps` after one
+    checked solve), LM and PCG iterations, kernels and host syncs a
+    solve."""
+    small = make_scale_spa_problem_2d(1000, 100, 4000, noise=0.5, seed=0, device=device)
+    big = make_scale_spa_problem_2d(5000, 500, 20000, noise=0.5, seed=0, device=device)
+    cases = [("schur_auto", small, "auto", False), ("pcg_auto", big, "auto", False), ("schur", big, "schur", False),
+             ("full", small, None, True)]
+    stats, nodes = {}, {}
+    for name, (problem, gt, s_gt), solver, full in cases:
+        extras = odometry_extras_2d(gt, device=device) if full else None
+        solve = ((lambda: spa.solve_spa_2d_full(problem, extras, num_iterations=num_iterations)) if full else
+                 (lambda: spa.solve_spa_2d(problem, num_iterations=num_iterations, linear_solver=solver)))
+        result, kernels = device_kernels(solve)
+        st = dict(spa.LAST_SOLVE_STATS, kernels=kernels)
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        sp, np_, cost = result[0].cpu().numpy(), result[1].cpu().numpy(), float(result[-1])
+        nodes[name] = np_
+        node_err = float(np.linalg.norm(np_[:, :2] - gt[:, :2], axis=1).max())
+        sub_err = float(np.linalg.norm(sp[:, :2] - s_gt[:, :2], axis=1).max())
+        st.update(ms=statistics.median(times), node_err=node_err, submap_err=sub_err, cost=cost,
+                  n=problem.node_pose.shape[0], s=problem.submap_pose.shape[0], c=problem.c_mask.shape[0])
+        stats[name] = st
+        if not (node_err < 0.01 and sub_err < 0.01 and cost < 1.0):
+            fail(f"SPA 2D {name}: node error {node_err:.3e} m, submap error {sub_err:.3e} m, cost {cost}")
+    if (stats["schur_auto"]["linear_solver"], stats["pcg_auto"]["linear_solver"]) != ("schur", "cg"):
+        fail(f"SPA 2D: auto took {stats['schur_auto']['linear_solver']!r} / {stats['pcg_auto']['linear_solver']!r}")
+    gap = float(np.abs(nodes["pcg_auto"][:, :2] - nodes["schur"][:, :2]).max())
+    if not gap < 5e-3:
+        fail(f"SPA 2D: the PCG path is {gap:.3e} m off the Schur path")
+    print("SPA 2D: " + "; ".join(
+        f"{name} (N={st['n']}, S={st['s']}, C={st['c']}, {st['linear_solver']}): {st['ms']:.3f} ms per solve (median "
+        f"of {reps}), {st['lm_iterations']} LM steps"
+        + (f", PCG iterations per step {st['cg_iterations']}" if st["cg_iterations"] else "")
+        + f", {st['kernels']} kernels and {st['host_syncs']} host syncs a solve, node error {st['node_err']:.3e} m, "
+        f"submap error {st['submap_err']:.3e} m, cost {st['cost']:.3e}" for name, st in stats.items())
+        + f"; PCG vs Schur max |dt| {gap:.3e} m", flush=True)
+    return stats
+
+
 PHASE_MARKS = []
 
 
@@ -2894,6 +3310,17 @@ def main() -> int:
     k3_paths["slam16_pure_localization"] = run_phase_16(device, mb14, errors14)
     del mb14
 
+    mark("20")
+    # Phase 20: MapBuilder 2D with the default batched constraint search,
+    # through K5 once per pyramid level a round; K5 against its plain
+    # version at the round's shapes, a full-submap search's and a round
+    # over a pack of 4 submaps.
+    launches["fast_scores_2d"], checks["fast_scores_2d"] = run_phase_20(device)
+
+    mark("21")
+    # Phase 21: the 2D SPA through its Schur, PCG and dense paths.
+    run_phase_21(device)
+
     sources = {
         "correlative_prep_2d": ("hectorgrapher_tpu_torch/csrc/correlative_prep_2d.cu",
                                 "hectorgrapher_tpu/ops/pallas_prep2d.py:74"),
@@ -2908,6 +3335,9 @@ def main() -> int:
         "fast_scores_3d": ("hectorgrapher_tpu_torch/csrc/fast_scores_3d.cu",
                            "hectorgrapher_tpu/mapping/scan_matching/fast_correlative_3d.py:329 (score_sum of "
                            "_match_fast_3d_core, an XLA gather-reduce)"),
+        "fast_scores_2d": ("hectorgrapher_tpu_torch/csrc/fast_scores_2d.cu",
+                           "hectorgrapher_tpu/mapping/scan_matching/fast_correlative_2d.py:249 (score_sum of "
+                           "_match_fast_2d_core, an XLA gather-reduce)"),
     }
     # Each kernel's record at its main-path shape (K1 and K2 at B=1024, K3
     # at the CT front end's, K4 at the coarse stage's), its other shapes
@@ -2918,9 +3348,11 @@ def main() -> int:
     # slam16_* all in f16 mode, and phase 19's per-scan batched solves as
     # batched19_entry / batched19_drive, slotted launches of the gated
     # solve only; K3 per point: phase 17, with phases 18 and 19 beside it;
-    # K4: phase 11, with phases 12-14 beside it under "launches_by_path").
+    # K4: phase 11, with phases 12-14 beside it under "launches_by_path";
+    # K5: phase 20, without its rounds' serial re-runs).
     main_shape = {"correlative_prep_2d": "batched", "correlative_scores_2d": "batched",
-                  "ct_scan_block": "front_end", "ct_scan_block_points": "front_end", "fast_scores_3d": "coarse"}
+                  "ct_scan_block": "front_end", "ct_scan_block_points": "front_end", "fast_scores_3d": "coarse",
+                  "fast_scores_2d": "round_coarse"}
     paths = {"ct_scan_block": k3_paths, "ct_scan_block_points": k3p_paths, "fast_scores_3d": k4_paths}
     kernels = []
     for name, (source, replaces) in sources.items():

@@ -369,8 +369,8 @@ class ConstraintBuilderOptions:
     sampling_ratio: float = 0.3
     max_constraint_distance: float = 15.0
     min_score: float = 0.55
-    # Device byte budget of the batched constraint search's packs; that
-    # search is not ported yet, so nothing reads it.
+    # Device byte budget of the batched constraint search's packs
+    # (PoseGraph3D._get_pack_3d, PoseGraph2D._get_pack_2d).
     pack_hbm_budget_bytes: int = 6 << 30
     global_localization_min_score: float = 0.6
     loop_closure_translation_weight: float = 1.1e4

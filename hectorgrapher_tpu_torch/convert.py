@@ -16,8 +16,10 @@ import torch
 from hectorgrapher_tpu_torch.common import config
 from hectorgrapher_tpu_torch.mapping.ct.window_solver import CtProblem, CtState, CtWeights
 from hectorgrapher_tpu_torch.mapping.grids import GridMeta, ProbabilityGrid, TSDFGrid
-from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import SpaExtras3D, SpaProblem3D
+from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import SpaExtras2D, SpaExtras3D, SpaProblem2D, SpaProblem3D
 from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import PgNode
+from hectorgrapher_tpu_torch.mapping.scan_matching.fast_correlative_2d import PreparedFastMatcher2D
+from hectorgrapher_tpu_torch.mapping.submap_2d import Submap2D
 from hectorgrapher_tpu_torch.mapping.submap_3d import Submap3D
 from hectorgrapher_tpu_torch.sensor.types import PointCloud, RangeData, TimedPointCloud
 from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
@@ -138,15 +140,18 @@ def submap_3d(submap, device) -> Submap3D:
 
 
 def pg_node(node, device) -> PgNode:
-    """A JAX 3D pose-graph node, its loop-closure clouds on device."""
+    """A JAX pose-graph node, its loop-closure clouds on device: a 3D
+    node's high and low clouds and histogram, or a 2D node's cloud."""
+    is_2d = getattr(node, "cloud", None) is not None
     return PgNode(
         time=float(node.time),
         local_pose=np_rigid3(node.local_pose),
         global_pose=np_rigid3(node.global_pose),
         trajectory_id=int(node.trajectory_id),
-        high_cloud=point_cloud(node.high_cloud, device),
-        low_cloud=point_cloud(node.low_cloud, device),
-        histogram=np.array(node.histogram, np.float32),
+        cloud=point_cloud(node.cloud, device) if is_2d else None,
+        high_cloud=None if is_2d else point_cloud(node.high_cloud, device),
+        low_cloud=None if is_2d else point_cloud(node.low_cloud, device),
+        histogram=None if is_2d else np.array(node.histogram, np.float32),
         gravity_alignment=None if node.gravity_alignment is None else np.array(node.gravity_alignment),
         node_id=int(node.node_id),
     )
@@ -158,6 +163,33 @@ def spa_problem_3d(problem, device) -> SpaProblem3D:
 
 def spa_extras_3d(extras, device) -> SpaExtras3D:
     return _named_tuple(SpaExtras3D, extras, device)
+
+
+def spa_problem_2d(problem, device) -> SpaProblem2D:
+    return _named_tuple(SpaProblem2D, problem, device)
+
+
+def spa_extras_2d(extras, device) -> SpaExtras2D:
+    return _named_tuple(SpaExtras2D, extras, device)
+
+
+def prepared_fast_matcher_2d(prepared, device) -> PreparedFastMatcher2D:
+    """A JAX PreparedFastMatcher2D (its CPU branch's f32 levels)."""
+    return PreparedFastMatcher2D(
+        flat_levels=tensor(prepared.flat_levels, device, torch.float32).contiguous(),
+        meta=grid_meta(prepared.meta, device),
+        dims=tuple(int(v) for v in np.asarray(prepared.dims)),
+    )
+
+
+def submap_2d(submap, device) -> Submap2D:
+    """A JAX Submap2D over a probability grid, finished or not."""
+    return Submap2D(
+        local_pose=np_rigid3(submap.local_pose),
+        grid=probability_grid(submap.grid, device),
+        num_range_data=int(submap.num_range_data),
+        insertion_finished=bool(submap.insertion_finished),
+    )
 
 
 def pyramid_levels(levels, device):

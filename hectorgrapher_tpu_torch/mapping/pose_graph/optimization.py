@@ -1,9 +1,10 @@
-"""Levenberg-Marquardt loop and 3D sparse pose adjustment (counterpart of
-hectorgrapher_tpu/mapping/pose_graph/optimization.py: _lm_drive :75-144,
-the block-Schur SPA :47-72, :167-186, :285-330, the matrix-free PCG SPA
-:147-166, :189-279, solve_spa_3d :335-472 and solve_spa_3d_full
-:480-883; ref: internal/optimization/optimization_problem_3d.cc,
-cost_functions/spa_cost_function_3d.h).
+"""Levenberg-Marquardt loop and sparse pose adjustment in 3D and 2D
+(counterpart of hectorgrapher_tpu/mapping/pose_graph/optimization.py:
+_lm_drive :75-144, the block-Schur SPA :47-72, :167-186, :285-330, the
+matrix-free PCG SPA :147-166, :189-279, solve_spa_3d :335-472,
+solve_spa_3d_full :480-883, solve_spa_2d :891-998 and solve_spa_2d_full
+:1001-1212; ref: internal/optimization/optimization_problem_{2d,3d}.cc,
+cost_functions/spa_cost_function_{2d,3d}.h).
 
 The CT window solve (mapping/ct/window_solver.py) runs its LM loop through
 _lm_drive too.
@@ -16,8 +17,9 @@ no atomics, so a step does not change from run to run: the plain SPA's
 sums over constraints (Schur blocks and the PCG path's) gather each
 submap's, node's and submap-node pair's rows through a padded index
 table built once per solve (_segment_table) and add them in constraint
-order; the full system is a dense row-stacked Jacobian and one matmul.
-Not ported: the 2D solvers.
+order; the full system is a dense row-stacked Jacobian and one matmul. The
+Schur, PCG and dense solvers take blocks of any width: 6 (t, theta) a pose
+in 3D, 3 (x, y, theta) in 2D.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from hectorgrapher_tpu_torch.common.math import normalize_angle_difference
 from hectorgrapher_tpu_torch.transform.rigid import (
     inverse_right_jacobian,
     quat_conjugate,
@@ -220,8 +223,9 @@ def _spa_partial_blocks(j_s, j_n, r, tables, s_count: int, n_count: int):
 # b_blocks coupling tensors above this element count take the CG path.
 _SCHUR_COUPLING_BUDGET = 1_000_000
 
-# What the last solve_spa_3d did: its linear solver, LM iterations, PCG
-# iterations per LM step, and the host syncs it made.
+# What the last SPA solve did: its linear solver ("schur", "cg" or "dense"
+# for the _full solves), LM iterations, PCG iterations per LM step, the
+# host syncs it made, and its initial and final cost (device scalars).
 LAST_SOLVE_STATS: dict = {}
 
 
@@ -417,18 +421,14 @@ def _retract_poses(t, q, d):
     return t + d6[:, :3], quat_normalize(quat_multiply(q, quat_from_axis_angle(d6[:, 3:])))
 
 
-def solve_spa_3d(problem: SpaProblem3D, num_iterations: int = 20, init_lambda: float = 1e-4,
-                 linear_solver: str = "auto"):
-    """Plain SPA (submap-node constraints only). Returns
-    (submap_translation, submap_rotation, node_translation, node_rotation,
-    final_cost).
-
-    linear_solver: "schur" (exact block-Schur elimination, O(S*N)
-    memory), "cg" (matrix-free block-Jacobi PCG, O(C + S + N) memory), or
-    "auto" (schur up to _SCHUR_COUPLING_BUDGET submap-node products).
-    LAST_SOLVE_STATS records the solve."""
-    S = problem.submap_translation.shape[0]
-    N = problem.node_translation.shape[0]
+def _solve_spa(problem, pair_blocks, retract, params0, p: int, num_iterations: int, init_lambda: float,
+               linear_solver: str):
+    """The plain SPA's LM solve over poses of tangent width p, shared by
+    solve_spa_3d and solve_spa_2d. pair_blocks(params) -> (J (C, R, 2p), r
+    (C, R)): each constraint's residual and Jacobian over [submap, node]
+    tangents; masking and the Huber weights are applied here. Returns
+    (params, final cost) and records LAST_SOLVE_STATS."""
+    S, N = problem.submap_fixed.shape[0], problem.node_fixed.shape[0]
     if linear_solver == "auto":
         linear_solver = "schur" if S * N <= _SCHUR_COUPLING_BUDGET else "cg"
     if linear_solver not in ("schur", "cg"):
@@ -438,21 +438,14 @@ def solve_spa_3d(problem: SpaProblem3D, num_iterations: int = 20, init_lambda: f
     stats = {"linear_solver": linear_solver, "lm_iterations": 0, "cg_iterations": [],
              "host_syncs": 2 if linear_solver == "cg" else 4}
 
-    def retract(params, delta):
-        st, sq, nt, nq = params
-        return (*_retract_poses(st, sq, delta[: 6 * S]), *_retract_poses(nt, nq, delta[6 * S:]))
-
     def eval_fn(params):
-        st, sq, nt, nq = params
-        args = (st[cs], sq[cs], nt[cn], nq[cn], problem.c_rel_translation, problem.c_rel_rotation,
-                problem.c_translation_weight, problem.c_rotation_weight)
-        J, r = _pair_blocks(*args)  # (C, 6, 12), (C, 6)
+        J, r = pair_blocks(params)
         r = torch.where(m[:, None], r, 0.0)
         w = _huber_weights(r, problem.c_huber_scale)[:, None]
         J = torch.where(m[:, None, None], J * w[:, :, None], 0.0)
         r = r * w
         cost = 0.5 * torch.sum(r * r)
-        j_s, j_n = J[:, :, :6], J[:, :, 6:]
+        j_s, j_n = J[:, :, :p], J[:, :, p:]
         if linear_solver == "cg":  # the diagonal blocks only: no (S, N) coupling tensor
             return (j_s, j_n, *_spa_diag_blocks(j_s, j_n, r, tables)), cost
         return _spa_partial_blocks(j_s, j_n, r, tables, S, N), cost
@@ -469,15 +462,41 @@ def solve_spa_3d(problem: SpaProblem3D, num_iterations: int = 20, init_lambda: f
             return delta
         return _spa_schur_solve(quant, problem.submap_fixed, problem.node_fixed, lam)
 
-    params0 = (problem.submap_translation, problem.submap_rotation, problem.node_translation,
-               problem.node_rotation)
-    params, cost, _ = _lm_drive(eval_fn, delta_of, retract, params0, num_iterations, init_lambda,
-                                stop_on_host=True)
+    params, cost, cost0 = _lm_drive(eval_fn, delta_of, retract, params0, num_iterations, init_lambda,
+                                    stop_on_host=True)
     if stats["cg_iterations"]:  # one readback for the record
         stats["cg_iterations"] = torch.stack(stats["cg_iterations"]).tolist()
         stats["host_syncs"] += 1
     LAST_SOLVE_STATS.clear()
-    LAST_SOLVE_STATS.update(stats)
+    LAST_SOLVE_STATS.update(stats, initial_cost=cost0, final_cost=cost)
+    return params, cost
+
+
+def solve_spa_3d(problem: SpaProblem3D, num_iterations: int = 20, init_lambda: float = 1e-4,
+                 linear_solver: str = "auto"):
+    """Plain SPA (submap-node constraints only). Returns
+    (submap_translation, submap_rotation, node_translation, node_rotation,
+    final_cost).
+
+    linear_solver: "schur" (exact block-Schur elimination, O(S*N)
+    memory), "cg" (matrix-free block-Jacobi PCG, O(C + S + N) memory), or
+    "auto" (schur up to _SCHUR_COUPLING_BUDGET submap-node products).
+    LAST_SOLVE_STATS records the solve."""
+    S = problem.submap_translation.shape[0]
+    cs, cn = problem.c_submap, problem.c_node
+
+    def retract(params, delta):
+        st, sq, nt, nq = params
+        return (*_retract_poses(st, sq, delta[: 6 * S]), *_retract_poses(nt, nq, delta[6 * S:]))
+
+    def pair_blocks(params):
+        st, sq, nt, nq = params
+        return _pair_blocks(st[cs], sq[cs], nt[cn], nq[cn], problem.c_rel_translation, problem.c_rel_rotation,
+                            problem.c_translation_weight, problem.c_rotation_weight)  # (C, 6, 12), (C, 6)
+
+    params0 = (problem.submap_translation, problem.submap_rotation, problem.node_translation,
+               problem.node_rotation)
+    params, cost = _solve_spa(problem, pair_blocks, retract, params0, 6, num_iterations, init_lambda, linear_solver)
     return params + (cost,)
 
 
@@ -703,6 +722,23 @@ def solve_spa_3d_full(problem: SpaProblem3D, extras: SpaExtras3D, num_iterations
             out.append((torch.where(m[:, None, None], J, 0.0), torch.where(m[:, None], r, 0.0), cols))
         return out
 
+    params0 = (problem.submap_translation, problem.submap_rotation, problem.node_translation,
+               problem.node_rotation, ex.landmark_translation, ex.landmark_rotation, ex.traj_calibration,
+               ex.traj_gravity)
+    params, cost = _solve_dense(families, fixed, D, retract, params0, num_iterations, init_lambda)
+    return params + (cost,)
+
+
+def _solve_dense(families, fixed, D: int, retract, params0, num_iterations: int, init_lambda: float):
+    """The LM solve of a full SPA system, shared by solve_spa_3d_full and
+    solve_spa_2d_full: families(params) -> [(J (B, R, n), r (B, R), columns
+    (B, n))] of the active residual families, stacked into one dense
+    Jacobian of D columns (fixed columns zeroed); the damped normal matrix
+    is solved by Cholesky. Returns (params, final cost) and records
+    LAST_SOLVE_STATS."""
+    dev = fixed.device
+    stats = {"linear_solver": "dense", "lm_iterations": 0, "cg_iterations": [], "host_syncs": 1}
+
     def eval_fn(params):
         fams = families(params)
         rows = sum(J.shape[0] * J.shape[1] for J, _, _ in fams)
@@ -721,14 +757,196 @@ def solve_spa_3d_full(problem: SpaProblem3D, extras: SpaExtras3D, num_iterations
         return (jfull.T @ jfull, jfull.T @ r), cost
 
     def delta_of(quant, lam):
+        stats["lm_iterations"] += 1
+        stats["host_syncs"] += 1  # _lm_drive's stop test
         jtj, g = quant
         diag = torch.diagonal(jtj)
         damped = jtj + torch.diag(lam * torch.clamp(diag, min=1e-8) + 1e-8 + fixed.to(torch.float32))
         return torch.where(fixed, 0.0, -_chol_solve(damped, g))
 
-    params0 = (problem.submap_translation, problem.submap_rotation, problem.node_translation,
-               problem.node_rotation, ex.landmark_translation, ex.landmark_rotation, ex.traj_calibration,
-               ex.traj_gravity)
-    params, cost, _ = _lm_drive(eval_fn, delta_of, retract, params0, num_iterations, init_lambda,
-                                stop_on_host=True)
+    params, cost, cost0 = _lm_drive(eval_fn, delta_of, retract, params0, num_iterations, init_lambda,
+                                    stop_on_host=True)
+    LAST_SOLVE_STATS.clear()
+    LAST_SOLVE_STATS.update(stats, initial_cost=cost0, final_cost=cost)
+    return params, cost
+
+
+# ---------------------------------------------------------------------------
+# 2D
+# ---------------------------------------------------------------------------
+
+
+class SpaProblem2D(NamedTuple):
+    """Static-capacity 2D pose graph tensors; poses are (x, y, theta)."""
+
+    submap_pose: torch.Tensor  # (S, 3)
+    node_pose: torch.Tensor  # (N, 3)
+    submap_fixed: torch.Tensor  # (S,) bool: fixed or padding
+    node_fixed: torch.Tensor  # (N,) bool
+    c_submap: torch.Tensor  # (C,) int64
+    c_node: torch.Tensor  # (C,) int64
+    c_mask: torch.Tensor  # (C,) bool
+    c_rel_pose: torch.Tensor  # (C, 3) zbar
+    c_translation_weight: torch.Tensor  # (C,)
+    c_rotation_weight: torch.Tensor  # (C,)
+    c_huber_scale: torch.Tensor  # (C,): a large value disables the loss
+
+
+def _relative_residual_2d(a, b, rel, wt, wr):
+    """Error of a^-1 b against rel, (B, 3) (ref: spa_cost_function_2d.h
+    ComputeUnscaledError); also the submap-node constraint residual, the
+    JAX package's _constraint_residual_2d. The angle error is wrapped to
+    (-pi, pi]."""
+    c, s = torch.cos(a[:, 2]), torch.sin(a[:, 2])
+    d0, d1 = b[:, 0] - a[:, 0], b[:, 1] - a[:, 1]
+    h0, h1 = c * d0 + s * d1, -s * d0 + c * d1
+    err_a = normalize_angle_difference(rel[:, 2] - (b[:, 2] - a[:, 2]))
+    return torch.stack([wt * (rel[:, 0] - h0), wt * (rel[:, 1] - h1), wr * err_a], dim=-1)
+
+
+def _pair_blocks_2d(a, b, rel, wt, wr):
+    """Residuals r (B, 3) of relative poses a^-1 b against rel and their
+    Jacobians J (B, 3, 6) over [a, b], each pose moved additively; the
+    derivatives jax.jacfwd takes in the JAX solve, in closed form. With
+    h = R(a_theta)^T (b_xy - a_xy):
+      d h / d a_xy = -R^T, d h / d b_xy = R^T, d h / d a_theta = (h1, -h0);
+    the angle error moves by +1 with a_theta and -1 with b_theta (the wrap's
+    floor has zero derivative, as under jacfwd)."""
+    r = _relative_residual_2d(a, b, rel, wt, wr)
+    c, s = torch.cos(a[:, 2]), torch.sin(a[:, 2])
+    d0, d1 = b[:, 0] - a[:, 0], b[:, 1] - a[:, 1]
+    h0, h1 = c * d0 + s * d1, -s * d0 + c * d1
+    zero = torch.zeros_like(c)
+    J = torch.stack([
+        torch.stack([wt * c, wt * s, -wt * h1, -wt * c, -wt * s, zero], dim=-1),
+        torch.stack([-wt * s, wt * c, wt * h0, wt * s, -wt * c, zero], dim=-1),
+        torch.stack([zero, zero, wr + zero, zero, zero, -wr + zero], dim=-1),
+    ], dim=-2)
+    return J, r
+
+
+def solve_spa_2d(problem: SpaProblem2D, num_iterations: int = 20, init_lambda: float = 1e-4,
+                 linear_solver: str = "auto"):
+    """Plain 2D SPA (submap-node constraints only). Returns (submap_pose,
+    node_pose, final_cost); linear_solver as solve_spa_3d's.
+    LAST_SOLVE_STATS records the solve."""
+    S = problem.submap_pose.shape[0]
+    cs, cn = problem.c_submap, problem.c_node
+
+    def retract(params, delta):
+        sp, np_ = params
+        return sp + delta[: 3 * S].reshape(-1, 3), np_ + delta[3 * S:].reshape(-1, 3)
+
+    def pair_blocks(params):
+        sp, np_ = params
+        return _pair_blocks_2d(sp[cs], np_[cn], problem.c_rel_pose, problem.c_translation_weight,
+                               problem.c_rotation_weight)
+
+    params, cost = _solve_spa(problem, pair_blocks, retract, (problem.submap_pose, problem.node_pose), 3,
+                              num_iterations, init_lambda, linear_solver)
+    return params + (cost,)
+
+
+class SpaExtras2D(NamedTuple):
+    """The further residual families of OptimizationProblem2D (ref:
+    optimization_problem_2d.cc): odometry and consecutive-node relative
+    poses, fixed-frame poses, landmark observations with 2D landmark poses
+    free, all static-capacity with masks."""
+
+    nn_a: torch.Tensor  # (P,) earlier node
+    nn_b: torch.Tensor  # (P,) later node
+    nn_mask: torch.Tensor
+    nn_rel_pose: torch.Tensor  # (P, 3): b in a's frame
+    nn_translation_weight: torch.Tensor
+    nn_rotation_weight: torch.Tensor
+    ff_mask: torch.Tensor  # (N,)
+    ff_pose: torch.Tensor  # (N, 3); its translation is the prior
+    ff_translation_weight: torch.Tensor  # (N,)
+    landmark_pose: torch.Tensor  # (L, 3) initial landmark poses
+    landmark_mask: torch.Tensor  # (L,)
+    lm_node: torch.Tensor  # (O,) observing node
+    lm_index: torch.Tensor  # (O,) landmark
+    lm_mask: torch.Tensor
+    lm_rel_pose: torch.Tensor  # (O, 3): landmark in the tracking frame
+    lm_translation_weight: torch.Tensor
+    lm_rotation_weight: torch.Tensor
+
+
+def empty_extras_2d(num_nodes: int, p: int = 1, l: int = 1, o: int = 1, *, device) -> SpaExtras2D:
+    """Every family at its capacity, all masked out."""
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def ints(n):
+        return torch.zeros(n, dtype=torch.int64, device=device)
+
+    def off(n):
+        return torch.zeros(n, dtype=torch.bool, device=device)
+
+    return SpaExtras2D(
+        nn_a=ints(p), nn_b=ints(p), nn_mask=off(p), nn_rel_pose=torch.zeros((p, 3), **f32),
+        nn_translation_weight=torch.zeros(p, **f32), nn_rotation_weight=torch.zeros(p, **f32),
+        ff_mask=off(num_nodes), ff_pose=torch.zeros((num_nodes, 3), **f32),
+        ff_translation_weight=torch.zeros(num_nodes, **f32),
+        landmark_pose=torch.zeros((l, 3), **f32), landmark_mask=off(l),
+        lm_node=ints(o), lm_index=ints(o), lm_mask=off(o), lm_rel_pose=torch.zeros((o, 3), **f32),
+        lm_translation_weight=torch.zeros(o, **f32), lm_rotation_weight=torch.zeros(o, **f32),
+    )
+
+
+def solve_spa_2d_full(problem: SpaProblem2D, extras: SpaExtras2D, num_iterations: int = 20,
+                      init_lambda: float = 1e-4):
+    """2D SPA with every residual family. Returns (submap_pose, node_pose,
+    landmark_pose, final_cost).
+
+    The tangent is [submaps 3S | nodes 3N | landmarks 3L]; the damped dense
+    normal matrix is solved by Cholesky (_solve_dense). The submap-node
+    constraints carry the Huber weights, the other families none. A family
+    whose mask is all false adds exact zeros in the JAX version; here it is
+    skipped."""
+    S = problem.submap_pose.shape[0]
+    N = problem.node_pose.shape[0]
+    L = extras.landmark_pose.shape[0]
+    dev = problem.submap_pose.device
+    ex = extras
+    fixed = torch.cat([torch.repeat_interleave(problem.submap_fixed, 3), torch.repeat_interleave(problem.node_fixed, 3),
+                       torch.repeat_interleave(~ex.landmark_mask, 3)])
+    active = torch.stack([problem.c_mask.any(), ex.nn_mask.any(), ex.ff_mask.any(), ex.lm_mask.any()]).tolist()
+
+    def retract(params, delta):
+        sp, np_, lp = params
+        return (sp + delta[: 3 * S].reshape(-1, 3), np_ + delta[3 * S: 3 * (S + N)].reshape(-1, 3),
+                lp + delta[3 * (S + N):].reshape(-1, 3))
+
+    def families(params):
+        """[(J (B, R, n), r (B, R), columns (B, n))] of the active families."""
+        sp, np_, lp = params
+        node0 = 3 * S
+        out = []
+        if active[0]:  # submap-node constraints, with Huber IRLS
+            cs, cn, m = problem.c_submap, problem.c_node, problem.c_mask
+            J, r = _pair_blocks_2d(sp[cs], np_[cn], problem.c_rel_pose, problem.c_translation_weight,
+                                   problem.c_rotation_weight)
+            w = _huber_weights(r, problem.c_huber_scale)[:, None]
+            out.append((torch.where(m[:, None, None], J * w[:, :, None], 0.0), torch.where(m[:, None], r * w, 0.0),
+                        _block_columns(torch.stack([3 * cs, node0 + 3 * cn], dim=1), 3)))
+        if active[1]:  # odometry and local-SLAM relative poses between nodes
+            a, b, m = ex.nn_a, ex.nn_b, ex.nn_mask
+            J, r = _pair_blocks_2d(np_[a], np_[b], ex.nn_rel_pose, ex.nn_translation_weight, ex.nn_rotation_weight)
+            out.append((torch.where(m[:, None, None], J, 0.0), torch.where(m[:, None], r, 0.0),
+                        _block_columns(torch.stack([node0 + 3 * a, node0 + 3 * b], dim=1), 3)))
+        if active[2]:  # fixed-frame priors: w (xy - prior) on the node position
+            m, w = ex.ff_mask, ex.ff_translation_weight
+            eye = torch.eye(2, 3, device=dev)
+            out.append((torch.where(m[:, None, None], w[:, None, None] * eye, 0.0),
+                        torch.where(m[:, None], w[:, None] * (np_[:, :2] - ex.ff_pose[:, :2]), 0.0),
+                        _block_columns((node0 + 3 * torch.arange(N, device=dev))[:, None], 3)))
+        if active[3]:  # landmark observations: landmark against node * rel
+            ni, li, m = ex.lm_node, ex.lm_index, ex.lm_mask
+            J, r = _pair_blocks_2d(np_[ni], lp[li], ex.lm_rel_pose, ex.lm_translation_weight, ex.lm_rotation_weight)
+            out.append((torch.where(m[:, None, None], J, 0.0), torch.where(m[:, None], r, 0.0),
+                        _block_columns(torch.stack([node0 + 3 * ni, 3 * (S + N) + 3 * li], dim=1), 3)))
+        return out
+
+    params, cost = _solve_dense(families, fixed, 3 * (S + N + L), retract,
+                                (problem.submap_pose, problem.node_pose, ex.landmark_pose), num_iterations, init_lambda)
     return params + (cost,)

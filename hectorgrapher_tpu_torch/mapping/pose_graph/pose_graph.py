@@ -1,8 +1,8 @@
-"""Pose graph back end, 3D: constraints, loop closure, global optimization
-(counterpart of hectorgrapher_tpu/mapping/pose_graph/pose_graph.py,
-PoseGraphBase :240-884 and PoseGraph3D :1602-2484; ref:
-mapping/internal/3d/pose_graph_3d.cc,
-internal/constraints/constraint_builder_3d.cc).
+"""Pose graph back end, 3D and 2D: constraints, loop closure, global
+optimization (counterpart of hectorgrapher_tpu/mapping/pose_graph/
+pose_graph.py, PoseGraphBase :240-884, PoseGraph2D :886-1600 and
+PoseGraph3D :1602-2484; ref: mapping/internal/{2d,3d}/pose_graph_{2d,3d}.cc,
+internal/constraints/constraint_builder_{2d,3d}.cc).
 
 Bookkeeping (node and submap tables, constraint lists, sampling and
 distance gates, trajectory lifecycle) lives on the host. With
@@ -27,8 +27,12 @@ trimmed submap. A round that a trim overtakes between its fast match and
 its refinement refines the submaps it captured and adds no constraint to
 a trimmed one.
 
-Not ported: the solver mesh (set_solver_mesh raises NotImplementedError),
-OverlappingSubmapsTrimmer2D and PoseGraph2D.
+PoseGraph2D (at the end of this module) follows the same structure over
+2D submaps: the fast 2D matcher (kernel K5, one launch per pyramid level
+of a batched round) and the 2D GN refinement, the 2D SPA.
+
+Not ported: the solver mesh (set_solver_mesh raises NotImplementedError)
+and the 2D TSDF refinement (ROADMAP A5b).
 """
 
 from __future__ import annotations
@@ -47,17 +51,33 @@ import torch
 
 from hectorgrapher_tpu_torch.common import profiling
 from hectorgrapher_tpu_torch.mapping.ct import imu_integration
-from hectorgrapher_tpu_torch.mapping.grids import volume_dtype
+from hectorgrapher_tpu_torch.mapping import probability_values as pv
+from hectorgrapher_tpu_torch.mapping.grids import ensure_f32_grid, volume_dtype
 from hectorgrapher_tpu_torch.mapping.pose_graph.connectivity import TrajectoryConnectivityState
 from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import (
+    SpaExtras2D,
     SpaExtras3D,
+    SpaProblem2D,
     SpaProblem3D,
+    empty_extras_2d,
     empty_extras_3d,
+    solve_spa_2d,
+    solve_spa_2d_full,
     solve_spa_3d,
     solve_spa_3d_full,
 )
 from hectorgrapher_tpu_torch.mapping.pose_graph.trimmers import trim_submaps
+from hectorgrapher_tpu_torch.mapping.scan_matching.fast_correlative_2d import (
+    make_fast_search_config,
+    match_fast_2d_prepared,
+    prepare_fast_matcher_2d,
+)
 from hectorgrapher_tpu_torch.mapping.scan_matching.fast_correlative_3d import FastCorrelativeScanMatcher3D
+from hectorgrapher_tpu_torch.mapping.scan_matching.gn_2d import (
+    match_gn_2d_packed_grids,
+    match_gn_2d_probability,
+    prepare_gn_probability_field,
+)
 from hectorgrapher_tpu_torch.mapping.scan_matching.gn_3d import (
     match_gn_3d,
     match_gn_3d_packed,
@@ -68,13 +88,15 @@ from hectorgrapher_tpu_torch.parallel.constraint_search import (
     host_arrays_3d_nbytes,
     matcher_arrays_3d,
     matcher_host_arrays_3d,
+    pack_submaps_2d_from_arrays,
     pack_submaps_3d_from_arrays,
+    sharded_fast_matches_2d_packed,
     sharded_fast_matches_3d_packed,
 )
 from hectorgrapher_tpu_torch.sensor.types import PointCloud
 from hectorgrapher_tpu_torch.transform import np_quat as nq
 from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
-from hectorgrapher_tpu_torch.transform.rigid import Rigid3
+from hectorgrapher_tpu_torch.transform.rigid import Rigid2, Rigid3
 
 
 class TrajectoryState(Enum):
@@ -104,7 +126,8 @@ class PgNode:
     local_pose: NpRigid3
     global_pose: NpRigid3
     trajectory_id: int = 0
-    high_cloud: Optional[PointCloud] = None  # loop-closure clouds, tracking frame
+    cloud: Optional[PointCloud] = None  # 2D: the gravity-aligned filtered cloud
+    high_cloud: Optional[PointCloud] = None  # 3D loop-closure clouds, tracking frame
     low_cloud: Optional[PointCloud] = None
     histogram: Optional[np.ndarray] = None
     gravity_alignment: Optional[np.ndarray] = None
@@ -208,6 +231,12 @@ class PoseGraphBase:
         self.num_optimizations = 0
         self._global_optimization_callbacks: List[object] = []
         self._landmark_pose_overrides: Dict[str, object] = {}
+        # Sensor buffers for the optimization problem (ref:
+        # optimization_problem_{2d,3d}.h; MapByTime per trajectory).
+        self._odometry: Dict[int, List[Tuple[float, NpRigid3]]] = {}
+        self._fixed_frame: Dict[int, List[Tuple[float, NpRigid3]]] = {}
+        self._landmark_ids: Dict[str, int] = {}
+        self._landmark_observations: List[dict] = []
         # _lock guards the host bookkeeping; _opt_lock serializes
         # optimizations (the solve itself runs without _lock so the front
         # end keeps streaming); _constraint_lock serializes whole constraint
@@ -347,9 +376,48 @@ class PoseGraphBase:
             except Exception:  # noqa: BLE001 - a client callback must not stop the back end
                 traceback.print_exc()
 
-    # -- hooks of the 3D graph ------------------------------------------------
+    # -- sensor ingestion (ref: pose_graph_{2d,3d}.cc AddOdometryData,
+    #    AddFixedFramePoseData, AddLandmarkData) --------------------------------
+
+    def add_odometry_data(self, trajectory_id: int, time: float, pose: NpRigid3) -> None:
+        self._odometry.setdefault(trajectory_id, []).append((time, pose))
+
+    def add_fixed_frame_pose_data(self, trajectory_id: int, time: float, pose: NpRigid3) -> None:
+        self._fixed_frame.setdefault(trajectory_id, []).append((time, pose))
+
+    def add_landmark_data(self, trajectory_id: int, time: float, landmark_id: str, landmark_to_tracking: NpRigid3,
+                          translation_weight: float, rotation_weight: float) -> None:
+        if landmark_id not in self._landmark_ids:
+            self._landmark_ids[landmark_id] = len(self._landmark_ids)
+        self._landmark_observations.append(dict(
+            trajectory_id=trajectory_id, time=time, landmark_index=self._landmark_ids[landmark_id],
+            transform=landmark_to_tracking, translation_weight=translation_weight,
+            rotation_weight=rotation_weight))
+
+    @staticmethod
+    def _lookup_buffer(buf: List[Tuple[float, NpRigid3]], time: float) -> Optional[NpRigid3]:
+        """The buffered pose at `time` (an odometry or fixed-frame buffer),
+        interpolated; None outside the buffer."""
+        if not buf or time < buf[0][0] or time > buf[-1][0]:
+            return None
+        j = int(np.searchsorted([t for t, _ in buf], time))
+        if j == 0:
+            return buf[0][1]
+        if j >= len(buf):
+            return buf[-1][1]
+        t0, p0 = buf[j - 1]
+        t1, p1 = buf[j]
+        f = (time - t0) / max(t1 - t0, 1e-9)
+        return NpRigid3(p0.t + f * (p1.t - p0.t), nq.quat_slerp(p0.q, p1.q, f))
+
+    # -- hooks of the 3D and 2D graphs ----------------------------------------
 
     def _on_submap_finished(self, pg_submap: PgSubmap) -> None:
+        raise NotImplementedError
+
+    def _forget_submaps(self, removed_sids) -> None:
+        """Drop what the graph caches of trimmed submaps (stable ids);
+        called by trim_submaps under the graph's locks."""
         raise NotImplementedError
 
     def _compute_constraint(self, node: PgNode, pg_submap: PgSubmap, global_search: bool = False):
@@ -518,8 +586,9 @@ class PoseGraphBase:
         own extent). One cloud read per node lifetime."""
         r = self._cloud_range_cache.get(node.node_id)
         if r is None:
-            pos = node.high_cloud.positions.cpu().numpy()
-            mask = node.high_cloud.mask.cpu().numpy()
+            cloud = node.cloud if node.cloud is not None else node.high_cloud
+            pos = cloud.positions.cpu().numpy()
+            mask = cloud.mask.cpu().numpy()
             rmax = float(np.sqrt(np.max(np.where(mask, np.sum(pos**2, axis=-1), 0.0), initial=0.0)))
             bucket = 1.0
             while bucket < rmax and bucket < self._max_scan_range:
@@ -630,13 +699,7 @@ class PoseGraph3D(PoseGraphBase):
             _build.load_library()  # before the worker thread can launch a kernel
         self._histogram_size = histogram_size
         self._max_scan_range = max_scan_range
-        # Sensor buffers for the optimization problem (ref:
-        # optimization_problem_3d.h; MapByTime per trajectory).
-        self._odometry: Dict[int, List[Tuple[float, NpRigid3]]] = {}
-        self._fixed_frame: Dict[int, List[Tuple[float, NpRigid3]]] = {}
-        self._landmark_ids: Dict[str, int] = {}
-        self._landmark_observations: List[dict] = []
-        self._imu: Dict[int, List[Tuple[float, np.ndarray, np.ndarray]]] = {}
+        self._imu: Dict[int, List[Tuple[float, np.ndarray, np.ndarray]]] = {}  # IMU for the optimization problem
         # The finished submaps' search state on the card for the batched
         # search (see _get_pack_3d): the pack, the round counter and each
         # submap's last round, for most-recently-used retention.
@@ -646,42 +709,11 @@ class PoseGraph3D(PoseGraphBase):
         self.batched_fallbacks = 0  # rounds of mixed shapes sent to the serial path
         super().__init__(options)
 
-    # -- sensor ingestion (ref: pose_graph_3d.cc AddOdometryData, AddImuData,
-    #    AddFixedFramePoseData, AddLandmarkData) ------------------------------
-
-    def add_odometry_data(self, trajectory_id: int, time: float, pose: NpRigid3) -> None:
-        self._odometry.setdefault(trajectory_id, []).append((time, pose))
+    # -- IMU ingestion (ref: pose_graph_3d.cc AddImuData) -----------------------
 
     def add_imu_data(self, trajectory_id: int, time: float, linear_acceleration, angular_velocity) -> None:
         self._imu.setdefault(trajectory_id, []).append(
             (time, np.asarray(linear_acceleration, float), np.asarray(angular_velocity, float)))
-
-    def add_fixed_frame_pose_data(self, trajectory_id: int, time: float, pose: NpRigid3) -> None:
-        self._fixed_frame.setdefault(trajectory_id, []).append((time, pose))
-
-    def add_landmark_data(self, trajectory_id: int, time: float, landmark_id: str, landmark_to_tracking: NpRigid3,
-                          translation_weight: float, rotation_weight: float) -> None:
-        if landmark_id not in self._landmark_ids:
-            self._landmark_ids[landmark_id] = len(self._landmark_ids)
-        self._landmark_observations.append(dict(
-            trajectory_id=trajectory_id, time=time, landmark_index=self._landmark_ids[landmark_id],
-            transform=landmark_to_tracking, translation_weight=translation_weight,
-            rotation_weight=rotation_weight))
-
-    @staticmethod
-    def _lookup_buffer(buf: List[Tuple[float, NpRigid3]], time: float) -> Optional[NpRigid3]:
-        """The buffered pose at `time`, interpolated; None outside the buffer."""
-        if not buf or time < buf[0][0] or time > buf[-1][0]:
-            return None
-        j = int(np.searchsorted([t for t, _ in buf], time))
-        if j == 0:
-            return buf[0][1]
-        if j >= len(buf):
-            return buf[-1][1]
-        t0, p0 = buf[j - 1]
-        t1, p1 = buf[j]
-        f = (time - t0) / max(t1 - t0, 1e-9)
-        return NpRigid3(p0.t + f * (p1.t - p0.t), nq.quat_slerp(p0.q, p1.q, f))
 
     def _build_extras(self, N_cap: int, nodes=None):
         """SpaExtras3D on the device from the buffered sensors, or None when
@@ -810,6 +842,23 @@ class PoseGraph3D(PoseGraphBase):
                 fields["landmark_rotation"][li] = pose.q
                 fields["landmark_mask"][li] = True
         return SpaExtras3D(**{k: torch.from_numpy(np.asarray(v)).to(self._device) for k, v in fields.items()})
+
+    def _forget_submaps(self, removed_sids) -> None:
+        """The batched search's pack is dropped when a trimmed submap is a
+        member, so that trimmed tables leave the card and stop counting
+        against pack_hbm_budget_bytes; the trimmed ids leave its host cache
+        and the most-recently-used record, and the pack-bytes gauge reads 0
+        until the next round packs again. The surviving members' matchers
+        hold their tables on the host (to_host), so that rebuild only
+        uploads, as in the JAX package."""
+        pack = self._pack3d
+        if pack is not None and removed_sids & set(pack["slots"]):
+            for sid in removed_sids:
+                pack["host"].pop(sid, None)
+            self._pack3d = None
+            _set_pack_bytes_gauge("3d", 0)
+        for sid in removed_sids:
+            self._pack3d_used.pop(sid, None)
 
     def _on_submap_finished(self, pg_submap: PgSubmap) -> None:
         """Build the submap's loop-closure matcher (ref: constraint_builder_3d.cc
@@ -1100,4 +1149,395 @@ class PoseGraph3D(PoseGraphBase):
                 s.global_pose = NpRigid3(sub[i, :3], sub[i, 3:])
             for i, n in enumerate(nodes):
                 n.global_pose = NpRigid3(nod[i, :3], nod[i, 3:])
+            self._correct_post_snapshot(nodes, submaps)
+
+
+def _pose2_of(p: NpRigid3) -> np.ndarray:
+    """(x, y, yaw) f32 of a host pose."""
+    return np.array([p.t[0], p.t[1], nq.quat_yaw(p.q)], np.float32)
+
+
+def _rigid_of_pose2(v) -> NpRigid3:
+    """The host pose of (x, y, yaw)."""
+    return NpRigid3(np.array([v[0], v[1], 0.0]), nq.quat_from_axis_angle(np.array([0.0, 0.0, float(v[2])])))
+
+
+class PoseGraph2D(PoseGraphBase):
+    """(ref: mapping/internal/2d/pose_graph_2d.cc; the JAX package's
+    PoseGraph2D, pose_graph.py :896-1600.)
+
+    Each finished submap's fast matcher is prepared on first use, once per
+    search depth (local-window and full-submap searches differ in depth),
+    and kept by stable submap id (_submap_matcher); the serial refinement's
+    wide-row field likewise, on first serial use (_gn_field; the JAX
+    package builds it with the matcher, the batched round never reads
+    it). With use_batched_constraint_search a round of two or more gated
+    candidates is searched over the finished submaps' pack of its depth
+    (_get_pack_2d): one K5 launch per pyramid level for the round, then
+    one packed GN refinement of the survivors against the pack's raw
+    grids. Every SPA solve with a trajectory of two or more nodes runs
+    solve_spa_2d_full, since the local-SLAM relative poses between
+    consecutive nodes are always a family; otherwise solve_spa_2d."""
+
+    def __init__(self, options, max_scan_range: float = 30.0, device="cuda"):
+        """Runs on the card unless `device` says otherwise; without one it
+        raises."""
+        self._device = torch.device(device)
+        if self._device.type == "cuda":
+            _build.load_library()  # before the worker thread can launch a kernel
+        self._max_scan_range = max_scan_range
+        # submap_id -> {depth: PreparedFastMatcher2D, "gn": the serial
+        # refinement's prepared field}.
+        self._matcher_cache: Dict[int, dict] = {}
+        # The packs of the batched search, one per search depth (see
+        # _get_pack_2d): the round counter and each submap's last round,
+        # for most-recently-used retention.
+        self._packs2d: Dict[int, dict] = {}
+        self._pack2d_round = 0
+        self._pack2d_used: Dict[int, int] = {}
+        self.batched_fallbacks = 0  # rounds of mixed shapes sent to the serial path
+        super().__init__(options)
+
+    def _build_extras(self, N_cap: int, nodes=None):
+        """SpaExtras2D on the device from the buffered sensors, or None when
+        every family is empty (ref: optimization_problem_2d.cc :278-298).
+        Each pair of consecutive nodes of a trajectory that is not frozen
+        gets the local-SLAM relative pose, and the odometry one where the
+        buffer covers both times."""
+        nodes = self.nodes if nodes is None else nodes
+        opt = self._options.optimization_problem
+        nn = []
+        by_traj: Dict[int, List[int]] = {}
+        for i, n in enumerate(nodes):
+            by_traj.setdefault(n.trajectory_id, []).append(i)
+        for tid, idxs in by_traj.items():
+            if self.is_frozen(tid):
+                continue
+            odom = self._odometry.get(tid, [])
+            for a, b in zip(idxs[:-1], idxs[1:]):
+                na, nb = nodes[a], nodes[b]
+                oa, ob = self._lookup_buffer(odom, na.time), self._lookup_buffer(odom, nb.time)
+                if oa is not None and ob is not None:
+                    nn.append((a, b, _pose2_of(oa.inverse().compose(ob)), opt.odometry_translation_weight,
+                               opt.odometry_rotation_weight))
+                nn.append((a, b, _pose2_of(na.local_pose.inverse().compose(nb.local_pose)),
+                           opt.local_slam_pose_translation_weight, opt.local_slam_pose_rotation_weight))
+        has_ff = any(self._fixed_frame.values())
+        has_lm = bool(self._landmark_observations)
+        if not nn and not has_ff and not has_lm:
+            return None
+
+        P = self._pad_to(max(len(nn), 1))
+        L = max(len(self._landmark_ids), 1)
+        O = self._pad_to(max(len(self._landmark_observations), 1))
+        fields = {k: v.numpy() for k, v in empty_extras_2d(N_cap, p=P, l=L, o=O, device="cpu")._asdict().items()}
+        for i, (a, b, rel, wt, wr) in enumerate(nn):
+            for name, v in (("nn_a", a), ("nn_b", b), ("nn_mask", True), ("nn_rel_pose", rel),
+                            ("nn_translation_weight", wt), ("nn_rotation_weight", wr)):
+                fields[name][i] = v
+        if has_ff:
+            for i, n in enumerate(nodes):
+                pose = self._lookup_buffer(self._fixed_frame.get(n.trajectory_id, []), n.time)
+                if pose is not None:
+                    fields["ff_mask"][i] = True
+                    fields["ff_pose"][i] = _pose2_of(pose)
+                    fields["ff_translation_weight"][i] = opt.fixed_frame_pose_translation_weight
+        if has_lm:
+            # Each observation binds to the node of its own trajectory at or
+            # before its time; client overrides seed the landmark poses.
+            times_by_traj: Dict[int, Tuple[list, list]] = {}
+            for i, n in enumerate(nodes):
+                times_by_traj.setdefault(n.trajectory_id, ([], []))[0].append(n.time)
+                times_by_traj[n.trajectory_id][1].append(i)
+            lm_init: Dict[int, np.ndarray] = {}
+            for name, pose in self._landmark_pose_overrides.items():
+                li = self._landmark_ids.get(name)
+                if li is not None:
+                    lm_init[li] = _pose2_of(pose)
+            count = 0
+            for obs in self._landmark_observations:
+                if count >= O:
+                    break
+                times_t, idx_t = times_by_traj.get(obs["trajectory_id"], (None, None))
+                if times_t is None:
+                    continue
+                j = idx_t[min(max(int(np.searchsorted(times_t, obs["time"])) - 1, 0), len(idx_t) - 1)]
+                for name, v in (("lm_node", j), ("lm_index", obs["landmark_index"]), ("lm_mask", True),
+                                ("lm_rel_pose", _pose2_of(obs["transform"])),
+                                ("lm_translation_weight", obs["translation_weight"]),
+                                ("lm_rotation_weight", obs["rotation_weight"])):
+                    fields[name][count] = v
+                if obs["landmark_index"] not in lm_init:
+                    lm_init[obs["landmark_index"]] = _pose2_of(nodes[j].global_pose.compose(obs["transform"]))
+                count += 1
+            for li, pose in lm_init.items():
+                fields["landmark_pose"][li] = pose
+                fields["landmark_mask"][li] = True
+        return SpaExtras2D(**{k: torch.from_numpy(np.asarray(v)).to(self._device) for k, v in fields.items()})
+
+    def _on_submap_finished(self, pg_submap: PgSubmap) -> None:
+        pass  # the matcher is prepared on its first candidate, per search depth
+
+    def _forget_submaps(self, removed_sids) -> None:
+        """The trimmed submaps' matchers and refinement fields leave the
+        cache, and a pack of either search depth that holds one is dropped,
+        as in the JAX package."""
+        for sid in removed_sids:
+            self._matcher_cache.pop(sid, None)
+            self._pack2d_used.pop(sid, None)
+        for depth in [d for d, state in self._packs2d.items() if removed_sids & set(state["slots"])]:
+            del self._packs2d[depth]
+
+    def _submap_matcher(self, pg_submap: PgSubmap, depth: int):
+        """The submap's fast matcher at `depth`, prepared once per finished
+        submap and depth (ref: constraint_builder_2d.cc
+        DispatchScanMatcherConstruction), kept by stable submap id."""
+        per_sid = self._matcher_cache.setdefault(pg_submap.submap_id, {})
+        if depth not in per_sid:
+            per_sid[depth] = prepare_fast_matcher_2d(pg_submap.submap.grid, depth)
+        return per_sid[depth]
+
+    def _gn_field(self, pg_submap: PgSubmap):
+        """The serial refinement's prepared probability field of the
+        submap, built on first use, kept by stable submap id."""
+        per_sid = self._matcher_cache.setdefault(pg_submap.submap_id, {})
+        if "gn" not in per_sid:
+            per_sid["gn"] = prepare_gn_probability_field(ensure_f32_grid(pg_submap.submap.grid))
+        return per_sid["gn"]
+
+    def _get_pack_2d(self, needed: Dict[int, PgSubmap], depth: int):
+        """The finished submaps' search state on the card for a batched
+        round of `depth` (PoseGraph2D._get_pack_2d of the JAX package,
+        :1089-1218): the fast matchers' levels and corners, and the raw
+        probability grids the packed refinement reads. Rebuilt only when a
+        needed submap is not packed. Membership: this round's submaps, then
+        the previous pack's other members most recently used first while
+        the pack fits constraint_builder.pack_hbm_budget_bytes (the levels
+        and the grid a submap). Returns (slot by submap id, PackedSubmaps2D,
+        the grid pack).
+
+        ROADMAP C6, fixed rather than mirrored: the JAX package drops an
+        evicted submap's host copies, so re-admitting it downloads them
+        again. Here the pack is built on the card from each submap's
+        prepared matcher and grid, which stay on the card: eviction only
+        frees the submap's slot, and re-admission copies from the device
+        again, the same bits as before."""
+        self._pack2d_round += 1
+        for sid in needed:
+            self._pack2d_used[sid] = self._pack2d_round
+        state = self._packs2d.get(depth)
+        if state is not None and all(sid in state["slots"] for sid in needed):
+            return state["slots"], state["packed"], state["gn"]
+        prev_order = state["order"] if state is not None else []
+        with self._lock:
+            live = {s.submap_id: s for s in self.submaps}
+        order = [sid for sid in prev_order if depth in self._matcher_cache.get(sid, {}) and sid in live]
+        order += [sid for sid in needed if sid not in order]
+        pg_by_sid = {**live, **needed}
+        grids = {sid: ensure_f32_grid(pg_by_sid[sid].submap.grid) for sid in order}
+        fast = {sid: self._matcher_cache[sid][depth] for sid in order}
+        bytes_of = {sid: fast[sid].flat_levels.numel() * 4 + grids[sid].log_odds.numel() * 4 for sid in order}
+        budget = int(self._options.constraint_builder.pack_hbm_budget_bytes)
+        members = {sid for sid in order if sid in needed}
+        total = sum(bytes_of[sid] for sid in members)
+        for sid in sorted((s for s in order if s not in members), key=lambda s: -self._pack2d_used.get(s, 0)):
+            if total + bytes_of[sid] > budget:
+                break
+            members.add(sid)
+            total += bytes_of[sid]
+        order = [sid for sid in order if sid in members]
+        _set_pack_bytes_gauge("2d", total)
+        if len({tuple(fast[sid].flat_levels.shape) for sid in order}) != 1:
+            raise NotImplementedError("mixed pyramid shapes")
+        p0 = fast[order[0]]
+        packed = pack_submaps_2d_from_arrays([(fast[sid].flat_levels, fast[sid].meta.min_corner) for sid in order],
+                                             float(p0.meta.resolution), p0.dims, self._device)
+        gn = {
+            "values": torch.stack([grids[sid].probability() for sid in order]),
+            "min_corners": packed.min_corners,
+            "resolution": float(p0.meta.resolution),
+            "pad_value": float(pv.MIN_PROBABILITY),
+        }
+        self._packs2d[depth] = {"order": order, "slots": {sid: i for i, sid in enumerate(order)}, "packed": packed,
+                                "gn": gn, "bytes": total}
+        return self._packs2d[depth]["slots"], packed, gn
+
+    @staticmethod
+    def _initial_in_grid(node: PgNode, pg_submap: PgSubmap):
+        """The node's current global pose in the submap's grid frame (the
+        local SLAM frame the grid was built in) as f32 numpy (x, y, yaw)."""
+        node_in_grid = pg_submap.submap.local_pose.compose(pg_submap.global_pose.inverse().compose(node.global_pose))
+        return node_in_grid.t[:2].astype(np.float32), np.float32(nq.quat_yaw(node_in_grid.q))
+
+    def _search_config(self, pg_submap: PgSubmap, scan_range: float, global_search: bool):
+        """(config, min_score): the full-submap search (ref:
+        MatchFullSubmap: a window of half the grid, the full angular range)
+        or the local window."""
+        cb = self._options.constraint_builder
+        fm = cb.fast_correlative_scan_matcher
+        res = float(pg_submap.submap.grid.meta.resolution)
+        if global_search:
+            return (make_fast_search_config(pg_submap.submap.grid.shape[0] * res / 2.0, math.pi, res, scan_range,
+                                            fm.branch_and_bound_depth), cb.global_localization_min_score)
+        return (make_fast_search_config(fm.linear_search_window, fm.angular_search_window, res, scan_range,
+                                        fm.branch_and_bound_depth), cb.min_score)
+
+    def _inter_constraint(self, pg_submap: PgSubmap, pose2) -> Constraint:
+        """The INTER constraint of a refined grid-frame pose (x, y, yaw);
+        the caller fills in its indices."""
+        cb = self._options.constraint_builder
+        return Constraint(submap_index=-1, node_index=-1,
+                          zbar=pg_submap.submap.local_pose.inverse().compose(_rigid_of_pose2(pose2)),
+                          translation_weight=cb.loop_closure_translation_weight,
+                          rotation_weight=cb.loop_closure_rotation_weight, tag="INTER")
+
+    def _compute_constraint(self, node: PgNode, pg_submap: PgSubmap, global_search: bool = False):
+        """(ref: constraint_builder_2d.cc ComputeConstraint.) The fast match
+        from the node's current global pose in the submap's grid frame (a
+        full-submap search when global_search), gated by min_score
+        (global_localization_min_score for full-submap searches), then the
+        GN refinement. The returned constraint's indices are filled in by
+        the caller."""
+        config, min_score = self._search_config(pg_submap, self._scan_range_bucket(node), global_search)
+        fast = self._submap_matcher(pg_submap, config.depth)
+        t, yaw = self._initial_in_grid(node, pg_submap)
+        f32 = dict(dtype=torch.float32, device=self._device)
+        initial = Rigid2(torch.tensor(t, **f32), torch.tensor(yaw, **f32))
+        score, pose = match_fast_2d_prepared(fast, node.cloud, initial, config)
+        score = float(score)
+        _observe_constraint_score("global" if global_search else "local", score)
+        if score < min_score:
+            return None
+        cm = self._options.constraint_builder.ceres_scan_matcher
+        refined, _ = match_gn_2d_probability(
+            None, node.cloud, pose, pose.translation, cm.occupied_space_weight, cm.translation_weight,
+            cm.rotation_weight, num_iterations=cm.ceres_solver_options.max_num_iterations,
+            prepared_field=self._gn_field(pg_submap))
+        return self._inter_constraint(pg_submap, torch.cat([refined.translation, refined.angle[None]]).cpu().numpy())
+
+    def _compute_constraints_batched(self, gated, global_search: bool = False):
+        """Every candidate of a round (local-window, or full-submap when
+        global_search) in one batched fast-matcher search over the pack of
+        its depth and one packed GN refinement of the survivors (the JAX
+        package's PoseGraph2D._compute_constraints_batched, :1327-1507, on
+        one card). The same gates and refinement parameters as
+        _compute_constraint, but one search configuration for the round:
+        its scan range is the largest of its nodes' (the serial path uses
+        each node's own). Returns a list of Optional[Constraint] aligned
+        with gated; raises NotImplementedError on mixed resolutions, cloud
+        sizes or grid extents, for the serial path."""
+        shapes = [
+            {float(p.submap.grid.meta.resolution) for _, _, _, p in gated},
+            {n.cloud.mask.shape[0] for _, _, n, _ in gated},
+            {p.submap.grid.shape[0] for _, _, _, p in gated},
+        ]
+        if any(len(x) != 1 for x in shapes):
+            raise NotImplementedError("mixed candidate shapes")
+        scan_range = max(self._scan_range_bucket(n) for _, _, n, _ in gated)
+        config, min_score = self._search_config(gated[0][3], scan_range, global_search)
+        prof = {} if ROUND_PROFILING else None
+
+        def stage(name, t0):
+            if prof is not None:
+                if self._device.type == "cuda":
+                    torch.cuda.synchronize(self._device)
+                prof[name] = prof.get(name, 0.0) + time.perf_counter() - t0
+            return time.perf_counter()
+
+        t0 = time.perf_counter()
+        needed: Dict[int, PgSubmap] = {}
+        for _, sid, _, p in gated:
+            if sid not in needed:
+                self._submap_matcher(p, config.depth)
+                needed[sid] = p
+        slot_by_sid, packed, gn = self._get_pack_2d(needed, config.depth)
+        t0 = stage("pack", t0)
+        candidates = [(slot_by_sid[sid], node.cloud, Rigid2(*self._initial_in_grid(node, p)))
+                      for _, sid, node, p in gated]
+        stage("initials", t0)
+        matches = sharded_fast_matches_2d_packed(packed, candidates, config, profile=prof)
+        survivors = []
+        for i, (score, _) in enumerate(matches):
+            _observe_constraint_score("global" if global_search else "local", score)
+            if score >= min_score:
+                survivors.append(i)
+        results: List[Optional[Constraint]] = [None] * len(gated)
+        if survivors:
+            t0 = time.perf_counter()
+            slots = torch.tensor([slot_by_sid[gated[i][1]] for i in survivors], dtype=torch.int64,
+                                 device=self._device)
+            poses = Rigid2(torch.stack([matches[i][1].translation for i in survivors]),
+                           torch.stack([matches[i][1].angle for i in survivors]))
+            clouds = [gated[i][2].cloud for i in survivors]
+            if all(c is clouds[0] for c in clouds):  # one node against many submaps
+                clouds = PointCloud(clouds[0].positions.expand(len(clouds), -1, -1),
+                                    clouds[0].mask.expand(len(clouds), -1))
+            else:
+                clouds = PointCloud(torch.stack([c.positions for c in clouds]), torch.stack([c.mask for c in clouds]))
+            t0 = stage("gn_prepare", t0)
+            cm = self._options.constraint_builder.ceres_scan_matcher
+            refined, _ = match_gn_2d_packed_grids(
+                gn["values"], None, gn["min_corners"], gn["resolution"], gn["pad_value"], slots, clouds, poses,
+                poses.translation, cm.occupied_space_weight, cm.translation_weight, cm.rotation_weight,
+                is_tsdf=False, num_iterations=cm.ceres_solver_options.max_num_iterations)
+            t0 = stage("gn_launch", t0)
+            out = torch.cat([refined.translation, refined.angle[:, None]], dim=1).cpu().numpy()
+            stage("gn_readback", t0)
+            for k, i in enumerate(survivors):
+                results[i] = self._inter_constraint(gated[i][3], out[k])
+        if prof is not None:
+            LAST_ROUND_BREAKDOWN.clear()
+            LAST_ROUND_BREAKDOWN.update(prof)
+        return results
+
+    def _run_optimization(self, num_iterations: int) -> None:
+        """(ref: optimization_problem_2d.cc Solve.) The first submap and
+        frozen trajectories are held fixed; INTER constraints carry the
+        Huber loss. With any extras family the full solve runs, else the
+        plain one (Schur or PCG by size)."""
+        nodes, submaps, constraints = self._snapshot_lists()
+        S = self._pad_to(len(submaps))
+        N = self._pad_to(len(nodes))
+        C = self._pad_to(max(len(constraints), 1))
+        submap_pose = np.zeros((S, 3), np.float32)
+        node_pose = np.zeros((N, 3), np.float32)
+        submap_fixed = np.ones(S, bool)
+        node_fixed = np.ones(N, bool)
+        for i, s in enumerate(submaps):
+            submap_pose[i] = _pose2_of(s.global_pose)
+            submap_fixed[i] = i == 0 or self.is_frozen(s.trajectory_id)
+        for i, n in enumerate(nodes):
+            node_pose[i] = _pose2_of(n.global_pose)
+            node_fixed[i] = self.is_frozen(n.trajectory_id)
+        cs = np.zeros(C, np.int64)
+        cn = np.zeros(C, np.int64)
+        cmask = np.zeros(C, bool)
+        crel = np.zeros((C, 3), np.float32)
+        cwt = np.zeros(C, np.float32)
+        cwr = np.zeros(C, np.float32)
+        chub = np.full(C, 1e6, np.float32)
+        for i, c in enumerate(constraints):
+            cs[i], cn[i], cmask[i] = c.submap_index, c.node_index, True
+            crel[i] = _pose2_of(c.zbar)
+            cwt[i], cwr[i] = c.translation_weight, c.rotation_weight
+            if c.tag == "INTER":
+                chub[i] = self._options.optimization_problem.huber_scale
+        problem = SpaProblem2D(*(torch.from_numpy(a).to(self._device)
+                                 for a in (submap_pose, node_pose, submap_fixed, node_fixed, cs, cn, cmask, crel, cwt,
+                                           cwr, chub)))
+        iterations = min(num_iterations, 50)
+        extras = self._build_extras(N, nodes)
+        if extras is not None:
+            sub_out, node_out, lm_out, _ = solve_spa_2d_full(problem, extras, num_iterations=iterations)
+            lm_out = lm_out.cpu().numpy()
+            self._landmark_poses = {name: _rigid_of_pose2(lm_out[idx]) for name, idx in self._landmark_ids.items()}
+            self._consume_landmark_overrides(set(self._landmark_ids.values()))
+        else:
+            sub_out, node_out, _ = solve_spa_2d(problem, num_iterations=iterations)
+        sub_out, node_out = sub_out.cpu().numpy(), node_out.cpu().numpy()
+        with self._lock:
+            for i, s in enumerate(submaps):
+                s.global_pose = _rigid_of_pose2(sub_out[i])
+            for i, n in enumerate(nodes):
+                n.global_pose = _rigid_of_pose2(node_out[i])
             self._correct_post_snapshot(nodes, submaps)

@@ -13,7 +13,13 @@ cells per axis. The Jacobian is written out analytically.
 
 Every solve is batched: poses (B, 2)/(B,), clouds (B, N, 3). The LM loop is
 a Python loop of at most num_iterations steps with a per-lane `done` mask;
-a converged lane is frozen and returns what its serial solve returns.
+a converged lane is frozen and returns what its serial solve returns. The
+lanes may refine against one prepared field, against a prepared field each
+(match_gn_2d_fields_batched) or against the slots of a raw grid pack
+(match_gn_2d_packed_grids, the batched constraint round's refinement).
+
+The TSDF cost (_match_gn_2d_tsdf_fields, is_tsdf=True) is not ported: it
+waits for the 2D TSDF grid (ROADMAP A5b).
 """
 
 from __future__ import annotations
@@ -71,7 +77,9 @@ def _catmull(d):
 
 
 def _lm_grid_2d(
-    field: PreparedField2D,
+    gather,
+    min_corner,
+    res,
     pts,
     valid,
     scale,
@@ -90,12 +98,15 @@ def _lm_grid_2d(
     occupied-space residual 1 - P(T p) (ref: occupied_space_cost_function_
     2d.cc:47-74).
 
-    pts (B, N, 2), valid (B, N) bool, scale (B,), initial_pose (B, 2)/(B,),
+    gather(world (B, N, 2)) -> (B, N, width^2) wide rows, called once, at
+    the initial pose; min_corner: the grid corner, (2,) or per lane (B, 1,
+    2); res: the resolution, a scalar tensor or per lane (B,). pts (B, N,
+    2), valid (B, N) bool, scale (B,), initial_pose (B, 2)/(B,),
     target_translation (B, 2). Termination mirrors Ceres: at most
     num_iterations, a lane stopping once an accepted step decreases its
     cost by less than function_tolerance * cost. Returns (pose, cost)."""
-    meta = field.meta
-    res = meta.resolution
+    res_pts = res.reshape(-1, 1) if res.dim() else res  # against (B, N)
+    res_xy = res.reshape(-1, 1, 1) if res.dim() else res  # against (B, N, 2)
     width = 4 + 2 * slack
     b, n = valid.shape
     device = pts.device
@@ -109,8 +120,8 @@ def _lm_grid_2d(
         return rot2(pose.angle[:, None], pts) + pose.translation[:, None, :]
 
     world0 = world_of(initial_pose)
-    rows = gather_rows_2d(field, world0)  # (B, N, width^2), gathered ONCE
-    i0_init = torch.floor((world0 - meta.min_corner) / res - 0.5).to(torch.int32)
+    rows = gather(world0)  # (B, N, width^2), gathered ONCE
+    i0_init = torch.floor((world0 - min_corner) / res_xy - 0.5).to(torch.int32)
     # The wide row's (0, 0) lane holds cell i0_init - 1 - slack.
     base = (i0_init - (1 + slack)).to(torch.float32)  # (B, N, 2)
     lanes = torch.arange(width, device=device).to(torch.float32)
@@ -118,7 +129,7 @@ def _lm_grid_2d(
     def lane_kernels(pose):
         """Catmull-Rom kernel values and derivatives at the width lanes of
         each axis: kx, dkx, ky, dky (B, N, width)."""
-        u = (world_of(pose) - meta.min_corner) / res - 0.5
+        u = (world_of(pose) - min_corner) / res_xy - 0.5
         kx, dkx = _catmull((u[..., 0] - base[..., 0])[..., None] - lanes)
         ky, dky = _catmull((u[..., 1] - base[..., 1])[..., None] - lanes)
         return kx, dkx, ky, dky
@@ -148,7 +159,7 @@ def _lm_grid_2d(
         # d frac / d pose: u = (R p + t - min)/res - 0.5.
         dp_dth = rot2(pose.angle[:, None] + math.pi / 2.0, pts)  # dR/dtheta @ p
         jocc = torch.stack(
-            [dv_dfx / res, dv_dfy / res, (dv_dfx * dp_dth[..., 0] + dv_dfy * dp_dth[..., 1]) / res],
+            [dv_dfx / res_pts, dv_dfy / res_pts, (dv_dfx * dp_dth[..., 0] + dv_dfy * dp_dth[..., 1]) / res_pts],
             dim=-1,
         )  # (B, N, 3)
         # Elementwise products and sums: no matmul, so no TF32 on the card.
@@ -222,20 +233,26 @@ def match_gn_2d_probability_batched(
     Returns (poses (B,), costs (B,))."""
     if prepared_field is None:
         prepared_field = prepare_gn_probability_field(grid)
-    valid = clouds.mask
-    n = torch.clamp(torch.sum(valid, dim=-1), min=1)
-    scale = occupied_space_weight / torch.sqrt(n.to(torch.float32))
+    meta = prepared_field.meta
     return _lm_grid_2d(
-        prepared_field,
+        lambda world: gather_rows_2d(prepared_field, world),
+        meta.min_corner,
+        meta.resolution,
         clouds.positions[..., :2].to(torch.float32),
-        valid,
-        scale,
+        clouds.mask,
+        _occupied_scale(clouds.mask, occupied_space_weight),
         initial_poses,
         target_translations,
         translation_weight,
         rotation_weight,
         num_iterations,
     )
+
+
+def _occupied_scale(valid, occupied_space_weight):
+    """w_o / sqrt(N) per lane, N the lane's valid points (at least 1)."""
+    n = torch.clamp(torch.sum(valid, dim=-1), min=1)
+    return occupied_space_weight / torch.sqrt(n.to(torch.float32))
 
 
 def match_gn_2d_probability(
@@ -247,9 +264,10 @@ def match_gn_2d_probability(
     translation_weight: float,
     rotation_weight: float,
     num_iterations: int = 20,
+    prepared_field: PreparedField2D | None = None,
 ) -> Tuple[Rigid2, torch.Tensor]:
-    """Refine one pose against an occupancy grid: the B=1 call of
-    match_gn_2d_probability_batched. Returns (pose, cost)."""
+    """Refine one pose against an occupancy grid (or its prepared_field):
+    the B=1 call of match_gn_2d_probability_batched. Returns (pose, cost)."""
     poses, costs = match_gn_2d_probability_batched(
         grid,
         PointCloud(positions=cloud.positions[None], mask=cloud.mask[None]),
@@ -259,5 +277,110 @@ def match_gn_2d_probability(
         translation_weight,
         rotation_weight,
         num_iterations=num_iterations,
+        prepared_field=prepared_field,
     )
     return Rigid2(translation=poses.translation[0], angle=poses.angle[0]), costs[0]
+
+
+def match_gn_2d_fields_batched(
+    stacked_fields: PreparedField2D,
+    clouds: PointCloud,
+    initial_poses: Rigid2,
+    target_translations,
+    occupied_space_weight: float,
+    translation_weight: float,
+    rotation_weight: float,
+    is_tsdf: bool,
+    num_iterations: int = 20,
+):
+    """Batched refinement where lane b refines against its own prepared
+    field (gn_2d.py :449): stacked_fields holds the lanes' fields stacked,
+    patches (B, nx*ny + 1, w*w), meta.min_corner (B, 2) and meta.resolution
+    (B,), one dims for all. Each lane returns its serial solve's result.
+    Returns (poses (B,), costs (B,))."""
+    if is_tsdf:
+        raise NotImplementedError("the 2D TSDF refinement is not ported (ROADMAP A5b)")
+    meta, (nx, ny) = stacked_fields.meta, stacked_fields.dims
+    mc, res = meta.min_corner[:, None, :], meta.resolution.reshape(-1)
+    lanes = torch.arange(mc.shape[0], device=mc.device)[:, None]
+
+    def gather(world):
+        # gather_rows_2d, each lane in its own field.
+        i0 = torch.floor((world - mc) / res[:, None, None] - 0.5).to(torch.int64)
+        ok = (i0[..., 0] >= 0) & (i0[..., 0] < nx) & (i0[..., 1] >= 0) & (i0[..., 1] < ny)
+        return stacked_fields.patches[lanes, torch.where(ok, i0[..., 0] * ny + i0[..., 1], nx * ny)]
+
+    return _lm_grid_2d(
+        gather, mc, res,
+        clouds.positions[..., :2].to(torch.float32), clouds.mask,
+        _occupied_scale(clouds.mask, occupied_space_weight), initial_poses, target_translations,
+        translation_weight, rotation_weight, num_iterations,
+    )
+
+
+def _wide_cells(min_corner, resolution, world, slack: int = _GN_SLACK):
+    """The (x, y) cells (..., N, w*w) of each point's wide patch, lane dx * w
+    + dy: the base cell floor((world - min) / res - 0.5) - (1 + slack) plus
+    the lane's offsets."""
+    w = 4 + 2 * slack
+    u = (world - min_corner) / resolution - 0.5
+    i0 = torch.floor(u).to(torch.int64) - (1 + slack)  # (..., N, 2) patch corner
+    lane = torch.arange(w * w, device=world.device)
+    return i0[..., 0:1] + lane // w, i0[..., 1:2] + lane % w
+
+
+def _gather_wide_from_values(values, min_corner, resolution, world, pad_value, slack: int = _GN_SLACK):
+    """Wide (..., N, (4+2*slack)^2) rows gathered directly from a raw (nx,
+    ny) grid (gn_2d.py :480): the rows prepare_field_2d_wide tabulates for
+    a base cell inside the grid, cell by cell, out-of-grid cells read
+    pad_value."""
+    nx, ny = values.shape
+    return _gather_wide_from_flat(values.reshape(-1), 0, nx, ny, min_corner, resolution, world, pad_value, slack)
+
+
+def _gather_wide_from_flat(flat_values, base, nx: int, ny: int, min_corner, resolution, world, pad_value,
+                           slack: int = _GN_SLACK):
+    """_gather_wide_from_values with each lane's grid at a row offset base
+    (B, 1, 1) into one flat table of stacked grids (gn_2d.py :504)."""
+    ix, iy = _wide_cells(min_corner, resolution, world, slack)
+    ok = (ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
+    rows = flat_values[torch.where(ok, base + ix * ny + iy, 0)]
+    return torch.where(ok, rows.to(torch.float32), pad_value)
+
+
+def match_gn_2d_packed_grids(
+    values_stack,
+    weight_stack,
+    min_corners,
+    resolution,
+    pad_value,
+    slots,
+    clouds: PointCloud,
+    initial_poses: Rigid2,
+    target_translations,
+    occupied_space_weight: float,
+    translation_weight: float,
+    rotation_weight: float,
+    is_tsdf: bool,
+    num_iterations: int = 20,
+):
+    """Batched refinement against a raw grid pack on the device (gn_2d.py
+    :523-590), the batched constraint round's refinement: lane c refines
+    against slot slots[c] of values_stack (S, nx, ny) (probabilities), its
+    corner min_corners[slots[c]] (S, 2), gathering its wide rows from the
+    grid cell by cell once. resolution and pad_value (MIN_PROBABILITY) are
+    shared scalars; weight_stack serves the TSDF cost only. Returns (poses
+    (C,), costs (C,))."""
+    if is_tsdf:
+        raise NotImplementedError("the 2D TSDF refinement is not ported (ROADMAP A5b)")
+    s, nx, ny = values_stack.shape
+    res = torch.as_tensor(resolution, dtype=torch.float32, device=values_stack.device)
+    mc = min_corners[slots.long()][:, None, :]  # (C, 1, 2)
+    flat_vals = values_stack.reshape(-1)
+    base = (slots.long() * (nx * ny))[:, None, None]
+    return _lm_grid_2d(
+        lambda world: _gather_wide_from_flat(flat_vals, base, nx, ny, mc, res, world, pad_value),
+        mc, res, clouds.positions[..., :2].to(torch.float32), clouds.mask,
+        _occupied_scale(clouds.mask, occupied_space_weight), initial_poses, target_translations,
+        translation_weight, rotation_weight, num_iterations,
+    )

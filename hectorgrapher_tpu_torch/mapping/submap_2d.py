@@ -74,10 +74,11 @@ class ActiveSubmaps2D:
     def __init__(self, options, device, max_ray_length: float = 0.0):
         grid_type = options.grid_options_2d.grid_type
         if grid_type != "PROBABILITY_GRID":
-            raise NotImplementedError(f"grid_type {grid_type!r}: only PROBABILITY_GRID is ported")
+            raise NotImplementedError(
+                f"grid_type {grid_type!r}: only PROBABILITY_GRID is ported (2D TSDF: ROADMAP A5b)")
         if options.grid_storage_dtype != "float32":
             raise NotImplementedError(
-                f"grid_storage_dtype {options.grid_storage_dtype!r}: only float32 is ported"
+                f"grid_storage_dtype {options.grid_storage_dtype!r}: only float32 is ported (2D storage: ROADMAP A5b)"
             )
         self._options = options
         self._device = device

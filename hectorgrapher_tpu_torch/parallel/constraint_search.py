@@ -1,6 +1,7 @@
-"""The batched 3D constraint search on one card (counterpart of the 3D
-half of hectorgrapher_tpu/parallel/constraint_search.py, :412-840, without
-the mesh: the port runs on one card and set_solver_mesh refuses a mesh).
+"""The batched constraint searches on one card, 3D and 2D (counterpart of
+hectorgrapher_tpu/parallel/constraint_search.py, the 3D half :412-840 and
+the 2D half :65-405, without the mesh: the port runs on one card and
+set_solver_mesh refuses a mesh).
 
 A PackedSubmaps3D holds the search state of many finished submaps on the
 card: per pyramid level one stacked flat table whose blocks (one per
@@ -26,13 +27,18 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from hectorgrapher_tpu_torch.mapping.scan_matching.fast_correlative_2d import (
+    FastSearchConfig,
+    PreparedFastMatcher2D,
+    match_fast_2d_batched,
+)
 from hectorgrapher_tpu_torch.mapping.scan_matching.fast_correlative_3d import (
     FastSearch3DConfig,
     match_fast_3d_batched,
     yaw_scores_3d,
 )
 from hectorgrapher_tpu_torch.sensor.types import PointCloud
-from hectorgrapher_tpu_torch.transform.rigid import Rigid3
+from hectorgrapher_tpu_torch.transform.rigid import Rigid2, Rigid3
 
 
 class PackedSubmaps3D(NamedTuple):
@@ -213,3 +219,141 @@ def sharded_fast_matches_3d(matchers, candidates, config: FastSearch3DConfig, de
     if not candidates:
         return []
     return sharded_fast_matches_3d_packed(pack_submaps_3d(matchers, device), candidates, config, use_rotational)
+
+
+# ---------------------------------------------------------------------------
+# 2D
+# ---------------------------------------------------------------------------
+#
+# A PackedSubmaps2D holds the prepared fast matchers of many finished
+# submaps (one search depth) on the card: their levels stacked into one
+# flat table whose submap blocks of depth * (nx + 1) rows a candidate
+# addresses by its row base, and their grid corners. One round's
+# candidates are searched together: one K5 launch per pyramid level for the
+# whole round (match_fast_2d_batched), one readback of the round's scores.
+
+
+class PackedSubmaps2D(NamedTuple):
+    """Search state of `count` finished submaps of one search depth,
+    stacked on one device."""
+
+    levels: torch.Tensor  # (count * depth * (nx + 1), ny) f32
+    min_corners: torch.Tensor  # (count, 2)
+    resolution: torch.Tensor  # scalar f32
+    dims: Tuple[int, int]
+    depth: int
+    count: int
+
+    @property
+    def block_rows(self) -> int:
+        """Table rows of one submap's block."""
+        return self.depth * (self.dims[0] + 1)
+
+
+def pack_submaps_2d_from_arrays(arrays: Sequence[Tuple[torch.Tensor, torch.Tensor]], resolution: float,
+                                dims: Tuple[int, int], device) -> PackedSubmaps2D:
+    """Pack (flat_levels (depth, nx + 1, ny), min_corner (2,)) of each
+    submap, on any device, in their order. Raises ValueError on mixed
+    level shapes."""
+    device = torch.device(device)
+    shape = tuple(arrays[0][0].shape)
+    if any(tuple(lv.shape) != shape for lv, _ in arrays):
+        raise ValueError("pack_submaps_2d: mixed pyramid shapes")
+    f32 = dict(dtype=torch.float32, device=device)
+    levels = torch.empty((len(arrays),) + shape, **f32)
+    mcs = torch.empty((len(arrays), 2), **f32)
+    for i, (lv, mc) in enumerate(arrays):
+        levels[i].copy_(lv, non_blocking=True)
+        mcs[i].copy_(mc, non_blocking=True)
+    return PackedSubmaps2D(levels=levels.reshape(-1, shape[2]), min_corners=mcs,
+                           resolution=torch.tensor(float(resolution), **f32), dims=tuple(int(d) for d in dims),
+                           depth=int(shape[0]), count=len(arrays))
+
+
+def pack_submaps_2d(prepared_submaps: Sequence[PreparedFastMatcher2D], device) -> PackedSubmaps2D:
+    """Stack prepared matchers (of one depth and grid shape) on `device`."""
+    p0 = prepared_submaps[0]
+    return pack_submaps_2d_from_arrays([(p.flat_levels, p.meta.min_corner) for p in prepared_submaps],
+                                       float(p0.meta.resolution), p0.dims, device)
+
+
+class CandidateBatch2D(NamedTuple):
+    """One round's candidates, stacked on the card."""
+
+    cloud_positions: torch.Tensor  # (B, N, 3)
+    cloud_mask: torch.Tensor  # (B, N)
+    init_translation: torch.Tensor  # (B, 2)
+    init_angle: torch.Tensor  # (B,)
+    submap_slot: torch.Tensor  # (B,) int64 pack slot
+
+
+def build_candidate_arrays_2d(candidates, device) -> CandidateBatch2D:
+    """candidates: [(pack slot, cloud, initial Rigid2 in the grid frame)].
+    The clouds, already on the card, are stacked there (one expand when
+    every candidate shares one cloud, the round of one node against many
+    submaps); the initial poses and slots go up in one f64 copy, exact for
+    each."""
+    as_np = lambda x: x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    host = np.stack([np.concatenate([as_np(c[2].translation).reshape(2), as_np(c[2].angle).reshape(1), [c[0]]])
+                     for c in candidates]).astype(np.float64)
+    rows = torch.from_numpy(host).to(device)
+    clouds = [c[1] for c in candidates]
+    if all(cl is clouds[0] for cl in clouds):
+        positions = clouds[0].positions.expand(len(clouds), -1, -1)
+        mask = clouds[0].mask.expand(len(clouds), -1)
+    else:
+        positions, mask = torch.stack([cl.positions for cl in clouds]), torch.stack([cl.mask for cl in clouds])
+    return CandidateBatch2D(cloud_positions=positions, cloud_mask=mask, init_translation=rows[:, 0:2].float(),
+                            init_angle=rows[:, 2].float(), submap_slot=rows[:, 3].to(torch.int64))
+
+
+def launch_fast_matches_2d(packed: PackedSubmaps2D, batch: CandidateBatch2D, config: FastSearchConfig):
+    """The round's search on the card: match_fast_2d_batched over the pack
+    (one K5 launch per level). Returns device (scores, pose_t, pose_a)."""
+    slots = batch.submap_slot
+    if config.depth != packed.depth:
+        raise ValueError(f"a depth-{config.depth} search over a depth-{packed.depth} pack")
+    scores, pose = match_fast_2d_batched(
+        packed.levels, slots * packed.block_rows, packed.resolution, packed.min_corners[slots], packed.dims,
+        PointCloud(batch.cloud_positions, batch.cloud_mask), Rigid2(batch.init_translation, batch.init_angle),
+        config)
+    return scores, pose.translation, pose.angle
+
+
+def sharded_fast_matches_2d_packed(packed: PackedSubmaps2D, candidates, config: FastSearchConfig,
+                                   profile: Optional[dict] = None) -> List[tuple]:
+    """One round's candidates in one batched search over the pack (the
+    reference's one thread-pool task a candidate,
+    constraint_builder_2d.cc:112-160). Returns [(score, Rigid2 pose on the
+    card)] in candidate order, after one readback of the scores; the caller
+    applies the score gate. `profile`, if given, receives the seconds of
+    cand_build, fm_launch (ending in a device sync) and fm_readback."""
+    if not candidates:
+        return []
+    device = packed.levels.device
+    t0 = time.perf_counter()
+    batch = build_candidate_arrays_2d(candidates, device)
+    if profile is not None:
+        profile["cand_build"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    scores, pose_t, pose_a = launch_fast_matches_2d(packed, batch, config)
+    if profile is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        profile["fm_launch"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    host = scores.tolist()
+    if profile is not None:
+        profile["fm_readback"] = time.perf_counter() - t0
+    return [(host[i], Rigid2(pose_t[i], pose_a[i])) for i in range(len(candidates))]
+
+
+def sharded_fast_matches_2d(prepared_submaps: Sequence[PreparedFastMatcher2D], candidates,
+                            config: FastSearchConfig, device) -> List[tuple]:
+    """Every candidate of a round (candidates index `prepared_submaps`) in
+    one batched search, packing the submaps on the fly; a caller that
+    searches often packs once (pack_submaps_2d) and calls
+    sharded_fast_matches_2d_packed."""
+    if not candidates:
+        return []
+    return sharded_fast_matches_2d_packed(pack_submaps_2d(prepared_submaps, device), candidates, config)

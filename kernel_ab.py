@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""K1-K4 against an earlier version of themselves, on one CUDA card.
+"""K1-K5 against an earlier version of themselves, on one CUDA card.
 
-    python3 kernel_ab.py PARENT_DIR [--kernels k1 k2 k3 k3p k4] [--out kernel_ab.json]
+    python3 kernel_ab.py PARENT_DIR [--kernels k1 k2 k3 k3p k4 k5] [--out kernel_ab.json]
 
     python3 kernel_ab.py --designs DIR [DIR ...] [--out kernel_ab_designs.json]
 
@@ -27,9 +27,13 @@ f16 maps (this tree's kernel alone where the earlier one lacks the mode);
 K4 at
 chip_smoke.py phase 10's coarse call, first expansion and level-0
 expansion, and with row bases at a batched round's coarse call (four scans
-over a pack of two submaps). Where the earlier version lacks the input a
-shape needs (K3's slots, K4's row bases), this tree's kernel runs its two
-turns alone. Each turn prints per-call time (CUDA events around the call),
+over a pack of two submaps); K5 at a local 2D search's coarse call and
+first expansion, a full-submap search's coarse call and, with row bases, a
+round's coarse call over a pack of four submaps (k5_scene: chip_smoke.py
+phase 20's grids, clouds and search configurations, without its drive).
+Where the earlier version lacks the input a shape needs (K3's slots, K4's
+row bases) or the kernel (K5), this tree's kernel runs its two turns
+alone. Each turn prints per-call time (CUDA events around the call),
 the kernel's device time (torch.profiler; beside it the CUDA-event time of
 the call with the stream kept busy ahead of it, chip_smoke.event_ms) and
 the wrapper's host time per call (enqueue only); then the outputs'
@@ -68,6 +72,7 @@ from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.ops import correlative_prep_2d as k1
 from hectorgrapher_tpu_torch.ops import correlative_scores_2d as k2
 from hectorgrapher_tpu_torch.ops import ct_scan_block as k3
+from hectorgrapher_tpu_torch.ops import fast_scores_2d as k5
 from hectorgrapher_tpu_torch.ops import fast_scores_3d as k4
 
 
@@ -406,12 +411,93 @@ def round_coarse_call(device, n_scans=4):
     return calls[0]
 
 
+def k5_scene(device, n_submaps=4):
+    """K5's calls at chip_smoke.py phase 20's shapes without its drive:
+    n_submaps 640^2 submaps at 0.05 m, submap k filled with the 12 scans
+    12k .. 12k + 11 of phase 20's drive (chip_smoke.slam2d_scans) at their
+    true poses, and three scans of the second lap as node clouds (the front
+    end's voxel filter, 2048 points), searched from 5 cm / 0.02 rad off
+    their true poses at phase 20's search configurations. Returns {shape:
+    K5 arguments}: a local search's coarse call and first expansion, a
+    full-submap search's coarse call, and a round's coarse call over the
+    pack of the n_submaps submaps."""
+    import math
+
+    from hectorgrapher_tpu_torch.mapping.grids import make_probability_grid
+    from hectorgrapher_tpu_torch.mapping.inserters_2d import make_probability_inserter_2d
+    from hectorgrapher_tpu_torch.mapping.scan_matching import fast_correlative_2d as fc2
+    from hectorgrapher_tpu_torch.parallel import constraint_search as pcs
+    from hectorgrapher_tpu_torch.sensor.types import RangeData, pad_cloud
+    from hectorgrapher_tpu_torch.sensor.voxel_filter import voxel_filter
+    from hectorgrapher_tpu_torch.transform import np_quat as nq
+    from hectorgrapher_tpu_torch.transform.rigid import Rigid2
+
+    opts = cs.slam2d_options()
+    fm = opts.pose_graph.constraint_builder.fast_correlative_scan_matcher
+    insert = make_probability_inserter_2d(
+        opts.trajectory_builder_2d.submaps.range_data_inserter.probability_grid_range_data_inserter, max_range=32.0,
+        resolution=0.05)
+    scans = cs.slam2d_scans()
+    grids = []
+    for k in range(n_submaps):
+        grid = make_probability_grid(0.05, (640, 640), device)
+        for _, pose, _, cloud in scans[12 * k:12 * (k + 1)]:
+            world = nq.quat_rotate(pose.q, cloud.positions[cloud.mask]) + pose.t
+            grid = insert(grid, RangeData(torch.tensor(pose.t, dtype=torch.float32, device=device),
+                                          pad_cloud(world.astype(np.float32), 2048, device),
+                                          pad_cloud(np.zeros((0, 3), np.float32), 8, device)))
+        grids.append(grid)
+    nodes = []
+    for _, pose, _, cloud in scans[cs.N_SCANS + 5:cs.N_SCANS + 8]:
+        pc = voxel_filter(pad_cloud(cloud.positions[cloud.mask], 2048, device), 0.025)
+        init = Rigid2(torch.tensor(pose.t[:2] + [0.05, -0.03], dtype=torch.float32, device=device),
+                      torch.tensor(nq.quat_yaw(pose.q) + 0.02, dtype=torch.float32, device=device))
+        nodes.append((pc, init))
+    rmax = float(torch.linalg.vector_norm(nodes[0][0].positions[nodes[0][0].mask], dim=-1).max())
+    bucket = 1.0
+    while bucket < rmax and bucket < opts.trajectory_builder_2d.max_range:
+        bucket *= math.sqrt(2.0)
+    scan_range = min(bucket, opts.trajectory_builder_2d.max_range)
+    local = fc2.make_fast_search_config(fm.linear_search_window, fm.angular_search_window, 0.05, scan_range,
+                                        fm.branch_and_bound_depth)
+    full = fc2.make_fast_search_config(640 * 0.05 / 2.0, math.pi, 0.05, scan_range, fm.branch_and_bound_depth)
+    out = {}
+    for label, config in (("local", local), ("global", full)):
+        prepared = fc2.prepare_fast_matcher_2d(grids[0], config.depth)
+        calls, _ = cs.recorded_k5(lambda: fc2.match_fast_2d_prepared(prepared, nodes[0][0], nodes[0][1], config))
+        out[f"{label}_coarse"] = calls[0][0]
+        if label == "local":
+            out["local_expansion"] = calls[1][0]
+    packed = pcs.pack_submaps_2d([fc2.prepare_fast_matcher_2d(g, local.depth) for g in grids], device)
+    candidates = [(k, pc, init) for pc, init in nodes for k in range(n_submaps)]
+    calls, _ = cs.recorded_k5(lambda: pcs.sharded_fast_matches_2d_packed(packed, candidates, local))
+    out["rows_coarse"] = calls[0][0]
+    return out
+
+
+def run_k5(device, parent, build, result):
+    """K5 at k5_scene's shapes; the earlier kernel takes turns where its
+    checkout has one (ops/fast_scores_2d.py), and must give the same bits."""
+    old_k5 = None
+    if (parent / "hectorgrapher_tpu_torch" / "ops" / "fast_scores_2d.py").exists():
+        old_k5 = load_parent_wrapper(parent, "fast_scores_2d", build)
+    result["k5"] = {}
+    for label, a in k5_scene(device).items():
+        new = lambda a=a: k5.fast_scores_2d(*a)
+        old = None if old_k5 is None else (lambda a=a: old_k5(*a))
+        if old is not None and not torch.equal(new(), old()):
+            sys.exit(f"kernel_ab: FAIL: fast_scores_2d {label} is not bit-equal to the earlier kernel")
+        print(f"fast_scores_2d {label} level {a[7]} C={a[4].shape[0]} X={a[5].shape[1]} Y={a[6].shape[1]} "
+              f"P={a[1].shape[1]}", flush=True)
+        result["k5"][label] = turns("fast_scores_2d", label, old, new, a)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("parent", type=Path, nargs="?", help="directory holding the earlier checkout")
     parser.add_argument("--designs", type=Path, nargs="+", default=[], help="directories holding K2 variants")
-    parser.add_argument("--kernels", nargs="+", choices=("k1", "k2", "k3", "k3p", "k4"),
-                        default=["k1", "k2", "k3", "k3p", "k4"])
+    parser.add_argument("--kernels", nargs="+", choices=("k1", "k2", "k3", "k3p", "k4", "k5"),
+                        default=["k1", "k2", "k3", "k3p", "k4", "k5"])
     parser.add_argument("--out", default=None, help="file name under chiprun_out/")
     opts = parser.parse_args()
     if (opts.parent is None) == (not opts.designs):
@@ -441,6 +527,8 @@ def main() -> int:
             run_2d(device, parent, build, result, opts.kernels)
         if {"k3", "k3p", "k4"} & set(opts.kernels):
             run_3d(device, parent, build, result, opts.kernels)
+        if "k5" in opts.kernels:
+            run_k5(device, parent, build, result)
 
     out = opts.out or ("kernel_ab_designs.json" if opts.designs else "kernel_ab.json")
     os.makedirs("chiprun_out", exist_ok=True)

@@ -15,6 +15,21 @@ worker's timing against the front end moves the solves' starting poses,
 so the constants chip_smoke.py records are the larger of each over the
 runs. A full-width run holds a few GiB and takes a few minutes.
 
+    JAX_PLATFORMS=cpu python tests/jax_slam_reference.py --slam-2d [--runs 2]
+
+runs chip_smoke.py's phase 20 (chip_smoke.slam2d_scans: two laps of the
+2D mapping-evaluation circle, with odometry) through the JAX MapBuilder
+2D at chip_smoke.slam2d_overrides() (the async work queue, the batched
+constraint search) and prints one JSON line a run with the counts and
+errors of chip_smoke.slam2d_result: the JAX_SLAM20_* constants. --port
+runs the same drive through the port's MapBuilder on the CPU (its kernels'
+plain versions), and --sync turns the async work queue off in either
+package, so that the two run the same schedule of searches and solves.
+--back-end (async off) feeds the JAX front end's nodes and submaps to the
+port's PoseGraph2D as well, and prints where the two back ends' INTER
+constraints first part and the port's SPA replaying the JAX graph
+(run_slam_2d_back_end; ~5 minutes).
+
     JAX_PLATFORMS=cpu python tests/jax_slam_reference.py --ct-drift
 
 runs tests/test_ct_builder.py's straight 3 s drive (96^3 / 48^3 grids,
@@ -71,6 +86,24 @@ def run(batched: bool, probability: bool, storage=None) -> dict:
     return dict(chip_smoke.slam_result(mb.pose_graph), seconds=time.perf_counter() - t0)
 
 
+def run_slam_2d(sync: bool = False) -> dict:
+    """chip_smoke.py's phase 20: the JAX MapBuilder 2D over two laps of the
+    circle (chip_smoke.slam2d_scans) at chip_smoke.slam2d_overrides(); with
+    sync, the async work queue off."""
+    overrides = dict(chip_smoke.slam2d_overrides(), **({"pose_graph.async_work_queue": False} if sync else {}))
+    mb = MapBuilder(replace_deep(MapBuilderOptions(), overrides))
+    tb = mb.get_trajectory_builder(mb.add_trajectory_builder())
+    scans = chip_smoke.slam2d_scans()
+    t0 = time.perf_counter()
+    for t, _, odom, cloud in scans:
+        tb.add_odometry_data(t, NpRigid3(odom.t, odom.q))
+        tb.add_range_data(TimedPointCloudData(
+            time=jnp.asarray(t), origin=jnp.zeros(3, jnp.float32),
+            ranges=TimedPointCloud(positions=cloud.positions, times=cloud.times, mask=cloud.mask)))
+    mb.pose_graph.wait_for_all_computations()
+    return dict(chip_smoke.slam2d_result(mb.pose_graph, scans), seconds=time.perf_counter() - t0)
+
+
 def ct_drift() -> None:
     """ROADMAP C15: test_straight_drive_tracks_pose's drive and error, on
     either grid type."""
@@ -117,6 +150,118 @@ def ct_front_end_errors(per_point: bool, direct: bool, n_scans: int) -> dict:
                 max_translation_error=t_err, max_yaw_error=y_err, seconds=time.perf_counter() - t0)
 
 
+def run_slam_2d_port(sync: bool = False) -> dict:
+    """run_slam_2d through the port's MapBuilder on the CPU (plain kernel
+    versions), the same drive and options: what phase 20 runs on the card,
+    less the card's arithmetic."""
+    import numpy as np
+    import torch
+
+    from hectorgrapher_tpu_torch.mapping.map_builder import MapBuilder as PortMapBuilder
+    from hectorgrapher_tpu_torch.sensor.types import TimedPointCloud as PortCloud
+    from hectorgrapher_tpu_torch.sensor.types import TimedPointCloudData as PortData
+
+    options = chip_smoke.slam2d_options()
+    if sync:
+        options = chip_smoke.cfg.replace_deep(options, {"pose_graph.async_work_queue": False})
+    mb = PortMapBuilder(options, device=torch.device("cpu"))
+    tb = mb.get_trajectory_builder(mb.add_trajectory_builder())
+    scans = chip_smoke.slam2d_scans()
+    t0 = time.perf_counter()
+    for t, _, odom, cloud in scans:
+        tb.add_odometry_data(t, odom)
+        tb.add_range_data(PortData(t, np.zeros(3, np.float32), PortCloud(cloud.positions, cloud.times, cloud.mask)))
+    mb.pose_graph.wait_for_all_computations()
+    return dict(chip_smoke.slam2d_result(mb.pose_graph, scans), seconds=time.perf_counter() - t0)
+
+
+def run_slam_2d_back_end() -> dict:
+    """Phase 20's drive, the async work queue off, through the JAX
+    MapBuilder, each node and its submaps also fed to the port's
+    PoseGraph2D on the CPU: the port's back end on the JAX front end's
+    output. Returns both packages' slam2d_result, the first INTER
+    constraint whose zbar differs by more than 1 mm (node, submap, the
+    largest node-pose difference of the two graphs just before it, each
+    zbar's distance from the truth), and the port's final optimization
+    run on the JAX graph's poses and constraints (replay) with its largest
+    node difference from the JAX result."""
+    import numpy as np
+    import torch
+
+    from hectorgrapher_tpu_torch import convert
+    from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import Constraint as PortConstraint
+    from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import PoseGraph2D
+    from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3 as PortRigid3
+
+    cpu = torch.device("cpu")
+    overrides = dict(chip_smoke.slam2d_overrides(), **{"pose_graph.async_work_queue": False})
+    mb = MapBuilder(replace_deep(MapBuilderOptions(), overrides))
+    options = chip_smoke.cfg.replace_deep(chip_smoke.cfg.MapBuilderOptions(), overrides)
+    port = PoseGraph2D(options.pose_graph, max_scan_range=options.trajectory_builder_2d.max_range, device=cpu)
+    port.register_trajectory(0)
+    tb = mb.get_trajectory_builder(mb.add_trajectory_builder())
+    jpg = mb.pose_graph
+    scans = chip_smoke.slam2d_scans()
+    anchor = scans[0][1]
+    truth = {round(t * 10): anchor.inverse().compose(pose).t[:2] for t, pose, _, _ in scans}
+    submaps, first = {}, {}
+    jax_add_node = jpg.add_node
+
+    def inter(pg):
+        return {(c.submap_index, c.node_index): c.zbar for c in pg.constraints if c.tag == "INTER"}
+
+    def add_node(node, insertion_submaps, newly_finished=()):
+        before = max((float(np.abs(a.global_pose.t - b.global_pose.t).max()) for a, b in zip(jpg.nodes, port.nodes)),
+                     default=0.0)
+        out = jax_add_node(node, insertion_submaps, newly_finished)
+        fed = []
+        for s in insertion_submaps:  # one port submap object a JAX submap, its grid brought up to date
+            new = convert.submap_2d(s, cpu)
+            fed.append(submaps.setdefault(id(s), new))
+            if fed[-1] is not new:
+                fed[-1].__dict__.update(new.__dict__)
+        port.add_node(convert.pg_node(node, cpu), fed, [submaps[id(s)] for s in newly_finished if id(s) in submaps])
+        if not first:
+            j, p = inter(jpg), inter(port)
+            for key in sorted(set(j) | set(p), key=lambda k: (k[1], k[0])):
+                if key in j and key in p and np.abs(j[key].t - p[key].t).max() <= 1e-3:
+                    continue
+                t_node = truth[round(jpg.nodes[key[1]].time * 10)]
+                err = lambda z: None if z is None else float(np.linalg.norm(
+                    jpg.submaps[key[0]].submap.local_pose.compose(NpRigid3(z.t, z.q)).t[:2] - t_node))
+                first.update(node=key[1], submap=key[0], node_pose_difference_before=before,
+                             jax_zbar_error=err(j.get(key)), port_zbar_error=err(p.get(key)))
+                break
+        return out
+
+    jpg.add_node = add_node
+    for t, _, odom, cloud in scans:
+        tb.add_odometry_data(t, NpRigid3(odom.t, odom.q))
+        port.add_odometry_data(0, t, odom)
+        tb.add_range_data(TimedPointCloudData(
+            time=jnp.asarray(t), origin=jnp.zeros(3, jnp.float32),
+            ranges=TimedPointCloud(positions=cloud.positions, times=cloud.times, mask=cloud.mask)))
+    j, p = inter(jpg), inter(port)
+    common = [k for k in j if k in p]
+    dz = np.array([np.abs(j[k].t - p[k].t).max() for k in common])
+    snapshot = ([(n.local_pose, n.global_pose) for n in jpg.nodes], [s.global_pose for s in jpg.submaps],
+                [(c.submap_index, c.node_index, c.zbar, c.translation_weight, c.rotation_weight, c.tag)
+                 for c in jpg.constraints])
+    jax_result, port_result = chip_smoke.slam2d_result(jpg, scans), chip_smoke.slam2d_result(port, scans)
+    rigid = lambda r: PortRigid3(r.t, r.q)
+    for n, (local, glob) in zip(port.nodes, snapshot[0]):
+        n.local_pose, n.global_pose = rigid(local), rigid(glob)
+    for s, glob in zip(port.submaps, snapshot[1]):
+        s.global_pose = rigid(glob)
+    port.constraints = [PortConstraint(si, ni, rigid(z), tw, rw, tag) for si, ni, z, tw, rw, tag in snapshot[2]]
+    replay = chip_smoke.slam2d_result(port, scans)
+    return dict(jax=jax_result, port_back_end=port_result, inter_only_jax=len(set(j) - set(p)),
+                inter_only_port=len(set(p) - set(j)), inter_zbar_difference_median=float(np.median(dz)),
+                inter_zbar_difference_max=float(dz.max()), first_difference=first, replay=replay,
+                replay_node_difference=max(float(np.abs(a.global_pose.t - b.global_pose.t).max())
+                                           for a, b in zip(jpg.nodes, port.nodes)))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batched", action="store_true", help="the batched constraint search (phase 12)")
@@ -133,7 +278,22 @@ def main() -> int:
                         help="with --ct-drift --per-point: and the DIRECT IMU cost term (phase 18)")
     parser.add_argument("--scans", type=int, default=None,
                         help="with --per-point: scans of the drive (phase 17's CT_SCANS, phase 18's CT18_SCANS)")
+    parser.add_argument("--slam-2d", action="store_true",
+                        help="chip_smoke.py's phase 20 instead: MapBuilder 2D over two laps of the circle")
+    parser.add_argument("--port", action="store_true",
+                        help="with --slam-2d: the port's MapBuilder on the CPU instead of the JAX package's")
+    parser.add_argument("--sync", action="store_true", help="with --slam-2d: the async work queue off")
+    parser.add_argument("--back-end", action="store_true",
+                        help="with --slam-2d: the port's PoseGraph2D fed the JAX front end's nodes (run_slam_2d_back_end)")
     opts = parser.parse_args()
+    if opts.slam_2d and opts.back_end:
+        print(json.dumps(dict(run_slam_2d_back_end(), slam_2d=True, back_end=True)), flush=True)
+        return 0
+    if opts.slam_2d:
+        run = run_slam_2d_port if opts.port else run_slam_2d
+        for _ in range(opts.runs):
+            print(json.dumps(dict(run(opts.sync), slam_2d=True, port=opts.port, sync=opts.sync)), flush=True)
+        return 0
     if opts.ct_drift and (opts.per_point or opts.direct):
         n = opts.scans or (chip_smoke.CT18_SCANS if opts.direct else chip_smoke.CT_SCANS)
         print(json.dumps(ct_front_end_errors(opts.per_point, opts.direct, n)), flush=True)

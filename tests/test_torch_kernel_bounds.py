@@ -15,6 +15,7 @@ from hectorgrapher_tpu_torch.mapping.grids import make_probability_grid, make_ts
 from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import prepare_grid_3d
 from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d_plain
 from hectorgrapher_tpu_torch.ops.ct_scan_block import grid_slots, pair_terms
+from hectorgrapher_tpu_torch.ops.fast_scores_2d import fast_scores_2d_plain
 from hectorgrapher_tpu_torch.ops.fast_scores_3d import fast_scores_3d_plain
 
 CPU = torch.device("cpu")
@@ -260,3 +261,82 @@ def test_bound_ct_scan_block_points_front_end_shape():
     assert ops == cs.K3P_OPS_PER_PAIR * 30 + (cs.K3P_POSE_OPS + cs.K3P_ROW_OPS) * m and by == "bytes"
     assert fixed < nbytes <= fixed + 2 * 8 * 32 * m
     assert 2.0e6 < nbytes < 2.6e6
+
+
+def test_bound_fast_scores_2d_by_hand():
+    """A 4 x 4 grid, one level: table (4 + 1 rows, 4 lanes) holding its
+    flat index; one candidate, zero offsets, three points: (1, 2) at row
+    1, lane 2 (flat 6, sector 0); (3, 1) at flat 13 (sector 1); the third
+    not valid."""
+    table = torch.arange(5 * 4, dtype=torch.float32).reshape(5, 4)
+    args = (table, i32([[1, 3, 2]]), i32([[2, 1, 2]]), torch.tensor([True, True, False]), i32([0]), i32([[0]]),
+            i32([[0]]), 0, (4, 4))
+    # 2 sectors of the table; one sector each of bx and by (the two valid
+    # points' cells, flats 0 and 1; the invalid third point's cells are
+    # not read); 3 valid flags, cand_t, the two offsets and the one output.
+    nbytes = 2 * 32 + 2 * 32 + 3 + 4 * (1 + 1 + 1 + 1)
+    ms, by, got_bytes, ops = cs.bound_ms("fast_scores_2d", args)
+    assert (got_bytes, ops, by) == (nbytes, 2, "bytes")
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    assert float(fast_scores_2d_plain(*args).reshape(())) == 6.0 + 13.0
+
+
+def test_bound_fast_scores_2d_row_bases_by_hand():
+    """A batched round's call: two one-level 4 x 4 blocks stacked (5 rows
+    each, holding the flat index), two candidates on point rows 0 and 1
+    with row bases 0 and 5, one flag row per point row. Row 0's points
+    (1, 2) and (3, 1) read flats 6 and 13 (sectors 0 and 1); row 1's (0, 0)
+    reads row 5 + 0, lane 0, flat 20 (sector 2), its second point not
+    valid."""
+    table = torch.arange(2 * 5 * 4, dtype=torch.float32).reshape(10, 4)
+    valid = torch.tensor([[True, True], [True, False]])
+    zero = i32([[0], [0]])
+    args = (table, i32([[1, 3], [0, 2]]), i32([[2, 1], [0, 3]]), valid, i32([0, 1]), zero, zero, 0, (4, 4),
+            torch.tensor([0, 5], dtype=torch.int64))
+    # 3 sectors of the table; one sector each of bx and by (the three
+    # valid points' cells, flats 0, 1 and 2; row 1's invalid second point
+    # is not read); both point rows' 2 x 2 flags, cand_t, the two offsets
+    # and the two outputs (4 bytes each), and the two int64 row bases.
+    nbytes = 3 * 32 + 2 * 32 + 2 * 2 + 4 * (2 + 2 + 2 + 2) + 2 * 8
+    ms, by, got_bytes, ops = cs.bound_ms("fast_scores_2d", args)
+    assert (got_bytes, ops, by) == (nbytes, 3, "bytes")
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    assert fast_scores_2d_plain(*args).reshape(-1).tolist() == [6.0 + 13.0, 20.0]
+
+
+@pytest.mark.parametrize("last_valid, cell_sectors", [(False, 1), (True, 2)])
+def test_bound_fast_scores_2d_counts_valid_cells_only(last_valid, cell_sectors):
+    """Ten points at cell (1, 2) (flat 6, one table sector), the first two
+    valid: their cells lie in the first 32-byte sector of bx and of by.
+    With the tenth point valid too, its cells add the second sector of
+    each; points 3-9 add nothing either way."""
+    table = torch.arange(5 * 4, dtype=torch.float32).reshape(5, 4)
+    valid = torch.tensor([True, True] + [False] * 7 + [last_valid])
+    args = (table, i32([[1] * 10]), i32([[2] * 10]), valid, i32([0]), i32([[0]]), i32([[0]]), 0, (4, 4))
+    nbytes = 32 + 2 * 32 * cell_sectors + 10 + 4 * (1 + 1 + 1 + 1)
+    ms, by, got_bytes, ops = cs.bound_ms("fast_scores_2d", args)
+    assert (got_bytes, ops, by) == (nbytes, 2 + last_valid, "bytes")
+    assert float(fast_scores_2d_plain(*args).reshape(())) == 6.0 * (2 + last_valid)
+
+
+@pytest.mark.parametrize("level", [0, 2])
+def test_k5_gather_is_the_plain_sum(level):
+    """The library yardstick's indices and weights sum to the plain
+    version's scores, over two stacked submap blocks of three levels, with
+    cells across both edges and past the span."""
+    rng = np.random.default_rng(level)
+    dims, depth = (20, 24), 3
+    table = rng.uniform(0, 0.8, (2, depth, 21, 24)).astype(np.float32)
+    table[:, :, -1] = 0.0
+    table = torch.from_numpy(table.reshape(-1, 24))
+    bx, by = (torch.from_numpy(rng.integers(-6, n + 3, (5, 40)).astype(np.int32)) for n in dims)
+    valid = torch.from_numpy(rng.random((5, 40)) < 0.8)
+    cand_t = torch.from_numpy(rng.integers(0, 5, 6).astype(np.int32))
+    offs = [torch.from_numpy(rng.integers(-4, 5, (6, k)).astype(np.int32)) for k in (2, 3)]
+    base = torch.from_numpy(rng.integers(0, 2, 6) * depth * 21)
+    args = (table, bx, by, valid, cand_t, *offs, level, dims, base)
+    idx, weight = cs.k5_gather(*args)
+    got = (table.reshape(-1)[idx] * weight).sum(dim=1).reshape(6, 2, 3)
+    torch.testing.assert_close(got, fast_scores_2d_plain(*args), rtol=0, atol=1e-5)
+    lib = torch.nn.functional.embedding_bag(idx, table.reshape(-1, 1), mode="sum", per_sample_weights=weight)
+    torch.testing.assert_close(lib.reshape(6, 2, 3), fast_scores_2d_plain(*args), rtol=0, atol=1e-5)

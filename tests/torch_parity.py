@@ -338,3 +338,33 @@ def inter_constraints(pg):
     """[(node id, submap id, constraint)] of pg's INTER constraints, sorted."""
     return sorted(((pg.nodes[c.node_index].node_id, pg.submaps[c.submap_index].submap_id, c)
                    for c in pg.constraints if c.tag == "INTER"), key=lambda x: (x[0], x[1]))
+
+
+def batched_anchors_2d():
+    """tests/test_batched_constraint_path.py's two finished 2D anchor
+    submaps (256 x 256 at 0.05 m; :85-131), built with the JAX package."""
+    from test_batched_constraint_path import build_finished_submap_2d
+
+    return (build_finished_submap_2d([np.zeros(3), np.array([0.4, 0.3, 0.0])]),
+            build_finished_submap_2d([np.array([0.3, -0.3, 0.0]), np.array([0.7, 0.0, 0.0])]))
+
+
+def port_drive_2d(anchors, options, device=CPU, pose_graph=None):
+    """drive_2d of tests/test_batched_constraint_path.py (:134-149) through
+    the port's PoseGraph2D with `options` (the JAX package's
+    PoseGraphOptions, converted), or through `pose_graph`: two drift-free
+    nodes INTRA to the anchors, then a returning node 0.3 m off INTRA only
+    to an active submap, whose round has both anchors as candidates. The
+    nodes are built by the JAX test's node_2d and carried over."""
+    from hectorgrapher_tpu_torch import convert
+    from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import PoseGraph2D
+    from test_batched_constraint_path import active_submap_2d, node_2d
+
+    pg = pose_graph or PoseGraph2D(convert.options(options), device=device)
+    subs = [convert.submap_2d(a, device) for a in (*anchors, active_submap_2d())]
+    truth = np.array([0.3, -0.2, 0.0])
+    for time, local, true, k in ((0.0, np.zeros(3), np.zeros(3), 0), (0.1, [0.4, 0.3, 0.0], [0.4, 0.3, 0.0], 1),
+                                 (0.2, truth + [0.3, 0.0, 0.0], truth, 2)):
+        pg.add_node(convert.pg_node(node_2d(time, local, true), device), [subs[k]])
+    pg.wait_for_all_computations()
+    return pg
