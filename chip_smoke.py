@@ -28,7 +28,9 @@ default batched constraint search through K5) over two laps of phase 6's
 circle (phase 20), and the 2D SPA through its Schur, PCG and dense paths
 (phase 21). K3 is held to its plain version in each of its modes (TSDF
 over f32, f16 and bf16 volumes, and probability; phase 7), K5 at phase
-20's round, a full-submap search and a round over four packed submaps.
+20's round, a full-submap search, a round over four packed submaps and
+synthetic calls on that pack that reach each of its instances with edge
+rows (no valid point, all valid, the last slots only, shared rows).
 Each phase prints one line; any failure exits non-zero before the last
 line. The second-to-last line is a JSON record of the kernels, the last
 line a JSON record of the device.
@@ -108,6 +110,7 @@ from hectorgrapher_tpu_torch.ops.ct_scan_block import (
     window_plan,
 )
 from hectorgrapher_tpu_torch.ops.fast_scores_2d import fast_scores_2d, fast_scores_2d_plain
+from hectorgrapher_tpu_torch.ops.fast_scores_2d import instance as k5_instance
 from hectorgrapher_tpu_torch.ops.fast_scores_3d import fast_scores_3d, fast_scores_3d_plain
 from hectorgrapher_tpu_torch.parallel.constraint_search import pack_submaps_2d, sharded_fast_matches_2d_packed
 from hectorgrapher_tpu_torch.sensor.types import (
@@ -2826,35 +2829,43 @@ def probe_rounds_2d(pg, rounds, errors, recorded):
     pg._compute_constraints_batched = run
 
 
+def k5_gates(label, a, out, block_rows=None):
+    """K5's three gates on one call's arguments `a` and output `out`: every
+    output within 1e-5 * max(1, max|sum|) of the plain version (sums of at
+    most P values below 0.8, in the kernel's fixed order against the plain
+    version's chunks of 32), the same bits on a second launch, and, with
+    row bases, bit-equal to one call per candidate against its own
+    submap's block of block_rows rows. Returns (largest difference, number
+    of submaps the call reads)."""
+    table, bx, by, valid, cand_t, off_x, off_y, level, dims, cand_base = a
+    want = fast_scores_2d_plain(*a)
+    again = fast_scores_2d(*a)
+    torch.cuda.synchronize()
+    e = float((out - want).abs().max())
+    if not bool(torch.isfinite(out).all()) or e > 1e-5 * max(1.0, float(want.abs().max())):
+        fail(f"K5 fast_scores_2d differs from its plain version at {label}: max {e:.3e}")
+    if not torch.equal(out, again):
+        fail(f"K5 fast_scores_2d differs between two launches at {label}")
+    if cand_base is None:
+        return e, 1
+    singles = torch.cat([
+        fast_scores_2d(table[base:base + block_rows], bx, by, valid, cand_t[k:k + 1], off_x[k:k + 1],
+                       off_y[k:k + 1], level, dims) for k, base in enumerate(cand_base.tolist())])
+    torch.cuda.synchronize()
+    if not torch.equal(out, singles):
+        fail(f"K5 fast_scores_2d with row bases is not bit-equal to one call per candidate at {label}")
+    return e, len(set(cand_base.tolist()))
+
+
 def check_k5_calls(label, calls, block_rows=None, all_calls=False):
-    """K5 against its plain version on recorded calls: every output within
-    1e-5 * max(1, max|sum|) (sums of at most P values below 0.8, in a
-    fixed order against the plain version's chunks of 32), the same bits
-    on two launches, and, with row bases, bit-equal to one call per
-    candidate against its own submap's block of block_rows rows. Holds the
+    """K5 against its plain version on recorded calls (k5_gates). Holds the
     coarse call and the first expansion (every call with all_calls) and
     measures those two. Returns {shape: measure's record}."""
     stats, err = {}, 0.0
     picked = list(enumerate(calls)) if all_calls else [(0, calls[0]), (1, calls[1])]
     for i, (a, out) in picked:
         table, bx, by, valid, cand_t, off_x, off_y, level, dims, cand_base = a
-        want = fast_scores_2d_plain(*a)
-        again = fast_scores_2d(*a)
-        torch.cuda.synchronize()
-        e = float((out - want).abs().max())
-        if not bool(torch.isfinite(out).all()) or e > 1e-5 * max(1.0, float(want.abs().max())):
-            fail(f"K5 fast_scores_2d differs from its plain version at {label} call {i}: max {e:.3e}")
-        if not torch.equal(out, again):
-            fail(f"K5 fast_scores_2d differs between two launches at {label} call {i}")
-        n_sub = 1
-        if cand_base is not None:
-            singles = torch.cat([
-                fast_scores_2d(table[base:base + block_rows], bx, by, valid, cand_t[k:k + 1], off_x[k:k + 1],
-                               off_y[k:k + 1], level, dims) for k, base in enumerate(cand_base.tolist())])
-            torch.cuda.synchronize()
-            if not torch.equal(out, singles):
-                fail(f"K5 fast_scores_2d with row bases is not bit-equal to one call per candidate at {label} call {i}")
-            n_sub = len(set(cand_base.tolist()))
+        e, n_sub = k5_gates(f"{label} call {i}", a, out, block_rows)
         err = max(err, e)
         if i < 2:
             shape = f"{label}_{'coarse' if i == 0 else 'expansion'}"
@@ -2869,6 +2880,66 @@ def check_k5_calls(label, calls, block_rows=None, all_calls=False):
                                       " (library: embedding_bag, the gather-sum only)")
             del idx, weight
     return stats
+
+
+# K5's synthetic calls (check_k5_edges): label, X, Y, level, the instance
+# the wrapper must pick (ops/fast_scores_2d.py INSTANCES), point slots.
+# 9x9 gives the generic instance more tasks than warps, so each round of
+# tasks stages its two chunks again; the _long cases stage a row in
+# several chunks (P = 4100) in the 2x2 and 5x5 instances.
+K5_EDGE_CASES = (("2x2", 2, 2, 0, 1, 2048), ("2x2_level4", 2, 2, 4, 1, 2048), ("5x5", 5, 5, 5, 2, 2048),
+                 ("11x11", 11, 11, 5, 3, 2048), ("3x7", 3, 7, 2, 0, 2048), ("9x9", 9, 9, 3, 0, 2048),
+                 ("2x2_long", 2, 2, 2, 1, 4100), ("5x5_long", 5, 5, 4, 2, 4100), ("2x2_ragged", 2, 2, 1, 1, 2047))
+
+
+def k5_edge_args(packed, case, device, seed=SEED):
+    """One synthetic K5 call on a pack of phase 20's submaps (its levels,
+    grid and row bases) for K5_EDGE_CASES' `case`: 8 point rows of P cells
+    from the seed, 80 cells past each edge of the grid; row 0 with no valid
+    point, row 1 with every slot valid, row 2 valid only in its last 32
+    slots and row 3 only in its last 256 (the last warp's 128-slot groups
+    in every instance), rows 4-7 at random; 24 candidates, the first 8 on
+    rows 0-7 and 16 more sharing them, each with its own offsets around
+    the coarse grid's stride 2^level and a random submap of the pack. The
+    ragged case has P = 2047 and one flag row (row 4's) at an odd address.
+    Returns K5's arguments."""
+    label, nxo, nyo, level, _, p = case
+    rng = np.random.default_rng([seed, K5_EDGE_CASES.index(case)])
+    (nx, ny), r, c = packed.dims, 8, 24
+    i32 = lambda x: torch.tensor(np.asarray(x, np.int32), device=device)
+    bx, by = i32(rng.integers(-80, nx + 80, (r, p))), i32(rng.integers(-80, ny + 80, (r, p)))
+    valid = rng.random((r, p)) < 0.7
+    valid[0], valid[1], valid[2:4] = False, True, False
+    valid[2, -32:], valid[3, -256:] = True, True
+    if label.endswith("ragged"):
+        flags = torch.tensor(np.concatenate([[True], valid[4]]), device=device)[1:]  # at an odd address
+    else:
+        flags = torch.tensor(valid, device=device)
+    cand_t = np.concatenate([np.arange(r), rng.integers(0, r, c - r)])
+    span = 1 << level
+    off_x = (np.arange(nxo) - nxo // 2) * span - span // 2 + rng.integers(-span, span + 1, (c, 1))
+    off_y = (np.arange(nyo) - nyo // 2) * span - span // 2 + rng.integers(-span, span + 1, (c, 1))
+    base = torch.tensor(rng.integers(0, packed.count, c) * packed.block_rows, dtype=torch.int64, device=device)
+    return (packed.levels, bx, by, flags, i32(cand_t), i32(off_x), i32(off_y), level, packed.dims, base)
+
+
+def check_k5_edges(packed, device):
+    """K5 at every instance and the edge rows (K5_EDGE_CASES, k5_edge_args)
+    on a pack of phase 20's submaps: the wrapper's instance, k5_gates, and
+    all-zero outputs for the candidates on the row with no valid point.
+    Returns the largest difference from the plain version."""
+    err = 0.0
+    for case in K5_EDGE_CASES:
+        label, nxo, nyo, level, inst, p = case
+        if k5_instance(nxo, nyo) != inst:
+            fail(f"K5 fast_scores_2d picks instance {k5_instance(nxo, nyo)} for {nxo} x {nyo}, not {inst}")
+        a = k5_edge_args(packed, case, device)
+        out = fast_scores_2d(*a)
+        e, _ = k5_gates(f"edge {label}", a, out, packed.block_rows)
+        if not label.endswith("ragged") and bool((out[a[4] == 0] != 0).any()):
+            fail(f"K5 fast_scores_2d gives a nonzero sum for a row with no valid point at edge {label}")
+        err = max(err, e)
+    return err
 
 
 def k5_global_calls(pg, device):
@@ -2990,6 +3061,11 @@ def run_phase_20(device):
           f"{calls[0][0][5].shape[1]} x {calls[0][0][6].shape[1]} coarse offsets)", flush=True)
     calls, packed, n_sub = k5_rows_calls(pg, device)
     stats.update(check_k5_calls("rows", calls, packed.block_rows, all_calls=True))
+    edge_err = check_k5_edges(packed, device)
+    print(f"fast_scores_2d edges: {', '.join(f'{c[0]} (instance {c[4]}, P={c[5]})' for c in K5_EDGE_CASES)}; "
+          f"2x2_ragged with one flag row at an odd address; on {n_sub} packed submaps, rows with no valid point, all valid, the last 32 and "
+          f"the last 256 slots only, shared rows: within tolerance (max |d| {edge_err:.3e}), two launches and row "
+          "bases bit-equal, empty rows zero", flush=True)
     return k5 - k5_parity, stats
 
 

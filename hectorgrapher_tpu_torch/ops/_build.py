@@ -149,7 +149,7 @@ def bind(path: Path) -> ctypes.CDLL:
     lib.hg_ct_scan_block_points_slots.restype = i32
     lib.hg_fast_scores_3d.argtypes = [ptr] * 11 + [i32] * 13 + [ptr]
     lib.hg_fast_scores_3d.restype = i32
-    lib.hg_fast_scores_2d.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
+    lib.hg_fast_scores_2d.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]
     lib.hg_fast_scores_2d.restype = i32
     return lib
 

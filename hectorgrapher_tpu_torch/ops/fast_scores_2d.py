@@ -20,9 +20,10 @@ row, or (P,) for one scan's rows.
 
 The point cells are computed once by the caller, so the kernel and its
 plain version read the same cells (ROADMAP C0). The kernel sums each
-output in a fixed order (per thread, then a warp tree, then warps in
-order), the plain version in chunks of 32 points as the JAX CPU branch
-does: the sums agree to rounding.
+output in a fixed order (per lane over its share of the row's valid
+points, then a warp tree), the plain version in chunks of 32 points as the
+JAX CPU branch does: the sums agree to rounding. The wrapper picks the
+kernel's instance from the offset grid X x Y (instance()).
 """
 
 from __future__ import annotations
@@ -33,6 +34,34 @@ from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.ops.correlative_prep_2d import _check
 
 _CHUNK = 32  # points per step of the plain version (the JAX CPU branch's)
+
+# Offset grids X x Y with a kernel instance of their own: every expansion
+# level's 2 x 2, the local coarse stage's 5 x 5 (linear_cells 40, depth 6)
+# and the full-submap coarse stage's 11 x 11 (320 cells, depth 7). Any
+# other grid takes the generic instance 0. Numbers of csrc/fast_scores_2d.cu.
+INSTANCES = {(2, 2): 1, (5, 5): 2, (11, 11): 3}
+_INT32_MAX = 2**31 - 1
+# The largest C, Y and P: the kernel forms ints up to a staging chunk
+# (2048 slots) past them (a block's last candidate, a chunk's end).
+_SIZE_MAX = _INT32_MAX - 2048
+
+
+def instance(nxo: int, nyo: int) -> int:
+    """The kernel instance for an X x Y offset grid (0: generic)."""
+    return INSTANCES.get((int(nxo), int(nyo)), 0)
+
+
+def launch_config(c: int, nxo: int, nyo: int, p: int, level: int) -> int:
+    """The kernel instance for C candidates of X x Y offsets over P point
+    slots at `level`; raises ValueError on sizes the kernel does not take.
+    The grid is one-dimensional, ceil(C / candidates a block) blocks, and
+    every index past a row start is 64-bit, so C, Y and P only have to stay
+    a chunk below 2^31 (_SIZE_MAX), X * Y an int; the level's span 2^level
+    an int too."""
+    if not (0 < c <= _SIZE_MAX and 0 < nxo and 0 < nyo <= _SIZE_MAX and nxo * nyo <= _INT32_MAX
+            and 0 <= p <= _SIZE_MAX and 0 <= level <= 30):
+        raise ValueError(f"fast_scores_2d: unsupported sizes C={c} X={nxo} Y={nyo} P={p} level={level}")
+    return instance(nxo, nyo)
 
 
 def fast_scores_2d_plain(table, bx, by, valid, cand_t, off_x, off_y, level: int, dims, cand_base=None):
@@ -57,6 +86,30 @@ def fast_scores_2d_plain(table, bx, by, valid, cand_t, off_x, off_y, level: int,
     return acc
 
 
+def checked_instance(table, bx, by, valid, cand_t, off_x, off_y, level: int, dims, cand_base=None) -> int:
+    """The kernel instance for these arguments (launch_config), after
+    checking each one's device (the table's), dtype, shape and contiguity;
+    raises ValueError or TypeError on what the kernel does not take. Runs
+    before any launch and needs no card."""
+    device = table.device
+    nx, ny = (int(n) for n in dims)
+    r, p = bx.shape
+    c, nxo, nyo = cand_t.shape[0], off_x.shape[1], off_y.shape[1]
+    rows = table.shape[0]
+    if cand_base is None and rows < (level + 1) * (nx + 1):
+        raise ValueError(f"fast_scores_2d: a table of {rows} rows has no level {level} of {nx + 1} rows")
+    _check("table", table, torch.float32, (rows, ny), device)
+    for name, x in (("bx", bx), ("by", by)):
+        _check(name, x, torch.int32, (r, p), device)
+    _check("valid", valid, torch.bool, (r, p) if valid.dim() == 2 else (p,), device)
+    _check("cand_t", cand_t, torch.int32, (c,), device)
+    if cand_base is not None:
+        _check("cand_base", cand_base, torch.int64, (c,), device)
+    _check("off_x", off_x, torch.int32, (c, nxo), device)
+    _check("off_y", off_y, torch.int32, (c, nyo), device)
+    return launch_config(c, nxo, nyo, p, level)
+
+
 def fast_scores_2d(table, bx, by, valid, cand_t, off_x, off_y, level: int, dims, cand_base=None):
     """Pyramid-level score sums (C, X, Y) f32.
 
@@ -74,30 +127,15 @@ def fast_scores_2d(table, bx, by, valid, cand_t, off_x, off_y, level: int, dims,
         return fast_scores_2d_plain(*args)
     if device.type != "cuda":
         raise ValueError(f"fast_scores_2d: unsupported device {device}")
+    inst = checked_instance(*args)
     nx, ny = (int(n) for n in dims)
-    r, p = bx.shape
-    c, nxo, nyo = cand_t.shape[0], off_x.shape[1], off_y.shape[1]
-    rows = table.shape[0]
-    if cand_base is None and rows < (level + 1) * (nx + 1):
-        raise ValueError(f"fast_scores_2d: a table of {rows} rows has no level {level} of {nx + 1} rows")
-    _check("table", table, torch.float32, (rows, ny), device)
-    for name, x in (("bx", bx), ("by", by)):
-        _check(name, x, torch.int32, (r, p), device)
-    _check("valid", valid, torch.bool, (r, p) if valid.dim() == 2 else (p,), device)
-    _check("cand_t", cand_t, torch.int32, (c,), device)
-    if cand_base is not None:
-        _check("cand_base", cand_base, torch.int64, (c,), device)
-    _check("off_x", off_x, torch.int32, (c, nxo), device)
-    _check("off_y", off_y, torch.int32, (c, nyo), device)
-    n_per = nxo * nyo
-    if not 0 < c * n_per < 2**31 or n_per > 16 * 65535 or level < 0 or level > 30:
-        raise ValueError(f"fast_scores_2d: unsupported sizes C={c} X={nxo} Y={nyo} R={r} P={p} level={level}")
+    c, nxo, nyo, p = cand_t.shape[0], off_x.shape[1], off_y.shape[1], bx.shape[1]
     out = torch.empty((c, nxo, nyo), dtype=torch.float32, device=device)
     _build.launch(
         "hg_fast_scores_2d", device,
         table.data_ptr(), bx.data_ptr(), by.data_ptr(), valid.data_ptr(), cand_t.data_ptr(),
         None if cand_base is None else cand_base.data_ptr(), off_x.data_ptr(), off_y.data_ptr(), out.data_ptr(),
-        c, p, p if valid.dim() == 2 else 0, nxo, nyo, nx, ny, level,
+        c, p, p if valid.dim() == 2 else 0, nxo, nyo, nx, ny, level, inst,
     )
     fast_scores_2d.launches += 1
     return out

@@ -29,8 +29,11 @@ chip_smoke.py phase 10's coarse call, first expansion and level-0
 expansion, and with row bases at a batched round's coarse call (four scans
 over a pack of two submaps); K5 at a local 2D search's coarse call and
 first expansion, a full-submap search's coarse call and, with row bases, a
-round's coarse call over a pack of four submaps (k5_scene: chip_smoke.py
-phase 20's grids, clouds and search configurations, without its drive).
+round's coarse call and first expansion over a pack of four submaps
+(k5_scene: chip_smoke.py phase 20's grids, clouds and search
+configurations, without its drive), each first held to two launches'
+bits and to the plain tolerance of both the plain version and the
+earlier kernel.
 Where the earlier version lacks the input a shape needs (K3's slots, K4's
 row bases) or the kernel (K5), this tree's kernel runs its two turns
 alone. Each turn prints per-call time (CUDA events around the call),
@@ -419,8 +422,8 @@ def k5_scene(device, n_submaps=4):
     end's voxel filter, 2048 points), searched from 5 cm / 0.02 rad off
     their true poses at phase 20's search configurations. Returns {shape:
     K5 arguments}: a local search's coarse call and first expansion, a
-    full-submap search's coarse call, and a round's coarse call over the
-    pack of the n_submaps submaps."""
+    full-submap search's coarse call, and a round's coarse call and first
+    expansion over the pack of the n_submaps submaps."""
     import math
 
     from hectorgrapher_tpu_torch.mapping.grids import make_probability_grid
@@ -472,12 +475,17 @@ def k5_scene(device, n_submaps=4):
     candidates = [(k, pc, init) for pc, init in nodes for k in range(n_submaps)]
     calls, _ = cs.recorded_k5(lambda: pcs.sharded_fast_matches_2d_packed(packed, candidates, local))
     out["rows_coarse"] = calls[0][0]
+    out["rows_expansion"] = calls[1][0]
     return out
 
 
 def run_k5(device, parent, build, result):
     """K5 at k5_scene's shapes; the earlier kernel takes turns where its
-    checkout has one (ops/fast_scores_2d.py), and must give the same bits."""
+    checkout has one (ops/fast_scores_2d.py). Before the turns, this
+    kernel must give the same bits on two launches and lie within
+    chip_smoke.k5_gates' tolerance, 1e-5 * max(1, max|sum|), of both the
+    plain version and the earlier kernel (a redesign may sum in another
+    order)."""
     old_k5 = None
     if (parent / "hectorgrapher_tpu_torch" / "ops" / "fast_scores_2d.py").exists():
         old_k5 = load_parent_wrapper(parent, "fast_scores_2d", build)
@@ -485,11 +493,20 @@ def run_k5(device, parent, build, result):
     for label, a in k5_scene(device).items():
         new = lambda a=a: k5.fast_scores_2d(*a)
         old = None if old_k5 is None else (lambda a=a: old_k5(*a))
-        if old is not None and not torch.equal(new(), old()):
-            sys.exit(f"kernel_ab: FAIL: fast_scores_2d {label} is not bit-equal to the earlier kernel")
+        got, want = new(), k5.fast_scores_2d_plain(*a)
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        errs = {"plain": float((got - want).abs().max())}
+        if old is not None:
+            errs["earlier"] = float((got - old()).abs().max())
+        if not torch.equal(got, new()):
+            sys.exit(f"kernel_ab: FAIL: fast_scores_2d {label} differs between two launches")
+        if not bool(torch.isfinite(got).all()) or max(errs.values()) > tol:
+            sys.exit(f"kernel_ab: FAIL: fast_scores_2d {label} differs by {errs} (tolerance {tol:.3e})")
         print(f"fast_scores_2d {label} level {a[7]} C={a[4].shape[0]} X={a[5].shape[1]} Y={a[6].shape[1]} "
-              f"P={a[1].shape[1]}", flush=True)
-        result["k5"][label] = turns("fast_scores_2d", label, old, new, a)
+              f"P={a[1].shape[1]} instance {k5.instance(a[5].shape[1], a[6].shape[1])}: max |d| from the plain "
+              f"version {errs['plain']:.3e}, from the earlier kernel {errs.get('earlier', float('nan')):.3e} "
+              f"(tolerance {tol:.3e})", flush=True)
+        result["k5"][label] = {"max_abs_err": errs, "tolerance": tol, **turns("fast_scores_2d", label, old, new, a)}
 
 
 def main() -> int:

@@ -207,3 +207,36 @@ def test_fast_scores_2d_plain_rules(shape):
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * max(1.0, np.abs(want).max()), rtol=0)
     assert k5.fast_scores_2d.launches == 0  # CPU tensors take the plain version
+
+
+@pytest.mark.parametrize("edge", ["no_valid", "all_valid", "tail_only", "shared_rows"])
+def test_fast_scores_2d_plain_edge_rows(edge):
+    """fast_scores_2d_plain against score_sum's rules written out on the
+    rows the kernel's compaction must get right: a row with no valid point
+    (all-zero sums), every slot valid, valid points only in the last 32
+    slots, and candidates sharing point rows, over row bases."""
+    rng = np.random.default_rng(["no_valid", "all_valid", "tail_only", "shared_rows"].index(edge) + 10)
+    dims, depth, level, slots = (19, 23), 4, 2, 2
+    table = rng.uniform(-0.1, 0.8, (slots, depth, dims[0] + 1, dims[1])).astype(np.float32)
+    table[:, :, -1] = 0.0
+    table = table.reshape(-1, dims[1])
+    r, p = 4, 160
+    bx = rng.integers(-8, dims[0] + 8, (r, p)).astype(np.int32)
+    by = rng.integers(-8, dims[1] + 8, (r, p)).astype(np.int32)
+    valid = {"no_valid": np.zeros((r, p), bool), "all_valid": np.ones((r, p), bool),
+             "tail_only": np.arange(p)[None, :].repeat(r, 0) >= p - 32,
+             "shared_rows": rng.random((r, p)) < 0.6}[edge]
+    c = 12
+    cand_t = (np.arange(c) % r if edge != "shared_rows" else rng.integers(0, 2, c)).astype(np.int32)
+    off_x = rng.integers(-6, 7, (c, 3)).astype(np.int32)
+    off_y = rng.integers(-6, 7, (c, 5)).astype(np.int32)
+    cand_base = (rng.integers(0, slots, c) * depth * (dims[0] + 1)).astype(np.int64)
+    t = torch.from_numpy
+    got = k5.fast_scores_2d_plain(t(table), t(bx), t(by), t(valid), t(cand_t), t(off_x), t(off_y), level, dims,
+                                  t(cand_base))
+    want = _naive_sums(table, bx, by, valid, cand_t, off_x, off_y, level, dims, cand_base)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * max(1.0, np.abs(want).max()), rtol=0)
+    if edge == "no_valid":
+        assert not got.any()
+    else:
+        assert np.abs(want).max() > 0
