@@ -25,7 +25,10 @@ its PCG and its Schur path (phase 15), and pure localization of a second
 trajectory on phase 14's map with PureLocalizationTrimmer (phase 16);
 then the 2D SLAM path (MapBuilder -> 2D front end -> PoseGraph2D, the
 default batched constraint search through K5) over two laps of phase 6's
-circle (phase 20), and the 2D SPA through its Schur, PCG and dense paths
+circle (phase 20), the same on uint16 submaps, K1 and K2 reading each
+just-quantized submap decoded and K5 its decoded levels (phase 22a), the
+2D front end on TSDF submaps in float32, float16, bfloat16 and uint16
+storage (phase 22b), and the 2D SPA through its Schur, PCG and dense paths
 (phase 21). K3 is held to its plain version in each of its modes (TSDF
 over f32, f16 and bf16 volumes, and probability; phase 7), K5 at phase
 20's round, a full-submap search, a round over four packed submaps and
@@ -65,7 +68,13 @@ from hectorgrapher_tpu_torch.evaluation.graph_generator import (
     make_scale_spa_problem_2d,
     odometry_extras_2d,
 )
-from hectorgrapher_tpu_torch.mapping.grids import grid_nbytes, make_probability_grid, make_tsdf_grid
+from hectorgrapher_tpu_torch.mapping.grids import (
+    STORAGE_DTYPES,
+    grid_nbytes,
+    make_probability_grid,
+    make_tsdf_grid,
+    quantize_tsdf_grid,
+)
 from hectorgrapher_tpu_torch.mapping.inserters_3d import make_probability_inserter_3d, make_tsdf_inserter_3d
 from hectorgrapher_tpu_torch.mapping.inserters_2d import make_probability_inserter_2d
 from hectorgrapher_tpu_torch.mapping.local_2d import LocalTrajectoryBuilder2D
@@ -746,17 +755,22 @@ def run_batched(device, batch=BATCH, reps=10):
     return batch / step_s
 
 
-def run_front_end(device, n_scans=N_SCANS):
-    """Phase 6: LocalTrajectoryBuilder2D over the circle scans. Returns
-    (matched scans, per-scan seconds of the matched scans, max translation
-    and yaw errors against ground truth, the builder)."""
-    builder = LocalTrajectoryBuilder2D(slice_options(), device=device)
+def run_front_end(device, n_scans=N_SCANS, options=None):
+    """Phase 6: LocalTrajectoryBuilder2D over the circle scans at
+    slice_options(), or at `options` (phase 22b). Returns (matched scans,
+    per-scan seconds of the matched scans, max translation and yaw errors
+    against ground truth, the builder, the scans matched against a submap
+    of uint16 codes)."""
+    builder = LocalTrajectoryBuilder2D(options or slice_options(), device=device)
     scans = circle_scans(n_scans)
     anchor = scans[0][1]
-    n_matched, latencies, t_err, y_err = 0, [], 0.0, 0.0
+    n_matched, n_quantized, latencies, t_err, y_err = 0, 0, [], 0.0, 0.0
     for t, pose, odom, cloud in scans:
         builder.add_odometry_data(t, odom)
-        matched = builder.active_submaps.matching_submap is not None
+        matching = builder.active_submaps.matching_submap
+        matched = matching is not None
+        n_quantized += matched and getattr(matching.grid, "tsd", getattr(matching.grid, "log_odds", None)).dtype == \
+            torch.uint16
         t0 = time.perf_counter()
         result = builder.add_range_data(
             TimedPointCloudData(t, np.zeros(3, np.float32), TimedPointCloud(cloud.positions, cloud.times, cloud.mask))
@@ -771,7 +785,7 @@ def run_front_end(device, n_scans=N_SCANS):
         t_err = max(t_err, float(np.linalg.norm(result.local_pose.t[:2] - truth.t[:2])))
         d = nq.quat_yaw(result.local_pose.q) - nq.quat_yaw(truth.q)
         y_err = max(y_err, abs((d + np.pi) % (2 * np.pi) - np.pi))
-    return n_matched, latencies, t_err, y_err, builder
+    return n_matched, latencies, t_err, y_err, builder, n_quantized
 
 
 CT_SCANS = 80  # 8 s of the CT front end at 10 Hz
@@ -2970,23 +2984,22 @@ def k5_rows_calls(pg, device, n_submaps=4, n_nodes=3):
     return calls, packed, len(subs)
 
 
-def run_phase_20(device):
-    """Phase 20: MapBuilder 2D -> LocalTrajectoryBuilder2D -> PoseGraph2D
-    over two laps of phase 6's circle at the front end's full width
-    (slam2d_options: 640^2 submaps, 2048 points, online correlative
-    matching through K1 and K2), the constraint searches and SPA solves on
-    the pose graph's worker thread with the default batched search (K5 once
-    per pyramid level a round), ROUND_PROFILING on; then the final
-    optimization. Gates the work items, K5's launches against the rounds,
-    the first ROUND_PARITY_ROUNDS rounds against the serial path, the final
-    optimization's cost, and the returning lap's global error against the
-    JAX package's; then holds K5 to its plain version at the first round's
-    shapes, a full-submap search's and a round over >= 3 packed submaps.
-    Returns (K5 launches of the run, {shape: measure's record})."""
+def drive_slam2d(device, options, label):
+    """MapBuilder 2D -> LocalTrajectoryBuilder2D -> PoseGraph2D over
+    slam2d_scans() at `options`, the constraint searches and SPA solves on
+    the pose graph's worker thread, ROUND_PROFILING on; then the final
+    optimization. The counts of K1, K2 and K5 are set to 0 first. Gates
+    (failing as `label`) the work items, K5's launches against the rounds
+    and the score sums, K1 / K2 on the front end and on every scan whose
+    matching submap holds uint16 codes (a just-finished quantized submap),
+    the first ROUND_PARITY_ROUNDS rounds against the serial path, INTER
+    constraints found, and the final optimization's cost. Returns a dict
+    of the run: the pose graph, slam2d_result's counts and errors, the
+    rounds, the first round's recorded K5 calls, and the timings."""
     for kernel in (fast_scores_2d, correlative_prep_2d, correlative_scores_2d):
         kernel.launches = 0
     fast_correlative_2d.match_fast_2d_batched.score_sums = 0
-    mb = MapBuilder(slam2d_options(), device=device)
+    mb = MapBuilder(options, device=device)
     tb = mb.get_trajectory_builder(mb.add_trajectory_builder())
     pg = mb.pose_graph
     searches, solves, errors, rounds, recorded = [], [], [], [], []
@@ -2995,16 +3008,20 @@ def run_phase_20(device):
     probe_rounds_2d(pg, rounds, errors, recorded)
     pose_graph_module.ROUND_PROFILING = True
     scans = slam2d_scans()
-    latencies = []
+    latencies, quantized = [], []
     t_start = time.perf_counter()
     for i, (t, _, odom, cloud) in enumerate(scans):
         tb.add_odometry_data(t, odom)
+        matching = tb._local.active_submaps.matching_submap
+        k12 = (correlative_prep_2d.launches, correlative_scores_2d.launches)
         t0 = time.perf_counter()
         tb.add_range_data(TimedPointCloudData(t, np.zeros(3, np.float32),
                                               TimedPointCloud(cloud.positions, cloud.times, cloud.mask)))
         sync(device)
         if i:
             latencies.append(time.perf_counter() - t0)
+        if matching is not None and matching.grid.log_odds.dtype == torch.uint16:
+            quantized.append((correlative_prep_2d.launches - k12[0], correlative_scores_2d.launches - k12[1]))
     front_s = time.perf_counter() - t_start
     pg.wait_for_all_computations()
     drain_s = time.perf_counter() - t_start - front_s
@@ -3015,45 +3032,84 @@ def run_phase_20(device):
     result = slam2d_result(pg, scans)  # runs the final optimization
     cost0, cost1 = (float(spa.LAST_SOLVE_STATS[k]) for k in ("initial_cost", "final_cost"))
     parity = [r["parity"] for r in rounds if r["parity"] is not None]
-    k5_parity = sum(p[3] for p in parity)
     bad_rounds = [(r["k5"], r["depth"]) for r in rounds if r["k5"] != r["depth"]]
     if errors:
-        fail(f"SLAM 2D: pose-graph work failed: {errors[:3]}")
+        fail(f"{label}: pose-graph work failed: {errors[:3]}")
     if not rounds or bad_rounds or k5 != score_sums or pg.batched_fallbacks:
-        fail(f"SLAM 2D: {len(rounds)} batched rounds, rounds whose K5 launches are not their levels "
+        fail(f"{label}: {len(rounds)} batched rounds, rounds whose K5 launches are not their levels "
              f"{bad_rounds[:5]}, {k5} K5 launches for {score_sums} score sums, {pg.batched_fallbacks} fallbacks")
-    if min(k12) == 0:
-        fail(f"SLAM 2D: the front end launched K1 / K2 {k12} times")
+    if min(k12) == 0 or any(min(q) == 0 for q in quantized):
+        fail(f"{label}: the front end launched K1 / K2 {k12} times, on the scans matched against a uint16 "
+             f"submap {quantized}")
     if not result["finite"] or result["finished"] == 0 or result["inter"] == 0:
-        fail(f"SLAM 2D: {result['finished']} finished submaps, {result['inter']} INTER constraints, finite "
+        fail(f"{label}: {result['finished']} finished submaps, {result['inter']} INTER constraints, finite "
              f"{result['finite']}")
     if not cost1 < cost0:
-        fail(f"SLAM 2D: the final optimization did not lower the SPA cost: {cost0:.6e} -> {cost1:.6e}")
+        fail(f"{label}: the final optimization did not lower the SPA cost: {cost0:.6e} -> {cost1:.6e}")
     if not parity or not all(p[0] for p in parity):
-        fail(f"SLAM 2D: round parity with the serial path failed: {[p[:3] for p in parity]}")
-    for key, jax_err in (("late_global", JAX_SLAM20_LATE_GLOBAL), ("median_global", JAX_SLAM20_MEDIAN_GLOBAL)):
-        if result[key] > max(2 * jax_err, jax_err + 0.05):
-            fail(f"SLAM 2D: {key} error {result[key]:.5f} m exceeds max(2 x, +0.05 m) of the JAX package's "
-                 f"{jax_err:.5f}")
-    lat, search_ms, solve_ms = (np.array(x) * 1e3 for x in (latencies, searches, solves))
+        fail(f"{label}: round parity with the serial path failed: {[p[:3] for p in parity]}")
+    return dict(pg=pg, result=result, rounds=rounds, recorded=recorded, latencies=latencies, searches=searches,
+                solves=solves, n_solves=n_solves, k5=k5, score_sums=score_sums, k12=k12, quantized=quantized,
+                parity=parity, cost=(cost0, cost1), front_s=front_s, drain_s=drain_s)
+
+
+def print_slam2d(label, run, jax_late, jax_median):
+    """Phase 20's and 22a's line: counts, launches, rounds, errors and
+    latencies of drive_slam2d's run, and the round stages."""
+    result, rounds, parity, (cost0, cost1) = run["result"], run["rounds"], run["parity"], run["cost"]
+    lat, search_ms, solve_ms = (np.array(run[k]) * 1e3 for k in ("latencies", "searches", "solves"))
     round_ms = np.array([r["s"] for r in rounds]) * 1e3
     n_cand = [r["n"] for r in rounds]
-    print(f"SLAM 2D: {result['nodes']} nodes, {result['submaps']} submaps ({result['finished']} finished), "
-          f"{result['inter']} INTER constraints, {n_solves} optimizations; K1 / K2 launches {k12}; {len(rounds)} "
-          f"batched rounds (candidates median {np.median(n_cand):.1f}, max {max(n_cand)}, submaps max "
+    print(f"{label}: {result['nodes']} nodes, {result['submaps']} submaps ({result['finished']} finished), "
+          f"{result['inter']} INTER constraints, {run['n_solves']} optimizations; K1 / K2 launches {run['k12']} "
+          f"({len(run['quantized'])} scans matched against a just-finished uint16 submap); {len(rounds)} batched "
+          f"rounds (candidates median {np.median(n_cand):.1f}, max {max(n_cand)}, submaps max "
           f"{max(r['submaps'] for r in rounds)}), each {rounds[0]['depth']}-level round one K5 launch a level: K5 "
-          f"launches {k5} = score sums {score_sums} ({k5_parity} of them the parity re-runs), {len(searches)} serial "
-          f"searches; per round median {np.median(round_ms):.3f} ms, p95 {np.percentile(round_ms, 95):.3f} ms; "
-          f"serial search median {np.median(search_ms) if len(search_ms) else float('nan'):.3f} ms; SPA solve median "
+          f"launches {run['k5']} = score sums {run['score_sums']} ({sum(p[3] for p in parity)} of them the parity "
+          f"re-runs), {len(search_ms)} serial searches; per round median {np.median(round_ms):.3f} ms, p95 "
+          f"{np.percentile(round_ms, 95):.3f} ms; serial search median "
+          f"{np.median(search_ms) if len(search_ms) else float('nan'):.3f} ms; SPA solve median "
           f"{np.median(solve_ms):.3f} ms, max {solve_ms.max():.3f} ms over {len(solve_ms)}; final optimization cost "
           f"{cost0:.6e} -> {cost1:.6e}; {len(parity)} rounds re-run serially: max |dt| {max(p[1] for p in parity):.3e} "
           f"m, max |da| {max(p[2] for p in parity):.3e} rad; returning lap local {result['late_local']:.5f} m, global "
           f"{result['late_global']:.5f} m; global median {result['median_global']:.5f} m, max "
-          f"{result['max_global']:.5f} m (JAX on the CPU {JAX_SLAM20_LATE_GLOBAL:.5f} / {JAX_SLAM20_MEDIAN_GLOBAL:.5f}); "
+          f"{result['max_global']:.5f} m (JAX on the CPU {jax_late:.5f} / {jax_median:.5f}); "
           f"per-scan latency median {np.median(lat):.3f} ms, p95 {np.percentile(lat, 95):.3f} ms over {len(lat)} scans; "
-          f"drive {front_s:.1f} s, queue drained {drain_s:.1f} s after", flush=True)
-    print("SLAM 2D round stages (LAST_ROUND_BREAKDOWN), median ms: "
+          f"drive {run['front_s']:.1f} s, queue drained {run['drain_s']:.1f} s after", flush=True)
+    print(f"{label} round stages (LAST_ROUND_BREAKDOWN), median ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in stage_medians([r["stages"] for r in rounds]).items()), flush=True)
+
+
+def check_slam2d_errors(label, result, jax_late, jax_median, note=""):
+    """The returning lap's and the median global error within max(2x, +0.05
+    m) of the JAX package's on the same drive (C19's spread)."""
+    for key, jax_err in (("late_global", jax_late), ("median_global", jax_median)):
+        if result[key] > max(2 * jax_err, jax_err + 0.05):
+            fail(f"{label}: {key} error {result[key]:.5f} m exceeds max(2 x, +0.05 m) of the JAX package's "
+                 f"{jax_err:.5f}{note}")
+
+
+def slam2d_stats(run):
+    """(per-scan median and p95 ms, round median ms) of a drive_slam2d run."""
+    lat = np.array(run["latencies"]) * 1e3
+    return (float(np.median(lat)), float(np.percentile(lat, 95)),
+            float(np.median([r["s"] for r in run["rounds"]])) * 1e3)
+
+
+def run_phase_20(device):
+    """Phase 20: drive_slam2d at slam2d_options() over two laps of phase
+    6's circle at the front end's full width (640^2 submaps, 2048 points,
+    online correlative matching through K1 and K2, the default batched
+    search through K5), then the returning lap's global error against the
+    JAX package's; then holds K5 to its plain version at the first round's
+    shapes, a full-submap search's and a round over >= 3 packed submaps.
+    Returns (K5 launches of the run, K1 / K2 launches, {shape: measure's
+    record}, slam2d_stats, grid bytes of a finished submap)."""
+    run = drive_slam2d(device, slam2d_options(), "SLAM 2D")
+    pg = run["pg"]
+    check_slam2d_errors("SLAM 2D", run["result"], JAX_SLAM20_LATE_GLOBAL, JAX_SLAM20_MEDIAN_GLOBAL)
+    print_slam2d("SLAM 2D", run, JAX_SLAM20_LATE_GLOBAL, JAX_SLAM20_MEDIAN_GLOBAL)
+    rounds, recorded = run["rounds"], run["recorded"]
     stats = check_k5_calls("round", recorded, pg._packs2d[rounds[0]["depth"]]["packed"].block_rows, all_calls=True)
     calls, config = k5_global_calls(pg, device)
     stats.update(check_k5_calls("global", calls))
@@ -3066,7 +3122,114 @@ def run_phase_20(device):
           f"2x2_ragged with one flag row at an odd address; on {n_sub} packed submaps, rows with no valid point, all valid, the last 32 and "
           f"the last 256 slots only, shared rows: within tolerance (max |d| {edge_err:.3e}), two launches and row "
           "bases bit-equal, empty rows zero", flush=True)
-    return k5 - k5_parity, stats
+    finished_bytes = grid_nbytes(next(s for s in pg.submaps if s.finished).submap.grid)
+    return (run["k5"] - sum(p[3] for p in run["parity"]), run["k12"], stats, slam2d_stats(run), finished_bytes)
+
+
+# Phase 22a's JAX reference: tests/jax_slam_reference.py --slam-2d
+# --storage uint16 on a CPU, two runs over phase 20's drive with
+# grid_storage_dtype "uint16": 119 nodes, 10 submaps (8 finished), 484 and
+# 479 INTER constraints; the returning lap's local error 0.03606 m both
+# times, its global error 0.08531 / 0.08789 m, the median global error
+# 0.05820 / 0.05989 m. The larger of each pair; the port must stay within
+# twice each, or 0.05 m above it (C19's spread).
+JAX_SLAM22_LATE_GLOBAL, JAX_SLAM22_MEDIAN_GLOBAL = 0.08789, 0.05989
+# A finished 640^2 submap's planes: uint16 codes and the bool known mask,
+# against f32 log-odds and the mask.
+U16_SUBMAP_BYTES, F32_SUBMAP_BYTES = 640 * 640 * 3, 640 * 640 * 5
+
+
+def run_phase_22a(device, stats20, bytes20):
+    """Phase 22a: drive_slam2d over phase 20's drive and options with
+    grid_storage_dtype "uint16": every finished submap holds uint16 codes,
+    the scans matched against a just-quantized submap (K1 and K2 on each,
+    the decoded grid's table), K5 on every round over the decoded levels;
+    the global errors against the JAX package's uint16 run. Prints the
+    bytes of a finished submap and the per-scan and per-round times beside
+    phase 20's (stats20, bytes20) from this call. Returns (K5 launches,
+    K1 / K2 launches)."""
+    label = "SLAM 2D uint16 (phase 22a)"
+    run = drive_slam2d(device, cfg.replace_deep(slam2d_options(), {
+        "trajectory_builder_2d.submaps.grid_storage_dtype": "uint16"}), label)
+    pg = run["pg"]
+    finished = [s.submap.grid for s in pg.submaps if s.finished]
+    dtypes = {str(g.log_odds.dtype) for g in finished}
+    if dtypes != {"torch.uint16"}:
+        fail(f"{label}: finished submaps hold {dtypes}, not uint16 codes")
+    if not run["quantized"]:
+        fail(f"{label}: no scan was matched against a just-finished uint16 submap")
+    nbytes = {grid_nbytes(g) for g in finished}
+    if nbytes != {U16_SUBMAP_BYTES} or bytes20 != F32_SUBMAP_BYTES:
+        fail(f"{label}: a finished submap holds {nbytes} B (phase 20: {bytes20} B), not {U16_SUBMAP_BYTES} "
+             f"({F32_SUBMAP_BYTES})")
+    check_slam2d_errors(label, run["result"], JAX_SLAM22_LATE_GLOBAL, JAX_SLAM22_MEDIAN_GLOBAL)
+    print_slam2d(label, run, JAX_SLAM22_LATE_GLOBAL, JAX_SLAM22_MEDIAN_GLOBAL)
+    med, p95, round_ms = slam2d_stats(run)
+    print(f"{label}: a finished submap {U16_SUBMAP_BYTES} B against phase 20's {bytes20} B "
+          f"({U16_SUBMAP_BYTES / bytes20:.3f}); per-scan median {med:.3f} ms, p95 {p95:.3f} ms, per round "
+          f"{round_ms:.3f} ms; phase 20 in this call: {stats20[0]:.3f} / {stats20[1]:.3f} / {stats20[2]:.3f} ms",
+          flush=True)
+    return run["k5"] - sum(p[3] for p in run["parity"]), run["k12"]
+
+
+# Phase 22b's JAX references: tests/jax_slam_reference.py --front-end-2d
+# --grid-type TSDF --storage S on a CPU, phase 6's 60 scans through the JAX
+# LocalTrajectoryBuilder2D on TSDF submaps of storage S: its max
+# translation and yaw errors (0.347840 m / 0.106496 rad in float32 and
+# uint16, 0.347843 / 0.106497 in float16, 0.347841 / 0.106497 in
+# bfloat16), rounded up. The JAX half runs widen the planes to f32 at the
+# first insert (ROADMAP C21); the port keeps them half, and is held to the
+# JAX run all the same. The JAX 2D TSDF front end drifts ten times as far
+# as its probability one on these scans (0.03466 m; ROADMAP C22).
+JAX_TSDF22_ERRORS = {"float32": (0.34784, 0.10650), "float16": (0.34785, 0.10650), "bfloat16": (0.34785, 0.10650),
+                     "uint16": (0.34784, 0.10650)}
+
+
+def tsdf_front_end_options(storage):
+    """Phase 22b's options: phase 6's (SLICE_OVERRIDES) on TSDF submaps
+    of grid_storage_dtype `storage`."""
+    return cfg.replace_deep(slice_options(), {"submaps.grid_options_2d.grid_type": "TSDF",
+                                              "submaps.grid_storage_dtype": storage})
+
+
+def run_phase_22b(device):
+    """Phase 22b: LocalTrajectoryBuilder2D on TSDF submaps over phase 6's
+    60 scans in each grid_storage_dtype: the grids hold their storage
+    dtype after the drive (ROADMAP C21; uint16 after a finish, with scans
+    matched against the quantized submap), no correlative kernel runs (the
+    TSDF front end skips the matcher, as in the JAX package), and the
+    largest errors are within max(2x, +0.05 m) (yaw max(2x, +0.01 rad)) of
+    the JAX package's on the same scans."""
+    for storage, (jax_t, jax_y) in JAX_TSDF22_ERRORS.items():
+        label = f"TSDF front end {storage} (phase 22b)"
+        correlative_prep_2d.launches = correlative_scores_2d.launches = 0
+        n_matched, latencies, t_err, y_err, builder, n_quantized = run_front_end(
+            device, options=tsdf_front_end_options(storage))
+        k12 = (correlative_prep_2d.launches, correlative_scores_2d.launches)
+        submaps = builder.active_submaps.submaps
+        grids = [s.grid for s in submaps]
+        # uint16: f32 while active, codes once finished.
+        want = [STORAGE_DTYPES["float32" if storage == "uint16" and not s.insertion_finished else storage]
+                for s in submaps]
+        if [(g.tsd.dtype, g.weight.dtype) for g in grids] != [(w, w) for w in want] or k12 != (0, 0):
+            fail(f"{label}: the active grids hold {[str(g.tsd.dtype) for g in grids]}, not {want}; K1 / K2 {k12}")
+        if storage == "uint16" and n_quantized == 0:
+            fail(f"{label}: no scan was matched against a quantized submap")
+        if not bool((grids[0].weight.to(torch.float32) > 0).any()):
+            fail(f"{label}: the matching submap has no observed cell")
+        if t_err > max(2 * jax_t, jax_t + 0.05) or y_err > max(2 * jax_y, jax_y + 0.01):
+            fail(f"{label}: max error {t_err:.5f} m / {y_err:.5f} rad exceeds max(2 x, +0.05 m / +0.01 rad) of "
+                 f"the JAX package's {jax_t:.5f} / {jax_y:.5f}"
+                 + (" (JAX's planes widen to f32 at the first insert, C21)" if storage in ("float16", "bfloat16")
+                    else ""))
+        lat_ms = np.array(latencies) * 1e3
+        nbytes = grid_nbytes(quantize_tsdf_grid(grids[-1]) if storage == "uint16" else grids[-1])
+        print(f"{label}: {n_matched} matched scans ({n_quantized} against a quantized submap), K1 / K2 {k12}; max "
+              f"error {t_err:.5f} m / {y_err:.5f} rad (JAX on the CPU {jax_t:.5f} / {jax_y:.5f}"
+              + (", its planes widened to f32, C21" if storage in ("float16", "bfloat16") else "")
+              + f"); grids {[str(g.tsd.dtype) for g in grids]}, {nbytes} B a "
+              f"{'finished ' if storage == 'uint16' else ''}submap; "
+              f"per-scan latency median {np.median(lat_ms):.3f} ms, p95 {np.percentile(lat_ms, 95):.3f} ms", flush=True)
 
 
 def run_phase_21(device, reps=3, num_iterations=10):
@@ -3177,14 +3340,16 @@ def main() -> int:
     run_batched(device)
     if correlative_prep_2d.launches == 0 or correlative_scores_2d.launches == 0:
         fail("batched matcher did not launch both kernels")
+    k12_paths = {"batched5": (correlative_prep_2d.launches, correlative_scores_2d.launches)}
 
     mark("6")
     # Phase 6: the front end, through both kernels on every matched scan.
     correlative_prep_2d.launches = 0
     correlative_scores_2d.launches = 0
-    n_matched, latencies, t_err, y_err, builder = run_front_end(device)
+    n_matched, latencies, t_err, y_err, builder, _ = run_front_end(device)
     launches = {"correlative_prep_2d": correlative_prep_2d.launches,
                 "correlative_scores_2d": correlative_scores_2d.launches}
+    k12_paths["front_end6"] = (correlative_prep_2d.launches, correlative_scores_2d.launches)
     if any(v != n_matched for v in launches.values()) or n_matched == 0:
         fail(f"front end: launches {launches} != {n_matched} matched scans")
     if not bool(builder.active_submaps.matching_submap.grid.known.any()):
@@ -3391,7 +3556,15 @@ def main() -> int:
     # through K5 once per pyramid level a round; K5 against its plain
     # version at the round's shapes, a full-submap search's and a round
     # over a pack of 4 submaps.
-    launches["fast_scores_2d"], checks["fast_scores_2d"] = run_phase_20(device)
+    k5_20, k12_paths["slam20"], checks["fast_scores_2d"], stats20, bytes20 = run_phase_20(device)
+    launches["fast_scores_2d"] = k5_20
+
+    mark("22")
+    # Phase 22: (a) phase 20's drive on uint16 submaps, through K1 / K2 on
+    # the scans matched against a just-quantized submap and K5 over the
+    # decoded levels; (b) the TSDF front end in every storage dtype.
+    k5_22, k12_paths["slam22a_uint16"] = run_phase_22a(device, stats20, bytes20)
+    run_phase_22b(device)
 
     mark("21")
     # Phase 21: the 2D SPA through its Schur, PCG and dense paths.
@@ -3419,17 +3592,22 @@ def main() -> int:
     # at the CT front end's, K4 at the coarse stage's), its other shapes
     # under "shapes" (K3's probability mode under prob_*, its f16 and bf16
     # TSDF modes under f16_* and bf16_*); launches from its main path's run
-    # (K1, K2: phase 6; K3: phase 9, with phases 11-14 and 16 under
+    # (K1, K2: phase 6, with phases 5, 20 and 22a under "launches_by_path";
+    # K3: phase 9, with phases 11-14 and 16 under
     # "launches_by_path", slam13_* all in probability mode, slam14_* and
     # slam16_* all in f16 mode, and phase 19's per-scan batched solves as
     # batched19_entry / batched19_drive, slotted launches of the gated
     # solve only; K3 per point: phase 17, with phases 18 and 19 beside it;
     # K4: phase 11, with phases 12-14 beside it under "launches_by_path";
-    # K5: phase 20, without its rounds' serial re-runs).
+    # K5: phase 20, without its rounds' serial re-runs, with phase 22a
+    # beside it).
     main_shape = {"correlative_prep_2d": "batched", "correlative_scores_2d": "batched",
                   "ct_scan_block": "front_end", "ct_scan_block_points": "front_end", "fast_scores_3d": "coarse",
                   "fast_scores_2d": "round_coarse"}
-    paths = {"ct_scan_block": k3_paths, "ct_scan_block_points": k3p_paths, "fast_scores_3d": k4_paths}
+    paths = {"ct_scan_block": k3_paths, "ct_scan_block_points": k3p_paths, "fast_scores_3d": k4_paths,
+             "fast_scores_2d": {"slam20": k5_20, "slam22a_uint16": k5_22},
+             **{name: {path: k[i] for path, k in k12_paths.items()}
+                for i, name in enumerate(("correlative_prep_2d", "correlative_scores_2d"))}}
     kernels = []
     for name, (source, replaces) in sources.items():
         rec = checks[name][main_shape[name]]

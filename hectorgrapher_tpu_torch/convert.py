@@ -120,9 +120,12 @@ def np_rigid3(pose) -> NpRigid3:
 
 
 def grid_3d(grid, device):
-    """A JAX 3D submap grid of either type (ProbabilityGrid or TSDFGrid,
-    told apart by their fields)."""
+    """A JAX submap grid of either type (ProbabilityGrid or TSDFGrid, told
+    apart by their fields), 3D or 2D, in its storage dtype."""
     return probability_grid(grid, device) if hasattr(grid, "log_odds") else tsdf_grid(grid, device)
+
+
+grid_2d = grid_3d  # 2D grids have the same fields
 
 
 def submap_3d(submap, device) -> Submap3D:
@@ -183,12 +186,15 @@ def prepared_fast_matcher_2d(prepared, device) -> PreparedFastMatcher2D:
 
 
 def submap_2d(submap, device) -> Submap2D:
-    """A JAX Submap2D over a probability grid, finished or not."""
+    """A JAX Submap2D, finished or not, over a grid of either type in its
+    storage dtype (f32 probabilities or uint16 codes; f32, f16 or bf16 TSDF
+    planes, or uint16 codes)."""
     return Submap2D(
         local_pose=np_rigid3(submap.local_pose),
-        grid=probability_grid(submap.grid, device),
+        grid=grid_2d(submap.grid, device),
         num_range_data=int(submap.num_range_data),
         insertion_finished=bool(submap.insertion_finished),
+        quantize_on_finish=bool(getattr(submap, "quantize_on_finish", False)),
     )
 
 

@@ -1,13 +1,16 @@
-"""2D local SLAM front end (counterpart of hectorgrapher_tpu/mapping/local_2d.py,
-probability grids; ref: cartographer/mapping/internal/2d/
-local_trajectory_builder_2d.{h,cc} — extrapolator predict -> gravity-align
-& z-crop -> voxel filter -> RealTimeCorrelativeScanMatcher ->
-CeresScanMatcher2D -> extrapolator feedback -> motion filter -> submap
-insert).
+"""2D local SLAM front end (counterpart of hectorgrapher_tpu/mapping/local_2d.py;
+ref: cartographer/mapping/internal/2d/local_trajectory_builder_2d.{h,cc} —
+extrapolator predict -> gravity-align & z-crop -> voxel filter ->
+RealTimeCorrelativeScanMatcher -> CeresScanMatcher2D -> extrapolator
+feedback -> motion filter -> submap insert).
 
-Host code orchestrates; matching and insertion run on `device`. With
-online correlative matching on, every matched scan goes through the two
-correlative kernels (ops/correlative_prep_2d, ops/correlative_scores_2d).
+Host code orchestrates; matching and insertion run on `device`. On
+probability-grid submaps with online correlative matching on, every
+matched scan goes through the two correlative kernels
+(ops/correlative_prep_2d, ops/correlative_scores_2d), a just-finished
+uint16 submap decoded first. On TSDF submaps the correlative matcher is
+skipped, as in the JAX package (local_2d.py:237), and the GN refinement
+takes the TSDF cost.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from hectorgrapher_tpu_torch.mapping.scan_matching.correlative_2d import (
     make_search_window,
     match_correlative_2d,
 )
-from hectorgrapher_tpu_torch.mapping.scan_matching.gn_2d import match_gn_2d_probability
+from hectorgrapher_tpu_torch.mapping.scan_matching.gn_2d import match_gn_2d_probability, match_gn_2d_tsdf
 from hectorgrapher_tpu_torch.mapping.submap_2d import ActiveSubmaps2D, Submap2D
 from hectorgrapher_tpu_torch.sensor.types import (
     PointCloud,
@@ -59,7 +62,8 @@ class MatchingResult:
 
 
 class LocalTrajectoryBuilder2D:
-    def __init__(self, options, device):
+    def __init__(self, options, device="cuda"):
+        """Runs on `device`, the card unless the caller asks for the CPU."""
         self._options = options
         self._device = torch.device(device)
         self._active_submaps = ActiveSubmaps2D(
@@ -75,6 +79,7 @@ class LocalTrajectoryBuilder2D:
             options.submaps.grid_options_2d.resolution,
             options.max_range,
         )
+        self._is_tsdf = options.submaps.grid_options_2d.grid_type == "TSDF"
 
     # -- sensor input ------------------------------------------------------
 
@@ -207,7 +212,7 @@ class LocalTrajectoryBuilder2D:
         cloud = adaptive_voxel_filter(filtered_cloud, self._options.adaptive_voxel_filter)
 
         initial = pose_prediction_2d
-        if self._options.use_online_correlative_scan_matching:
+        if self._options.use_online_correlative_scan_matching and not self._is_tsdf:
             rt = self._options.real_time_correlative_scan_matcher
             _, initial = match_correlative_2d(
                 matching_submap.grid,
@@ -219,7 +224,8 @@ class LocalTrajectoryBuilder2D:
             )
 
         cm = self._options.ceres_scan_matcher
-        pose, _ = match_gn_2d_probability(
+        match = match_gn_2d_tsdf if self._is_tsdf else match_gn_2d_probability
+        pose, _ = match(
             matching_submap.grid,
             cloud,
             initial,

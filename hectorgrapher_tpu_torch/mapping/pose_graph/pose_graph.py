@@ -29,10 +29,12 @@ a trimmed one.
 
 PoseGraph2D (at the end of this module) follows the same structure over
 2D submaps: the fast 2D matcher (kernel K5, one launch per pyramid level
-of a batched round) and the 2D GN refinement, the 2D SPA.
+of a batched round) and the 2D GN refinement, the 2D SPA. Finished uint16
+submaps are decoded to f32 where a matcher or the pack is built. A 2D TSDF
+submap cannot be searched, in the reference as here (ROADMAP C20): the
+search raises, the worker logs it, and no INTER constraint is added.
 
-Not ported: the solver mesh (set_solver_mesh raises NotImplementedError)
-and the 2D TSDF refinement (ROADMAP A5b).
+Not ported: the solver mesh (set_solver_mesh raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -1177,7 +1179,12 @@ class PoseGraph2D(PoseGraphBase):
     one packed GN refinement of the survivors against the pack's raw
     grids. Every SPA solve with a trajectory of two or more nodes runs
     solve_spa_2d_full, since the local-SLAM relative poses between
-    consecutive nodes are always a family; otherwise solve_spa_2d."""
+    consecutive nodes are always a family; otherwise solve_spa_2d.
+
+    Submaps hold probability grids, f32 or uint16 codes. A TSDF submap's
+    matcher raises TypeError (ROADMAP C20, mirrored): the reference's
+    TSDF branches of _submap_matcher and _get_pack_2d (pose_graph.py
+    :1082-1083, :1134-1137) are never reached there and are not ported."""
 
     def __init__(self, options, max_scan_range: float = 30.0, device="cuda"):
         """Runs on the card unless `device` says otherwise; without one it
@@ -1302,7 +1309,7 @@ class PoseGraph2D(PoseGraphBase):
         submap, built on first use, kept by stable submap id."""
         per_sid = self._matcher_cache.setdefault(pg_submap.submap_id, {})
         if "gn" not in per_sid:
-            per_sid["gn"] = prepare_gn_probability_field(ensure_f32_grid(pg_submap.submap.grid))
+            per_sid["gn"] = prepare_gn_probability_field(pg_submap.submap.grid)
         return per_sid["gn"]
 
     def _get_pack_2d(self, needed: Dict[int, PgSubmap], depth: int):
@@ -1336,6 +1343,7 @@ class PoseGraph2D(PoseGraphBase):
         pg_by_sid = {**live, **needed}
         grids = {sid: ensure_f32_grid(pg_by_sid[sid].submap.grid) for sid in order}
         fast = {sid: self._matcher_cache[sid][depth] for sid in order}
+        # A uint16 submap is packed decoded: its f32 levels and f32 plane.
         bytes_of = {sid: fast[sid].flat_levels.numel() * 4 + grids[sid].log_odds.numel() * 4 for sid in order}
         budget = int(self._options.constraint_builder.pack_hbm_budget_bytes)
         members = {sid for sid in order if sid in needed}

@@ -29,7 +29,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from hectorgrapher_tpu_torch.mapping.grids import ProbabilityGrid, cell_index
+from hectorgrapher_tpu_torch.mapping.grids import ProbabilityGrid, cell_index, ensure_f32_grid
 from hectorgrapher_tpu_torch.ops.correlative_prep_2d import correlative_prep_2d
 from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d, row_stride
 from hectorgrapher_tpu_torch.sensor.types import PointCloud
@@ -112,9 +112,11 @@ def _candidate_thetas(window: SearchWindow2D, device):
 def prepare_correlative_table(grid: ProbabilityGrid, window: SearchWindow2D):
     """Wide-patch table for repeated matching against one grid version,
     its rows padded with zero lanes to row_stride(pw) (K2's layout, and at
-    pw*pw <= 128 the 128-lane rows the TPU kernel gathers from)."""
+    pw*pw <= 128 the 128-lane rows the TPU kernel gathers from). A uint16
+    grid (a just-finished submap) is decoded first (correlative_2d.py
+    :333-335)."""
     k, gsz, half, m, pw, *_ = _window_geometry(window)
-    return _wide_patch_table(grid.probability(), k, half, row_stride(pw))
+    return _wide_patch_table(ensure_f32_grid(grid).probability(), k, half, row_stride(pw))
 
 
 def prep_inputs(grid: ProbabilityGrid, clouds: PointCloud, initial_poses: Rigid2, window: SearchWindow2D):
@@ -243,7 +245,9 @@ def score_volume_dense(
     window: SearchWindow2D,
 ):
     """Per-cell scoring of the full (theta, dx, dy) volume (no penalty),
-    one candidate cell at a time: the oracle for the grouped matcher."""
+    one candidate cell at a time: the oracle for the grouped matcher. A
+    uint16 grid is decoded first (correlative_2d.py :272-274)."""
+    grid = ensure_f32_grid(grid)
     prob = grid.probability()
     nx, ny = prob.shape
     device = prob.device

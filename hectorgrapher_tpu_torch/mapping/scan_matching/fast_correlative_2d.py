@@ -35,7 +35,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from hectorgrapher_tpu_torch.mapping.grids import GridMeta, ProbabilityGrid, ensure_f32_grid
+from hectorgrapher_tpu_torch.mapping.grids import GridMeta, ProbabilityGrid, TSDFGrid, ensure_f32_grid
 from hectorgrapher_tpu_torch.ops.fast_scores_2d import fast_scores_2d
 from hectorgrapher_tpu_torch.sensor.types import PointCloud
 from hectorgrapher_tpu_torch.transform.rigid import Rigid2, rot2
@@ -94,7 +94,17 @@ class PreparedFastMatcher2D(NamedTuple):
 
 
 def prepare_fast_matcher_2d(grid: ProbabilityGrid, depth: int) -> PreparedFastMatcher2D:
-    """The submap's pyramid levels, decoded to f32 first."""
+    """The submap's pyramid levels, decoded to f32 first.
+
+    A TSDFGrid raises TypeError (ROADMAP C20, mirrored): the reference
+    reads grid.probability() of every submap here, which its TSDFGrid
+    lacks, so the JAX 2D pose graph finds no INTER constraint against a
+    TSDF submap; the pose graph's worker logs the error and goes on, in
+    both packages."""
+    if isinstance(grid, TSDFGrid):
+        raise TypeError("prepare_fast_matcher_2d: a 2D TSDF submap cannot be searched (ROADMAP C20, mirrored: "
+                        "hectorgrapher_tpu/mapping/scan_matching/fast_correlative_2d.py:98 calls "
+                        "grid.probability(), which TSDFGrid lacks)")
     grid = ensure_f32_grid(grid)
     prob = grid.probability()
     stack = torch.stack(precompute_pyramid_2d(prob, depth)) - 0.1  # (depth, nx, ny)

@@ -1,7 +1,7 @@
 """Grid interpolation for scan matching (counterpart of
 hectorgrapher_tpu/mapping/scan_matching/interpolated_grid.py: the 2D wide
-bicubic field, the 3D weight-aware TSDF stencil and the 3D occupancy
-stencil; ref: internal/2d/scan_matching/occupied_space_cost_function_2d.cc
+bicubic field, the 2D bicubic and bilinear interpolation API, the 3D
+weight-aware TSDF stencil and the 3D occupancy stencil; ref: internal/2d/scan_matching/occupied_space_cost_function_2d.cc
 :47-74, internal/3d/scan_matching/interpolated_multi_resolution_tsdf.h
 :38-58, interpolated_grid.h).
 
@@ -15,7 +15,6 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from hectorgrapher_tpu_torch.mapping import probability_values as pv
 from hectorgrapher_tpu_torch.mapping.grids import GridMeta, ProbabilityGrid, TSDFGrid, ensure_f32_grid
@@ -40,7 +39,7 @@ def gather_rows_2d(field: PreparedField2D, points):
     return field.patches[flat].to(torch.float32)
 
 
-def prepare_field_2d_wide(values, meta: GridMeta, pad_value: float, slack: int) -> PreparedField2D:
+def prepare_field_2d_wide(values, meta: GridMeta, pad_value, slack: int) -> PreparedField2D:
     """Bicubic patch matrix widened by `slack` cells per side: row c holds
     the (4+2*slack)^2 neighborhood at c + (-1-slack .. 2+slack)^2, lane
     dx*w + dy; the appended last row is all pad_value.
@@ -52,11 +51,117 @@ def prepare_field_2d_wide(values, meta: GridMeta, pad_value: float, slack: int) 
     w = 4 + 2 * slack
     lo = 1 + slack  # window starts at base cell - (1 + slack)
     hi = 2 + slack
-    padded = F.pad(values.to(torch.float32), (lo, hi, lo, hi), value=pad_value)
+    # fill_ takes a float or a 0-dim tensor (a grid's truncation distance,
+    # read on the device without a host sync).
+    padded = torch.empty((nx + lo + hi, ny + lo + hi), dtype=torch.float32, device=values.device).fill_(pad_value)
+    padded[lo:lo + nx, lo:lo + ny] = values
     table = torch.empty((nx * ny + 1, w * w), dtype=torch.float32, device=values.device)
     table[:-1].view(nx, ny, w, w).copy_(padded.unfold(0, w, 1).unfold(1, w, 1))
-    table[-1] = pad_value
+    table[-1].fill_(pad_value)
     return PreparedField2D(patches=table, meta=meta, dims=(nx, ny))
+
+
+# ---------------------------------------------------------------------------
+# 2D bicubic and bilinear interpolation (interpolated_grid.py :100-208,
+# :496-570 of the JAX package): the public 2D interpolation API. Nothing in
+# either package's pipeline calls it; the GN refinement reads the wide
+# fields above.
+# ---------------------------------------------------------------------------
+
+
+def prepare_field_2d(values, meta: GridMeta, pad_value) -> PreparedField2D:
+    """The 16-tap bicubic patch matrix of values (nx, ny) (:496): the wide
+    table at slack 0, row c the 4x4 cells c + (-1..2)^2, lane dx*4 + dy,
+    the last row all pad. The JAX package pads in the values' dtype, so the
+    pad value is rounded to it first (a half grid pads with its own
+    rounding of the truncation distance)."""
+    return prepare_field_2d_wide(values, meta, torch.as_tensor(pad_value).to(values.dtype).to(torch.float32), 0)
+
+
+def interp_prepared_2d(field: PreparedField2D, points):
+    """Bicubic (Catmull-Rom) interpolation of a prepared field at world xy
+    positions (..., 2) (:541): one 16-tap row a point, weighted by the
+    outer product of the two axes' cubic weights. Out-of-grid base cells
+    read the pad row."""
+    u = (points - field.meta.min_corner) / field.meta.resolution - 0.5
+    frac = u - torch.floor(u)
+    wx, wy = _cubic_weights(frac[..., 0]), _cubic_weights(frac[..., 1])
+    w = (wx[..., :, None] * wy[..., None, :]).reshape(points.shape[:-1] + (16,))
+    return torch.sum(gather_rows_2d(field, points) * w, dim=-1)
+
+
+def _cubic_weights(t):
+    """Catmull-Rom cubic convolution weights for offsets (-1, 0, 1, 2)
+    (:23-31)."""
+    t2 = t * t
+    t3 = t2 * t
+    return torch.stack([0.5 * (-t3 + 2 * t2 - t), 0.5 * (3 * t3 - 5 * t2 + 2), 0.5 * (-3 * t3 + 4 * t2 + t),
+                        0.5 * (t3 - t2)], dim=-1)
+
+
+def interp_bicubic_2d(values, meta: GridMeta, points, pad_value):
+    """Bicubic interpolation of values (nx, ny) at world positions (...,
+    2) (:100); out-of-grid base cells read pad_value."""
+    return interp_prepared_2d(prepare_field_2d(values, meta, pad_value), points)
+
+
+def interp_bilinear_2d(values, meta: GridMeta, points, pad_value):
+    """Bilinear interpolation of values (nx, ny) at world positions (...,
+    2) (:122), tap by tap in f32; taps outside the grid read pad_value."""
+    nx, ny = values.shape
+    u = (points - meta.min_corner) / meta.resolution - 0.5
+    i0 = torch.floor(u).to(torch.int64)
+    frac = u - i0
+    out = torch.zeros(points.shape[:-1], dtype=torch.float32, device=points.device)
+    for dx in range(2):
+        ix = i0[..., 0] + dx
+        ok_x = (ix >= 0) & (ix < nx)
+        wx = frac[..., 0] if dx else 1.0 - frac[..., 0]
+        for dy in range(2):
+            iy = i0[..., 1] + dy
+            ok = ok_x & (iy >= 0) & (iy < ny)
+            wy = frac[..., 1] if dy else 1.0 - frac[..., 1]
+            v = values[torch.clamp(ix, 0, nx - 1), torch.clamp(iy, 0, ny - 1)].to(torch.float32)
+            out = out + wx * wy * torch.where(ok, v, pad_value)
+    return out
+
+
+def probability_at_2d(grid: ProbabilityGrid, points, bicubic: bool = True):
+    """Occupancy probability at world xy positions (:192); unknown and
+    outside cells read MIN_PROBABILITY. A uint16 grid is decoded first (the
+    JAX package would interpolate its codes)."""
+    grid = ensure_f32_grid(grid)
+    fn = interp_bicubic_2d if bicubic else interp_bilinear_2d
+    return fn(grid.probability(), grid.meta, points, pv.MIN_PROBABILITY)
+
+
+def tsd_at_2d(grid: TSDFGrid, points, bicubic: bool = True):
+    """(tsd, weight) at world xy positions (:201); unknown and outside
+    cells read (truncation_distance, 0). A uint16 grid is decoded first."""
+    grid = ensure_f32_grid(grid)
+    fn = interp_bicubic_2d if bicubic else interp_bilinear_2d
+    return fn(grid.tsd, grid.meta, points, grid.truncation_distance), fn(grid.weight, grid.meta, points, 0.0)
+
+
+def prepare_probability_2d(grid: ProbabilityGrid) -> PreparedField2D:
+    """(:555) The bicubic field of the grid's probability."""
+    grid = ensure_f32_grid(grid)
+    return prepare_field_2d(grid.probability(), grid.meta, pv.MIN_PROBABILITY)
+
+
+class PreparedTsdf2D(NamedTuple):
+    """(:561) The bicubic fields of a 2D TSDF's two planes."""
+
+    tsd_field: PreparedField2D
+    weight_field: PreparedField2D
+
+
+def prepare_tsdf_2d(grid: TSDFGrid) -> PreparedTsdf2D:
+    """(:565) A uint16 grid is decoded first; half planes pad in their own
+    dtype, as in the JAX package."""
+    grid = ensure_f32_grid(grid)
+    return PreparedTsdf2D(tsd_field=prepare_field_2d(grid.tsd, grid.meta, grid.truncation_distance),
+                          weight_field=prepare_field_2d(grid.weight, grid.meta, 0.0))
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,16 @@
 """2D submaps: two overlapping fixed-extent dense grids (counterpart of
-hectorgrapher_tpu/mapping/submap_2d.py, probability grids only; ref:
+hectorgrapher_tpu/mapping/submap_2d.py; ref:
 cartographer/mapping/2d/submap_2d.{h,cc} — ActiveSubmaps2D keeps two
 submaps; a new one is started every num_range_data inserts and the old
 one is finished after 2*num_range_data).
 
 Each submap's grid is a fixed dense tensor centered on the submap origin
-(the tracking position at creation), so there is no grow-by-doubling.
+(the tracking position at creation), so there is no grow-by-doubling. The
+grid is a ProbabilityGrid or, with grid_type "TSDF", a TSDFGrid. Its
+grid_storage_dtype: "float32"; "uint16", the reference's quantized
+storage, computed in f32 while active and quantized when the submap
+finishes, for either grid type; or, for a TSDF only, "float16" /
+"bfloat16" planes throughout.
 """
 
 from __future__ import annotations
@@ -17,8 +22,17 @@ import numpy as np
 import torch
 
 from hectorgrapher_tpu_torch.common.profiling import global_factory
-from hectorgrapher_tpu_torch.mapping.grids import ProbabilityGrid, cell_index, in_bounds, make_probability_grid
-from hectorgrapher_tpu_torch.mapping.inserters_2d import make_probability_inserter_2d
+from hectorgrapher_tpu_torch.mapping.grids import (
+    STORAGE_DTYPES,
+    ProbabilityGrid,
+    cell_index,
+    in_bounds,
+    make_probability_grid,
+    make_tsdf_grid,
+    quantize_probability_grid,
+    quantize_tsdf_grid,
+)
+from hectorgrapher_tpu_torch.mapping.inserters_2d import make_probability_inserter_2d, make_tsdf_inserter_2d
 from hectorgrapher_tpu_torch.sensor.types import RangeData
 from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
 
@@ -55,9 +69,10 @@ class Submap2D:
     local SLAM frame)"""
 
     local_pose: NpRigid3
-    grid: ProbabilityGrid
+    grid: object  # ProbabilityGrid | TSDFGrid
     num_range_data: int = 0
     insertion_finished: bool = False
+    quantize_on_finish: bool = False
 
     def insert(self, range_data_in_submap: RangeData, inserter) -> None:
         assert not self.insertion_finished
@@ -65,34 +80,55 @@ class Submap2D:
         self.num_range_data += 1
 
     def finish(self) -> None:
+        """(submap_2d.py :77-91.) With quantize_on_finish (the uint16
+        storage option; ref: probability_values.h:64-92,
+        tsd_value_converter.h:33-73) the grid becomes uint16 codes, which
+        every consumer decodes with ensure_f32_grid."""
         self.insertion_finished = True
+        if self.quantize_on_finish:
+            if isinstance(self.grid, ProbabilityGrid):
+                self.grid = quantize_probability_grid(self.grid)
+            else:
+                self.grid = quantize_tsdf_grid(self.grid)
 
 
 class ActiveSubmaps2D:
     """(ref: submap_2d.cc ActiveSubmaps2D::InsertRangeData/AddSubmap)"""
 
-    def __init__(self, options, device, max_ray_length: float = 0.0):
+    def __init__(self, options, device="cuda", max_ray_length: float = 0.0):
+        """Grids go on `device`, the card unless the caller asks for the
+        CPU; none is made before the first insert."""
         grid_type = options.grid_options_2d.grid_type
-        if grid_type != "PROBABILITY_GRID":
-            raise NotImplementedError(
-                f"grid_type {grid_type!r}: only PROBABILITY_GRID is ported (2D TSDF: ROADMAP A5b)")
-        if options.grid_storage_dtype != "float32":
-            raise NotImplementedError(
-                f"grid_storage_dtype {options.grid_storage_dtype!r}: only float32 is ported (2D storage: ROADMAP A5b)"
+        storage_name = options.grid_storage_dtype
+        if grid_type != "TSDF" and storage_name in ("float16", "bfloat16"):
+            # Probability grids store f32 log-odds + bool mask; a silent
+            # no-op here would fake the documented memory saving.
+            raise ValueError(
+                f"grid_storage_dtype={storage_name!r} is only supported for TSDF "
+                "grids (use 'uint16' for quantize-on-finish of probability grids)"
             )
         self._options = options
-        self._device = device
+        self._device = torch.device(device)
         self._submaps: List[Submap2D] = []
-        self._resolution = options.grid_options_2d.resolution
+        self._quantize_on_finish = storage_name == "uint16"
+        resolution = options.grid_options_2d.resolution
         size = options.grid_size
-        # The free-space sampling budget must cover the LONGEST inserted ray
-        # (hits up to max_range, misses shortened to missing_data_ray_length).
-        max_range = max(size * self._resolution, max_ray_length)
-        self._inserter = make_probability_inserter_2d(
-            options.range_data_inserter.probability_grid_range_data_inserter,
-            max_range=max_range,
-            resolution=self._resolution,
-        )
+        ins_opts = options.range_data_inserter
+        if grid_type == "TSDF":
+            tsdf_opts = ins_opts.tsdf_range_data_inserter
+            storage = STORAGE_DTYPES["float32" if self._quantize_on_finish else storage_name]
+            self._make_grid = lambda: make_tsdf_grid(
+                resolution, (size, size), truncation_distance=tsdf_opts.truncation_distance,
+                max_weight=tsdf_opts.maximum_weight, device=self._device, dtype=storage)
+            self._inserter = make_tsdf_inserter_2d(tsdf_opts, resolution)
+        else:
+            # The free-space sampling budget must cover the LONGEST inserted
+            # ray (hits up to max_range, misses shortened to
+            # missing_data_ray_length).
+            max_range = max(size * resolution, max_ray_length)
+            self._make_grid = lambda: make_probability_grid(resolution, (size, size), self._device)
+            self._inserter = make_probability_inserter_2d(
+                ins_opts.probability_grid_range_data_inserter, max_range=max_range, resolution=resolution)
 
     @property
     def submaps(self) -> List[Submap2D]:
@@ -122,8 +158,7 @@ class ActiveSubmaps2D:
         if len(self._submaps) >= 2:
             self._submaps[0].finish()
             self._submaps.pop(0)
-        size = self._options.grid_size
-        grid = make_probability_grid(self._resolution, (size, size), self._device)
+        grid = self._make_grid()
         # Center the fixed grid on the new submap origin.
         center = np.array([origin_local[0], origin_local[1]], dtype=np.float32)
         meta = grid.meta._replace(min_corner=grid.meta.min_corner + torch.from_numpy(center).to(self._device))
@@ -131,6 +166,7 @@ class ActiveSubmaps2D:
             Submap2D(
                 local_pose=NpRigid3(np.array([origin_local[0], origin_local[1], 0.0])),
                 grid=grid._replace(meta=meta),
+                quantize_on_finish=self._quantize_on_finish,
             )
         )
 

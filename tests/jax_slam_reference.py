@@ -21,7 +21,9 @@ runs chip_smoke.py's phase 20 (chip_smoke.slam2d_scans: two laps of the
 2D mapping-evaluation circle, with odometry) through the JAX MapBuilder
 2D at chip_smoke.slam2d_overrides() (the async work queue, the batched
 constraint search) and prints one JSON line a run with the counts and
-errors of chip_smoke.slam2d_result: the JAX_SLAM20_* constants. --port
+errors of chip_smoke.slam2d_result: the JAX_SLAM20_* constants; with
+--storage uint16 phase 22a's, the JAX_SLAM22_* constants (--grid-type
+sets the submaps' grid type). --port
 runs the same drive through the port's MapBuilder on the CPU (its kernels'
 plain versions), and --sync turns the async work queue off in either
 package, so that the two run the same schedule of searches and solves.
@@ -29,6 +31,15 @@ package, so that the two run the same schedule of searches and solves.
 port's PoseGraph2D as well, and prints where the two back ends' INTER
 constraints first part and the port's SPA replaying the JAX graph
 (run_slam_2d_back_end; ~5 minutes).
+
+    JAX_PLATFORMS=cpu python tests/jax_slam_reference.py --front-end-2d [--grid-type TSDF] [--storage S]
+
+runs chip_smoke.py's phase 6 (chip_smoke.circle_scans, 60 scans) through
+the JAX LocalTrajectoryBuilder2D at chip_smoke.SLICE_OVERRIDES on submaps
+of that grid type and grid_storage_dtype, and prints its max translation
+and yaw errors: with --grid-type TSDF, phase 22b's JAX_TSDF22_ERRORS
+(float32, float16, bfloat16 or uint16; the half runs widen to f32, ROADMAP
+C21). About a minute a run.
 
     JAX_PLATFORMS=cpu python tests/jax_slam_reference.py --ct-drift
 
@@ -86,11 +97,18 @@ def run(batched: bool, probability: bool, storage=None) -> dict:
     return dict(chip_smoke.slam_result(mb.pose_graph), seconds=time.perf_counter() - t0)
 
 
-def run_slam_2d(sync: bool = False) -> dict:
+def storage_overrides_2d(grid_type=None, storage=None, prefix="trajectory_builder_2d."):
+    """The 2D submaps' grid_type and grid_storage_dtype overrides."""
+    return {**({prefix + "submaps.grid_options_2d.grid_type": grid_type} if grid_type else {}),
+            **({prefix + "submaps.grid_storage_dtype": storage} if storage else {})}
+
+
+def run_slam_2d(sync: bool = False, grid_type=None, storage=None) -> dict:
     """chip_smoke.py's phase 20: the JAX MapBuilder 2D over two laps of the
     circle (chip_smoke.slam2d_scans) at chip_smoke.slam2d_overrides(); with
-    sync, the async work queue off."""
-    overrides = dict(chip_smoke.slam2d_overrides(), **({"pose_graph.async_work_queue": False} if sync else {}))
+    sync, the async work queue off; with storage "uint16", phase 22a."""
+    overrides = dict(chip_smoke.slam2d_overrides(), **({"pose_graph.async_work_queue": False} if sync else {}),
+                     **storage_overrides_2d(grid_type, storage))
     mb = MapBuilder(replace_deep(MapBuilderOptions(), overrides))
     tb = mb.get_trajectory_builder(mb.add_trajectory_builder())
     scans = chip_smoke.slam2d_scans()
@@ -102,6 +120,40 @@ def run_slam_2d(sync: bool = False) -> dict:
             ranges=TimedPointCloud(positions=cloud.positions, times=cloud.times, mask=cloud.mask)))
     mb.pose_graph.wait_for_all_computations()
     return dict(chip_smoke.slam2d_result(mb.pose_graph, scans), seconds=time.perf_counter() - t0)
+
+
+def front_end_2d_errors(grid_type=None, storage=None) -> dict:
+    """chip_smoke.py's phase 6 (and with --grid-type TSDF, phase 22b): the
+    JAX LocalTrajectoryBuilder2D over chip_smoke.circle_scans() at
+    chip_smoke.SLICE_OVERRIDES on submaps of grid_type and storage; the max
+    translation and yaw errors as chip_smoke.run_front_end takes them. The
+    JAX package's half TSDF planes widen to f32 at the first insert
+    (ROADMAP C21)."""
+    import numpy as np
+
+    from hectorgrapher_tpu.common.config import TrajectoryBuilder2DOptions
+    from hectorgrapher_tpu.mapping.local_2d import LocalTrajectoryBuilder2D
+    from hectorgrapher_tpu.transform import np_quat as nq
+
+    builder = LocalTrajectoryBuilder2D(replace_deep(TrajectoryBuilder2DOptions(), dict(
+        chip_smoke.SLICE_OVERRIDES, **storage_overrides_2d(grid_type, storage, prefix=""))))
+    scans = chip_smoke.circle_scans()
+    anchor = scans[0][1]
+    t0 = time.perf_counter()
+    t_err = y_err = 0.0
+    for t, pose, odom, cloud in scans:
+        builder.add_odometry_data(t, NpRigid3(odom.t, odom.q))
+        result = builder.add_range_data(TimedPointCloudData(
+            time=jnp.asarray(t), origin=jnp.zeros(3, jnp.float32),
+            ranges=TimedPointCloud(positions=cloud.positions, times=cloud.times, mask=cloud.mask)))
+        truth = anchor.inverse().compose(pose)
+        t_err = max(t_err, float(np.linalg.norm(result.local_pose.t[:2] - truth.t[:2])))
+        d = nq.quat_yaw(result.local_pose.q) - nq.quat_yaw(truth.q)
+        y_err = max(y_err, abs((d + np.pi) % (2 * np.pi) - np.pi))
+    grid = builder.active_submaps.submaps[0].grid
+    planes = getattr(grid, "tsd", getattr(grid, "log_odds", None))
+    return dict(front_end_2d=True, grid_type=grid_type, storage=storage, max_translation_error=t_err,
+                max_yaw_error=y_err, active_dtype=str(planes.dtype), seconds=time.perf_counter() - t0)
 
 
 def ct_drift() -> None:
@@ -267,8 +319,14 @@ def main() -> int:
     parser.add_argument("--batched", action="store_true", help="the batched constraint search (phase 12)")
     parser.add_argument("--probability", action="store_true",
                         help="the default PROBABILITY_GRID submaps in place of TSDF (with --batched, phase 13)")
-    parser.add_argument("--storage", choices=("float16", "bfloat16"), default=None,
-                        help="the TSDF submaps' grid_storage_dtype (with --batched, phase 14)")
+    parser.add_argument("--storage", choices=("float32", "float16", "bfloat16", "uint16"), default=None,
+                        help="the submaps' grid_storage_dtype (3D: float16 with --batched, phase 14; with "
+                             "--slam-2d: uint16, phase 22a; with --front-end-2d: any, phase 22b)")
+    parser.add_argument("--grid-type", choices=("PROBABILITY_GRID", "TSDF"), default=None,
+                        help="with --slam-2d or --front-end-2d: the 2D submaps' grid_type")
+    parser.add_argument("--front-end-2d", action="store_true",
+                        help="chip_smoke.py's phase 6 instead (with --grid-type TSDF, phase 22b): the 2D front end "
+                             "over 60 scans")
     parser.add_argument("--runs", type=int, default=2)
     parser.add_argument("--ct-drift", action="store_true",
                         help="the CT front end's drift on either grid type instead (ROADMAP C15)")
@@ -289,10 +347,17 @@ def main() -> int:
     if opts.slam_2d and opts.back_end:
         print(json.dumps(dict(run_slam_2d_back_end(), slam_2d=True, back_end=True)), flush=True)
         return 0
+    if opts.front_end_2d:
+        print(json.dumps(front_end_2d_errors(opts.grid_type, opts.storage)), flush=True)
+        return 0
     if opts.slam_2d:
-        run = run_slam_2d_port if opts.port else run_slam_2d
         for _ in range(opts.runs):
-            print(json.dumps(dict(run(opts.sync), slam_2d=True, port=opts.port, sync=opts.sync)), flush=True)
+            if opts.port:
+                out = run_slam_2d_port(opts.sync)
+            else:
+                out = run_slam_2d(opts.sync, opts.grid_type, opts.storage)
+            print(json.dumps(dict(out, slam_2d=True, port=opts.port, sync=opts.sync, grid_type=opts.grid_type,
+                                  storage=opts.storage)), flush=True)
         return 0
     if opts.ct_drift and (opts.per_point or opts.direct):
         n = opts.scans or (chip_smoke.CT18_SCANS if opts.direct else chip_smoke.CT_SCANS)

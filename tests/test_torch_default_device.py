@@ -84,6 +84,54 @@ def test_2d_cpu_only_when_asked(builds):
     assert not builds
 
 
+def _options_2d_tsdf():
+    """The 2D pipeline on TSDF submaps stored as uint16 once finished."""
+    return cfg.replace_deep(_options_2d(), {"trajectory_builder_2d.submaps.grid_options_2d.grid_type": "TSDF",
+                                            "trajectory_builder_2d.submaps.grid_storage_dtype": "uint16"})
+
+
+def test_2d_tsdf_entry_points_default_to_the_card(builds):
+    """MapBuilder, LocalTrajectoryBuilder2D and ActiveSubmaps2D over TSDF
+    submaps put their grids on the card by default (none is made before
+    the first scan)."""
+    from hectorgrapher_tpu_torch.mapping.local_2d import LocalTrajectoryBuilder2D
+    from hectorgrapher_tpu_torch.mapping.submap_2d import ActiveSubmaps2D
+
+    opts = _options_2d_tsdf()
+    mb = MapBuilder(opts)
+    local = mb.get_trajectory_builder(mb.add_trajectory_builder())._local
+    assert local._device == CUDA and local.active_submaps._device == CUDA and local._is_tsdf
+    assert LocalTrajectoryBuilder2D(opts.trajectory_builder_2d)._device == CUDA
+    assert ActiveSubmaps2D(opts.trajectory_builder_2d.submaps)._device == CUDA
+    assert builds
+
+
+def test_2d_tsdf_cpu_only_when_asked(builds):
+    """Asked for the CPU, the TSDF submaps and match_gn_2d_tsdf on them
+    stay there."""
+    import numpy as np
+
+    from hectorgrapher_tpu_torch.evaluation.scan_generator import raycast_rect_room_2d
+    from hectorgrapher_tpu_torch.mapping.scan_matching.gn_2d import match_gn_2d_tsdf
+    from hectorgrapher_tpu_torch.mapping.submap_2d import ActiveSubmaps2D
+    from hectorgrapher_tpu_torch.sensor.types import RangeData, pad_cloud
+    from hectorgrapher_tpu_torch.transform.rigid import Rigid2
+
+    cpu = torch.device("cpu")
+    submaps = ActiveSubmaps2D(cfg.replace_deep(_options_2d_tsdf().trajectory_builder_2d.submaps, {"grid_size": 128}),
+                              device="cpu")
+    pts = raycast_rect_room_2d(np.zeros(2), 0.0, half_width=2.4, half_height=1.9, num_rays=360)
+    cloud = pad_cloud(pts[~np.isnan(pts[:, 0])].astype(np.float32), 512, cpu)
+    submaps.insert_range_data(RangeData(torch.zeros(3), cloud, pad_cloud(np.zeros((0, 3), np.float32), 8, cpu)),
+                              np.zeros(3))
+    grid = submaps.matching_submap.grid
+    assert grid.tsd.device == cpu and bool((grid.weight > 0).any())
+    pose, cost = match_gn_2d_tsdf(grid, cloud, Rigid2(torch.tensor([0.02, -0.01]), torch.tensor(0.01)),
+                                  torch.tensor([0.02, -0.01]), 1.0, 0.1, 0.1)
+    assert pose.translation.device == cpu and bool(torch.isfinite(cost))
+    assert not builds
+
+
 def test_2d_no_fallback_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(_build, "_lib", None)

@@ -51,7 +51,7 @@ from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3 as TNpRigid3
 from hectorgrapher_tpu_torch.transform.rigid import Rigid2
 from test_batched_constraint_path import drive_2d, options_2d
 from test_map_builder_2d import circle_trajectory, make_options
-from torch_parity import CPU, batched_anchors_2d, inter_constraints, port_drive_2d
+from torch_parity import CPU, batched_anchors_2d, batched_tsdf_anchor_grids_2d, inter_constraints, port_drive_2d
 
 torch.set_num_threads(2)
 
@@ -124,14 +124,42 @@ def test_batched_round_matches_serial(anchors, monkeypatch):
     assert k5.fast_scores_2d.launches == 0  # CPU tensors take the plain version
 
 
-def test_packed_gn_matches_jax(anchors):
-    """match_gn_2d_packed_grids over the anchors' raw grids, lanes in both
-    slots from poses up to 0.1 m / 0.05 rad off, against the JAX package's:
-    poses within 1e-4 (tests/test_torch_gn_2d.py's tolerance)."""
-    from test_batched_constraint_path import node_2d
+@pytest.fixture(scope="module")
+def tsdf_grids():
+    return batched_tsdf_anchor_grids_2d()
 
+
+def _anchor_planes(anchors, tsdf_grids, grid_type):
+    """(values, weights, pad value, JAX grids) of the anchors' submaps:
+    their probabilities, or their TSDF grids' tsd and weight planes."""
+    if grid_type == "TSDF":
+        return (np.stack([np.asarray(g.tsd) for g in tsdf_grids]), np.stack([np.asarray(g.weight) for g in tsdf_grids]),
+                float(tsdf_grids[0].truncation_distance), tsdf_grids)
     grids = [a.grid for a in anchors]
     values = np.stack([np.asarray(g.probability()) for g in grids]).astype(np.float32)
+    return values, values, 0.1, grids
+
+
+def _serial_solve(grid, cloud, t0, a0, weights):
+    """The port's single refinement of one lane against its own grid."""
+    t = torch.from_numpy
+    fn = tgn.match_gn_2d_tsdf if hasattr(grid, "tsd") else tgn.match_gn_2d_probability
+    tgrid = convert.tsdf_grid(grid, CPU) if hasattr(grid, "tsd") else convert.probability_grid(grid, CPU)
+    return fn(tgrid, ttypes.PointCloud(t(np.asarray(cloud[0])), t(np.asarray(cloud[1]))),
+              Rigid2(t(t0), torch.tensor(a0)), t(t0), *weights, num_iterations=20)[0]
+
+
+@pytest.mark.parametrize("grid_type", ["PROBABILITY_GRID", "TSDF"])
+def test_packed_gn_matches_jax(anchors, tsdf_grids, grid_type):
+    """match_gn_2d_packed_grids over the anchors' raw grids (probabilities,
+    or with is_tsdf the TSDF grids' tsd and weight planes), lanes in both
+    slots from poses up to 0.1 m / 0.05 rad off, against the JAX package's
+    and against each lane's serial solve: poses within 1e-4
+    (tests/test_torch_gn_2d.py's tolerance)."""
+    from test_batched_constraint_path import node_2d
+
+    is_tsdf = grid_type == "TSDF"
+    values, weights, pad, grids = _anchor_planes(anchors, tsdf_grids, grid_type)
     mcs = np.stack([np.asarray(g.meta.min_corner) for g in grids]).astype(np.float32)
     clouds = [node_2d(0.0, np.zeros(3), t).cloud for t in ([0.0, 0.0, 0.0], [0.4, 0.3, 0.0])]
     rng = np.random.default_rng(4)
@@ -143,20 +171,21 @@ def test_packed_gn_matches_jax(anchors):
     mask = np.stack([np.asarray(clouds[s].mask) for s in slots])
     from hectorgrapher_tpu.sensor.types import PointCloud as JPointCloud
 
-    want, want_cost = jax_packed_grids(values, values, mcs, np.float32(0.05), np.float32(0.1), slots,
+    want, want_cost = jax_packed_grids(values, weights, mcs, np.float32(0.05), np.float32(pad), slots,
                                        JPointCloud(pos, mask), JRigid2(init_t, init_a), init_t, 1.0, 10.0, 40.0,
-                                       is_tsdf=False, num_iterations=20)
+                                       is_tsdf=is_tsdf, num_iterations=20)
     t = torch.from_numpy
     got, got_cost = tgn.match_gn_2d_packed_grids(
-        t(values), None, t(mcs), 0.05, 0.1, t(slots.astype(np.int64)), ttypes.PointCloud(t(pos), t(mask)),
-        Rigid2(t(init_t), t(init_a)), t(init_t), 1.0, 10.0, 40.0, is_tsdf=False, num_iterations=20)
+        t(values), t(weights) if is_tsdf else None, t(mcs), 0.05, pad, t(slots.astype(np.int64)),
+        ttypes.PointCloud(t(pos), t(mask)), Rigid2(t(init_t), t(init_a)), t(init_t), 1.0, 10.0, 40.0,
+        is_tsdf=is_tsdf, num_iterations=20)
     np.testing.assert_allclose(got.translation.numpy(), np.asarray(want.translation), atol=1e-4, rtol=0)
     np.testing.assert_allclose(got.angle.numpy(), np.asarray(want.angle), atol=1e-4, rtol=0)
     np.testing.assert_allclose(got_cost.numpy(), np.asarray(want_cost), rtol=1e-3, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        tgn.match_gn_2d_packed_grids(t(values), t(values), t(mcs), 0.05, 0.1, t(slots.astype(np.int64)),
-                                     ttypes.PointCloud(t(pos), t(mask)), Rigid2(t(init_t), t(init_a)), t(init_t),
-                                     1.0, 10.0, 40.0, is_tsdf=True)
+    for c, slot in enumerate(slots):
+        serial = _serial_solve(grids[slot], (pos[c], mask[c]), init_t[c], init_a[c], (1.0, 10.0, 40.0))
+        np.testing.assert_allclose(got.translation[c].numpy(), serial.translation.numpy(), atol=1e-4, rtol=0)
+        assert abs(float(got.angle[c]) - float(serial.angle)) <= 1e-4
 
 
 def test_mixed_grid_extents_take_the_serial_path(anchors):
@@ -341,18 +370,23 @@ def test_wide_gathers_match_jax(anchors):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_fields_batched_matches_jax(anchors):
+@pytest.mark.parametrize("grid_type", ["PROBABILITY_GRID", "TSDF"])
+def test_fields_batched_matches_jax(anchors, tsdf_grids, grid_type):
     """match_gn_2d_fields_batched (gn_2d.py :449), lanes refining against
-    their own prepared fields, against the JAX package's: poses within
-    1e-4 (tests/test_torch_gn_2d.py's tolerance); the TSDF branch raises
-    naming A5b."""
+    their own prepared fields (the probability field, or with is_tsdf the
+    TSDF grid's (tsd, weight) field pair), against the JAX package's and
+    against each lane's serial solve: poses within 1e-4
+    (tests/test_torch_gn_2d.py's tolerance)."""
     import jax
 
     from hectorgrapher_tpu.mapping.scan_matching import gn_2d as jgn
     from hectorgrapher_tpu.sensor.types import PointCloud as JPointCloud
     from test_batched_constraint_path import node_2d
 
-    fields = [jgn.prepare_gn_probability_field(a.grid) for a in anchors]
+    is_tsdf = grid_type == "TSDF"
+    grids = _anchor_planes(anchors, tsdf_grids, grid_type)[3]
+    jprepare = jgn.prepare_gn_tsdf_fields if is_tsdf else jgn.prepare_gn_probability_field
+    fields = [jprepare(g) for g in grids]
     lanes = [0, 1, 1]
     stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *[fields[k] for k in lanes])
     clouds = [node_2d(0.0, np.zeros(3), t).cloud for t in ([0.0, 0.0, 0.0], [0.4, 0.3, 0.0], [0.4, 0.3, 0.0])]
@@ -361,20 +395,29 @@ def test_fields_batched_matches_jax(anchors):
     init_t = np.array([[0.04, -0.03], [0.43, 0.26], [0.37, 0.33]], np.float32)
     init_a = np.array([0.02, -0.01, 0.015], np.float32)
     want, _ = jgn.match_gn_2d_fields_batched(stacked, JPointCloud(pos, mask), JRigid2(init_t, init_a), init_t,
-                                            1.0, 10.0, 40.0, is_tsdf=False, num_iterations=20)
-    tfields = [tgn.prepare_gn_probability_field(convert.probability_grid(a.grid, CPU)) for a in anchors]
-    tstacked = tgn.PreparedField2D(
-        torch.stack([tfields[k].patches for k in lanes]),
-        tfields[0].meta._replace(min_corner=torch.stack([tfields[k].meta.min_corner for k in lanes]),
-                                 resolution=torch.stack([tfields[k].meta.resolution for k in lanes])),
-        tfields[0].dims)
+                                            1.0, 10.0, 40.0, is_tsdf=is_tsdf, num_iterations=20)
+    if is_tsdf:
+        tfields = [tgn.prepare_gn_tsdf_fields(convert.tsdf_grid(g, CPU)) for g in grids]
+    else:
+        tfields = [(tgn.prepare_gn_probability_field(convert.probability_grid(g, CPU)),) for g in grids]
+
+    def stack(plane):
+        f = [tfields[k][plane] for k in lanes]
+        return tgn.PreparedField2D(
+            torch.stack([x.patches for x in f]),
+            f[0].meta._replace(min_corner=torch.stack([x.meta.min_corner for x in f]),
+                               resolution=torch.stack([x.meta.resolution for x in f])), f[0].dims)
+
+    tstacked = (stack(0), stack(1)) if is_tsdf else stack(0)
     t = torch.from_numpy
     args = (ttypes.PointCloud(t(pos), t(mask)), Rigid2(t(init_t), t(init_a)), t(init_t), 1.0, 10.0, 40.0)
-    got, _ = tgn.match_gn_2d_fields_batched(tstacked, *args, is_tsdf=False, num_iterations=20)
+    got, _ = tgn.match_gn_2d_fields_batched(tstacked, *args, is_tsdf=is_tsdf, num_iterations=20)
     np.testing.assert_allclose(got.translation.numpy(), np.asarray(want.translation), atol=1e-4, rtol=0)
     np.testing.assert_allclose(got.angle.numpy(), np.asarray(want.angle), atol=1e-4, rtol=0)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        tgn.match_gn_2d_fields_batched(tstacked, *args, is_tsdf=True)
+    for c, k in enumerate(lanes):
+        serial = _serial_solve(grids[k], (pos[c], mask[c]), init_t[c], init_a[c], (1.0, 10.0, 40.0))
+        np.testing.assert_allclose(got.translation[c].numpy(), serial.translation.numpy(), atol=1e-4, rtol=0)
+        assert abs(float(got.angle[c]) - float(serial.angle)) <= 1e-4
 
 
 def test_sharded_fast_matches_2d_match_single_searches(anchors):

@@ -203,14 +203,20 @@ def test_pose_graph_refuses_unported_paths():
     assert pg.batched_fallbacks == 0
     with pytest.raises(NotImplementedError):
         pg.set_solver_mesh(object())
-    # The 2D pipeline is ported; its TSDF grids and half / uint16 storage
-    # are not (ROADMAP A5b).
+    # The 2D pipeline takes TSDF grids and uint16 / half storage (ROADMAP
+    # A5b, done); half probability grids raise the JAX package's ValueError.
     for override in ({"trajectory_builder_2d.submaps.grid_options_2d.grid_type": "TSDF"},
-                     {"trajectory_builder_2d.submaps.grid_storage_dtype": "uint16"}):
+                     {"trajectory_builder_2d.submaps.grid_storage_dtype": "uint16"},
+                     {"trajectory_builder_2d.submaps.grid_options_2d.grid_type": "TSDF",
+                      "trajectory_builder_2d.submaps.grid_storage_dtype": "bfloat16"}):
         mb = MapBuilder(tcfg.replace_deep(tcfg.MapBuilderOptions(use_trajectory_builder_2d=True),
                                           {"pose_graph.async_work_queue": False, **override}), device="cpu")
-        with pytest.raises(NotImplementedError, match="A5b"):
-            mb.add_trajectory_builder()
+        mb.add_trajectory_builder()
+    mb = MapBuilder(tcfg.replace_deep(tcfg.MapBuilderOptions(use_trajectory_builder_2d=True), {
+        "pose_graph.async_work_queue": False, "trajectory_builder_2d.submaps.grid_storage_dtype": "float16"}),
+        device="cpu")
+    with pytest.raises(ValueError, match="only supported for TSDF"):
+        mb.add_trajectory_builder()
 
 
 def test_normalize_angle_difference():

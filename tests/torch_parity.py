@@ -349,6 +349,30 @@ def batched_anchors_2d():
             build_finished_submap_2d([np.array([0.3, -0.3, 0.0]), np.array([0.7, 0.0, 0.0])]))
 
 
+def batched_tsdf_anchor_grids_2d():
+    """TSDF grids (JAX) of batched_anchors_2d's two submaps: the same scans
+    (256 x 256 at 0.05 m), filled by the default 2D TSDF inserter."""
+    import jax.numpy as jnp
+
+    from hectorgrapher_tpu.common.config import TSDFRangeDataInserterOptions2D
+    from hectorgrapher_tpu.mapping.grids import make_tsdf_grid
+    from hectorgrapher_tpu.mapping.inserters_2d import make_tsdf_inserter_2d
+    from test_batched_constraint_path import scan_2d
+
+    opts = TSDFRangeDataInserterOptions2D()
+    insert = make_tsdf_inserter_2d(opts, 0.05)
+    grids = []
+    for poses in ([np.zeros(3), np.array([0.4, 0.3, 0.0])], [np.array([0.3, -0.3, 0.0]), np.array([0.7, 0.0, 0.0])]):
+        grid = make_tsdf_grid(0.05, (256, 256), opts.truncation_distance, opts.maximum_weight)
+        for pose_t in poses:
+            pts = scan_2d(pose_t) + np.asarray(pose_t, np.float32)
+            grid = insert(grid, RangeData(origin=jnp.asarray(np.asarray(pose_t, np.float32)),
+                                          returns=pad_cloud(pts, 1024),
+                                          misses=pad_cloud(np.zeros((0, 3), np.float32), 8)))
+        grids.append(grid)
+    return grids
+
+
 def port_drive_2d(anchors, options, device=CPU, pose_graph=None):
     """drive_2d of tests/test_batched_constraint_path.py (:134-149) through
     the port's PoseGraph2D with `options` (the JAX package's
