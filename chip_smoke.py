@@ -29,8 +29,14 @@ circle (phase 20), the same on uint16 submaps, K1 and K2 reading each
 just-quantized submap decoded and K5 its decoded levels (phase 22a), the
 2D front end on TSDF submaps in float32, float16, bfloat16 and uint16
 storage (phase 22b), and the 2D SPA through its Schur, PCG and dense paths
-(phase 21). K3 is held to its plain version in each of its modes (TSDF
-over f32, f16 and bf16 volumes, and probability; phase 7), K5 at phase
+(phase 21); last, the serving path (phase 23): MapBuilderServer over gRPC
+on loopback with 8 CT trajectories at phase 9's width, their window
+solves batched across trajectories (CtWindowBatcher: one slotted K3
+launch an assembly) against a serial server on the same items, then
+WriteState / LoadState and the pbstream state through a fresh MapBuilder,
+and one trajectory's results injected into an uplink MapBuilder. K3 is
+held to its plain version in each of its modes (TSDF over f32, f16 and
+bf16 volumes, and probability; phase 7), K5 at phase
 20's round, a full-submap search, a round over four packed submaps and
 synthetic calls on that pack that reach each of its instances with edge
 rows (no valid point, all valid, the last slots only, shared rows).
@@ -38,13 +44,15 @@ Each phase prints one line; any failure exits non-zero before the last
 line. The second-to-last line is a JSON record of the kernels, the last
 line a JSON record of the device.
 
-Imports torch, numpy and hectorgrapher_tpu_torch only. Needs one card and
-fails when torch.cuda.is_available() is false.
+Imports torch, numpy and hectorgrapher_tpu_torch only (grpc through the
+package's server and client, for phase 23). Needs one card and fails when
+torch.cuda.is_available() is false.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -53,11 +61,15 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from hectorgrapher_tpu_torch.cloud import wire
+from hectorgrapher_tpu_torch.cloud.local_slam_result import _unpack_grid, make_local_slam_result_payload
+from hectorgrapher_tpu_torch.cloud.server import MapBuilderServer
 from hectorgrapher_tpu_torch.common import config as cfg
 from hectorgrapher_tpu_torch.evaluation.scan_generator import raycast_box_room_3d, raycast_rect_room_2d
 from hectorgrapher_tpu_torch.mapping.ct import window_solver
@@ -78,7 +90,8 @@ from hectorgrapher_tpu_torch.mapping.grids import (
 from hectorgrapher_tpu_torch.mapping.inserters_3d import make_probability_inserter_3d, make_tsdf_inserter_3d
 from hectorgrapher_tpu_torch.mapping.inserters_2d import make_probability_inserter_2d
 from hectorgrapher_tpu_torch.mapping.local_2d import LocalTrajectoryBuilder2D
-from hectorgrapher_tpu_torch.mapping.map_builder import MapBuilder
+from hectorgrapher_tpu_torch.io.pbstream_state import load_pbstream_state, write_pbstream_state
+from hectorgrapher_tpu_torch.mapping.map_builder import MapBuilder, UplinkTrajectoryBuilder
 from hectorgrapher_tpu_torch.mapping.scan_matching import fast_correlative_2d, fast_correlative_3d
 from hectorgrapher_tpu_torch.mapping.scan_matching.correlative_2d import (
     _window_geometry,
@@ -546,16 +559,17 @@ def bound_ms(kernel, args):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
-def measure(name, label, kernel, plain, args, err, library=None, note="", kernel_name=None, plain_reps=20):
+def measure(name, label, kernel, plain, args, err, library=None, note="", kernel_name=None, plain_reps=5,
+            reps=100):
     """Time one kernel call against its plain version (and the library
     call, where there is one) at one shape, print one line and return the
     record: per call (CUDA events around the call, host gap included) and
-    device time (the kernel's own over 100 calls, device_ms: kernels whose
-    name holds kernel_name, by default name + "_kernel") beside its
+    device time (the kernel's own over `reps` calls, device_ms: kernels
+    whose name holds kernel_name, by default name + "_kernel") beside its
     bound; the plain version over plain_reps calls."""
     b_ms, b_by, nbytes, ops = bound_ms(name, args)
     rec = dict(max_abs_err=err, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain, reps=plain_reps),
-               device_ms=device_ms(kernel, reps=100, match=kernel_name or f"{name}_kernel"),
+               device_ms=device_ms(kernel, reps=reps, match=kernel_name or f"{name}_kernel"),
                plain_device_ms=device_ms(plain, reps=plain_reps),
                library_ms=None if library is None else cuda_ms(library), bound_ms=b_ms, bound_by=b_by)
     share = "not measured" if rec["device_ms"] is None else f"{100 * b_ms / rec['device_ms']:.1f}% of it"
@@ -913,6 +927,12 @@ def ct_kernel_inputs(device, hi, lo, scan_pts, c=32, p=256, k=32, seed=SEED, out
             grid_params(hi, lo))
 
 
+# K3's timed rows (phases 7 and 12) trace 30 launches, not measure's 100:
+# the same gates at a smaller depth, so that the whole run, phase 23
+# included, keeps its time (ROADMAP.md's rule: phase 7 is cut first).
+K3_TIMING = dict(reps=30)
+
+
 def check_ct_scan_block(args, label, timed=True):
     """Phase 7: K3 against its plain version at one shape; args end in the
     grid parameters, which the main path builds once per solve or match.
@@ -942,7 +962,7 @@ def check_ct_scan_block(args, label, timed=True):
               f"{float(bound.min()):.3e}..{float(bound.max()):.3e}, per cloud)", flush=True)
         return err
     return measure("ct_scan_block", label, lambda: ct_scan_block(*args[:10], gparams=args[10]),
-                   lambda: ct_scan_block_plain(*args[:10]), args, err,
+                   lambda: ct_scan_block_plain(*args[:10]), args, err, **K3_TIMING,
                    note=f" grids {hi.shape[0]}^3/{lo.shape[0]}^3 C={c} P={p_hi}+{args[5].shape[1]} "
                         f"(error bound {float(bound.min()):.3e}..{float(bound.max()):.3e}; library: none, no one "
                         "PyTorch call fuses the grid stencil, the pose Jacobian and J^T J)")
@@ -1076,7 +1096,7 @@ def check_ct_points(args, label, timed=True, empty=5):
               f"{float(bound.max()):.3e} per pair), two launches bit-equal", flush=True)
         return err
     return measure("ct_scan_block_points", label, lambda: ct_scan_block_points(hi, lo, plan, cp7, gparams=gparams),
-                   lambda: ct_scan_block_points_plain(hi, lo, plan, cp7), args, err,
+                   lambda: ct_scan_block_points_plain(hi, lo, plan, cp7), args, err, **K3_TIMING,
                    note=f" grids {hi.shape[0]}^3/{lo.shape[0]}^3 K={plan.k} ({plan.segments} pairs, pair 5 empty, "
                         f"control point {plan.k - 1} masked) C=32 P=256+256, {m} points (error bound "
                         f"{float(bound.min()):.3e}..{float(bound.max()):.3e} per pair, two launches bit-equal; "
@@ -1125,7 +1145,7 @@ def check_ct_points_slots(args, label):
     err = max(float(e.max()) for e in errs)
     return measure("ct_scan_block_points_slots", label, lambda: ct_scan_block_points_slots(*args),
                    lambda: ct_scan_block_points_slots_plain(*args), args, err,
-                   kernel_name="ct_scan_block_points_kernel", plain_reps=5,
+                   kernel_name="ct_scan_block_points_kernel", **K3_TIMING,
                    note=f" B={slot.shape[0]} windows over {len(slots.hi)} distinct 256^3/128^3 grid pairs (slots "
                         f"{slot.tolist()}), K={k}, bit-equal to {slot.shape[0]} single launches and over two launches "
                         "(library: none)")
@@ -1271,30 +1291,30 @@ def ct_options(per_point=False, direct=False):
     return cfg.replace_deep(cfg.TrajectoryBuilder3DOptions(), ct_overrides(per_point, direct))
 
 
-def ct_pose_error(time_s, t, q):
+def ct_pose_error(time_s, t, q, speed=CT_SPEED):
     """(translation error m, yaw error rad) of a CT front-end pose at
-    time_s against ct_truth."""
-    truth_t, truth_q = ct_truth(time_s)
+    time_s against ct_truth at `speed`."""
+    truth_t, truth_q = ct_truth(time_s, speed)
     d = nq.quat_yaw(q) - nq.quat_yaw(truth_q)
     return float(np.linalg.norm(t - truth_t)), abs((d + np.pi) % (2 * np.pi) - np.pi)
 
 
-def ct_truth(t):
-    return (np.array([CT_SPEED * t, 0.0, 0.0]), nq.quat_from_axis_angle(np.array([0.0, 0.0, CT_YAW_RATE * t])))
+def ct_truth(t, speed=CT_SPEED):
+    return (np.array([speed * t, 0.0, 0.0]), nq.quat_from_axis_angle(np.array([0.0, 0.0, CT_YAW_RATE * t])))
 
 
-def ct_drive(n_scans, seed=SEED):
+def ct_drive(n_scans, seed=SEED, speed=CT_SPEED):
     """The CT front end's sensor events in time order: IMU at 100 Hz
     (gravity and the yaw rate in the body frame), odometry at 20 Hz (2 mm
     noise), and n_scans scans at 10 Hz of 96 x 24 rays of the CT_ROOM box
     room, 4 mm range noise, per-point sweep times over [-0.05, 0.049] s,
-    while driving at CT_SPEED with CT_YAW_RATE. Yields ("imu", t, acc,
+    while driving at `speed` with CT_YAW_RATE. Yields ("imu", t, acc,
     gyro), ("odom", t, pose) and ("scan", t, data)."""
     gravity = np.array([0.0, 0.0, 9.80665])
     rng = np.random.default_rng(seed)
     t, next_odom, next_scan, n = 0.0, 0.0, 0.05, 0
     while n < n_scans:
-        pt, pq = ct_truth(t)
+        pt, pq = ct_truth(t, speed)
         yield "imu", t, nq.quat_rotate(nq.quat_conjugate(pq), gravity), np.array([0.0, 0.0, CT_YAW_RATE])
         if t >= next_odom:
             yield "odom", t, NpRigid3(pt + rng.normal(0, 0.002, 3), pq)
@@ -1597,13 +1617,14 @@ def _lane_gaps(batched, single):
                 float((batched.velocity - single.velocity).abs().max())), float(angle.max()))
 
 
-def run_batched_windows(device, label, windows, weights, iters, per_point, reps=2):
+def run_batched_windows(device, label, windows, weights, iters, per_point, reps=1):
     """Phase 19: B windows (hi, lo, problem, state0, is_tsdf) in one
     solve_ct_window_batched against B serial solve_ct_window calls. Gates
     each lane within 1e-3 m / 1e-3 rad of its serial solve, final cost
     within 1e-4 relative and not above the initial, and one slotted K3
-    launch per batched assembly. Returns (batched ms, serial ms) medians
-    of `reps` turns, and the slotted K3 launches of the gated solve."""
+    launch per batched assembly; `label` names the phase. Returns (batched
+    ms, serial ms) medians of `reps` turns after the gated one, and the
+    slotted K3 launches of the gated solve."""
     b = len(windows)
     his, los = [w[0] for w in windows], [w[1] for w in windows]
     problems = _stack([w[2] for w in windows], CtProblem)
@@ -1621,17 +1642,17 @@ def run_batched_windows(device, label, windows, weights, iters, per_point, reps=
     assemblies = window_solver.solve_ct_window_batched.assemblies
     n_launches = slotted.launches
     if n_launches != assemblies or assemblies != 1 + iters:
-        fail(f"phase 19 {label}: {slotted.launches} slotted K3 launches for {assemblies} batched assemblies")
+        fail(f"{label}: {slotted.launches} slotted K3 launches for {assemblies} batched assemblies")
     singles = serial()
     worst = [0.0, 0.0, 0.0]
     for lane, (s1, f1, i1) in enumerate(singles):
         gap_t, gap_r = _lane_gaps(CtState(*(x[lane] for x in states)), s1)
         gap_c = abs(float(final[lane]) - float(f1)) / max(abs(float(f1)), 1e-12)
         if gap_t > 1e-3 or gap_r > 1e-3 or gap_c > 1e-4:
-            fail(f"phase 19 {label}: lane {lane} is {gap_t:.3e} m / {gap_r:.3e} rad / cost {gap_c:.3e} from its "
+            fail(f"{label}: lane {lane} is {gap_t:.3e} m / {gap_r:.3e} rad / cost {gap_c:.3e} from its "
                  "serial solve")
         if not float(final[lane]) <= float(initial[lane]):
-            fail(f"phase 19 {label}: lane {lane}'s final cost {float(final[lane])} is above its initial cost "
+            fail(f"{label}: lane {lane}'s final cost {float(final[lane])} is above its initial cost "
                  f"{float(initial[lane])}")
         worst = [max(worst[0], gap_t), max(worst[1], gap_r), max(worst[2], gap_c)]
 
@@ -1672,9 +1693,9 @@ def run_phase_19(device, captured):
         mode = "per_point" if per_point else "per_scan"
         paths = per_point_paths if per_point else per_scan
         *out[f"entry_{mode}"], paths["batched19_entry"] = run_batched_windows(
-            device, "(a) entry() fixture x 8", entry, weights, 8, per_point)
+            device, "phase 19 (a) entry() fixture x 8", entry, weights, 8, per_point)
         *out[f"drive_{mode}"], paths["batched19_drive"] = run_batched_windows(
-            device, f"(b) {len(drive)} phase-17 windows, own grids", drive, captured[0].weights,
+            device, f"phase 19 (b) {len(drive)} phase-17 windows, own grids", drive, captured[0].weights,
             captured[0].num_iterations, per_point)
     return out, per_scan, per_point_paths
 
@@ -2242,6 +2263,7 @@ def check_k3_slots(args, label="gn3d_packed"):
     c, p_hi = args[3].shape
     return measure("ct_scan_block_slots", label, lambda: ct_scan_block_slots(*args),
                    lambda: ct_scan_block_slots_plain(*args), args, err, kernel_name="ct_scan_block_kernel",
+                   **K3_TIMING,
                    note=f" C={c} lanes over {len(slots.hi)} distinct 256^3/128^3 grid pairs (slots {slot.tolist()}), "
                         f"P={p_hi}+{args[5].shape[1]}, bit-equal to {c} single calls (library: none)")
 
@@ -2253,6 +2275,11 @@ ROUND_STAGES = ("pack", "initials", "cand_build", "fm_launch", "fm_readback", "g
 def stage_medians(stages):
     """Median ms of each ROUND_STAGES stage over LAST_ROUND_BREAKDOWN records."""
     return {k: float(np.median([s.get(k, 0.0) for s in stages])) * 1e3 for k in ROUND_STAGES}
+
+
+# Phase 12 re-runs every ROUNDS_ALONE_STRIDE-th round with the card idle
+# (a measurement, no gate rides on it): 12 of the drive's 47 rounds.
+ROUNDS_ALONE_STRIDE = 4
 
 
 def rounds_alone(pg, rounds):
@@ -2288,9 +2315,9 @@ def run_phase_12(device, slam, k4_serial, options=None):
     package's batched run and the rounds' serial parity, prints the
     phase's lines beside phase 11's latency (`slam`, whose K4 launches were
     k4_serial), then holds K4 with row bases and K3 with slots to their
-    plain versions (check_k4_round, check_k3_slots). Last, it re-runs the
-    rounds with the card otherwise idle, batched and serially
-    (rounds_alone), and prints their times. Returns (K4 launches by path,
+    plain versions (check_k4_round, check_k3_slots). Last, it re-runs
+    every ROUNDS_ALONE_STRIDE-th round with the card otherwise idle,
+    batched and serially (rounds_alone), and prints their times. Returns (K4 launches by path,
     packed K3 launches, {kernel: {shape: measure's record}}, (per-scan
     latencies, ms per round, the finished submaps' grid bytes))."""
     fast_correlative_3d.match_fast_3d.score_sums = 0
@@ -2354,12 +2381,14 @@ def run_phase_12(device, slam, k4_serial, options=None):
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
     shapes = {"fast_scores_3d": check_k4_round(recorded),
               "ct_scan_block": {"gn3d_packed": check_k3_slots(k3_slots_inputs(pg12, device))}}
-    alone_ms, serial_ms, alone_stages, alone_parity = rounds_alone(pg12, rounds)
-    print(f"SLAM 3D batched rounds re-run after the drive (no front end, final poses): {len(rounds)} rounds, "
-          f"{sum(n_cand)} candidates; batched per round median {np.median(alone_ms):.3f} ms, p95 "
-          f"{np.percentile(alone_ms, 95):.3f} ms, {alone_ms.sum() / sum(n_cand):.3f} ms per candidate; the same "
-          f"candidates serially per round median {np.median(serial_ms):.3f} ms, p95 "
-          f"{np.percentile(serial_ms, 95):.3f} ms, {serial_ms.sum() / sum(n_cand):.3f} ms per candidate; "
+    alone = rounds[::ROUNDS_ALONE_STRIDE]
+    n_alone = sum(r["n"] for r in alone)
+    alone_ms, serial_ms, alone_stages, alone_parity = rounds_alone(pg12, alone)
+    print(f"SLAM 3D batched rounds re-run after the drive (no front end, final poses): {len(alone)} of "
+          f"{len(rounds)} rounds (every {ROUNDS_ALONE_STRIDE}th), {n_alone} candidates; batched per round median "
+          f"{np.median(alone_ms):.3f} ms, p95 {np.percentile(alone_ms, 95):.3f} ms, {alone_ms.sum() / n_alone:.3f} ms "
+          f"per candidate; the same candidates serially per round median {np.median(serial_ms):.3f} ms, p95 "
+          f"{np.percentile(serial_ms, 95):.3f} ms, {serial_ms.sum() / n_alone:.3f} ms per candidate; "
           f"{sum(not p[0] for p in alone_parity)} rounds off the serial results (max |dt| "
           f"{max(p[1] for p in alone_parity):.3e} m, max 1-|dq0| {max(p[2] for p in alone_parity):.3e}); stage "
           "medians ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stage_medians(alone_stages).items()), flush=True)
@@ -3285,6 +3314,475 @@ def run_phase_21(device, reps=3, num_iterations=10):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the serving path
+# ---------------------------------------------------------------------------
+
+SERVE_TRAJECTORIES = 8  # the B = 8 of phase 19 and of bench.py:363-414's multi-robot point
+SERVE_SCANS = 26  # per trajectory: >= 16 results after the front end's initialization, one submap finished
+SERVE_SPEED_STEP = 0.05  # m/s more for each trajectory, as tests/test_ct_batcher.py:61-85 offsets them
+# Batched against serial poses over the whole drive, m and rad: the
+# secondary gate. A lane of the batched solve rounds apart from its single
+# solve, and over the drive that compounds: an LM accept at a converged
+# step flips, the window ends elsewhere within the LM's tolerance, its
+# clouds are inserted there, and later windows match against that map.
+# Batched against serial the drive ended 1.8e-2 and 2.1e-2 m, 5.1e-3 and
+# 8.0e-3 rad apart in the first two runs on an H100, and 4.1e-3 m / 1.5e-3
+# rad in 2 of 10 CPU rehearsals (3e-7 m in the rest). The primary gate is
+# per lane (check_served_batch): a served batch re-solved batched and one
+# window at a time, each lane within phase 19's 1e-3.
+SERVE_TRANSLATION_TOLERANCE, SERVE_ROTATION_TOLERANCE = 0.05, 0.02
+SERVE_MIN_RESULTS = 16
+# Phase 23a's error bounds: each trajectory's max translation and yaw
+# errors (m, rad) when its stream goes through the JAX package's CT front
+# end on a CPU at phase 23's front-end options (tests/jax_slam_reference.py
+# --serve: 17 results and 21 window solves a trajectory, as the port
+# gives). Each served trajectory must stay within twice its pair, or
+# 0.05 m / 0.01 rad above it (phase 9's rule).
+JAX_SERVE_ERRORS = ((0.08658, 0.01856), (0.12854, 0.02375), (0.16292, 0.02231), (0.20291, 0.02353),
+                    (0.12473, 0.02403), (0.18113, 0.01871), (0.25689, 0.02233), (0.25865, 0.01067))
+
+
+def serve_overrides():
+    """Phase 23's MapBuilderOptions overrides: the CT front end at phase 9's
+    full width (ct_overrides(): the TrajectoryBuilder3DOptions defaults,
+    256^3 / 128^3 TSDF, K = C = 32, P = 256, 12 LM iterations) with submaps
+    of 8 scans in place of 160 (slam_overrides' value: the submaps finish
+    inside the drive, which 23b and 23c read); the pose graph at phase 12's
+    (slam_overrides(batched=True): the batched search, async work queue)."""
+    out = {"use_trajectory_builder_3d": True, "trajectory_builder_3d.submaps.num_range_data": 8}
+    out.update({f"trajectory_builder_3d.{k}": v for k, v in ct_overrides().items()})
+    out.update({k: v for k, v in slam_overrides(batched=True).items() if k.startswith("pose_graph.")})
+    return out
+
+
+def serve_options():
+    return cfg.replace_deep(cfg.MapBuilderOptions(), serve_overrides())
+
+
+def serve_streams(n_traj, n_scans):
+    """Each trajectory's (trajectory_id, kind, payload) items in time order:
+    ct_drive's box room with seed SEED + id at CT_SPEED + SERVE_SPEED_STEP *
+    id. Every stream has the same kinds at the same times."""
+    kinds = {"imu": "imu", "odom": "odometry", "scan": "range"}
+    return [[(tid, kinds[kind], payload[0] if kind == "scan" else (t, *payload))
+             for kind, t, *payload in ct_drive(n_scans, seed=SEED + tid, speed=CT_SPEED + SERVE_SPEED_STEP * tid)]
+            for tid in range(n_traj)]
+
+
+class PayloadRecorder:
+    """A TrajectoryBuilder callback keeping each inserted result as the
+    uplink receives it: make_local_slam_result_payload with the server's
+    starting-index rule (cloud/server.py _upload_local_slam_result), then
+    through wire.dumps / wire.loads."""
+
+    def __init__(self):
+        self.payloads, self.start, self.wire_bytes = [], 0, 0
+
+    def __call__(self, trajectory_id, result):
+        if result.insertion_result is None:
+            return
+        payload = make_local_slam_result_payload(result, True, self.start)
+        if result.insertion_result.insertion_submaps[0].insertion_finished:
+            self.start += 1
+        data = wire.dumps(payload)
+        self.wire_bytes += len(data)
+        self.payloads.append(wire.loads(data))
+
+
+def serve_drive(device, options, streams, batch):
+    """Phase 23a on one server: a MapBuilderServer on the card bound to
+    gRPC on loopback, len(streams) trajectories added and fed round-robin
+    through MapBuilderStub, as robots stream; wait_until_idle, then the
+    pose graph's queue drained. Returns the run's record."""
+    from hectorgrapher_tpu_torch.cloud.client import MapBuilderStub
+
+    srv = MapBuilderServer(MapBuilder(options, device=device), batch_ct_windows=batch)
+    srv.start()
+    stub = MapBuilderStub(f"127.0.0.1:{srv.port}")
+    tids = [stub.add_trajectory_builder() for _ in streams]
+    pg = srv.map_builder.pose_graph
+    errors, scans, searches, solves, batched = [], [], [], [], []
+    for name, times in (("_compute_constraints_batched", searches), ("_compute_constraint", searches),
+                        ("_run_optimization", solves), ("_on_submap_finished", [])):
+        timed_method(pg, name, times, errors)
+    for tid in tids:
+        tb = srv.map_builder.get_trajectory_builder(tid)
+        add = tb.add_range_data
+
+        def timed_add(data, add=add, local=tb._local):
+            t0 = time.perf_counter()
+            try:
+                return add(data)
+            except Exception as e:
+                errors.append(f"add_range_data: {e!r}")
+                raise
+            finally:
+                scans.append((time.perf_counter() - t0, local.num_optimizations > 0))
+
+        tb.add_range_data = timed_add
+    recorder = PayloadRecorder()
+    srv.map_builder.get_trajectory_builder(tids[0])._callback = recorder
+    if batch:
+        solve_batched = srv.ct_batcher._solve_batched
+
+        def timed_solve(entries):
+            t0 = time.perf_counter()
+            try:
+                solve_batched(entries)
+                sync(device)
+            except Exception as e:
+                errors.append(f"_solve_batched: {e!r}")
+                raise
+            batched.append((len(entries), time.perf_counter() - t0, [e["pending"] for e in entries]))
+
+        srv.ct_batcher._solve_batched = timed_solve
+    builders = [stub.get_trajectory_builder(tid) for tid in tids]
+    t0 = time.perf_counter()
+    for group in zip(*streams):
+        for tid, kind, payload in group:
+            if kind == "imu":
+                builders[tid].add_imu_data(*payload)
+            elif kind == "odometry":
+                builders[tid].add_odometry_data(*payload)
+            else:
+                builders[tid].add_range_data(payload)
+    srv.wait_until_idle()
+    seconds = time.perf_counter() - t0
+    pg.wait_for_all_computations()
+    results = {tid: stub.get_local_slam_results(tid) for tid in tids}
+    return dict(server=srv, stub=stub, results=results, seconds=seconds, errors=errors, scans=scans,
+                searches=searches, solves=solves, batched=batched, recorder=recorder, options=options,
+                window_solves=sum(srv.map_builder.get_trajectory_builder(t)._local.num_optimizations for t in tids))
+
+
+def check_served_batch(device, batches):
+    """Phase 23a's per-lane gate on the served windows: the last batch of
+    the largest B the server solved, re-solved once as one
+    solve_ct_window_batched and once one window at a time
+    (run_batched_windows: each lane within phase 19's 1e-3 m / 1e-3 rad and
+    1e-4 relative cost of its single solve, one slotted K3 launch an
+    assembly), then both timed once more. The grids are the submaps' as
+    they stand after the drive, the same for both solves. Returns (B,
+    batched ms, serial ms)."""
+    b = max(len(pendings) for _, _, pendings in batches)
+    pendings = [pendings for _, _, pendings in batches if len(pendings) == b][-1]
+    p0 = pendings[0]
+    windows = [(p.high_grid, p.low_grid, p.problem, p.state0, p.is_tsdf) for p in pendings]
+    ms_b, ms_s, _ = run_batched_windows(device, "phase 23a served batch", windows, p0.weights, p0.num_iterations,
+                                        p0.per_point)
+    return b, ms_b, ms_s
+
+
+def serve_latency(run):
+    """(median, p95) ms of the range items from each trajectory's first
+    window solve on."""
+    ms = np.array([s for s, solved in run["scans"] if solved]) * 1e3
+    return float(np.median(ms)), float(np.percentile(ms, 95))
+
+
+def serve_gaps(results_a, results_b):
+    """(largest translation m, rotation rad) between two servers'
+    results, trajectory by trajectory."""
+    gap_t = gap_r = 0.0
+    for tid, got in results_a.items():
+        for (_, a), (_, b) in zip(got, results_b[tid]):
+            gap_t = max(gap_t, float(np.abs(a.t - b.t).max()))
+            gap_r = max(gap_r, float(nq.quat_angle(nq.quat_multiply(nq.quat_conjugate(b.q), a.q))))
+    return gap_t, gap_r
+
+
+def run_phase_23a(device, n_traj=SERVE_TRAJECTORIES, n_scans=SERVE_SCANS, options=None,
+                  min_results=SERVE_MIN_RESULTS, jax_errors=JAX_SERVE_ERRORS):
+    """Phase 23a: multi-robot CT serving, n_traj trajectories on one
+    batch_ct_windows server, then the same items on a serial server. Gates:
+    batched solves with a largest B >= 4 (B = n_traj below 4), one slotted
+    K3 launch a batched assembly, the last served batch of the largest B
+    re-solved lane by lane within phase 19's 1e-3 (check_served_batch),
+    every trajectory the serial server's result times and poses within
+    SERVE_TRANSLATION_TOLERANCE and SERVE_ROTATION_TOLERANCE, each
+    trajectory's largest errors against its truth within max(2x, +0.05 m /
+    +0.01 rad) of the JAX package's on the same stream (jax_errors, phase
+    9's rule), no error in a worker, the batcher or the pose graph. Returns
+    (the batched run, launches by path)."""
+    options = options or serve_options()
+    iters = options.trajectory_builder_3d.optimizing_local_trajectory_builder.max_num_iterations
+    streams = serve_streams(n_traj, n_scans)
+    slotted_calls = [0]
+    real_slotted = window_solver.ct_scan_block_slots
+
+    def counted_slotted(*a, **kw):
+        slotted_calls[0] += 1
+        return real_slotted(*a, **kw)
+
+    window_solver.ct_scan_block_slots = counted_slotted
+    k3_before, slots_before, k4_before = ct_scan_block.launches, ct_scan_block_slots.launches, fast_scores_3d.launches
+    assemblies_before = window_solver.solve_ct_window_batched.assemblies
+    try:
+        run_b = serve_drive(device, options, streams, batch=True)
+        assemblies = window_solver.solve_ct_window_batched.assemblies - assemblies_before
+        window_calls = slotted_calls[0]
+        k3_mid = ct_scan_block.launches
+        run_s = serve_drive(device, options, streams, batch=False)
+    finally:
+        window_solver.ct_scan_block_slots = real_slotted
+    paths = {"ct_scan_block": {"serve23_batched_windows": window_calls,
+                               "serve23_serial_server": ct_scan_block.launches - k3_mid,
+                               "serve23_slotted_all": ct_scan_block_slots.launches - slots_before},
+             "fast_scores_3d": {"serve23": fast_scores_3d.launches - k4_before}}
+    batcher = run_b["server"].ct_batcher
+    label = f"phase 23a ({n_traj} trajectories x {n_scans} scans)"
+    for run, name in ((run_b, "batched"), (run_s, "serial")):
+        if run["errors"]:
+            fail(f"{label}: the {name} server logged errors: {run['errors'][:3]}")
+    if batcher.batched_launches == 0 or max(batcher.batch_sizes) < min(4, n_traj):
+        fail(f"{label}: batched solves {batcher.batched_launches}, batch sizes {batcher.batch_sizes}")
+    if window_calls != assemblies or assemblies != batcher.batched_launches * (1 + iters):
+        fail(f"{label}: {window_calls} slotted K3 calls for {assemblies} batched assemblies of "
+             f"{batcher.batched_launches} batched solves")
+    if ct_scan_block_slots.launches - slots_before < window_calls:
+        fail(f"{label}: {ct_scan_block_slots.launches - slots_before} slotted K3 launches for {window_calls} calls")
+    worst = []  # each trajectory's (translation m, yaw rad, bound m, bound rad)
+    for tid, got in run_b["results"].items():
+        want = run_s["results"][tid]
+        if [t for t, _ in got] != [t for t, _ in want] or len(got) < min_results:
+            fail(f"{label}: trajectory {tid}: {len(got)} batched and {len(want)} serial results, or other times")
+        speed = CT_SPEED + SERVE_SPEED_STEP * tid
+        errs = [ct_pose_error(t, pose.t, pose.q, speed) for t, pose in got]
+        e_t, e_y = max(e for e, _ in errs), max(e for _, e in errs)
+        jax_t, jax_y = jax_errors[tid]
+        b_t, b_y = max(2 * jax_t, jax_t + 0.05), max(2 * jax_y, jax_y + 0.01)
+        worst.append((e_t, e_y, b_t, b_y))
+        if e_t > b_t or e_y > b_y:
+            fail(f"{label}: trajectory {tid}: max error {e_t:.5f} m / {e_y:.5f} rad exceeds {b_t:.5f} m / "
+                 f"{b_y:.5f} rad (JAX on the CPU {jax_t:.5f} / {jax_y:.5f})")
+    lane_b, lane_ms_b, lane_ms_s = check_served_batch(device, run_b["batched"])
+    gap_t, gap_r = serve_gaps(run_b["results"], run_s["results"])
+    if gap_t > SERVE_TRANSLATION_TOLERANCE or gap_r > SERVE_ROTATION_TOLERANCE:
+        fail(f"{label}: batched poses {gap_t:.3e} m / {gap_r:.3e} rad from the serial server's")
+    n_results = sum(len(r) for r in run_b["results"].values())
+    sizes = dict(sorted(collections.Counter(batcher.batch_sizes).items()))
+    by_b = {b: float(np.median([s for bb, s, _ in run_b["batched"] if bb == b])) * 1e3 for b in sizes}
+    lat_b, lat_s = serve_latency(run_b), serve_latency(run_s)
+    scans = n_traj * n_scans
+    print(f"{label}, gRPC on loopback: batched server {scans / run_b['seconds']:.3f} scans/s ({run_b['seconds']:.3f} s "
+          f"from the first item to wait_until_idle), serial server {scans / run_s['seconds']:.3f} scans/s "
+          f"({run_s['seconds']:.3f} s); per-scan latency median (p95) batched {lat_b[0]:.3f} ({lat_b[1]:.3f}) ms, "
+          f"serial {lat_s[0]:.3f} ({lat_s[1]:.3f}) ms; {batcher.batched_launches} batched solves, batch sizes "
+          f"{sizes}, ms per batched solve by B {', '.join(f'{b}: {ms:.3f}' for b, ms in by_b.items())} "
+          f"({sum(s for _, s, _ in run_b['batched']):.3f} s in all; the last B = {lane_b} batch again with the card "
+          f"idle {lane_ms_b:.3f} ms, its windows one by one {lane_ms_s:.3f} ms); "
+          f"{batcher.serial_solves} solves alone in the batched server, {run_s['window_solves']} in the serial "
+          f"server; slotted K3 launches {window_calls} = batched assemblies {assemblies}; {n_results} results, "
+          f"batched poses within {gap_t:.3e} m / {gap_r:.3e} rad of the serial server's; max error by trajectory "
+          + ", ".join(f"{w[0]:.5f} m / {w[1]:.5f} rad (bound {w[2]:.5f} / {w[3]:.5f})" for w in worst)
+          + f"; on the pose graph's worker, batched / serial "
+          f"server: {len(run_b['searches'])} / {len(run_s['searches'])} constraint rounds in "
+          f"{sum(run_b['searches']):.3f} / {sum(run_s['searches']):.3f} s, {len(run_b['solves'])} / "
+          f"{len(run_s['solves'])} SPA solves in {sum(run_b['solves']):.3f} / {sum(run_s['solves']):.3f} s", flush=True)
+    run_s["stub"].close()
+    run_s["server"].shutdown()
+    return run_b, paths
+
+
+def _as_stored(plane):
+    """A grid plane as a state file or payload gives it back: float planes
+    rounded through float16 into float32, uint16 codes as they are."""
+    return plane if plane.dtype == torch.uint16 else plane.to(torch.float16).to(torch.float32)
+
+
+def state_gaps(pg, loaded, remap):
+    """The first difference between a served pose graph and its npz load
+    (node poses, times, clouds, histograms; constraints; submap poses and
+    every grid plane as stored), or None."""
+    if len(pg.nodes) != len(loaded.nodes) or len(pg.submaps) != len(loaded.submaps):
+        return (f"{len(loaded.nodes)} nodes / {len(loaded.submaps)} submaps loaded of {len(pg.nodes)} / "
+                f"{len(pg.submaps)}")
+    for i, (a, b) in enumerate(zip(pg.nodes, loaded.nodes)):
+        pairs = ((a.local_pose.t, b.local_pose.t), (a.local_pose.q, b.local_pose.q), (a.global_pose.t, b.global_pose.t),
+                 (a.global_pose.q, b.global_pose.q), (a.histogram, b.histogram))
+        same = (a.time == b.time and remap[a.trajectory_id] == b.trajectory_id
+                and all(np.array_equal(x, y) for x, y in pairs)
+                and torch.equal(a.high_cloud.positions, b.high_cloud.positions)
+                and torch.equal(a.low_cloud.mask, b.low_cloud.mask))
+        if not same:
+            return f"node {i}"
+    if [(c.submap_index, c.node_index, c.tag, c.translation_weight) for c in pg.constraints] != [
+            (c.submap_index, c.node_index, c.tag, c.translation_weight) for c in loaded.constraints]:
+        return "constraint lists"
+    if not all(np.array_equal(a.zbar.t, b.zbar.t) and np.array_equal(a.zbar.q, b.zbar.q)
+               for a, b in zip(pg.constraints, loaded.constraints)):
+        return "constraint poses"
+    for i, (a, b) in enumerate(zip(pg.submaps, loaded.submaps)):
+        if not (np.array_equal(a.global_pose.t, b.global_pose.t) and a.finished == b.finished
+                and np.array_equal(a.submap.rotational_histogram, b.submap.rotational_histogram)):
+            return f"submap {i}"
+        for key in ("high_resolution_grid", "low_resolution_grid"):
+            ga, gb = getattr(a.submap, key), getattr(b.submap, key)
+            if not (torch.equal(_as_stored(ga.tsd), gb.tsd) and torch.equal(_as_stored(ga.weight), gb.weight)
+                    and torch.equal(ga.meta.min_corner, gb.meta.min_corner)):
+                return f"submap {i} {key}"
+    return None
+
+
+def pbstream_grid_gaps(served, decoded, origin_t):
+    """A served TSDF grid against its pbstream decode (its known voxels'
+    box in the submap frame): (known voxels served, decoded, largest tsd
+    and weight differences over the served known voxels)."""
+    res = float(served.meta.resolution)
+    base = np.round((served.meta.min_corner.double().cpu().numpy() - origin_t) / res + 0.5).astype(np.int64)
+    lo = np.round(decoded.meta.min_corner.double().cpu().numpy() / res + 0.5).astype(np.int64)
+    idx = (served.weight > 0).nonzero()
+    j = idx + torch.as_tensor(base - lo, device=idx.device)
+    if bool(((j < 0) | (j >= torch.as_tensor(decoded.shape, device=idx.device))).any()):
+        return int(idx.shape[0]), int((decoded.weight > 0).sum()), math.inf, math.inf
+    at = lambda g, ix: g[ix[:, 0], ix[:, 1], ix[:, 2]].to(torch.float32)
+    d_tsd = (at(served.tsd, idx) - at(decoded.tsd, j)).abs().max()
+    d_w = (at(served.weight, idx) - at(decoded.weight, j)).abs().max()
+    return int(idx.shape[0]), int((decoded.weight > 0).sum()), float(d_tsd), float(d_w)
+
+
+def run_phase_23b(device, run):
+    """Phase 23b: WriteState of the served graph and LoadState into a fresh
+    MapBuilder on the card, through RPC; gates: every node, constraint and
+    submap grid bit-equal (float planes as the file's float16 gives them
+    back); a finished submap's GetSubmap payload decodes through
+    _unpack_grid to the same grid bits; write_pbstream_state /
+    load_pbstream_state within the bounded-float codes' step
+    (tests/test_pbstream_state.py: 2 * truncation / 32766 for tsd,
+    max_weight / 32766 for weights), node and constraint poses exact."""
+    from hectorgrapher_tpu_torch.cloud.client import MapBuilderStub
+
+    srv, stub = run["server"], run["stub"]
+    pg = srv.map_builder.pose_graph
+    with tempfile.TemporaryDirectory() as tmp:
+        npz, pbs = os.path.join(tmp, "state.npz"), os.path.join(tmp, "state.pbstream")
+        t0 = time.perf_counter()
+        stub.write_state(npz)
+        write_s = time.perf_counter() - t0
+        loading = MapBuilderServer(MapBuilder(run["options"], device=device))
+        loading.start()
+        stub2 = MapBuilderStub(f"127.0.0.1:{loading.port}")
+        t0 = time.perf_counter()
+        remap = stub2.load_state(npz, load_frozen_state=True)
+        sync(device)
+        load_s = time.perf_counter() - t0
+        gap = state_gaps(pg, loading.map_builder.pose_graph, remap)
+        if gap is not None:
+            fail(f"phase 23b: the loaded state differs from the served graph at {gap}")
+        stub2.close()
+        loading.shutdown()
+        del loading
+        finished = [i for i, s in enumerate(pg.submaps) if s.finished]
+        if not finished:
+            fail("phase 23b: no finished submap to query")
+        sub = stub.get_submap(finished[0])
+        for key in ("high_resolution_grid", "low_resolution_grid"):
+            got, want = _unpack_grid(sub[key], device), getattr(pg.submaps[finished[0]].submap, key)
+            if not (torch.equal(got.tsd, _as_stored(want.tsd)) and torch.equal(got.weight, _as_stored(want.weight))):
+                fail(f"phase 23b: GetSubmap({finished[0]})'s {key} does not decode to the served grid's bits")
+
+        t0 = time.perf_counter()
+        write_pbstream_state(pg, pbs)
+        pbs_write_s = time.perf_counter() - t0
+        frozen = MapBuilder(run["options"], device=device).pose_graph
+        t0 = time.perf_counter()
+        load_pbstream_state(frozen, pbs)
+        sync(device)
+        pbs_load_s = time.perf_counter() - t0
+        sizes = os.path.getsize(npz), os.path.getsize(pbs)
+    if len(frozen.nodes) != len(pg.nodes) or len(frozen.constraints) != len(pg.constraints):
+        fail(f"phase 23b: pbstream gave {len(frozen.nodes)} nodes, {len(frozen.constraints)} constraints")
+    order = sorted(range(len(pg.nodes)), key=lambda i: (pg.nodes[i].trajectory_id, i))
+    for a, b in zip((pg.nodes[i] for i in order), frozen.nodes):
+        if not (np.array_equal(a.global_pose.t, b.global_pose.t) and np.array_equal(a.local_pose.q, b.local_pose.q)
+                and abs(a.time - b.time) < 1e-7):
+            fail(f"phase 23b: pbstream node at {a.time} differs")
+    worst_tsd = worst_w = 0.0
+    s_order = sorted(range(len(pg.submaps)), key=lambda i: (pg.submaps[i].trajectory_id, i))
+    for a, b in zip((pg.submaps[i] for i in s_order), frozen.submaps):
+        for key in ("high_resolution_grid", "low_resolution_grid"):
+            ga, gb = getattr(a.submap, key), getattr(b.submap, key)
+            n_a, n_b, d_tsd, d_w = pbstream_grid_gaps(ga, gb, a.submap.local_pose.t)
+            tsd_step = 2 * float(ga.truncation_distance) / 32766
+            w_step = float(ga.max_weight) / 32766
+            if n_a != n_b or d_tsd > tsd_step or d_w > w_step:
+                fail(f"phase 23b: pbstream {key}: {n_b} of {n_a} known voxels, tsd within {d_tsd:.3e} (step "
+                     f"{tsd_step:.3e}), weight within {d_w:.3e} (step {w_step:.3e})")
+            worst_tsd, worst_w = max(worst_tsd, d_tsd), max(worst_w, d_w)
+    print(f"phase 23b: WriteState {sizes[0]} B in {write_s:.3f} s, LoadState {load_s:.3f} s, {len(pg.nodes)} nodes, "
+          f"{len(pg.constraints)} constraints, {len(pg.submaps)} submaps bit-equal as stored; GetSubmap("
+          f"{finished[0]}) decodes to the served bits; pbstream {sizes[1]} B written in {pbs_write_s:.3f} s, loaded "
+          f"in {pbs_load_s:.3f} s, known voxels equal, tsd within {worst_tsd:.3e}, weight within {worst_w:.3e}",
+          flush=True)
+
+
+def run_phase_23c(device, run):
+    """Phase 23c: trajectory 0's results of the batched server, each as a
+    LocalSlamResultPayload through wire.dumps / wire.loads, injected into
+    a second MapBuilder's UplinkTrajectoryBuilder on the card. Gates: its
+    nodes' local poses within 1e-9 of the serving graph's, its submaps'
+    grids the payloads' grids, no CT window solve."""
+    payloads = run["recorder"].payloads
+    served = [n for n in run["server"].map_builder.pose_graph.nodes if n.trajectory_id == 0]
+    mb = MapBuilder(run["options"], device=device)
+    builder = mb.get_trajectory_builder(mb.add_trajectory_builder(local_slam_results=True))
+    if not isinstance(builder, UplinkTrajectoryBuilder):
+        fail(f"phase 23c: add_trajectory_builder(local_slam_results=True) gave a {type(builder).__name__}")
+    solves = window_solver.solve_ct_window_block.assemblies, window_solver.solve_ct_window_batched.assemblies
+    t0 = time.perf_counter()
+    for payload in payloads:
+        builder.add_local_slam_result(payload)
+    mb.pose_graph.wait_for_all_computations()
+    inject_s = time.perf_counter() - t0
+    if (window_solver.solve_ct_window_block.assemblies, window_solver.solve_ct_window_batched.assemblies) != solves:
+        fail("phase 23c: the uplink ran CT window solves")
+    nodes = mb.pose_graph.nodes
+    if len(nodes) != len(served) or builder.num_results_injected != len(payloads) or not nodes:
+        fail(f"phase 23c: {len(nodes)} uplink nodes for {len(served)} served and {len(payloads)} payloads")
+    if [a.time for a in nodes] != [b.time for b in served]:
+        fail("phase 23c: the uplink's node times differ from the serving graph's")
+    gap = max(float(max(np.abs(a.local_pose.t - b.local_pose.t).max(), np.abs(a.local_pose.q - b.local_pose.q).max()))
+              for a, b in zip(nodes, served))
+    if gap > 1e-9:
+        fail(f"phase 23c: uplink node local poses {gap:.3e} from the serving graph's")
+    finished = {}
+    for payload in payloads:
+        for sp in payload.submaps:
+            if sp.insertion_finished:
+                finished[sp.submap_index] = sp
+    n_finished = 0
+    for k, s in enumerate(mb.pose_graph.submaps):
+        for key, pk in (("high_resolution_grid", "high_grid"), ("low_resolution_grid", "low_grid")):
+            grid = getattr(s.submap, key)
+            if k in finished:
+                d = getattr(finished[k], pk)
+                same = all(torch.equal(getattr(grid, p), torch.from_numpy(d[p].astype(np.float32)).to(device))
+                           for p in ("tsd", "weight"))
+            else:
+                same = not bool((grid.weight > 0).any())
+            if not same:
+                fail(f"phase 23c: uplink submap {k}'s {key} differs from its payload's")
+        n_finished += k in finished
+    if n_finished == 0:
+        fail("phase 23c: no finished submap reached the uplink")
+    print(f"phase 23c: {len(payloads)} payloads of trajectory 0 ({run['recorder'].wire_bytes} B through the wire) "
+          f"injected in {inject_s:.3f} s: {len(nodes)} uplink nodes within {gap:.1e} of the served local poses, "
+          f"{len(mb.pose_graph.submaps)} submaps ({n_finished} finished) equal to the payloads' grids, no CT window "
+          "solve", flush=True)
+
+
+def run_phase_23(device, **kw):
+    """Phase 23: the serving path on the card (23a, 23b, 23c); returns the
+    launches by path of K3 and K4."""
+    run, paths = run_phase_23a(device, **kw)
+    run_phase_23b(device, run)
+    run_phase_23c(device, run)
+    run["stub"].close()
+    run["server"].shutdown()
+    return paths
+
+
 PHASE_MARKS = []
 
 
@@ -3570,6 +4068,14 @@ def main() -> int:
     # Phase 21: the 2D SPA through its Schur, PCG and dense paths.
     run_phase_21(device)
 
+    mark("23")
+    # Phase 23: the serving path: MapBuilderServer over gRPC with 8 CT
+    # trajectories, their window solves batched (one slotted K3 launch an
+    # assembly), against a serial server; state I/O; uplink ingestion.
+    paths23 = run_phase_23(device)
+    k3_paths.update(paths23["ct_scan_block"])
+    k4_paths.update(paths23["fast_scores_3d"])
+
     sources = {
         "correlative_prep_2d": ("hectorgrapher_tpu_torch/csrc/correlative_prep_2d.cu",
                                 "hectorgrapher_tpu/ops/pallas_prep2d.py:74"),
@@ -3597,8 +4103,12 @@ def main() -> int:
     # "launches_by_path", slam13_* all in probability mode, slam14_* and
     # slam16_* all in f16 mode, and phase 19's per-scan batched solves as
     # batched19_entry / batched19_drive, slotted launches of the gated
-    # solve only; K3 per point: phase 17, with phases 18 and 19 beside it;
-    # K4: phase 11, with phases 12-14 beside it under "launches_by_path";
+    # solve only, and phase 23's: serve23_batched_windows (the batched
+    # window solves' slotted calls), serve23_slotted_all (those and the
+    # batched server's packed GN3D), serve23_serial_server (per-cloud
+    # launches of the serial server); K3 per point: phase 17, with phases
+    # 18 and 19 beside it; K4: phase 11, with phases 12-14 and 23 (both
+    # servers' rounds) beside it under "launches_by_path";
     # K5: phase 20, without its rounds' serial re-runs, with phase 22a
     # beside it).
     main_shape = {"correlative_prep_2d": "batched", "correlative_scores_2d": "batched",

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from hectorgrapher_tpu_torch.mapping import probability_values as pv
@@ -233,3 +234,12 @@ def grid_nbytes(grid) -> int:
     if isinstance(grid, TSDFGrid):
         return grid.tsd.numel() * grid.tsd.element_size() + grid.weight.numel() * grid.weight.element_size()
     return grid.log_odds.numel() * grid.log_odds.element_size() + grid.known.numel() * grid.known.element_size()
+
+
+def plane_to_numpy(plane: torch.Tensor) -> np.ndarray:
+    """A grid plane as uplink payloads and state files carry it (numpy):
+    uint16 codes as they are, any float plane as float16, rounded on the
+    plane's device to nearest even, as numpy's cast rounds."""
+    if plane.dtype == torch.uint16:
+        return plane.cpu().numpy()
+    return plane.to(torch.float16).cpu().numpy()

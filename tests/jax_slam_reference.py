@@ -56,6 +56,17 @@ phase 9's full-width options (chip_smoke.ct_overrides) with per-point
 unwarping, and with --direct the DIRECT IMU cost term: the max
 translation and yaw errors that chip_smoke.py holds phases 17 and 18 to
 (JAX_CT17_*, JAX_CT18_*). Either run takes about a minute and ~2 GiB.
+
+    JAX_PLATFORMS=cpu python tests/jax_slam_reference.py --serve
+
+runs chip_smoke.py's phase 23 drives (chip_smoke.serve_streams: the
+SERVE_TRAJECTORIES box-room streams, SERVE_SCANS scans each, each at its
+own seed and speed) one trajectory at a time through the JAX
+OptimizingLocalTrajectoryBuilder at phase 23's front-end options
+(chip_smoke.serve_overrides' trajectory_builder_3d keys: phase 9's full
+width, submaps of 8 scans), and prints each trajectory's result count and
+max translation and yaw errors: the JAX_SERVE_ERRORS that chip_smoke.py
+holds the served trajectories to. About 2 minutes and ~2 GiB.
 """
 
 from __future__ import annotations
@@ -202,6 +213,45 @@ def ct_front_end_errors(per_point: bool, direct: bool, n_scans: int) -> dict:
                 max_translation_error=t_err, max_yaw_error=y_err, seconds=time.perf_counter() - t0)
 
 
+def serve_errors() -> None:
+    """Phase 23: each of chip_smoke.serve_streams' trajectories through the
+    JAX CT front end at the front-end keys of chip_smoke.serve_overrides;
+    its max errors against its own truth (ct_pose_error at its speed), as
+    chip_smoke.run_phase_23a takes them from the served results; one JSON
+    line a trajectory."""
+    from hectorgrapher_tpu.common.config import TrajectoryBuilder3DOptions
+    from hectorgrapher_tpu.mapping.ct.builder import OptimizingLocalTrajectoryBuilder
+
+    prefix = "trajectory_builder_3d."
+    overrides = {k[len(prefix):]: v for k, v in chip_smoke.serve_overrides().items() if k.startswith(prefix)}
+    for tid, stream in enumerate(chip_smoke.serve_streams(chip_smoke.SERVE_TRAJECTORIES, chip_smoke.SERVE_SCANS)):
+        speed = chip_smoke.CT_SPEED + chip_smoke.SERVE_SPEED_STEP * tid
+        builder = OptimizingLocalTrajectoryBuilder(replace_deep(TrajectoryBuilder3DOptions(), overrides))
+        t0 = time.perf_counter()
+        t_err = y_err = 0.0
+        n_results = 0
+        for _, kind, payload in stream:
+            if kind == "imu":
+                builder.add_imu_data(*payload)
+            elif kind == "odometry":
+                builder.add_odometry_data(payload[0], NpRigid3(payload[1].t, payload[1].q))
+            else:
+                # The scan time as the port receives it, a float64: a float32
+                # 0.45 is below initialization_duration's 0.45, which would
+                # end the initialization a scan later than the port does.
+                r = payload.ranges
+                result = builder.add_range_data(TimedPointCloudData(
+                    time=payload.time, origin=jnp.zeros(3, jnp.float32),
+                    ranges=TimedPointCloud(positions=r.positions, times=r.times, mask=r.mask), width=payload.width))
+                if result is not None:
+                    n_results += 1
+                    e_t, e_y = chip_smoke.ct_pose_error(result.time, result.local_pose.t, result.local_pose.q, speed)
+                    t_err, y_err = max(t_err, e_t), max(y_err, e_y)
+        print(json.dumps(dict(trajectory=tid, speed=speed, results=n_results, solves=builder.num_optimizations,
+                              max_translation_error=t_err, max_yaw_error=y_err, seconds=time.perf_counter() - t0)),
+              flush=True)
+
+
 def run_slam_2d_port(sync: bool = False) -> dict:
     """run_slam_2d through the port's MapBuilder on the CPU (plain kernel
     versions), the same drive and options: what phase 20 runs on the card,
@@ -336,6 +386,8 @@ def main() -> int:
                         help="with --ct-drift --per-point: and the DIRECT IMU cost term (phase 18)")
     parser.add_argument("--scans", type=int, default=None,
                         help="with --per-point: scans of the drive (phase 17's CT_SCANS, phase 18's CT18_SCANS)")
+    parser.add_argument("--serve", action="store_true",
+                        help="chip_smoke.py's phase 23 drives instead: each trajectory's CT front-end errors")
     parser.add_argument("--slam-2d", action="store_true",
                         help="chip_smoke.py's phase 20 instead: MapBuilder 2D over two laps of the circle")
     parser.add_argument("--port", action="store_true",
@@ -344,6 +396,9 @@ def main() -> int:
     parser.add_argument("--back-end", action="store_true",
                         help="with --slam-2d: the port's PoseGraph2D fed the JAX front end's nodes (run_slam_2d_back_end)")
     opts = parser.parse_args()
+    if opts.serve:
+        serve_errors()
+        return 0
     if opts.slam_2d and opts.back_end:
         print(json.dumps(dict(run_slam_2d_back_end(), slam_2d=True, back_end=True)), flush=True)
         return 0

@@ -101,3 +101,70 @@ def test_chip_smoke_alone_fails(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in _last_line(proc.stdout)
+
+
+_SERVING_IMPORTS = """
+import sys
+sys.modules["grpc"] = None  # an import of grpc raises ImportError
+import hectorgrapher_tpu_torch.cloud.server as server
+import hectorgrapher_tpu_torch.cloud.ct_batcher
+import hectorgrapher_tpu_torch.cloud.local_slam_result
+import hectorgrapher_tpu_torch.cloud.wire
+import hectorgrapher_tpu_torch.io.serialization
+import hectorgrapher_tpu_torch.io.pbstream_state
+from hectorgrapher_tpu_torch.common import config as cfg
+from hectorgrapher_tpu_torch.mapping.map_builder import MapBuilder
+core = server.MapBuilderServerCore(MapBuilder(cfg.replace_deep(cfg.MapBuilderOptions(), {
+    "use_trajectory_builder_3d": True, "pose_graph.async_work_queue": False}), device="cpu"), batch_ct_windows=True)
+assert core._handle_add_trajectory({}) == {"trajectory_id": 0}
+assert core.map_builder.get_trajectory_builder(0)._local.window_solve_fn == core.ct_batcher._solve
+try:
+    server.MapBuilderServer(core.map_builder)
+except ImportError:
+    print("GRPC_BOUND_LAZILY")
+"""
+
+_CLOUD_AND_IO_IMPORTS = """
+import importlib, pkgutil, sys
+import hectorgrapher_tpu_torch.cloud as cloud, hectorgrapher_tpu_torch.io as io_pkg
+names = [f"{pkg.__name__}.{m.name}" for pkg in (cloud, io_pkg) for m in pkgutil.iter_modules(pkg.__path__)]
+for name in names:
+    importlib.import_module(name)
+print("MODULES", sorted(names))
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.") or m == "hectorgrapher_tpu" or m.startswith("hectorgrapher_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def test_cloud_and_io_import_without_jax():
+    """Every module of hectorgrapher_tpu_torch.cloud and .io imports, and
+    none pulls in jax or the JAX package."""
+    proc = subprocess.run([sys.executable, "-c", _CLOUD_AND_IO_IMPORTS], cwd=REPO, env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    for name in ("cloud.wire", "cloud.ct_batcher", "cloud.local_slam_result", "cloud.server", "cloud.uploader",
+                 "cloud.client", "io.serialization", "io.protowire", "io.pbstream", "io.pbstream_state"):
+        assert f"hectorgrapher_tpu_torch.{name}'" in proc.stdout, name
+    assert "LEAKED []" in proc.stdout, proc.stdout
+
+
+def test_server_core_and_batcher_import_without_grpc():
+    """With grpc blocked, the server core and the batcher import and serve
+    a trajectory; only binding the gRPC transport needs grpc."""
+    proc = subprocess.run([sys.executable, "-c", _SERVING_IMPORTS], cwd=REPO, env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "GRPC_BOUND_LAZILY" in proc.stdout
+
+
+def test_mapping_does_not_load_the_serving_layer():
+    """MapBuilder imports without hectorgrapher_tpu_torch.cloud: only an
+    uplink trajectory loads it (its SubmapController), as in the JAX
+    package."""
+    code = ("import sys\nfrom hectorgrapher_tpu_torch.mapping.map_builder import MapBuilder\n"
+            "print('CLOUD', sorted(m for m in sys.modules if m.startswith('hectorgrapher_tpu_torch.cloud')))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "CLOUD []" in proc.stdout, proc.stdout
