@@ -15,6 +15,10 @@ shapes, problem shapes, iteration count, weights, mode, DIRECT payload
 shapes) go to the serial solver, unchanged. Grids are passed as one list
 per batch, not stacked: the batched solve reads a grid that several
 windows share once (window_slots).
+
+With a mesh (a Mesh of this process's shards) the batch is sharded over
+it (parallel/ct_windows.py): padded to a multiple of the shard count by
+repeating lane 0, each shard solving its lanes, the pad lanes dropped.
 """
 
 from __future__ import annotations
@@ -73,9 +77,7 @@ class CtWindowBatcher:
     SLAM loop."""
 
     def __init__(self, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("CtWindowBatcher(mesh=...): sharded window solves are ROADMAP A6b "
-                                      "(parallel/ct_windows.py on torch.distributed), not ported")
+        self._mesh = mesh
         self._cv = threading.Condition()
         self._requests: List[dict] = []
         self._active_workers = 0
@@ -195,11 +197,21 @@ class CtWindowBatcher:
 
     def _solve_batched(self, entries: List[dict]) -> None:
         ps = [e["pending"] for e in entries]
+        if self._mesh is not None:
+            # Pad to a multiple of the shard count by repeating lane 0: the
+            # solves are independent, and the pad lanes are dropped below.
+            ps = ps + [ps[0]] * (-len(ps) % self._mesh.size)
         directs = _stack([p.direct for p in ps], DirectImuData) if ps[0].direct is not None else None
-        solved, _, _ = window_solver.solve_ct_window_batched(
-            [p.high_grid for p in ps], [p.low_grid for p in ps], _stack([p.problem for p in ps], CtProblem),
-            _stack([p.state0 for p in ps], CtState), ps[0].weights, is_tsdf=ps[0].is_tsdf,
-            num_iterations=ps[0].num_iterations, per_point=bool(ps[0].per_point), directs=directs)
+        args = ([p.high_grid for p in ps], [p.low_grid for p in ps], _stack([p.problem for p in ps], CtProblem),
+                _stack([p.state0 for p in ps], CtState), ps[0].weights)
+        kwargs = dict(is_tsdf=ps[0].is_tsdf, num_iterations=ps[0].num_iterations, per_point=bool(ps[0].per_point),
+                      directs=directs)
+        if self._mesh is not None:
+            from hectorgrapher_tpu_torch.parallel.ct_windows import solve_ct_windows_sharded
+
+            solved, _, _ = solve_ct_windows_sharded(self._mesh, *args, **kwargs)
+        else:
+            solved, _, _ = window_solver.solve_ct_window_batched(*args, **kwargs)
         self.batched_launches += 1
         self.batch_sizes.append(len(entries))
         for i, entry in enumerate(entries):

@@ -53,7 +53,8 @@ class MapBuilderServerCore:
         self.map_builder = map_builder
         # Cross-trajectory batched CT window serving (cloud/ct_batcher.py):
         # the SLAM loop advances each trajectory on its own thread and
-        # solves all ready CT windows in one batched solve.
+        # solves all ready CT windows in one batched solve; ct_mesh (a Mesh
+        # of this process's shards) shards that solve over its shards.
         self.ct_batcher = None
         if batch_ct_windows:
             from hectorgrapher_tpu_torch.cloud.ct_batcher import CtWindowBatcher

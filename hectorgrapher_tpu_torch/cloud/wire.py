@@ -13,7 +13,8 @@ with WirePayloadError).
 Every payload that crosses is numpy: the whitelist names no torch type,
 so a pickled tensor (rebuilt through torch._utils and storage classes)
 is refused. Grids and node clouds become numpy in local_slam_result.py
-before they reach the wire.
+before they reach the wire, the solver plane's SPA problems and pack
+arrays in the pose graph.
 """
 
 from __future__ import annotations
@@ -48,6 +49,10 @@ _ALLOWED = {
     ("hectorgrapher_tpu_torch.sensor.types", "TimedPointCloudData"),
     ("hectorgrapher_tpu_torch.cloud.local_slam_result", "LocalSlamResultPayload"),
     ("hectorgrapher_tpu_torch.cloud.local_slam_result", "SubmapPayload"),
+    # The solver plane's SPA problems (cloud/solver_plane.py), with numpy
+    # leaves.
+    ("hectorgrapher_tpu_torch.mapping.pose_graph.optimization", "SpaProblem2D"),
+    ("hectorgrapher_tpu_torch.mapping.pose_graph.optimization", "SpaProblem3D"),
     # Builtin value containers that pickle via find_class.
     ("builtins", "complex"),
     ("builtins", "set"),

@@ -415,19 +415,29 @@ def _huber_weights(r, scale):
     return torch.where(norm <= scale, 1.0, torch.sqrt(scale / torch.clamp(norm, min=1e-12)))
 
 
+def _weighted_blocks(J, r, mask, huber_scale):
+    """Constraint blocks (J (C, R, 2P), r (C, R)) masked and scaled by
+    their Huber weights: what the SPA's normal equations sum, whichever
+    shards computed them (parallel/sharded.py)."""
+    r = torch.where(mask[:, None], r, 0.0)
+    w = _huber_weights(r, huber_scale)[:, None]
+    return torch.where(mask[:, None, None], J * w[:, :, None], 0.0), r * w
+
+
 def _retract_poses(t, q, d):
     """Each pose moved by its 6-vector of d: (t + dt, q exp(dtheta))."""
     d6 = d.reshape(-1, 6)
     return t + d6[:, :3], quat_normalize(quat_multiply(q, quat_from_axis_angle(d6[:, 3:])))
 
 
-def _solve_spa(problem, pair_blocks, retract, params0, p: int, num_iterations: int, init_lambda: float,
+def _solve_spa(problem, weighted_blocks, retract, params0, p: int, num_iterations: int, init_lambda: float,
                linear_solver: str):
     """The plain SPA's LM solve over poses of tangent width p, shared by
-    solve_spa_3d and solve_spa_2d. pair_blocks(params) -> (J (C, R, 2p), r
-    (C, R)): each constraint's residual and Jacobian over [submap, node]
-    tangents; masking and the Huber weights are applied here. Returns
-    (params, final cost) and records LAST_SOLVE_STATS."""
+    solve_spa_3d and solve_spa_2d and their sharded forms.
+    weighted_blocks(params) -> (J (C, R, 2p), r (C, R)): each constraint's
+    residual and Jacobian over [submap, node] tangents, through
+    _weighted_blocks. Returns (params, final cost) and records
+    LAST_SOLVE_STATS."""
     S, N = problem.submap_fixed.shape[0], problem.node_fixed.shape[0]
     if linear_solver == "auto":
         linear_solver = "schur" if S * N <= _SCHUR_COUPLING_BUDGET else "cg"
@@ -439,11 +449,7 @@ def _solve_spa(problem, pair_blocks, retract, params0, p: int, num_iterations: i
              "host_syncs": 2 if linear_solver == "cg" else 4}
 
     def eval_fn(params):
-        J, r = pair_blocks(params)
-        r = torch.where(m[:, None], r, 0.0)
-        w = _huber_weights(r, problem.c_huber_scale)[:, None]
-        J = torch.where(m[:, None, None], J * w[:, :, None], 0.0)
-        r = r * w
+        J, r = weighted_blocks(params)
         cost = 0.5 * torch.sum(r * r)
         j_s, j_n = J[:, :, :p], J[:, :, p:]
         if linear_solver == "cg":  # the diagonal blocks only: no (S, N) coupling tensor
@@ -489,14 +495,17 @@ def solve_spa_3d(problem: SpaProblem3D, num_iterations: int = 20, init_lambda: f
         st, sq, nt, nq = params
         return (*_retract_poses(st, sq, delta[: 6 * S]), *_retract_poses(nt, nq, delta[6 * S:]))
 
-    def pair_blocks(params):
+    def weighted_blocks(params):
         st, sq, nt, nq = params
-        return _pair_blocks(st[cs], sq[cs], nt[cn], nq[cn], problem.c_rel_translation, problem.c_rel_rotation,
-                            problem.c_translation_weight, problem.c_rotation_weight)  # (C, 6, 12), (C, 6)
+        return _weighted_blocks(*_pair_blocks(st[cs], sq[cs], nt[cn], nq[cn], problem.c_rel_translation,
+                                              problem.c_rel_rotation, problem.c_translation_weight,
+                                              problem.c_rotation_weight),  # (C, 6, 12), (C, 6)
+                                problem.c_mask, problem.c_huber_scale)
 
     params0 = (problem.submap_translation, problem.submap_rotation, problem.node_translation,
                problem.node_rotation)
-    params, cost = _solve_spa(problem, pair_blocks, retract, params0, 6, num_iterations, init_lambda, linear_solver)
+    params, cost = _solve_spa(problem, weighted_blocks, retract, params0, 6, num_iterations, init_lambda,
+                              linear_solver)
     return params + (cost,)
 
 
@@ -837,12 +846,12 @@ def solve_spa_2d(problem: SpaProblem2D, num_iterations: int = 20, init_lambda: f
         sp, np_ = params
         return sp + delta[: 3 * S].reshape(-1, 3), np_ + delta[3 * S:].reshape(-1, 3)
 
-    def pair_blocks(params):
+    def weighted_blocks(params):
         sp, np_ = params
-        return _pair_blocks_2d(sp[cs], np_[cn], problem.c_rel_pose, problem.c_translation_weight,
-                               problem.c_rotation_weight)
+        return _weighted_blocks(*_pair_blocks_2d(sp[cs], np_[cn], problem.c_rel_pose, problem.c_translation_weight,
+                                                 problem.c_rotation_weight), problem.c_mask, problem.c_huber_scale)
 
-    params, cost = _solve_spa(problem, pair_blocks, retract, (problem.submap_pose, problem.node_pose), 3,
+    params, cost = _solve_spa(problem, weighted_blocks, retract, (problem.submap_pose, problem.node_pose), 3,
                               num_iterations, init_lambda, linear_solver)
     return params + (cost,)
 

@@ -34,7 +34,13 @@ submaps are decoded to f32 where a matcher or the pack is built. A 2D TSDF
 submap cannot be searched, in the reference as here (ROADMAP C20): the
 search raises, the worker logs it, and no INTER constraint is added.
 
-Not ported: the solver mesh (set_solver_mesh raises NotImplementedError).
+With a solver mesh (set_solver_mesh, parallel/mesh.py) the batched
+rounds run over the mesh's shards, the finished submaps partitioned over
+them (one K4 or K5 launch a shard and pyramid level), and an SPA solve
+without extras runs sharded (parallel/sharded.py). On a mesh that spans
+processes the leader's pose graph calls its broadcast hook before each
+pack change, round and solve, so that every follower enters the same
+collectives (cloud/solver_plane.py).
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import (
     solve_spa_3d,
     solve_spa_3d_full,
 )
+from hectorgrapher_tpu_torch.parallel.sharded import solve_spa_2d_sharded, solve_spa_3d_sharded
 from hectorgrapher_tpu_torch.mapping.pose_graph.trimmers import trim_submaps
 from hectorgrapher_tpu_torch.mapping.scan_matching.fast_correlative_2d import (
     make_fast_search_config,
@@ -87,6 +94,7 @@ from hectorgrapher_tpu_torch.mapping.scan_matching.gn_3d import (
 )
 from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.parallel.constraint_search import (
+    MeshPackedSubmaps3D,
     host_arrays_3d_nbytes,
     matcher_arrays_3d,
     matcher_host_arrays_3d,
@@ -211,6 +219,25 @@ class _SamplerState:
         return False
 
 
+_GRAPH_MESH = None
+
+
+def constraint_search_mesh():
+    """The Mesh the batched constraint rounds run over, installed by
+    set_solver_mesh (or set_constraint_search_mesh), for every pose graph
+    of the process, as in the JAX package (pose_graph.py:184-203). None,
+    the default, searches each graph's finished submaps on its own device
+    (the JAX default is a mesh of the local devices; one card is the
+    port's). A mesh over devices that no follower drives would deadlock at
+    the first round, so nothing installs one but the caller."""
+    return _GRAPH_MESH
+
+
+def set_constraint_search_mesh(mesh) -> None:
+    global _GRAPH_MESH
+    _GRAPH_MESH = mesh
+
+
 class PoseGraphBase:
     """Bookkeeping shared by the pose graphs."""
 
@@ -247,6 +274,18 @@ class PoseGraphBase:
         self._lock = threading.RLock()
         self._opt_lock = threading.Lock()
         self._constraint_lock = threading.RLock()
+        # The solver mesh (set_solver_mesh): the sharded SPA and the
+        # batched rounds run over it, and `_solver_broadcast` (if any)
+        # ships each of their inputs to the followers of a mesh that spans
+        # processes. The shipped-pack bookkeeping records what the
+        # followers hold: the (submap id, depth) pairs and order of each 2D
+        # pack, the ids and order of the 3D pack.
+        self._solver_mesh = None
+        self._solver_broadcast = None
+        self._shipped_pack2d: set = set()
+        self._shipped_order2d: Dict[int, list] = {}
+        self._shipped_pack3d: set = set()
+        self._shipped_order3d = None
         self._cloud_range_cache: Dict[int, float] = {}
         self._async = bool(options.async_work_queue)
         self._work_queue: Optional[queue_mod.Queue] = None
@@ -364,8 +403,28 @@ class PoseGraphBase:
                     self._landmark_pose_overrides.pop(name)
 
     def set_solver_mesh(self, mesh, broadcast=None) -> None:
-        if mesh is not None:
-            raise NotImplementedError("a solver mesh (the sharded SPA and constraint search) is not ported")
+        """Install a Mesh for the back end's device work (JAX
+        pose_graph.py:449-478): the batched constraint rounds run over it,
+        and SPA solves without extras run sharded (parallel/sharded.py).
+        `broadcast(op, payload, wait=False)`, if given, is called before
+        each sharded solve, pack change and round, so that the follower
+        processes of a mesh that spans processes enter the same
+        collectives (cloud/solver_plane.py). None reverts to the graph's
+        own device.
+
+        A mesh that spans processes without a broadcast hook is refused
+        (ValueError): the leader's first collective would wait forever for
+        processes that nothing drives."""
+        if mesh is not None and broadcast is None and mesh.spans_processes:
+            raise ValueError("set_solver_mesh: mesh spans multiple processes but no broadcast hook was given — "
+                             "followers could never enter the collective programs (wire cloud/solver_plane.py)")
+        self._solver_mesh = mesh
+        self._solver_broadcast = broadcast
+        self._shipped_pack2d = set()
+        self._shipped_order2d = {}
+        self._shipped_pack3d = set()
+        self._shipped_order3d = None
+        set_constraint_search_mesh(mesh)
 
     def add_global_slam_optimization_callback(self, callback) -> None:
         """callback(num_optimizations) runs after every optimization."""
@@ -686,6 +745,14 @@ class PoseGraphBase:
         return p
 
 
+def _numpy_arrays_3d(h: dict) -> dict:
+    """A matcher_host_arrays_3d dict with numpy leaves: what the wire
+    carries to a follower (it refuses tensors)."""
+    return dict(h, pyr=[t.numpy() for t in h["pyr"]], hi_res=float(h["hi_res"]), lo_res=float(h["lo_res"]),
+                grid_shape=tuple(int(v) for v in h["grid_shape"]),
+                **{k: h[k].numpy() for k in ("hmc", "low", "lmc", "hist")})
+
+
 def _identity_quats(n: int) -> np.ndarray:
     return np.tile(np.array([1.0, 0.0, 0.0, 0.0], np.float32), (n, 1))
 
@@ -873,7 +940,7 @@ class PoseGraph3D(PoseGraphBase):
             self._histogram_size,
         )
 
-    def _get_pack_3d(self, needed_matchers: Dict[int, object]):
+    def _get_pack_3d(self, needed_matchers: Dict[int, object], mesh=None):
         """The finished submaps' search state on the card for the batched
         search (PoseGraph3D._get_pack_3d of the JAX package, :1930-2019):
         rebuilt only when a needed submap is not packed. This round's
@@ -884,12 +951,15 @@ class PoseGraph3D(PoseGraphBase):
         is demoted to it (to_host), so the pack is the only device copy;
         an evicted submap is re-admitted from the cache. Unlike the JAX
         rebuild, members that stay are copied from the old pack on the
-        card, and only new members are uploaded. Returns (slot by submap
-        id, PackedSubmaps3D)."""
+        card, and only new members are uploaded. With a mesh the pack is
+        partitioned over its shards (a MeshPackedSubmaps3D), and a change
+        of mesh rebuilds it. Returns (slot by submap id, the pack)."""
         self._pack3d_round += 1
         for sid in needed_matchers:
             self._pack3d_used[sid] = self._pack3d_round
         state = self._pack3d
+        if state is not None and state["mesh"] is not mesh:
+            state = dict(state, packed=None, slots={})  # the host cache stays; the layout does not
         if state is not None and all(sid in state["slots"] for sid in needed_matchers):
             return state["slots"], state["packed"]
         with self._lock:
@@ -919,15 +989,42 @@ class PoseGraph3D(PoseGraphBase):
         # card; a re-admitted one's from the host cache.
         old_slots = state["slots"] if state is not None else {}
         sources = [matcher_arrays_3d(live[sid]) if sid in fresh else host[sid] for sid in order]
-        packed = pack_submaps_3d_from_arrays(sources, self._device, state["packed"] if state is not None else None,
-                                             [old_slots.get(sid) for sid in order])
+        previous = state["packed"] if state is not None else None
+        packed = pack_submaps_3d_from_arrays(sources, self._device if mesh is None else mesh, previous,
+                                             [old_slots.get(sid) if previous is not None else None for sid in order])
         for sid, h in fresh.items():
             live[sid].to_host(h["pyr"], h["low"], h["hist"])
         host.update(fresh)
         _set_pack_bytes_gauge("3d", total)
         self._pack3d = {"order": order, "slots": {sid: i for i, sid in enumerate(order)}, "packed": packed,
-                        "host": host, "bytes": total}
+                        "host": host, "bytes": total, "mesh": mesh}
         return self._pack3d["slots"], packed
+
+    def _cs_broadcast_3d(self, config, mesh, use_rotational: bool):
+        """The solver plane's hook of a batched 3D round (JAX
+        pose_graph.py:2021-2052): None unless the round runs over the
+        solver mesh with a broadcast hook. Else ships the pack's change
+        first, one cs3d_pack op a newly shipped submap (each op bounded to
+        one submap's tables, the full order on the last), waiting for the
+        followers, and returns the callable that ships the round's
+        candidate arrays (cs3d)."""
+        bc = self._solver_broadcast
+        if bc is None or mesh is not self._solver_mesh:
+            return None
+        state = self._pack3d
+        self._shipped_pack3d &= set(state["order"])  # a follower drops what leaves the order
+        new_sids = [sid for sid in state["order"] if sid not in self._shipped_pack3d]
+        if new_sids or self._shipped_order3d != state["order"]:
+            for j, sid in enumerate(new_sids or [None]):
+                last = j == len(new_sids or [None]) - 1
+                order = (list(state["order"]) if last else
+                         [s for s in state["order"] if s in self._shipped_pack3d or s in new_sids[:j + 1]])
+                bc("cs3d_pack", {"order": order, "new": {} if sid is None else {sid: _numpy_arrays_3d(
+                    state["host"][sid])}}, wait=True)
+            self._shipped_pack3d.update(new_sids)
+            self._shipped_order3d = list(state["order"])
+        return lambda arrays: bc("cs3d", {"arrays": arrays, "config": tuple(config),
+                                          "use_rotational": use_rotational})
 
     @staticmethod
     def _node_in_grid(node: PgNode, pg_submap: PgSubmap):
@@ -976,7 +1073,11 @@ class PoseGraph3D(PoseGraphBase):
         if pg_submap.matcher is None:
             self._on_submap_finished(pg_submap)
         scan_range = self._scan_range_bucket(node)
-        slot = None if self._pack3d is None else self._pack3d["slots"].get(pg_submap.submap_id)
+        packed = None if self._pack3d is None else self._pack3d["packed"]
+        # A mesh pack is searched by whole rounds only (a round of one
+        # would be a collective the followers never join).
+        slot = (None if packed is None or isinstance(packed, MeshPackedSubmaps3D)
+                else self._pack3d["slots"].get(pg_submap.submap_id))
         if slot is not None:
             config = pg_submap.matcher.search_config(scan_range, global_search)
             [(score, low_score, pose)] = sharded_fast_matches_3d_packed(
@@ -1052,12 +1153,15 @@ class PoseGraph3D(PoseGraphBase):
             return time.perf_counter()
 
         t0 = time.perf_counter()
-        slot_by_sid, packed = self._get_pack_3d(matcher_by_sid)
+        mesh = constraint_search_mesh()
+        use_rotational = bool(fc.use_rotational_scan_matcher)
+        slot_by_sid, packed = self._get_pack_3d(matcher_by_sid, mesh)
+        broadcast = self._cs_broadcast_3d(config, mesh, use_rotational)
         t0 = stage("pack", t0)
         candidates = [self._candidate(node, p, slot_by_sid[sid]) for _, sid, node, p in gated]
         stage("initials", t0)
-        matches = sharded_fast_matches_3d_packed(packed, candidates, config, bool(fc.use_rotational_scan_matcher),
-                                                 profile=prof)
+        matches = sharded_fast_matches_3d_packed(packed, candidates, config, use_rotational, profile=prof,
+                                                 broadcast=broadcast)
         survivors = [i for i, (score, low_score, _) in enumerate(matches)
                      if self._passes_gates(score, low_score, global_search)]
         results: List[Optional[Constraint]] = [None] * len(gated)
@@ -1074,8 +1178,8 @@ class PoseGraph3D(PoseGraphBase):
             lane_d = torch.tensor([distinct.index(gated[i][1]) for i in survivors], dtype=torch.int32,
                                   device=self._device)
             nodes = [gated[i][2] for i in survivors]
-            poses = Rigid3(torch.stack([matches[i][2].translation for i in survivors]),
-                           torch.stack([matches[i][2].rotation for i in survivors]))
+            poses = Rigid3(torch.stack([matches[i][2].translation for i in survivors]).to(self._device),
+                           torch.stack([matches[i][2].rotation for i in survivors]).to(self._device))
             hi = PointCloud(torch.stack([n.high_cloud.positions for n in nodes]),
                             torch.stack([n.high_cloud.mask for n in nodes]))
             lo = PointCloud(torch.stack([n.low_cloud.positions for n in nodes]),
@@ -1132,8 +1236,8 @@ class PoseGraph3D(PoseGraphBase):
             cwt[i], cwr[i] = c.translation_weight, c.rotation_weight
             if c.tag == "INTER":
                 chub[i] = self._options.optimization_problem.huber_scale
-        problem = SpaProblem3D(*(torch.from_numpy(a).to(self._device)
-                                 for a in (st, sq, nt, nqr, s_fixed, n_fixed, cs, cn, cmask, crt, crq, cwt, cwr, chub)))
+        host = SpaProblem3D(st, sq, nt, nqr, s_fixed, n_fixed, cs, cn, cmask, crt, crq, cwt, cwr, chub)
+        problem = SpaProblem3D(*(torch.from_numpy(a).to(self._device) for a in host))
         iterations = min(num_iterations, 50)
         extras = self._build_extras(N, nodes)
         if extras is not None:
@@ -1142,6 +1246,13 @@ class PoseGraph3D(PoseGraphBase):
             self._landmark_poses = {name: NpRigid3(lt_o[idx].astype(np.float64), lq_o[idx].astype(np.float64))
                                     for name, idx in self._landmark_ids.items()}
             self._consume_landmark_overrides(set(self._landmark_ids.values()))
+        elif self._solver_mesh is not None:
+            # The constraints sharded over the mesh (JAX :2463-2473); the
+            # extras-augmented solve above stays on one device. The
+            # followers get the problem as numpy.
+            if self._solver_broadcast is not None:
+                self._solver_broadcast("spa3d", (host, iterations))
+            st_o, sq_o, nt_o, nq_o, _ = solve_spa_3d_sharded(host, self._solver_mesh, num_iterations=iterations)
         else:
             st_o, sq_o, nt_o, nq_o, _ = solve_spa_3d(problem, num_iterations=iterations)
         sub = torch.cat([st_o, sq_o], dim=1).cpu().numpy().astype(np.float64)
@@ -1312,7 +1423,7 @@ class PoseGraph2D(PoseGraphBase):
             per_sid["gn"] = prepare_gn_probability_field(pg_submap.submap.grid)
         return per_sid["gn"]
 
-    def _get_pack_2d(self, needed: Dict[int, PgSubmap], depth: int):
+    def _get_pack_2d(self, needed: Dict[int, PgSubmap], depth: int, mesh=None):
         """The finished submaps' search state on the card for a batched
         round of `depth` (PoseGraph2D._get_pack_2d of the JAX package,
         :1089-1218): the fast matchers' levels and corners, and the raw
@@ -1320,8 +1431,11 @@ class PoseGraph2D(PoseGraphBase):
         needed submap is not packed. Membership: this round's submaps, then
         the previous pack's other members most recently used first while
         the pack fits constraint_builder.pack_hbm_budget_bytes (the levels
-        and the grid a submap). Returns (slot by submap id, PackedSubmaps2D,
-        the grid pack).
+        and the grid a submap). With a mesh the levels are partitioned over
+        its shards (a MeshPackedSubmaps2D; the grid pack stays on the
+        graph's device, as the JAX package replicates it), and a change of
+        mesh rebuilds them. Returns (slot by submap id, the pack, the grid
+        pack).
 
         ROADMAP C6, fixed rather than mirrored: the JAX package drops an
         evicted submap's host copies, so re-admitting it downloads them
@@ -1333,7 +1447,7 @@ class PoseGraph2D(PoseGraphBase):
         for sid in needed:
             self._pack2d_used[sid] = self._pack2d_round
         state = self._packs2d.get(depth)
-        if state is not None and all(sid in state["slots"] for sid in needed):
+        if state is not None and state["mesh"] is mesh and all(sid in state["slots"] for sid in needed):
             return state["slots"], state["packed"], state["gn"]
         prev_order = state["order"] if state is not None else []
         with self._lock:
@@ -1359,16 +1473,48 @@ class PoseGraph2D(PoseGraphBase):
             raise NotImplementedError("mixed pyramid shapes")
         p0 = fast[order[0]]
         packed = pack_submaps_2d_from_arrays([(fast[sid].flat_levels, fast[sid].meta.min_corner) for sid in order],
-                                             float(p0.meta.resolution), p0.dims, self._device)
+                                             float(p0.meta.resolution), p0.dims,
+                                             self._device if mesh is None else mesh)
         gn = {
             "values": torch.stack([grids[sid].probability() for sid in order]),
-            "min_corners": packed.min_corners,
+            "min_corners": (packed.min_corners if mesh is None else torch.stack(
+                [fast[sid].meta.min_corner for sid in order]).to(device=self._device, dtype=torch.float32)),
             "resolution": float(p0.meta.resolution),
             "pad_value": float(pv.MIN_PROBABILITY),
         }
         self._packs2d[depth] = {"order": order, "slots": {sid: i for i, sid in enumerate(order)}, "packed": packed,
-                                "gn": gn, "bytes": total}
+                                "gn": gn, "bytes": total, "mesh": mesh, "res": float(p0.meta.resolution),
+                                "dims": tuple(p0.dims)}
         return self._packs2d[depth]["slots"], packed, gn
+
+    def _cs_broadcast_2d(self, config, mesh):
+        """The solver plane's hook of a batched 2D round (JAX
+        pose_graph.py:1292-1330): None unless the round runs over the
+        solver mesh with a broadcast hook. Else ships the pack's change
+        (the levels and corner of each newly shipped submap, once: finished
+        grids do not change; the full order), waiting for the followers,
+        and returns the callable that ships the round's candidate arrays
+        (cs2d)."""
+        bc = self._solver_broadcast
+        if bc is None or mesh is not self._solver_mesh:
+            return None
+        depth = config.depth
+        state = self._packs2d[depth]
+        # A follower drops what leaves the order.
+        self._shipped_pack2d -= {(sid, d) for sid, d in self._shipped_pack2d
+                                 if d == depth and sid not in state["slots"]}
+        new = {}
+        for sid in state["order"]:
+            if (sid, depth) not in self._shipped_pack2d:
+                fast = self._matcher_cache[sid][depth]
+                new[sid] = {"levels": fast.flat_levels.cpu().numpy(),
+                            "mc": fast.meta.min_corner.to(torch.float32).cpu().numpy()}
+        if new or self._shipped_order2d.get(depth) != state["order"]:
+            bc("cs2d_pack", {"depth": depth, "order": list(state["order"]), "new": new, "res": state["res"],
+                             "dims": state["dims"]}, wait=True)
+            self._shipped_pack2d.update((sid, depth) for sid in new)
+            self._shipped_order2d[depth] = list(state["order"])
+        return lambda arrays: bc("cs2d", {"depth": depth, "arrays": arrays, "config": tuple(config)})
 
     @staticmethod
     def _initial_in_grid(node: PgNode, pg_submap: PgSubmap):
@@ -1458,12 +1604,14 @@ class PoseGraph2D(PoseGraphBase):
             if sid not in needed:
                 self._submap_matcher(p, config.depth)
                 needed[sid] = p
-        slot_by_sid, packed, gn = self._get_pack_2d(needed, config.depth)
+        mesh = constraint_search_mesh()
+        slot_by_sid, packed, gn = self._get_pack_2d(needed, config.depth, mesh)
+        broadcast = self._cs_broadcast_2d(config, mesh)
         t0 = stage("pack", t0)
         candidates = [(slot_by_sid[sid], node.cloud, Rigid2(*self._initial_in_grid(node, p)))
                       for _, sid, node, p in gated]
         stage("initials", t0)
-        matches = sharded_fast_matches_2d_packed(packed, candidates, config, profile=prof)
+        matches = sharded_fast_matches_2d_packed(packed, candidates, config, profile=prof, broadcast=broadcast)
         survivors = []
         for i, (score, _) in enumerate(matches):
             _observe_constraint_score("global" if global_search else "local", score)
@@ -1474,8 +1622,8 @@ class PoseGraph2D(PoseGraphBase):
             t0 = time.perf_counter()
             slots = torch.tensor([slot_by_sid[gated[i][1]] for i in survivors], dtype=torch.int64,
                                  device=self._device)
-            poses = Rigid2(torch.stack([matches[i][1].translation for i in survivors]),
-                           torch.stack([matches[i][1].angle for i in survivors]))
+            poses = Rigid2(torch.stack([matches[i][1].translation for i in survivors]).to(self._device),
+                           torch.stack([matches[i][1].angle for i in survivors]).to(self._device))
             clouds = [gated[i][2].cloud for i in survivors]
             if all(c is clouds[0] for c in clouds):  # one node against many submaps
                 clouds = PointCloud(clouds[0].positions.expand(len(clouds), -1, -1),
@@ -1530,9 +1678,8 @@ class PoseGraph2D(PoseGraphBase):
             cwt[i], cwr[i] = c.translation_weight, c.rotation_weight
             if c.tag == "INTER":
                 chub[i] = self._options.optimization_problem.huber_scale
-        problem = SpaProblem2D(*(torch.from_numpy(a).to(self._device)
-                                 for a in (submap_pose, node_pose, submap_fixed, node_fixed, cs, cn, cmask, crel, cwt,
-                                           cwr, chub)))
+        host = SpaProblem2D(submap_pose, node_pose, submap_fixed, node_fixed, cs, cn, cmask, crel, cwt, cwr, chub)
+        problem = SpaProblem2D(*(torch.from_numpy(a).to(self._device) for a in host))
         iterations = min(num_iterations, 50)
         extras = self._build_extras(N, nodes)
         if extras is not None:
@@ -1540,6 +1687,12 @@ class PoseGraph2D(PoseGraphBase):
             lm_out = lm_out.cpu().numpy()
             self._landmark_poses = {name: _rigid_of_pose2(lm_out[idx]) for name, idx in self._landmark_ids.items()}
             self._consume_landmark_overrides(set(self._landmark_ids.values()))
+        elif self._solver_mesh is not None:
+            # The constraints sharded over the mesh (JAX :1570-1589); the
+            # extras-augmented solve above stays on one device.
+            if self._solver_broadcast is not None:
+                self._solver_broadcast("spa2d", (host, iterations))
+            sub_out, node_out, _ = solve_spa_2d_sharded(host, self._solver_mesh, num_iterations=iterations)
         else:
             sub_out, node_out, _ = solve_spa_2d(problem, num_iterations=iterations)
         sub_out, node_out = sub_out.cpu().numpy(), node_out.cpu().numpy()

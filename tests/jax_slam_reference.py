@@ -48,14 +48,19 @@ seed 0) through the JAX OptimizingLocalTrajectoryBuilder once with TSDF
 and once with PROBABILITY_GRID submaps, and prints each one's result count
 and max translation error (ROADMAP C15).
 
+    JAX_PLATFORMS=cpu python tests/jax_slam_reference.py --ct-drift --per-scan
     JAX_PLATFORMS=cpu python tests/jax_slam_reference.py --ct-drift --per-point [--direct]
 
-runs chip_smoke.py's CT drive (chip_smoke.ct_drive: CT_SCANS scans, with
+run chip_smoke.py's CT drive (chip_smoke.ct_drive: CT_SCANS scans, with
 --direct CT18_SCANS) through the JAX OptimizingLocalTrajectoryBuilder at
-phase 9's full-width options (chip_smoke.ct_overrides) with per-point
-unwarping, and with --direct the DIRECT IMU cost term: the max
-translation and yaw errors that chip_smoke.py holds phases 17 and 18 to
-(JAX_CT17_*, JAX_CT18_*). Either run takes about a minute and ~2 GiB.
+phase 9's full-width options (chip_smoke.ct_overrides): per scan, or with
+per-point unwarping, and with --direct the DIRECT IMU cost term as well:
+the max translation and yaw errors that chip_smoke.py holds phases 9, 17
+and 18 to (JAX_CT_*, JAX_CT17_*, JAX_CT18_*). Each run takes about a
+minute and ~2 GiB.
+
+Every drive feeds the JAX package its scan times as float64, as the port
+gets them (scan_time).
 
     JAX_PLATFORMS=cpu python tests/jax_slam_reference.py --serve
 
@@ -78,6 +83,7 @@ import time
 from pathlib import Path
 
 import jax.numpy as jnp
+import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -87,6 +93,15 @@ from hectorgrapher_tpu.common.config import MapBuilderOptions, replace_deep  # n
 from hectorgrapher_tpu.mapping.map_builder import MapBuilder  # noqa: E402
 from hectorgrapher_tpu.sensor.types import TimedPointCloud, TimedPointCloudData  # noqa: E402
 from hectorgrapher_tpu.transform.np_quat import NpRigid3  # noqa: E402
+
+
+def scan_time(t) -> np.float64:
+    """A scan time as the port receives it, a float64 (ROADMAP C25), for
+    every drive of this script. jnp.asarray(t) would give a float32 (x64
+    is off outside the test suite), and a float32 0.45 s lies below
+    initialization_duration's 0.45: the JAX CT front end would then end
+    its initialization a scan later than the port does."""
+    return np.float64(t)
 
 
 def run(batched: bool, probability: bool, storage=None) -> dict:
@@ -102,7 +117,7 @@ def run(batched: bool, probability: bool, storage=None) -> dict:
             data = payload[0]
             r = data.ranges
             tb.add_range_data(TimedPointCloudData(
-                time=jnp.asarray(data.time), origin=jnp.zeros(3, jnp.float32),
+                time=scan_time(data.time), origin=jnp.zeros(3, jnp.float32),
                 ranges=TimedPointCloud(positions=r.positions, times=r.times, mask=r.mask), width=data.width))
     mb.pose_graph.wait_for_all_computations()
     return dict(chip_smoke.slam_result(mb.pose_graph), seconds=time.perf_counter() - t0)
@@ -127,7 +142,7 @@ def run_slam_2d(sync: bool = False, grid_type=None, storage=None) -> dict:
     for t, _, odom, cloud in scans:
         tb.add_odometry_data(t, NpRigid3(odom.t, odom.q))
         tb.add_range_data(TimedPointCloudData(
-            time=jnp.asarray(t), origin=jnp.zeros(3, jnp.float32),
+            time=scan_time(t), origin=jnp.zeros(3, jnp.float32),
             ranges=TimedPointCloud(positions=cloud.positions, times=cloud.times, mask=cloud.mask)))
     mb.pose_graph.wait_for_all_computations()
     return dict(chip_smoke.slam2d_result(mb.pose_graph, scans), seconds=time.perf_counter() - t0)
@@ -155,7 +170,7 @@ def front_end_2d_errors(grid_type=None, storage=None) -> dict:
     for t, pose, odom, cloud in scans:
         builder.add_odometry_data(t, NpRigid3(odom.t, odom.q))
         result = builder.add_range_data(TimedPointCloudData(
-            time=jnp.asarray(t), origin=jnp.zeros(3, jnp.float32),
+            time=scan_time(t), origin=jnp.zeros(3, jnp.float32),
             ranges=TimedPointCloud(positions=cloud.positions, times=cloud.times, mask=cloud.mask)))
         truth = anchor.inverse().compose(pose)
         t_err = max(t_err, float(np.linalg.norm(result.local_pose.t[:2] - truth.t[:2])))
@@ -203,7 +218,7 @@ def ct_front_end_errors(per_point: bool, direct: bool, n_scans: int) -> dict:
             data = payload[0]
             r = data.ranges
             result = builder.add_range_data(TimedPointCloudData(
-                time=jnp.asarray(data.time), origin=jnp.zeros(3, jnp.float32),
+                time=scan_time(data.time), origin=jnp.zeros(3, jnp.float32),
                 ranges=TimedPointCloud(positions=r.positions, times=r.times, mask=r.mask), width=data.width))
             if result is not None:
                 n_results += 1
@@ -236,12 +251,9 @@ def serve_errors() -> None:
             elif kind == "odometry":
                 builder.add_odometry_data(payload[0], NpRigid3(payload[1].t, payload[1].q))
             else:
-                # The scan time as the port receives it, a float64: a float32
-                # 0.45 is below initialization_duration's 0.45, which would
-                # end the initialization a scan later than the port does.
                 r = payload.ranges
                 result = builder.add_range_data(TimedPointCloudData(
-                    time=payload.time, origin=jnp.zeros(3, jnp.float32),
+                    time=scan_time(payload.time), origin=jnp.zeros(3, jnp.float32),
                     ranges=TimedPointCloud(positions=r.positions, times=r.times, mask=r.mask), width=payload.width))
                 if result is not None:
                     n_results += 1
@@ -341,7 +353,7 @@ def run_slam_2d_back_end() -> dict:
         tb.add_odometry_data(t, NpRigid3(odom.t, odom.q))
         port.add_odometry_data(0, t, odom)
         tb.add_range_data(TimedPointCloudData(
-            time=jnp.asarray(t), origin=jnp.zeros(3, jnp.float32),
+            time=scan_time(t), origin=jnp.zeros(3, jnp.float32),
             ranges=TimedPointCloud(positions=cloud.positions, times=cloud.times, mask=cloud.mask)))
     j, p = inter(jpg), inter(port)
     common = [k for k in j if k in p]
@@ -380,6 +392,8 @@ def main() -> int:
     parser.add_argument("--runs", type=int, default=2)
     parser.add_argument("--ct-drift", action="store_true",
                         help="the CT front end's drift on either grid type instead (ROADMAP C15)")
+    parser.add_argument("--per-scan", action="store_true",
+                        help="with --ct-drift: chip_smoke's CT drive with per-scan residuals (phase 9)")
     parser.add_argument("--per-point", action="store_true",
                         help="with --ct-drift: chip_smoke's CT drive with per-point unwarping (phase 17)")
     parser.add_argument("--direct", action="store_true",
@@ -414,7 +428,7 @@ def main() -> int:
             print(json.dumps(dict(out, slam_2d=True, port=opts.port, sync=opts.sync, grid_type=opts.grid_type,
                                   storage=opts.storage)), flush=True)
         return 0
-    if opts.ct_drift and (opts.per_point or opts.direct):
+    if opts.ct_drift and (opts.per_scan or opts.per_point or opts.direct):
         n = opts.scans or (chip_smoke.CT18_SCANS if opts.direct else chip_smoke.CT_SCANS)
         print(json.dumps(ct_front_end_errors(opts.per_point, opts.direct, n)), flush=True)
         return 0

@@ -4,7 +4,10 @@ local_slam_result), as tests/test_cloud.py holds the JAX package's: SLAM
 through the RPC stack, state write and load through RPC, streaming local
 SLAM results, the query and lifecycle RPCs, malformed payloads against
 every handler, the wire's caps and whitelist, 2D uplink federation; and
-the port's server against the JAX server on the same items.
+the port's server against the JAX server on the same items. Then the
+solver plane in one process: its ops over loopback gRPC, the wire's SPA
+problems, a follower's error on the leader's next call, and strict
+sequence order.
 
 Options are tests/test_cloud.py's small 2D ones (512^2 submaps of 8
 scans, manual optimization). The wire whitelists numpy and the port's own
@@ -39,6 +42,7 @@ from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.sensor.types import TimedPointCloud, TimedPointCloudData, pad_timed_cloud
 from hectorgrapher_tpu_torch.transform import np_quat as nq
 from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
+from hectorgrapher_tpu_torch.transform.rigid import Rigid2
 
 CPU = torch.device("cpu")
 
@@ -420,3 +424,127 @@ class TestWireHardening:
             wire.loads(pickle.dumps(deep))
         out = wire.loads(wire.dumps({"a": np.arange(10)}))
         np.testing.assert_array_equal(out["a"], np.arange(10))
+
+
+# ---------------------------------------------------------------------------
+# The solver plane (cloud/solver_plane.py) over loopback gRPC
+# ---------------------------------------------------------------------------
+
+
+def _numpy_spa_2d(seed=1):
+    from hectorgrapher_tpu_torch.evaluation.graph_generator import make_scale_spa_problem_2d
+    from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import SpaProblem2D
+
+    problem, _, _ = make_scale_spa_problem_2d(40, 4, 120, noise=0.3, seed=seed, device="cpu")
+    return SpaProblem2D(*(t.numpy() for t in problem))
+
+
+@pytest.fixture
+def plane():
+    """A follower on a local 2-shard cpu mesh and a leader with stats,
+    over loopback gRPC."""
+    from hectorgrapher_tpu_torch.cloud.solver_plane import SolverPlaneFollower, SolverPlaneLeader
+    from hectorgrapher_tpu_torch.parallel.mesh import Mesh
+
+    follower = SolverPlaneFollower("127.0.0.1:0", mesh=Mesh(["cpu", "cpu"]), seq_timeout_s=30.0).start()
+    leader = SolverPlaneLeader([f"127.0.0.1:{follower.port}"], collect_stats=True, wait_timeout_s=60.0)
+    yield follower, leader
+    leader.shutdown()
+    assert follower.wait_for_shutdown(timeout=30)
+
+
+def test_solver_plane_ops_over_loopback(plane):
+    """The leader ships spa2d, cs2d_pack and cs2d (and a second pack
+    that drops a submap); the follower runs them in order over its mesh,
+    its pack holding exactly the leader's arrays in the leader's order,
+    its solve the leader's local result; the stats count each op's bytes
+    and acknowledgements."""
+    from hectorgrapher_tpu_torch.mapping.scan_matching.fast_correlative_2d import make_fast_search_config
+    from hectorgrapher_tpu_torch.parallel import constraint_search as tcs
+    from hectorgrapher_tpu_torch.parallel.mesh import Mesh
+
+    follower, leader = plane
+    rng = np.random.default_rng(3)
+    levels = {sid: rng.uniform(0, 0.8, (2, 33, 32)).astype(np.float32) for sid in (4, 7, 9)}
+    for lv in levels.values():
+        lv[:, 32] = 0.0  # each block's last row is zero
+    corners = {sid: np.array([-0.8, -0.8], np.float32) for sid in levels}
+    config = make_fast_search_config(0.1, 0.05, 0.05, 4.0, 2)
+    assert config.depth == 2
+    leader("spa2d", (_numpy_spa_2d(), 10))
+    leader("cs2d_pack", {"depth": 2, "order": [4, 7, 9], "new": {s: {"levels": levels[s], "mc": corners[s]}
+                                                                  for s in levels}, "res": 0.05, "dims": (32, 32)},
+           wait=True)
+    st = follower._state.pack2d[2]
+    assert st.order == [4, 7, 9] and st.packed.count == 3 and st.packed.s_per_dev == 2
+    want = torch.from_numpy(np.concatenate([levels[4], levels[7]]).reshape(-1, 32))
+    assert torch.equal(st.packed.shards[0].levels, want)
+    pts = rng.uniform(-0.5, 0.5, (64, 3)).astype(np.float32)
+    pts[:, 2] = 0
+    cloud = types_point_cloud(pts)
+    candidates = [(slot, cloud, Rigid2(np.zeros(2, np.float32), np.float32(0.0))) for slot in (0, 2, 1)]
+    arrays, rows = tcs.build_candidate_arrays_2d(candidates, Mesh(["cpu", "cpu"]), st.packed.s_per_dev)
+    leader("cs2d", {"depth": 2, "arrays": arrays, "config": tuple(config)})
+    leader("cs2d_pack", {"depth": 2, "order": [4, 9], "new": {}, "res": 0.05, "dims": (32, 32)}, wait=True)
+    assert st.order == [4, 9] and set(st.host) == {4, 9} and st.packed.count == 2
+    assert follower.executed == ["spa2d", "cs2d_pack", "cs2d", "cs2d_pack"]
+    assert {op: s["count"] for op, s in leader.stats.items()} == {"spa2d": 1, "cs2d_pack": 2, "cs2d": 1}
+    assert all(s["bytes"] > 0 and len(s["ack_ms"]) == s["count"] for s in leader.stats.values())
+    assert list(rows) == [0, 2, 1]  # slots 0 and 1 on shard 0, slot 2 on shard 1: c_max 2
+
+
+def types_point_cloud(pts):
+    from hectorgrapher_tpu_torch.sensor.types import PointCloud
+
+    return PointCloud(torch.from_numpy(pts), torch.ones(len(pts), dtype=torch.bool))
+
+
+def test_wire_takes_numpy_spa_problems_and_refuses_tensors():
+    """The solver plane's SPA problems cross the wire with numpy leaves;
+    one with a tensor leaf is refused."""
+    from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import SpaProblem2D, SpaProblem3D
+
+    problem = _numpy_spa_2d()
+    out = wire.loads(wire.dumps(("spa2d", 0, (problem, 10))))
+    assert isinstance(out[2][0], SpaProblem2D)
+    assert all(np.array_equal(a, b) for a, b in zip(out[2][0], problem))
+    p3 = SpaProblem3D(*(np.zeros((2, 3), np.float32) for _ in SpaProblem3D._fields))
+    assert isinstance(wire.loads(wire.dumps(p3)), SpaProblem3D)
+    with pytest.raises(wire.WirePayloadError):
+        wire.loads(pickle.dumps(problem._replace(node_pose=torch.from_numpy(problem.node_pose))))
+
+
+def test_solver_plane_follower_error_raised_on_next_call(plane):
+    """An op with wait=True that fails on the follower (a round with no
+    pack at its depth) raises at once; a failure of an op sent without
+    waiting (an unknown op) is logged there and raised on the leader's
+    next call, and on every call after it: the mesh is broken."""
+    follower, leader = plane
+    with pytest.raises(RuntimeError, match="follower failed on cs2d"):
+        leader("cs2d", {"depth": 3, "arrays": {}, "config": ()}, wait=True)
+    leader("no_such_op", None)
+    deadline = time.monotonic() + 30
+    while not all(f.done() for f in leader._pending) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="(?s)follower failed: .*no_such_op"):
+            leader("spa2d", (_numpy_spa_2d(), 5))
+    assert follower.executed == []
+
+
+def test_solver_plane_follower_runs_ops_in_sequence_order(plane):
+    """Ops that reach the follower out of order run in the leader's
+    sequence: op 1 waits for op 0."""
+    follower, _ = plane
+    channel = grpc.insecure_channel(f"127.0.0.1:{follower.port}")
+    call = channel.unary_unary("/hectorgrapher.SolverPlane/Execute", request_serializer=wire.dumps,
+                               response_deserializer=wire.loads)
+    problem = _numpy_spa_2d()
+    later = threading.Thread(target=lambda: call(("spa2d", 1, (problem, 3)), timeout=30))
+    later.start()
+    time.sleep(0.3)
+    assert follower.executed == []  # seq 1 waits for seq 0
+    assert call(("spa2d", 0, (problem, 2)), timeout=30) is True
+    later.join(timeout=30)
+    assert not later.is_alive() and follower.executed == ["spa2d", "spa2d"] and follower._next_seq == 2
+    channel.close()

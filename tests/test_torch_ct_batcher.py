@@ -7,7 +7,7 @@ server's and the JAX package's batch_ct_windows server's on the same
 items, per scan and per point. Then the batcher alone: the batch key
 sends windows of other grid shapes or types to their own group or to the
 serial path, a failed batched solve reaches its workers, fail_pending
-wakes blocked workers, and mesh= raises.
+wakes blocked workers, and a 2-shard mesh= gives the unsharded results.
 
 Options: tests/test_ct_batcher.py's small ones (48^3 / 24^3 TSDF, K = C
 = 8, P = 128, 6 LM iterations, constraint rounds and SPA running beside
@@ -34,6 +34,7 @@ from hectorgrapher_tpu_torch.evaluation.scan_generator import raycast_box_room_3
 from hectorgrapher_tpu_torch.mapping.grids import make_probability_grid, make_tsdf_grid
 from hectorgrapher_tpu_torch.mapping.map_builder import MapBuilder
 from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import prepare_grid_3d
+from hectorgrapher_tpu_torch.parallel.mesh import Mesh
 from hectorgrapher_tpu_torch.sensor.types import TimedPointCloudData, pad_timed_cloud
 from hectorgrapher_tpu_torch.transform import np_quat as nq
 from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3
@@ -80,12 +81,14 @@ def sensor_items(trajectory_id, duration=DURATION):
     return items
 
 
-def run_server(batch, per_point, n_traj=3, record=None):
+def run_server(batch, per_point, n_traj=3, record=None, ct_mesh=None):
     """The items of n_traj trajectories, round-robin on the sensor queue
     (their windows become ready together), through a server; returns the
     server and each trajectory's (time, local pose) results. With `record`,
-    the first flushed batch's pending solves are appended to it."""
-    srv = MapBuilderServerCore(MapBuilder(make_options(per_point), device=CPU), batch_ct_windows=batch)
+    the first flushed batch's pending solves are appended to it; ct_mesh
+    shards the batched solves."""
+    srv = MapBuilderServerCore(MapBuilder(make_options(per_point), device=CPU), batch_ct_windows=batch,
+                               ct_mesh=ct_mesh)
     if record is not None:
         flush = srv.ct_batcher._flush
 
@@ -279,9 +282,38 @@ def test_fail_pending_wakes_blocked_workers(served):
         b._solve(p)
 
 
-def test_mesh_raises():
-    """The sharded batched solve is the distribution slice's (ROADMAP A6b)."""
-    with pytest.raises(NotImplementedError, match="A6b"):
-        CtWindowBatcher(mesh=object())
-    with pytest.raises(NotImplementedError, match="A6b"):
-        MapBuilderServerCore(MapBuilder(make_options(False), device=CPU), batch_ct_windows=True, ct_mesh=object())
+def test_mesh_raises(served):
+    """(The name is kept from when mesh= raised.) A batcher with a 2-shard
+    mesh solves the first served batch of three windows padded to four
+    lanes, one batched assembly a shard, and each window gets the
+    unsharded batched solve's state within 1e-5 (each lane's own LM steps,
+    up to the batched linear solve's rounding); a server with ct_mesh on 2
+    shards gives the unsharded batched server's result times, and poses
+    within 1e-4 (test_batched_server_matches_serial's tolerance)."""
+    pending = served["pending"]
+    assert len(pending) == 3
+
+    def solve(batcher):
+        entries = [{"pending": p, "event": threading.Event(), "solved": None, "error": None} for p in pending]
+        batcher._solve_batched(entries)
+        return [e["solved"] for e in entries]
+
+    before = batcher_mod.window_solver.solve_ct_window_batched.assemblies
+    want = solve(CtWindowBatcher())
+    per_solve = batcher_mod.window_solver.solve_ct_window_batched.assemblies - before
+    sharded = CtWindowBatcher(mesh=Mesh([CPU, CPU]))
+    got = solve(sharded)
+    assert batcher_mod.window_solver.solve_ct_window_batched.assemblies - before - per_solve == 2 * per_solve
+    assert sharded.batch_sizes == [3]
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
+    srv, res = run_server(True, served["per_point"], ct_mesh=Mesh([CPU, CPU]))
+    _, res_b = served["batched"]
+    assert srv.ct_batcher._mesh is not None and srv.ct_batcher.batched_launches > 0
+    assert set(res) == set(res_b)
+    for tid in res:
+        assert [t for t, _ in res[tid]] == [t for t, _ in res_b[tid]]
+        for (_, p), (_, pb) in zip(res[tid], res_b[tid]):
+            np.testing.assert_allclose(p.t, pb.t, rtol=0, atol=1e-4)
+            assert nq.quat_angle(nq.quat_multiply(nq.quat_conjugate(pb.q), p.q)) < 1e-4

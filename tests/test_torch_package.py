@@ -1,6 +1,8 @@
 """Package-level guards of hectorgrapher_tpu_torch: it runs without JAX (the
-2D front end and the CT 3D front end, window solve included), and
-chip_smoke.py refuses to run without a CUDA card (no CPU fallback)."""
+2D front end and the CT 3D front end, window solve included), its serving
+and distribution layers import without JAX (and without grpc until a
+transport is built), and chip_smoke.py refuses to run without a CUDA card
+(no CPU fallback)."""
 
 import os
 import shutil
@@ -144,8 +146,43 @@ def test_cloud_and_io_import_without_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     for name in ("cloud.wire", "cloud.ct_batcher", "cloud.local_slam_result", "cloud.server", "cloud.uploader",
-                 "cloud.client", "io.serialization", "io.protowire", "io.pbstream", "io.pbstream_state"):
+                 "cloud.client", "cloud.solver_plane", "io.serialization", "io.protowire", "io.pbstream", "io.pbstream_state"):
         assert f"hectorgrapher_tpu_torch.{name}'" in proc.stdout, name
+    assert "LEAKED []" in proc.stdout, proc.stdout
+
+
+_DISTRIBUTION_IMPORTS = """
+import importlib, pkgutil, sys
+sys.modules["grpc"] = None  # an import of grpc raises ImportError
+import hectorgrapher_tpu_torch.parallel as parallel
+names = [f"parallel.{m.name}" for m in pkgutil.iter_modules(parallel.__path__)] + ["cloud.solver_plane"]
+for name in names:
+    importlib.import_module("hectorgrapher_tpu_torch." + name)
+print("MODULES", sorted(names))
+from hectorgrapher_tpu_torch.cloud.solver_plane import SolverPlaneFollower, SolverPlaneLeader
+for cls, args in ((SolverPlaneFollower, ()), (SolverPlaneLeader, ([],))):
+    try:
+        cls(*args)
+    except ImportError:
+        print("GRPC_AT_CONSTRUCTION", cls.__name__)
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.") or m == "hectorgrapher_tpu" or m.startswith("hectorgrapher_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def test_distribution_imports_without_jax_and_grpc():
+    """Every module of hectorgrapher_tpu_torch.parallel and the solver
+    plane import with grpc blocked and pull in neither jax nor the JAX
+    package; the leader and the follower import grpc when constructed."""
+    proc = subprocess.run([sys.executable, "-c", _DISTRIBUTION_IMPORTS], cwd=REPO, env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    for name in ("parallel.mesh", "parallel.multihost", "parallel.sharded", "parallel.ct_windows",
+                 "parallel.constraint_search", "cloud.solver_plane"):
+        assert f"'{name}'" in proc.stdout, name
+    assert "GRPC_AT_CONSTRUCTION SolverPlaneFollower" in proc.stdout
+    assert "GRPC_AT_CONSTRUCTION SolverPlaneLeader" in proc.stdout
     assert "LEAKED []" in proc.stdout, proc.stdout
 
 

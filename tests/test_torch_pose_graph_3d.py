@@ -45,6 +45,7 @@ from hectorgrapher_tpu_torch.mapping.map_builder import MapBuilder
 from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import PgNode as TPgNode
 from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import PoseGraph3D
 from hectorgrapher_tpu_torch.mapping.scan_matching import fast_correlative_3d as tfc
+from hectorgrapher_tpu_torch.parallel.mesh import Mesh
 from hectorgrapher_tpu_torch.sensor import types as ttypes
 from hectorgrapher_tpu_torch.transform.np_quat import NpRigid3 as TNpRigid3
 from test_map_builder_3d import make_options
@@ -201,8 +202,11 @@ def test_pose_graph_refuses_unported_paths():
     pg.wait_for_all_computations()
     pg = PoseGraph3D(opts, device="cpu")
     assert pg.batched_fallbacks == 0
-    with pytest.raises(NotImplementedError):
-        pg.set_solver_mesh(object())
+    # A solver mesh (ROADMAP A6b, done): a local one is taken, None reverts.
+    pg.set_solver_mesh(Mesh(["cpu", "cpu"]))
+    assert pg._solver_mesh is not None
+    pg.set_solver_mesh(None)
+    assert pg._solver_mesh is None
     # The 2D pipeline takes TSDF grids and uint16 / half storage (ROADMAP
     # A5b, done); half probability grids raise the JAX package's ValueError.
     for override in ({"trajectory_builder_2d.submaps.grid_options_2d.grid_type": "TSDF"},
