@@ -1,6 +1,6 @@
 """Typed configuration tree.
 
-TPU-native replacement for the reference's Lua -> LuaParameterDictionary ->
+Replacement for the reference's Lua -> LuaParameterDictionary ->
 option-proto pipeline (ref: cartographer/common/lua_parameter_dictionary.h,
 configuration_files/*.lua). Parameter names and defaults mirror the Lua
 files one-to-one so reference configurations translate directly; the loader
@@ -9,10 +9,11 @@ reports unknown keys, mirroring the reference's unused-key checking
 (lua_parameter_dictionary.h:120).
 
 All classes are frozen dataclasses; `replace_deep(cfg, {"a.b": v})` or
-`from_dict` produce modified copies.
+`from_dict` produce modified copies; common/lua_config.py loads them from
+the reference's Lua files.
 
-Counterpart of hectorgrapher_tpu/common/config.py: the 2D and 3D
-trajectory builders' options, with the same field names and defaults.
+Counterpart of hectorgrapher_tpu/common/config.py: the same classes, field
+names and defaults, and the same merge, from_dict and to_dict.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass, field, fields, is_dataclass
+import typing
 from typing import Any, Dict, Mapping, Optional
 
 
@@ -255,7 +257,8 @@ class SubmapsOptions3D:
     # Cells per side of the dense high/low-resolution grids.
     high_grid_size: int = 256
     low_grid_size: int = 128
-    # Storage precision of the dense grids; the port stores float32 only.
+    # Storage of the dense grids: "float32", "float16" or "bfloat16" (TSDF
+    # only), or "uint16" (quantized on finish); compute is always float32.
     grid_storage_dtype: str = "float32"
 
 
@@ -438,8 +441,9 @@ class PoseGraphOptions:
     # pose_graph_3d.cc AddWorkItem:162-177, DrainWorkQueue:512-535);
     # False runs them inline, deterministically.
     async_work_queue: bool = True
-    # The JAX package's one-launch batched constraint search; the port has
-    # only the serial search and refuses True (PoseGraph3D).
+    # Search a work-queue round's candidates at once: one K4 / K5 launch a
+    # pyramid level and one packed GN refinement for the round
+    # (parallel/constraint_search.py); False searches them one by one.
     use_batched_constraint_search: bool = True
     constraint_builder: ConstraintBuilderOptions = _mkdefault(ConstraintBuilderOptions)
     matcher_translation_weight: float = 5e2
@@ -473,27 +477,54 @@ class MapBuilderOptions:
 
 def from_dict(cls, data: Mapping[str, Any]):
     """Build a config dataclass from a nested dict; unknown keys raise
-    (mirrors the reference's unused-key check)."""
+    (mirrors the reference's unused-key check). A nested Mapping needs a
+    dataclass default to merge into: an Optional field left at None raises
+    TypeError here (merge builds it)."""
     if not is_dataclass(cls):
         raise TypeError(f"{cls} is not a config dataclass")
-    return merge(cls(), data)
+    known = {f.name: f for f in fields(cls)}
+    kwargs: Dict[str, Any] = {}
+    for key, value in data.items():
+        if key not in known:
+            raise KeyError(f"unknown config key {key!r} for {cls.__name__}")
+        if isinstance(value, Mapping):
+            f = known[key]
+            sub_default = f.default_factory() if f.default_factory is not dataclasses.MISSING else f.default
+            if not is_dataclass(sub_default):
+                raise TypeError(f"config key {key!r} of {cls.__name__} is not a nested config")
+            kwargs[key] = merge(sub_default, value)
+        else:
+            kwargs[key] = value
+    return dataclasses.replace(cls(), **kwargs)
 
 
 def merge(cfg, overrides: Mapping[str, Any]):
-    """Return cfg with nested overrides from a dict applied."""
+    """Return cfg with nested overrides from a dict applied. A Mapping for
+    an Optional[dataclass] field left at None builds that dataclass, so its
+    unknown keys still raise; a Mapping for any other field is stored as
+    given."""
     kwargs: Dict[str, Any] = {}
     names = {f.name for f in fields(cfg)}
     for key, value in overrides.items():
         if key not in names:
             raise KeyError(f"unknown config key {key!r} for {type(cfg).__name__}")
         current = getattr(cfg, key)
-        if isinstance(value, Mapping):
-            if not is_dataclass(current):
-                raise TypeError(f"config key {key!r} of {type(cfg).__name__} is not a nested config")
+        if isinstance(value, Mapping) and is_dataclass(current):
             kwargs[key] = merge(current, value)
+        elif isinstance(value, Mapping) and current is None:
+            sub_cls = _optional_dataclass_type(typing.get_type_hints(type(cfg))[key])
+            kwargs[key] = value if sub_cls is None else merge(sub_cls(), value)
         else:
             kwargs[key] = value
     return dataclasses.replace(cfg, **kwargs)
+
+
+def _optional_dataclass_type(annotation):
+    """The dataclass X of an Optional[X] or X annotation, else None."""
+    if typing.get_origin(annotation) is typing.Union:
+        args = [a for a in typing.get_args(annotation) if a is not type(None)]
+        annotation = args[0] if len(args) == 1 else None
+    return annotation if is_dataclass(annotation) else None
 
 
 def replace_deep(cfg, dotted: Mapping[str, Any]):
@@ -506,3 +537,8 @@ def replace_deep(cfg, dotted: Mapping[str, Any]):
             cursor = cursor.setdefault(part, {})
         cursor[parts[-1]] = value
     return merge(cfg, nested)
+
+
+def to_dict(cfg) -> Dict[str, Any]:
+    """The config as nested plain dicts (dataclasses.asdict)."""
+    return dataclasses.asdict(cfg)

@@ -59,6 +59,19 @@ the max translation and yaw errors that chip_smoke.py holds phases 9, 17
 and 18 to (JAX_CT_*, JAX_CT17_*, JAX_CT18_*). Each run takes about a
 minute and ~2 GiB.
 
+    JAX_PLATFORMS=cpu python tests/jax_slam_reference.py --classic-3d [--correlative] [--grids 192 96]
+
+runs chip_smoke.py's phase 25 drive (chip_smoke.classic_drive: CLASSIC_SCANS
+scans of the CT_ROOM box room, tests/test_local_3d_classic.py's straight
+drive) through the JAX LocalTrajectoryBuilder3D at chip_smoke.
+classic_overrides (the default options; --correlative turns the online
+correlative search on, --grids sets the high and low grid sizes), and prints
+its result count, max translation error and relative-motion error: the
+JAX_CLASSIC25A (~25 s) and JAX_CLASSIC25B_CUT (--correlative --grids 192 96,
+~4 min, ~6 GiB) constants. With the correlative search the JAX package
+builds an (n + 4)^3 x 125 table on every scan, 8.8 GB at the default
+256^3, so 25b's constant is taken at 192^3 / 96^3.
+
 Every drive feeds the JAX package its scan times as float64, as the port
 gets them (scan_time).
 
@@ -226,6 +239,35 @@ def ct_front_end_errors(per_point: bool, direct: bool, n_scans: int) -> dict:
                 t_err, y_err = max(t_err, e_t), max(y_err, e_y)
     return dict(per_point=per_point, direct=direct, scans=n_scans, results=n_results, solves=builder.num_optimizations,
                 max_translation_error=t_err, max_yaw_error=y_err, seconds=time.perf_counter() - t0)
+
+
+def classic_3d_errors(correlative: bool, grids) -> dict:
+    """Phase 25: chip_smoke.classic_drive through the JAX classic 3D builder
+    at chip_smoke.classic_overrides(correlative, grids)."""
+    from hectorgrapher_tpu.common.config import TrajectoryBuilder3DOptions
+    from hectorgrapher_tpu.mapping.local_3d import LocalTrajectoryBuilder3D
+
+    builder = LocalTrajectoryBuilder3D(
+        replace_deep(TrajectoryBuilder3DOptions(), chip_smoke.classic_overrides(correlative, grids)))
+    t0 = time.perf_counter()
+    results = []
+    for kind, t, *payload in chip_smoke.classic_drive():
+        if kind == "imu":
+            builder.add_imu_data(t, *payload)
+        elif kind == "odom":
+            builder.add_odometry_data(t, NpRigid3(payload[0].t, payload[0].q))
+        else:
+            data = payload[0]
+            r = data.ranges
+            result = builder.add_range_data(TimedPointCloudData(
+                time=scan_time(data.time), origin=jnp.zeros(3, jnp.float32),
+                ranges=TimedPointCloud(positions=r.positions, times=r.times, mask=r.mask), width=data.width))
+            if result is not None:
+                results.append(result)
+    max_error, relative = chip_smoke.classic_errors(results)
+    return dict(classic_3d=True, correlative=correlative, grids=grids, scans=chip_smoke.CLASSIC_SCANS,
+                results=len(results), max_translation_error=max_error, relative_motion_error=relative,
+                seconds=time.perf_counter() - t0)
 
 
 def serve_errors() -> None:
@@ -409,7 +451,16 @@ def main() -> int:
     parser.add_argument("--sync", action="store_true", help="with --slam-2d: the async work queue off")
     parser.add_argument("--back-end", action="store_true",
                         help="with --slam-2d: the port's PoseGraph2D fed the JAX front end's nodes (run_slam_2d_back_end)")
+    parser.add_argument("--classic-3d", action="store_true",
+                        help="chip_smoke.py's phase 25 instead: the classic 3D builder's errors")
+    parser.add_argument("--correlative", action="store_true",
+                        help="with --classic-3d: the online correlative search on (phase 25b)")
+    parser.add_argument("--grids", type=int, nargs=2, default=None, metavar=("HIGH", "LOW"),
+                        help="with --classic-3d: the high and low grid sizes")
     opts = parser.parse_args()
+    if opts.classic_3d:
+        print(json.dumps(classic_3d_errors(opts.correlative, opts.grids)), flush=True)
+        return 0
     if opts.serve:
         serve_errors()
         return 0
