@@ -50,6 +50,11 @@ bf16 volumes, and probability; phase 7), K5 at phase
 20's round, a full-submap search, a round over four packed submaps and
 synthetic calls on that pack that reach each of its instances with edge
 rows (no valid point, all valid, the last slots only, shared rows).
+Last, the command-line tools over recorded data (phase 26): a bag shaped
+like the DRZ sequences through `mapping-evaluation --use_3d` and 60 PLY
+scans through the 2D one (K1-K5 launched through the CLI, errors against
+the JAX CLI's on the same bytes), the state tools on the bag run's state,
+and `map-builder-server` as a child process serving the bag.
 Each phase prints one line; any failure exits non-zero before the last
 line. The second-to-last line is a JSON record of the kernels, the last
 line a JSON record of the device.
@@ -69,14 +74,20 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import hashlib
+import io
 import json
 import math
 import os
+import signal
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -859,8 +870,8 @@ CT_PARITY_TRANSLATION, CT_PARITY_YAW = 0.1, 0.01
 # scan times): max translation and yaw errors. The port must stay within
 # max(2x, +0.05 m) and max(2x, +0.01 rad) of them.
 JAX_CT17_TRANSLATION_ERROR, JAX_CT17_YAW_ERROR = 0.55603, 0.02181
-JAX_CT18_TRANSLATION_ERROR, JAX_CT18_YAW_ERROR = 0.20988, 0.02222
-CT18_SCANS = 40  # phase 18 (DIRECT: ~0.7 s a scan on the card) drives the first 4 s
+JAX_CT18_TRANSLATION_ERROR, JAX_CT18_YAW_ERROR = 0.11492, 0.02195
+CT18_SCANS = 30  # phase 18 (DIRECT: ~0.6 s a scan on the card) drives the first 3 s
 
 
 def ct_production_grids(device, dtype=torch.float32, n_scans=3):
@@ -1923,41 +1934,39 @@ def measure_fast_scores(label, a, out, want):
 
 
 SLAM_ANCHOR = np.array([-2.6, -2.0, 0.0])  # phase 11's start, world frame
-SLAM_SPEED, SLAM_REST, SLAM_OUT = 0.8, 0.6, 3.0  # m/s, s at rest, m out (and back)
+SLAM_SPEED, SLAM_REST, SLAM_OUT = 0.8, 0.6, 2.2  # m/s, s at rest, m out (and back): a 6.1 s drive
 # The JAX package's MapBuilder on a CPU over the same drive and options
 # (async work queue, serial constraint search), two runs of
 # tests/jax_slam_reference.py (float64 scan times, as the port gets them):
-# 70 nodes, 9 submaps (7 finished), 277 and 250 INTER constraints; the
-# returning tail's max local error 0.30263 m both times, its max global
-# error 0.04886 / 0.04818 m, the median global error 0.03149 / 0.03622
-# m, the max global error 0.16656 / 0.17234 m (the worker thread's timing
+# 50 nodes, 7 submaps (5 finished), 118 and 107 INTER constraints; the
+# returning tail's max local error 0.29587 m both times, its max global
+# error 0.04686 / 0.04257 m, the median global error 0.04632 / 0.03556
+# m, the max global error 0.20775 / 0.16621 m (the worker thread's timing
 # against the front end changes the solves' starting poses). The
 # constants are the larger of each pair; the port must stay within twice
 # each, or 0.05 m above it.
-JAX_SLAM_LATE_GLOBAL, JAX_SLAM_MEDIAN_GLOBAL, JAX_SLAM_MAX_GLOBAL = 0.04886, 0.03622, 0.17234
+JAX_SLAM_LATE_GLOBAL, JAX_SLAM_MEDIAN_GLOBAL, JAX_SLAM_MAX_GLOBAL = 0.04686, 0.04632, 0.20775
 # Phase 12's: the same drive with the batched constraint search, two runs
-# of tests/jax_slam_reference.py --batched on a CPU: 70 nodes, 9 submaps (7
-# finished), 289 and 253 INTER constraints; the tail's local error 0.30263
-# m both times, its global error 0.03375 / 0.05857 m, the median global
-# error 0.02887 / 0.03852 m, the max 0.16108 / 0.17857 m. The larger of
-# each pair.
-JAX_SLAM12_LATE_GLOBAL, JAX_SLAM12_MEDIAN_GLOBAL, JAX_SLAM12_MAX_GLOBAL = 0.05857, 0.03852, 0.17857
+# of tests/jax_slam_reference.py --batched on a CPU: 50 nodes, 7 submaps (5
+# finished), 113 INTER constraints both times; the tail's local error
+# 0.29587 m both times, its global error 0.03765 / 0.03826 m, the median
+# global error 0.04196 / 0.03639 m, the max 0.17290 / 0.16654 m. The
+# larger of each pair.
+JAX_SLAM12_LATE_GLOBAL, JAX_SLAM12_MEDIAN_GLOBAL, JAX_SLAM12_MAX_GLOBAL = 0.03826, 0.04196, 0.17290
 # Phase 13's: the same drive with the batched search on the default
 # PROBABILITY_GRID submaps, two runs of tests/jax_slam_reference.py
-# --batched --probability on a CPU: 70 nodes, 9 submaps (7 finished), 241
-# and 207 INTER constraints; the tail's local error 0.30263 m both times,
-# its global error 0.07911 / 0.07250 m (below half the local error: the
-# JAX run meets phase 11's loop-closure gate), the median global error
-# 0.05232 / 0.06104 m, the max 0.30267 / 0.29320 m (ROADMAP C15: above
-# the TSDF runs'). The larger of each pair.
-JAX_SLAM13_LATE_GLOBAL, JAX_SLAM13_MEDIAN_GLOBAL, JAX_SLAM13_MAX_GLOBAL = 0.07911, 0.06104, 0.30267
+# --batched --probability on a CPU: 50 nodes, 7 submaps (5 finished), 121
+# and 120 INTER constraints; the tail's local error 0.29587 m both times,
+# its global error 0.05294 / 0.03264 m, the median global error 0.04011 /
+# 0.02887 m, the max 0.21637 / 0.19074 m. The larger of each pair.
+JAX_SLAM13_LATE_GLOBAL, JAX_SLAM13_MEDIAN_GLOBAL, JAX_SLAM13_MAX_GLOBAL = 0.05294, 0.04011, 0.21637
 # Phase 14's: phase 12's drive and options with grid_storage_dtype
 # "float16", two runs of tests/jax_slam_reference.py --batched --storage
-# float16 on a CPU: 70 nodes, 9 submaps (7 finished), 285 and 259 INTER
-# constraints; the tail's local error 0.30263 m both times, its global
-# error 0.03225 / 0.04336 m, the median global error 0.02827 / 0.02928 m,
-# the max 0.15912 / 0.16458 m. The larger of each pair.
-JAX_SLAM14_LATE_GLOBAL, JAX_SLAM14_MEDIAN_GLOBAL, JAX_SLAM14_MAX_GLOBAL = 0.04336, 0.02928, 0.16458
+# float16 on a CPU: 50 nodes, 7 submaps (5 finished), 115 and 118 INTER
+# constraints; the tail's local error 0.29587 m both times, its global
+# error 0.04138 / 0.04262 m, the median global error 0.04281 / 0.03441 m,
+# the max 0.21424 / 0.15861 m. The larger of each pair.
+JAX_SLAM14_LATE_GLOBAL, JAX_SLAM14_MEDIAN_GLOBAL, JAX_SLAM14_MAX_GLOBAL = 0.04262, 0.04281, 0.21424
 ROUND_PARITY_ROUNDS = 3  # phase 12's rounds re-run through the serial path
 
 
@@ -3633,14 +3642,15 @@ def run_phase_23a(device, n_traj=SERVE_TRAJECTORIES, n_scans=SERVE_SCANS, option
 
 def _as_stored(plane):
     """A grid plane as a state file or payload gives it back: float planes
-    rounded through float16 into float32, uint16 codes as they are."""
-    return plane if plane.dtype == torch.uint16 else plane.to(torch.float16).to(torch.float32)
+    rounded through float16 into float32, uint16 codes and known masks as
+    they are."""
+    return plane if plane.dtype in (torch.uint16, torch.bool) else plane.to(torch.float16).to(torch.float32)
 
 
 def state_gaps(pg, loaded, remap):
     """The first difference between a served pose graph and its npz load
     (node poses, times, clouds, histograms; constraints; submap poses and
-    every grid plane as stored), or None."""
+    every grid plane as stored: TSDF or occupancy), or None."""
     if len(pg.nodes) != len(loaded.nodes) or len(pg.submaps) != len(loaded.submaps):
         return (f"{len(loaded.nodes)} nodes / {len(loaded.submaps)} submaps loaded of {len(pg.nodes)} / "
                 f"{len(pg.submaps)}")
@@ -3665,7 +3675,8 @@ def state_gaps(pg, loaded, remap):
             return f"submap {i}"
         for key in ("high_resolution_grid", "low_resolution_grid"):
             ga, gb = getattr(a.submap, key), getattr(b.submap, key)
-            if not (torch.equal(_as_stored(ga.tsd), gb.tsd) and torch.equal(_as_stored(ga.weight), gb.weight)
+            planes = ("tsd", "weight") if hasattr(ga, "tsd") else ("log_odds", "known")
+            if not (all(torch.equal(_as_stored(getattr(ga, p)), getattr(gb, p)) for p in planes)
                     and torch.equal(ga.meta.min_corner, gb.meta.min_corner)):
                 return f"submap {i} {key}"
     return None
@@ -4451,6 +4462,505 @@ def run_phase_25(device):
     return paths
 
 
+# Phase 26: the port's CLI (tools/cli.py) over recorded data. 26a writes a
+# bag shaped like the DRZ Living Lab sequences (tests/test_drz_rehearsal.py's
+# pattern at a 64-beam lidar's density in 512-column mode) and runs
+# mapping-evaluation --use_3d on it at phase 13's options; 26b writes phase
+# 6's 60 scans as a sequence directory of binary PLY files and runs the 2D
+# mapping-evaluation at phase 20's options; 26c runs the state tools on 26a's
+# state; 26d serves 26a's bag through map-builder-server in a child process.
+DRZ26_DURATION = 4.0  # s: 0.6 s at rest, then 3.4 s along +x: 40 scans at 10 Hz
+DRZ26_SPEED, DRZ26_REST = 0.25, 0.6  # m/s, s
+DRZ26_RAYS = (512, 64)  # azimuth columns x beams: 32,768 points a scan
+# tests/jax_slam_reference.py --drz-bag: the JAX CLI's mapping-evaluation
+# --use_3d on the same bag (its sha256) at the same options, on a CPU; two
+# runs: 30 nodes, 4 submaps, 80 constraints, ATE 0.0954 m both times.
+JAX_DRZ26_SHA256 = "399c1deca0a6a42e40a536f0572c45c28e0a1e01c523b04492ac784ece49b333"
+JAX_DRZ26_ATE = 0.0954
+# tests/jax_slam_reference.py --sequence-2d: the JAX CLI's 2D
+# mapping-evaluation on the same files (their sha256) at the same options;
+# two runs: 60 nodes, 5 submaps, 193 and 194 constraints, ATE 0.0082 and
+# 0.0081 m. The larger.
+JAX_SEQ26_SHA256 = "447705dfdbdd20299e6192ba89c73dd838b70afbd6b053f704e66461d1488441"
+JAX_SEQ26_ATE = 0.0082
+SERVER26_TIMEOUT_S = 120  # 26d: the server child's start, and its exit after SIGINT (30 s of it)
+
+
+def drz26_truth(t):
+    return np.array([DRZ26_SPEED * max(0.0, t - DRZ26_REST), 0.0, 0.0])
+
+
+def drz26_messages(rosbag_module, raycast=raycast_box_room_3d, duration=DRZ26_DURATION, rays=DRZ26_RAYS, seed=7):
+    """26a's bag as (topic, type, stamp, message bytes) in time order,
+    encoded by `rosbag_module` (the port's, or the JAX package's for the
+    reference run), and the mocap rows (time, x, y, z, qw, qx, qy, qz) at
+    the odometry's times: 100 Hz IMU (gravity), 20 Hz odometry with 2 mm
+    noise, 10 Hz organized PointCloud2 of `rays` (columns x beams) of the
+    default box room with 4 mm range noise, with intensity, ring and
+    per-point time fields; a point's time goes with its column over the
+    0.1 s sweep (-0.1 s to 0, the stamp the sweep's end), dropped rays at
+    the sensor origin (the range filter drops them)."""
+    gravity = np.array([0.0, 0.0, 9.80665])
+    n_az, n_el = rays
+    rng = np.random.default_rng(seed)
+    col = np.arange(n_az * n_el) % n_az
+    times = (col / (n_az - 1) * 0.1 - 0.1).astype(np.float32)
+    rings = (np.arange(n_az * n_el) // n_az).astype(np.uint16)
+    q = nq.quat_identity()
+    msgs, mocap = [], []
+    t, next_odom, next_scan = 0.0, 0.0, 0.05
+    while t <= duration:
+        pt = drz26_truth(t)
+        msgs.append(("/imu/data", "sensor_msgs/Imu", t, rosbag_module.encode_imu(t, gravity, np.zeros(3))))
+        if t >= next_odom:
+            msgs.append(("/odom", "nav_msgs/Odometry", t,
+                         rosbag_module.encode_odometry(t, NpRigid3(pt + rng.normal(0, 0.002, 3), q))))
+            mocap.append([t, *pt, *q])
+            next_odom += 0.05
+        if t >= next_scan:
+            pts = raycast(pt, q, num_azimuth=n_az, num_elevation=n_el, noise_std=0.004, rng=rng)
+            inten = rng.uniform(0, 100, len(pts)).astype(np.float32)
+            msgs.append(("/os_cloud_node/points", "sensor_msgs/PointCloud2", t, rosbag_module.encode_point_cloud2(
+                t, np.nan_to_num(pts, nan=0.0), width=n_az, times=times, rings=rings, intensities=inten)))
+            next_scan += 0.1
+        t = round(t + 0.01, 6)
+    return msgs, mocap
+
+
+def write_drz26_bag(path, rosbag_module, raycast=raycast_box_room_3d, **kw):
+    """Write 26a's bag to `path` (.bag) and its ground truth beside it
+    (<name>.mocap.csv); returns the bag's sha256."""
+    msgs, mocap = drz26_messages(rosbag_module, raycast, **kw)
+    rosbag_module.write_bag(path, msgs)
+    np.savetxt(path[: -len(".bag")] + ".mocap.csv", np.asarray(mocap), delimiter=",")
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def write_seq26_dir(path, write_ply):
+    """26b's sequence directory: phase 6's scans (circle_scans) as binary
+    PLY files named by their times (written by `write_ply`, the port's or
+    the JAX package's), its odometry 1 ms before each scan in
+    odometry.csv and the truth in mocap.csv. Returns the sha256 over the
+    files' names and bytes, in name order."""
+    os.makedirs(path, exist_ok=True)
+    odom_rows, mocap_rows = [], []
+    for t, pose, odom, cloud in circle_scans():
+        write_ply(os.path.join(path, f"scan_{t:0.3f}.ply"), cloud.positions[cloud.mask])
+        odom_rows.append([t - 0.001, *odom.t, *odom.q])
+        mocap_rows.append([t, *pose.t, *pose.q])
+    np.savetxt(os.path.join(path, "odometry.csv"), np.asarray(odom_rows), delimiter=",")
+    np.savetxt(os.path.join(path, "mocap.csv"), np.asarray(mocap_rows), delimiter=",")
+    digest = hashlib.sha256()
+    for name in sorted(os.listdir(path)):
+        digest.update(name.encode())
+        with open(os.path.join(path, name), "rb") as f:
+            digest.update(f.read())
+    return digest.hexdigest()
+
+
+def cli_overrides(overrides):
+    """replace_deep overrides as the CLI's --config_overrides key=json flags."""
+    return [a for k, v in overrides.items() for a in ("--config_overrides", f"{k}={json.dumps(v)}")]
+
+
+def drz26_argv(bag):
+    """26a's mapping-evaluation over the bag at phase 13's options."""
+    return ["mapping-evaluation", "--use_3d", "--sequence_dir", bag,
+            *cli_overrides(slam_overrides(batched=True, probability=True))]
+
+
+def seq26_argv(path):
+    """26b's 2D mapping-evaluation over the directory at phase 20's options."""
+    return ["mapping-evaluation", "--sequence_dir", path, *cli_overrides(slam2d_overrides())]
+
+
+def cli_ate(out):
+    """The ATE RMSE (m) a mapping-evaluation run printed, or None."""
+    if "ATE RMSE:" not in out:
+        return None
+    return float(out.split("ATE RMSE:")[1].split("m")[0])
+
+
+@contextlib.contextmanager
+def patched(owner, name, wrap):
+    """owner.name replaced by wrap(owner.name) for the block (a class's
+    method, or a module's function), then restored."""
+    fn = getattr(owner, name)
+    own = not isinstance(owner, type) or name in vars(owner)
+    setattr(owner, name, wrap(fn))
+    try:
+        yield
+    finally:
+        if own:
+            setattr(owner, name, fn)
+        else:
+            delattr(owner, name)
+
+
+def run_cli(argv):
+    """The port's tools.cli.main(argv) in this process: (exit code, what it
+    printed)."""
+    from hectorgrapher_tpu_torch.tools import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue()
+
+
+def read_png(path):
+    """An image that io/image.write_png wrote (8-bit gray or RGB, filter 0
+    on every row) as a numpy array."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, _, color_type = header[:4]
+    ch = 3 if color_type == 2 else 1
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w * ch + 1)
+    if rows[:, 0].any():
+        fail(f"{path}: a PNG row with a filter other than 0")
+    return rows[:, 1:].reshape(h, w, ch) if ch == 3 else rows[:, 1:].reshape(h, w)
+
+
+def parity_line(ate, jax_ate):
+    return f"ATE {ate:.4f} m (JAX CLI on the CPU {jax_ate:.4f}, bound {max(2 * jax_ate, jax_ate + 0.05):.4f})"
+
+
+def run_phase_26a(device, tmp):
+    """Phase 26a: the DRZ-shaped bag through `mapping-evaluation --use_3d`
+    at phase 13's options, in this process, on the card. The bag (written
+    by the port's rosbag encoders) must have the JAX reference run's
+    sha256; per-scan host clocks wrap TrajectoryBuilder.add_range_data (a
+    synchronize at its end), others the bag read and the final
+    optimization. Gates: exit code 0, the ATE printed and within max(2 x,
+    +0.05 m) of the JAX CLI's, the first range event's per-point times over
+    more than 0.05 s, K3 and K4 launched and a batched round run. Returns
+    the state file, the decoded events and K3 / K4 launches."""
+    from hectorgrapher_tpu_torch.io import rosbag
+    from hectorgrapher_tpu_torch.mapping import map_builder as map_builder_module
+
+    bag, state = os.path.join(tmp, "drz26.bag"), os.path.join(tmp, "drz26.npz")
+    t0 = time.perf_counter()
+    sha = write_drz26_bag(bag, rosbag)
+    write_s = time.perf_counter() - t0
+    if sha != JAX_DRZ26_SHA256:
+        fail(f"phase 26a: the bag's sha256 {sha} is not the JAX reference run's {JAX_DRZ26_SHA256}")
+    fast_correlative_3d.match_fast_3d.score_sums = 0
+    fast_scores_3d.launches = 0
+    reset_k3_counts()
+    window_solver.solve_ct_window_block.assemblies = 0
+    rec = dict(read=0.0, events=None, scans=[], final=[], rounds=0, read_end=None, final_start=None)
+
+    def timed_read(fn):
+        def run(*a, **kw):
+            t_read = time.perf_counter()
+            rec["events"] = fn(*a, **kw)
+            rec["read_end"] = time.perf_counter()
+            rec["read"] = rec["read_end"] - t_read
+            return rec["events"]
+        return run
+
+    def timed_scan(fn):
+        def run(self, data):
+            t_scan = time.perf_counter()
+            out = fn(self, data)
+            sync(device)
+            rec["scans"].append(time.perf_counter() - t_scan)
+            return out
+        return run
+
+    def timed_final(fn):
+        def run(self, *a, **kw):
+            if threading.current_thread() is not threading.main_thread():  # the worker's periodic solve
+                return fn(self, *a, **kw)
+            rec["final_start"] = time.perf_counter()
+            out = fn(self, *a, **kw)
+            sync(device)
+            rec["final"].append(time.perf_counter() - rec["final_start"])
+            return out
+        return run
+
+    def counted_round(fn):
+        def run(self, *a, **kw):
+            rec["rounds"] += 1
+            return fn(self, *a, **kw)
+        return run
+
+    with contextlib.ExitStack() as stack:
+        gn3d = stack.enter_context(counted_gn3d_blocks({"serial": 0, "packed": 0}))
+        stack.enter_context(patched(rosbag, "read_bag_sequence", timed_read))
+        stack.enter_context(patched(map_builder_module.TrajectoryBuilder, "add_range_data", timed_scan))
+        stack.enter_context(patched(PoseGraph3D, "run_final_optimization", timed_final))
+        stack.enter_context(patched(PoseGraph3D, "_compute_constraints_batched", counted_round))
+        t0 = time.perf_counter()
+        rc, out = run_cli(drz26_argv(bag) + ["--output_state", state])
+        wall = time.perf_counter() - t0
+    ate = cli_ate(out)
+    assemblies = window_solver.solve_ct_window_block.assemblies
+    k3 = assemblies + gn3d["serial"] + gn3d["packed"]
+    k4 = fast_scores_3d.launches
+    if rc != 0 or ate is None or not os.path.exists(state):
+        fail(f"phase 26a: mapping-evaluation exited {rc}, ATE {ate}, state written {os.path.exists(state)}: "
+             f"{out[-2000:]}")
+    if ate > max(2 * JAX_DRZ26_ATE, JAX_DRZ26_ATE + 0.05):
+        fail(f"phase 26a: {parity_line(ate, JAX_DRZ26_ATE)} is out of bounds")
+    ranges = [e for e in rec["events"] if e.kind == "range"]
+    span = float(np.ptp(ranges[0].times)) if ranges and ranges[0].times is not None else 0.0
+    if span <= 0.05:
+        fail(f"phase 26a: the first range event's per-point times span {span:.4f} s")
+    k3_all = ct_scan_block.launches + ct_scan_block_slots.launches
+    if assemblies == 0 or k3 != k3_all or k4 == 0 or k4 != fast_correlative_3d.match_fast_3d.score_sums \
+            or rec["rounds"] == 0:
+        fail(f"phase 26a: K3 launches {k3_all} ({assemblies} CT assemblies, GN3D {gn3d}), K4 launches {k4}, "
+             f"{rec['rounds']} batched rounds")
+    counts = out.split("nodes:")[1].splitlines()[0].strip()
+    lat = np.array(rec["scans"]) * 1e3
+    print(f"phase 26a (mapping-evaluation --use_3d over the DRZ-shaped bag: {len(ranges)} scans of "
+          f"{DRZ26_RAYS[0]} x {DRZ26_RAYS[1]} rays, {os.path.getsize(bag)} B, sha256 = the JAX run's): {parity_line(ate, JAX_DRZ26_ATE)}; "
+          f"nodes: {counts}; bag written in {write_s:.3f} s, read {rec['read']:.3f} s, SLAM "
+          f"{rec['final_start'] - rec['read_end']:.3f} s, final optimization {rec['final'][0]:.3f} s, CLI "
+          f"{wall:.3f} s; per scan median {np.median(lat):.3f} ms, p95 {np.percentile(lat, 95):.3f} ms over "
+          f"{len(lat)} scans; K3 launches {k3} ({assemblies} CT assemblies, {gn3d['serial']} serial GN3D, "
+          f"{gn3d['packed']} packed GN3D), K4 launches {k4}, {rec['rounds']} batched rounds; first scan's point "
+          f"times over {span:.4f} s", flush=True)
+    return dict(state=state, events=rec["events"], k3=k3, k4=k4)
+
+
+def run_phase_26b(device, tmp):
+    """Phase 26b: phase 6's 60 scans as a sequence directory of binary PLY
+    files (the port's write_ply) through the 2D mapping-evaluation at phase
+    20's options. Gates: the files' sha256 equals the JAX reference run's,
+    exit code 0, the ATE within max(2 x, +0.05 m) of the JAX CLI's, K1, K2
+    and K5 each launched. Returns ((K1, K2), K5) launches."""
+    from hectorgrapher_tpu_torch.io.readers import write_ply
+
+    path = os.path.join(tmp, "seq26")
+    sha = write_seq26_dir(path, write_ply)
+    if sha != JAX_SEQ26_SHA256:
+        fail(f"phase 26b: the files' sha256 {sha} is not the JAX reference run's {JAX_SEQ26_SHA256}")
+    correlative_prep_2d.launches = correlative_scores_2d.launches = fast_scores_2d.launches = 0
+    t0 = time.perf_counter()
+    rc, out = run_cli(seq26_argv(path))
+    wall = time.perf_counter() - t0
+    ate = cli_ate(out)
+    k1, k2, k5 = correlative_prep_2d.launches, correlative_scores_2d.launches, fast_scores_2d.launches
+    if rc != 0 or ate is None:
+        fail(f"phase 26b: mapping-evaluation exited {rc}, ATE {ate}: {out[-2000:]}")
+    if ate > max(2 * JAX_SEQ26_ATE, JAX_SEQ26_ATE + 0.05):
+        fail(f"phase 26b: {parity_line(ate, JAX_SEQ26_ATE)} is out of bounds")
+    if not (k1 and k2 and k5):
+        fail(f"phase 26b: launches K1 {k1}, K2 {k2}, K5 {k5}")
+    counts = out.split("nodes:")[1].splitlines()[0].strip()
+    print(f"phase 26b (2D mapping-evaluation over a sequence directory of 60 PLY scans, sha256 = the JAX run's): "
+          f"{parity_line(ate, JAX_SEQ26_ATE)}; nodes: {counts}; CLI {wall:.3f} s; launches K1 {k1}, K2 {k2}, "
+          f"K5 {k5}", flush=True)
+    return (k1, k2), k5
+
+
+def pbstream_occupancy_gaps(served, decoded, origin_t):
+    """A served occupancy grid against its pbstream decode: (known cells
+    served, decoded, largest probability difference over the served known
+    cells), as pbstream_grid_gaps maps the decoded box."""
+    res = float(served.meta.resolution)
+    base = np.round((served.meta.min_corner.double().cpu().numpy() - origin_t) / res + 0.5).astype(np.int64)
+    lo = np.round(decoded.meta.min_corner.double().cpu().numpy() / res + 0.5).astype(np.int64)
+    idx = served.known.nonzero()
+    j = idx + torch.as_tensor(base - lo, device=idx.device)
+    if bool(((j < 0) | (j >= torch.as_tensor(decoded.shape, device=idx.device))).any()):
+        return int(idx.shape[0]), int(decoded.known.sum()), math.inf
+    at = lambda g, ix: g.probability()[ix[:, 0], ix[:, 1], ix[:, 2]]
+    return int(idx.shape[0]), int(decoded.known.sum()), float((at(served, idx) - at(decoded, j)).abs().max())
+
+
+def start_server_26(device):
+    """26d's map-builder-server, a child process of the port's CLI on
+    `device` at phase 13's options, batched CT windows; its output lines go
+    to a list as they come."""
+    sync(device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    argv = [sys.executable, "-m", "hectorgrapher_tpu_torch.tools.cli", "--device", str(device), "map-builder-server", "--use_3d",
+            "--batch_ct_windows", "--monitoring_port", "-1", "--address", "127.0.0.1:0",
+            *cli_overrides(slam_overrides(batched=True, probability=True))]
+    proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(iter(proc.stdout.readline, "")), daemon=True)
+    reader.start()
+    return dict(proc=proc, lines=lines, reader=reader, t0=time.perf_counter())
+
+
+def stop_server_26(server):
+    if server["proc"].poll() is None:
+        server["proc"].kill()
+        server["proc"].wait()
+
+
+def run_phase_26c(device, tmp, drz):
+    """Phase 26c: the state tools on 26a's state, through the CLI. Gates:
+    state-info reads it as 3D; state-convert npz -> pbstream -> npz: the
+    pbstream's pose graph and its npz bit-equal as stored (state_gaps), and
+    the pbstream against the state as phase 23b holds its pbstream (node
+    poses exact, each occupancy grid's known cells equal, probabilities
+    within one uint16 code step); paint-map on the card has known pixels and
+    equals paint-map of the same state on the CPU, but for at most a
+    thousandth of its pixels one level off (exp on the card and on the CPU
+    may part in the last bit); HybridGridPointsProcessor over 26a's first
+    10 scans at 256^3 on the card against the CPU: log-odds within 1e-5,
+    known equal."""
+    from hectorgrapher_tpu_torch.io.points_pipeline import PointsBatch, build_pipeline, run_pipeline
+    from hectorgrapher_tpu_torch.io.serialization import load_state
+    from hectorgrapher_tpu_torch.mapping import probability_values as pv
+
+    state, cpu = drz["state"], torch.device("cpu")
+    rc, out = run_cli(["state-info", state])
+    if rc != 0 or "dimension: 3D" not in out:
+        fail(f"phase 26c: state-info exited {rc}: {out[-1000:]}")
+    pbs, back = os.path.join(tmp, "drz26.pbstream"), os.path.join(tmp, "drz26_back.npz")
+    t0 = time.perf_counter()
+    rcs = [run_cli(["state-convert", a, b])[0] for a, b in ((state, pbs), (pbs, back))]
+    convert_s = time.perf_counter() - t0
+    if rcs != [0, 0]:
+        fail(f"phase 26c: state-convert exited {rcs}")
+
+    def loaded(path, loader):
+        pg = PoseGraph3D(cfg.MapBuilderOptions().pose_graph, device=device)
+        return pg, loader(pg, path, load_frozen_state=False)
+
+    (pg_a, _), (pg_p, _), (pg_b, remap) = (loaded(state, load_state), loaded(pbs, load_pbstream_state),
+                                           loaded(back, load_state))
+    gap = state_gaps(pg_p, pg_b, remap)  # back.npz holds the ids the pbstream's load gave
+    if gap is not None:
+        fail(f"phase 26c: npz -> pbstream -> npz: the npz differs from the pbstream's graph at {gap}")
+    if len(pg_p.nodes) != len(pg_a.nodes) or len(pg_p.constraints) != len(pg_a.constraints) \
+            or len(pg_p.submaps) != len(pg_a.submaps):
+        fail(f"phase 26c: the pbstream gave {len(pg_p.nodes)} nodes, {len(pg_p.constraints)} constraints, "
+             f"{len(pg_p.submaps)} submaps of {len(pg_a.nodes)}, {len(pg_a.constraints)}, {len(pg_a.submaps)}")
+    for a, b in zip(pg_a.nodes, pg_p.nodes):
+        if not (np.array_equal(a.global_pose.t, b.global_pose.t) and np.array_equal(a.local_pose.q, b.local_pose.q)
+                and abs(a.time - b.time) < 1e-7):
+            fail(f"phase 26c: pbstream node at {a.time} differs")
+    step, worst = (pv.MAX_PROBABILITY - pv.MIN_PROBABILITY) / 32766, 0.0
+    for a, b in zip(pg_a.submaps, pg_p.submaps):
+        for key in ("high_resolution_grid", "low_resolution_grid"):
+            n_a, n_b, d = pbstream_occupancy_gaps(getattr(a.submap, key), getattr(b.submap, key),
+                                                  a.submap.local_pose.t)
+            if n_a != n_b or d > step:
+                fail(f"phase 26c: pbstream {key}: {n_b} of {n_a} known cells, probability within {d:.3e} "
+                     f"(step {step:.3e})")
+            worst = max(worst, d)
+    del pg_a, pg_p, pg_b
+
+    pngs = [os.path.join(tmp, f"map26_{d}.png") for d in ("card", "cpu")]
+    t0 = time.perf_counter()
+    rc_card, _ = run_cli(["paint-map", state, pngs[0]])
+    paint_s = time.perf_counter() - t0
+    rc_cpu, _ = run_cli(["--device", "cpu", "paint-map", state, pngs[1]])
+    if (rc_card, rc_cpu) != (0, 0):
+        fail(f"phase 26c: paint-map exited {rc_card} on the card, {rc_cpu} on the CPU")
+    img, img_cpu = read_png(pngs[0]), read_png(pngs[1])
+    known = int((img != np.array([127, 0, 0], np.uint8)).any(axis=-1).sum())
+    diff = np.abs(img.astype(np.int16) - img_cpu.astype(np.int16)).max(axis=-1) if img.shape == img_cpu.shape else None
+    if known == 0 or diff is None or diff.max() > 1 or int((diff > 0).sum()) > img.shape[0] * img.shape[1] // 1000:
+        fail(f"phase 26c: paint-map: {known} known pixels; card {img.shape} against CPU {img_cpu.shape}, "
+             f"{'-' if diff is None else int((diff > 0).sum())} pixels apart")
+
+    batches = [PointsBatch(points=e.payload + drz26_truth(e.time).astype(np.float32), origin=drz26_truth(e.time))
+               for e in drz["events"] if e.kind == "range"][:10]
+    grids, hybrid_s = [], []
+    for dev in (device, cpu):
+        path = os.path.join(tmp, f"hybrid26_{dev.type}.npz")
+        pipeline = build_pipeline([{"action": "min_max_range_filter", "min_range": 0.4, "max_range": 25.0},
+                                   {"action": "write_hybrid_grid", "filename": path, "voxel_size": 0.1}], device=dev)
+        t0 = time.perf_counter()
+        run_pipeline(pipeline, lambda: batches)
+        hybrid_s.append(time.perf_counter() - t0)
+        with np.load(path) as data:
+            grids.append((data["log_odds"], data["known"]))
+    d_lo = float(np.abs(grids[0][0] - grids[1][0]).max())
+    if not np.array_equal(grids[0][1], grids[1][1]) or d_lo > 1e-5 or not grids[0][1].any():
+        fail(f"phase 26c: HybridGridPointsProcessor: known equal {np.array_equal(grids[0][1], grids[1][1])} "
+             f"({int(grids[0][1].sum())} cells), log-odds within {d_lo:.3e} of the CPU's")
+    print(f"phase 26c (the state tools on 26a's state): state-info 3D; state-convert npz -> pbstream -> npz in "
+          f"{convert_s:.3f} s ({os.path.getsize(pbs)} B pbstream), the npz bit-equal as stored to the pbstream's "
+          f"graph, the pbstream's occupancy within {worst:.3e} (step {step:.3e}), nodes exact; paint-map "
+          f"{img.shape[1]}x{img.shape[0]} px in {paint_s:.3f} s on the card, {known} known pixels, "
+          f"{int((diff > 0).sum())} pixels one level off the CPU's; HybridGridPointsProcessor over 10 scans at "
+          f"256^3: {int(grids[0][1].sum())} known cells, equal on the card and the CPU, log-odds within "
+          f"{d_lo:.3e}; {hybrid_s[0]:.3f} s on the card, {hybrid_s[1]:.3f} s on the CPU", flush=True)
+
+
+def run_phase_26d(device, server, events):
+    """Phase 26d: 26a's bag served by the CLI's map-builder-server in a
+    child process on the card (started by start_server_26). Through the
+    port's client: one trajectory, the bag's IMU, odometry and 40 scans;
+    gates: at least one local SLAM result back, GetSubmap(0) above 4 MB
+    with known cells (an insertion reached it: C24 through the CLI), exit
+    code 0 within 30 s of SIGINT."""
+    import re
+
+    from hectorgrapher_tpu_torch.cloud.client import MapBuilderStub
+
+    proc, port = server["proc"], None
+    while port is None and time.perf_counter() - server["t0"] < SERVER26_TIMEOUT_S and proc.poll() is None:
+        found = [re.search(r"listening on port (\d+)", line) for line in list(server["lines"])]
+        port = next((int(m.group(1)) for m in found if m), None)
+        time.sleep(0.05)
+    start_s = time.perf_counter() - server["t0"]
+    if port is None:
+        fail(f"phase 26d: map-builder-server did not listen within {SERVER26_TIMEOUT_S} s (exit "
+             f"{proc.poll()}): {''.join(server['lines'])[-2000:]}")
+    stub = MapBuilderStub(f"127.0.0.1:{port}")
+    tid = stub.add_trajectory_builder()
+    tb = stub.get_trajectory_builder(tid)
+    capacity = 1 << int(np.ceil(np.log2(max(len(e.payload) for e in events if e.kind == "range"))))
+    t0 = time.perf_counter()
+    for e in events:
+        if e.kind == "imu":
+            tb.add_imu_data(e.time, *e.payload)
+        elif e.kind == "odometry":
+            tb.add_odometry_data(e.time, e.payload)
+        else:
+            tb.add_range_data(TimedPointCloudData(e.time, np.zeros(3, np.float32),
+                                                  pad_timed_cloud(e.payload, e.times, capacity)))
+    stub.pose_graph.run_final_optimization()  # after the server drained its sensor queue
+    serve_s = time.perf_counter() - t0
+    results = stub.get_local_slam_results(tid)
+    t0 = time.perf_counter()
+    sub = stub.get_submap(0)
+    get_s = time.perf_counter() - t0
+    stub.close()
+    grids = [sub.get(k) for k in ("high_resolution_grid", "low_resolution_grid")]
+    nbytes = sum(g["log_odds"].nbytes + g["known"].nbytes for g in grids if g is not None)
+    known = sum(int(g["known"].sum()) for g in grids if g is not None)
+    if not results or "error" in sub or nbytes <= 4 * 1024 * 1024 or known == 0:
+        fail(f"phase 26d: {len(results)} local SLAM results, GetSubmap(0) {sub.get('error', '')} {nbytes} B with "
+             f"{known} known cells")
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGINT)
+    try:
+        rc = proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        rc = None
+    stop_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"phase 26d: map-builder-server gave exit code {rc} {stop_s:.1f} s after SIGINT: "
+             f"{''.join(server['lines'])[-2000:]}")
+    print(f"phase 26d (map-builder-server --use_3d --batch_ct_windows as a child process): listening "
+          f"{start_s:.3f} s after its start; {sum(e.kind == 'range' for e in events)} scans with IMU and odometry "
+          f"served in {serve_s:.3f} s, {len(results)} local SLAM results; GetSubmap(0) {nbytes} B ({known} known "
+          f"cells) in {get_s:.3f} s; exit code 0 {stop_s:.3f} s after SIGINT", flush=True)
+
+
 PHASE_MARKS = []
 
 
@@ -4763,6 +5273,23 @@ def main() -> int:
     # K3 (C = 1): the default options, then the online correlative search.
     k3_paths.update(run_phase_25(device))
 
+    mark("26")
+    # Phase 26: the CLI over recorded data: (a) the DRZ-shaped bag through
+    # mapping-evaluation --use_3d, K3 and K4 through the CLI; (b) a 2D
+    # sequence directory, K1, K2 and K5; (c) the state tools on (a)'s state;
+    # (d) map-builder-server in a child process, serving (a)'s bag.
+    with tempfile.TemporaryDirectory() as tmp26:
+        drz = run_phase_26a(device, tmp26)
+        k3_paths["drz26"], k4_paths["drz26"] = drz["k3"], drz["k4"]
+        k12_paths["seq2d26"], k5_26 = run_phase_26b(device, tmp26)
+        server = start_server_26(device)
+        try:
+            run_phase_26c(device, tmp26, drz)
+            run_phase_26d(device, server, drz["events"])
+        finally:
+            stop_server_26(server)
+        del drz
+
     sources = {
         "correlative_prep_2d": ("hectorgrapher_tpu_torch/csrc/correlative_prep_2d.cu",
                                 "hectorgrapher_tpu/ops/pallas_prep2d.py:74"),
@@ -4794,16 +5321,18 @@ def main() -> int:
     # window solves' slotted calls), serve23_slotted_all (those and the
     # batched server's packed GN3D), serve23_serial_server (per-cloud
     # launches of the serial server), and phase 25's GN3D launches of the
-    # classic 3D builder (classic25a, classic25b, classic25b_cut); K3 per point: phase 17, with phases
-    # 18 and 19 beside it; K4: phase 11, with phases 12-14 and 23 (both
-    # servers' rounds) beside it under "launches_by_path";
-    # K5: phase 20, without its rounds' serial re-runs, with phase 22a
-    # beside it).
+    # classic 3D builder (classic25a, classic25b, classic25b_cut), and the
+    # CLI's bag run (drz26: CT assemblies and GN3D); K3 per point: phase 17,
+    # with phases 18 and 19 beside it; K4: phase 11, with phases 12-14, 23
+    # (both servers' rounds) and 26a (drz26) beside it under
+    # "launches_by_path"; K5: phase 20, without its rounds' serial re-runs,
+    # with phases 22a and 26b (seq2d26) beside it; K1 and K2 with 26b's
+    # seq2d26).
     main_shape = {"correlative_prep_2d": "batched", "correlative_scores_2d": "batched",
                   "ct_scan_block": "front_end", "ct_scan_block_points": "front_end", "fast_scores_3d": "coarse",
                   "fast_scores_2d": "round_coarse"}
     paths = {"ct_scan_block": k3_paths, "ct_scan_block_points": k3p_paths, "fast_scores_3d": k4_paths,
-             "fast_scores_2d": {"slam20": k5_20, "slam22a_uint16": k5_22, **paths24["fast_scores_2d"]},
+             "fast_scores_2d": {"slam20": k5_20, "slam22a_uint16": k5_22, **paths24["fast_scores_2d"], "seq2d26": k5_26},
              **{name: {path: k[i] for path, k in k12_paths.items()}
                 for i, name in enumerate(("correlative_prep_2d", "correlative_scores_2d"))}}
     kernels = []

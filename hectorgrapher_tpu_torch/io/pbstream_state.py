@@ -539,6 +539,25 @@ def _write_pbstream_state_locked(pose_graph, path: str) -> None:
     write_records(path, records)
 
 
+def sniff_dim(path: str) -> int:
+    """2 or 3: the dimensionality of a pbstream state's submaps (decides
+    which pose-graph class to instantiate, like map_builder.cc dispatches
+    on the options' use_trajectory_builder_3d). A stream with no submap
+    reads as 2D, as in the JAX package (pbstream_state.py:672)."""
+    for i, record in enumerate(read_records(path)):
+        if i == 0:
+            continue
+        fd = pw.fields_to_dict(record)
+        for fieldno in fd:
+            if SERIALIZED_DATA_KINDS.get(fieldno) == "submap":
+                sub = pw.fields_to_dict(fd[fieldno][0])
+                if 3 in sub:
+                    return 3
+                if 2 in sub:
+                    return 2
+    return 2
+
+
 def load_pbstream_state(pose_graph, path: str, load_frozen_state: bool = True) -> Dict[int, int]:
     """Load a reference-format pbstream state into the port's pose graph,
     its grids and clouds on the pose graph's device (ref: map_builder.cc

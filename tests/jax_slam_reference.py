@@ -75,6 +75,19 @@ builds an (n + 4)^3 x 125 table on every scan, 8.8 GB at the default
 Every drive feeds the JAX package its scan times as float64, as the port
 gets them (scan_time).
 
+    JAX_PLATFORMS=cpu python tests/jax_slam_reference.py --drz-bag [--runs 1]
+    JAX_PLATFORMS=cpu python tests/jax_slam_reference.py --sequence-2d [--runs 1]
+
+write chip_smoke.py's phase 26a bag (chip_smoke.write_drz26_bag: 40 scans
+of 512 x 64 rays, IMU and odometry) with the JAX package's bag encoders
+and ray caster, or phase 26b's sequence directory (chip_smoke.
+write_seq26_dir: phase 6's 60 scans as PLY files) with its PLY writer, run
+the JAX CLI's mapping-evaluation on them at the chip phase's options
+(chip_smoke.drz26_argv / seq26_argv: phase 13's and phase 20's), and print
+one JSON line a run with the files' sha256 and the ATE: the JAX_DRZ26_* and
+JAX_SEQ26_* constants. The CLI feeds the scans' times as the decoded
+float64 stamps. The bag run holds a few GiB and takes several minutes.
+
     JAX_PLATFORMS=cpu python tests/jax_slam_reference.py --serve
 
 runs chip_smoke.py's phase 23 drives (chip_smoke.serve_streams: the
@@ -90,8 +103,12 @@ holds the served trajectories to. About 2 minutes and ~2 GiB.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -418,6 +435,34 @@ def run_slam_2d_back_end() -> dict:
                                            for a, b in zip(jpg.nodes, port.nodes)))
 
 
+def cli_reference(kind: str, runs: int) -> None:
+    """The JAX CLI over chip_smoke.py's phase 26a bag ("drz") or 26b
+    sequence directory ("seq2d"), written with the JAX package's writers:
+    one JSON line a run with the files' sha256, the ATE and the seconds."""
+    from hectorgrapher_tpu.evaluation.scan_generator import raycast_box_room_3d
+    from hectorgrapher_tpu.io import readers, rosbag
+    from hectorgrapher_tpu.tools.cli import main as cli_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        if kind == "drz":
+            path = os.path.join(tmp, "drz26.bag")
+            sha = chip_smoke.write_drz26_bag(path, rosbag, raycast_box_room_3d)
+            argv = chip_smoke.drz26_argv(path)
+        else:
+            path = os.path.join(tmp, "seq26")
+            sha = chip_smoke.write_seq26_dir(path, readers.write_ply)
+            argv = chip_smoke.seq26_argv(path)
+        for _ in range(runs):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(argv)
+            text = out.getvalue()
+            print(json.dumps(dict(kind=kind, sha256=sha, rc=rc, ate=chip_smoke.cli_ate(text),
+                                  counts=text.split("nodes:")[1].splitlines()[0].strip() if "nodes:" in text else "",
+                                  seconds=time.perf_counter() - t0)), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batched", action="store_true", help="the batched constraint search (phase 12)")
@@ -457,7 +502,14 @@ def main() -> int:
                         help="with --classic-3d: the online correlative search on (phase 25b)")
     parser.add_argument("--grids", type=int, nargs=2, default=None, metavar=("HIGH", "LOW"),
                         help="with --classic-3d: the high and low grid sizes")
+    parser.add_argument("--drz-bag", action="store_true",
+                        help="chip_smoke.py's phase 26a instead: the JAX CLI over the DRZ-shaped bag")
+    parser.add_argument("--sequence-2d", action="store_true",
+                        help="chip_smoke.py's phase 26b instead: the JAX CLI over the 2D sequence directory")
     opts = parser.parse_args()
+    if opts.drz_bag or opts.sequence_2d:
+        cli_reference("drz" if opts.drz_bag else "seq2d", opts.runs)
+        return 0
     if opts.classic_3d:
         print(json.dumps(classic_3d_errors(opts.correlative, opts.grids)), flush=True)
         return 0

@@ -205,3 +205,44 @@ def test_mapping_does_not_load_the_serving_layer():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "CLOUD []" in proc.stdout, proc.stdout
+
+
+_CLI_IMPORTS_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None  # an import of jax raises ImportError
+sys.modules["hectorgrapher_tpu"] = None
+import hectorgrapher_tpu_torch.tools.cli as cli
+import hectorgrapher_tpu_torch.io.image, hectorgrapher_tpu_torch.io.readers, hectorgrapher_tpu_torch.io.rosbag
+import hectorgrapher_tpu_torch.io.drawing, hectorgrapher_tpu_torch.io.points_pipeline
+from hectorgrapher_tpu_torch.io.pbstream_state import sniff_dim
+assert cli.main(["--device", "cpu", "print-configuration", "--subdictionary", "pose_graph"]) == 0
+leaked = sorted(m for m in sys.modules if m.startswith("jax.") or m.startswith("hectorgrapher_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def test_cli_and_host_io_import_with_jax_blocked():
+    """The CLI and the host I/O modules (image, readers, rosbag, drawing,
+    points_pipeline, pbstream_state's sniff_dim) import, and a subcommand
+    runs, with jax and the JAX package blocked."""
+    proc = subprocess.run([sys.executable, "-c", _CLI_IMPORTS_WITHOUT_JAX], cwd=REPO, env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "LEAKED []" in proc.stdout, proc.stdout
+
+
+def _subcommands(module):
+    import re
+
+    proc = subprocess.run([sys.executable, "-m", module, "--help"], cwd=REPO, env=_env(JAX_PLATFORMS="cpu"),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return set(re.search(r"\{([a-z,-]+)\}", proc.stdout).group(1).split(","))
+
+
+def test_cli_help_lists_the_jax_subcommands():
+    """python -m hectorgrapher_tpu_torch.tools.cli --help offers the JAX
+    CLI's 12 subcommands."""
+    ours = _subcommands("hectorgrapher_tpu_torch.tools.cli")
+    assert ours == _subcommands("hectorgrapher_tpu.tools.cli")
+    assert len(ours) == 12 and "map-builder-server" in ours and "mapping-evaluation" in ours
