@@ -97,6 +97,7 @@ from hectorgrapher_tpu_torch.cloud.local_slam_result import _unpack_grid, make_l
 from hectorgrapher_tpu_torch.cloud.server import MapBuilderServer
 from hectorgrapher_tpu_torch.cloud.solver_plane import SolverPlaneFollower, SolverPlaneLeader
 from hectorgrapher_tpu_torch.common import config as cfg
+from hectorgrapher_tpu_torch.common import profiling
 from hectorgrapher_tpu_torch.evaluation.scan_generator import raycast_box_room_3d, raycast_rect_room_2d
 from hectorgrapher_tpu_torch.mapping.ct import window_solver
 from hectorgrapher_tpu_torch.mapping.ct.builder import OptimizingLocalTrajectoryBuilder
@@ -2114,7 +2115,7 @@ def round_parity(pg, gated, global_search, results):
 def probe_batched_rounds(pg, rounds, errors, recorded):
     """Wrap pg._compute_constraints_batched to append each round's record
     to `rounds` (candidates, seconds ending in the refinement's readback,
-    K4 and slotted K3 launches, LAST_ROUND_BREAKDOWN), any exception to
+    K4 and slotted K3 launches, round_stages), any exception to
     `errors`, and the first ROUND_PARITY_ROUNDS rounds' serial re-run
     (round_parity); each record keeps its round's candidates (rounds_alone).
     The first round of >= 4 candidates over >= 2 submaps
@@ -2126,7 +2127,7 @@ def probe_batched_rounds(pg, rounds, errors, recorded):
         k4, k3 = fast_scores_3d.launches, ct_scan_block_slots.launches
         record = (not recorded and len(gated) >= 4 and len({sid for _, sid, _, _ in gated}) >= 2
                   and len({int(n.high_cloud.mask.sum()) for _, _, n, _ in gated}) >= 2)
-        t0 = time.perf_counter()
+        t0, mark = time.perf_counter(), recording_mark()
         try:
             if record:
                 with score_sums_through(lambda *a: recorded.append((a, fast_scores_3d(*a))) or recorded[-1][1]):
@@ -2134,7 +2135,7 @@ def probe_batched_rounds(pg, rounds, errors, recorded):
             else:
                 results = fn(gated, global_search=global_search)
             rec = dict(n=len(gated), s=time.perf_counter() - t0, k4=fast_scores_3d.launches - k4,
-                       k3=ct_scan_block_slots.launches - k3, stages=dict(pose_graph_module.LAST_ROUND_BREAKDOWN),
+                       k3=ct_scan_block_slots.launches - k3, stages=round_stages(mark),
                        found=sum(r is not None for r in results), parity=None, gated=list(gated),
                        global_search=global_search)
             if sum(r["parity"] is not None for r in rounds) < ROUND_PARITY_ROUNDS:
@@ -2307,12 +2308,30 @@ def check_k3_slots(args, label="gn3d_packed"):
                         f"P={p_hi}+{args[5].shape[1]}, bit-equal to {c} single calls (library: none)")
 
 
-ROUND_STAGES = ("pack", "initials", "cand_build", "fm_launch", "fm_readback", "gn_prepare", "gn_launch",
-                "gn_readback")
+ROUND_STAGES = ("round.pack", "round.initials", "round.fast_match", "round.gn_prepare", "round.gn",
+                "round.gn_readback")
+
+
+def recording_mark() -> int:
+    """The number of spans the open recording holds (0 with none open)."""
+    rec = profiling.active_recording()
+    return len(rec.spans) if rec is not None else 0
+
+
+def round_stages(mark: int) -> dict:
+    """Seconds of each ROUND_STAGES span that the open recording took on
+    this thread after `mark` (recording_mark): one batched round's stages,
+    host time (no synchronize; round.gn_readback waits for the device)."""
+    rec = profiling.active_recording()
+    out, me = {}, threading.get_ident()
+    for sp in (rec.spans[mark:] if rec is not None else ()):
+        if sp.thread == me and sp.name in ROUND_STAGES:
+            out[sp.name] = out.get(sp.name, 0.0) + (sp.end_ns - sp.start_ns) / 1e9
+    return out
 
 
 def stage_medians(stages):
-    """Median ms of each ROUND_STAGES stage over LAST_ROUND_BREAKDOWN records."""
+    """Median ms of each ROUND_STAGES stage over round_stages records."""
     return {k: float(np.median([s.get(k, 0.0) for s in stages])) * 1e3 for k in ROUND_STAGES}
 
 
@@ -2324,24 +2343,21 @@ ROUNDS_ALONE_STRIDE = 8
 def rounds_alone(pg, rounds):
     """Phase 12's rounds again once the drive has drained (no front end;
     the nodes at their final poses): each round batched (the class's own
-    _compute_constraints_batched, ROUND_PROFILING on), then its candidates
+    _compute_constraints_batched, its stages recorded), then its candidates
     serially at the round's scan range (round_parity), each timed to its
     readback. Returns (batched ms, serial ms, stage records, parity records),
     one entry a round."""
     batched_ms, serial_ms, stages, parity = [], [], [], []
-    pose_graph_module.ROUND_PROFILING = True
-    try:
+    with profiling.recording():
         for r in rounds:
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0, mark = time.perf_counter(), recording_mark()
             results = PoseGraph3D._compute_constraints_batched(pg, r["gated"], global_search=r["global_search"])
             t1 = time.perf_counter()
-            stages.append(dict(pose_graph_module.LAST_ROUND_BREAKDOWN))
+            stages.append(round_stages(mark))
             parity.append(round_parity(pg, r["gated"], r["global_search"], results))
             batched_ms.append((t1 - t0) * 1e3)
             serial_ms.append((time.perf_counter() - t1) * 1e3)
-    finally:
-        pose_graph_module.ROUND_PROFILING = False
     return np.array(batched_ms), np.array(serial_ms), stages, parity
 
 
@@ -2349,7 +2365,7 @@ def run_phase_12(device, slam, k4_serial, options=None):
     """Phase 12: run_slam over phase 11's drive with the default batched
     constraint search (slam_options(batched=True), or `options`): K4 once
     per pyramid level for a whole round, K3 once per LM iteration of the
-    round's packed GN3D; ROUND_PROFILING on for the whole phase. Gates the
+    round's packed GN3D; the recorder on for the whole phase. Gates the
     rounds, the fallbacks, the launches, the errors against the JAX
     package's batched run and the rounds' serial parity, prints the
     phase's lines beside phase 11's latency (`slam`, whose K4 launches were
@@ -2365,9 +2381,8 @@ def run_phase_12(device, slam, k4_serial, options=None):
     ct_scan_block_slots.launches = 0
     window_solver.solve_ct_window_block.assemblies = 0
     rounds, recorded = [], []
-    pose_graph_module.ROUND_PROFILING = True
-    slam12 = run_slam(device, options or slam_options(batched=True), rounds=rounds, recorded=recorded)
-    pose_graph_module.ROUND_PROFILING = False
+    with profiling.recording():
+        slam12 = run_slam(device, options or slam_options(batched=True), rounds=rounds, recorded=recorded)
     k4_12, score_sums12, k3_packed = (fast_scores_3d.launches, fast_correlative_3d.match_fast_3d.score_sums,
                                       ct_scan_block_slots.launches)
     pg12 = slam12.pop("pose_graph")
@@ -2416,7 +2431,7 @@ def run_phase_12(device, slam, k4_serial, options=None):
           f"latency median {np.median(lat12):.3f} ms, p95 {np.percentile(lat12, 95):.3f} ms over {len(lat12)} scans "
           f"(phase 11 in this run: {np.median(lat11):.3f} / {np.percentile(lat11, 95):.3f} ms); drive "
           f"{slam12['front_s']:.1f} s, queue drained {slam12['drain_s']:.1f} s after", flush=True)
-    print("SLAM 3D batched round stages (LAST_ROUND_BREAKDOWN, ROUND_PROFILING on for the whole phase), median ms: "
+    print("SLAM 3D batched round stages (the recorder's round spans, host time), median ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
     shapes = {"fast_scores_3d": check_k4_round(recorded),
               "ct_scan_block": {"gn3d_packed": check_k3_slots(k3_slots_inputs(pg12, device))}}
@@ -2882,7 +2897,7 @@ def round_parity_2d(pg, gated, global_search, results):
 def probe_rounds_2d(pg, rounds, errors, recorded):
     """Wrap pg._compute_constraints_batched to append each round's record
     to `rounds` (candidates, seconds ending in the refinement's readback,
-    K5 launches and the round's search depth, LAST_ROUND_BREAKDOWN), any
+    K5 launches and the round's search depth, round_stages), any
     exception to `errors`, and the first ROUND_PARITY_ROUNDS rounds' serial
     re-run (round_parity_2d). The first round's K5 calls are appended to
     `recorded` as (arguments, output)."""
@@ -2890,7 +2905,7 @@ def probe_rounds_2d(pg, rounds, errors, recorded):
 
     def run(gated, global_search=False):
         k5 = fast_scores_2d.launches
-        t0 = time.perf_counter()
+        t0, mark = time.perf_counter(), recording_mark()
         try:
             if not recorded:
                 calls, results = recorded_k5(lambda: fn(gated, global_search=global_search))
@@ -2900,7 +2915,7 @@ def probe_rounds_2d(pg, rounds, errors, recorded):
             scan_range = max(pg._scan_range_bucket(n) for _, _, n, _ in gated)
             depth = pg._search_config(gated[0][3], scan_range, global_search)[0].depth
             rec = dict(n=len(gated), s=time.perf_counter() - t0, k5=fast_scores_2d.launches - k5, depth=depth,
-                       submaps=len({sid for _, sid, _, _ in gated}), stages=dict(pose_graph_module.LAST_ROUND_BREAKDOWN),
+                       submaps=len({sid for _, sid, _, _ in gated}), stages=round_stages(mark),
                        found=sum(r is not None for r in results), parity=None)
             if sum(r["parity"] is not None for r in rounds) < ROUND_PARITY_ROUNDS:
                 rec["parity"] = round_parity_2d(pg, gated, global_search, results)
@@ -3057,7 +3072,7 @@ def k5_rows_calls(pg, device, n_submaps=4, n_nodes=3):
 def drive_slam2d(device, options, label):
     """MapBuilder 2D -> LocalTrajectoryBuilder2D -> PoseGraph2D over
     slam2d_scans() at `options`, the constraint searches and SPA solves on
-    the pose graph's worker thread, ROUND_PROFILING on; then the final
+    the pose graph's worker thread, the recorder on; then the final
     optimization. The counts of K1, K2 and K5 are set to 0 first. Gates
     (failing as `label`) the work items, K5's launches against the rounds
     and the score sums, K1 / K2 on the front end and on every scan whose
@@ -3076,26 +3091,25 @@ def drive_slam2d(device, options, label):
     timed_method(pg, "_compute_constraint", searches, errors)
     timed_method(pg, "_run_optimization", solves, errors)
     probe_rounds_2d(pg, rounds, errors, recorded)
-    pose_graph_module.ROUND_PROFILING = True
-    scans = slam2d_scans()
-    latencies, quantized = [], []
-    t_start = time.perf_counter()
-    for i, (t, _, odom, cloud) in enumerate(scans):
-        tb.add_odometry_data(t, odom)
-        matching = tb._local.active_submaps.matching_submap
-        k12 = (correlative_prep_2d.launches, correlative_scores_2d.launches)
-        t0 = time.perf_counter()
-        tb.add_range_data(TimedPointCloudData(t, np.zeros(3, np.float32),
-                                              TimedPointCloud(cloud.positions, cloud.times, cloud.mask)))
-        sync(device)
-        if i:
-            latencies.append(time.perf_counter() - t0)
-        if matching is not None and matching.grid.log_odds.dtype == torch.uint16:
-            quantized.append((correlative_prep_2d.launches - k12[0], correlative_scores_2d.launches - k12[1]))
-    front_s = time.perf_counter() - t_start
-    pg.wait_for_all_computations()
-    drain_s = time.perf_counter() - t_start - front_s
-    pose_graph_module.ROUND_PROFILING = False
+    with profiling.recording():
+        scans = slam2d_scans()
+        latencies, quantized = [], []
+        t_start = time.perf_counter()
+        for i, (t, _, odom, cloud) in enumerate(scans):
+            tb.add_odometry_data(t, odom)
+            matching = tb._local.active_submaps.matching_submap
+            k12 = (correlative_prep_2d.launches, correlative_scores_2d.launches)
+            t0 = time.perf_counter()
+            tb.add_range_data(TimedPointCloudData(t, np.zeros(3, np.float32),
+                                                  TimedPointCloud(cloud.positions, cloud.times, cloud.mask)))
+            sync(device)
+            if i:
+                latencies.append(time.perf_counter() - t0)
+            if matching is not None and matching.grid.log_odds.dtype == torch.uint16:
+                quantized.append((correlative_prep_2d.launches - k12[0], correlative_scores_2d.launches - k12[1]))
+        front_s = time.perf_counter() - t_start
+        pg.wait_for_all_computations()
+        drain_s = time.perf_counter() - t_start - front_s
     k5, score_sums = fast_scores_2d.launches, fast_correlative_2d.match_fast_2d_batched.score_sums
     k12 = (correlative_prep_2d.launches, correlative_scores_2d.launches)
     n_solves = len(solves)
@@ -3146,7 +3160,7 @@ def print_slam2d(label, run, jax_late, jax_median):
           f"{result['max_global']:.5f} m (JAX on the CPU {jax_late:.5f} / {jax_median:.5f}); "
           f"per-scan latency median {np.median(lat):.3f} ms, p95 {np.percentile(lat, 95):.3f} ms over {len(lat)} scans; "
           f"drive {run['front_s']:.1f} s, queue drained {run['drain_s']:.1f} s after", flush=True)
-    print(f"{label} round stages (LAST_ROUND_BREAKDOWN), median ms: "
+    print(f"{label} round stages (the recorder's round spans, host time), median ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in stage_medians([r["stages"] for r in rounds]).items()), flush=True)
 
 

@@ -37,6 +37,7 @@ import torch
 
 import time as _time
 
+from hectorgrapher_tpu_torch.common import profiling
 from hectorgrapher_tpu_torch.mapping.ct import imu_integration
 from hectorgrapher_tpu_torch.mapping.ct.window_solver import (
     CtProblem,
@@ -395,7 +396,8 @@ class OptimizingLocalTrajectoryBuilder:
 
         # Solve the window, when a submap exists to match against.
         if self._active_submaps.submaps:
-            pending = self._build_window_solve()
+            with profiling.section("ct.build_window"):
+                pending = self._build_window_solve()
             solve_fn = self.window_solve_fn or self._solve_window_direct
             self._apply_window_solution(pending, solve_fn(pending))
         optimized_pose = self._control_points[0].state.to_rigid()

@@ -21,6 +21,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from hectorgrapher_tpu_torch.common import profiling
 from hectorgrapher_tpu_torch.mapping.motion_filter import MotionFilter
 from hectorgrapher_tpu_torch.mapping.pose_extrapolator import PoseExtrapolator
 from hectorgrapher_tpu_torch.mapping.scan_matching.correlative_2d import (
@@ -165,10 +166,13 @@ class LocalTrajectoryBuilder2D:
         aligned_rd = crop_range_data_z(aligned_rd, self._options.min_z, self._options.max_z)
         filtered_returns = voxel_filter(aligned_rd.returns, self._options.voxel_filter_size)
 
-        matched_2d = self._scan_match(pose_prediction_2d, filtered_returns)
+        # The match through its pose's readback, so that the section holds
+        # its device work.
+        with profiling.section("2d.scan_match"):
+            matched_2d = self._scan_match(pose_prediction_2d, filtered_returns)
+            matched = torch.cat([matched_2d.translation, matched_2d.angle.reshape(1)]).cpu().numpy()
 
         # Back to 3D local pose (ref: :196 embed(pose_2d) * gravity_alignment).
-        matched = torch.cat([matched_2d.translation, matched_2d.angle.reshape(1)]).cpu().numpy()
         pose_estimate = NpRigid3(
             np.array([float(matched[0]), float(matched[1]), pose_2d_full.t[2]]),
             nq.quat_multiply(nq.quat_from_axis_angle(np.array([0.0, 0.0, float(matched[2])])), gravity_alignment),

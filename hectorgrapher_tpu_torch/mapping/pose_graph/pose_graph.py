@@ -194,15 +194,6 @@ def _observe_batched_round(num_candidates: int) -> None:
         float(num_candidates))
 
 
-# Per-stage profiling of a batched constraint round: with ROUND_PROFILING
-# set, each round writes LAST_ROUND_BREAKDOWN (seconds per stage: pack,
-# initials, cand_build, fm_launch, fm_readback, gn_prepare, gn_launch,
-# gn_readback); device stages end in a synchronize, so they measure
-# completion, not enqueue.
-ROUND_PROFILING = False
-LAST_ROUND_BREAKDOWN: Dict[str, float] = {}
-
-
 class _SamplerState:
     """(ref: common/fixed_ratio_sampler.h FixedRatioSampler)"""
 
@@ -318,7 +309,7 @@ class PoseGraphBase:
             if self._async:
                 # The matcher is built off the front end's thread (ref:
                 # DispatchScanMatcherConstruction, constraint_builder_3d.cc:162-189).
-                self._work_queue.put(("finish_submap", self.submaps[idx].submap_id))
+                self._enqueue("finish_submap", self.submaps[idx].submap_id)
             else:
                 self._on_submap_finished(self.submaps[idx])
         return idx
@@ -523,7 +514,7 @@ class PoseGraphBase:
                             for s in newly_finished if id(s) in self._submap_ids]
             node_id = node.node_id
         if self._async:
-            self._work_queue.put(("node", node_id, inserted_ids, finished_ids))
+            self._enqueue("node", node_id, inserted_ids, finished_ids)
         else:
             self._compute_constraints_for_node(node_id, inserted_ids, finished_ids)
         return node_index
@@ -584,26 +575,37 @@ class PoseGraphBase:
 
     # -- async work queue -----------------------------------------------------
 
+    def _enqueue(self, kind: str, *args) -> None:
+        """A work item for the worker, stamped with the time of its put."""
+        self._work_queue.put((kind, args, time.perf_counter_ns()))
+
     def _drain_work_queue(self) -> None:
-        """(ref: pose_graph_3d.cc DrainWorkQueue:512-535.)"""
+        """(ref: pose_graph_3d.cc DrainWorkQueue:512-535.) Each item's wait
+        from its put to this get is the section pg.queue_wait, its work the
+        section pg.work."""
         while True:
             item = self._work_queue.get()
             try:
                 if item is None:
                     return
-                if item[0] == "node":
-                    _, node_id, inserted_ids, finished_ids = item
-                    self._compute_constraints_for_node(node_id, inserted_ids, finished_ids)
-                elif item[0] == "finish_submap":
-                    with self._lock:
-                        idx = self._submap_index_by_id.get(item[1])
-                        pg_submap = self.submaps[idx] if idx is not None else None
-                    if pg_submap is not None:
-                        self._on_submap_finished(pg_submap)
+                kind, args, put_ns = item
+                profiling.section_since("pg.queue_wait", put_ns)
+                with profiling.section("pg.work"):
+                    self._work(kind, args)
             except Exception:  # noqa: BLE001 - a dead worker would deadlock wait_for_all_computations
                 traceback.print_exc()
             finally:
                 self._work_queue.task_done()
+
+    def _work(self, kind: str, args) -> None:
+        if kind == "node":
+            self._compute_constraints_for_node(*args)
+        elif kind == "finish_submap":
+            with self._lock:
+                idx = self._submap_index_by_id.get(args[0])
+                pg_submap = self.submaps[idx] if idx is not None else None
+            if pg_submap is not None:
+                self._on_submap_finished(pg_submap)
 
     def wait_for_all_computations(self) -> None:
         """Block until the work queue is drained (ref: WaitForAllComputations)."""
@@ -1143,61 +1145,47 @@ class PoseGraph3D(PoseGraphBase):
         scan_range = max(self._scan_range_bucket(n) for _, _, n, _ in gated)
         config = matchers[0].search_config(scan_range, global_search)
 
-        prof = {} if ROUND_PROFILING else None
-
-        def stage(name, t0):
-            if prof is not None:
-                if self._device.type == "cuda":
-                    torch.cuda.synchronize(self._device)
-                prof[name] = prof.get(name, 0.0) + time.perf_counter() - t0
-            return time.perf_counter()
-
-        t0 = time.perf_counter()
         mesh = constraint_search_mesh()
         use_rotational = bool(fc.use_rotational_scan_matcher)
-        slot_by_sid, packed = self._get_pack_3d(matcher_by_sid, mesh)
-        broadcast = self._cs_broadcast_3d(config, mesh, use_rotational)
-        t0 = stage("pack", t0)
-        candidates = [self._candidate(node, p, slot_by_sid[sid]) for _, sid, node, p in gated]
-        stage("initials", t0)
-        matches = sharded_fast_matches_3d_packed(packed, candidates, config, use_rotational, profile=prof,
-                                                 broadcast=broadcast)
+        with profiling.span("round.pack"):
+            slot_by_sid, packed = self._get_pack_3d(matcher_by_sid, mesh)
+            broadcast = self._cs_broadcast_3d(config, mesh, use_rotational)
+        with profiling.span("round.initials"):
+            candidates = [self._candidate(node, p, slot_by_sid[sid]) for _, sid, node, p in gated]
+        with profiling.span("round.fast_match"):
+            matches = sharded_fast_matches_3d_packed(packed, candidates, config, use_rotational, broadcast=broadcast)
         survivors = [i for i, (score, low_score, _) in enumerate(matches)
                      if self._passes_gates(score, low_score, global_search)]
         results: List[Optional[Constraint]] = [None] * len(gated)
         if survivors:
-            t0 = time.perf_counter()
-            # The submaps captured at the gate, not looked up again: a trim
-            # since the fast match would have dropped them from
-            # self.submaps (a KeyError in the JAX package, ROADMAP C6);
-            # _append_constraint then adds nothing to a trimmed one.
-            submap_by_sid = {gated[i][1]: gated[i][3].submap for i in survivors}
-            distinct = list(submap_by_sid)
-            grids = [submap_by_sid[sid].prepared_grids() for sid in distinct]
-            pack = prepare_gn_pack_3d([hi for hi, _ in grids], [lo for _, lo in grids])
-            lane_d = torch.tensor([distinct.index(gated[i][1]) for i in survivors], dtype=torch.int32,
-                                  device=self._device)
-            nodes = [gated[i][2] for i in survivors]
-            poses = Rigid3(torch.stack([matches[i][2].translation for i in survivors]).to(self._device),
-                           torch.stack([matches[i][2].rotation for i in survivors]).to(self._device))
-            hi = PointCloud(torch.stack([n.high_cloud.positions for n in nodes]),
-                            torch.stack([n.high_cloud.mask for n in nodes]))
-            lo = PointCloud(torch.stack([n.low_cloud.positions for n in nodes]),
-                            torch.stack([n.low_cloud.mask for n in nodes]))
-            t0 = stage("gn_prepare", t0)
+            with profiling.span("round.gn_prepare"):
+                # The submaps captured at the gate, not looked up again: a
+                # trim since the fast match would have dropped them from
+                # self.submaps (a KeyError in the JAX package, ROADMAP C6);
+                # _append_constraint then adds nothing to a trimmed one.
+                submap_by_sid = {gated[i][1]: gated[i][3].submap for i in survivors}
+                distinct = list(submap_by_sid)
+                grids = [submap_by_sid[sid].prepared_grids() for sid in distinct]
+                pack = prepare_gn_pack_3d([hi for hi, _ in grids], [lo for _, lo in grids])
+                lane_d = torch.tensor([distinct.index(gated[i][1]) for i in survivors], dtype=torch.int32,
+                                      device=self._device)
+                nodes = [gated[i][2] for i in survivors]
+                poses = Rigid3(torch.stack([matches[i][2].translation for i in survivors]).to(self._device),
+                               torch.stack([matches[i][2].rotation for i in survivors]).to(self._device))
+                hi = PointCloud(torch.stack([n.high_cloud.positions for n in nodes]),
+                                torch.stack([n.high_cloud.mask for n in nodes]))
+                lo = PointCloud(torch.stack([n.low_cloud.positions for n in nodes]),
+                                torch.stack([n.low_cloud.mask for n in nodes]))
             cm = cb.ceres_scan_matcher_3d
-            refined, _ = match_gn_3d_packed(
-                pack, lane_d, hi, lo, poses, poses.translation, cm.occupied_space_weight_0,
-                cm.occupied_space_weight_1, cm.translation_weight, cm.rotation_weight,
-                num_iterations=cm.ceres_solver_options.max_num_iterations)
-            t0 = stage("gn_launch", t0)
-            tq = torch.cat([refined.translation, refined.rotation], dim=1).cpu().numpy()
-            stage("gn_readback", t0)
+            with profiling.span("round.gn"):
+                refined, _ = match_gn_3d_packed(
+                    pack, lane_d, hi, lo, poses, poses.translation, cm.occupied_space_weight_0,
+                    cm.occupied_space_weight_1, cm.translation_weight, cm.rotation_weight,
+                    num_iterations=cm.ceres_solver_options.max_num_iterations)
+            with profiling.span("round.gn_readback"):
+                tq = torch.cat([refined.translation, refined.rotation], dim=1).cpu().numpy()
             for k, i in enumerate(survivors):
                 results[i] = self._inter_constraint(gated[i][3], tq[k, :3], tq[k, 3:])
-        if prof is not None:
-            LAST_ROUND_BREAKDOWN.clear()
-            LAST_ROUND_BREAKDOWN.update(prof)
         return results
 
     def _run_optimization(self, num_iterations: int) -> None:
@@ -1589,29 +1577,20 @@ class PoseGraph2D(PoseGraphBase):
             raise NotImplementedError("mixed candidate shapes")
         scan_range = max(self._scan_range_bucket(n) for _, _, n, _ in gated)
         config, min_score = self._search_config(gated[0][3], scan_range, global_search)
-        prof = {} if ROUND_PROFILING else None
-
-        def stage(name, t0):
-            if prof is not None:
-                if self._device.type == "cuda":
-                    torch.cuda.synchronize(self._device)
-                prof[name] = prof.get(name, 0.0) + time.perf_counter() - t0
-            return time.perf_counter()
-
-        t0 = time.perf_counter()
-        needed: Dict[int, PgSubmap] = {}
-        for _, sid, _, p in gated:
-            if sid not in needed:
-                self._submap_matcher(p, config.depth)
-                needed[sid] = p
-        mesh = constraint_search_mesh()
-        slot_by_sid, packed, gn = self._get_pack_2d(needed, config.depth, mesh)
-        broadcast = self._cs_broadcast_2d(config, mesh)
-        t0 = stage("pack", t0)
-        candidates = [(slot_by_sid[sid], node.cloud, Rigid2(*self._initial_in_grid(node, p)))
-                      for _, sid, node, p in gated]
-        stage("initials", t0)
-        matches = sharded_fast_matches_2d_packed(packed, candidates, config, profile=prof, broadcast=broadcast)
+        with profiling.span("round.pack"):
+            needed: Dict[int, PgSubmap] = {}
+            for _, sid, _, p in gated:
+                if sid not in needed:
+                    self._submap_matcher(p, config.depth)
+                    needed[sid] = p
+            mesh = constraint_search_mesh()
+            slot_by_sid, packed, gn = self._get_pack_2d(needed, config.depth, mesh)
+            broadcast = self._cs_broadcast_2d(config, mesh)
+        with profiling.span("round.initials"):
+            candidates = [(slot_by_sid[sid], node.cloud, Rigid2(*self._initial_in_grid(node, p)))
+                          for _, sid, node, p in gated]
+        with profiling.span("round.fast_match"):
+            matches = sharded_fast_matches_2d_packed(packed, candidates, config, broadcast=broadcast)
         survivors = []
         for i, (score, _) in enumerate(matches):
             _observe_constraint_score("global" if global_search else "local", score)
@@ -1619,31 +1598,28 @@ class PoseGraph2D(PoseGraphBase):
                 survivors.append(i)
         results: List[Optional[Constraint]] = [None] * len(gated)
         if survivors:
-            t0 = time.perf_counter()
-            slots = torch.tensor([slot_by_sid[gated[i][1]] for i in survivors], dtype=torch.int64,
-                                 device=self._device)
-            poses = Rigid2(torch.stack([matches[i][1].translation for i in survivors]).to(self._device),
-                           torch.stack([matches[i][1].angle for i in survivors]).to(self._device))
-            clouds = [gated[i][2].cloud for i in survivors]
-            if all(c is clouds[0] for c in clouds):  # one node against many submaps
-                clouds = PointCloud(clouds[0].positions.expand(len(clouds), -1, -1),
-                                    clouds[0].mask.expand(len(clouds), -1))
-            else:
-                clouds = PointCloud(torch.stack([c.positions for c in clouds]), torch.stack([c.mask for c in clouds]))
-            t0 = stage("gn_prepare", t0)
+            with profiling.span("round.gn_prepare"):
+                slots = torch.tensor([slot_by_sid[gated[i][1]] for i in survivors], dtype=torch.int64,
+                                     device=self._device)
+                poses = Rigid2(torch.stack([matches[i][1].translation for i in survivors]).to(self._device),
+                               torch.stack([matches[i][1].angle for i in survivors]).to(self._device))
+                clouds = [gated[i][2].cloud for i in survivors]
+                if all(c is clouds[0] for c in clouds):  # one node against many submaps
+                    clouds = PointCloud(clouds[0].positions.expand(len(clouds), -1, -1),
+                                        clouds[0].mask.expand(len(clouds), -1))
+                else:
+                    clouds = PointCloud(torch.stack([c.positions for c in clouds]),
+                                        torch.stack([c.mask for c in clouds]))
             cm = self._options.constraint_builder.ceres_scan_matcher
-            refined, _ = match_gn_2d_packed_grids(
-                gn["values"], None, gn["min_corners"], gn["resolution"], gn["pad_value"], slots, clouds, poses,
-                poses.translation, cm.occupied_space_weight, cm.translation_weight, cm.rotation_weight,
-                is_tsdf=False, num_iterations=cm.ceres_solver_options.max_num_iterations)
-            t0 = stage("gn_launch", t0)
-            out = torch.cat([refined.translation, refined.angle[:, None]], dim=1).cpu().numpy()
-            stage("gn_readback", t0)
+            with profiling.span("round.gn"):
+                refined, _ = match_gn_2d_packed_grids(
+                    gn["values"], None, gn["min_corners"], gn["resolution"], gn["pad_value"], slots, clouds, poses,
+                    poses.translation, cm.occupied_space_weight, cm.translation_weight, cm.rotation_weight,
+                    is_tsdf=False, num_iterations=cm.ceres_solver_options.max_num_iterations)
+            with profiling.span("round.gn_readback"):
+                out = torch.cat([refined.translation, refined.angle[:, None]], dim=1).cpu().numpy()
             for k, i in enumerate(survivors):
                 results[i] = self._inter_constraint(gated[i][3], out[k])
-        if prof is not None:
-            LAST_ROUND_BREAKDOWN.clear()
-            LAST_ROUND_BREAKDOWN.update(prof)
         return results
 
     def _run_optimization(self, num_iterations: int) -> None:
