@@ -46,7 +46,9 @@ drive, a direct 2D SPA and a 3D graph through cs2d_pack, cs2d, spa2d,
 cs3d_pack, cs3d and spa3d, each against the same work with no mesh), and
 a one-process NCCL group whose sharded SPA gathers through NCCL. K3 is
 held to its plain version in each of its modes (TSDF over f32, f16 and
-bf16 volumes, and probability; phase 7), K5 at phase
+bf16 volumes, and probability; phase 7), K6 (an LM assembly's pair
+residuals and cloud poses) to its eager twins at the CT front end's
+shape (phase 7) and at phase 19's B = 8 windows (phase 24a), K5 at phase
 20's round, a full-submap search, a round over four packed submaps and
 synthetic calls on that pack that reach each of its instances with edge
 rows (no valid point, all valid, the last slots only, shared rows).
@@ -141,6 +143,7 @@ from hectorgrapher_tpu_torch.mapping.scan_matching.rotational_histogram import c
 from hectorgrapher_tpu_torch.ops import _build
 from hectorgrapher_tpu_torch.ops.correlative_prep_2d import correlative_prep_2d, correlative_prep_2d_plain
 from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores_2d, correlative_scores_2d_plain
+from hectorgrapher_tpu_torch.ops.ct_pair_block import ct_cloud_poses, ct_pair_residuals
 from hectorgrapher_tpu_torch.mapping.pose_graph import optimization as spa
 from hectorgrapher_tpu_torch.mapping.pose_graph import pose_graph as pose_graph_module
 from hectorgrapher_tpu_torch.mapping.pose_graph.pose_graph import PgNode, PoseGraph2D, PoseGraph3D
@@ -562,6 +565,19 @@ def _work(kernel, args):
                 element = 4 if prob else grid.tsd.element_size()
                 nbytes += (1 if prob else 2) * 32 * _sectors(cells, element)
         return nbytes, ops
+    if kernel == "ct_pair_residuals":
+        state, problem = args[:2]
+        k = state.translation.shape[-2]
+        n = problem.pair_dt.numel()
+        # The control points' states (t, q, v) once, a pair's 58 bytes of
+        # terms (dt, imu_dq, odom_dt, odom_dq, two weights f32; two masks),
+        # the three weights; r and J.
+        return 40 * (n // (k - 1)) * k + 58 * n + 12 + 4 * 285 * n, K6_PAIR_OPS * n
+    if kernel == "ct_cloud_poses":
+        state, problem = args[:2]
+        n = problem.cloud_factor.numel()
+        index = problem.cloud_prev.element_size()
+        return (28 * (state.translation.numel() // 3) + (2 * index + 4) * n + 4 * 133 * n, K6_CLOUD_OPS * n)
     if kernel == "fast_scores_3d":
         table, bx, by, bz, valid, cand_t, off_x, off_y, off_z = args[:9]
         cand_base = args[12] if len(args) > 12 else None
@@ -1209,6 +1225,128 @@ def check_points_mode(device, tag, pairs, scan_pts, checks):
         check_ct_points(args, f"{tag}{case}_segment", timed=False, empty=empty)
 
 
+def ct_pair_block_inputs(device, k=32, c=32, seed=SEED):
+    """K6's inputs at the CT front end's shape: one window's (state,
+    problem, weights) with K=32 control points 0.1 s apart turning by up
+    to 0.05 rad a step from a random attitude (control point 9 negated:
+    its pairs' dot below 0, the slerp's sign flip; control point 20 a copy
+    of 19: theta = 0, the lerp branch), C=32 clouds on brackets that cover
+    both, IMU and odometry terms near the true motion with adaptive-weight
+    sized odometry weights, pairs 4 and 17 out of the IMU term and pairs 4
+    and 25 out of the odometry term (their masks false)."""
+    from hectorgrapher_tpu_torch.transform.rigid import quat_from_axis_angle, quat_multiply, quat_normalize
+
+    rng = np.random.default_rng(seed)
+    to = lambda a, dtype=torch.float32: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    turns = to(rng.uniform(-0.05, 0.05, (k, 3)).astype(np.float32))
+    q = quat_normalize(quat_from_axis_angle(to(rng.uniform(-1.0, 1.0, 3).astype(np.float32))))
+    rotations = []
+    for i in range(k):
+        q = quat_normalize(quat_multiply(q, quat_from_axis_angle(turns[i])))
+        rotations.append(q)
+    rotation = torch.stack(rotations)
+    rotation[20] = rotation[19]
+    rotation[9] = -rotation[9]
+    state = CtState(to(np.cumsum(rng.normal(0.0, 0.02, (k, 3)), axis=0).astype(np.float32)), rotation.contiguous(),
+                    to(rng.normal(0.0, 0.25, (k, 3)).astype(np.float32)))
+    prev = np.minimum(np.arange(c) * (k - 1) // c, k - 2)
+    prev[:3] = (8, 9, 19)
+    near = lambda: quat_normalize(quat_from_axis_angle(turns[1:] + to(rng.normal(0.0, 1e-3, (k - 1, 3)))))
+    pair_mask, odom_mask = np.ones(k - 1, bool), np.ones(k - 1, bool)
+    pair_mask[[4, 17]] = False
+    odom_mask[[4, 25]] = False
+    problem = CtProblem(
+        cp_mask=to(np.ones(k, bool), torch.bool), cp_times=to(np.arange(k) * 0.1),
+        cloud_mask=to(np.ones(c, bool), torch.bool), cloud_prev=to(prev, torch.int32),
+        cloud_next=to(prev + 1, torch.int32), cloud_factor=to(rng.uniform(0.0, 1.0, c).astype(np.float32)),
+        cloud_time=to(np.zeros(c)), hi_points=None, hi_mask=None, hi_times=None, lo_points=None, lo_mask=None,
+        lo_times=None, pair_mask=to(pair_mask, torch.bool), pair_dt=to(np.full(k - 1, 0.1)),
+        imu_delta_rotation=near(), imu_delta_velocity=to(np.zeros((k - 1, 3))),
+        imu_delta_translation=to(np.zeros((k - 1, 3))), odom_mask=to(odom_mask, torch.bool),
+        odom_delta_translation=to(rng.normal(0.0, 0.02, (k - 1, 3)).astype(np.float32)),
+        odom_delta_rotation=near(), odom_translation_weight=to(rng.uniform(1.0, 20.0, k - 1).astype(np.float32)),
+        odom_rotation_weight=to(rng.uniform(1.0, 20.0, k - 1).astype(np.float32)))
+    weights = CtWeights(*(to(w) for w in (5.0, 15.0, 1.0, 1.0, 1.0)))
+    return state, problem, weights
+
+
+# K6's gate: each entry of an output within K6_TOL * max(1, the largest
+# |entry| of the twin's block) of the twin's, a block being one pair's r
+# or J, one cloud's pose7 or dpose7. The same formulas in f32; the twins'
+# torch reductions (vector_norm's fused squares) and library calls, and
+# for the cloud poses K3's f64 angles and reciprocals, round apart by a
+# few ulps of the terms an entry sums, and those scale with the block's
+# weights (odometry weights of ~20 give J entries of ~20 whose sums cancel
+# to ~0.01).
+K6_TOL = 1e-5
+# f32 operations a call executes, counted from csrc/ct_pair_block.cu on the
+# host (every multiply, add, subtract, divide, square root, reciprocal and
+# f64 rounding): 14,706 a pair, 2,994 a cloud in the slerp branch, over
+# the 18 lanes, each lane computing the block's values again.
+K6_PAIR_OPS, K6_CLOUD_OPS = 14706, 2994
+
+
+def _k6_gaps(got, want):
+    """(largest |difference|, largest difference over its bound, where:
+    the output, block and entry) of K6's outputs against the twin's (r, J
+    or pose7, dpose7; a block is the last axis of r and pose7, the last two
+    of J and dpose7)."""
+    gap, ratio, where = 0.0, -1.0, None
+    for out, (g, w) in enumerate(zip(got, want)):
+        d = (g - w).abs()
+        dims = tuple(range(w.dim() - 1 - out, w.dim()))
+        bound = K6_TOL * torch.clamp(w.abs().amax(dim=dims, keepdim=True), min=1.0)
+        r = d / bound
+        i = int(r.argmax())
+        gap = max(gap, float(d.max()))
+        if float(r.flatten()[i]) > ratio:
+            ratio = float(r.flatten()[i])
+            idx = np.unravel_index(i, tuple(w.shape))
+            where = (out, tuple(int(x) for x in idx), float(w.flatten()[i]), float(g.flatten()[i]))
+    return gap, ratio, where
+
+
+def check_ct_pair_block(state, problem, weights, label, timed=True, lanes=False):
+    """Phase 7 (and 24a): K6's pair residuals and cloud poses against their
+    eager twins: finite, within the per-entry gate, bit-equal over two
+    launches; with `lanes` (a leading window axis), each window bit-equal
+    to a launch for it alone (ROADMAP C31). Returns {"ct_pair_residuals":
+    record, "ct_cloud_poses": record} (measure's, timed) or the largest
+    differences."""
+    out = {}
+    for name, kernel, plain, args in (
+            ("ct_pair_residuals", ct_pair_residuals, window_solver.pair_residuals_plain, (state, problem, weights)),
+            ("ct_cloud_poses", ct_cloud_poses, window_solver.cloud_poses_plain, (state, problem))):
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(x).all()) for x in got + want):
+            fail(f"K6 {name} or its eager twin returned non-finite values at {label}")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"K6 {name}: two launches differ at {label}")
+        for b in range(state.translation.shape[0] if lanes else 0):
+            lane = lambda nt: type(nt)(*(x[b] if torch.is_tensor(x) and x.dim() else x for x in nt))
+            one = kernel(lane(args[0]), lane(args[1]), *args[2:])
+            if not all(torch.equal(x[b], y) for x, y in zip(got, one)):
+                fail(f"K6 {name}: window {b} is not bit-equal to a launch for it alone at {label}")
+        gap, ratio, where = _k6_gaps(got, want)
+        if ratio > 1.0:
+            fail(f"K6 {name} differs from its eager twin at {label}: max |d| {gap:.3e}, {ratio:.2f}x the gate "
+                 f"{K6_TOL:g} x max(1, |twin block|) at output {where[0]} entry {where[1]}: twin {where[2]:.7e}, "
+                 f"K6 {where[3]:.7e}")
+        shape = "x".join(map(str, got[1].shape))
+        alone = f", each of the {state.translation.shape[0]} windows bit-equal to a launch alone" if lanes else ""
+        if not timed:
+            print(f"{name} {label} {shape}: max |d| {gap:.3e} ({ratio:.3f} of the gate {K6_TOL:g} x max(1, |twin "
+                  f"block|)), bit-equal over two launches{alone}", flush=True)
+            out[name] = gap
+            continue
+        out[name] = measure(name, label, lambda: kernel(*args), lambda: plain(*args), args, gap,
+                            note=f" J {shape} ({ratio:.3f} of the gate {K6_TOL:g} x max(1, |twin block|), bit-equal "
+                                 f"over two launches{alone}; library: none, no one PyTorch call is a closed-form "
+                                 "Jacobian)")
+    return out
+
+
 def build_ct_example(device, K=8, C=8, P=256, grid=256, cube=True):
     """__graft_entry__._build_ct_example(grid, cube) rebuilt from the port's
     modules, with the same seeded draws: hi/lo TSDF grids (0.1 m / 0.45 m)
@@ -1406,20 +1544,31 @@ def ct_stage_ranges(builder):
                 setattr(obj, name, fn)
 
 
+def ct_launch_counts():
+    """The CT front end's counters: K3 launches per cloud and per point,
+    K6 launches (pair residuals, cloud poses), pair residuals taken by the
+    eager twin on the card (DIRECT), solver assemblies."""
+    return dict(k3=ct_scan_block.launches, k3_points=ct_scan_block_points.launches,
+                k6_pairs=window_solver.pair_residuals.launches, k6_clouds=window_solver.cloud_poses.launches,
+                pairs_eager=window_solver.pair_residuals.eager_on_card,
+                assemblies=window_solver.solve_ct_window_block.assemblies)
+
+
 def run_ct_front_end(device, n_scans=CT_SCANS, profile_scans=0, options=None, hook=None, count_scans=1):
     """Phases 9, 17 and 18: OptimizingLocalTrajectoryBuilder over the CT
     drive at `options` (phase 9's ct_options() by default), its solves
     through `hook` (the builder's window_solve_fn) when given. Returns
     (scans, per-scan seconds from the first window solve on, max
     translation and yaw errors against ground truth, the builder, counts:
-    K3 launches per cloud and per point, solver assemblies, over the
-    n_scans; and "kernels_per_scan", the kernels on the device trace of
-    each of count_scans more scans, a floor). With profile_scans, profiles
+    ct_launch_counts() over the n_scans, and "kernels_per_scan", the kernels on
+    the device trace of each of count_scans more scans, a floor). With profile_scans, profiles
     that many more scans afterwards and prints their breakdown."""
     builder = OptimizingLocalTrajectoryBuilder(options or ct_options(), device)
     builder.window_solve_fn = hook
     window_solver.solve_ct_window_block.assemblies = 0
     ct_scan_block.launches = ct_scan_block_points.launches = 0
+    window_solver.pair_residuals.launches = window_solver.pair_residuals.eager_on_card = 0
+    window_solver.cloud_poses.launches = 0
     latencies, t_err, y_err, n, counts, kernels = [], 0.0, 0.0, 0, None, []
     prof = None
     for kind, t, *payload in ct_drive(n_scans + count_scans + profile_scans):
@@ -1430,8 +1579,7 @@ def run_ct_front_end(device, n_scans=CT_SCANS, profile_scans=0, options=None, ho
             builder.add_odometry_data(t, payload[0])
             continue
         if n == n_scans:
-            counts = dict(k3=ct_scan_block.launches, k3_points=ct_scan_block_points.launches,
-                          assemblies=window_solver.solve_ct_window_block.assemblies)
+            counts = ct_launch_counts()
         if n == n_scans + count_scans and profile_scans:
             prof = profile_ct_start(builder)
         solves = builder.num_optimizations
@@ -1453,8 +1601,7 @@ def run_ct_front_end(device, n_scans=CT_SCANS, profile_scans=0, options=None, ho
             e_t, e_y = ct_pose_error(result.time, result.local_pose.t, result.local_pose.q)
             t_err, y_err = max(t_err, e_t), max(y_err, e_y)
     if counts is None:
-        counts = dict(k3=ct_scan_block.launches, k3_points=ct_scan_block_points.launches,
-                      assemblies=window_solver.solve_ct_window_block.assemblies)
+        counts = ct_launch_counts()
     counts["kernels_per_scan"] = float(np.mean(kernels)) if kernels else None
     if prof is not None:
         profile_ct_finish(prof, profile_scans)
@@ -1547,20 +1694,27 @@ class WindowCapture:
         return solve_inline(pending)
 
 
-def check_ct_drive(label, n_scans, lat, t_err, y_err, builder, counts, jax_t, jax_y, before):
+def check_ct_drive(label, n_scans, lat, t_err, y_err, builder, counts, jax_t, jax_y, before, direct=False):
     """Phases 17 and 18's gates and line: every assembly one per-point K3
-    launch and none per cloud; errors within max(2x, +0.05 m) and max(2x,
-    +0.01 rad) of the JAX package's on the same options and scans."""
+    launch and none per cloud, no cloud poses, and one K6 pair-residual
+    launch (with `direct`, one eager pair residual instead); errors within
+    max(2x, +0.05 m) and max(2x, +0.01 rad) of the JAX package's on the
+    same options and scans."""
     if counts["k3"] != 0 or counts["k3_points"] != counts["assemblies"] or counts["assemblies"] == 0:
         fail(f"{label}: K3 launches {counts['k3']} per cloud and {counts['k3_points']} per point for "
              f"{counts['assemblies']} assemblies")
+    k6_pairs, eager = (0, counts["assemblies"]) if direct else (counts["assemblies"], 0)
+    if (counts["k6_pairs"], counts["pairs_eager"], counts["k6_clouds"]) != (k6_pairs, eager, 0):
+        fail(f"{label}: K6 pair launches {counts['k6_pairs']}, eager pair residuals {counts['pairs_eager']}, "
+             f"K6 cloud launches {counts['k6_clouds']} for {counts['assemblies']} assemblies")
     t_bound, y_bound = max(2 * jax_t, jax_t + 0.05), max(2 * jax_y, jax_y + 0.01)
     if t_err > t_bound or y_err > y_bound:
         fail(f"{label}: max error {t_err:.5f} m / {y_err:.5f} rad exceeds {t_bound:.5f} m / {y_bound:.5f} rad "
              f"(JAX {jax_t:.5f} / {jax_y:.5f})")
     lat_ms = np.array(lat) * 1e3
     print(f"{label}: {n_scans} scans, {builder.num_optimizations} window solves, K3 per-point launches "
-          f"{counts['k3_points']} = assemblies {counts['assemblies']}, per-cloud launches {counts['k3']}; "
+          f"{counts['k3_points']} = assemblies {counts['assemblies']}, per-cloud launches {counts['k3']}; K6 "
+          f"pair launches {counts['k6_pairs']}, eager pair residuals {counts['pairs_eager']}; "
           f"{counts['kernels_per_scan']:.0f} kernels a scan (device trace of 1 scan); max error {t_err:.5f} m / "
           f"{y_err:.5f} rad (JAX on the CPU {jax_t:.5f} / {jax_y:.5f}, bounds {t_bound:.5f} / {y_bound:.5f}); "
           f"per-scan latency median {np.median(lat_ms):.3f} ms, p95 {np.percentile(lat_ms, 95):.3f} ms over "
@@ -1621,25 +1775,34 @@ def run_phase_17(device, picks=range(10, 74, 8)):
 
 def run_phase_18(device):
     """Phase 18: per-point unwarping and the DIRECT IMU term over the first
-    CT18_SCANS scans of phase 9's drive; the kernels a pair-residual evaluation takes with the M = 16
-    sub-steps against the preintegration form's, on the drive's first
-    window. Returns K3 per-point launches."""
+    CT18_SCANS scans of phase 9's drive; the kernels a pair-residual
+    evaluation takes with the M = 16 sub-steps (the eager twin) and in the
+    preintegration form (K6, one), on the drive's first window. Returns K3
+    per-point launches."""
     capture = WindowCapture([0])
     before = latency_snapshot()
     n, lat, t_err, y_err, builder, counts = run_ct_front_end(
         device, n_scans=CT18_SCANS, options=ct_options(per_point=True, direct=True), hook=capture)
     check_ct_drive("CT front end, per-point unwarping and DIRECT IMU (phase 18)", n, lat, t_err, y_err, builder,
-                   counts, JAX_CT18_TRANSLATION_ERROR, JAX_CT18_YAW_ERROR, before)
+                   counts, JAX_CT18_TRANSLATION_ERROR, JAX_CT18_YAW_ERROR, before, direct=True)
     pending = capture.kept[0]
     if pending.direct is None:
         fail("phase 18: the window carries no DIRECT IMU samples")
-    pair = lambda direct: device_kernels(
-        lambda: window_solver.pair_residuals(pending.state0, pending.problem, pending.weights, direct))[1]
+    pair = lambda direct, n=1: device_kernels(lambda: [window_solver.pair_residuals(
+        pending.state0, pending.problem, pending.weights, direct) for _ in range(n)])[1]
     pair(pending.direct)
-    direct_kernels, preint_kernels = pair(pending.direct), pair(None)
+    direct_kernels = pair(pending.direct)
+    # The preintegration form, 20 evaluations in one trace: K6's counter
+    # must count 20 launches, and the trace (a floor) no other kernel.
+    before_k6, before_eager = window_solver.pair_residuals.launches, window_solver.pair_residuals.eager_on_card
+    preint_kernels = pair(None, 20)
+    k6 = window_solver.pair_residuals.launches - before_k6
+    if k6 != 20 or window_solver.pair_residuals.eager_on_card != before_eager or preint_kernels > 20:
+        fail(f"phase 18: 20 pair-residual evaluations in the preintegration form made {k6} K6 launches and "
+             f"{preint_kernels} kernels on the trace")
     print(f"phase 18: a pair-residual evaluation takes {direct_kernels} kernels with DIRECT (M = "
-          f"{pending.direct.dt.shape[-1]} sub-steps) against {preint_kernels} in the preintegration form: "
-          f"{direct_kernels - preint_kernels} more a scan-block assembly", flush=True)
+          f"{pending.direct.dt.shape[-1]} sub-steps, the eager twin) and 1 in the preintegration form (K6: 20 "
+          f"launches counted in 20 evaluations, {preint_kernels} kernels on their trace)", flush=True)
     return counts["k3_points"]
 
 
@@ -4007,13 +4170,17 @@ def run_phase_24_windows(device, inputs):
     """24a's sharded window solves: phase 19's B = 8 captured windows,
     per scan and per point, over a Mesh of SHARDS24 shards on the card
     against the unsharded batched solve. Gates: each lane within phase
-    19's 1e-3 m / 1e-3 rad, one slotted K3 launch a shard and assembly.
-    Returns the slotted launches, per scan and per point."""
+    19's 1e-3 m / 1e-3 rad, one slotted K3 launch a shard and assembly;
+    first K6 on the B windows (check_ct_pair_block with lanes). Returns
+    the slotted launches, per scan and per point, and K6's records."""
     windows, weights, iters = inputs
     his, los = [w[0] for w in windows], [w[1] for w in windows]
     problems, states0 = _stack([w[2] for w in windows], CtProblem), _stack([w[3] for w in windows], CtState)
     is_tsdf = windows[0][4]
-    launches, row = {}, []
+    # K6 at the batched shape against its eager twins, each window bit-equal
+    # to a launch for it alone.
+    k6 = check_ct_pair_block(states0, problems, weights, f"batched_b{len(windows)}", lanes=True)
+    launches, row = {"k6": k6}, []
     for per_point in (False, True):
         slotted = ct_scan_block_points_slots if per_point else ct_scan_block_slots
         kw = dict(is_tsdf=is_tsdf, num_iterations=iters, per_point=per_point)
@@ -4279,7 +4446,7 @@ def run_phase_24(device):
     run_phase_24b()
     return dict(fast_scores_3d={"shard24_rounds_3d": k4}, fast_scores_2d={"shard24_rounds_2d": k5},
                 ct_scan_block={"shard24_windows": k3["per_scan"]},
-                ct_scan_block_points={"shard24_windows": k3["per_point"]})
+                ct_scan_block_points={"shard24_windows": k3["per_point"]}, k6=k3["k6"])
 
 
 CLASSIC_SCANS = CT_SCANS  # phase 25: 8 s at 10 Hz, as phase 9
@@ -5120,6 +5287,11 @@ def main() -> int:
     if not all((ct_scan_block_points.launches, ct_scan_block_points.f16_launches, ct_scan_block_points.prob_launches,
                 ct_scan_block_points_slots.f16_launches, ct_scan_block_points_slots.prob_launches)):
         fail("phase 7: K3's per-point mode did not launch in its f32, f16 and probability modes")
+    # K6: an LM assembly's pair residuals and cloud poses against their eager
+    # twins at the CT front end's shape (rotated states, masked pairs, a
+    # sign flip and a lerp pair).
+    for name, rec in check_ct_pair_block(*ct_pair_block_inputs(device), "front_end").items():
+        checks[name] = {"front_end": rec}
 
     mark("8")
     # Phase 8: the window solve on the production-extent fixture.
@@ -5134,6 +5306,10 @@ def main() -> int:
     launches["ct_scan_block"] = k3_launches
     if k3_launches != assemblies or k3_launches == 0:
         fail(f"CT front end: {k3_launches} K3 launches for {assemblies} solver assemblies")
+    k6 = (ct_counts["k6_pairs"], ct_counts["k6_clouds"], ct_counts["pairs_eager"])
+    if k6 != (assemblies, assemblies, 0):
+        fail(f"CT front end: K6 pair and cloud launches and eager pair residuals {k6} for {assemblies} assemblies")
+    launches["ct_pair_residuals"], launches["ct_cloud_poses"] = k6[:2]
     submap = ct_builder.active_submaps.matching_submap
     if submap is None or int((submap.high_resolution_grid.weight > 0).sum()) == 0:
         fail("CT front end: the matching submap has no observed cells")
@@ -5146,8 +5322,8 @@ def main() -> int:
              f"{CT_PARITY_TRANSLATION} m / {CT_PARITY_YAW} rad of the JAX front end's")
     lat_ms = np.array(ct_lat) * 1e3
     print(f"CT front end: {n_scans} scans, {ct_builder.num_optimizations} window solves "
-          f"({ct_builder.num_optimizations / n_scans:.2f} per scan), K3 launches {k3_launches} = assemblies "
-          f"{assemblies}; max error {ct_t_err:.5f} m / {ct_y_err:.5f} rad (JAX on the CPU "
+          f"({ct_builder.num_optimizations / n_scans:.2f} per scan), K3 launches {k3_launches} = K6 pair and "
+          f"cloud launches {k6[0]}, {k6[1]} = assemblies {assemblies}; max error {ct_t_err:.5f} m / {ct_y_err:.5f} rad (JAX on the CPU "
           f"{JAX_CT_TRANSLATION_ERROR:.5f} / {JAX_CT_YAW_ERROR:.5f}, bounds {CT_MAX_TRANSLATION_ERROR:.5f} / "
           f"{CT_MAX_YAW_ERROR:.5f}); per-scan latency median {np.median(lat_ms):.3f} ms, "
           f"p95 {np.percentile(lat_ms, 95):.3f} ms over {len(lat_ms)} scans; {ct_counts['kernels_per_scan']:.0f} "
@@ -5278,6 +5454,8 @@ def main() -> int:
     # over a mesh of SHARDS24 shards on the card; (b) the solver plane in
     # child processes, and an NCCL gather.
     paths24 = run_phase_24(device)
+    for name, rec in paths24["k6"].items():
+        checks[name]["batched_b8"] = rec
     k3_paths.update(paths24["ct_scan_block"])
     k3p_paths.update(paths24["ct_scan_block_points"])
     k4_paths.update(paths24["fast_scores_3d"])
@@ -5315,6 +5493,12 @@ def main() -> int:
         "ct_scan_block_points": ("hectorgrapher_tpu_torch/csrc/ct_scan_block.cu",
                                  "hectorgrapher_tpu/mapping/ct/window_solver.py:366 (XLA fusion of the per-point "
                                  "point_scan_block, :366-462, with interpolated_grid.py:332-466)"),
+        "ct_pair_residuals": ("hectorgrapher_tpu_torch/csrc/ct_pair_block.cu",
+                              "hectorgrapher_tpu/mapping/ct/window_solver.py:515 (jax.jacfwd of pair_block inside "
+                              "the assembly's XLA fusion)"),
+        "ct_cloud_poses": ("hectorgrapher_tpu_torch/csrc/ct_pair_block.cu",
+                           "hectorgrapher_tpu/mapping/ct/window_solver.py:479 (jax.jacfwd of scan_block's pose_of "
+                           "inside the assembly's XLA fusion)"),
         "fast_scores_3d": ("hectorgrapher_tpu_torch/csrc/fast_scores_3d.cu",
                            "hectorgrapher_tpu/mapping/scan_matching/fast_correlative_3d.py:329 (score_sum of "
                            "_match_fast_3d_core, an XLA gather-reduce)"),
@@ -5341,9 +5525,11 @@ def main() -> int:
     # (both servers' rounds) and 26a (drz26) beside it under
     # "launches_by_path"; K5: phase 20, without its rounds' serial re-runs,
     # with phases 22a and 26b (seq2d26) beside it; K1 and K2 with 26b's
-    # seq2d26).
+    # seq2d26; K6, pair residuals and cloud poses: phase 9, its batched
+    # gate of phase 24a under "shapes" as batched_b8).
     main_shape = {"correlative_prep_2d": "batched", "correlative_scores_2d": "batched",
-                  "ct_scan_block": "front_end", "ct_scan_block_points": "front_end", "fast_scores_3d": "coarse",
+                  "ct_scan_block": "front_end", "ct_scan_block_points": "front_end", "ct_pair_residuals": "front_end",
+                  "ct_cloud_poses": "front_end", "fast_scores_3d": "coarse",
                   "fast_scores_2d": "round_coarse"}
     paths = {"ct_scan_block": k3_paths, "ct_scan_block_points": k3p_paths, "fast_scores_3d": k4_paths,
              "fast_scores_2d": {"slam20": k5_20, "slam22a_uint16": k5_22, **paths24["fast_scores_2d"], "seq2d26": k5_26},

@@ -15,7 +15,11 @@ the matching submap's hi- and lo-resolution grids, TSDF or occupancy
     odometry relative-pose residuals with adaptive weights, per control
     point pair;
   * every Jacobian of a cloud pose or a pair residual on the 18-dim pair
-    tangent in closed form (the chain rule jax.jacfwd applies);
+    tangent in closed form (the chain rule jax.jacfwd applies): on the
+    card kernel K6 (ops/ct_pair_block.py), one launch each for the cloud
+    poses and the pair residuals of an assembly; on the CPU, and for the
+    DIRECT IMU term, their eager twins cloud_poses_plain and
+    pair_residuals_plain;
   * the first control point frozen; the quaternion manifold through the
     retraction.
 
@@ -58,6 +62,7 @@ import torch
 
 from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import _lm_drive
 from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import PreparedProb3D, prepare_grid_3d
+from hectorgrapher_tpu_torch.ops.ct_pair_block import ct_cloud_poses, ct_pair_residuals
 from hectorgrapher_tpu_torch.ops.ct_scan_block import (
     ct_scan_block,
     ct_scan_block_points,
@@ -214,7 +219,9 @@ def _take(x, idx):
 # tensor for an (..., n) value: the same chain rule jacfwd applies, op by
 # op, as batched tensor ops (torch.func.jacfwd costs ~100x more host time
 # per assembly, and the solve is host-bound). Values are computed as the
-# JAX source computes them at a zero tangent.
+# JAX source computes them at a zero tangent. These eager chains are the
+# CPU path and kernel K6's twins: on the card, cloud_poses and
+# pair_residuals launch K6 (csrc/ct_pair_block.cu) instead.
 
 
 def _unit_tangent(like, col: int, n: int = 3):
@@ -320,11 +327,12 @@ def _jrpy(q, tq):
     return _rpy_of_quat(q), torch.stack([d_roll, d_pitch, d_yaw], dim=-1)
 
 
-def cloud_poses(state: CtState, problem: CtProblem):
+def cloud_poses_plain(state: CtState, problem: CtProblem):
     """(pose7 (C, 7), dpose7 (C, 7, 18)): each cloud's interpolated pose
     [t, q] after retracting its two control points by a zero pair tangent
     (window_solver.py scan_block pose_of, :479-488), and its Jacobian. A
-    batch of windows gives (B, C, 7) and (B, C, 7, 18)."""
+    batch of windows gives (B, C, 7) and (B, C, 7, 18). The eager twin of
+    kernel K6 (ops/ct_pair_block.py ct_cloud_poses)."""
     p, n, f = problem.cloud_prev, problem.cloud_next, problem.cloud_factor
     tp, tn = _take(state.translation, p), _take(state.translation, n)
     q0, tq0 = _retract_rotation(_take(state.rotation, p), 3)
@@ -354,12 +362,13 @@ def _integrate_direct(t, tt, q, tq, v, tv, direct: DirectImuData):
     return t, tt, q, tq, v, tv
 
 
-def pair_residuals(state: CtState, problem: CtProblem, weights: CtWeights, direct=None):
+def pair_residuals_plain(state: CtState, problem: CtProblem, weights: CtWeights, direct=None):
     """(r (K-1, 15), J (K-1, 15, 18)): the IMU (live preintegration form,
     or with `direct` the DIRECT term) and odometry residuals of each
     control point pair and their Jacobian on the pair tangent
     (window_solver.py pair_block :515-577). A batch of windows gives (B,
-    K-1, 15) and (B, K-1, 15, 18)."""
+    K-1, 15) and (B, K-1, 15, 18). Without `direct`, the eager twin of
+    kernel K6 (ops/ct_pair_block.py ct_pair_residuals)."""
     ta, tb = state.translation[..., :-1, :], state.translation[..., 1:, :]
     va, vb = state.velocity[..., :-1, :], state.velocity[..., 1:, :]
     dt = problem.pair_dt[..., None]
@@ -397,6 +406,42 @@ def pair_residuals(state: CtState, problem: CtProblem, weights: CtWeights, direc
     odom_r = torch.cat([wt * oerr_t, wr * rpy], dim=-1) * m_odom
     odom_j = torch.cat([wt[..., None] * d_oerr_t, wr[..., None] * d_rpy], dim=-1) * m_odom[..., None]
     return torch.cat([imu_r, odom_r], dim=-1), torch.cat([imu_j, odom_j], dim=-1).transpose(-1, -2)
+
+
+def cloud_poses(state: CtState, problem: CtProblem):
+    """cloud_poses_plain's (pose7, dpose7): CUDA tensors launch kernel K6
+    (counted in cloud_poses.launches), CPU tensors run the eager twin."""
+    device = state.translation.device
+    if device.type == "cuda":
+        out = ct_cloud_poses(state, problem)
+        cloud_poses.launches += 1
+        return out
+    if device.type != "cpu":
+        raise ValueError(f"cloud_poses: unsupported device {device}")
+    return cloud_poses_plain(state, problem)
+
+
+cloud_poses.launches = 0
+
+
+def pair_residuals(state: CtState, problem: CtProblem, weights: CtWeights, direct=None):
+    """pair_residuals_plain's (r, J): CUDA tensors launch kernel K6 in the
+    preintegration form (counted in pair_residuals.launches); the DIRECT
+    term (`direct` given) runs the eager twin, on the card too (counted in
+    pair_residuals.eager_on_card), as CPU tensors do."""
+    device = state.translation.device
+    if device.type == "cuda":
+        if direct is None:
+            out = ct_pair_residuals(state, problem, weights)
+            pair_residuals.launches += 1
+            return out
+        pair_residuals.eager_on_card += 1
+    elif device.type != "cpu":
+        raise ValueError(f"pair_residuals: unsupported device {device}")
+    return pair_residuals_plain(state, problem, weights, direct)
+
+
+pair_residuals.launches = pair_residuals.eager_on_card = 0
 
 
 def _scan_scales(problem: CtProblem, weights: CtWeights):

@@ -4,8 +4,8 @@ nvcc compiles every source to an object file, all at once in parallel,
 and links them into one shared library with a plain C interface, which is
 loaded with ctypes. The library lands in
 hectorgrapher_tpu_torch/_build/ under a name that carries the hash of the
-sources and flags, so an edited source is rebuilt and a stale library is
-never loaded. A failed build raises with nvcc's output.
+sources, their headers (csrc/*.cuh) and flags, so an edited source is
+rebuilt and a stale library is never loaded. A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -84,7 +84,7 @@ def _load() -> ctypes.CDLL:
     global build_log, build_seconds
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(_CSRC.glob("*.cuh")):  # the headers the sources include
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     target = _BUILD / f"libhg_kernels_{digest.hexdigest()[:16]}.so"
@@ -147,6 +147,10 @@ def bind(path: Path) -> ctypes.CDLL:
     lib.hg_ct_scan_block_points.restype = i32
     lib.hg_ct_scan_block_points_slots.argtypes = [ptr] * 14 + [i32] * 11 + [ptr]
     lib.hg_ct_scan_block_points_slots.restype = i32
+    lib.hg_ct_pair_residuals.argtypes = [ptr] * 16 + [i32] * 2 + [ptr]
+    lib.hg_ct_pair_residuals.restype = i32
+    lib.hg_ct_cloud_poses.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+    lib.hg_ct_cloud_poses.restype = i32
     lib.hg_fast_scores_3d.argtypes = [ptr] * 11 + [i32] * 13 + [ptr]
     lib.hg_fast_scores_3d.restype = i32
     lib.hg_fast_scores_2d.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]

@@ -340,3 +340,41 @@ def test_k5_gather_is_the_plain_sum(level):
     torch.testing.assert_close(got, fast_scores_2d_plain(*args), rtol=0, atol=1e-5)
     lib = torch.nn.functional.embedding_bag(idx, table.reshape(-1, 1), mode="sum", per_sample_weights=weight)
     torch.testing.assert_close(lib.reshape(6, 2, 3), fast_scores_2d_plain(*args), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["ct_pair_residuals", "ct_cloud_poses"])
+def test_bound_ct_pair_block_front_end_shape(kernel):
+    """K6's bound at phase 7's shape (chip_smoke.ct_pair_block_inputs: K =
+    C = 32): pair residuals read the 32 control points' t, q, v (40 bytes
+    each), 58 bytes of terms a pair and the three weights, and write r and
+    J (285 floats a pair); cloud poses read t and q (28 bytes a control
+    point), two int32 indices and a factor a cloud, and write pose7 and
+    dpose7 (133 floats). Both are bounded by bytes."""
+    state, problem, weights = cs.ct_pair_block_inputs(CPU)
+    if kernel == "ct_pair_residuals":
+        args, want = (state, problem, weights), (40 * 32 + 58 * 31 + 12 + 4 * 285 * 31, cs.K6_PAIR_OPS * 31)
+    else:
+        args, want = (state, problem), (28 * 32 + 12 * 32 + 4 * 133 * 32, cs.K6_CLOUD_OPS * 32)
+    ms, by, nbytes, ops = cs.bound_ms(kernel, args)
+    assert (nbytes, ops, by) == (*want, "bytes")
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+
+
+def test_ct_pair_block_inputs_take_every_branch():
+    """Phase 7's K6 window holds what its gate is for: pairs out of the IMU
+    and the odometry terms, a pair whose rotations' dot is below 0 (the
+    slerp's sign flip), a lerp pair (two equal rotations) and clouds on
+    both, finite eager twins, and unit quaternions."""
+    state, problem, weights = cs.ct_pair_block_inputs(CPU)
+    q = state.rotation
+    assert torch.allclose(torch.linalg.vector_norm(q, dim=-1), torch.ones(32), atol=1e-6)
+    dots = torch.sum(q[:-1] * q[1:], dim=-1)
+    assert bool((dots[[8, 9]] < 0).all()) and bool((dots.abs() > 0.9).all())
+    assert torch.equal(q[19], q[20])
+    assert {8, 9, 19} <= set(problem.cloud_prev.tolist())
+    assert (~problem.pair_mask).nonzero().flatten().tolist() == [4, 17]
+    assert (~problem.odom_mask).nonzero().flatten().tolist() == [4, 25]
+    from hectorgrapher_tpu_torch.mapping.ct import window_solver as tws
+
+    for out in tws.pair_residuals_plain(state, problem, weights) + tws.cloud_poses_plain(state, problem):
+        assert bool(torch.isfinite(out).all())
