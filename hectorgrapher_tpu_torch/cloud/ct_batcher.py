@@ -19,19 +19,36 @@ windows share once (window_slots).
 With a mesh (a Mesh of this process's shards) the batch is sharded over
 it (parallel/ct_windows.py): padded to a multiple of the shard count by
 repeating lane 0, each shard solving its lanes, the pad lanes dropped.
+
+What it records (common/profiling.py): the section ct.batch_wait, on a
+worker, from a request's append to the worker's wake (the wait for the
+other trajectories and for the solve); ct.turn_wait, on a worker that
+holds a host turn, from that wake until it has the turn back (the wait
+for the other workers' host code); ct.batched_solve around each batched
+solve, ending where the solve itself last waits on the card; and the
+histogram hg_ct_batch_windows (BATCH_WINDOWS), the windows of each window
+solve (B for a batched solve, 1 for one solved alone), one observation a
+solve.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Dict, List
 
 import torch
 
+from hectorgrapher_tpu_torch.common import profiling
 from hectorgrapher_tpu_torch.mapping.ct import window_solver
 from hectorgrapher_tpu_torch.mapping.ct.window_solver import CtProblem, CtState, DirectImuData
 from hectorgrapher_tpu_torch.mapping.grids import TSDFGrid
+
+
+BATCH_WINDOWS = profiling.global_factory().new_histogram_family(
+    "hg_ct_batch_windows", "CT windows per window solve of the batcher (1: solved alone)",
+    boundaries=[1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 32.0]).add({})
 
 
 def _grid_key(grid) -> tuple:
@@ -83,6 +100,10 @@ class CtWindowBatcher:
         self._active_workers = 0
         self._blocked = 0
         self._dead = None  # set by fail_pending: later solves fail fast
+        # One worker at a time runs host code (host_turn); a worker hands
+        # the turn on while it waits in a solve.
+        self._turn = threading.Lock()
+        self._local = threading.local()
         # What the server batched: launches of the batched solve, solves
         # that ran alone, and the size of each batch.
         self.batched_launches = 0
@@ -106,17 +127,45 @@ class CtWindowBatcher:
             self._active_workers -= 1
             self._cv.notify_all()
 
+    @contextlib.contextmanager
+    def host_turn(self):
+        """Run the block while no other worker of this batcher runs its
+        host code: the turn passes on while the block waits in a solve
+        and at its end. Workers that ran their host code side by side
+        would hand the interpreter's lock back and forth at every eager
+        launch; in turns, each runs to its window solve (or its items'
+        end) at the pace of one robot alone."""
+        with self._turn:
+            self._local.turn = True
+            try:
+                yield
+            finally:
+                self._local.turn = False
+
     def _solve(self, pending):
         """The builder's hook, on a worker thread: queue the request and
-        block until the coordinator solved it."""
+        block until the coordinator solved it. The solve's final and
+        initial costs are left on the request (pending.cost, pending.cost0,
+        0-d tensors on the card), as solve_ct_window returns them."""
         entry = {"pending": pending, "event": threading.Event(), "solved": None, "error": None}
         with self._cv:
             if self._dead is not None:
                 raise self._dead
+            queued = time.perf_counter_ns()
             self._requests.append(entry)
             self._blocked += 1
             self._cv.notify_all()
-        entry["event"].wait()
+        turn = getattr(self._local, "turn", False)
+        if turn:
+            self._turn.release()
+        try:
+            entry["event"].wait()
+            profiling.section_since("ct.batch_wait", queued)
+        finally:
+            if turn:
+                woke = time.perf_counter_ns()
+                self._turn.acquire()
+                profiling.section_since("ct.turn_wait", woke)
         with self._cv:
             self._blocked -= 1
         if entry["error"] is not None:
@@ -179,7 +228,9 @@ class CtWindowBatcher:
                 serial.extend(entries)
                 continue
             try:
-                self._solve_batched(entries)
+                with profiling.section("ct.batched_solve"):
+                    self._solve_batched(entries)
+                BATCH_WINDOWS.observe(float(len(entries)))
             except Exception as e:  # noqa: BLE001 - reported to the waiting workers
                 for entry in entries:
                     entry["error"] = e
@@ -187,10 +238,11 @@ class CtWindowBatcher:
         for entry in serial:
             p = entry["pending"]
             try:
-                entry["solved"], _, _ = window_solver.solve_ct_window(
+                entry["solved"], p.cost, p.cost0 = window_solver.solve_ct_window(
                     p.high_grid, p.low_grid, p.problem, p.state0, p.weights, is_tsdf=p.is_tsdf,
                     num_iterations=p.num_iterations, per_point=p.per_point, direct=p.direct)
                 self.serial_solves += 1
+                BATCH_WINDOWS.observe(1.0)
             except Exception as e:  # noqa: BLE001 - reported to the waiting worker
                 entry["error"] = e
             entry["event"].set()
@@ -209,11 +261,13 @@ class CtWindowBatcher:
         if self._mesh is not None:
             from hectorgrapher_tpu_torch.parallel.ct_windows import solve_ct_windows_sharded
 
-            solved, _, _ = solve_ct_windows_sharded(self._mesh, *args, **kwargs)
+            solved, cost, cost0 = solve_ct_windows_sharded(self._mesh, *args, **kwargs)
         else:
-            solved, _, _ = window_solver.solve_ct_window_batched(*args, **kwargs)
+            solved, cost, cost0 = window_solver.solve_ct_window_batched(*args, **kwargs)
         self.batched_launches += 1
         self.batch_sizes.append(len(entries))
         for i, entry in enumerate(entries):
             entry["solved"] = CtState(*(leaf[i] for leaf in solved))
+            if cost is not None:
+                entry["pending"].cost, entry["pending"].cost0 = cost[i], cost0[i]
             entry["event"].set()

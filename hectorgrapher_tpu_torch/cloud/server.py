@@ -19,16 +19,23 @@ Two layers in this module:
 The RPC names and the request / response dicts are the JAX package's.
 Trust model: the data plane is for a private cluster, as in the
 reference deployment.
+
+What it records (common/profiling.py): the section server.queue_wait,
+an item's time in the sensor queue from its put to its get on the SLAM
+thread, and with batch_ct_windows server.drain, one pass of the batched
+SLAM loop from the drain to the last worker's join.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 import traceback
 from typing import Dict, Optional
 
 from hectorgrapher_tpu_torch.cloud import wire
+from hectorgrapher_tpu_torch.common import profiling
 
 SERVICE = "hectorgrapher.MapBuilderService"
 
@@ -42,6 +49,27 @@ STREAM_METHODS = ("ReceiveLocalSlamResults", "ReceiveGlobalSlamOptimizations")
 # accepts (ROADMAP C24).
 CHANNEL_OPTIONS = [("grpc.max_send_message_length", wire.MAX_WIRE_BYTES),
                    ("grpc.max_receive_message_length", wire.MAX_WIRE_BYTES)]
+
+# gRPC's synchronous server runs a server-streaming handler on one of its
+# pool's threads for the stream's whole life, so every open subscription
+# (one ReceiveLocalSlamResults a robot) holds a thread: the pool keeps
+# this many threads for streams beside the num_workers for unary calls,
+# else a fleet of more robots than num_workers starves every call.
+STREAM_THREADS = 64
+
+
+class _SensorQueue(queue.Queue):
+    """The sensor queue, each item stamped at its put: a get records the
+    item's wait into the section server.queue_wait. Items go in and come
+    out as they are."""
+
+    def _put(self, item):
+        self.queue.append((time.perf_counter_ns(), item))
+
+    def _get(self):
+        put_ns, item = self.queue.popleft()
+        profiling.section_since("server.queue_wait", put_ns)
+        return item
 
 
 class MapBuilderServerCore:
@@ -65,7 +93,7 @@ class MapBuilderServerCore:
             from hectorgrapher_tpu_torch.cloud.uploader import LocalTrajectoryUploader
 
             self.uploader = LocalTrajectoryUploader(uplink_address)
-        self._sensor_queue: "queue.Queue" = queue.Queue()
+        self._sensor_queue: "queue.Queue" = _SensorQueue()
         # Per-trajectory index of the front insertion submap, advanced when
         # it finishes (ref: map_builder_server.h starting_submap_index_).
         self._starting_submap_index: Dict[int, int] = {}
@@ -142,44 +170,49 @@ class MapBuilderServerCore:
                 finally:
                     self._sensor_queue.task_done()
                 continue
-            # Batched: drain what is there, group by trajectory (order kept
-            # within one), advance each group on its own thread, and solve
-            # the ready windows together whenever every live worker waits
-            # on one.
-            items = [item]
-            while True:
-                try:
-                    items.append(self._sensor_queue.get_nowait())
-                except queue.Empty:
-                    break
-            by_traj: Dict[int, list] = {}
-            for it in items:
-                by_traj.setdefault(it[0], []).append(it)
+            with profiling.section("server.drain"):
+                self._drain_batched(item)
 
-            def run(traj_items):
-                try:
+    def _drain_batched(self, item) -> None:
+        """Batched: drain what is there, group by trajectory (order kept
+        within one), advance each group on its own thread, one group's
+        host code at a time (CtWindowBatcher.host_turn), and solve the
+        ready windows together whenever every live worker waits on one."""
+        items = [item]
+        while True:
+            try:
+                items.append(self._sensor_queue.get_nowait())
+            except queue.Empty:
+                break
+        by_traj: Dict[int, list] = {}
+        for it in items:
+            by_traj.setdefault(it[0], []).append(it)
+
+        def run(traj_items):
+            try:
+                with self.ct_batcher.host_turn():
                     for it in traj_items:
                         try:
                             self._process_one_item(it)
                         finally:
                             self._sensor_queue.task_done()
-                finally:
-                    self.ct_batcher.finish()
+            finally:
+                self.ct_batcher.finish()
 
-            self.ct_batcher.begin(len(by_traj))
-            threads = [threading.Thread(target=run, args=(its,), daemon=True) for its in by_traj.values()]
-            for t in threads:
-                t.start()
-            try:
-                self.ct_batcher.serve()
-            except Exception:
-                # The SLAM thread must survive (a dead one deadlocks every
-                # RPC waiting on _sensor_queue.join()); fail the blocked
-                # solves so that the workers finish their items.
-                traceback.print_exc()
-                self.ct_batcher.fail_pending(RuntimeError("ct batcher aborted"))
-            for t in threads:
-                t.join()
+        self.ct_batcher.begin(len(by_traj))
+        threads = [threading.Thread(target=run, args=(its,), daemon=True) for its in by_traj.values()]
+        for t in threads:
+            t.start()
+        try:
+            self.ct_batcher.serve()
+        except Exception:
+            # The SLAM thread must survive (a dead one deadlocks every RPC
+            # waiting on _sensor_queue.join()); fail the blocked solves so
+            # that the workers finish their items.
+            traceback.print_exc()
+            self.ct_batcher.fail_pending(RuntimeError("ct batcher aborted"))
+        for t in threads:
+            t.join()
 
     def _process_one_item(self, item) -> None:
         try:
@@ -452,7 +485,8 @@ class MapBuilderServer(MapBuilderServerCore):
 
         super().__init__(map_builder, uplink_address=uplink_address, batch_ct_windows=batch_ct_windows,
                          ct_mesh=ct_mesh)
-        self._server = grpc.server(futures.ThreadPoolExecutor(max_workers=num_workers), options=CHANNEL_OPTIONS)
+        self._server = grpc.server(futures.ThreadPoolExecutor(max_workers=num_workers + STREAM_THREADS),
+                                   options=CHANNEL_OPTIONS)
         method_handlers = {
             name: grpc.unary_unary_rpc_method_handler(
                 lambda request, context, fn=fn: fn(request),

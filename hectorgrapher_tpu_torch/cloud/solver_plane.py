@@ -246,16 +246,21 @@ class SolverPlaneLeader:
         # for it, instead of failing while the caller enters the collective.
         futures_now = [call.future((op, seq, payload), timeout=self._wait_timeout_s, wait_for_ready=True)
                        for call in self._calls]
-        if st is not None:
-            for f in futures_now:
-                f.add_done_callback(lambda _f, st=st, t0=t0: st["ack_ms"].append((time.perf_counter() - t0) * 1e3))
         if wait:
             for f in futures_now:
                 try:
                     f.result(timeout=self._wait_timeout_s)
                 except Exception as exc:  # noqa: BLE001 - any follower failure ends the mesh's work
                     raise RuntimeError(f"solver-plane follower failed on {op}: {exc}") from exc
+                # Here, not in a done callback: gRPC runs those after
+                # result() has returned, so the op's stats could lag it.
+                if st is not None:
+                    st["ack_ms"].append((time.perf_counter() - t0) * 1e3)
         else:
+            if st is not None:
+                for f in futures_now:
+                    f.add_done_callback(
+                        lambda _f, st=st, t0=t0: st["ack_ms"].append((time.perf_counter() - t0) * 1e3))
             still.extend(futures_now)
         self._pending = still
 

@@ -190,6 +190,10 @@ class PendingWindowSolve:
     direct: Optional[DirectImuData]
     cps: list
     k: int
+    # The solve's final and initial cost (0-d tensors on the card), left
+    # here by a solve hook that reports them (cloud/ct_batcher.py).
+    cost: Optional[torch.Tensor] = None
+    cost0: Optional[torch.Tensor] = None
 
 
 @dataclass
