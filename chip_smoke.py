@@ -48,7 +48,10 @@ a one-process NCCL group whose sharded SPA gathers through NCCL. K3 is
 held to its plain version in each of its modes (TSDF over f32, f16 and
 bf16 volumes, and probability; phase 7), K6 (an LM assembly's pair
 residuals and cloud poses) to its eager twins at the CT front end's
-shape (phase 7) and at phase 19's B = 8 windows (phase 24a), K5 at phase
+shape (phase 7) and at phase 19's B = 8 windows (phase 24a), K7 (the 2D
+Gauss-Newton refinement's whole LM solve) to its eager twin at phase 5's
+B = 1024, on every front-end match of phases 6 and 20, on phase 20's
+rounds and serial refinements and on phase 22b's TSDF front ends, K5 at phase
 20's round, a full-submap search, a round over four packed submaps and
 synthetic calls on that pack that reach each of its instances with edge
 rows (no valid point, all valid, the last slots only, shared rows).
@@ -119,6 +122,7 @@ from hectorgrapher_tpu_torch.mapping.grids import (
 from hectorgrapher_tpu_torch.mapping.inserters_3d import make_probability_inserter_3d, make_tsdf_inserter_3d
 from hectorgrapher_tpu_torch.mapping.inserters_2d import make_probability_inserter_2d
 from hectorgrapher_tpu_torch.mapping import local_3d as local_3d_module
+from hectorgrapher_tpu_torch.mapping import local_2d as local_2d_module
 from hectorgrapher_tpu_torch.mapping.local_2d import LocalTrajectoryBuilder2D
 from hectorgrapher_tpu_torch.mapping.local_3d import LocalTrajectoryBuilder3D
 from hectorgrapher_tpu_torch.io.pbstream_state import load_pbstream_state, write_pbstream_state
@@ -132,6 +136,7 @@ from hectorgrapher_tpu_torch.mapping.scan_matching.correlative_2d import (
     prep_inputs,
     prepare_correlative_table,
 )
+from hectorgrapher_tpu_torch.mapping.scan_matching import gn_2d as gn_2d_module
 from hectorgrapher_tpu_torch.mapping.scan_matching import gn_3d as gn_3d_module
 from hectorgrapher_tpu_torch.mapping.scan_matching.fast_correlative_3d import FastCorrelativeScanMatcher3D
 from hectorgrapher_tpu_torch.mapping.scan_matching.gn_2d import (
@@ -167,6 +172,7 @@ from hectorgrapher_tpu_torch.ops.ct_scan_block import (
 from hectorgrapher_tpu_torch.ops.fast_scores_2d import fast_scores_2d, fast_scores_2d_plain
 from hectorgrapher_tpu_torch.ops.fast_scores_2d import instance as k5_instance
 from hectorgrapher_tpu_torch.ops.fast_scores_3d import fast_scores_3d, fast_scores_3d_plain
+from hectorgrapher_tpu_torch.ops.gn_2d_lm import gn_2d_lm
 from hectorgrapher_tpu_torch.mapping.submap_3d import Submap3D
 from hectorgrapher_tpu_torch.parallel.constraint_search import (
     matcher_host_arrays_3d,
@@ -604,6 +610,28 @@ def _work(kernel, args):
                   + 4 * (cand_t.numel() + off_x.numel() + off_y.numel() + idx.shape[0])
                   + (0 if cand_base is None else 8 * cand_base.numel()))
         return nbytes, int(weight.sum())
+    if kernel == "gn_2d_lm":
+        rows, base, mc, res, pts, valid, scale, pose0, target = args[:9]
+        iterations = args[-1]  # the iterations each lane ran (K7's third output)
+        (b, n, w2), planes = rows[0].shape, len(rows)
+        w = math.isqrt(w2)
+        # The live taps' distinct 32-byte sectors at the initial pose (a
+        # lower bound: later poses may reach other taps), per plane; each
+        # valid point's xy and base cell; every flag; a lane's scale,
+        # corner, resolution, pose and target; the pose, cost and count.
+        f = ((gn_2d_module._world_of(Rigid2(pose0[:, :2], pose0[:, 2]), pts) - mc[:, None, :])
+             / res[:, None, None] - 0.5 - base)
+        first = torch.floor(f).long() - 1  # (B, N, 2)
+        lanes = torch.arange(4, device=f.device)
+        ax, ay = first[..., 0, None] + lanes, first[..., 1, None] + lanes  # (B, N, 4)
+        live = (ax >= 0)[..., :, None] & (ax < w)[..., :, None] & (ay >= 0)[..., None, :] & (ay < w)[..., None, :]
+        slot = (torch.arange(b * n, device=f.device).reshape(b, n, 1, 1)) * w2
+        idx = (slot + ax[..., :, None] * w + ay[..., None, :])[live & valid[..., None, None]]
+        n_valid = valid.sum(dim=-1).long()
+        it = iterations.long().to(n_valid.device)
+        nbytes = planes * 32 * _sectors(idx) + 16 * int(n_valid.sum()) + b * n + 56 * b
+        ops = int((n_valid * (K7_COST_OPS[planes] * (1 + it) + K7_NORMAL_OPS[planes] * it) + K7_STEP_OPS * it).sum())
+        return nbytes, ops
     raise ValueError(f"no work model for {kernel}")
 
 
@@ -788,6 +816,145 @@ def check_k1_boundaries(device, seed=SEED):
         where = " misaligned" if shift else ""
         print(f"correlative_prep_2d boundary sweep B={b} T={t_pad} N={n}{where}: exact ({near} of {b * n} picked-angle "
               f"x quotients within 1e-4 of an integer)", flush=True)
+
+
+# K7: f32 operations counted from csrc/gn_2d_lm.cu as the data needs them
+# (every multiply, add, subtract and divide; of the Catmull-Rom weight's two
+# branches the one a tap takes, two near and two far an axis; a point's 16
+# taps live): a valid point's cost pass (its residual at a trial pose, 16 to
+# place it, 52 for its weights, 49 for one plane's value or 97 for the
+# TSDF's two, its square summed) and normal pass (the residual, 36 more for
+# the weights' derivatives, the two gradient contractions, dR/dtheta p, the
+# Jacobian and its 9 sums), by the planes of the cost; and a lane's step,
+# once an iteration (the damped 3 x 3 solve, the trial pose, its cost, the
+# stop test and lambda).
+K7_COST_OPS = {1: 120, 2: 168}
+K7_NORMAL_OPS = {1: 282, 2: 331}
+K7_STEP_OPS = 100
+# K7 against its twin: pose (m, rad) and cost (relative). Where a lane
+# stopped on its own test at the twin's iteration, both took one path. A
+# lane that ran to the limit or stopped elsewhere may have taken another:
+# phase 5's LMs zig-zag down a valley, each step lowering the cost by about
+# function_tolerance * cost, so the stop test and the accepts compare
+# numbers an ulp or two apart (the twin against itself with its points
+# summed in another order moves 5 of phase 5's 1,024 lanes to another
+# count, by up to 1.2e-4 m; K7 against the twin reads 9.6e-5 m on lanes
+# at the limit). Such a lane is held to the benchmark's GN limits
+# (K7_OTHER_PATH_TOL: 1e-3 m, 1e-4 rad, PERF.md section 2), its cost to K7_TOL.
+K7_TOL = 1e-4
+K7_OTHER_PATH_TOL = (1e-3, 1e-4)
+K7_SITE = threading.local()
+
+
+@contextlib.contextmanager
+def k7_sites(record):
+    """Within the block, every K7 call (gn_2d's gn_2d_lm) appended to
+    `record` as (site, arguments, outputs): its site the caller it came
+    through, "front" (the 2D front end's match_gn_2d_probability), "round"
+    (a batched round's match_gn_2d_packed_grids), "serial" (the pose
+    graph's match_gn_2d_probability) or None (any other)."""
+
+    def at(site):
+        def wrap(fn):
+            def run(*a, **kw):
+                K7_SITE.site = site
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    K7_SITE.site = None
+            return run
+        return wrap
+
+    def launch(fn):
+        def run(*a):
+            out = fn(*a)
+            record.append((getattr(K7_SITE, "site", None), a, out))
+            return out
+        return run
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(local_2d_module, "match_gn_2d_probability", at("front")))
+        stack.enter_context(patched(pose_graph_module, "match_gn_2d_packed_grids", at("round")))
+        stack.enter_context(patched(pose_graph_module, "match_gn_2d_probability", at("serial")))
+        stack.enter_context(patched(gn_2d_module, "gn_2d_lm", launch))
+        yield record
+
+
+def k7_twin(args):
+    """K7's plain twin (gn_2d._lm_rows_plain) on a K7 call's arguments:
+    (pose (B, 3), cost (B,), iterations (B,))."""
+    rows, base, mc, res, pts, valid, scale, pose0, target, tw, rw, iters, *lm = args
+    pose, cost, it = gn_2d_module._lm_rows_plain(
+        gn_2d_module._COST_OF_PLANES[len(rows)], rows, base, mc[:, None, :], res, pts, valid, scale,
+        Rigid2(pose0[:, :2], pose0[:, 2]), target, tw, rw, iters, *lm)
+    return torch.cat([pose.translation, pose.angle[:, None]], dim=-1), cost, it
+
+
+def k7_lane(args, b):
+    """A K7 call's arguments for its lane b alone."""
+    return tuple(tuple(r[b:b + 1] for r in x) if isinstance(x, tuple)
+                 else x[b:b + 1] if torch.is_tensor(x) else x for x in args)
+
+
+def check_k7(label, calls, lanes=False, timed=None):
+    """K7 on each recorded call (arguments, outputs) against its twin on the
+    same arguments: finite, a second launch bit-equal, every cost within
+    K7_TOL relative, the pose within K7_TOL m / rad where the lane stopped
+    on its own test at the twin's iteration and within K7_OTHER_PATH_TOL
+    where it did not; with
+    `lanes`, each lane bit-equal to a
+    launch for it alone (ROADMAP C31). Prints the gaps and the iteration
+    counts against the twin's. Returns measure's record of call `timed`
+    (an index), or the largest pose gap in m."""
+    gap_t = gap_a = gap_c = other_t = other_a = 0.0
+    n_lanes = n_other = 0
+    counts = []
+    for args, got in calls:
+        again, want = gn_2d_lm(*args), k7_twin(args)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(x).all()) for x in (got[0], got[1], want[0], want[1])):
+            fail(f"K7 {label}: K7 or its twin returned non-finite poses or costs")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"K7 {label}: two launches differ")
+        dt = (got[0][:, :2] - want[0][:, :2]).norm(dim=-1)
+        da = (got[0][:, 2] - want[0][:, 2]).abs()
+        dc = (got[1] - want[1]).abs() / want[1].abs().clamp(min=1e-30)
+        same = (got[2] == want[2]) & (want[2] < args[11])  # one path: stopped at the same iteration
+        gap_c = max(gap_c, float(dc.max()))
+        if bool(same.any()):
+            gap_t, gap_a = max(gap_t, float(dt[same].max())), max(gap_a, float(da[same].max()))
+        if not bool(same.all()):
+            other_t, other_a = max(other_t, float(dt[~same].max())), max(other_a, float(da[~same].max()))
+        n_lanes += same.numel()
+        n_other += int((~same).sum())
+        counts.append((got[2].tolist(), want[2].tolist()))
+        for b in range(got[0].shape[0] if lanes else 0):
+            one = gn_2d_lm(*k7_lane(args, b))
+            if not all(torch.equal(x[b:b + 1], y) for x, y in zip(got, one)):
+                fail(f"K7 {label}: lane {b} is not bit-equal to a launch for it alone")
+    tol_t, tol_a = K7_OTHER_PATH_TOL
+    if gap_c > K7_TOL or gap_t > K7_TOL or gap_a > K7_TOL or other_t > tol_t or other_a > tol_a:
+        fail(f"K7 {label} differs from its twin: cost {gap_c:.3e} relative, pose {gap_t:.3e} m / {gap_a:.3e} rad "
+             f"(gate {K7_TOL:g}); {n_other} of {n_lanes} lanes ran to the limit or stopped elsewhere, pose "
+             f"{other_t:.3e} m / {other_a:.3e} rad (gate {tol_t:g} / {tol_a:g})")
+    k7_it = [i for c, _ in counts for i in c]
+    twin_it = [i for _, c in counts for i in c]
+    listed = ("; per call K7 / twin: " + " ".join(f"{a[0]}/{t[0]}" for a, t in counts)
+              if all(len(a) == 1 for a, _ in counts) else "")
+    summary = (f"{len(calls)} calls, {n_lanes} lanes: cost {gap_c:.3e} relative, pose {gap_t:.3e} m / {gap_a:.3e} "
+               f"rad (gate {K7_TOL:g}) where both stopped at one iteration; {n_other} lanes ran to the limit or "
+               f"stopped elsewhere (pose {other_t:.3e} m / {other_a:.3e} rad, gate {tol_t:g} / {tol_a:g}); "
+               f"iterations K7 mean {np.mean(k7_it):.2f}, twin {np.mean(twin_it):.2f}"
+               f"{listed}; bit-equal over two launches" + (", each lane bit-equal to a launch alone" if lanes else ""))
+    if timed is None:
+        print(f"gn_2d_lm {label}: {summary}", flush=True)
+        return max(gap_t, other_t)
+    args, got = calls[timed]
+    rows = args[0]
+    return measure("gn_2d_lm", label, lambda: gn_2d_lm(*args), lambda: k7_twin(args), (*args, got[2]),
+                   max(gap_t, other_t), note=f" B={rows[0].shape[0]} N={rows[0].shape[1]} planes={len(rows)}, "
+                   f"{int(args[5].sum())} valid points, {int(got[2].sum())} iterations ({summary}; library: none, "
+                   "no one PyTorch call is an LM solve)")
 
 
 def run_batched(device, batch=BATCH, reps=10):
@@ -3254,13 +3421,15 @@ def drive_slam2d(device, options, label):
     timed_method(pg, "_compute_constraint", searches, errors)
     timed_method(pg, "_run_optimization", solves, errors)
     probe_rounds_2d(pg, rounds, errors, recorded)
-    with profiling.recording():
+    k7_launches, matched = gn_2d_lm.launches, 0
+    with profiling.recording(), k7_sites([]) as k7_calls:
         scans = slam2d_scans()
         latencies, quantized = [], []
         t_start = time.perf_counter()
         for i, (t, _, odom, cloud) in enumerate(scans):
             tb.add_odometry_data(t, odom)
             matching = tb._local.active_submaps.matching_submap
+            matched += matching is not None
             k12 = (correlative_prep_2d.launches, correlative_scores_2d.launches)
             t0 = time.perf_counter()
             tb.add_range_data(TimedPointCloudData(t, np.zeros(3, np.float32),
@@ -3295,9 +3464,22 @@ def drive_slam2d(device, options, label):
         fail(f"{label}: the final optimization did not lower the SPA cost: {cost0:.6e} -> {cost1:.6e}")
     if not parity or not all(p[0] for p in parity):
         fail(f"{label}: round parity with the serial path failed: {[p[:3] for p in parity]}")
+    # K7: one launch a front-end match (a scan with a matching submap), a
+    # round's refinement (its round.gn span) and a serial refinement (the
+    # parity re-runs), and no other.
+    k7_launches = gn_2d_lm.launches - k7_launches
+    sites = collections.Counter(site for site, _, _ in k7_calls)
+    round_gn = sum("round.gn" in r["stages"] for r in rounds)
+    if (k7_launches != len(k7_calls) or sites["front"] != matched or sites["round"] != round_gn
+            or sites[None] or sites["round"] == 0):
+        fail(f"{label}: {k7_launches} K7 launches: {dict(sites)} by caller against {matched} matched scans and "
+             f"{round_gn} round.gn spans")
+    print(f"{label}: K7 launches {k7_launches} = front-end matches {sites['front']} (scans matched) + round.gn "
+          f"{sites['round']} + serial refinements {sites['serial']}", flush=True)
     return dict(pg=pg, result=result, rounds=rounds, recorded=recorded, latencies=latencies, searches=searches,
                 solves=solves, n_solves=n_solves, k5=k5, score_sums=score_sums, k12=k12, quantized=quantized,
-                parity=parity, cost=(cost0, cost1), front_s=front_s, drain_s=drain_s)
+                parity=parity, cost=(cost0, cost1), front_s=front_s, drain_s=drain_s, k7_calls=k7_calls,
+                k7_launches=k7_launches)
 
 
 def print_slam2d(label, run, jax_late, jax_median):
@@ -3371,7 +3553,15 @@ def run_phase_20(device):
           "bases bit-equal, empty rows zero", flush=True)
     finished_bytes = grid_nbytes(next(s for s in pg.submaps if s.finished).submap.grid)
     SHARD24_INPUTS["round_2d"] = shard24_round_2d(pg)
-    return (run["k5"] - sum(p[3] for p in run["parity"]), run["k12"], stats, slam2d_stats(run), finished_bytes)
+    # K7 against its twin on every refinement of the drive; the timed row
+    # is the round with the most lanes.
+    calls = run.pop("k7_calls")
+    rounds_k7 = [c[1:] for c in calls if c[0] == "round"]
+    widest = max(range(len(rounds_k7)), key=lambda i: rounds_k7[i][0][0][0].shape[0])
+    k7 = {"launches": run["k7_launches"], "round": check_k7("round", rounds_k7, lanes=True, timed=widest)}
+    check_k7("slam20_front_and_serial", [c[1:] for c in calls if c[0] != "round"])
+    del calls, rounds_k7
+    return (run["k5"] - sum(p[3] for p in run["parity"]), run["k12"], stats, slam2d_stats(run), finished_bytes, k7)
 
 
 # Phase 22a's JAX reference: tests/jax_slam_reference.py --slam-2d
@@ -3395,10 +3585,11 @@ def run_phase_22a(device, stats20, bytes20):
     the global errors against the JAX package's uint16 run. Prints the
     bytes of a finished submap and the per-scan and per-round times beside
     phase 20's (stats20, bytes20) from this call. Returns (K5 launches,
-    K1 / K2 launches)."""
+    K1 / K2 launches, K7 launches)."""
     label = "SLAM 2D uint16 (phase 22a)"
     run = drive_slam2d(device, cfg.replace_deep(slam2d_options(), {
         "trajectory_builder_2d.submaps.grid_storage_dtype": "uint16"}), label)
+    del run["k7_calls"]
     pg = run["pg"]
     finished = [s.submap.grid for s in pg.submaps if s.finished]
     dtypes = {str(g.log_odds.dtype) for g in finished}
@@ -3417,7 +3608,7 @@ def run_phase_22a(device, stats20, bytes20):
           f"({U16_SUBMAP_BYTES / bytes20:.3f}); per-scan median {med:.3f} ms, p95 {p95:.3f} ms, per round "
           f"{round_ms:.3f} ms; phase 20 in this call: {stats20[0]:.3f} / {stats20[1]:.3f} / {stats20[2]:.3f} ms",
           flush=True)
-    return run["k5"] - sum(p[3] for p in run["parity"]), run["k12"]
+    return run["k5"] - sum(p[3] for p in run["parity"]), run["k12"], run["k7_launches"]
 
 
 # Phase 22b's JAX references: tests/jax_slam_reference.py --front-end-2d
@@ -3447,13 +3638,21 @@ def run_phase_22b(device):
     matched against the quantized submap), no correlative kernel runs (the
     TSDF front end skips the matcher, as in the JAX package), and the
     largest errors are within max(2x, +0.05 m) (yaw max(2x, +0.01 rad)) of
-    the JAX package's on the same scans."""
+    the JAX package's on the same scans; every matched scan one K7 launch
+    in its TSDF mode, held to its twin. Returns {path: K7 launches}."""
+    k7_paths = {}
     for storage, (jax_t, jax_y) in JAX_TSDF22_ERRORS.items():
         label = f"TSDF front end {storage} (phase 22b)"
         correlative_prep_2d.launches = correlative_scores_2d.launches = 0
-        n_matched, latencies, t_err, y_err, builder, n_quantized = run_front_end(
-            device, options=tsdf_front_end_options(storage))
+        with k7_sites([]) as k7_calls:
+            n_matched, latencies, t_err, y_err, builder, n_quantized = run_front_end(
+                device, options=tsdf_front_end_options(storage))
         k12 = (correlative_prep_2d.launches, correlative_scores_2d.launches)
+        if len(k7_calls) != n_matched or any(len(a[0]) != 2 for _, a, _ in k7_calls):
+            fail(f"{label}: {len(k7_calls)} K7 launches for {n_matched} matched scans, or not all in the TSDF mode")
+        check_k7(f"tsdf22b_{storage}", [c[1:] for c in k7_calls])
+        k7_paths[f"tsdf22b_{storage}"] = len(k7_calls)
+        del k7_calls
         submaps = builder.active_submaps.submaps
         grids = [s.grid for s in submaps]
         # uint16: f32 while active, codes once finished.
@@ -3478,6 +3677,7 @@ def run_phase_22b(device):
               + f"); grids {[str(g.tsd.dtype) for g in grids]}, {nbytes} B a "
               f"{'finished ' if storage == 'uint16' else ''}submap; "
               f"per-scan latency median {np.median(lat_ms):.3f} ms, p95 {np.percentile(lat_ms, 95):.3f} ms", flush=True)
+    return k7_paths
 
 
 def run_phase_21(device, reps=1, num_iterations=10):
@@ -5196,24 +5396,34 @@ def main() -> int:
     check_k2_cases(device)
 
     mark("5")
-    # Phase 5: the batched matcher, through both kernels.
+    # Phase 5: the batched matcher, through both kernels and K7 (its GN
+    # solve at B = 1024, 10 iterations, held to its twin on the first step).
     correlative_prep_2d.launches = 0
     correlative_scores_2d.launches = 0
-    run_batched(device)
-    if correlative_prep_2d.launches == 0 or correlative_scores_2d.launches == 0:
-        fail("batched matcher did not launch both kernels")
+    with k7_sites([]) as k7_calls:
+        run_batched(device)
+    if correlative_prep_2d.launches == 0 or correlative_scores_2d.launches == 0 or not k7_calls:
+        fail("batched matcher did not launch K1, K2 and K7")
     k12_paths = {"batched5": (correlative_prep_2d.launches, correlative_scores_2d.launches)}
+    k7_paths = {"batched5": len(k7_calls)}
+    checks["gn_2d_lm"] = {"batched": check_k7("batched", [c[1:] for c in k7_calls[:1]], lanes=True, timed=0)}
+    del k7_calls
 
     mark("6")
     # Phase 6: the front end, through both kernels on every matched scan.
     correlative_prep_2d.launches = 0
     correlative_scores_2d.launches = 0
-    n_matched, latencies, t_err, y_err, builder, _ = run_front_end(device)
+    with k7_sites([]) as k7_calls:
+        n_matched, latencies, t_err, y_err, builder, _ = run_front_end(device)
     launches = {"correlative_prep_2d": correlative_prep_2d.launches,
-                "correlative_scores_2d": correlative_scores_2d.launches}
+                "correlative_scores_2d": correlative_scores_2d.launches, "gn_2d_lm": len(k7_calls)}
     k12_paths["front_end6"] = (correlative_prep_2d.launches, correlative_scores_2d.launches)
     if any(v != n_matched for v in launches.values()) or n_matched == 0:
         fail(f"front end: launches {launches} != {n_matched} matched scans")
+    # K7 on every matched scan against its twin; the timed row is the last
+    # scan's (a submap of ~60 scans).
+    checks["gn_2d_lm"]["front_end"] = check_k7("front_end", [c[1:] for c in k7_calls], timed=len(k7_calls) - 1)
+    del k7_calls
     if not bool(builder.active_submaps.matching_submap.grid.known.any()):
         fail("front end: the active submap has no known cells")
     if t_err > MAX_TRANSLATION_ERROR or y_err > MAX_YAW_ERROR:
@@ -5427,15 +5637,17 @@ def main() -> int:
     # through K5 once per pyramid level a round; K5 against its plain
     # version at the round's shapes, a full-submap search's and a round
     # over a pack of 4 submaps.
-    k5_20, k12_paths["slam20"], checks["fast_scores_2d"], stats20, bytes20 = run_phase_20(device)
+    k5_20, k12_paths["slam20"], checks["fast_scores_2d"], stats20, bytes20, k7_20 = run_phase_20(device)
     launches["fast_scores_2d"] = k5_20
+    k7_paths["slam20"] = k7_20["launches"]
+    checks["gn_2d_lm"]["round"] = k7_20["round"]
 
     mark("22")
     # Phase 22: (a) phase 20's drive on uint16 submaps, through K1 / K2 on
     # the scans matched against a just-quantized submap and K5 over the
     # decoded levels; (b) the TSDF front end in every storage dtype.
-    k5_22, k12_paths["slam22a_uint16"] = run_phase_22a(device, stats20, bytes20)
-    run_phase_22b(device)
+    k5_22, k12_paths["slam22a_uint16"], k7_paths["slam22a_uint16"] = run_phase_22a(device, stats20, bytes20)
+    k7_paths.update(run_phase_22b(device))
 
     mark("21")
     # Phase 21: the 2D SPA through its Schur, PCG and dense paths.
@@ -5505,6 +5717,8 @@ def main() -> int:
         "fast_scores_2d": ("hectorgrapher_tpu_torch/csrc/fast_scores_2d.cu",
                            "hectorgrapher_tpu/mapping/scan_matching/fast_correlative_2d.py:249 (score_sum of "
                            "_match_fast_2d_core, an XLA gather-reduce)"),
+        "gn_2d_lm": ("hectorgrapher_tpu_torch/csrc/gn_2d_lm.cu",
+                     "hectorgrapher_tpu/mapping/scan_matching/gn_2d.py:82 (_lm_grid_2d, a jax.lax.while_loop in XLA)"),
     }
     # Each kernel's record at its main-path shape (K1 and K2 at B=1024, K3
     # at the CT front end's, K4 at the coarse stage's), its other shapes
@@ -5526,12 +5740,14 @@ def main() -> int:
     # "launches_by_path"; K5: phase 20, without its rounds' serial re-runs,
     # with phases 22a and 26b (seq2d26) beside it; K1 and K2 with 26b's
     # seq2d26; K6, pair residuals and cloud poses: phase 9, its batched
-    # gate of phase 24a under "shapes" as batched_b8).
+    # gate of phase 24a under "shapes" as batched_b8; K7: phase 6, with
+    # phases 5, 20, 22a and 22b's four storages beside it).
     main_shape = {"correlative_prep_2d": "batched", "correlative_scores_2d": "batched",
                   "ct_scan_block": "front_end", "ct_scan_block_points": "front_end", "ct_pair_residuals": "front_end",
                   "ct_cloud_poses": "front_end", "fast_scores_3d": "coarse",
-                  "fast_scores_2d": "round_coarse"}
+                  "fast_scores_2d": "round_coarse", "gn_2d_lm": "front_end"}
     paths = {"ct_scan_block": k3_paths, "ct_scan_block_points": k3p_paths, "fast_scores_3d": k4_paths,
+             "gn_2d_lm": k7_paths,
              "fast_scores_2d": {"slam20": k5_20, "slam22a_uint16": k5_22, **paths24["fast_scores_2d"], "seq2d26": k5_26},
              **{name: {path: k[i] for path, k in k12_paths.items()}
                 for i, name in enumerate(("correlative_prep_2d", "correlative_scores_2d"))}}

@@ -13,13 +13,14 @@ Catmull-Rom kernel at every lane offset of the wide row. Exact as long as
 the refinement moves the base cell by at most SLACK cells per axis. The
 Jacobian is written out analytically.
 
-Every solve is batched: poses (B, 2)/(B,), clouds (B, N, 3). The LM loop is
-a Python loop of at most num_iterations steps with a per-lane `done` mask;
-a converged lane is frozen and returns what its serial solve returns. The
-lanes may refine against one prepared field, against a prepared field each
-(match_gn_2d_fields_batched) or against the slots of a raw grid pack
-(match_gn_2d_packed_grids, the batched constraint round's refinement),
-with either cost (_ProbabilityCost, _TsdfCost).
+Every solve is batched: poses (B, 2)/(B,), clouds (B, N, 3). On the card
+the whole LM loop is one launch of kernel K7 (ops/gn_2d_lm.py); on the CPU
+it is its twin, a Python loop of at most num_iterations steps with a
+per-lane `done` mask. A converged lane is frozen and returns what its
+serial solve returns. The lanes may refine against one prepared field,
+against a prepared field each (match_gn_2d_fields_batched) or against the
+slots of a raw grid pack (match_gn_2d_packed_grids, the batched constraint
+round's refinement), with either cost (_ProbabilityCost, _TsdfCost).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import (
     gather_rows_2d,
     prepare_field_2d_wide,
 )
+from hectorgrapher_tpu_torch.ops.gn_2d_lm import gn_2d_lm
 from hectorgrapher_tpu_torch.sensor.types import PointCloud
 from hectorgrapher_tpu_torch.transform.rigid import Rigid2, rot2
 
@@ -76,9 +78,27 @@ def _catmull(d):
     return k, dk
 
 
-def _lm_grid_2d(
+def _world_of(pose: Rigid2, pts):
+    """World xy (B, N, 2) of the points pts (B, N, 2) at the lanes' poses."""
+    return rot2(pose.angle[:, None], pts) + pose.translation[:, None, :]
+
+
+def _lm_start(gather, min_corner, res, pts, initial_pose: Rigid2, slack: int):
+    """What the solve starts from, K7 and its twin alike: the cost's wide
+    rows, gather(world) at the initial pose (a tuple of planes, (B, N,
+    width^2) each), and the base cells (B, N, 2) f32, the cell of each
+    row's (0, 0) lane, i0_init - 1 - slack."""
+    res_xy = res.reshape(-1, 1, 1) if res.dim() else res  # against (B, N, 2)
+    world0 = _world_of(initial_pose, pts)
+    rows = gather(world0)  # gathered ONCE
+    i0_init = torch.floor((world0 - min_corner) / res_xy - 0.5).to(torch.int32)
+    return rows, (i0_init - (1 + slack)).to(torch.float32)
+
+
+def _lm_rows_plain(
     cost_fn,
-    gather,
+    rows,
+    base,
     min_corner,
     res,
     pts,
@@ -89,49 +109,31 @@ def _lm_grid_2d(
     translation_weight: float,
     rotation_weight: float,
     num_iterations: int,
-    slack: int = _GN_SLACK,
     init_lambda: float = 1e-4,
     min_lambda: float = 1e-10,
     max_lambda: float = 1e6,
     function_tolerance: float = 1e-6,
 ):
-    """Wide-carried-rows LM over (tx, ty, theta) per lane, against the
-    per-point residual of cost_fn (_ProbabilityCost or _TsdfCost, gn_2d.py
-    :82 _lm_grid_2d(cost, gather, ...) of the JAX package).
-
-    gather(world (B, N, 2)) -> a tuple of the cost's planes' wide rows,
-    (B, N, width^2) each, called once, at the initial pose; min_corner: the
-    grid corner, (2,) or per lane (B, 1, 2); res: the resolution, a scalar
-    tensor or per lane (B,). pts (B, N,
-    2), valid (B, N) bool, scale (B,), initial_pose (B, 2)/(B,),
-    target_translation (B, 2). Termination mirrors Ceres: at most
-    num_iterations, a lane stopping once an accepted step decreases its
-    cost by less than function_tolerance * cost. Returns (pose, cost)."""
+    """The LM loop over (tx, ty, theta) per lane from the carried wide rows
+    (_lm_start's rows and base), as eager ops: K7's plain twin
+    (ops/gn_2d_lm.py). Returns (pose, cost, iterations (B,) int32, the
+    iterations each lane ran)."""
     res_pts = res.reshape(-1, 1) if res.dim() else res  # against (B, N)
     res_xy = res.reshape(-1, 1, 1) if res.dim() else res  # against (B, N, 2)
-    width = 4 + 2 * slack
     b, n = valid.shape
+    width = math.isqrt(rows[0].shape[-1])
     device = pts.device
     theta0 = initial_pose.angle
     target = target_translation.to(torch.float32)
     tw2 = torch.tensor(translation_weight, dtype=torch.float32, device=device) ** 2
     rw2 = torch.tensor(rotation_weight, dtype=torch.float32, device=device) ** 2
     scale_pts = torch.where(valid, scale[:, None], 0.0)  # d residual / d value, per point
-
-    def world_of(pose):
-        return rot2(pose.angle[:, None], pts) + pose.translation[:, None, :]
-
-    world0 = world_of(initial_pose)
-    rows = gather(world0)  # (B, N, width^2) a plane, gathered ONCE
-    i0_init = torch.floor((world0 - min_corner) / res_xy - 0.5).to(torch.int32)
-    # The wide row's (0, 0) lane holds cell i0_init - 1 - slack.
-    base = (i0_init - (1 + slack)).to(torch.float32)  # (B, N, 2)
     lanes = torch.arange(width, device=device).to(torch.float32)
 
     def lane_kernels(pose):
         """Catmull-Rom kernel values and derivatives at the width lanes of
         each axis: kx, dkx, ky, dky (B, N, width)."""
-        u = (world_of(pose) - min_corner) / res_xy - 0.5
+        u = (_world_of(pose, pts) - min_corner) / res_xy - 0.5
         kx, dkx = _catmull((u[..., 0] - base[..., 0])[..., None] - lanes)
         ky, dky = _catmull((u[..., 1] - base[..., 1])[..., None] - lanes)
         return kx, dkx, ky, dky
@@ -179,10 +181,12 @@ def _lm_grid_2d(
     pose = initial_pose
     lam = torch.full((b,), init_lambda, dtype=torch.float32, device=device)
     done = torch.zeros((b,), dtype=torch.bool, device=device)
+    iterations = torch.zeros((b,), dtype=torch.int32, device=device)
     cost, r_occ, dgate, dt, dth = terms(pose)
     for _ in range(num_iterations):
         if bool(torch.all(done)):
             break
+        iterations += (~done).to(torch.int32)
         jtj, g = normal_equations(pose, r_occ, dgate, dt, dth)
         diag = torch.diagonal(jtj, dim1=-2, dim2=-1)
         damped = jtj + lam[:, None, None] * torch.diag_embed(torch.clamp(diag, min=1e-12)) + 1e-12 * eye
@@ -212,7 +216,90 @@ def _lm_grid_2d(
         dt = torch.where(accept[:, None], dt_new, dt)
         dth = torch.where(accept, dth_new, dth)
         done = done_next
+    return pose, cost, iterations
+
+
+def _lm_grid_2d_plain(
+    cost_fn,
+    gather,
+    min_corner,
+    res,
+    pts,
+    valid,
+    scale,
+    initial_pose: Rigid2,
+    target_translation,
+    translation_weight: float,
+    rotation_weight: float,
+    num_iterations: int,
+    slack: int = _GN_SLACK,
+    init_lambda: float = 1e-4,
+    min_lambda: float = 1e-10,
+    max_lambda: float = 1e6,
+    function_tolerance: float = 1e-6,
+):
+    """_lm_grid_2d as eager ops, the CPU path and K7's twin: the rows
+    gathered once (_lm_start), then _lm_rows_plain. Returns (pose, cost)."""
+    rows, base = _lm_start(gather, min_corner, res, pts, initial_pose, slack)
+    pose, cost, _ = _lm_rows_plain(cost_fn, rows, base, min_corner, res, pts, valid, scale, initial_pose,
+                                   target_translation, translation_weight, rotation_weight, num_iterations,
+                                   init_lambda, min_lambda, max_lambda, function_tolerance)
     return pose, cost
+
+
+def _lm_grid_2d(
+    cost_fn,
+    gather,
+    min_corner,
+    res,
+    pts,
+    valid,
+    scale,
+    initial_pose: Rigid2,
+    target_translation,
+    translation_weight: float,
+    rotation_weight: float,
+    num_iterations: int,
+    slack: int = _GN_SLACK,
+    init_lambda: float = 1e-4,
+    min_lambda: float = 1e-10,
+    max_lambda: float = 1e6,
+    function_tolerance: float = 1e-6,
+):
+    """Wide-carried-rows LM over (tx, ty, theta) per lane, against the
+    per-point residual of cost_fn (_ProbabilityCost or _TsdfCost, gn_2d.py
+    :82 _lm_grid_2d(cost, gather, ...) of the JAX package).
+
+    gather(world (B, N, 2)) -> a tuple of the cost's planes' wide rows,
+    (B, N, width^2) each, called once, at the initial pose; min_corner: the
+    grid corner, (2,) or per lane (B, 1, 2); res: the resolution, a scalar
+    tensor or per lane (B,). pts (B, N,
+    2), valid (B, N) bool, scale (B,), initial_pose (B, 2)/(B,),
+    target_translation (B, 2). Termination mirrors Ceres: at most
+    num_iterations, a lane stopping once an accepted step decreases its
+    cost by less than function_tolerance * cost. CUDA tensors gather, then
+    run the whole solve as one launch of kernel K7 (ops/gn_2d_lm.py), with
+    no host sync; CPU tensors run its twin, _lm_grid_2d_plain. Returns
+    (pose, cost)."""
+    device = pts.device
+    if device.type == "cpu":
+        return _lm_grid_2d_plain(cost_fn, gather, min_corner, res, pts, valid, scale, initial_pose,
+                                 target_translation, translation_weight, rotation_weight, num_iterations, slack,
+                                 init_lambda, min_lambda, max_lambda, function_tolerance)
+    if device.type != "cuda":
+        raise ValueError(f"_lm_grid_2d: unsupported device {device}")
+    rows, base = _lm_start(gather, min_corner, res, pts, initial_pose, slack)
+    if _COST_OF_PLANES.get(len(rows)) is not cost_fn:
+        raise ValueError(f"_lm_grid_2d: {len(rows)} planes of rows for {cost_fn.__name__}")
+    b = valid.shape[0]
+    f32 = torch.float32
+    pose0 = torch.cat([initial_pose.translation.to(f32), initial_pose.angle.to(f32)[:, None]], dim=-1)
+    pose, cost, _ = gn_2d_lm(
+        tuple(r.contiguous() for r in rows), base, min_corner.to(f32).reshape(-1, 2).expand(b, 2).contiguous(),
+        res.to(f32).reshape(-1).expand(b).contiguous(), pts.contiguous(), valid.contiguous(),
+        scale.to(f32).contiguous(), pose0, target_translation.to(f32).contiguous(), translation_weight,
+        rotation_weight, num_iterations, init_lambda, min_lambda, max_lambda, function_tolerance)
+    return Rigid2(translation=pose[:, :2], angle=pose[:, 2]), cost
 
 
 class _ProbabilityCost:
@@ -248,6 +335,11 @@ class _TsdfCost:
     def grad(contract, rows, kx, dkx, ky, dky):
         tsd_rows, _ = rows
         return contract(tsd_rows, dkx, ky), contract(tsd_rows, kx, dky)
+
+
+# The cost a solve's rows serve, by their number of planes (K7 observes it
+# from its input).
+_COST_OF_PLANES = {1: _ProbabilityCost, 2: _TsdfCost}
 
 
 def prepare_gn_probability_field(grid: ProbabilityGrid) -> PreparedField2D:

@@ -130,7 +130,7 @@ def build(sources, target: Path) -> str:
 def bind(path: Path) -> ctypes.CDLL:
     """Load the kernels' library at `path` and declare its entry points."""
     lib = ctypes.CDLL(str(path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hg_error_string.argtypes = [i32]
     lib.hg_error_string.restype = ctypes.c_char_p
     # Pointers and the stream as c_void_p: ctypes would cut a bare Python
@@ -155,6 +155,8 @@ def bind(path: Path) -> ctypes.CDLL:
     lib.hg_fast_scores_3d.restype = i32
     lib.hg_fast_scores_2d.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]
     lib.hg_fast_scores_2d.restype = i32
+    lib.hg_gn_2d_lm.argtypes = [ptr] * 13 + [i32] * 4 + [f32] * 6 + [ptr]
+    lib.hg_gn_2d_lm.restype = i32
     return lib
 
 

@@ -17,6 +17,7 @@ from hectorgrapher_tpu_torch.ops.correlative_scores_2d import correlative_scores
 from hectorgrapher_tpu_torch.ops.ct_scan_block import grid_slots, pair_terms
 from hectorgrapher_tpu_torch.ops.fast_scores_2d import fast_scores_2d_plain
 from hectorgrapher_tpu_torch.ops.fast_scores_3d import fast_scores_3d_plain
+from hectorgrapher_tpu_torch.transform.rigid import Rigid2
 
 CPU = torch.device("cpu")
 i32 = lambda a: torch.tensor(a, dtype=torch.int32)
@@ -378,3 +379,72 @@ def test_ct_pair_block_inputs_take_every_branch():
 
     for out in tws.pair_residuals_plain(state, problem, weights) + tws.cloud_poses_plain(state, problem):
         assert bool(torch.isfinite(out).all())
+
+
+def _k7_args(b, iterations):
+    """K7's arguments (as gn_2d._lm_grid_2d builds them) at the front end's
+    shape for b lanes: phase 6's first scan after the adaptive voxel filter
+    (2048 slots) on its 640^2 submap, each lane's start 5 cm / 0.02 rad off
+    and a further 1 cm along x per lane; then each lane's iteration count.
+    b = 1 is the front end's call; b = 4 over two raw grids of a pack (the
+    second the first's copy), through _gather_wide_from_flat, a round's."""
+    from hectorgrapher_tpu_torch.mapping.scan_matching import gn_2d as tgn
+
+    grid, clouds, poses, _ = cs.front_end_kernel_inputs(CPU)
+    pts = clouds.positions[..., :2].expand(b, -1, -1).contiguous()
+    valid = clouds.mask.expand(b, -1).contiguous()
+    start = Rigid2(poses.translation + torch.arange(b)[:, None] * torch.tensor([0.01, 0.0]),
+                   poses.angle.expand(b).contiguous())
+    mc, res = grid.meta.min_corner, grid.meta.resolution
+    if b == 1:
+        field = tgn.prepare_gn_probability_field(grid)
+        gather = lambda world: (tgn.gather_rows_2d(field, world),)
+    else:
+        values = torch.stack([grid.probability()] * 2)
+        nx, ny = values.shape[1:]
+        base = (torch.tensor([0, 1, 0, 1]) * nx * ny)[:, None, None]
+        gather = lambda world: (tgn._gather_wide_from_flat(values.reshape(-1), base, nx, ny, mc, res, world, 0.1),)
+    rows, cells = tgn._lm_start(gather, mc, res, pts, start, tgn._GN_SLACK)
+    pose0 = torch.cat([start.translation, start.angle[:, None]], dim=-1)
+    return (rows, cells, mc.reshape(1, 2).expand(b, 2).contiguous(), res.reshape(1).expand(b).contiguous(), pts,
+            valid, tgn._occupied_scale(valid, 1.0), pose0, start.translation, 10.0, 40.0, 20,
+            torch.full((b,), iterations, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("b,iterations", [(1, 20), (4, 10)])
+def test_bound_gn_2d_lm_by_hand(b, iterations):
+    """K7's bound at the front end's shape (B = 1, N = 2048, 20 iterations)
+    and a round's (B = 4 over a pack, 10 iterations each). Every valid
+    point's taps at the start are lanes 3-6 of both axes of its 10 x 10
+    row: rows (100 floats, 400 bytes) start on a 32- or a 16-byte boundary,
+    and either way the 4 x 4 taps (bytes 132-148, 172-188, 212-228 and
+    252-268 of the row, or each 16 further) touch 5 sectors. Then 16 bytes
+    of xy and base cell a valid point, a flag a slot, and 56 bytes a lane
+    (scale, corner, resolution, pose and target in; pose, cost and count
+    out). Operations: a valid point's cost pass once and once an iteration,
+    its normal pass once an iteration, a lane's step once an iteration.
+    Bounded by operations."""
+    from hectorgrapher_tpu_torch.mapping.scan_matching import gn_2d as tgn
+
+    args = _k7_args(b, iterations)
+    # u - base at the start, by the twin's arithmetic: its floor is 4, so
+    # the taps are lanes 3-6.
+    u = (tgn._world_of(Rigid2(args[7][:, :2], args[7][:, 2]), args[4]) - args[2][:, None, :]) / args[3][:, None, None]
+    assert bool((torch.floor(u - 0.5 - args[1])[args[5]] == 4).all())
+    n_valid = int(args[5].sum())
+    assert n_valid == b * 203
+    nbytes = 5 * 32 * n_valid + 16 * n_valid + b * 2048 + 56 * b
+    ops = n_valid * (120 * (1 + iterations) + 282 * iterations) + b * 100 * iterations
+    ms, by, got_bytes, got_ops = cs.bound_ms("gn_2d_lm", args)
+    assert (got_bytes, got_ops, by) == (nbytes, ops, "operations")
+    assert ms == pytest.approx(ops / 67e12 * 1e3, rel=1e-12)
+
+
+def test_bound_gn_2d_lm_tsdf_reads_both_planes():
+    """The TSDF mode reads the weight plane's taps beside the tsd's (the
+    same sectors of a second table) and does the TSDF's operation counts."""
+    args = list(_k7_args(1, 20))
+    args[0] = (args[0][0], args[0][0].clone())
+    _, _, nbytes, ops = cs.bound_ms("gn_2d_lm", tuple(args))
+    assert nbytes == 2 * 5 * 32 * 203 + 16 * 203 + 2048 + 56
+    assert ops == 203 * (168 * 21 + 331 * 20) + 100 * 20
