@@ -1573,13 +1573,13 @@ def run_ct_window(device, reps=20):
     128^3, K=8, C=8, P=256), 8 LM iterations, through K3 and through its
     plain version. Returns the per-solve times (median, p95) of both."""
     example = build_ct_example(device)
-    window_solver.solve_ct_window_block.assemblies = 0
+    window_solver.solve_ct_window.assemblies = 0
     ct_scan_block.launches = 0
     solve = lambda: solve_ct_window(*example, is_tsdf=True, num_iterations=8)
     state, final, initial = solve()
-    if ct_scan_block.launches != window_solver.solve_ct_window_block.assemblies or ct_scan_block.launches == 0:
+    if ct_scan_block.launches != window_solver.solve_ct_window.assemblies or ct_scan_block.launches == 0:
         fail(f"window solve: {ct_scan_block.launches} K3 launches for "
-             f"{window_solver.solve_ct_window_block.assemblies} assemblies")
+             f"{window_solver.solve_ct_window.assemblies} assemblies")
     with plain_scan_blocks():
         state_p, final_p, initial_p = solve()
     final, initial, final_p, initial_p = (float(x) for x in (final, initial, final_p, initial_p))
@@ -1718,7 +1718,7 @@ def ct_launch_counts():
     return dict(k3=ct_scan_block.launches, k3_points=ct_scan_block_points.launches,
                 k6_pairs=window_solver.pair_residuals.launches, k6_clouds=window_solver.cloud_poses.launches,
                 pairs_eager=window_solver.pair_residuals.eager_on_card,
-                assemblies=window_solver.solve_ct_window_block.assemblies)
+                assemblies=window_solver.solve_ct_window.assemblies)
 
 
 def run_ct_front_end(device, n_scans=CT_SCANS, profile_scans=0, options=None, hook=None, count_scans=1):
@@ -1732,7 +1732,7 @@ def run_ct_front_end(device, n_scans=CT_SCANS, profile_scans=0, options=None, ho
     that many more scans afterwards and prints their breakdown."""
     builder = OptimizingLocalTrajectoryBuilder(options or ct_options(), device)
     builder.window_solve_fn = hook
-    window_solver.solve_ct_window_block.assemblies = 0
+    window_solver.solve_ct_window.assemblies = 0
     ct_scan_block.launches = ct_scan_block_points.launches = 0
     window_solver.pair_residuals.launches = window_solver.pair_residuals.eager_on_card = 0
     window_solver.cloud_poses.launches = 0
@@ -2709,7 +2709,7 @@ def run_phase_12(device, slam, k4_serial, options=None):
     fast_scores_3d.launches = 0
     ct_scan_block.launches = 0
     ct_scan_block_slots.launches = 0
-    window_solver.solve_ct_window_block.assemblies = 0
+    window_solver.solve_ct_window.assemblies = 0
     rounds, recorded = [], []
     with profiling.recording():
         slam12 = run_slam(device, options or slam_options(batched=True), rounds=rounds, recorded=recorded)
@@ -2751,7 +2751,7 @@ def run_phase_12(device, slam, k4_serial, options=None):
           f"{round_ms.sum() / sum(n_cand):.3f} ms per candidate; K4 launches {k4_12} = score_sum calls "
           f"{score_sums12} ({k4_parity} of them the parity re-runs), per round median "
           f"{np.median([r['k4'] for r in rounds]):.0f}; packed K3 launches {k3_packed}, serial "
-          f"{ct_scan_block.launches - window_solver.solve_ct_window_block.assemblies} besides the CT assemblies; "
+          f"{ct_scan_block.launches - window_solver.solve_ct_window.assemblies} besides the CT assemblies; "
           f"{len(parity)} rounds re-run serially at the round's scan range: max |dt| "
           f"{max(p[1] for p in parity):.3e} m, max 1-|dq0| {max(p[2] for p in parity):.3e}; pack "
           f"{pg12._pack3d['bytes'] / 2**20:.1f} MiB over {len(pg12._pack3d['order'])} submaps; returning tail local "
@@ -2823,7 +2823,7 @@ def run_phase_13(device, slam12_latencies, round12_ms):
     fast_correlative_3d.match_fast_3d.score_sums = 0
     fast_scores_3d.launches = 0
     reset_k3_counts()
-    window_solver.solve_ct_window_block.assemblies = 0
+    window_solver.solve_ct_window.assemblies = 0
     rounds, recorded = [], []
     options = slam_options(batched=True, probability=True)
     if options.trajectory_builder_3d.submaps.grid_type != "PROBABILITY_GRID":
@@ -2832,7 +2832,7 @@ def run_phase_13(device, slam12_latencies, round12_ms):
         slam13 = run_slam(device, options, rounds=rounds, recorded=recorded)
     pg13, local = slam13.pop("pose_graph"), slam13.pop("local_builder")
     del slam13["map_builder"]
-    assemblies = window_solver.solve_ct_window_block.assemblies
+    assemblies = window_solver.solve_ct_window.assemblies
     k3 = ct_scan_block.launches + ct_scan_block_slots.launches
     k3_prob = ct_scan_block.prob_launches + ct_scan_block_slots.prob_launches
     k4, score_sums = fast_scores_3d.launches, fast_correlative_3d.match_fast_3d.score_sums
@@ -2896,14 +2896,14 @@ def run_phase_14(device, slam12_latencies, round12_ms, grid_bytes12):
     fast_correlative_3d.match_fast_3d.score_sums = 0
     fast_scores_3d.launches = 0
     reset_k3_counts()
-    window_solver.solve_ct_window_block.assemblies = 0
+    window_solver.solve_ct_window.assemblies = 0
     rounds, recorded = [], []
     options = slam_options(batched=True, storage="float16")
     with counted_gn3d_blocks({"serial": 0, "packed": 0}) as gn3d:
         slam14 = run_slam(device, options, rounds=rounds, recorded=recorded)
     pg14, mb14 = slam14.pop("pose_graph"), slam14.pop("map_builder")
     del slam14["local_builder"]
-    assemblies = window_solver.solve_ct_window_block.assemblies
+    assemblies = window_solver.solve_ct_window.assemblies
     k3 = ct_scan_block.launches + ct_scan_block_slots.launches
     k3_f16 = ct_scan_block.f16_launches + ct_scan_block_slots.f16_launches
     k4, score_sums = fast_scores_3d.launches, fast_correlative_3d.match_fast_3d.score_sums
@@ -4163,13 +4163,13 @@ def run_phase_23c(device, run):
     builder = mb.get_trajectory_builder(mb.add_trajectory_builder(local_slam_results=True))
     if not isinstance(builder, UplinkTrajectoryBuilder):
         fail(f"phase 23c: add_trajectory_builder(local_slam_results=True) gave a {type(builder).__name__}")
-    solves = window_solver.solve_ct_window_block.assemblies, window_solver.solve_ct_window_batched.assemblies
+    solves = window_solver.solve_ct_window.assemblies, window_solver.solve_ct_window_batched.assemblies
     t0 = time.perf_counter()
     for payload in payloads:
         builder.add_local_slam_result(payload)
     mb.pose_graph.wait_for_all_computations()
     inject_s = time.perf_counter() - t0
-    if (window_solver.solve_ct_window_block.assemblies, window_solver.solve_ct_window_batched.assemblies) != solves:
+    if (window_solver.solve_ct_window.assemblies, window_solver.solve_ct_window_batched.assemblies) != solves:
         fail("phase 23c: the uplink ran CT window solves")
     nodes = mb.pose_graph.nodes
     if len(nodes) != len(served) or builder.num_results_injected != len(payloads) or not nodes:
@@ -5038,7 +5038,7 @@ def run_phase_26a(device, tmp):
     fast_correlative_3d.match_fast_3d.score_sums = 0
     fast_scores_3d.launches = 0
     reset_k3_counts()
-    window_solver.solve_ct_window_block.assemblies = 0
+    window_solver.solve_ct_window.assemblies = 0
     rec = dict(read=0.0, events=None, scans=[], final=[], rounds=0, read_end=None, final_start=None)
 
     def timed_read(fn):
@@ -5086,7 +5086,7 @@ def run_phase_26a(device, tmp):
         rc, out = run_cli(drz26_argv(bag) + ["--output_state", state])
         wall = time.perf_counter() - t0
     ate = cli_ate(out)
-    assemblies = window_solver.solve_ct_window_block.assemblies
+    assemblies = window_solver.solve_ct_window.assemblies
     k3 = assemblies + gn3d["serial"] + gn3d["packed"]
     k4 = fast_scores_3d.launches
     if rc != 0 or ate is None or not os.path.exists(state):
@@ -5565,14 +5565,14 @@ def main() -> int:
     fast_correlative_3d.match_fast_3d.score_sums = 0
     fast_scores_3d.launches = 0
     ct_scan_block.launches = 0
-    window_solver.solve_ct_window_block.assemblies = 0
+    window_solver.solve_ct_window.assemblies = 0
     slam = run_slam(device)
     del slam["pose_graph"], slam["local_builder"], slam["map_builder"]
     launches["fast_scores_3d"] = fast_scores_3d.launches
     score_sums = fast_correlative_3d.match_fast_3d.score_sums
     # Only the window solve and GN3D call K3: the solve once per assembly.
-    k3_slam_front, k3_gn3d = (window_solver.solve_ct_window_block.assemblies,
-                              ct_scan_block.launches - window_solver.solve_ct_window_block.assemblies)
+    k3_slam_front, k3_gn3d = (window_solver.solve_ct_window.assemblies,
+                              ct_scan_block.launches - window_solver.solve_ct_window.assemblies)
     k3_paths = {"ct_front_end": launches["ct_scan_block"], "slam_front_end": k3_slam_front, "slam_gn3d": k3_gn3d,
                 **k3_paths19}
     if slam["errors"]:

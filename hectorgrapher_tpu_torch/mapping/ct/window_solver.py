@@ -48,7 +48,7 @@ solve_ct_window_batched solves B windows at once (:729-764, the
 multi-robot server's operating point): one slotted K3 launch per LM
 iteration for all B windows (grid_slots: each window's own grid pair),
 the pair blocks of all B * (K - 1) pairs at once, one batched solve of the
-B damped systems, and per-window LM state (_lm_drive with a (B,) cost:
+B damped systems, and per-window LM state (lm_drive with a (B,) cost:
 each window keeps its own damping, accept and done flags, as jax.vmap of
 the JAX package's while_loop does). unwarp_and_accumulate (:767-788) carries
 marginalized clouds into the optimized pose's frame.
@@ -60,7 +60,7 @@ from typing import NamedTuple
 
 import torch
 
-from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import _lm_drive
+from hectorgrapher_tpu_torch.mapping.scan_matching.gn_3d import window_slots
 from hectorgrapher_tpu_torch.mapping.scan_matching.interpolated_grid import PreparedProb3D, prepare_grid_3d
 from hectorgrapher_tpu_torch.ops.ct_pair_block import ct_cloud_poses, ct_pair_residuals
 from hectorgrapher_tpu_torch.ops.ct_scan_block import (
@@ -69,9 +69,9 @@ from hectorgrapher_tpu_torch.ops.ct_scan_block import (
     ct_scan_block_points_slots,
     ct_scan_block_slots,
     grid_params,
-    grid_slots,
     point_plan,
 )
+from hectorgrapher_tpu_torch.solvers.gauss_newton import lm_drive
 from hectorgrapher_tpu_torch.transform.rigid import (
     Rigid3,
     cross,
@@ -589,7 +589,7 @@ def _fixed(cp_mask):
 
 
 def _solve_lm(assemble, cp_mask, state0: CtState, num_iterations: int, counter):
-    """_lm_drive over the assembled normal equations of one window, or of
+    """lm_drive over the assembled normal equations of one window, or of
     B windows at once (every shape with a leading B; per-window LM state);
     counter.assemblies counts the assemblies."""
     fixed = _fixed(cp_mask)
@@ -608,50 +608,27 @@ def _solve_lm(assemble, cp_mask, state0: CtState, num_iterations: int, counter):
         damped = JtJ + torch.diag_embed(damp) + torch.diag_embed(fixed_f)
         return torch.where(fixed, 0.0, -torch.linalg.solve(damped, g))
 
-    return _lm_drive(eval_fn, delta_of, ct_retract, state0, num_iterations, init_lambda=1e-4, max_lambda=1e6)
-
-
-def solve_ct_window_block(high_grid, low_grid, problem: CtProblem, state0: CtState, weights: CtWeights,
-                          is_tsdf: bool, num_iterations: int = 12, direct=None, per_point: bool = False):
-    """Block-assembled LM solve of the window: (state, final_cost,
-    initial_cost). Every call runs 1 + num_iterations assemblies, each
-    one K3 launch (per-cloud, or per-point with per_point);
-    solve_ct_window_block.assemblies counts them."""
-    D = 9 * state0.translation.shape[0]
-    assemble = _make_ct_assemble(high_grid, low_grid, problem, weights, is_tsdf, D, direct=direct,
-                                 per_point=per_point)
-    return _solve_lm(assemble, problem.cp_mask, state0, num_iterations, solve_ct_window_block)
-
-
-solve_ct_window_block.assemblies = 0
+    return lm_drive(eval_fn, delta_of, ct_retract, state0, num_iterations, init_lambda=1e-4, max_lambda=1e6)
 
 
 def solve_ct_window(high_grid, low_grid, problem: CtProblem, state0: CtState, weights: CtWeights,
                     is_tsdf: bool, num_iterations: int = 12, per_point: bool = False, direct=None):
-    """Solve the window; returns (CtState, final_cost, initial_cost)."""
-    return solve_ct_window_block(high_grid, low_grid, problem, state0, weights, is_tsdf=is_tsdf,
-                                 num_iterations=num_iterations, direct=direct, per_point=per_point)
+    """Block-assembled LM solve of the window: (CtState, final_cost,
+    initial_cost). Every call runs 1 + num_iterations assemblies, each
+    one K3 launch (per-cloud, or per-point with per_point);
+    solve_ct_window.assemblies counts them."""
+    D = 9 * state0.translation.shape[0]
+    assemble = _make_ct_assemble(high_grid, low_grid, problem, weights, is_tsdf, D, direct=direct,
+                                 per_point=per_point)
+    return _solve_lm(assemble, problem.cp_mask, state0, num_iterations, solve_ct_window)
+
+
+solve_ct_window.assemblies = 0
 
 
 # ---------------------------------------------------------------------------
 # B windows in one solve
 # ---------------------------------------------------------------------------
-
-
-def window_slots(high_grids, low_grids):
-    """(GridSlots of the distinct grid pairs, slot (B,) int32): window b's
-    grids are the table's entry slot[b]. Each grid is prepared
-    (prepare_grid_3d) once; a pair that several windows share is one
-    entry."""
-    pairs, slot = [], []
-    for h, lo in zip(high_grids, low_grids):
-        key = next((i for i, (ph, pl, rh, rl) in enumerate(pairs) if rh is h and rl is lo), None)
-        if key is None:
-            key = len(pairs)
-            pairs.append((prepare_grid_3d(h), prepare_grid_3d(lo), h, lo))
-        slot.append(key)
-    slots = grid_slots([p[0] for p in pairs], [p[1] for p in pairs])
-    return slots, torch.tensor(slot, dtype=torch.int32).to(slots.ptrs.device)
 
 
 def solve_ct_window_batched(high_grids, low_grids, problems: CtProblem, states0: CtState, weights: CtWeights,

@@ -1,13 +1,13 @@
-"""Levenberg-Marquardt loop and sparse pose adjustment in 3D and 2D
-(counterpart of hectorgrapher_tpu/mapping/pose_graph/optimization.py:
-_lm_drive :75-144, the block-Schur SPA :47-72, :167-186, :285-330, the
-matrix-free PCG SPA :147-166, :189-279, solve_spa_3d :335-472,
-solve_spa_3d_full :480-883, solve_spa_2d :891-998 and solve_spa_2d_full
-:1001-1212; ref: internal/optimization/optimization_problem_{2d,3d}.cc,
-cost_functions/spa_cost_function_{2d,3d}.h).
+"""Sparse pose adjustment in 3D and 2D (counterpart of
+hectorgrapher_tpu/mapping/pose_graph/optimization.py: the block-Schur SPA
+:47-72, :167-186, :285-330, the matrix-free PCG SPA :147-166, :189-279,
+solve_spa_3d :335-472, solve_spa_3d_full :480-883, solve_spa_2d :891-998
+and solve_spa_2d_full :1001-1212; ref: internal/optimization/
+optimization_problem_{2d,3d}.cc, cost_functions/spa_cost_function_{2d,3d}.h).
 
-The CT window solve (mapping/ct/window_solver.py) runs its LM loop through
-_lm_drive too.
+Every solve runs its LM loop through solvers/gauss_newton.py lm_drive
+(the JAX file's LM loop :75-144), which the CT window solve and the GN3D
+refinements share.
 
 Jacobians: the JAX solve takes each residual family's per-block Jacobian
 with a vmapped jax.jacfwd; here each family's is a closed form over the
@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from hectorgrapher_tpu_torch.common.math import normalize_angle_difference
+from hectorgrapher_tpu_torch.solvers.gauss_newton import lm_drive
 from hectorgrapher_tpu_torch.transform.rigid import (
     inverse_right_jacobian,
     quat_conjugate,
@@ -42,98 +43,6 @@ from hectorgrapher_tpu_torch.transform.rigid import (
     quat_to_rotation_matrix,
     skew,
 )
-
-
-def _leaves(x):
-    return list(x) if isinstance(x, (tuple, list)) else [x]
-
-
-def _select(take, old, new):
-    """new's leaves where take, else old's; take (lanes) broadcasts over
-    each leaf's trailing axes."""
-    def one(a, b):
-        return torch.where(take.reshape(take.shape + (1,) * (a.dim() - take.dim())), b, a)
-    if isinstance(old, tuple):
-        leaves = [one(a, b) for a, b in zip(old, new)]
-        return type(old)(*leaves) if hasattr(old, "_fields") else tuple(leaves)
-    return one(old, new)
-
-
-def _lane_norm(leaves, lanes: int):
-    """Euclidean norm over every leaf, per lane: over all but a leaf's
-    leading `lanes` axes."""
-    def sq(x):
-        return torch.sum(x * x) if lanes == 0 else torch.sum((x * x).reshape(x.shape[:lanes] + (-1,)), dim=-1)
-    return torch.sqrt(sum(sq(x) for x in leaves))
-
-
-def _lm_drive(
-    eval_fn,
-    delta_of,
-    retract,
-    params0,
-    num_iterations: int,
-    init_lambda: float,
-    max_lambda: float = 1e8,
-    function_tolerance: float = 1e-6,
-    parameter_tolerance: float = 1e-7,
-    stop_on_host: bool = False,
-):
-    """Carried-evaluation LM: (params, cost, initial cost).
-
-    eval_fn(params) -> (quantities, cost), one normal-equation assembly
-    per iteration (the trial's evaluation becomes the incumbent's on
-    accept); delta_of(quantities, lam) -> tangent step; retract(params,
-    delta) -> params. params and quantities are tensors or tuples
-    (NamedTuples included) of tensors.
-
-    Same rule as the JAX version: accept a step when it lowers the cost,
-    then lam *= 0.33 (floor 1e-10), else lam *= 4 (cap max_lambda); stop
-    once an accepted step improves the cost by at most
-    function_tolerance * cost, or the step shrinks to at most
-    parameter_tolerance * (|x| + parameter_tolerance), |x| over every
-    leaf of params. The JAX version is a while_loop. Here a `done` flag on
-    the device freezes the state for the remaining iterations, so the loop
-    never waits on the host and runs 1 + num_iterations evaluations; with
-    stop_on_host the host reads `done` after every iteration and leaves
-    the loop there (one sync per iteration, for solvers whose evaluation
-    costs more than a sync). The result is the same either way. The
-    initial cost is returned too, so the caller needs no extra evaluation
-    for it.
-
-    B independent problems solve at once when the cost is (B,) and every
-    leaf of params, quantities and the step has a leading lane axis: lam,
-    accept and done are then per lane, and a lane whose loop has ended is
-    frozen while the others go on, as jax.vmap of the JAX package's
-    while_loop does; each lane follows the steps of its own solve.
-    """
-    quant, cost = eval_fn(params0)
-    cost0 = cost
-    params = params0
-    lanes = cost.dim()
-    done = torch.zeros_like(cost, dtype=torch.bool)
-    lam = torch.full_like(cost, init_lambda)
-    for _ in range(num_iterations):
-        delta = delta_of(quant, lam)
-        new_params = retract(params, delta)
-        new_quant, new_cost = eval_fn(new_params)
-        accept = new_cost < cost
-        lam_next = torch.where(accept, torch.clamp(lam * 0.33, min=1e-10), torch.clamp(lam * 4.0, max=max_lambda))
-        done_next = done | (accept & (cost - new_cost <= function_tolerance * cost))
-        if parameter_tolerance > 0.0:
-            step_norm = _lane_norm(_leaves(delta), lanes)
-            x_norm = _lane_norm(_leaves(params), lanes)
-            done_next = done_next | (step_norm <= parameter_tolerance * (x_norm + parameter_tolerance))
-        live = ~done
-        take = live & accept
-        params = _select(take, params, new_params)
-        quant = _select(take, quant, new_quant)
-        cost = torch.where(take, new_cost, cost)
-        lam = torch.where(live, lam_next, lam)
-        done = done_next
-        if stop_on_host and bool(done.all()):
-            break
-    return params, cost, cost0
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +367,7 @@ def _solve_spa(problem, weighted_blocks, retract, params0, p: int, num_iteration
 
     def delta_of(quant, lam):
         stats["lm_iterations"] += 1
-        stats["host_syncs"] += 1  # _lm_drive's stop test
+        stats["host_syncs"] += 1  # lm_drive's stop test
         if linear_solver == "cg":
             j_s, j_n, *diag = quant
             delta, iters, syncs = _spa_cg_solve(j_s, j_n, diag, cs, cn, tables, problem.submap_fixed,
@@ -468,8 +377,8 @@ def _solve_spa(problem, weighted_blocks, retract, params0, p: int, num_iteration
             return delta
         return _spa_schur_solve(quant, problem.submap_fixed, problem.node_fixed, lam)
 
-    params, cost, cost0 = _lm_drive(eval_fn, delta_of, retract, params0, num_iterations, init_lambda,
-                                    stop_on_host=True)
+    params, cost, cost0 = lm_drive(eval_fn, delta_of, retract, params0, num_iterations, init_lambda,
+                                   stop_on_host=True)
     if stats["cg_iterations"]:  # one readback for the record
         stats["cg_iterations"] = torch.stack(stats["cg_iterations"]).tolist()
         stats["host_syncs"] += 1
@@ -767,14 +676,14 @@ def _solve_dense(families, fixed, D: int, retract, params0, num_iterations: int,
 
     def delta_of(quant, lam):
         stats["lm_iterations"] += 1
-        stats["host_syncs"] += 1  # _lm_drive's stop test
+        stats["host_syncs"] += 1  # lm_drive's stop test
         jtj, g = quant
         diag = torch.diagonal(jtj)
         damped = jtj + torch.diag(lam * torch.clamp(diag, min=1e-8) + 1e-8 + fixed.to(torch.float32))
         return torch.where(fixed, 0.0, -_chol_solve(damped, g))
 
-    params, cost, cost0 = _lm_drive(eval_fn, delta_of, retract, params0, num_iterations, init_lambda,
-                                    stop_on_host=True)
+    params, cost, cost0 = lm_drive(eval_fn, delta_of, retract, params0, num_iterations, init_lambda,
+                                   stop_on_host=True)
     LAST_SOLVE_STATS.clear()
     LAST_SOLVE_STATS.update(stats, initial_cost=cost0, final_cost=cost)
     return params, cost

@@ -30,9 +30,9 @@ from hectorgrapher_tpu.mapping.ct import window_solver as jws
 from hectorgrapher_tpu.transform import rigid as jr
 from hectorgrapher_tpu_torch import convert
 from hectorgrapher_tpu_torch.mapping.ct import window_solver as tws
-from hectorgrapher_tpu_torch.mapping.pose_graph.optimization import _lm_drive
 from hectorgrapher_tpu_torch.mapping.scan_matching import interpolated_grid as tig
 from hectorgrapher_tpu_torch.ops import ct_scan_block as k3
+from hectorgrapher_tpu_torch.solvers.gauss_newton import lm_drive
 from torch_parity import CPU, ct_example, direct_payload, rotated_state
 
 torch.set_num_threads(1)
@@ -165,10 +165,10 @@ def test_solve_per_point_and_direct_match_jax(per_point, direct):
     js, jf, ji = jws.solve_ct_window(hi, lo, problem, state, weights, is_tsdf=True, num_iterations=8,
                                      per_point=per_point, direct=jdirect)
     raw = tuple(convert.grid_3d(g, CPU) for g in (hi, lo))
-    before = tws.solve_ct_window_block.assemblies
+    before = tws.solve_ct_window.assemblies
     ts, tf, ti = tws.solve_ct_window(*raw, tproblem, tstate, tweights, is_tsdf=True, num_iterations=8,
                                      per_point=per_point, direct=tdirect)
-    assert tws.solve_ct_window_block.assemblies - before == 9
+    assert tws.solve_ct_window.assemblies - before == 9
     assert float(tf) < float(ti)
     np.testing.assert_allclose(float(ti), float(ji), rtol=1e-5)
     np.testing.assert_allclose(float(tf), float(jf), rtol=1e-5)
@@ -220,11 +220,13 @@ def test_solve_batched_matches_jax_and_single(per_point, direct):
             _close(got[lane], want, 1e-5)
 
 
-def test_lm_drive_batched_freezes_finished_lanes():
-    """_lm_drive with a (3,) cost over three independent quadratic problems with
+@pytest.mark.parametrize("stop_on_host", [False, True])
+def test_lm_drive_batched_freezes_finished_lanes(stop_on_host):
+    """lm_drive with a (3,) cost over three independent quadratic problems with
     different curvatures (one converges in a step, one never accepts a
-    step at a huge damping, one takes several) equals _lm_drive run on
-    each alone: per-lane damping, accept and done flags."""
+    step at a huge damping, one takes several) equals lm_drive run on
+    each alone: per-lane damping, accept and done flags, with the stop
+    test on the device or on the host."""
     targets = torch.tensor([[1.0, -2.0], [0.5, 0.25], [3.0, 1.0]])
     curv = torch.tensor([1.0, 1e-3, 10.0])
 
@@ -242,11 +244,12 @@ def test_lm_drive_batched_freezes_finished_lanes():
         return (jtj, g), 0.5 * torch.sum(curv[:, None] * (x - targets) ** 2, dim=1)
 
     x0 = torch.zeros(3, 2)
-    xs, costs, costs0 = _lm_drive(eval_batched, delta_of, lambda x, d: x + d, x0, 6, init_lambda=1e-4)
+    xs, costs, costs0 = lm_drive(eval_batched, delta_of, lambda x, d: x + d, x0, 6, init_lambda=1e-4,
+                                 stop_on_host=stop_on_host)
     for lane in range(3):
-        x1, c1, c01 = _lm_drive(lambda x: eval_one(x, targets[lane], curv[lane]),
-                                lambda q, lam: delta_of(q, lam.reshape(())), lambda x, d: x + d, x0[lane], 6,
-                                init_lambda=1e-4)
+        x1, c1, c01 = lm_drive(lambda x: eval_one(x, targets[lane], curv[lane]),
+                               lambda q, lam: delta_of(q, lam.reshape(())), lambda x, d: x + d, x0[lane], 6,
+                               init_lambda=1e-4, stop_on_host=stop_on_host)
         torch.testing.assert_close(xs[lane], x1, rtol=0, atol=1e-6)
         torch.testing.assert_close(costs[lane], c1, rtol=1e-6, atol=0)
         torch.testing.assert_close(costs0[lane], c01)

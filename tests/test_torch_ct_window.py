@@ -346,11 +346,11 @@ def test_solve_matches_jax(request, grid_type):
     (hi, lo, problem, state, weights), port = _example(request, grid_type)
     is_tsdf = grid_type == "TSDF"
     js, jf, ji = jws.solve_ct_window(hi, lo, problem, state, weights, is_tsdf=is_tsdf, num_iterations=8)
-    before = tws.solve_ct_window_block.assemblies
+    before = tws.solve_ct_window.assemblies
     # The raw grids: the solve prepares them itself, once.
     raw = tuple(convert.grid_3d(g, CPU) for g in (hi, lo))
     ts, tf, ti = tws.solve_ct_window(*raw, *port[2:], is_tsdf=is_tsdf, num_iterations=8)
-    assert tws.solve_ct_window_block.assemblies - before == 9  # 1 + num_iterations
+    assert tws.solve_ct_window.assemblies - before == 9  # 1 + num_iterations
     assert float(tf) < float(ti)
     np.testing.assert_allclose(float(ti), float(ji), rtol=1e-5)
     np.testing.assert_allclose(float(tf), float(jf), rtol=1e-5)
